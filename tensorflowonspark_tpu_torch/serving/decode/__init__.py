@@ -1,0 +1,22 @@
+"""Continuous-batching autoregressive decode tier.
+
+Counterpart of ``tensorflowonspark_tpu/serving/decode``:
+
+  - :mod:`~.kvcache` — the block-paged :class:`~.kvcache.PagedKVCache`
+    (ref-counted prefix sharing through a prompt trie) and the slot
+    cache :class:`~.kvcache.SlotKVCache`, pools as torch tensors;
+  - :mod:`~.scheduler` — the iteration-level continuous batcher
+    (:class:`~.scheduler.DecodeEngine`);
+  - :mod:`~.sampling` — seeded temperature/top-k/top-p sampling, pure
+    in ``(logits, params, index)``.
+
+The model half lives in ``models/transformer.py``.
+"""
+
+from tensorflowonspark_tpu_torch.serving.decode.sampling import (  # noqa: F401
+    sample_token,
+)
+from tensorflowonspark_tpu_torch.serving.decode.scheduler import (  # noqa
+    DecodeEngine,
+    DecodeSpec,
+)

@@ -1,0 +1,487 @@
+"""Iteration-level continuous batcher for autoregressive decode.
+
+Counterpart of ``tensorflowonspark_tpu/serving/decode/scheduler.py``:
+the same replica-side loop, with the model steps in PyTorch.
+
+- Requests admit into free KV-cache slots mid-flight; each iteration
+  runs (1) prefill for newly admitted prompts, bucketed by sequence
+  length and rows, then (2) one fused decode step over every occupied
+  slot; a finished sequence retires its slot at once.
+- Block-paged KV with prefix sharing (``TFOS_DECODE_PAGED``): admission
+  matches each prompt against the resident prefix trie, maps the shared
+  blocks and prefills only the unmatched tail
+  (``models/transformer.prefill_extend``).
+- Seeded sampling (``serving/decode/sampling.py``): logits come back to
+  the host and the token is a pure function of ``(logits, params,
+  index)``.
+
+Speculative decoding and the driver-side ``PendingSession`` are not
+ported yet (ROADMAP.md).  Module import is stdlib + numpy; torch and the
+model load on the engine's thread.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import os
+import threading
+import time
+
+import numpy as np
+
+from tensorflowonspark_tpu_torch import resolve_device
+from tensorflowonspark_tpu_torch.serving import batcher as _batcher
+from tensorflowonspark_tpu_torch.serving.decode import sampling as _sampling
+from tensorflowonspark_tpu_torch.utils import (
+    faults,
+    metrics_registry,
+    telemetry,
+)
+
+logger = logging.getLogger(__name__)
+
+SLOTS_ENV = "TFOS_DECODE_SLOTS"
+MAX_TOKENS_ENV = "TFOS_DECODE_MAX_TOKENS"
+PAGED_ENV = "TFOS_DECODE_PAGED"
+BLOCK_ENV = "TFOS_DECODE_BLOCK"
+PREFIX_SHARING_ENV = "TFOS_DECODE_PREFIX_SHARING"
+
+
+def slots_default():
+    return int(os.environ.get(SLOTS_ENV, "8"))
+
+
+def max_tokens_default():
+    return int(os.environ.get(MAX_TOKENS_ENV, "64"))
+
+
+def paged_default():
+    return os.environ.get(PAGED_ENV, "1") != "0"
+
+
+def block_size_default():
+    return int(os.environ.get(BLOCK_ENV, "16"))
+
+
+def prefix_sharing_default():
+    return os.environ.get(PREFIX_SHARING_ENV, "1") != "0"
+
+
+class DecodeSpec:
+    """The decode tier's config.
+
+    ``cfg`` is a ``models/transformer.Config``; ``slots`` sizes the KV
+    cache; ``eos_id``/``max_tokens`` are per-session defaults a request
+    may override (``max_tokens`` is clamped to ``max_seq - len(prompt)``).
+    ``paged`` selects :class:`~.kvcache.PagedKVCache` over
+    :class:`~.kvcache.SlotKVCache`; ``block_size``/``num_blocks`` size
+    it; ``prefix_sharing`` arms the prefix trie.  Speculative decoding
+    (``draft_params``/``draft_cfg``) is not ported yet and raises.
+    """
+
+    def __init__(self, cfg, slots=None, eos_id=None, max_tokens=None,
+                 paged=None, block_size=None, num_blocks=None,
+                 prefix_sharing=None, draft_params=None, draft_cfg=None):
+        if draft_params is not None or draft_cfg is not None:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP.md)")
+        self.cfg = cfg
+        self.slots = int(slots or slots_default())
+        self.eos_id = eos_id
+        self.max_tokens = int(max_tokens or max_tokens_default())
+        self.paged = paged_default() if paged is None else bool(paged)
+        self.block_size = int(block_size or block_size_default())
+        self.num_blocks = num_blocks
+        self.prefix_sharing = (prefix_sharing_default()
+                               if prefix_sharing is None
+                               else bool(prefix_sharing))
+
+
+class _Slot:
+    """Replica-side per-slot generation state."""
+
+    __slots__ = ("sid", "prompt_len", "generated", "max_tokens", "eos_id",
+                 "sampling", "trace", "last", "t_admit")
+
+    def __init__(self, sid, prompt_len, max_tokens, eos_id, first_token,
+                 sampling=None, trace=None):
+        self.sid = sid
+        self.prompt_len = prompt_len
+        self.max_tokens = max_tokens
+        self.eos_id = eos_id
+        self.sampling = sampling
+        self.trace = trace
+        self.generated = [first_token]
+        self.last = first_token
+        self.t_admit = time.perf_counter()
+
+
+class DecodeEngine:
+    """The replica-side continuous-batching loop.
+
+    ``emit(kind, sid, *payload)`` is the wire back to the caller:
+    ``("token", sid, index, token)`` per generated token,
+    ``("done", sid, tokens, meta)`` at retirement,
+    ``("error", sid, message)`` on a per-session failure.
+
+    ``params`` is the model's params dict (float32 tensors, e.g. from
+    ``transformer.init`` or ``transformer.params_from_jax``);
+    ``device=None`` means ``cuda``, and :meth:`start` raises when no
+    CUDA device is present — pass ``device="cpu"`` for the CPU.  The
+    engine thread moves the params to the device, casts the matmul
+    weights to the compute dtype once, and runs every step under
+    ``torch.inference_mode()``.
+    """
+
+    def __init__(self, params, spec, emit, replica=0, device=None):
+        self._params = params
+        self._spec = spec
+        self._emit = emit
+        self._replica = replica
+        self._device_arg = device
+        self._device = None
+        self._q = collections.deque()
+        self._qlock = threading.Lock()
+        self._sids = set()          # sids queued or active (dedupe)
+        self._active = {}           # slot index -> _Slot
+        self._cache = None          # engine-thread cache, read by stats()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._thread = None
+        self._started = threading.Event()
+        self._init_error = None
+        self.iterations = 0
+        self.prefills = 0           # prefill calls, plain and tail
+        self.extends = 0            # of which prefix-hit tail prefills
+        self.retired = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_saved = 0
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self, timeout=120.0):
+        if self._thread is None:
+            self._device = resolve_device(self._device_arg)
+            self._thread = threading.Thread(
+                target=self._run, name="tfos-decode-engine", daemon=True)
+            self._thread.start()
+        if not self._started.wait(timeout):
+            raise TimeoutError("decode engine did not start")
+        if self._init_error is not None:
+            raise self._init_error
+        return self
+
+    def stop(self, timeout=10.0):
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    def submit(self, sid, prompt, max_tokens=None, eos_id=None,
+               sampling=None, trace=None):
+        """Queue one session; admission happens at the next iteration.
+        Rejections (prompt too long, duplicate sid) are emitted as
+        session errors, not raised."""
+        cfg = self._spec.cfg
+        prompt = [int(t) for t in prompt]
+        if not prompt or len(prompt) > cfg.max_seq - 1:
+            self._emit("error", sid,
+                       f"prompt length {len(prompt)} not in [1, "
+                       f"{cfg.max_seq - 1}] (max_seq {cfg.max_seq})")
+            return
+        with self._qlock:
+            if sid in self._sids:
+                return              # re-send of a live session
+            self._sids.add(sid)
+            self._q.append({
+                "sid": sid, "prompt": prompt,
+                "max_tokens": int(max_tokens or self._spec.max_tokens),
+                "eos_id": self._spec.eos_id if eos_id is None else eos_id,
+                "sampling": sampling, "trace": trace,
+                "t_queued": time.perf_counter(),
+            })
+        self._wake.set()
+
+    def stats(self):
+        with self._qlock:
+            queued = len(self._q)
+        out = {
+            "iterations": self.iterations,
+            "prefills": self.prefills,
+            "extends": self.extends,
+            "retired": self.retired,
+            "active": len(self._active),
+            "queued": queued,
+            "slots": self._spec.slots,
+            "paged": self._spec.paged,
+        }
+        if self._spec.paged:
+            cache = self._cache
+            out["prefix_hits"] = self.prefix_hits
+            out["prefix_tokens_saved"] = self.prefix_tokens_saved
+            out["blocks_in_use"] = (cache.blocks_in_use
+                                    if cache is not None else 0)
+        return out
+
+    # -- engine thread ------------------------------------------------------
+    def _build_cache(self):
+        spec = self._spec
+        if spec.paged:
+            cache = self._kvcache_mod.PagedKVCache(
+                spec.cfg, spec.slots, block_size=spec.block_size,
+                num_blocks=spec.num_blocks,
+                prefix_sharing=spec.prefix_sharing, device=self._device)
+        else:
+            cache = self._kvcache_mod.SlotKVCache(
+                spec.cfg, spec.slots, device=self._device)
+        self._cache = cache
+        return cache
+
+    def _run(self):
+        try:
+            import torch
+
+            from tensorflowonspark_tpu_torch.models import transformer
+            from tensorflowonspark_tpu_torch.serving.decode import kvcache
+
+            if self._device.type == "cuda":
+                # the current device is per thread
+                torch.cuda.set_device(self._device)
+            self._transformer = transformer
+            self._kvcache_mod = kvcache
+            with torch.inference_mode():
+                self._params = transformer.compute_params(
+                    self._params, self._spec.cfg, self._device)
+                cache = self._build_cache()
+        except BaseException as e:  # noqa: BLE001 - surface via start()
+            self._init_error = e
+            self._started.set()
+            return
+        self._started.set()
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                try:
+                    faults.check("decode.step", replica=self._replica)
+                    self._admit(cache)
+                    if not self._active:
+                        self._wake.wait(0.02)
+                        self._wake.clear()
+                        continue
+                    if self._spec.paged:
+                        self._iterate_paged(cache)
+                    else:
+                        self._iterate(cache)
+                except BaseException as e:  # noqa: BLE001 - fail the
+                    # cohort, rebuild the cache, keep the replica serving
+                    logger.exception("decode engine iteration failed")
+                    self._fail_all(repr(e))
+                    cache = self._build_cache()
+
+    # -- admission ----------------------------------------------------------
+    def _admit(self, cache):
+        """Move queued sessions into free slots.
+
+        Paged mode: each prompt is first matched against the prefix
+        trie; a hit maps the shared blocks and only the unmatched tail
+        runs ``prefill_extend``, grouped by (tail bucket, prefix-block
+        bucket).  Misses (and slot mode) run the plain bucketed
+        ``prefill``.  Every admitted prompt's whole-block prefix is then
+        offered to the trie.  The first token comes from the prefill
+        logits either way (sampled at index 0).
+        """
+        batch = []
+        with self._qlock:
+            while self._q and len(batch) < cache.free_slots:
+                batch.append(self._q.popleft())
+        if not batch:
+            return
+        T = self._transformer
+        params = self._params
+        cfg = self._spec.cfg
+        paged = self._spec.paged
+        plain, matched = [], []
+        for req in batch:
+            shared, mlen = (cache.match_prefix(req["prompt"])
+                            if paged else ([], 0))
+            if mlen > 0:
+                matched.append((req, shared, mlen))
+            else:
+                plain.append(req)
+
+        admitted = []  # (req, logits_row [vocab], k_i, v_i, shared, mlen)
+        # -- plain bucketed prefill (whole prompt) --------------------------
+        groups = {}
+        for req in plain:
+            t = _batcher.bucket_seq(len(req["prompt"]), cfg.max_seq)
+            groups.setdefault(t, []).append(req)
+        for t, members in groups.items():
+            rows = _batcher.bucket_size(len(members), self._spec.slots)
+            toks = np.stack([
+                _batcher.pad_seq(np.asarray(m["prompt"], np.int32), t)
+                for m in members])
+            lens = np.asarray([len(m["prompt"]) for m in members], np.int32)
+            toks = _batcher.pad_rows(toks, rows)
+            lens = _batcher.pad_rows(lens, rows)
+            logits, k, v = T.prefill(params, toks, cfg, lengths=lens)
+            logits = logits.float().cpu().numpy()
+            self.prefills += 1
+            for i, req in enumerate(members):
+                admitted.append((req, logits[i], k[i], v[i], [], 0))
+        # -- prefix-hit tail prefill ----------------------------------------
+        groups = {}
+        for req, shared, mlen in matched:
+            tail = len(req["prompt"]) - mlen
+            key = (_batcher.bucket_seq(tail, cfg.max_seq),
+                   _batcher.bucket_size(len(shared),
+                                        cache.blocks_per_slot))
+            groups.setdefault(key, []).append((req, shared, mlen))
+        for (t, nbp), members in groups.items():
+            rows = _batcher.bucket_size(len(members), self._spec.slots)
+            toks = np.stack([
+                _batcher.pad_seq(
+                    np.asarray(m[0]["prompt"][m[2]:], np.int32), t)
+                for m in members])
+            lens = np.asarray(
+                [len(m[0]["prompt"]) - m[2] for m in members], np.int32)
+            ptab = np.zeros((len(members), nbp), np.int32)
+            for i, (_req, shared, _mlen) in enumerate(members):
+                ptab[i, :len(shared)] = shared
+            plens = np.asarray([m[2] for m in members], np.int32)
+            toks = _batcher.pad_rows(toks, rows)
+            lens = _batcher.pad_rows(lens, rows)
+            ptab = _batcher.pad_rows(ptab, rows)
+            plens = _batcher.pad_rows(plens, rows)
+            logits, k, v = T.prefill_extend(
+                params, toks, cfg, cache.k, cache.v, ptab, plens,
+                lengths=lens)
+            logits = logits.float().cpu().numpy()
+            self.prefills += 1
+            self.extends += 1
+            for i, (req, shared, mlen) in enumerate(members):
+                admitted.append((req, logits[i], k[i], v[i], shared, mlen))
+                self.prefix_hits += 1
+                self.prefix_tokens_saved += mlen
+                metrics_registry.inc("tfos_decode_prefix_hits")
+
+        # -- slot installation + first-token emission -----------------------
+        for req, logits_row, k_i, v_i, shared, mlen in admitted:
+            plen = len(req["prompt"])
+            slot = cache.alloc()
+            # cannot be None: admission is bounded by free_slots
+            if paged:
+                bs = cache.block_size
+                own = cache.alloc_blocks(-(-(plen - mlen) // bs))
+                cache.map_session(slot, shared, own, plen)
+                cache.insert_tail(slot, k_i, v_i, mlen, plen - mlen)
+                cache.register_prompt(slot, req["prompt"])
+            else:
+                cache.insert(slot, k_i, v_i, plen)
+            first = _sampling.sample_token(logits_row, req["sampling"], 0)
+            mt = min(req["max_tokens"], cache.max_seq - plen)
+            st = _Slot(req["sid"], plen, max(1, mt), req["eos_id"], first,
+                       req["sampling"], trace=req.get("trace"))
+            self._active[slot] = st
+            with telemetry.activate(st.trace):
+                telemetry.event(
+                    telemetry.DECODE_ADMIT, sid=st.sid, slot=slot,
+                    prompt_len=plen, prefix_hit_len=mlen,
+                    queue_ms=round((time.perf_counter()
+                                    - req.get("t_queued", time.perf_counter()))
+                                   * 1e3, 3))
+            self._emit("token", st.sid, 0, first)
+            if (st.eos_id is not None and first == st.eos_id) \
+                    or st.max_tokens <= 1:
+                self._retire(cache, slot)
+        metrics_registry.set_gauge("tfos_decode_slot_occupancy",
+                                   cache.occupancy)
+        if paged:
+            metrics_registry.set_gauge("tfos_decode_blocks_in_use",
+                                       cache.blocks_in_use)
+
+    # -- iteration: slot cache ----------------------------------------------
+    def _iterate(self, cache):
+        """One fused decode step over every occupied slot."""
+        tokens = np.zeros((cache.slots,), np.int32)
+        for slot, st in self._active.items():
+            tokens[slot] = st.last
+        logits, cache.k, cache.v = self._transformer.decode_step(
+            self._params, tokens, self._spec.cfg, cache.k, cache.v,
+            cache.lengths)
+        logits = logits.float().cpu().numpy()
+        self.iterations += 1
+        for slot in list(self._active):
+            st = self._active[slot]
+            cache.lengths[slot] += 1
+            tok = _sampling.sample_token(logits[slot], st.sampling,
+                                         len(st.generated))
+            st.generated.append(tok)
+            st.last = tok
+            self._emit("token", st.sid, len(st.generated) - 1, tok)
+            if (st.eos_id is not None and tok == st.eos_id) \
+                    or len(st.generated) >= st.max_tokens \
+                    or cache.lengths[slot] >= cache.max_seq:
+                self._retire(cache, slot)
+        metrics_registry.set_gauge("tfos_decode_slot_occupancy",
+                                   cache.occupancy)
+
+    # -- iteration: paged cache ---------------------------------------------
+    def _iterate_paged(self, cache):
+        """One fused one-token ``decode_step_paged`` over every occupied
+        slot."""
+        window = np.zeros((cache.slots, 1), np.int32)
+        for slot, st in self._active.items():
+            window[slot, 0] = st.last
+        n0 = cache.lengths.copy()
+        for slot in self._active:
+            cache.ensure_capacity(slot, int(n0[slot]) + 1)
+        logits, cache.k, cache.v = self._transformer.decode_step_paged(
+            self._params, window, self._spec.cfg, cache.k, cache.v,
+            cache.block_tables, n0)
+        logits = logits.float().cpu().numpy()           # [slots, 1, vocab]
+        self.iterations += 1
+        for slot in list(self._active):
+            st = self._active[slot]
+            tok = _sampling.sample_token(logits[slot, 0], st.sampling,
+                                         len(st.generated))
+            st.generated.append(tok)
+            st.last = tok
+            cache.lengths[slot] += 1
+            self._emit("token", st.sid, len(st.generated) - 1, tok)
+            if (st.eos_id is not None and tok == st.eos_id) \
+                    or len(st.generated) >= st.max_tokens \
+                    or cache.lengths[slot] >= cache.max_seq:
+                self._retire(cache, slot)
+        metrics_registry.set_gauge("tfos_decode_slot_occupancy",
+                                   cache.occupancy)
+        metrics_registry.set_gauge("tfos_decode_blocks_in_use",
+                                   cache.blocks_in_use)
+
+    def _retire(self, cache, slot):
+        st = self._active.pop(slot)
+        cache.retire(slot)
+        with self._qlock:
+            self._sids.discard(st.sid)
+        self.retired += 1
+        metrics_registry.inc("tfos_decode_retired_total")
+        gen_ms = round((time.perf_counter() - st.t_admit) * 1e3, 3)
+        with telemetry.activate(st.trace):
+            telemetry.record_span(
+                telemetry.DECODE_RETIRE, gen_ms / 1e3, sid=st.sid,
+                tokens=len(st.generated), prompt_len=st.prompt_len,
+                replica=self._replica)
+        self._emit("done", st.sid, list(st.generated), {
+            "replica": self._replica,
+            "prompt_len": st.prompt_len,
+            "gen_ms": gen_ms,
+        })
+
+    def _fail_all(self, message):
+        with self._qlock:
+            queued = list(self._q)
+            self._q.clear()
+            self._sids.clear()
+        for req in queued:
+            self._emit("error", req["sid"], message)
+        for st in self._active.values():
+            self._emit("error", st.sid, message)
+        self._active.clear()

@@ -1,0 +1,237 @@
+"""Structured telemetry: per-process span/event records on one schema.
+
+An own copy of the part of ``tensorflowonspark_tpu/utils/telemetry.py``
+that the decode engine and fault injection call (``activate``,
+``event``, ``record_span``, ``flush`` and the ``DECODE_*`` names), with
+the same env gate and record format: enabled iff ``TFOS_TELEMETRY_DIR``
+is set (a cached no-op otherwise), one JSONL file per process, records
+buffered in a bounded ring::
+
+    {"ts": <epoch s>, "node_id": ..., "role": ...,
+     "kind": "span"|"event", "name": ..., "dur_ms": <float>|null,
+     "attrs": {...}}
+
+Under an active W3C-traceparent-shaped context, records carry
+``trace_id``/``span_id``/``parent_id`` in ``attrs``.  Stdlib only.
+"""
+
+from __future__ import annotations
+
+import atexit
+import collections
+import json
+import logging
+import os
+import re
+import socket
+import threading
+import time
+
+logger = logging.getLogger(__name__)
+
+DIR_ENV = "TFOS_TELEMETRY_DIR"
+SPOOL_ENV = "TFOS_TELEMETRY_SPOOL"
+NODE_ENV = "TFOS_TELEMETRY_NODE"
+ROLE_ENV = "TFOS_TELEMETRY_ROLE"
+BUFFER_ENV = "TFOS_TELEMETRY_BUFFER"
+FLUSH_ENV = "TFOS_TELEMETRY_FLUSH"
+TRACE_ENV = "TFOS_TRACE_PARENT"
+
+DECODE_ADMIT = "decode/admit"         # replica-side session admission
+DECODE_RETIRE = "decode/retire"       # replica-side session retirement
+
+_TRACEPARENT_RE = re.compile(
+    r"^00-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
+
+
+class TraceContext:
+    """One node of a causal request tree (wire form ``to_header()``)."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id")
+
+    def __init__(self, trace_id=None, span_id=None, parent_id=None):
+        self.trace_id = trace_id or os.urandom(16).hex()
+        self.span_id = span_id or os.urandom(8).hex()
+        self.parent_id = parent_id
+
+    def to_header(self):
+        return f"00-{self.trace_id}-{self.span_id}-01"
+
+    @classmethod
+    def from_header(cls, header):
+        """Parse a traceparent string; None on anything malformed."""
+        if isinstance(header, TraceContext):
+            return header
+        m = _TRACEPARENT_RE.match(str(header or "").strip())
+        if not m:
+            return None
+        return cls(m.group(1), m.group(2))
+
+
+_TRACE_TLS = threading.local()
+_ENV_PARENT = {"raw": None, "ctx": None}
+
+
+def current():
+    """The active TraceContext of this thread, else the
+    ``TFOS_TRACE_PARENT`` env channel, else None."""
+    stack = getattr(_TRACE_TLS, "stack", None)
+    if stack:
+        return stack[-1]
+    raw = os.environ.get(TRACE_ENV)
+    if not raw:
+        return None
+    if _ENV_PARENT["raw"] != raw:
+        _ENV_PARENT["ctx"] = TraceContext.from_header(raw)
+        _ENV_PARENT["raw"] = raw
+    return _ENV_PARENT["ctx"]
+
+
+class _Activation:
+    """CM scoping an existing context onto this thread."""
+
+    __slots__ = ("_ctx",)
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+
+    def __enter__(self):
+        if self._ctx is not None:
+            stack = getattr(_TRACE_TLS, "stack", None)
+            if stack is None:
+                stack = _TRACE_TLS.stack = []
+            stack.append(self._ctx)
+        return self._ctx
+
+    def __exit__(self, *exc):
+        stack = getattr(_TRACE_TLS, "stack", None)
+        if self._ctx is not None and stack and stack[-1] is self._ctx:
+            stack.pop()
+        return False
+
+
+def activate(ctx):
+    """``with telemetry.activate(ctx_or_header):`` — make a received
+    context the active parent for records in the body.  No-op for None
+    or when telemetry is disabled."""
+    if ctx is None or _get() is None:
+        return _Activation(None)
+    if not isinstance(ctx, TraceContext):
+        ctx = TraceContext.from_header(ctx)
+    return _Activation(ctx)
+
+
+class Recorder:
+    """Per-process span/event sink: bounded buffer -> one JSONL file."""
+
+    def __init__(self, sink_dir):
+        self.sink_dir = sink_dir
+        self.pid = os.getpid()
+        self.node_id = (os.environ.get(NODE_ENV)
+                        or f"{socket.gethostname()}-{self.pid}")
+        self.role = os.environ.get(ROLE_ENV) or "proc"
+        safe = "".join(c if (c.isalnum() or c in "-_.") else "_"
+                       for c in str(self.node_id)) or "node"
+        self.path = os.path.join(sink_dir, f"{safe}-{self.pid}.jsonl")
+        cap = int(os.environ.get(BUFFER_ENV, "4096"))
+        self._flush_every = int(os.environ.get(FLUSH_ENV, "128"))
+        self._buf = collections.deque(maxlen=max(cap, 1))
+        self._lock = threading.Lock()
+        self._last_flush = time.monotonic()
+        self._sink_warned = False
+        self.dropped = 0
+        atexit.register(self.flush)
+
+    def record(self, kind, name, ts, dur_ms, attrs):
+        rec = {"ts": ts, "node_id": self.node_id, "role": self.role,
+               "kind": kind, "name": name, "dur_ms": dur_ms,
+               "attrs": attrs or {}}
+        with self._lock:
+            if len(self._buf) == self._buf.maxlen:
+                self.dropped += 1
+            self._buf.append(rec)
+            need = (len(self._buf) >= self._flush_every
+                    or time.monotonic() - self._last_flush > 1.0)
+        if need:
+            self.flush()
+
+    def flush(self):
+        if os.getpid() != self.pid:
+            return  # a fork child must not re-write the parent's records
+        with self._lock:
+            if not self._buf:
+                return
+            recs = list(self._buf)
+            self._buf.clear()
+            dropped, self.dropped = self.dropped, 0
+            self._last_flush = time.monotonic()
+        if dropped:
+            recs.insert(0, {
+                "ts": time.time(), "node_id": self.node_id,
+                "role": self.role, "kind": "event",
+                "name": "telemetry/dropped", "dur_ms": None,
+                "attrs": {"count": dropped}})
+        try:
+            os.makedirs(self.sink_dir, exist_ok=True)
+            data = "".join(json.dumps(r, default=str) + "\n" for r in recs)
+            with open(self.path, "a", encoding="utf-8") as f:
+                f.write(data)
+        except OSError as e:
+            if not self._sink_warned:  # degrade quietly, never crash
+                self._sink_warned = True
+                logger.warning("telemetry sink unwritable (%s): %s",
+                               self.path, e)
+
+
+_STATE = {"key": None, "rec": None}
+_STATE_LOCK = threading.Lock()
+
+
+def _get():
+    key = (os.getpid(), os.environ.get(DIR_ENV),
+           os.environ.get(SPOOL_ENV), os.environ.get(NODE_ENV),
+           os.environ.get(ROLE_ENV))
+    if _STATE["key"] == key:
+        return _STATE["rec"]
+    with _STATE_LOCK:
+        if _STATE["key"] == key:
+            return _STATE["rec"]
+        old = _STATE["rec"]
+        if old is not None and old.pid == os.getpid():
+            old.flush()
+        base = key[1]
+        _STATE["rec"] = Recorder(key[2] or base) if base else None
+        _STATE["key"] = key
+        return _STATE["rec"]
+
+
+def event(name, **attrs):
+    """Record an instant event (``dur_ms`` null)."""
+    rec = _get()
+    if rec is not None:
+        ctx = current()
+        if ctx is not None:
+            attrs.setdefault("trace_id", ctx.trace_id)
+            attrs.setdefault("parent_id", ctx.span_id)
+        rec.record("event", name, time.time(), None, attrs)
+
+
+def record_span(name, dur_s, **attrs):
+    """Record an already-measured duration as a span back-dated by
+    ``dur_s``."""
+    rec = _get()
+    if rec is not None:
+        ctx = current()
+        if ctx is not None:
+            attrs.setdefault("trace_id", ctx.trace_id)
+            attrs.setdefault("span_id", os.urandom(8).hex())
+            attrs.setdefault("parent_id", ctx.span_id)
+        rec.record("span", name, time.time() - dur_s, dur_s * 1000.0,
+                   attrs)
+
+
+def flush():
+    """Flush this process's buffered records to the JSONL sink."""
+    rec = _get()
+    if rec is not None:
+        rec.flush()

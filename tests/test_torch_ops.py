@@ -1,0 +1,162 @@
+"""PyTorch port, ops/: the port's attention and norm ops held against the
+JAX package on the same numpy inputs (CPU).
+
+The JAX flash attention runs its Pallas kernel in interpret mode, as
+tests/test_ops.py does; the port's ``flash_attention`` on a CPU tensor
+runs its plain version.  The CUDA kernel itself is checked against that
+plain version on the card by chip_smoke.py.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from tensorflowonspark_tpu import ops as jops  # noqa: E402
+from tensorflowonspark_tpu.ops import attention as jattn  # noqa: E402
+from tensorflowonspark_tpu_torch import ops as tops  # noqa: E402
+from tensorflowonspark_tpu_torch.ops import attention as tattn  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _qkv(seed, b, s, h, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, s, h, d)).astype(np.float32)
+            for _ in range(3)]
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+
+
+def test_rope_angles_and_apply_match_jax():
+    cos_j, sin_j = jops.rope_angles(128, 16)
+    cos_t, sin_t = tops.rope_angles(128, 16)
+    np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), atol=1e-6)
+    np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), atol=1e-6)
+    x = np.random.default_rng(3).standard_normal((2, 8, 2, 16)).astype(
+        np.float32)
+    pos = np.broadcast_to(np.arange(8) + 32, (2, 8)).astype(np.int32)
+    for positions in (None, pos):
+        ref = jops.apply_rope(jnp.asarray(x), cos_j, sin_j,
+                              positions=None if positions is None
+                              else jnp.asarray(positions))
+        got = tops.apply_rope(_t(x), cos_t, sin_t,
+                              positions=None if positions is None
+                              else torch.from_numpy(positions).long())
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_reference_matches_jax(causal):
+    q, k, v = _qkv(0, 2, 24, 2, 16)
+    ref = jops.mha_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal)
+    got = tops.mha_reference(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+
+
+def test_rmsnorm_reference_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 17, 64)).astype(np.float32)
+    scale = (rng.standard_normal(64) + 1.0).astype(np.float32)
+    ref = jops.rmsnorm_reference(jnp.asarray(x), jnp.asarray(scale))
+    got = tops.rmsnorm_reference(_t(x), _t(scale))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [64, 96])  # 96: tail-masking path
+def test_flash_plain_matches_jax_pallas(seq, causal, dtype):
+    """The port's CPU flash path against the JAX Pallas kernel (interpret
+    mode) on the same inputs: out, and the lse the backward consumes."""
+    q, k, v = _qkv(seq + causal, 2, seq, 2, 16)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+                  for a in (jq, jk, jv))
+    ref = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                               block_kv=64)
+    got = tops.flash_attention(tq, tk, tv, causal=causal, block_q=64,
+                               block_kv=64)
+    assert got.dtype == tdt and got.shape == tq.shape
+    atol = 2e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), atol=atol)
+    scale = 1.0 / np.sqrt(16)
+    _, lse_ref = jattn._flash_forward(jq, jk, jv, causal=causal, scale=scale,
+                                      block_q=64, block_kv=64,
+                                      interpret=True)
+    _, lse = tattn._flash_forward(tq, tk, tv, causal=causal, scale=scale)
+    assert lse.shape == (2, 2, seq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=1e-5)
+
+
+def test_flash_plain_one_token_and_strided_views():
+    """Sq == 1 (a one-token prompt bucket) and q/k/v as non-contiguous
+    views of a fused qkv tensor, as the transformer passes them."""
+    rng = np.random.default_rng(7)
+    for s in (1, 5):
+        qkv = rng.standard_normal((2, s, 3, 2, 16)).astype(np.float32)
+        t = _t(qkv)
+        got = tops.flash_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2],
+                                   causal=True)
+        ref = jops.mha_reference(*(jnp.asarray(qkv[:, :, i])
+                                   for i in range(3)), causal=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+
+def test_flash_plain_differentiable_on_cpu():
+    q, k, v = (_t(a).requires_grad_() for a in _qkv(1, 1, 32, 2, 8))
+    tops.flash_attention(q, k, v, causal=True).pow(2).sum().backward()
+    q2, k2, v2 = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    tops.mha_reference(q2, k2, v2, causal=True).pow(2).sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=2e-4)
+
+
+@pytest.mark.parametrize("head_dim,match", [(32, r"\(64, 128\)"),
+                                            (64, "CUDA tensor")])
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match):
+    """The kernel wrapper never falls back: an unsupported head_dim names
+    the supported set, and a CPU tensor handed to it is refused."""
+    q, k, v = (_t(a) for a in _qkv(2, 1, 8, 2, head_dim))
+    with pytest.raises(ValueError, match=match):
+        tattn._flash_forward_cuda(q, k, v, causal=True, scale=0.125)
+    assert tattn.launches == 0
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Importing every module of the port (and chip_smoke.py) leaves jax
+    and every tensorflowonspark_tpu module out of sys.modules."""
+    code = r"""
+import importlib, pkgutil, sys
+import tensorflowonspark_tpu_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+import runpy
+runpy.run_path("chip_smoke.py", run_name="not_main")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "tensorflowonspark_tpu"
+             or m.startswith("tensorflowonspark_tpu."))
+print(len(names), bad)
+assert len(names) >= 12, names
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
