@@ -5,28 +5,44 @@
 
 Run from the root of a checkout on a machine with a CUDA card (Hopper,
 ``sm_90a``).  It builds the port's kernels from the checkout's sources
-into ``build/torch_kernels/`` and drives the port's main path:
+into ``build/torch_kernels/`` and drives the port's two paths, training
+(the main path) and serving:
 
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; TF32 off for float32
    matmuls and convolutions, bf16 matmuls accumulate in float32;
 1. build every kernel (one ``nvcc`` per source, started together);
-2. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, with times beside its bound and a library call;
-3. serving at full width (the repo's on-chip transformer config, bf16):
-   a paged, prefix-sharing ``DecodeEngine`` answers 16 sessions; every
-   token index streams once and in order, the prefix trie is hit, the
-   cache ends empty with no leaked block, and the flash kernel ran on
-   every layer of every plain prefill;
-4. token-exactness at full width in float32: ``DecodeEngine`` greedy
+2. the flash forward kernel against its plain PyTorch version on the
+   card, at the main path's shapes and the tail / head_dim cases, with
+   times beside its bound and a library call (SDPA);
+3. the flash backward's dq and dk/dv kernels against
+   ``flash_backward_plain`` in the same cases, timed the same way (the
+   library call is SDPA's backward);
+4. training at full width (the repo's on-chip transformer config,
+   bf16, batch 8): five Adam(1e-3) steps fed through
+   ``prefetch_to_device``; every loss finite and the loss falling; the
+   forward, dq and dk/dv kernels each launched once per layer per step;
+   ``remat=True`` and ``remat="dots"`` give the same loss, running the
+   forward twice; the blockwise CE gives the dense loss; a profiled
+   rerun splits the device time by kernel group;
+5. gradient exactness at full width in float32: one step's loss and
+   every parameter's gradient through the kernels equal those through
+   ``mha_reference`` attention, which never touches a kernel;
+6. serving at full width (bf16): a paged, prefix-sharing
+   ``DecodeEngine`` answers 16 sessions; every token index streams once
+   and in order, the prefix trie is hit, the cache ends empty with no
+   leaked block, and the flash kernel ran on every layer of every plain
+   prefill;
+7. token-exactness at full width in float32: ``DecodeEngine`` greedy
    tokens equal the full-recompute ``greedy_decode_reference`` with
-   ``mha_reference`` attention, which never touches a kernel.
+   ``mha_reference`` attention.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists the kernels' results.  Imports only torch,
-numpy and the port.
+the line before it names the card, the one before that lists the
+kernels' results, with their launches on the training path.  Imports
+only torch, numpy and the port.
 """
 
 from __future__ import annotations
@@ -42,8 +58,10 @@ import time
 import numpy as np
 import torch
 
+from tensorflowonspark_tpu_torch import infeed
 from tensorflowonspark_tpu_torch.models import transformer as T
 from tensorflowonspark_tpu_torch.ops import _build, attention
+from tensorflowonspark_tpu_torch.utils import metrics
 from tensorflowonspark_tpu_torch.serving.decode import (
     DecodeEngine,
     DecodeSpec,
@@ -56,15 +74,35 @@ PEAK_BYTES_PER_S = 3.35e12
 # bench.py's on-chip transformer: the only full-width config the repo runs
 FULL = dict(vocab_size=16384, dim=1024, n_layers=8, n_heads=8, max_seq=2048)
 
-# (B, S, H, D, causal, dtype, out tolerance); the first is the main path's
-# full prompt bucket, the one the kernels line reports
+# (B, S, H, D, causal, dtype, out atol); the first is the main path's full
+# prompt bucket, the one the kernels line reports; the second holds the
+# kernels at that shape in float32, where the tolerance is absolute
 FLASH_CASES = [
-    (8, 2048, 8, 128, True, torch.bfloat16, 3e-2),
+    (8, 2048, 8, 128, True, torch.bfloat16, 2e-5),
+    (8, 2048, 8, 128, True, torch.float32, 2e-5),
     (2, 96, 8, 128, False, torch.float32, 2e-5),   # tail masking
-    (1, 1, 8, 128, True, torch.bfloat16, 3e-2),    # a one-token prompt
+    (1, 1, 8, 128, True, torch.bfloat16, 2e-5),    # a one-token prompt
     (3, 300, 4, 64, True, torch.float32, 2e-5),    # head_dim 64
 ]
 LSE_TOL = 1e-4
+# Every kernel and its plain version compute in float32 from the same
+# inputs and round each output once to the input dtype, so they differ by
+# float32 summation order (~1e-6 of the terms) and, in bf16, by at most
+# one rounding step of each element.  The check is per element,
+# |got - ref| <= rtol*|ref| + atol:
+# - bf16: rtol = 2^-7, one bf16 ulp of the element (bf16 keeps 8
+#   significant bits, so an ulp is 2^-8..2^-7 of the value);
+# - atol: the float32 tolerance of the same output, which covers the
+#   summation-order noise and values that cancel to ~0 (the dq of a
+#   one-token sequence, ds = p * (g.v - g.out) with out = v).
+# Gradients: float32 at 2e-4 absolute, tests/test_ops.py's gradient
+# tolerance.  Typical gradient elements are ~0.03 at the main shape
+# (randn inputs, softmax scale 1/sqrt(D)), so a row whose gradient is lost
+# or mis-scaled fails.
+BF16_RTOL = 2.0 ** -7
+BWD_F32_TOL = 2e-4
+
+TRAIN_BATCH, TRAIN_STEPS = 8, 5  # bench.py:920's batch; five Adam steps
 
 
 def gpu_line():
@@ -92,21 +130,42 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-def flash_bound_ms(b, sq, skv, h, d, causal, dtype):
-    """Least time for the card: the larger of the flops this input needs
-    (2 matmuls of 2*D flops per visible (q, kv) pair) over the peak for
-    the dtype, and the bytes (q, k, v read once, out and lse written
-    once) over the memory rate."""
+def visible_pairs(sq, skv, causal):
+    """(q, kv) pairs the causal or full mask leaves visible, per head."""
     if causal:
-        pairs = sum(min(i + 1, skv) for i in range(sq))
-    else:
-        pairs = sq * skv
-    flops = 4.0 * b * h * d * pairs
-    esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = esize * b * h * d * (2 * sq + 2 * skv) + 4 * b * h * sq
+        return sum(min(i + 1, skv) for i in range(sq))
+    return sq * skv
+
+
+def bound_ms(flops, nbytes, dtype):
+    """Least time for the card: the larger of ``flops`` over the dense
+    peak for the dtype and ``nbytes`` over the memory rate."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def flash_bound_ms(b, sq, skv, h, d, causal, dtype):
+    """Forward: 2 matmuls of 2*D flops per visible (q, kv) pair; q, k, v
+    read once, out and lse written once."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * b * h * d * (2 * sq + 2 * skv) + 4 * b * h * sq
+    return bound_ms(4.0 * b * h * d * visible_pairs(sq, skv, causal), nbytes,
+                    dtype)
+
+
+def flash_bwd_bound_ms(kernel, b, sq, skv, h, d, causal, dtype):
+    """Backward kernels.  dq: s, dp and dq, 3 products of 2*D flops per
+    visible pair; dk/dv: s, dp, dv and dk, 4 products; the pair as one
+    backward ("pair"): s, dp, dq, dk and dv, 5 products.  Bytes: q, k,
+    v, g, lse and delta read once, the kernel's gradients written once."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    products, n_out = {"flash_dq": (3, sq), "flash_dkv": (4, 2 * skv),
+                       "pair": (5, sq + 2 * skv)}[kernel]
+    flops = 2.0 * products * b * h * d * visible_pairs(sq, skv, causal)
+    nbytes = (esize * b * h * d * (2 * sq + 2 * skv + n_out)
+              + 8 * b * h * sq)
+    return bound_ms(flops, nbytes, dtype)
 
 
 def phase_flash(dev):
@@ -124,13 +183,14 @@ def phase_flash(dev):
         ref, ref_lse = attention.flash_attention_plain(q, k, v, causal=causal,
                                                        scale=scale)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        err, share = _close(out, ref, dtype, tol)
         lse_err = (lse - ref_lse).abs().max().item()
-        if not (err <= tol and lse_err <= LSE_TOL):
+        if not (share <= 1.0 and lse_err <= LSE_TOL):
             raise AssertionError(
                 f"flash_fwd disagrees with its plain version at "
-                f"{(b, s, h, d, causal, dtype)}: out err {err} (tol {tol}), "
-                f"lse err {lse_err} (tol {LSE_TOL})")
+                f"{(b, s, h, d, causal, dtype)}: out err {err} ({share:.3g} "
+                f"of the per-element tolerance, atol {tol}), lse err "
+                f"{lse_err} (tol {LSE_TOL})")
         reps = 20 if s >= 1024 else 50
         ms = time_ms(lambda: attention._flash_forward(
             q, k, v, causal=causal, scale=scale), reps)
@@ -143,11 +203,289 @@ def phase_flash(dev):
         bound, bound_by = flash_bound_ms(b, s, s, h, d, causal, dtype)
         row = dict(shape=[b, s, h, d], causal=causal,
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                   lse_err=lse_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   tol_share=share, lse_err=lse_err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound,
                    bound_by=bound_by, library_ms=library_ms)
         print("flash_fwd case " + json.dumps(row), flush=True)
         rows.append(row)
     return rows[0]
+
+
+def _close(got, ref, dtype, atol):
+    """(max abs error, worst share of the per-element tolerance
+    ``rtol*|ref| + atol``) of a kernel's output against its plain
+    version; it passes where the share is at most 1."""
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    ref = ref.float()
+    diff = (got.float() - ref).abs()
+    share = (diff / (rtol * ref.abs() + atol)).max().item()
+    return diff.max().item(), share
+
+
+def phase_flash_bwd(dev):
+    """dq and dk/dv kernels against ``flash_backward_plain``; returns the
+    main case's row."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+    for b, s, h, d, causal, dtype, _ in FLASH_CASES:
+        qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev,
+                          dtype=torch.float32).to(dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        g = torch.randn((b, s, h, d), generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype)
+        scale = 1.0 / d ** 0.5
+        out, lse = attention._flash_forward(q, k, v, causal=causal,
+                                            scale=scale)
+        got = attention._flash_backward_cuda(q, k, v, out, lse, g,
+                                             causal=causal, scale=scale)
+        ref = attention.flash_backward_plain(q, k, v, out, lse, g,
+                                             causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            err, share = _close(x, r, dtype, BWD_F32_TOL)
+            if not (x.dtype == dtype and share <= 1.0):
+                raise AssertionError(
+                    f"flash backward {name} disagrees with the plain "
+                    f"version at {(b, s, h, d, causal, dtype)}: err {err} "
+                    f"({share:.3g} of the per-element tolerance), dtype "
+                    f"{x.dtype}")
+            errs[name] = (err, share)
+        reps = 10 if s >= 1024 else 50
+        gi, lse_i, delta = attention._bwd_inputs(q, k, v, out, lse, g)
+        dq, dk, dv = (torch.empty_like(x) for x in got)
+        common = dict(causal=causal, scale=scale)
+        dq_ms = time_ms(lambda: attention._launch_bwd(
+            "flash_dq", q, k, v, gi, lse_i, delta, dq, dq, **common), reps)
+        dkv_ms = time_ms(lambda: attention._launch_bwd(
+            "flash_dkv", q, k, v, gi, lse_i, delta, dk, dv, **common), reps)
+        plain_ms = time_ms(lambda: attention.flash_backward_plain(
+            q, k, v, out, lse, g, **common), reps)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale)
+        gt = g.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), gt, retain_graph=True), reps)
+        shape = (b, s, s, h, d, causal, dtype)
+        dq_bound, dq_by = flash_bwd_bound_ms("flash_dq", *shape)
+        dkv_bound, dkv_by = flash_bwd_bound_ms("flash_dkv", *shape)
+        pair_bound, _ = flash_bwd_bound_ms("pair", *shape)
+        row = dict(shape=[b, s, h, d], causal=causal,
+                   dtype=str(dtype).replace("torch.", ""),
+                   max_abs_err={n: e for n, (e, _) in errs.items()},
+                   tol_share={n: t for n, (_, t) in errs.items()},
+                   dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
+                   dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+                   dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
+                   pair_bound_ms=pair_bound, library_ms=library_ms)
+        print("flash_bwd case " + json.dumps(row), flush=True)
+        rows.append(row)
+        del qt, kt, vt, lib_out
+    return rows[0]
+
+
+def _param_leaves(params):
+    return [params["embed"], params["ln_f"], params["head"],
+            *params["layers"].values()]
+
+
+def _counts():
+    return dict(flash_fwd=attention.launches,
+                flash_dq=attention.dq_launches,
+                flash_dkv=attention.dkv_launches)
+
+
+def _reset_counts():
+    attention.launches = attention.dq_launches = attention.dkv_launches = 0
+
+
+def _grad_norm(leaves):
+    return torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                          for p in leaves)).item()
+
+
+def phase_train(dev, gpu):
+    """Full-width bf16 training through the kernels: the blockwise-CE
+    check on the initial params, five Adam steps (the main path), then
+    the remat checks and a profiled rerun; returns the main path's
+    launch counts."""
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    leaves = _param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    # bench.py's transformer lane: one seeded batch, trained on each step
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_seq)).astype(np.int64)
+    items = TRAIN_BATCH * cfg.max_seq
+    tm = metrics.TrainMetrics(
+        flops_per_item=metrics.transformer_flops_per_token(cfg, causal=True),
+        device=dev)
+
+    def step(toks, **kw):
+        loss = T.loss_fn(params, toks, cfg, **kw)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        return loss
+
+    toks = torch.from_numpy(tokens).to(dev)
+
+    def check(name, **kw):
+        """One forward and backward, no optimizer step: loss, gradient
+        norm and launches."""
+        _reset_counts()
+        loss = step(toks, **kw).item()
+        out = dict(loss=loss, grad_norm=_grad_norm(leaves),
+                   launches=_counts())
+        opt.zero_grad(set_to_none=True)
+        checks[name] = out
+        return out
+
+    # blockwise against dense CE on the initial params.  The dense CE
+    # rounds each logit to bf16 (unbiased, up to 2^-8 relative), the
+    # blockwise one keeps them in f32; with a random head's logits those
+    # roundings average out near 2e-6 of the loss over the batch's 16,376
+    # positions, so 2e-5 holds while a wrong block, offset or mask moves
+    # the loss by far more.  (After training on one batch the gold logits
+    # grow, and so does their rounding.)
+    checks = {}
+    base0, blk = check("dense_init"), check(
+        "blockwise_init", ce_impl="blockwise",
+        ce_block=min(2048, cfg.vocab_size))
+    if abs(blk["loss"] - base0["loss"]) > 2e-5 * abs(base0["loss"]):
+        raise AssertionError(f"blockwise CE loss {blk['loss']} vs dense "
+                             f"{base0['loss']} (rtol 2e-5)")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    _reset_counts()
+    feed = iter(infeed.prefetch_to_device(
+        (tokens for _ in range(TRAIN_STEPS)), depth=2, placement=dev))
+    while True:
+        # the host's wait for the next staged batch: TrainMetrics'
+        # infeed_stall_frac.  The first wait precedes its first timed step.
+        t_wait = time.perf_counter()
+        batch = next(feed, None)
+        if batch is None:
+            break
+        if losses:
+            tm.infeed_wait(time.perf_counter() - t_wait)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(batch)
+        opt.step()
+        end.record()
+        losses.append(loss.item())  # waits for the step
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        tm.step(items=items, loss=losses[-1])
+    launches = _counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    want = cfg.n_layers * TRAIN_STEPS
+    if launches != dict(flash_fwd=want, flash_dq=want, flash_dkv=want):
+        raise AssertionError(f"launches {launches}, want {want} of each "
+                             f"({cfg.n_layers} layers x {TRAIN_STEPS} "
+                             f"steps)")
+    med = statistics.median(step_ms)
+    peak = metrics.peak_flops(dev)
+    summary = dict(
+        batch=TRAIN_BATCH, seq=cfg.max_seq, steps=TRAIN_STEPS,
+        losses=losses, step_ms=step_ms, step_ms_median=med,
+        tokens_per_s=items / (med / 1e3),
+        mfu_median_step=(items / (med / 1e3) * tm.flops_per_item / peak
+                         if peak else None),
+        train_metrics=tm.report(), launches=launches, peak_mem_gb=peak_gb,
+        gpu=gpu)
+    print("train " + json.dumps(summary), flush=True)
+
+    # one further step on the trained params, with and without remat
+    base = check("dense")
+    for name, mode in (("remat", True), ("dots", "dots")):
+        c = check(name, remat=mode)
+        # the same kernels on the same inputs: the recompute repeats the
+        # forward exactly, so the loss agrees to float32 rounding; the
+        # gradient norm to 1e-2, since bf16 embedding gradients are summed
+        # with atomics in no fixed order
+        if abs(c["loss"] - base["loss"]) > 1e-6 * abs(base["loss"]) or \
+                abs(c["grad_norm"] - base["grad_norm"]) > \
+                1e-2 * base["grad_norm"]:
+            raise AssertionError(f"{name}: {c} vs no remat {base}")
+        if c["launches"] != dict(flash_fwd=2 * cfg.n_layers,
+                                 flash_dq=cfg.n_layers,
+                                 flash_dkv=cfg.n_layers):
+            raise AssertionError(f"{name} launches {c['launches']}")
+    print("train checks " + json.dumps(checks), flush=True)
+
+    # two more steps under the profiler: device time by kernel group and
+    # the idle share of their wall (the profiler's overhead lengthens it)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(toks)
+            opt.step()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    print("train profile " + json.dumps(device_breakdown(prof, pwall)),
+          flush=True)
+    del params, leaves, opt, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_grad_exact(dev):
+    """Float32 at full width, batch 2: loss and every gradient through the
+    kernels against ``mha_reference`` attention under autograd."""
+    cfg = T.Config(**FULL, dtype="float32", attn_impl="flash")
+    ref_cfg = T.Config(**FULL, dtype="float32", attn_impl="reference")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+    leaves = _param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, cfg.max_seq))).to(dev)
+    runs = {}
+    for name, c in (("flash", cfg), ("reference", ref_cfg)):
+        _reset_counts()
+        loss = T.loss_fn(params, toks, c)
+        grads = torch.autograd.grad(loss, leaves)
+        runs[name] = (loss.item(), grads, _counts())
+    loss, grads, launches = runs["flash"]
+    ref_loss, ref_grads, ref_launches = runs["reference"]
+    if launches != dict(flash_fwd=cfg.n_layers, flash_dq=cfg.n_layers,
+                        flash_dkv=cfg.n_layers) or any(ref_launches.values()):
+        raise AssertionError(f"launches: flash {launches}, reference "
+                             f"{ref_launches}")
+    # both runs are float32 end to end (no TF32) and differ only in the
+    # order of the attention sums, ~1e-6 relative per layer; 1e-3 of each
+    # tensor's largest gradient leaves room for 8 layers of that, while a
+    # masking or indexing fault moves gradients by O(1) of their size
+    names = ["embed", "ln_f", "head", *params["layers"]]
+    worst = {}
+    for name, gk, gr in zip(names, grads, ref_grads):
+        scale = gr.abs().max().item()
+        err = (gk - gr).abs().max().item()
+        worst[name] = err / scale
+        if not (torch.isfinite(gk).all() and err <= 1e-3 * scale):
+            raise AssertionError(f"grad {name}: max err {err}, largest "
+                                 f"reference gradient {scale}")
+    if abs(loss - ref_loss) > 1e-5 * abs(ref_loss):
+        raise AssertionError(f"loss {loss} vs reference {ref_loss}")
+    print("exact float32 grads " + json.dumps(dict(
+        loss=loss, ref_loss=ref_loss, rel_err_by_param=worst,
+        launches=launches)), flush=True)
+    del params, leaves, grads, ref_grads, runs
+    torch.cuda.empty_cache()
 
 
 def run_engine(params, spec, jobs, dev, timeout):
@@ -204,18 +542,25 @@ def device_breakdown(prof, wall_s):
     intervals), the idle share of ``wall_s``, and time by kernel group."""
     spans, groups, names = [], collections.Counter(), collections.Counter()
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # device-side ranges of record_function annotations (such as
+        # "Optimizer.step#Adam.step") span kernels counted on their own
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
         name = e.name
         low = name.lower()
         group = ("flash_fwd" if "flash_fwd" in low else
+                 "flash_dq" if "flash_dq" in low else
+                 "flash_dkv" if "flash_dkv" in low else
                  "memcpy" if "memcpy" in low else
                  "matmul" if any(w in low for w in ("gemm", "nvjet",
                                                     "cutlass", "cublas"))
                  else "softmax" if "softmax" in low else
-                 "index/gather/scatter" if any(
+                 "optimizer" if any(w in low for w in ("adam",
+                                                       "multi_tensor"))
+                 else "index/gather/scatter" if any(
                      w in low for w in ("index", "gather", "scatter"))
                  else "other")
         groups[group] += (t1 - t0) / 1e3
@@ -352,18 +697,47 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    main_case = phase_flash(dev)
-    launches = phase_serving(dev, gpu)
+    fwd_case = phase_flash(dev)
+    bwd_case = phase_flash_bwd(dev)
+    launches = phase_train(dev, gpu)
+    phase_grad_exact(dev)
+    phase_serving(dev, gpu)
     phase_exact(dev)
 
-    kernels = [dict(
-        name="flash_fwd", route="cuda",
-        source="tensorflowonspark_tpu_torch/ops/csrc/flash_fwd.cu",
-        replaces="tensorflowonspark_tpu/ops/attention.py:88",
-        launches=launches, max_abs_err=main_case["max_abs_err"],
-        ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=main_case["library_ms"])]
+    attn_src = "tensorflowonspark_tpu/ops/attention.py"
+    bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
+    # no plain or library call computes dq, or dk and dv, alone: both
+    # backward rows set their kernel against one whole backward, and give
+    # the pair's time and bound beside it
+    whole_bwd = dict(
+        plain_scope="whole backward (dq, dk, dv): flash_backward_plain",
+        library_scope="whole backward (dq, dk, dv): SDPA's backward",
+        pair_ms=bwd_case["dq_ms"] + bwd_case["dkv_ms"],
+        pair_bound_ms=bwd_case["pair_bound_ms"])
+    kernels = [
+        dict(name="flash_fwd", route="cuda",
+             source="tensorflowonspark_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces=f"{attn_src}:88", launches=launches["flash_fwd"],
+             max_abs_err=fwd_case["max_abs_err"], ms=fwd_case["ms"],
+             plain_ms=fwd_case["plain_ms"], bound_ms=fwd_case["bound_ms"],
+             bound_by=fwd_case["bound_by"],
+             library_ms=fwd_case["library_ms"]),
+        dict(name="flash_dq", route="cuda", source=bwd_src,
+             replaces=f"{attn_src}:216", launches=launches["flash_dq"],
+             max_abs_err=bwd_case["max_abs_err"]["dq"],
+             ms=bwd_case["dq_ms"], plain_ms=bwd_case["plain_ms"],
+             bound_ms=bwd_case["dq_bound_ms"],
+             bound_by=bwd_case["dq_bound_by"],
+             library_ms=bwd_case["library_ms"], **whole_bwd),
+        dict(name="flash_dkv", route="cuda", source=bwd_src,
+             replaces=f"{attn_src}:253", launches=launches["flash_dkv"],
+             max_abs_err=max(bwd_case["max_abs_err"]["dk"],
+                             bwd_case["max_abs_err"]["dv"]),
+             ms=bwd_case["dkv_ms"], plain_ms=bwd_case["plain_ms"],
+             bound_ms=bwd_case["dkv_bound_ms"],
+             bound_by=bwd_case["dkv_bound_by"],
+             library_ms=bwd_case["library_ms"], **whole_bwd),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {

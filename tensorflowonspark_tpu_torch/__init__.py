@@ -8,7 +8,12 @@ its own copies.
 
 The first slice is the serving path: continuous-batching transformer
 decode (``serving.decode.DecodeEngine``) whose prefill attention runs a
-hand-written flash-attention kernel (``ops/csrc/flash_fwd.cu``).
+hand-written flash-attention kernel (``ops/csrc/flash_fwd.cu``).  The
+second is the transformer's training path: ``models.transformer.loss_fn``
+differentiated by autograd, whose attention backward runs the
+hand-written dq and dk/dv kernels (``ops/csrc/flash_bwd.cu``), with the
+step utilities (``utils.train``, ``utils.metrics``) and
+``infeed.prefetch_to_device``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); :func:`resolve_device` never falls

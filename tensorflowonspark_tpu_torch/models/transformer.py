@@ -1,11 +1,12 @@
-"""Decoder-only transformer: forward pass and KV-cached decode.
+"""Decoder-only transformer: forward, training loss and KV-cached decode.
 
-Counterpart of ``tensorflowonspark_tpu/models/transformer.py``, forward
-only (training — ``loss_fn``, remat, the blockwise CE — comes with the
-training slice).  Parameters are a plain dict with the reference's tree
-layout: per-layer weights stacked on a leading ``[n_layers, ...]`` axis,
-master weights in float32, activations and matmuls in the config's
-compute dtype with float32 accumulation.
+Counterpart of ``tensorflowonspark_tpu/models/transformer.py``.
+Parameters are a plain dict with the reference's tree layout: per-layer
+weights stacked on a leading ``[n_layers, ...]`` axis, master weights in
+float32, activations and matmuls in the config's compute dtype with
+float32 accumulation.  Training differentiates ``loss_fn`` with torch
+autograd: each matmul casts its float32 master to the compute dtype, so
+gradients land on the masters, as under ``jax.grad`` of the reference.
 
 Numerics follow the reference step for step, so that a converted JAX
 checkpoint gives the same logits and greedy decode gives the same
@@ -34,6 +35,12 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from tensorflowonspark_tpu_torch import ops
 
@@ -204,21 +211,172 @@ def _layer_apply_kv(p, x, cfg, rope, attn_fn):
     return x, k.transpose(1, 2), v.transpose(1, 2)
 
 
-def apply(params, tokens, cfg: Config, *, attn_fn=None):
-    """tokens [B, S] int -> logits [B, S, vocab] float32.
+def _layer_apply(p, x, cfg, rope, attn_fn):
+    return _layer_apply_kv(p, x, cfg, rope, attn_fn)[0]
+
+
+# matmuls without batch dims: what jax's dots_with_no_batch_dims_saveable
+# keeps (torch.matmul of [B, S, D] by [D, N] dispatches as aten.mm)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _layer_fn(remat):
+    """The per-layer body under the reference's ``remat`` modes: False,
+    True (checkpoint everything) or "dots" (save matmul outputs,
+    recompute the rest)."""
+    if not remat:
+        return _layer_apply
+    if remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+    elif remat is True:
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"remat must be bool or 'dots'; got {remat!r}")
+
+    def fn(p, x, cfg, rope, attn_fn):
+        return checkpoint(_layer_apply, p, x, cfg, rope, attn_fn,
+                          use_reentrant=False, context_fn=context_fn)
+
+    return fn
+
+
+def apply(params, tokens, cfg: Config, *, attn_fn=None,
+          logits_dtype=torch.float32, remat=False, positions=None,
+          return_hidden=False):
+    """tokens [B, S] int -> logits [B, S, vocab] in ``logits_dtype``
+    (default float32; None keeps the compute dtype, as the training
+    loss does).  ``return_hidden=True`` skips the head matmul and
+    returns the final hidden states [B, S, dim] (the blockwise CE
+    consumes these).
+
     ``attn_fn(q, k, v)`` on [B, S, H, D] defaults to causal flash
-    attention."""
+    attention.  ``positions`` ([S] or [B, S] int): explicit global rope
+    positions for a non-contiguous layout; the default causal mask is
+    by array index, so it demands an ``attn_fn`` that masks by global
+    position.
+
+    ``remat=True`` checkpoints each layer (the backward recomputes its
+    internals, flash forward included); ``remat="dots"`` saves every
+    matmul output and recomputes only the elementwise chain."""
+    if positions is not None and attn_fn is None:
+        # the default flash mask is causal by ARRAY INDEX; on permuted
+        # input that silently attends to the future
+        raise ValueError(
+            "positions= implies a non-contiguous sequence layout; pass an "
+            "attn_fn that masks by global position (e.g. "
+            "sequence_parallel_attention(mesh, 'zigzag', causal=True))")
     attn_fn = attn_fn or _default_attn(cfg)
+    layer_fn = _layer_fn(remat)
     dev = _device(params)
     tokens = _tokens(tokens, dev)
     x = params["embed"].to(cfg.compute_dtype)[tokens]
-    cos, sin = ops.rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_base,
+    if positions is None:
+        rope_len, pos2d = tokens.shape[1], None
+    else:
+        # cover every global position: a gather past the table raises
+        rope_len = max(tokens.shape[1], cfg.max_seq)
+        pos = _tokens(positions, dev)
+        pos2d = (pos[None] if pos.dim() == 1 else pos).expand(tokens.shape)
+    cos, sin = ops.rope_angles(rope_len, cfg.head_dim, cfg.rope_base,
                                device=dev)
     for i in range(cfg.n_layers):
-        x, _, _ = _layer_apply_kv(_layer(params, i), x, cfg,
-                                  (cos, sin, None), attn_fn)
+        x = layer_fn(_layer(params, i), x, cfg, (cos, sin, pos2d), attn_fn)
     x = ops.rmsnorm_reference(x, params["ln_f"])
-    return _matmul(x, params["head"]).float()
+    if return_hidden:
+        return x
+    logits = _matmul(x, params["head"])
+    return logits if logits_dtype is None else logits.to(logits_dtype)
+
+
+def _nll_block(x, w, labels, m, s, gold, base):
+    """One vocab block of the online logsumexp: f32 logits of the
+    compute-dtype product (``preferred_element_type=f32`` in the
+    reference: exact products of the rounded operands, f32 sums),
+    folded into the running (max, sumexp, gold logit)."""
+    logits = torch.matmul(x.float(), w.to(x.dtype).float())
+    nm = torch.maximum(m, logits.max(dim=-1).values)
+    s = s * torch.exp(m - nm) + torch.exp(logits - nm[:, None]).sum(dim=-1)
+    block_v = w.shape[1]
+    in_blk = (labels >= base) & (labels < base + block_v)
+    idx = (labels - base).clamp(0, block_v - 1)
+    g = logits.gather(1, idx[:, None])[:, 0]
+    gold = gold + torch.where(in_blk, g, torch.zeros_like(g))
+    return nm, s, gold
+
+
+def _blockwise_nll(x, head, labels, block_v):
+    """Per-position next-token NLL without materialising [N, vocab]:
+    the head matmul streams in ``block_v``-wide vocab slices through an
+    online logsumexp.  Each block is checkpointed, so the backward
+    recomputes its logits instead of keeping them.
+
+    ``x`` [N, D] final hidden states (compute dtype); ``head`` [D, V]
+    float32 params; ``labels`` [N] int."""
+    n = x.shape[0]
+    v = head.shape[1]
+    if v % block_v:
+        raise ValueError(f"vocab {v} not divisible by ce_block {block_v}")
+    labels = labels.long()
+    # finite lower bound, not -inf: exp(min - nm) underflows to exactly 0
+    # like -inf would, but the backward never sees inf arithmetic
+    m = torch.full((n,), torch.finfo(torch.float32).min,
+                   dtype=torch.float32, device=x.device)
+    s = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    gold = torch.zeros_like(s)
+    for base in range(0, v, block_v):
+        m, s, gold = checkpoint(
+            _nll_block, x, head[:, base:base + block_v],
+            labels, m, s, gold, base, use_reentrant=False)
+    return m + torch.log(s) - gold
+
+
+def loss_fn(params, tokens, cfg: Config, *, attn_fn=None, remat=False,
+            labels=None, positions=None, ce_impl="dense", ce_block=2048):
+    """Next-token cross entropy (mean over B, S-1), differentiable.
+
+    Default labels are ``tokens`` shifted by one.  Explicit ``labels``
+    align with ``tokens``' positions, -1 = ignore; the mean is then over
+    the labelled positions.
+
+    ``ce_impl="dense"``: logits stay in the compute dtype and the
+    logsumexp runs on their float32 upcast.  Unlike XLA, which fuses the
+    upcast into the reduction, torch materialises the float32
+    [B, S, vocab] tensor (PERF.md gives its size at full width).
+    ``ce_impl="blockwise"``: the head matmul streams in ``ce_block``-wide
+    vocab slices (``_blockwise_nll``) and [B, S, vocab] never exists."""
+    if ce_impl not in ("dense", "blockwise"):
+        raise ValueError(f"unknown ce_impl {ce_impl!r}")
+    dev = _device(params)
+    tokens = _tokens(tokens, dev)
+    out = apply(params, tokens, cfg, attn_fn=attn_fn, remat=remat,
+                positions=positions, logits_dtype=None,
+                return_hidden=ce_impl == "blockwise")
+    if labels is None:
+        out = out[:, :-1]
+        labels = tokens[:, 1:]
+        valid = None
+    else:
+        labels = _tokens(labels, dev)
+        valid = labels >= 0
+        labels = labels.clamp(min=0)
+    if ce_impl == "blockwise":
+        b, s, d = out.shape
+        nll = _blockwise_nll(out.reshape(b * s, d), params["head"],
+                             labels.reshape(b * s), ce_block).reshape(b, s)
+    else:
+        lse = torch.logsumexp(out.float(), dim=-1)
+        gold = out.gather(-1, labels[..., None])[..., 0].float()
+        nll = lse - gold
+    if valid is None:
+        return nll.mean()
+    vf = valid.float()
+    return (nll * vf).sum() / vf.sum().clamp(min=1.0)
 
 
 def _last_rows(x, lengths, t):

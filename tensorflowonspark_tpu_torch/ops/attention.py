@@ -1,13 +1,15 @@
-"""Attention ops: the flash-attention forward kernel + plain references.
+"""Attention ops: the flash-attention kernels + plain references.
 
 Counterpart of ``tensorflowonspark_tpu/ops/attention.py``.  Layout at the
 API boundary is ``[batch, seq, heads, head_dim]``, as there.
 
-``flash_attention`` on a CUDA tensor launches the hand-written kernel in
-``csrc/flash_fwd.cu`` (built on first use by ``ops/_build.py``); on a
-CPU tensor it runs :func:`flash_attention_plain`, the plain PyTorch
-version of the same function.  There is no fallback between the two: a
-CUDA tensor the kernel cannot take raises.
+``flash_attention`` on a CUDA tensor launches the hand-written kernels
+(built on first use by ``ops/_build.py``): ``csrc/flash_fwd.cu`` forward,
+the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` backward.  On a CPU
+tensor it runs the plain PyTorch versions of the same functions
+(:func:`flash_attention_plain`, :func:`flash_backward_plain`).  There is
+no fallback between the two: a CUDA tensor the kernels cannot take
+raises.
 """
 
 from __future__ import annotations
@@ -23,9 +25,12 @@ _NEG_INF = -1e30  # finite mask fill, never -inf
 HEAD_DIMS = (64, 128)  # head_dims the CUDA kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Launches of the CUDA flash-forward kernel in this process; one per
-#: call that reached the kernel.  Callers reset it by assignment.
+#: Launches of the CUDA kernels in this process: the flash forward
+#: (``launches``), the backward's dq and dk/dv kernels.  One per call
+#: that reached the kernel; callers reset them by assignment.
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 
 # -- rotary position embeddings ----------------------------------------------
@@ -179,32 +184,196 @@ def _flash_forward(q, k, v, *, causal, scale, block_q=512, block_kv=512):
     return flash_attention_plain(q, k, v, causal=causal, scale=scale)
 
 
-class _FlashCuda(torch.autograd.Function):
+def _delta(g, out):
+    """``rowsum(g * out)`` in f32 as ``[B, H, Sq]``, contiguous: the
+    per-row term both backward kernels subtract from ``g vᵀ``.  Plain
+    torch outside the kernels, as the JAX launcher computes it."""
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_backward_plain(q, k, v, out, lse, g, *, causal, scale,
+                         block_q=512):
+    """Plain PyTorch flash backward: ``(dq, dk, dv)`` in the inputs'
+    dtypes, f32 math.  A loop over ``block_q``-row q blocks that
+    recomputes each block's probabilities from ``(q, k, lse)``:
+
+        p   = exp(q kᵀ·scale − lse)    (0 where masked)
+        ds  = p · (g vᵀ − delta) · scale,   delta = rowsum(g ∘ out)
+        dq  = ds k;   dk += dsᵀ q;   dv += pᵀ g
+
+    so memory is O(block_q · Skv) per step, never the [B, H, Sq, Skv]
+    score tensor.  Port of the JAX package's ``_flash_bwd_xla``; the CPU
+    path of :func:`flash_attention`'s backward, and what the CUDA
+    kernels are held against on the card."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    block = min(block_q, max(sq, 8))
+
+    def heads(x):  # [B, S, H, D] -> [B, H, S, D] f32
+        return x.transpose(1, 2).float()
+
+    qt, kt, vt, gt = heads(q), heads(k), heads(v), heads(g)
+    delta = _delta(g, out)
+    kpos = torch.arange(skv, device=q.device)
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, h, skv, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, sq, block):
+        q1 = min(q0 + block, sq)
+        q_i, g_i = qt[:, :, q0:q1], gt[:, :, q0:q1]
+        s = torch.einsum("bhqd,bhkd->bhqk", q_i, kt) * scale
+        e = torch.exp(s - lse[:, :, q0:q1, None])
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)
+            e = torch.where(qpos[:, None] >= kpos[None, :], e,
+                            torch.zeros((), device=q.device))
+        dv += torch.einsum("bhqk,bhqd->bhkd", e, g_i)
+        dp = torch.einsum("bhqd,bhkd->bhqk", g_i, vt)
+        ds = e * (dp - delta[:, :, q0:q1, None]) * scale
+        dq[:, :, q0:q1] = torch.einsum("bhqk,bhkd->bhqd", ds, kt)
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, q_i)
+
+    def unheads(x, like):  # [B, H, S, D] -> [B, S, H, D] in like's dtype
+        return x.transpose(1, 2).to(like.dtype)
+
+    return unheads(dq, q), unheads(dk, k), unheads(dv, v)
+
+
+def _bwd_lib():
+    lib = _build.load("flash_bwd")
+    if not getattr(lib, "_tfos_typed", False):
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        argtypes = ([i32, i32] + [vp] * 8 + [i32] * 4
+                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                       i32, vp])
+        for fn in (lib.tfos_flash_dq, lib.tfos_flash_dkv):
+            fn.argtypes = argtypes
+            fn.restype = i32
+        lib.tfos_cuda_error_string.argtypes = [i32]
+        lib.tfos_cuda_error_string.restype = ctypes.c_char_p
+        lib._tfos_typed = True
+    return lib
+
+
+def _launch_bwd(kernel, q, k, v, g, lse, delta, out0, out1, *, causal,
+                scale):
+    """Launch one backward kernel of ``csrc/flash_bwd.cu`` on the current
+    stream and count it: ``"flash_dq"`` writes dq into ``out0``,
+    ``"flash_dkv"`` dk into ``out0`` and dv into ``out1``.  Inputs as
+    :func:`_flash_backward_cuda` prepares them."""
+    global dq_launches, dkv_launches
+    lib = _bwd_lib()
+    fn = lib.tfos_flash_dq if kernel == "flash_dq" else lib.tfos_flash_dkv
+    b, sq, h, d = q.shape
+    strides = (ctypes.c_longlong * 18)(
+        *[t.stride(i) for t in (q, k, v, g, out0, out1) for i in (0, 1, 2)])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), out0.data_ptr(), out1.data_ptr(), b, h,
+                 sq, k.shape[1], strides, float(scale), int(bool(causal)),
+                 stream)
+    if err != 0:
+        msg = (lib.tfos_cuda_error_string(err).decode() if err > 0
+               else "unsupported dtype/head_dim")
+        raise RuntimeError(f"{kernel} launch failed ({err}): {msg}")
+    if kernel == "flash_dq":
+        dq_launches += 1
+    else:
+        dkv_launches += 1
+
+
+def _bwd_inputs(q, k, v, out, lse, g):
+    """Check what the backward kernels take; returns ``(g, lse, delta)``
+    ready for :func:`_launch_bwd`.  Raises on anything else."""
+    _check_cuda_inputs(q, k, v)
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
+    b, sq, h, _ = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be float32 [B, H, Sq] = {(b, h, sq)} on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    if g.stride(-1) != 1:
+        # the one copy the backward makes: autograd may hand over a g
+        # whose head_dim is not the unit stride the kernels load along
+        g = g.contiguous()
+    return g, lse.contiguous(), _delta(g, out)
+
+
+def _flash_backward_cuda(q, k, v, out, lse, g, *, causal, scale):
+    """Launch the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` on the
+    current stream; returns ``(dq, dk, dv)``.  q, k, v, out and g are
+    [B, S, H, D] tensors addressed through their strides (q, k, v arrive
+    as views of the fused qkv projection).  Raises on anything the
+    kernels do not take."""
+    g, lse, delta = _bwd_inputs(q, k, v, out, lse, g)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
+    common = dict(causal=causal, scale=scale)
+    _launch_bwd("flash_dq", q, k, v, g, lse, delta, dq, dq, **common)
+    _launch_bwd("flash_dkv", q, k, v, g, lse, delta, dk, dv, **common)
+    return dq, dk, dv
+
+
+def _flash_backward(q, k, v, out, lse, g, *, causal, scale, block_q=512):
+    """``(dq, dk, dv)``: the CUDA kernels for CUDA tensors,
+    :func:`flash_backward_plain` for CPU tensors."""
+    if q.is_cuda:
+        return _flash_backward_cuda(q, k, v, out, lse, g, causal=causal,
+                                    scale=scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, "
+                         f"got {q.device}")
+    return flash_backward_plain(q, k, v, out, lse, g, causal=causal,
+                                scale=scale, block_q=block_q)
+
+
+class _Flash(torch.autograd.Function):
+    """Forward ``(out, lse)`` through :func:`_flash_forward`; backward
+    through :func:`_flash_backward` from the saved ``q, k, v, out,
+    lse``.  The same function on both devices: the device of ``q``
+    picks kernel or plain version in each direction."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, _lse = _flash_forward_cuda(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal, scale, block_q):
+        out, lse = _flash_forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.block_q = causal, scale, block_q
         return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "flash_attention backward on CUDA is not ported yet: the dq/dkv "
-            "kernels come with the training slice (ROADMAP.md, queue 2)")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, g,
+                                     causal=ctx.causal, scale=ctx.scale,
+                                     block_q=ctx.block_q)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=False, scale=None, block_q=512,
-                    block_kv=512):
-    """Flash attention on [B, S, H, D]; returns ``out``.
+                    block_kv=512, bwd_impl="xla"):
+    """Flash attention on [B, S, H, D]; returns ``out``, differentiable.
 
-    CUDA tensors go through the hand-written kernel (forward only: its
-    backward raises NotImplementedError until the training slice); CPU
-    tensors through the plain version, which autograd differentiates.
-    ``block_q``/``block_kv`` are accepted for API parity and do not set
-    the CUDA tile."""
+    CUDA tensors go through the hand-written kernels: ``flash_fwd.cu``
+    forward, and the dq and dk/dv kernels of ``flash_bwd.cu`` backward.
+    CPU tensors go through the plain versions (:func:`flash_attention_plain`,
+    :func:`flash_backward_plain`).  ``bwd_impl`` is validated as in the
+    JAX package ("xla" or "pallas"); both of its backwards compute the
+    same gradients, so it selects nothing here.  ``block_q`` sets the
+    plain backward's q block; neither block sets the CUDA tiles."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda:
-        return _FlashCuda.apply(q, k, v, causal, scale)
-    out, _lse = _flash_forward(q, k, v, causal=causal, scale=scale,
-                               block_q=block_q, block_kv=block_kv)
-    return out
+    if bwd_impl not in ("xla", "pallas"):
+        raise ValueError(f"bwd_impl must be 'xla' or 'pallas', "
+                         f"got {bwd_impl!r}")
+    del block_kv
+    return _Flash.apply(q, k, v, causal, scale, block_q)

@@ -1,18 +1,19 @@
 """Deterministic fault injection, driven by ``TFOS_FAULT_PLAN``.
 
 An own copy of the part of ``tensorflowonspark_tpu/utils/faults.py``
-that the decode engine calls (``check``), with the same plan grammar,
-per-process hit counters and executor scoping::
+that the decode engine and ``TrainMetrics`` call (``check``,
+``poison``), with the same plan grammar, per-process hit counters and
+executor scoping::
 
     plan  := entry ("," entry)*
     entry := site ":" kind ["(" arg ")"] ["@" hits]
     kind  := "exc" | "kill" | "hang" | "delay" | "nan"
     hits  := N | N "+" | "*"
 
-``check`` is free when no plan is set.  Every fault that fires emits a
-``fault/injected`` telemetry event and flushes.  ``nan`` entries are
-value poison for the training path, which is not ported yet; ``check``
-ignores them, as the reference does.
+``check`` and ``poison`` are free when no plan is set.  Every fault that
+fires emits a ``fault/injected`` telemetry event.  ``nan`` entries are
+value poison: ``poison`` fires them, ``check`` ignores them, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -201,3 +202,27 @@ def check(site, **attrs):
         if f.kind == "delay":
             time.sleep(1.0 if f.arg is None else f.arg)
         return
+
+
+def poison(site, value):
+    """Value-poison injection point: return ``value``, or ``float('nan')``
+    when a planned ``nan`` fault fires on this hit.  Hits are counted per
+    process per site under a separate ``nan`` counter."""
+    faults = _faults_for_this_process()
+    if not faults:
+        return value
+    armed = [f for f in faults if f.site == site and f.kind == "nan"]
+    if not armed or _scoped_out():
+        return value
+    key = site + "#nan"
+    hit = _state["hits"].get(key, 0) + 1
+    _state["hits"][key] = hit
+    for f in armed:
+        if not f.matches(hit):
+            continue
+        logger.warning("fault injection: %r poisoning hit %d of %s (pid %d)",
+                       f, hit, site, os.getpid())
+        telemetry.event("fault/injected", site=site, kind="nan", hit=hit,
+                        pid=os.getpid())
+        return float("nan")
+    return value

@@ -1,0 +1,179 @@
+"""Step-time / throughput / MFU / infeed-stall counters.
+
+Counterpart of ``tensorflowonspark_tpu/utils/metrics.py``: one
+lightweight ``TrainMetrics`` aggregator per worker (time steps with
+``step()``, account feed waits with ``infeed_wait()``, read a summary
+with ``report()``), the transformer's FLOPs-per-token estimate, and a
+``peak_flops`` for the card.  The segmentation and MNIST FLOP counters
+walk a jaxpr and come with their models.
+
+MFU convention: model FLOPs per step / (step time x peak FLOPs).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+from tensorflowonspark_tpu_torch.utils import (
+    faults,
+    metrics_registry,
+    telemetry,
+)
+
+logger = logging.getLogger(__name__)
+
+# dense bf16 peak FLOP/s per card by device-name substring (NVIDIA data
+# sheets, SXM parts, at the full power limit)
+PEAK_FLOPS = {
+    "H100": 989e12,
+}
+
+
+def peak_flops(device=None):
+    """The card's dense bf16 peak: ``TFOS_PEAK_FLOPS`` if set, else the
+    table entry whose key is in the device's name; None for a CPU or an
+    unknown card (MFU not reported).  ``device``: anything
+    ``torch.device`` takes; default the current CUDA device."""
+    env = os.environ.get("TFOS_PEAK_FLOPS")
+    if env:
+        return float(env)
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    name = torch.cuda.get_device_name(dev)
+    for k, v in PEAK_FLOPS.items():
+        if k in name:
+            return v
+    return None
+
+
+def transformer_flops_per_token(cfg, causal=False):
+    """~6N FLOPs/token (fwd+bwd) + attention term, from the config.
+
+    Default is the PaLM appendix-B convention: the attention matmuls are
+    counted dense (12·L·d·S per token) even for causal models.
+    ``causal=True`` halves the attention term to count only the work a
+    causal kernel must do."""
+    n_params = (
+        cfg.vocab_size * cfg.dim * 2
+        + cfg.n_layers * (cfg.dim * cfg.dim * 4
+                          + cfg.dim * cfg.dim * cfg.mlp_ratio * 2)
+    )
+    attn = 12 * cfg.n_layers * cfg.dim * cfg.max_seq  # 2*2*3 * L * d * S
+    if causal:
+        attn //= 2
+    return 6 * n_params + attn
+
+
+class TrainMetrics:
+    """Windowed counters; cheap enough for the hot loop.
+
+    ``health``: an optional monitor with the reference watchtower's
+    ``observe_step(loss=, step_time_s=, infeed_frac=, grad_norm=,
+    grad_finite=, step=)``; every ``step()`` hands it the step's numbers.
+    The port has no watchtower yet, so the default is none."""
+
+    def __init__(self, flops_per_item=None, device=None, window=50,
+                 health=None):
+        self.flops_per_item = flops_per_item
+        self.window = window
+        self._peak = peak_flops(device) if flops_per_item else None
+        self.health = health or None
+        self.reset()
+
+    def reset(self):
+        self.steps = 0
+        self.items = 0
+        self.step_time = 0.0
+        self.infeed_time = 0.0
+        self._last = None
+
+    # -- recording ----------------------------------------------------------
+
+    def infeed_wait(self, seconds):
+        self.infeed_time += seconds
+
+    def step(self, items=0, loss=None, grad_norm=None, grad_finite=None):
+        """Call once per completed train step with the item count.
+
+        The first call only arms the timer; its items are NOT counted, so
+        rates divide N timed steps' items by N timed steps' time.  The
+        caller makes the step complete first (for a CUDA step: read the
+        loss, or synchronise).  ``loss``, ``grad_norm`` and
+        ``grad_finite`` go to the health monitor."""
+        # injection point ``train.step``: delay/exc before the clock read,
+        # so an injected delay lands in this step's measured duration
+        faults.check("train.step")
+        if loss is not None:
+            loss = faults.poison("train.step", loss)
+        now = time.perf_counter()
+        dur = None
+        if self._last is not None:
+            dur = now - self._last
+            self.step_time += dur
+            self.items += items
+            if telemetry.enabled():
+                attrs = {"items": items}
+                if self.flops_per_item:
+                    attrs["flops_per_item"] = self.flops_per_item
+                if self._peak:
+                    attrs["peak_flops"] = self._peak
+                telemetry.record_span("train/step", dur, **attrs)
+            if metrics_registry.enabled():
+                metrics_registry.inc("tfos_train_steps_total")
+                metrics_registry.observe("tfos_train_step_ms", dur * 1000.0)
+                if self.step_time:
+                    metrics_registry.set_gauge(
+                        "tfos_train_items_per_sec",
+                        self.items / self.step_time)
+                    metrics_registry.set_gauge(
+                        "tfos_train_infeed_stall_frac",
+                        min(self.infeed_time / self.step_time, 1.0))
+                    if self.flops_per_item and self._peak:
+                        metrics_registry.set_gauge(
+                            "tfos_train_mfu",
+                            self.items * self.flops_per_item
+                            / self.step_time / self._peak)
+        self._last = now
+        self.steps += 1
+        if self.health is not None:
+            self.health.observe_step(
+                loss=None if loss is None else float(loss),
+                step_time_s=dur,
+                infeed_frac=(min(self.infeed_time / self.step_time, 1.0)
+                             if self.step_time else None),
+                grad_norm=(None if grad_norm is None else float(grad_norm)),
+                grad_finite=(None if grad_finite is None
+                             else bool(grad_finite)),
+                step=self.steps)
+
+    # -- reading ------------------------------------------------------------
+
+    def report(self):
+        """Summary dict over the window since reset(); rates need >=2
+        step() calls (the first call only arms the timer)."""
+        out = {
+            "steps": self.steps,
+            "items": self.items,
+            "step_time_avg_s": self.step_time / max(self.steps - 1, 1),
+            "infeed_wait_s": self.infeed_time,
+            "infeed_stall_frac": (
+                self.infeed_time / self.step_time if self.step_time else 0.0
+            ),
+        }
+        if self.step_time:
+            out["items_per_sec"] = self.items / self.step_time
+            if self.flops_per_item and self._peak:
+                out["mfu"] = (
+                    self.items * self.flops_per_item
+                    / self.step_time / self._peak
+                )
+        return out
+
+    def maybe_log(self, prefix=""):
+        if self.steps and self.steps % self.window == 0:
+            logger.info("%smetrics: %s", prefix, self.report())

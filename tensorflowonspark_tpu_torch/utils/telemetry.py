@@ -1,11 +1,11 @@
 """Structured telemetry: per-process span/event records on one schema.
 
 An own copy of the part of ``tensorflowonspark_tpu/utils/telemetry.py``
-that the decode engine and fault injection call (``activate``,
-``event``, ``record_span``, ``flush`` and the ``DECODE_*`` names), with
-the same env gate and record format: enabled iff ``TFOS_TELEMETRY_DIR``
-is set (a cached no-op otherwise), one JSONL file per process, records
-buffered in a bounded ring::
+that the decode engine, fault injection and ``TrainMetrics`` call
+(``activate``, ``enabled``, ``event``, ``record_span``, ``flush`` and
+the ``DECODE_*`` names), with the same env gate and record format:
+enabled iff ``TFOS_TELEMETRY_DIR`` is set (a cached no-op otherwise),
+one JSONL file per process, records buffered in a bounded ring::
 
     {"ts": <epoch s>, "node_id": ..., "role": ...,
      "kind": "span"|"event", "name": ..., "dur_ms": <float>|null,
@@ -203,6 +203,11 @@ def _get():
         _STATE["rec"] = Recorder(key[2] or base) if base else None
         _STATE["key"] = key
         return _STATE["rec"]
+
+
+def enabled():
+    """True when telemetry is recording in this process."""
+    return _get() is not None
 
 
 def event(name, **attrs):

@@ -1,10 +1,11 @@
 """PyTorch port, ops/: the port's attention and norm ops held against the
 JAX package on the same numpy inputs (CPU).
 
-The JAX flash attention runs its Pallas kernel in interpret mode, as
+The JAX flash attention runs its Pallas kernels in interpret mode, as
 tests/test_ops.py does; the port's ``flash_attention`` on a CPU tensor
-runs its plain version.  The CUDA kernel itself is checked against that
-plain version on the card by chip_smoke.py.
+runs its plain versions, forward and backward.  The CUDA kernels
+themselves are checked against those plain versions on the card by
+chip_smoke.py.
 """
 
 import os
@@ -16,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from tensorflowonspark_tpu import ops as jops  # noqa: E402
@@ -152,7 +154,10 @@ bad = sorted(m for m in sys.modules
              or m == "tensorflowonspark_tpu"
              or m.startswith("tensorflowonspark_tpu."))
 print(len(names), bad)
-assert len(names) >= 12, names
+assert len(names) >= 15, names
+for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
+             "ops.attention"):
+    assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -160,3 +165,152 @@ assert not bad, bad
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# -- the backward ------------------------------------------------------------
+
+def _sq_loss_grads_jax(q, k, v, causal, block_q, block_kv, bwd_impl):
+    def f(q, k, v):
+        return jnp.sum(jops.flash_attention(
+            q, k, v, causal=causal, block_q=block_q, block_kv=block_kv,
+            bwd_impl=bwd_impl) ** 2)
+    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))]
+
+
+def _sq_loss_grads_torch(fn, q, k, v):
+    ts = [_t(a).requires_grad_() for a in (q, k, v)]
+    fn(*ts).pow(2).sum().backward()
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("bwd_impl", ["xla", "pallas"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [64, 96])  # 96: tail-masking blocks
+def test_flash_backward_matches_jax(seq, causal, bwd_impl):
+    """Gradients of sum(out²) through the port's flash_attention (its
+    autograd Function, plain backward on the CPU) against the JAX
+    package's flash under both of its backwards (the Pallas one in
+    interpret mode), mirroring tests/test_ops.py's pallas-backward
+    cases, at their 5e-4."""
+    q, k, v = _qkv(100 + seq + causal, 2, seq, 2, 16)
+    ref = _sq_loss_grads_jax(q, k, v, causal, 64, 64, bwd_impl)
+    got = _sq_loss_grads_torch(
+        lambda q, k, v: tops.flash_attention(q, k, v, causal=causal,
+                                             block_q=64, block_kv=64,
+                                             bwd_impl=bwd_impl), q, k, v)
+    for r, g, name in zip(ref, got, "qkv"):
+        np.testing.assert_allclose(g, r, atol=5e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [64, 96])
+def test_flash_backward_matches_mha_reference_autograd(seq, causal):
+    """The port's flash gradients against autograd through the port's
+    full-materialisation ``mha_reference``, at f32 gradient tolerance."""
+    q, k, v = _qkv(200 + seq + causal, 2, seq, 2, 16)
+    got = _sq_loss_grads_torch(
+        lambda q, k, v: tops.flash_attention(q, k, v, causal=causal,
+                                             block_q=32), q, k, v)
+    ref = _sq_loss_grads_torch(
+        lambda q, k, v: tops.mha_reference(q, k, v, causal=causal), q, k, v)
+    for r, g, name in zip(ref, got, "qkv"):
+        np.testing.assert_allclose(g, r, atol=2e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("block_q", [32, 48])  # 48: a partial last block
+def test_flash_backward_plain_uneven_blocks(block_q):
+    """``flash_backward_plain`` on the same (q, k, v, out, lse, g) as the
+    JAX Pallas backward with block_q != block_kv (64/32), the case that
+    exercises both kernels' diagonal bounds, mirroring
+    tests/test_ops.py's uneven-blocks case at its 5e-4."""
+    q, k, v = _qkv(5, 1, 128, 1, 8)
+    g = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(8)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    out, lse = jattn._flash_forward(jq, jk, jv, causal=True, scale=scale,
+                                    block_q=64, block_kv=32, interpret=True)
+    ref = jattn._flash_backward_pallas(
+        jq, jk, jv, out, lse, jg, causal=True, scale=scale, block_q=64,
+        block_kv=32, interpret=True)
+    got = tops.flash_backward_plain(
+        _t(q), _t(k), _t(v), _t(np.array(out)), _t(np.array(lse)),
+        _t(g), causal=True, scale=scale, block_q=block_q)
+    for r, t, name in zip(ref, got, "qkv"):
+        assert t.dtype == torch.float32 and t.shape == (1, 128, 1, 8)
+        np.testing.assert_allclose(t.numpy(), np.asarray(r), atol=5e-4,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_backward_plain_bf16_matches_jax_xla():
+    """bf16 inputs: f32 math inside, gradients in bf16, against the JAX
+    XLA backward on the same residuals (3e-2, the bf16 tolerance of
+    tests/test_ops.py)."""
+    q, k, v = _qkv(8, 2, 96, 2, 16)
+    g = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    scale = 0.25
+    jq, jk, jv, jg = (jnp.asarray(a).astype(jnp.bfloat16)
+                      for a in (q, k, v, g))
+    out, lse = jattn._flash_forward(jq, jk, jv, causal=True, scale=scale,
+                                    block_q=64, block_kv=64, interpret=True)
+    ref = jattn._flash_bwd_xla(True, scale, 64, 64,
+                               (jq, jk, jv, out, lse), jg)
+
+    def tt(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    got = tops.flash_backward_plain(
+        tt(jq), tt(jk), tt(jv), tt(out), _t(np.array(lse)), tt(jg),
+        causal=True, scale=scale, block_q=64)
+    for r, t, name in zip(ref, got, "qkv"):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_allclose(t.float().numpy(),
+                                   np.asarray(r.astype(jnp.float32)),
+                                   atol=3e-2, err_msg=f"d{name}")
+
+
+def test_flash_attention_validates_bwd_impl():
+    q, k, v = (_t(a) for a in _qkv(3, 1, 8, 1, 8))
+    with pytest.raises(ValueError, match="bwd_impl"):
+        tops.flash_attention(q, k, v, bwd_impl="triton")
+    with pytest.raises(ValueError, match="bwd_impl"):
+        jops.flash_attention(*(jnp.asarray(a) for a in _qkv(3, 1, 8, 1, 8)),
+                             bwd_impl="triton")
+
+
+def test_cpu_backward_never_reaches_the_kernel_wrappers(monkeypatch):
+    """On a machine without CUDA, forward and backward of flash_attention
+    take the plain versions: the CUDA wrappers are never called and no
+    launch is counted."""
+    def boom(*a, **kw):
+        raise AssertionError("CUDA wrapper reached from a CPU tensor")
+
+    monkeypatch.setattr(tattn, "_flash_forward_cuda", boom)
+    monkeypatch.setattr(tattn, "_flash_backward_cuda", boom)
+    monkeypatch.setattr(tattn, "_bwd_lib", boom)
+    before = (tattn.launches, tattn.dq_launches, tattn.dkv_launches)
+    qkv = _t(np.random.default_rng(4).standard_normal(
+        (2, 40, 3, 2, 64)).astype(np.float32)).requires_grad_()
+    out = tops.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                               causal=True, bwd_impl="pallas")
+    out.sum().backward()
+    assert torch.isfinite(qkv.grad).all()
+    assert (tattn.launches, tattn.dq_launches, tattn.dkv_launches) == before
+
+
+@pytest.mark.parametrize("head_dim,match", [(32, r"\(64, 128\)"),
+                                            (96, r"\(64, 128\)"),
+                                            (64, "CUDA tensor")])
+def test_cuda_backward_wrapper_refuses_what_the_kernels_do_not_take(
+        head_dim, match):
+    """The backward's CUDA wrapper never falls back: a head_dim the
+    kernels are not built for is a ValueError naming the supported set,
+    and CPU tensors handed to it are refused."""
+    q, k, v = (_t(a) for a in _qkv(2, 1, 8, 2, head_dim))
+    out, lse = tattn.flash_attention_plain(q, k, v, causal=True)
+    before = (tattn.dq_launches, tattn.dkv_launches)
+    with pytest.raises(ValueError, match=match):
+        tattn._flash_backward_cuda(q, k, v, out, lse, torch.ones_like(q),
+                                   causal=True, scale=0.125)
+    assert (tattn.dq_launches, tattn.dkv_launches) == before
