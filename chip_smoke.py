@@ -5,8 +5,9 @@
 
 Run from the root of a checkout on a machine with a CUDA card (Hopper,
 ``sm_90a``).  It builds the port's kernels from the checkout's sources
-into ``build/torch_kernels/`` and drives the port's two paths, training
-(the main path) and serving:
+into ``build/torch_kernels/`` and drives the port's three paths: the
+SPARK-fed training path (the main path), in-process training and
+serving, plus the ``fused_rmsnorm`` entry point:
 
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; TF32 off for float32
@@ -18,22 +19,33 @@ into ``build/torch_kernels/`` and drives the port's two paths, training
 3. the flash backward's dq and dk/dv kernels against
    ``flash_backward_plain`` in the same cases, timed the same way (the
    library call is SDPA's backward);
-4. training at full width (the repo's on-chip transformer config,
+4. the RMSNorm kernel against ``rmsnorm_reference`` at the transformer's
+   activation shape in bf16 and float32 and at tail shapes (scalar
+   path, ragged rows, a misaligned input), forward and gradient through
+   ``fused_rmsnorm``; times beside its bound and ``F.rms_norm``;
+5. training at full width (the repo's on-chip transformer config,
    bf16, batch 8): five Adam(1e-3) steps fed through
    ``prefetch_to_device``; every loss finite and the loss falling; the
    forward, dq and dk/dv kernels each launched once per layer per step;
    ``remat=True`` and ``remat="dots"`` give the same loss, running the
    forward twice; the blockwise CE gives the dense loss; a profiled
    rerun splits the device time by kernel group;
-5. gradient exactness at full width in float32: one step's loss and
+6. the same training SPARK-fed (the main path): ``cluster.run`` on a
+   one-executor ``LocalEngine`` with ``num_gpus=1``, the same batch as
+   8 token records a step through the rendezvous, the node's GPU claim,
+   a forked trainer, ``torch_initialize``, ``DataFeed`` and
+   ``device_feed``; its five losses equal phase 5's, each flash kernel
+   launched 8 times a step in the trainer, every partition consumed
+   once (the rendezvous ledger) and no trainer left after shutdown;
+7. gradient exactness at full width in float32: one step's loss and
    every parameter's gradient through the kernels equal those through
    ``mha_reference`` attention, which never touches a kernel;
-6. serving at full width (bf16): a paged, prefix-sharing
+8. serving at full width (bf16): a paged, prefix-sharing
    ``DecodeEngine`` answers 16 sessions; every token index streams once
    and in order, the prefix trie is hit, the cache ends empty with no
    leaked block, and the flash kernel ran on every layer of every plain
    prefill;
-7. token-exactness at full width in float32: ``DecodeEngine`` greedy
+9. token-exactness at full width in float32: ``DecodeEngine`` greedy
    tokens equal the full-recompute ``greedy_decode_reference`` with
    ``mha_reference`` attention.
 
@@ -41,7 +53,9 @@ Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it names the card, the one before that lists the
-kernels' results, with their launches on the training path.  Imports
+kernels' results, with their launches on the path each is on (the flash
+kernels: in-process training, and ``launches_spark_train`` in the
+SPARK-fed trainer; RMSNorm: one call of ``fused_rmsnorm``).  Imports
 only torch, numpy and the port.
 """
 
@@ -49,18 +63,29 @@ from __future__ import annotations
 
 import collections
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
+from tensorflowonspark_tpu_torch import cluster as TFCluster
 from tensorflowonspark_tpu_torch import infeed
+from tensorflowonspark_tpu_torch.engine import LocalEngine
+from tensorflowonspark_tpu_torch.examples import transformer_spark
 from tensorflowonspark_tpu_torch.models import transformer as T
-from tensorflowonspark_tpu_torch.ops import _build, attention
+from tensorflowonspark_tpu_torch.ops import (
+    _build,
+    attention,
+    fused_rmsnorm,
+    norm,
+)
 from tensorflowonspark_tpu_torch.utils import metrics
 from tensorflowonspark_tpu_torch.serving.decode import (
     DecodeEngine,
@@ -103,6 +128,31 @@ BF16_RTOL = 2.0 ** -7
 BWD_F32_TOL = 2e-4
 
 TRAIN_BATCH, TRAIN_STEPS = 8, 5  # bench.py:920's batch; five Adam steps
+
+# (shape, dtype, element offset of x in its buffer); the first is the
+# transformer's activation, [8*2048, 1024], the one the kernels line
+# reports.  Tails: dim 100 (bf16) and 97 (f32) are no multiple of a
+# 16-byte vector, 900 / 903 / 7 rows no multiple of a CTA's 8; the f16
+# input starts one element past a 16-byte boundary.  All take the
+# scalar path.
+RMS_CASES = [
+    ((8, 2048, 1024), torch.bfloat16, 0),
+    ((8, 2048, 1024), torch.float32, 0),
+    ((3, 300, 100), torch.bfloat16, 0),
+    ((3, 301, 97), torch.float32, 0),
+    ((7, 64), torch.float16, 1),
+]
+# Kernel and plain version compute in float32 from the same inputs and
+# round once: per element, one ulp of the output type (2^-7 of |ref| in
+# bf16, 2^-10 in f16) plus 1e-5, or 1e-5 + 1e-5*|ref| in float32 (rsqrt
+# and summation order).
+RMS_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+            torch.float32: 1e-5}
+RMS_ATOL = 1e-5
+# the SPARK-fed losses against the in-process ones: the same kernels on
+# the same batches, but bf16 embedding gradients are summed with atomics
+# in no fixed order
+SPARK_LOSS_RTOL = 1e-3
 
 
 def gpu_line():
@@ -286,6 +336,73 @@ def phase_flash_bwd(dev):
     return rows[0]
 
 
+def _rms_close(got, ref, dtype):
+    """(max abs error, worst share of ``RMS_RTOL*|ref| + RMS_ATOL``)."""
+    ref = ref.float()
+    diff = (got.float() - ref).abs()
+    share = (diff / (RMS_RTOL[dtype] * ref.abs() + RMS_ATOL)).max().item()
+    return diff.max().item(), share
+
+
+def phase_rmsnorm(dev):
+    """The RMSNorm kernel against ``rmsnorm_reference``, forward and
+    gradient through ``fused_rmsnorm``; the entry point's path is one
+    forward and backward at the main shape.  Returns the main case's
+    row."""
+    gen = torch.Generator(device=dev).manual_seed(99)
+    rows = []
+    for shape, dtype, offset in RMS_CASES:
+        n = int(np.prod(shape))
+        buf = torch.randn(n + offset, generator=gen, device=dev,
+                          dtype=torch.float32).to(dtype)
+        x = buf[offset:].view(shape)
+        dim = shape[-1]
+        scale = (torch.randn(dim, generator=gen, device=dev) + 1.0)
+        g = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype)
+        norm.launches = 0  # the entry point's path: one call
+        xk = x.detach().requires_grad_()
+        sk = scale.detach().requires_grad_()
+        y = fused_rmsnorm(xk, sk)
+        gx, gs = torch.autograd.grad(y, (xk, sk), g)
+        path_launches = norm.launches
+        xr = x.detach().requires_grad_()
+        sr = scale.detach().requires_grad_()
+        yr = norm.rmsnorm_reference(xr, sr)
+        rgx, rgs = torch.autograd.grad(yr, (xr, sr), g)
+        torch.cuda.synchronize()
+        err, share = _rms_close(y, yr, dtype)
+        gerr = max(_rms_close(gx, rgx, dtype)[1],
+                   _rms_close(gs, rgs, torch.float32)[1])
+        if not (y.dtype == dtype and share <= 1.0 and gerr <= 1.0
+                and path_launches == 1):
+            raise AssertionError(
+                f"rmsnorm kernel disagrees with its plain version at "
+                f"{shape} {dtype} (offset {offset}): out err {err} "
+                f"({share:.3g} of the per-element tolerance), grad share "
+                f"{gerr:.3g}, {path_launches} launches for one call")
+        reps = 50 if n >= 1 << 20 else 100
+        with torch.no_grad():
+            ms = time_ms(lambda: norm._rmsnorm_cuda(x, scale, 1e-6, 256),
+                         reps)
+            plain_ms = time_ms(lambda: norm.rmsnorm_reference(x, scale),
+                               reps)
+            s_lib = scale.to(dtype)
+            library_ms = time_ms(lambda: torch.nn.functional.rms_norm(
+                x, (dim,), s_lib, 1e-6), reps)
+        esize = x.element_size()
+        bound, bound_by = bound_ms(4.0 * n, 2 * esize * n + 4 * dim,
+                                   torch.float32)
+        row = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                   offset=offset, max_abs_err=err, tol_share=share,
+                   grad_tol_share=gerr, launches=path_launches, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   library_ms=library_ms)
+        print("rmsnorm case " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows[0]
+
+
 def _param_leaves(params):
     return [params["embed"], params["ln_f"], params["head"],
             *params["layers"].values()]
@@ -308,9 +425,9 @@ def _grad_norm(leaves):
 
 def phase_train(dev, gpu):
     """Full-width bf16 training through the kernels: the blockwise-CE
-    check on the initial params, five Adam steps (the main path), then
-    the remat checks and a profiled rerun; returns the main path's
-    launch counts."""
+    check on the initial params, five Adam steps, then the remat checks
+    and a profiled rerun; returns the five steps' launch counts and
+    summary."""
     cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
     params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     leaves = _param_leaves(params)
@@ -362,6 +479,7 @@ def phase_train(dev, gpu):
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms = [], []
     _reset_counts()
+    norm.launches = 0
     feed = iter(infeed.prefetch_to_device(
         (tokens for _ in range(TRAIN_STEPS)), depth=2, placement=dev))
     while True:
@@ -384,6 +502,9 @@ def phase_train(dev, gpu):
         step_ms.append(start.elapsed_time(end))
         tm.step(items=items, loss=losses[-1])
     launches = _counts()
+    if norm.launches:
+        raise AssertionError(f"the transformer calls rmsnorm_reference; "
+                             f"the RMSNorm kernel ran {norm.launches} times")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"train losses {losses}")
@@ -440,7 +561,93 @@ def phase_train(dev, gpu):
           flush=True)
     del params, leaves, opt, prof
     torch.cuda.empty_cache()
-    return launches
+    return launches, summary
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def phase_spark_train(engine, gpu, train):
+    """The main path: phase_train's five steps SPARK-fed through the
+    port's cluster on ``engine``, a one-executor ``LocalEngine`` started
+    with the script (its interpreter boots while the kernel phases run,
+    so the boot time below is the cluster's).  ``train`` is
+    phase_train's summary, whose losses this run must give."""
+    cfg = dict(FULL, dtype="bfloat16", attn_impl="flash")
+    n_layers = FULL["n_layers"]
+    tokens = np.random.default_rng(0).integers(
+        0, FULL["vocab_size"], (TRAIN_BATCH, FULL["max_seq"]))
+    # phase_train's batch as 8 records a step, 5 partitions of 8
+    records = [tokens[i].astype(np.int32) for i in range(TRAIN_BATCH)] \
+        * TRAIN_STEPS
+    out_dir = tempfile.mkdtemp(prefix="tfos_spark_train_")
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, transformer_spark.main_fun,
+            {"config": cfg, "batch_size": TRAIN_BATCH, "seed": 0,
+             "out_dir": out_dir},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300)
+        t_run = time.time() - t0
+        c.train(engine.parallelize(records, TRAIN_STEPS), feed_timeout=600)
+        fed = c.server.fed_partitions("input")
+        c.shutdown()
+        t_total = time.time() - t0
+        with open(os.path.join(out_dir, "transformer-rank0.json")) as f:
+            report = json.load(f)
+        orphan = _alive(report["pid"])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses, ref = report["losses"], train["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    med = statistics.median(report["step_ms"])
+    items = TRAIN_BATCH * FULL["max_seq"]
+    summary = dict(
+        losses=losses, phase_train_losses=ref,
+        max_rel_loss_diff=max(rel) if rel else None,
+        step_ms=report["step_ms"], step_ms_median=med,
+        tokens_per_s=items / (med / 1e3),
+        phase_train_step_ms_median=train["step_ms_median"],
+        phase_train_tokens_per_s=train["tokens_per_s"],
+        infeed_stall_frac=report["train_metrics"]["infeed_stall_frac"],
+        phase_train_infeed_stall_frac=train["train_metrics"][
+            "infeed_stall_frac"],
+        feed_wait_s=report["feed_wait_s"],
+        boot_s=report["first_step_wall"] - t0, cluster_run_s=t_run,
+        main_start_s=report["main_start_wall"] - t0,
+        joined_s=report["joined_wall"] - t0,
+        model_ready_s=report["model_wall"] - t0,
+        total_s=t_total, launches=report["launches"],
+        records=report["records"], fed_partitions=fed,
+        trainer_alive_after_shutdown=orphan, health=report["health"],
+        cuda_visible_devices=report["cuda_visible_devices"],
+        train_metrics=report["train_metrics"],
+        peak_mem_gb=report["peak_mem_gb"], gpu=gpu)
+    print("spark_train " + json.dumps(summary), flush=True)
+    if len(losses) != TRAIN_STEPS or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"SPARK-fed losses {losses} vs in-process "
+                             f"{ref} (rtol {SPARK_LOSS_RTOL})")
+    want = n_layers * TRAIN_STEPS
+    if report["launches"] != dict(flash_fwd=want, flash_dq=want,
+                                  flash_dkv=want):
+        raise AssertionError(f"trainer launches {report['launches']}, want "
+                             f"{want} of each")
+    if fed != list(range(TRAIN_STEPS)) or \
+            report["records"] != TRAIN_BATCH * TRAIN_STEPS:
+        raise AssertionError(f"fed partitions {fed}, records the trainer's "
+                             f"DataFeed handed out {report['records']}")
+    if orphan:
+        raise AssertionError(f"trainer {report['pid']} alive after "
+                             "shutdown")
+    return report["launches"]
 
 
 def phase_grad_exact(dev):
@@ -687,7 +894,23 @@ def main():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # the SPARK-fed phase's executor: spawned now, so its interpreter's
+    # start overlaps the kernel phases; stopped, with every child, below
+    engine = LocalEngine(1)
+    try:
+        kernels = run_phases(dev, gpu, engine)
+    finally:
+        engine.stop()
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"gpu: {gpu}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
+
+def run_phases(dev, gpu, engine):
+    """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
@@ -699,7 +922,9 @@ def main():
 
     fwd_case = phase_flash(dev)
     bwd_case = phase_flash_bwd(dev)
-    launches = phase_train(dev, gpu)
+    rms_case = phase_rmsnorm(dev)
+    launches, train = phase_train(dev, gpu)
+    spark_launches = phase_spark_train(engine, gpu, train)
     phase_grad_exact(dev)
     phase_serving(dev, gpu)
     phase_exact(dev)
@@ -737,13 +962,20 @@ def main():
              bound_ms=bwd_case["dkv_bound_ms"],
              bound_by=bwd_case["dkv_bound_by"],
              library_ms=bwd_case["library_ms"], **whole_bwd),
+        dict(name="rmsnorm", route="cuda",
+             source="tensorflowonspark_tpu_torch/ops/csrc/rmsnorm.cu",
+             replaces="tensorflowonspark_tpu/ops/norm.py:24",
+             launches=rms_case["launches"], launches_train_path=0,
+             launches_scope="one call of fused_rmsnorm, forward and "
+                            "backward (no model calls it)",
+             max_abs_err=rms_case["max_abs_err"], ms=rms_case["ms"],
+             plain_ms=rms_case["plain_ms"], bound_ms=rms_case["bound_ms"],
+             bound_by=rms_case["bound_by"],
+             library_ms=rms_case["library_ms"]),
     ]
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(f"gpu: {gpu}", flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    for k in kernels[:3]:
+        k["launches_spark_train"] = spark_launches[k["name"]]
+    return kernels
 
 
 if __name__ == "__main__":

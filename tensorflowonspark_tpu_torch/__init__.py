@@ -13,7 +13,13 @@ second is the transformer's training path: ``models.transformer.loss_fn``
 differentiated by autograd, whose attention backward runs the
 hand-written dq and dk/dv kernels (``ops/csrc/flash_bwd.cu``), with the
 step utilities (``utils.train``, ``utils.metrics``) and
-``infeed.prefetch_to_device``.
+``infeed.prefetch_to_device``.  The third is the SPARK-fed training
+path: the package's own copies of the cluster layer (``cluster``,
+``node``, ``engine``, ``rendezvous``, ``manager``, ``feed``,
+``gpu_info``) feed engine partitions through a ``DataFeed`` into
+trainers forked from the executors, which join one process group
+(``TFNodeContext.torch_initialize``); with it came the last kernel,
+RMSNorm (``ops.fused_rmsnorm``, ``ops/csrc/rmsnorm.cu``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); :func:`resolve_device` never falls

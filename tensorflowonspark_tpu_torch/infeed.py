@@ -1,13 +1,15 @@
 """Infeed pipelining: overlap host batch preparation with device compute.
 
-Counterpart of ``tensorflowonspark_tpu/infeed.py``, ``prefetch_to_device``
-only: a background thread stages batches ``depth`` ahead of the
-consumer, so the card computes on batch t while t+1..t+depth are
-already in device memory.  On a CUDA device each batch is copied from
-pinned host memory with a non-blocking copy on a side stream; the
-consumer's stream waits on that copy's event before it touches the
-batch.  ``device_feed``, ``synchronized`` and ``tfrecord_device_feed``
-need ``DataFeed`` and the process group, and come with them.
+Counterpart of ``tensorflowonspark_tpu/infeed.py``: ``batch_iterator``
+(a ``DataFeed`` -> collated host batches), ``prefetch_to_device`` (a
+background thread stages batches ``depth`` ahead of the consumer, so the
+card computes on batch t while t+1..t+depth are already in device
+memory), ``device_feed`` (the two composed) and ``synchronized`` (every
+process of the job stops on the same step).  On a CUDA device each batch
+is copied from pinned host memory with a non-blocking copy on a side
+stream; the consumer's stream waits on that copy's event before it
+touches the batch.  ``tfrecord_device_feed`` waits in ROADMAP.md
+(queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -85,6 +87,27 @@ def _device_placer(device):
         return _Staged(staged, event, device)
 
     return place
+
+
+def batch_iterator(feed, batch_size, collate=None, columnar=False):
+    """``DataFeed`` -> iterator of collated host batches.
+
+    ``collate(records) -> tree of numpy arrays or tensors`` (default: the
+    records as they are).  Tails shorter than ``batch_size`` are always
+    dropped (the JAX package's ``min_batch`` is left out), so every step
+    sees a full batch: with gradients averaged over the processes
+    (``sum / world_size``), equal per-process batches are what make that
+    the global mean.
+    ``columnar=True`` pulls with ``feed.next_batch_columns``: collate
+    gets ``{tensor: ndarray[n, ...]}`` (requires ``input_mapping``)."""
+    pull = feed.next_batch_columns if columnar else feed.next_batch
+    while not feed.should_stop():
+        records = pull(batch_size)
+        n = (len(next(iter(records.values()))) if isinstance(records, dict)
+             else len(records))
+        if n < batch_size:
+            continue
+        yield collate(records) if collate is not None else records
 
 
 def prefetch_to_device(it, depth=2, placement=None, on_abandon=None):
@@ -185,3 +208,61 @@ def prefetch_to_device(it, depth=2, placement=None, on_abandon=None):
                 q.get_nowait()
             except _queue.Empty:
                 break
+
+
+def device_feed(feed, batch_size, *, collate=None, depth=2, placement=None,
+                columnar=False):
+    """The composed fast path: ``DataFeed`` -> ``collate`` ->
+    double-buffered device staging (:func:`prefetch_to_device`, whose
+    ``placement`` rules apply: None is the current CUDA device).
+    Abandoning the stream poisons the feed, so the prefetch worker exits
+    instead of polling the queue; call ``feed.terminate()`` afterwards
+    for the producer-drain handshake."""
+    return prefetch_to_device(
+        batch_iterator(feed, batch_size, collate, columnar),
+        depth=depth, placement=placement,
+        on_abandon=getattr(feed, "poison", None))
+
+
+def synchronized(it, feed=None):
+    """Yield from ``it`` only while EVERY process of the job still has a
+    next item.
+
+    At the end of a feed the processes hold different numbers of full
+    batches; one that stepped once more would wait forever in a gradient
+    all-reduce its peers never join.  So before each item every process
+    all-reduces a has-data flag with MIN over the process group (once
+    per item: skipping an exchange would bring that hang back), and all
+    stop on the same step.  ``feed``: the ``DataFeed`` behind ``it``; a
+    process that stops with batches left drains it
+    (``feed.terminate()``), keeping the feeders' handshake intact.
+
+    Scope, as in the JAX package: this aligns the end-of-feed tail.  A
+    process starved in mid-feed blocks on its feed before it reaches the
+    exchange; the engine's partitioning keeps the per-process record
+    counts balanced.  Outside a process group of more than one process
+    it passes the items straight through."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        yield from it
+        return
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    while True:
+        item = next(it, None)
+        flag = torch.tensor([int(item is not None)], dtype=torch.int32,
+                            device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        if not int(flag.item()):
+            if item is not None:
+                logger.info("synchronized: a peer's feed ended; draining "
+                            "the local remainder")
+                if feed is not None:
+                    feed.terminate()
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()  # reap the prefetch thread and staged batches
+            return
+        yield item

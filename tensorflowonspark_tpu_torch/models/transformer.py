@@ -42,7 +42,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from tensorflowonspark_tpu_torch import ops
+from tensorflowonspark_tpu_torch import ops, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NEG_INF = -1e30  # finite mask fill (ops.attention convention: never -inf)
@@ -126,8 +126,10 @@ def init(cfg: Config, generator, device=None):
 def params_from_jax(tree, cfg: Config, device=None):
     """Convert the reference's params pytree (nested dicts of numpy or
     JAX arrays, layers stacked ``[n_layers, ...]``) into this module's
-    float32 tensors on ``device``.  Shapes are checked against ``cfg``."""
-    device = torch.device("cpu" if device is None else device)
+    float32 tensors on ``device`` (default: the current CUDA device,
+    through :func:`resolve_device`, which raises without a card; pass
+    ``device="cpu"`` for the CPU).  Shapes are checked against ``cfg``."""
+    device = resolve_device(device)
     shapes = _param_shapes(cfg)
 
     def conv(x, shape, name):

@@ -2,8 +2,9 @@
 
 Counterpart of ``tensorflowonspark_tpu/ops``: the Pallas flash-attention
 forward becomes the CUDA C++ kernel in ``csrc/flash_fwd.cu``, its dq and
-dk/dv backward kernels those in ``csrc/flash_bwd.cu``; the plain
-versions are what the CPU runs and what the kernels are held against.
+dk/dv backward kernels those in ``csrc/flash_bwd.cu``, the RMSNorm
+kernel ``csrc/rmsnorm.cu``; the plain versions are what the CPU runs and
+what the kernels are held against.
 """
 
 from tensorflowonspark_tpu_torch.ops.attention import (  # noqa: F401
@@ -15,5 +16,6 @@ from tensorflowonspark_tpu_torch.ops.attention import (  # noqa: F401
     rope_angles,
 )
 from tensorflowonspark_tpu_torch.ops.norm import (  # noqa: F401
+    fused_rmsnorm,
     rmsnorm_reference,
 )

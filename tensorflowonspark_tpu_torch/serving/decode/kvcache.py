@@ -43,6 +43,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tensorflowonspark_tpu_torch import resolve_device
+
 
 class CacheOOM(RuntimeError):
     """Block allocation failed even after trie reclamation."""
@@ -51,7 +53,8 @@ class CacheOOM(RuntimeError):
 class SlotKVCache:
     """Preallocated per-slot K/V pages + host-side cursor/free-list."""
 
-    def __init__(self, cfg, slots, max_seq=None, dtype=None, device="cpu"):
+    def __init__(self, cfg, slots, max_seq=None, dtype=None, device=None):
+        device = resolve_device(device)  # None: the card, or raise
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError("need at least one slot")
@@ -212,7 +215,8 @@ class PagedKVCache:
 
     def __init__(self, cfg, slots, block_size=None, num_blocks=None,
                  max_seq=None, dtype=None, prefix_sharing=True,
-                 device="cpu"):
+                 device=None):
+        device = resolve_device(device)  # None: the card, or raise
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError("need at least one slot")

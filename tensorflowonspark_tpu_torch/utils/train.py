@@ -1,5 +1,5 @@
 """Training-loop building blocks: gradient norm, health probe, gradient
-accumulation.
+accumulation, the data-parallel gradient all-reduce.
 
 Counterpart of ``tensorflowonspark_tpu/utils/train.py``.  Parameters and
 gradients are trees of tensors (nested dicts, lists or tuples) with the
@@ -24,6 +24,27 @@ def gradnorm_enabled():
     """True when ``TFOS_HEALTH_GRADNORM`` asks for the health probe."""
     return os.environ.get(GRADNORM_ENV, "").strip().lower() in (
         "1", "true", "on", "yes")
+
+
+def all_reduce_mean_(grads):
+    """Sum each gradient tensor across the process group and divide by
+    its size, in place; nothing outside a group of more than one
+    process.  The JAX package gets this all-reduce from XLA through the
+    batch sharded over the mesh (``local_to_global``); here it runs
+    after ``backward``.  It equals the global batch's mean gradient when
+    every process steps on the same batch size, which ``synchronized``
+    and dropping ragged tails (``infeed.batch_iterator``) guarantee."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    world = dist.get_world_size()
+    if world == 1:
+        return
+    for g in grads:
+        if g is not None:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM)
+            g.div_(world)
 
 
 def global_norm(tree):

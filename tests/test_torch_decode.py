@@ -46,7 +46,8 @@ def _cfg(**kw):
 @pytest.fixture(scope="module")
 def params():
     pj = JT.init(jax.random.PRNGKey(0), JT.Config(**KW))
-    pt = TT.params_from_jax(jax.tree_util.tree_map(np.asarray, pj), _cfg())
+    pt = TT.params_from_jax(jax.tree_util.tree_map(np.asarray, pj), _cfg(),
+                          device="cpu")
     return pj, pt
 
 
@@ -89,9 +90,24 @@ def _run_sessions(params, spec, jobs, timeout=120):
 
 # --- KV cache units ---------------------------------------------------------
 
+@pytest.mark.parametrize("build", [
+    lambda cfg, tree: TT.params_from_jax(tree, cfg),
+    lambda cfg, tree: kvcache.SlotKVCache(cfg, slots=1),
+    lambda cfg, tree: kvcache.PagedKVCache(cfg, slots=1, block_size=4),
+], ids=["params_from_jax", "SlotKVCache", "PagedKVCache"])
+def test_entry_points_default_to_the_card(params, monkeypatch, build):
+    """Without ``device=`` the weights and the caches go to the card, as
+    every entry point does: with no CUDA present the call raises
+    ``resolve_device``'s error instead of landing on the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = jax.tree_util.tree_map(np.asarray, params[0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(_cfg(), tree)
+
+
 def test_kvcache_slot_lifecycle_and_insert():
     cfg = _cfg()
-    cache = kvcache.SlotKVCache(cfg, slots=3)
+    cache = kvcache.SlotKVCache(cfg, slots=3, device="cpu")
     assert tuple(cache.k.shape) == (3, 2, 2, 32, 16)
     assert bool((cache.k == 0).all())  # pools start at zero
     assert cache.free_slots == 3 and cache.occupancy == 0
@@ -110,7 +126,8 @@ def test_kvcache_slot_lifecycle_and_insert():
 
 
 def test_paged_kvcache_lifecycle_refcounts_and_prefix_match():
-    cache = kvcache.PagedKVCache(_cfg(), slots=2, block_size=4)
+    cache = kvcache.PagedKVCache(_cfg(), slots=2, block_size=4,
+                                 device="cpu")
     assert tuple(cache.k.shape) == (cache.num_blocks, 2, 2, 4, 16)
     assert cache.blocks_per_slot == 8
     assert cache.blocks_in_use == 0 and cache.leaked_blocks() == []
@@ -141,8 +158,10 @@ def test_paged_kvcache_lifecycle_refcounts_and_prefix_match():
 def test_paged_kvcache_trie_reclaim_lru_and_oom():
     cfg = _cfg()
     with pytest.raises(ValueError):
-        kvcache.PagedKVCache(cfg, slots=1, block_size=4, num_blocks=8)
-    cache = kvcache.PagedKVCache(cfg, slots=1, block_size=4, num_blocks=9)
+        kvcache.PagedKVCache(cfg, slots=1, block_size=4, num_blocks=8,
+                             device="cpu")
+    cache = kvcache.PagedKVCache(cfg, slots=1, block_size=4, num_blocks=9,
+                                 device="cpu")
     prompt = list(range(1, 11))
     slot = cache.alloc()
     cache.map_session(slot, [], cache.alloc_blocks(3), 10)
@@ -163,7 +182,8 @@ def test_paged_kvcache_trie_reclaim_lru_and_oom():
 def test_insert_tail_edge_pads_on_device_like_numpy(start, length):
     """insert_tail keeps K/V on the device and pads the last block by
     edge replication, exactly as the reference's np.pad(mode='edge')."""
-    cache = kvcache.PagedKVCache(_cfg(), slots=1, block_size=4)
+    cache = kvcache.PagedKVCache(_cfg(), slots=1, block_size=4,
+                                 device="cpu")
     slot = cache.alloc()
     nb = -(-(start + length) // 4)
     cache.map_session(slot, [], cache.alloc_blocks(nb), start + length)

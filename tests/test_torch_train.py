@@ -48,7 +48,7 @@ def _cfgs(**over):
 def _params(cfg_j, cfg_t, seed=0):
     pj = JT.init(jax.random.PRNGKey(seed), cfg_j)
     return pj, TT.params_from_jax(jax.tree_util.tree_map(np.asarray, pj),
-                                  cfg_t)
+                                  cfg_t, device="cpu")
 
 
 def _tokens(vocab, shape=(2, 32), seed=0):

@@ -32,7 +32,7 @@ LOGIT_TOL, KV_TOL = 1e-4, 1e-5
 def params():
     pj = JT.init(jax.random.PRNGKey(0), CFG_J)
     tree = jax.tree_util.tree_map(np.asarray, pj)
-    return pj, TT.params_from_jax(tree, CFG_T)
+    return pj, TT.params_from_jax(tree, CFG_T, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +77,8 @@ def test_params_from_jax_checks_shapes(params):
     pj, _ = params
     tree = jax.tree_util.tree_map(np.asarray, pj)
     with pytest.raises(ValueError, match=r"embed: shape \(61, 32\)"):
-        TT.params_from_jax(tree, TT.Config(**{**KW, "dim": 16}))
+        TT.params_from_jax(tree, TT.Config(**{**KW, "dim": 16}),
+                           device="cpu")
 
 
 def test_apply_logits_match_jax(params):
