@@ -12,13 +12,16 @@ serving, plus the ``fused_rmsnorm`` entry point:
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; TF32 off for float32
    matmuls and convolutions, bf16 matmuls accumulate in float32;
-1. build every kernel (one ``nvcc`` per source, started together);
+1. build every kernel (one ``nvcc`` per source, started together); the
+   ``ptxas`` registers and spills of every kernel; the bf16 backward
+   kernels must issue tensor-core MMAs (``HMMA`` in their SASS, read
+   with ``cuobjdump``) and spill nothing, the float32 ones none;
 2. the flash forward kernel against its plain PyTorch version on the
    card, at the main path's shapes and the tail / head_dim cases, with
    times beside its bound and a library call (SDPA);
-3. the flash backward's dq and dk/dv kernels against
-   ``flash_backward_plain`` in the same cases, timed the same way (the
-   library call is SDPA's backward);
+3. the flash backward's dq and dk/dv kernels (bf16: tensor cores;
+   float32: FMAs) against ``flash_backward_plain`` in the same cases,
+   timed the same way (the library call is SDPA's backward);
 4. the RMSNorm kernel against ``rmsnorm_reference`` at the transformer's
    activation shape in bf16 and float32 and at tail shapes (scalar
    path, ragged rows, a misaligned input), forward and gradient through
@@ -64,6 +67,7 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -108,6 +112,11 @@ FLASH_CASES = [
     (2, 96, 8, 128, False, torch.float32, 2e-5),   # tail masking
     (1, 1, 8, 128, True, torch.bfloat16, 2e-5),    # a one-token prompt
     (3, 300, 4, 64, True, torch.float32, 2e-5),    # head_dim 64
+    # the bf16 twins of the tail cases, which reach the tensor-core
+    # backward kernels, and a ragged causal sequence at full width
+    (2, 96, 8, 128, False, torch.bfloat16, 2e-5),
+    (3, 300, 4, 64, True, torch.bfloat16, 2e-5),
+    (1, 1000, 8, 128, True, torch.bfloat16, 2e-5),
 ]
 LSE_TOL = 1e-4
 # Every kernel and its plain version compute in float32 from the same
@@ -153,6 +162,75 @@ RMS_ATOL = 1e-5
 # the same batches, but bf16 embedding gradients are summed with atomics
 # in no fixed order
 SPARK_LOSS_RTOL = 1e-3
+
+
+def ptxas_report(log):
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from ``nvcc -Xptxas -v`` output."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            report[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            report[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def sass_mma_counts(lib_path):
+    """{kernel symbol: tensor-core MMA instructions (HMMA)} in the SASS of
+    a built kernel library, read with the toolkit's ``cuobjdump``."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_bwd_build():
+    """The bf16 backward kernels issue tensor-core MMAs and spill nothing
+    (as ``ptxas`` reported when this process built them); the float32
+    ones are FMA kernels.  Returns {"flash_dq": ..., "flash_dkv": ...}:
+    each bf16 kernel's registers and HMMA count by head_dim."""
+    regs = ptxas_report(_build.build_log.get("flash_bwd", ""))
+    mmas = sass_mma_counts(_build._lib_path("flash_bwd"))
+    out = {"flash_dq": {}, "flash_dkv": {}}
+    for fn, n_mma in mmas.items():
+        name = ("flash_dq" if "flash_dq" in fn else
+                "flash_dkv" if "flash_dkv" in fn else None)
+        if name is None:
+            continue
+        tc = "_tc_kernel" in fn
+        if tc != (n_mma > 0):
+            raise AssertionError(f"{fn}: {n_mma} HMMA instructions")
+        if tc:
+            d = "128" if "Li128E" in fn else "64"
+            r, st, ld = regs.get(fn, (None, None, None))
+            if st or ld:
+                raise AssertionError(f"{fn} spills: {st} bytes stored, "
+                                     f"{ld} loaded")
+            out[name][d] = dict(registers=r, hmma=n_mma)
+    if not all(len(v) == 2 for v in out.values()):
+        raise AssertionError(f"bf16 backward kernels not all found: {out} "
+                             f"in {sorted(mmas)}")
+    print("flash_bwd build " + json.dumps(out), flush=True)
+    return out
 
 
 def gpu_line():
@@ -916,9 +994,10 @@ def run_phases(dev, gpu, engine):
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        for fn, (regs, st, ld) in ptxas_report(log).items():
+            print(f"ptxas {name}: {fn}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B", flush=True)
+    bwd_build = check_bwd_build()
 
     fwd_case = phase_flash(dev)
     bwd_case = phase_flash_bwd(dev)
@@ -953,7 +1032,8 @@ def run_phases(dev, gpu, engine):
              ms=bwd_case["dq_ms"], plain_ms=bwd_case["plain_ms"],
              bound_ms=bwd_case["dq_bound_ms"],
              bound_by=bwd_case["dq_bound_by"],
-             library_ms=bwd_case["library_ms"], **whole_bwd),
+             library_ms=bwd_case["library_ms"],
+             bf16_build=bwd_build["flash_dq"], **whole_bwd),
         dict(name="flash_dkv", route="cuda", source=bwd_src,
              replaces=f"{attn_src}:253", launches=launches["flash_dkv"],
              max_abs_err=max(bwd_case["max_abs_err"]["dk"],
@@ -961,7 +1041,8 @@ def run_phases(dev, gpu, engine):
              ms=bwd_case["dkv_ms"], plain_ms=bwd_case["plain_ms"],
              bound_ms=bwd_case["dkv_bound_ms"],
              bound_by=bwd_case["dkv_bound_by"],
-             library_ms=bwd_case["library_ms"], **whole_bwd),
+             library_ms=bwd_case["library_ms"],
+             bf16_build=bwd_build["flash_dkv"], **whole_bwd),
         dict(name="rmsnorm", route="cuda",
              source="tensorflowonspark_tpu_torch/ops/csrc/rmsnorm.cu",
              replaces="tensorflowonspark_tpu/ops/norm.py:24",

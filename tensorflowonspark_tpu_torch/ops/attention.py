@@ -5,7 +5,8 @@ API boundary is ``[batch, seq, heads, head_dim]``, as there.
 
 ``flash_attention`` on a CUDA tensor launches the hand-written kernels
 (built on first use by ``ops/_build.py``): ``csrc/flash_fwd.cu`` forward,
-the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` backward.  On a CPU
+the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` backward (bf16 on
+tensor cores, float32 on f32 FMAs).  On a CPU
 tensor it runs the plain PyTorch versions of the same functions
 (:func:`flash_attention_plain`, :func:`flash_backward_plain`).  There is
 no fallback between the two: a CUDA tensor the kernels cannot take
@@ -115,7 +116,8 @@ def _lib():
     return lib
 
 
-def _check_cuda_inputs(q, k, v):
+def _check_shapes(q, k, v):
+    """What the flash kernels take of q, k and v, the device aside."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
@@ -139,17 +141,40 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError("empty sequence")
     if b * h > 65535:
         raise ValueError(f"batch*heads {b * h} > 65535 (grid limit)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
-                             f"got {t.device}")
+
+
+def _check_device(ref, **tensors):
+    """Every tensor a CUDA tensor on ``ref``'s device.  Checked last, so
+    that a CPU tensor reaches every other check."""
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f"{name} must be a CUDA tensor on "
+                             f"{ref.device}, got {t.device}")
+
+
+def _check_vectors(**tensors):
+    """The bf16 backward kernels copy q, k, v and g into shared memory in
+    16-byte vectors (``cp.async``): each base pointer, and each batch,
+    sequence and head stride of a dimension longer than 1, must be a
+    multiple of 16 bytes."""
+    for name, t in tensors.items():
+        esize = t.element_size()
+        if t.data_ptr() % 16 or any(
+                t.shape[i] > 1 and t.stride(i) * esize % 16
+                for i in range(3)):
+            raise ValueError(
+                f"{name} must start on a 16-byte boundary with batch, seq "
+                f"and head strides of whole 16-byte vectors for the bf16 "
+                f"backward kernels: offset {t.data_ptr() % 16} bytes, "
+                f"strides {t.stride()} of {esize}-byte elements")
 
 
 def _flash_forward_cuda(q, k, v, *, causal, scale):
     """Launch ``csrc/flash_fwd.cu`` on the current stream; returns
     ``(out, lse)``.  Raises on anything the kernel does not take."""
     global launches
-    _check_cuda_inputs(q, k, v)
+    _check_shapes(q, k, v)
+    _check_device(q, q=q, k=k, v=v)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -286,23 +311,25 @@ def _launch_bwd(kernel, q, k, v, g, lse, delta, out0, out1, *, causal,
 
 def _bwd_inputs(q, k, v, out, lse, g):
     """Check what the backward kernels take; returns ``(g, lse, delta)``
-    ready for :func:`_launch_bwd`.  Raises on anything else."""
-    _check_cuda_inputs(q, k, v)
+    ready for :func:`_launch_bwd`.  Raises on anything else.  The kernels
+    never read ``out`` (``delta`` is computed here), so only q, k, v and
+    g are held to the bf16 kernels' 16-byte vectors."""
+    _check_shapes(q, k, v)
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
                              f"match q {tuple(q.shape)} {q.dtype}")
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
     b, sq, h, _ = q.shape
-    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
-            or lse.device != q.device:
-        raise ValueError(f"lse must be float32 [B, H, Sq] = {(b, h, sq)} on "
-                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [B, H, Sq] = {(b, h, sq)}, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
     if g.stride(-1) != 1:
         # the one copy the backward makes: autograd may hand over a g
         # whose head_dim is not the unit stride the kernels load along
         g = g.contiguous()
+    if q.dtype == torch.bfloat16:
+        _check_vectors(q=q, k=k, v=v, g=g)
+    _check_device(q, q=q, k=k, v=v, out=out, g=g, lse=lse)
     return g, lse.contiguous(), _delta(g, out)
 
 

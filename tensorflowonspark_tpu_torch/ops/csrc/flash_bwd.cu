@@ -7,7 +7,6 @@
 // wrapper), each (q tile, kv tile) pair recomputes
 //     p  = exp(q k^T * scale - lse)        (0 where masked)
 //     ds = p * (g v^T - delta) * scale
-// in one shared routine (bwd_recompute, the counterpart of _bwd_recompute),
 // and the kernels accumulate
 //     dq  = ds k                      one CTA per q tile, kv loop
 //     dv += p^T g,  dk += ds^T q      one CTA per kv tile, q loop
@@ -15,31 +14,53 @@
 // are deterministic (FlashAttention-2's single pass with atomicAdd on dq
 // would give up both).  Masks use global positions (q tail, kv tail,
 // causal); rows past the end are zero-filled on load, since 0 * garbage
-// could be NaN.  Math is f32 whatever the input type; outputs are in the
-// input type.
+// could be NaN.  Outputs are in the input type.  The causal loops stop (dq)
+// or start (dk/dv) at the diagonal, and the CTAs with the longest loops are
+// scheduled first: the last q tiles for dq, the first kv tiles for dk/dv.
+// All tensors are addressed through (batch, seq, head) strides with unit
+// stride on head_dim, so views of the fused qkv projection go in as they
+// are.  Two implementations behind one interface:
+//
+// bf16: tensor cores (namespace tc).  Every product is a warp-level
+// mma.sync m16n8k16 (bf16 operands, f32 accumulators), its operands loaded
+// from shared memory with ldmatrix (.trans where the operand is needed
+// transposed).  A CTA of 4 warps owns a 64-row tile and keeps it resident
+// in shared memory (Q and g for dq, K and V for dk/dv); the other side
+// streams through a 2-stage ring of 64-row tiles filled by cp.async 16-byte
+// copies, so the next tile loads while this one computes.  Each warp owns
+// 16 rows of its tile, and the scores never leave its registers (the
+// FlashAttention-2 register layout): the dq kernel computes S = Q K^T and
+// dP = g V^T, the dk/dv kernel the transposes S^T = K Q^T and
+// dP^T = V g^T, so that the accumulator fragment of p or ds (the m16n8 C
+// layout) is already the A operand (m16k16) of the second product: ds K,
+// p^T g, ds^T q.  One routine (tc_recompute) forms p and ds in both, given
+// a map from fragment (row, column) to (q, kv) positions, since one kernel
+// holds S and the other S^T; tiles wholly below the diagonal and inside
+// both sequences skip the mask.  p and ds enter each second product as a
+// bf16 hi/lo pair (hi = bf16(x), lo = bf16(x - hi), two MMAs into one f32
+// accumulator, ~16 significant bits): rounding them once to bf16 would put
+// an error of up to 2^-9 on every term, which the per-element check against
+// the f32 plain version does not hold for outputs near zero.  Shared-memory
+// rows are padded by 16 bytes so that ldmatrix is free of bank conflicts;
+// 102 KiB (dq) and 103 KiB (dk/dv) at head_dim 128, so two CTAs fit an SM.
 //
 // What bounds it on the H100.  At the training shape (8, 2048, 8, 128)
-// causal there are 134.3 M visible (q, kv) pairs per call.  The dq kernel
-// does three products a pair (s, dp, dq: 6*D flops) and the dk/dv kernel
-// four (s, dp, dv, dk: 8*D flops), for ~10 bytes of q/k/v/g traffic per
-// q or kv row: far above the card's ridge, so both are bound by
-// operations (0.104 ms and 0.139 ms at the bf16 tensor-core peak).  This
-// first version does its products with f32 FMAs from shared memory (no
-// tensor cores), so it is bound by the FMA pipe and shared-memory
-// bandwidth, far from that peak; mma.sync / wgmma / TMA are later work.
+// causal there are 134.3 M visible (q, kv) pairs per call, and ~10 bytes
+// of q/k/v/g traffic per q or kv row: far above the card's ridge, so both
+// kernels are bound by operations.  The function needs 3 products a pair
+// for dq (s, dp, dq) and 4 for dk/dv; with the hi/lo split the kernels
+// spend 4 (dq) and 6 (dk/dv) product-units of 2*D flops a pair.  mma.sync
+// reaches the tensor cores from fragments a warp owns, but not their full
+// rate: wgmma with TMA and warp specialisation (shared-memory descriptors,
+// swizzled layouts) is the next step for these kernels.
 //
-// What the design does about it.  The Pallas BlockSpecs put a head's whole
-// K/V (dq) or Q/G (dk/dv) sequence in VMEM; here a CTA keeps only its own
-// 64-row tile(s) resident and streams 64-row tiles of the other side through
-// shared memory, so shared memory is fixed whatever the sequence (146 KB
-// for dq, 162 KB for dk/dv at head_dim 128).  Each of the 256 threads owns
-// a 4x4 micro-tile of the 64x64 score tile and a 4 x (D/16) slice of its
-// accumulators in registers; p and ds pass between the two phases of a step
-// through shared memory only.  The causal loops stop (dq) or start (dk/dv)
-// at the diagonal, and the CTAs with the longest loops are scheduled first:
-// the last q tiles for dq, the first kv tiles for dk/dv.  All tensors are
-// addressed through (batch, seq, head) strides with unit stride on
-// head_dim, so views of the fused qkv projection go in as they are.
+// float32: f32 FMAs (the first version, kept for float32, where TF32
+// would lose the f32 gradient checks).  Each of 256 threads owns a 4x4
+// micro-tile of the 64x64 score tile and a 4 x (D/16) slice of its
+// accumulators; tiles are converted to padded f32 tiles in shared memory
+// (146 KB for dq, 162 KB for dk/dv at head_dim 128), and p and ds pass
+// between the two phases of a step through shared memory.  The shared
+// recompute is bwd_recompute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,13 +87,7 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // rows [row0, row0 + R) of one head of a [B, S, H, D] tensor into a padded
 // f32 tile [R][D + 1]; rows at or past `len` are zero.
@@ -341,6 +356,492 @@ int launch(int which, const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TB = 64;         // rows of a tile, own and streamed side alike
+constexpr int NW = 4;          // warps per CTA, 16 own rows each
+constexpr int NTC = 32 * NW;   // threads per CTA
+constexpr int PAD = 8;         // bf16 padding of a shared-memory row (16 B)
+static_assert(NTC == 2 * TB, "cp_rows gives one thread to each lse/delta");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared through L2 only; zero-filled where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
+// i, and register i of lane (g = lane/4, t = lane%4) gets its row g,
+// columns 2t and 2t+1 (.trans: column g, rows 2t and 2t+1).
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate.  Fragments, with
+// g = lane/4 and t = lane%4: a0..a3 hold A rows g, g+8, g, g+8 at columns
+// (2t, 2t+1) + 0, 0, 8, 8; b0, b1 hold B column g at rows (2t, 2t+1) + 0, 8;
+// c0..c3 hold C rows g, g, g+8, g+8 at columns 2t, 2t+1, 2t, 2t+1.
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// (x0, x1) as a bf16 hi/lo pair, x0 in the low halves: hi = bf16(x),
+// lo = bf16(x - hi), so hi + lo keeps ~16 significant bits of x.
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
+                                       unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The A operand of k-step kk of a second product, as a hi/lo pair, from
+// the accumulators of n-blocks 2kk and 2kk+1: the m16n8 C layout of two
+// neighbouring n-blocks is the m16k16 A layout.
+template <int NB>
+__device__ __forceinline__ void a_split(const float (&x)[NB][4], int kk,
+                                        unsigned (&hi)[4], unsigned (&lo)[4]) {
+  split2(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+  split2(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+  split2(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+  split2(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+}
+
+// Rows [row0, row0 + TB) of one head into a [TB][D + PAD] bf16 tile by
+// cp.async; rows at or past `len` are zero-filled (0 * garbage could be
+// NaN) from an address kept inside the tensor.
+template <int D>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
+                                        long long row_stride, int row0,
+                                        int len) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < TB * CH / NTC; ++it) {
+    const int i = threadIdx.x + it * NTC, r = i / CH, c = i % CH;
+    const int s = row0 + r;
+    cp_async16(dst + r * (D + PAD) + c * 8,
+               src + min(s, len - 1) * row_stride + c * 8, s < len);
+  }
+}
+
+// lse and delta of rows [row0, row0 + TB), zero past `len`: one float a
+// thread.
+__device__ __forceinline__ void cp_rows(float* s_lse, float* s_delta,
+                                        const float* lse, const float* delta,
+                                        int row0, int len) {
+  const int i = threadIdx.x % TB, s = row0 + i;
+  const bool is_lse = threadIdx.x < TB;
+  cp_async4((is_lse ? s_lse : s_delta) + i,
+            (is_lse ? lse : delta) + min(s, len - 1), s < len);
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Skv,
+                                        int causal) {
+  return qpos < Sq && kpos < Skv && (!causal || qpos >= kpos);
+}
+
+// Maps from fragment element e of n-block i (fragment row g + 8*(e>>1),
+// column 8*i + 2t + (e&1)) to its q and kv positions, lse and delta.
+// dq kernel, S = Q K^T: rows are q rows; lse and delta per row, in
+// registers.  q: position of row g; k: position of column 2t.
+struct RowsAreQ {
+  int q, k;
+  float lse_[2], delta_[2];  // rows g and g + 8
+  __device__ int qpos(int, int e) const { return q + 8 * (e >> 1); }
+  __device__ int kpos(int i, int e) const { return k + 8 * i + (e & 1); }
+  __device__ float lse(int, int e) const { return lse_[e >> 1]; }
+  __device__ float delta(int, int e) const { return delta_[e >> 1]; }
+};
+
+// dk/dv kernel, S^T = K Q^T: rows are kv rows, columns q rows; lse and
+// delta per column, read from the stage's shared-memory copy.  k: position
+// of row g; q: position of column 2t; l, dl: its lse and delta.
+struct RowsAreKv {
+  int q, k;
+  const float *l, *dl;
+  __device__ int qpos(int i, int e) const { return q + 8 * i + (e & 1); }
+  __device__ int kpos(int, int e) const { return k + 8 * (e >> 1); }
+  __device__ float lse(int i, int e) const { return l[8 * i + (e & 1)]; }
+  __device__ float delta(int i, int e) const { return dl[8 * i + (e & 1)]; }
+};
+
+// The one recompute both kernels share (counterpart of _bwd_recompute), on
+// a warp's fragments of the scores s and of dp: s becomes p, dp becomes ds.
+// `masked` is false for tiles wholly below the diagonal and inside both
+// sequences, which skip the mask.
+template <int NB, class Map>
+__device__ __forceinline__ void tc_recompute(float (&s)[NB][4],
+                                             float (&dp)[NB][4], const Map& m,
+                                             int Sq, int Skv, int causal,
+                                             bool masked, float scale) {
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok =
+          !masked || visible(m.qpos(i, e), m.kpos(i, e), Sq, Skv, causal);
+      const float p = ok ? expf(s[i][e] * scale - m.lse(i, e)) : 0.f;
+      dp[i][e] = p * (dp[i][e] - m.delta(i, e)) * scale;
+      s[i][e] = p;
+    }
+}
+
+// Whether the (q tile at q0, kv tile at k0) pair needs the mask: it crosses
+// the diagonal (causal) or a sequence's end.
+__device__ __forceinline__ bool needs_mask(int q0, int k0, const Args& a) {
+  return (a.causal && k0 + TB - 1 > q0) || q0 + TB > a.Sq || k0 + TB > a.Skv;
+}
+
+// Two f32 of a C fragment row to bf16 at p (4-byte aligned).
+__device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {  // Q, g; K and V in 2 stages
+  return sizeof(bf16) * 6 * TB * (D + PAD);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {  // K, V; Q, g, lse, delta in 2 stages
+  return sizeof(bf16) * 6 * TB * (D + PAD) + sizeof(float) * 4 * TB;
+}
+
+// dq for one 64-row q tile: loop kv tiles, causal-trimmed at the diagonal.
+template <int D>
+__global__ void __launch_bounds__(NTC, 2) flash_dq_tc_kernel(Args a) {
+  constexpr int DP = D + PAD, NB = TB / 8, DB = D / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);  // [TB][DP]
+  bf16* sG = sQ + TB * DP;                      // [TB][DP]
+  bf16* sK = sG + TB * DP;                      // [2][TB][DP]
+  bf16* sV = sK + 2 * TB * DP;                  // [2][TB][DP]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp;  // this warp's rows of the q tile
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // causal: the last q tiles have the longest kv loops; run them first
+  const int qt = a.causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  const int q0 = qt * TB;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const bf16* g = static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
+
+  int n_kv = (a.Skv + TB - 1) / TB;
+  if (a.causal) n_kv = min(n_kv, (q0 + 2 * TB - 1) / TB);
+
+  cp_tile<D>(sQ, q, a.qs.s, q0, a.Sq);
+  cp_tile<D>(sG, g, a.gs.s, q0, a.Sq);
+  cp_tile<D>(sK, k, a.ks.s, 0, a.Skv);
+  cp_tile<D>(sV, v, a.vs.s, 0, a.Skv);
+  cp_async_commit();
+
+  RowsAreQ m;
+  m.q = q0 + r0 + lane / 4;
+  const float* lse = a.lse + (long long)bh * a.Sq;
+  const float* delta = a.delta + (long long)bh * a.Sq;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = m.q + 8 * e;
+    m.lse_[e] = row < a.Sq ? lse[row] : 0.f;
+    m.delta_[e] = row < a.Sq ? delta[row] : 0.f;
+  }
+
+  float acc[DB][4];
+#pragma unroll
+  for (int i = 0; i < DB; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  // ldmatrix row addresses: A operands (rows of this warp) and B operands
+  // without (k_off) and with (t_off) transpose, before the tile offsets
+  const int a_off = (r0 + lane % 16) * DP + (lane / 16) * 8;
+  const int b_off = (lane % 8 + (lane / 16) * 8) * DP + ((lane / 8) % 2) * 8;
+  const int t_off = (lane % 16) * DP + (lane / 16) * 8;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_kv) {  // the next K/V tile loads while this one computes
+      cp_tile<D>(sK + (st ^ 1) * TB * DP, k, a.ks.s, (j + 1) * TB, a.Skv);
+      cp_tile<D>(sV + (st ^ 1) * TB * DP, v, a.vs.s, (j + 1) * TB, a.Skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* tK = sK + st * TB * DP;
+    const bf16* tV = sV + st * TB * DP;
+    const int k0 = j * TB;
+
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned qa[4], ga[4];
+      ldsm4(qa, sQ + a_off + 16 * kk);
+      ldsm4(ga, sG + a_off + 16 * kk);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        unsigned kb[4], vb[4];
+        ldsm4(kb, tK + b_off + 16 * n2 * DP + 16 * kk);
+        ldsm4(vb, tV + b_off + 16 * n2 * DP + 16 * kk);
+        mma(s[2 * n2], qa, kb[0], kb[1]);
+        mma(s[2 * n2 + 1], qa, kb[2], kb[3]);
+        mma(dp[2 * n2], ga, vb[0], vb[1]);
+        mma(dp[2 * n2 + 1], ga, vb[2], vb[3]);
+      }
+    }
+    m.k = k0 + 2 * (lane % 4);
+    tc_recompute<NB>(s, dp, m, a.Sq, a.Skv, a.causal, needs_mask(q0, k0, a),
+                     a.scale);
+    // dq += ds K, ds as a hi/lo pair
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk) {
+      unsigned hi[4], lo[4];
+      a_split<NB>(dp, kk, hi, lo);
+#pragma unroll
+      for (int d2 = 0; d2 < DB / 2; ++d2) {
+        unsigned kb[4];
+        ldsm4_t(kb, tK + t_off + 16 * kk * DP + 16 * d2);
+        mma(acc[2 * d2], hi, kb[0], kb[1]);
+        mma(acc[2 * d2 + 1], hi, kb[2], kb[3]);
+        mma(acc[2 * d2], lo, kb[0], kb[1]);
+        mma(acc[2 * d2 + 1], lo, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qpos = m.q + 8 * e;
+    if (qpos >= a.Sq) continue;
+    bf16* row = static_cast<bf16*>(a.out0) + b * a.o0s.b + qpos * a.o0s.s +
+                h * a.o0s.h + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < DB; ++i)
+      store2(row + 8 * i, acc[i][2 * e], acc[i][2 * e + 1]);
+  }
+}
+
+// dk and dv for one 64-row kv tile: loop q tiles, starting at the diagonal
+// when causal.  Each q tile is taken in column chunks of NC q rows, which
+// bounds the score fragments' registers beside the dk and dv accumulators.
+template <int D, int NC>
+__global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
+  constexpr int DP = D + PAD, NB = NC / 8, DB = D / 8;
+  static_assert(TB % NC == 0 && NC % 16 == 0, "chunks of whole k-steps");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sK = reinterpret_cast<bf16*>(tc_smem);  // [TB][DP]
+  bf16* sV = sK + TB * DP;                      // [TB][DP]
+  bf16* sQ = sV + TB * DP;                      // [2][TB][DP]
+  bf16* sG = sQ + 2 * TB * DP;                  // [2][TB][DP]
+  float* sL = reinterpret_cast<float*>(sG + 2 * TB * DP);  // [2][TB]
+  float* sDl = sL + 2 * TB;                                // [2][TB]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp;  // this warp's rows of the kv tile
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // causal: the first kv tiles have the longest q loops and come first
+  const int k0 = blockIdx.x * TB;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const bf16* g = static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h;
+  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const float* lse = a.lse + (long long)bh * a.Sq;
+  const float* delta = a.delta + (long long)bh * a.Sq;
+
+  const int n_q = (a.Sq + TB - 1) / TB;
+  const int i0 = a.causal ? k0 / TB : 0;  // first q tile reaching this one
+
+  cp_tile<D>(sK, k, a.ks.s, k0, a.Skv);
+  cp_tile<D>(sV, v, a.vs.s, k0, a.Skv);
+  if (i0 < n_q) {
+    cp_tile<D>(sQ, q, a.qs.s, i0 * TB, a.Sq);
+    cp_tile<D>(sG, g, a.gs.s, i0 * TB, a.Sq);
+    cp_rows(sL, sDl, lse, delta, i0 * TB, a.Sq);
+  }
+  cp_async_commit();
+
+  float dk[DB][4], dv[DB][4];
+#pragma unroll
+  for (int i = 0; i < DB; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  RowsAreKv m;
+  m.k = k0 + r0 + lane / 4;
+  const int a_off = (r0 + lane % 16) * DP + (lane / 16) * 8;
+  const int b_off = (lane % 8 + (lane / 16) * 8) * DP + ((lane / 8) % 2) * 8;
+  const int t_off = (lane % 16) * DP + (lane / 16) * 8;
+
+  for (int it = i0; it < n_q; ++it) {
+    const int st = (it - i0) & 1;
+    if (it + 1 < n_q) {  // the next q tile loads while this one computes
+      const int nq0 = (it + 1) * TB;
+      cp_tile<D>(sQ + (st ^ 1) * TB * DP, q, a.qs.s, nq0, a.Sq);
+      cp_tile<D>(sG + (st ^ 1) * TB * DP, g, a.gs.s, nq0, a.Sq);
+      cp_rows(sL + (st ^ 1) * TB, sDl + (st ^ 1) * TB, lse, delta, nq0, a.Sq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* tQ = sQ + st * TB * DP;
+    const bf16* tG = sG + st * TB * DP;
+    const int q0 = it * TB;
+    const bool masked = needs_mask(q0, k0, a);
+
+    // the chunk loop stays rolled: unrolled, ptxas spills at head_dim 128
+#pragma unroll 1
+    for (int c = 0; c < TB / NC; ++c) {
+      float s[NB][4], dp[NB][4];  // S^T and dP^T: kv rows x NC q columns
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        unsigned ka[4], va[4];
+        ldsm4(ka, sK + a_off + 16 * kk);
+        ldsm4(va, sV + a_off + 16 * kk);
+#pragma unroll
+        for (int n2 = 0; n2 < NB / 2; ++n2) {
+          unsigned qb[4], gb[4];
+          const int off = b_off + (c * NC + 16 * n2) * DP + 16 * kk;
+          ldsm4(qb, tQ + off);
+          ldsm4(gb, tG + off);
+          mma(s[2 * n2], ka, qb[0], qb[1]);
+          mma(s[2 * n2 + 1], ka, qb[2], qb[3]);
+          mma(dp[2 * n2], va, gb[0], gb[1]);
+          mma(dp[2 * n2 + 1], va, gb[2], gb[3]);
+        }
+      }
+      const int col = c * NC + 2 * (lane % 4);
+      m.q = q0 + col;
+      m.l = sL + st * TB + col;
+      m.dl = sDl + st * TB + col;
+      tc_recompute<NB>(s, dp, m, a.Sq, a.Skv, a.causal, masked, a.scale);
+      // dv += p^T g and dk += ds^T q, p and ds as hi/lo pairs
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        unsigned phi[4], plo[4], dhi[4], dlo[4];
+        a_split<NB>(s, kk, phi, plo);
+        a_split<NB>(dp, kk, dhi, dlo);
+#pragma unroll
+        for (int d2 = 0; d2 < DB / 2; ++d2) {
+          unsigned gb[4], qb[4];
+          const int off = t_off + (c * NC + 16 * kk) * DP + 16 * d2;
+          ldsm4_t(gb, tG + off);
+          ldsm4_t(qb, tQ + off);
+          mma(dv[2 * d2], phi, gb[0], gb[1]);
+          mma(dv[2 * d2 + 1], phi, gb[2], gb[3]);
+          mma(dk[2 * d2], dhi, qb[0], qb[1]);
+          mma(dk[2 * d2 + 1], dhi, qb[2], qb[3]);
+          mma(dv[2 * d2], plo, gb[0], gb[1]);
+          mma(dv[2 * d2 + 1], plo, gb[2], gb[3]);
+          mma(dk[2 * d2], dlo, qb[0], qb[1]);
+          mma(dk[2 * d2 + 1], dlo, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();  // K/V still in flight when no q tile reaches them
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int kpos = m.k + 8 * e;
+    if (kpos >= a.Skv) continue;
+    const int c0 = 2 * (lane % 4);
+    bf16* krow = static_cast<bf16*>(a.out0) + b * a.o0s.b + kpos * a.o0s.s +
+                 h * a.o0s.h + c0;
+    bf16* vrow = static_cast<bf16*>(a.out1) + b * a.o1s.b + kpos * a.o1s.s +
+                 h * a.o1s.h + c0;
+#pragma unroll
+    for (int i = 0; i < DB; ++i) {
+      store2(krow + 8 * i, dk[i][2 * e], dk[i][2 * e + 1]);
+      store2(vrow + 8 * i, dv[i][2 * e], dv[i][2 * e + 1]);
+    }
+  }
+}
+
+// q columns a step of the dk/dv kernel takes at once: at head_dim 128 the
+// dk and dv accumulators already hold 128 registers a thread
+constexpr int dkv_chunk(int D) { return D == 128 ? 32 : 64; }
+
+template <int D>
+int launch(int which, const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = which == 0 ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
+  void (*kernel)(Args) = which == 0
+                             ? &flash_dq_tc_kernel<D>
+                             : &flash_dkv_tc_kernel<D, dkv_chunk(D)>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((which == 0 ? a.Sq : a.Skv) + TB - 1) / TB;
+  const dim3 grid(tiles, B * a.H);
+  kernel<<<grid, NTC, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 int dispatch(int which, int dtype, int head_dim, const void* q, const void* k,
              const void* v, const void* g, const float* lse,
              const float* delta, void* out0, void* out1, int B, int H, int Sq,
@@ -355,10 +856,8 @@ int dispatch(int which, int dtype, int head_dim, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch<float, 64>(which, a, B, s);
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(which, a, B, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(which, a, B, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(which, a, B, s);
+  if (dtype == 1 && head_dim == 64) return tc::launch<64>(which, a, B, s);
+  if (dtype == 1 && head_dim == 128) return tc::launch<128>(which, a, B, s);
   return -1;
 }
 

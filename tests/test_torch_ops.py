@@ -299,18 +299,78 @@ def test_cpu_backward_never_reaches_the_kernel_wrappers(monkeypatch):
     assert (tattn.launches, tattn.dq_launches, tattn.dkv_launches) == before
 
 
-@pytest.mark.parametrize("head_dim,match", [(32, r"\(64, 128\)"),
-                                            (96, r"\(64, 128\)"),
-                                            (64, "CUDA tensor")])
+def _shifted(x):
+    """x's values in a view that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _padded(x, dim):
+    """x's values in a view whose stride on ``dim`` (seq 1, head 2) is 4
+    elements longer, so it is no whole number of 16-byte vectors in
+    bf16."""
+    b, s, h, d = x.shape
+    if dim == 1:
+        y = torch.empty((b, s, h * d + 4), dtype=x.dtype)[..., :h * d]
+        y = y.unflatten(-1, (h, d))
+    else:
+        y = torch.empty((b, s, h, d + 4), dtype=x.dtype)[..., :d]
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("head_dim,match,case", [
+    pytest.param(32, r"\(64, 128\)", "f32", id=r"32-\(64, 128\)"),
+    pytest.param(96, r"\(64, 128\)", "f32", id=r"96-\(64, 128\)"),
+    pytest.param(64, "CUDA tensor", "f32", id="64-CUDA tensor"),
+    pytest.param(64, "q must start on a 16-byte", "bf16 q base",
+                 id="bf16-misaligned-base"),
+    pytest.param(128, "k must start on a 16-byte", "bf16 k seq stride",
+                 id="bf16-misaligned-seq-stride"),
+    pytest.param(64, "v must start on a 16-byte", "bf16 v head stride",
+                 id="bf16-misaligned-head-stride"),
+    pytest.param(128, "g must start on a 16-byte", "bf16 g base",
+                 id="bf16-misaligned-g"),
+    pytest.param(128, "CUDA tensor", "bf16 fused qkv",
+                 id="bf16-fused-qkv-views-pass-to-the-device-check"),
+    pytest.param(64, "CUDA tensor", "f32 q base",
+                 id="f32-misaligned-base-passes-to-the-device-check"),
+    pytest.param(64, "lse must be float32", "bf16 lse",
+                 id="lse-not-float32"),
+])
 def test_cuda_backward_wrapper_refuses_what_the_kernels_do_not_take(
-        head_dim, match):
+        head_dim, match, case):
     """The backward's CUDA wrapper never falls back: a head_dim the
-    kernels are not built for is a ValueError naming the supported set,
-    and CPU tensors handed to it are refused."""
-    q, k, v = (_t(a) for a in _qkv(2, 1, 8, 2, head_dim))
+    kernels are not built for is a ValueError naming the supported set;
+    bf16 q, k, v or g that the tensor-core kernels cannot copy in
+    16-byte vectors (a base pointer or a batch/seq/head stride off the
+    16-byte grid) are refused, not copied; views of a fused qkv
+    projection and float32 inputs (the FMA kernels load scalars) pass
+    those checks; and CPU tensors handed to it are refused last, so they
+    reach every other check."""
+    dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    qkv = _t(np.random.default_rng(2).standard_normal(
+        (1, 8, 3, 2, head_dim)).astype(np.float32), dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if case != "bf16 fused qkv":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    g = torch.ones_like(q)
     out, lse = tattn.flash_attention_plain(q, k, v, causal=True)
+    if case.endswith("q base"):
+        q = _shifted(q)
+    elif case == "bf16 k seq stride":
+        k = _padded(k, 1)
+    elif case == "bf16 v head stride":
+        v = _padded(v, 2)
+    elif case == "bf16 g base":
+        g = _shifted(g)
+    elif case == "bf16 lse":
+        lse = lse.to(torch.bfloat16)
     before = (tattn.dq_launches, tattn.dkv_launches)
     with pytest.raises(ValueError, match=match):
-        tattn._flash_backward_cuda(q, k, v, out, lse, torch.ones_like(q),
-                                   causal=True, scale=0.125)
+        tattn._flash_backward_cuda(q, k, v, out, lse, g, causal=True,
+                                   scale=0.125)
     assert (tattn.dq_launches, tattn.dkv_launches) == before
