@@ -13,19 +13,24 @@ serving, plus the ``fused_rmsnorm`` entry point:
    card's name and power limit from ``nvidia-smi``; TF32 off for float32
    matmuls and convolutions, bf16 matmuls accumulate in float32;
 1. build every kernel (one ``nvcc`` per source, started together); the
-   ``ptxas`` registers and spills of every kernel; the bf16 backward
-   kernels must issue tensor-core MMAs (``HMMA`` in their SASS, read
-   with ``cuobjdump``) and spill nothing, the float32 ones none;
-2. the flash forward kernel against its plain PyTorch version on the
-   card, at the main path's shapes and the tail / head_dim cases, with
-   times beside its bound and a library call (SDPA);
+   ``ptxas`` registers and spills of every kernel; the bf16 flash
+   kernels (forward, dq, dk/dv) must issue tensor-core MMAs (``HMMA`` in
+   their SASS, read with ``cuobjdump``) and spill nothing at head_dim 64
+   and 128, the float32 ones none; the forward's registers, shared
+   memory and CTAs an SM as the card holds it;
+2. the flash forward kernel (bf16: tensor cores; float32: FMAs) against
+   its plain PyTorch version on the card, at the main path's shapes and
+   the tail / head_dim cases, with times beside its bound and a library
+   call (SDPA);
 3. the flash backward's dq and dk/dv kernels (bf16: tensor cores;
    float32: FMAs) against ``flash_backward_plain`` in the same cases,
    timed the same way (the library call is SDPA's backward);
 4. the RMSNorm kernel against ``rmsnorm_reference`` at the transformer's
    activation shape in bf16 and float32 and at tail shapes (scalar
    path, ragged rows, a misaligned input), forward and gradient through
-   ``fused_rmsnorm``; times beside its bound and ``F.rms_norm``;
+   ``fused_rmsnorm``, each case naming the kernel path it took (the
+   one-pass registers path or the two-pass path); times beside its
+   bound and ``F.rms_norm``;
 5. training at full width (the repo's on-chip transformer config,
    bf16, batch 8): five Adam(1e-3) steps fed through
    ``prefetch_to_device``; every loss finite and the loss falling; the
@@ -65,6 +70,7 @@ only torch, numpy and the port.
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import os
 import re
@@ -135,6 +141,9 @@ LSE_TOL = 1e-4
 # or mis-scaled fails.
 BF16_RTOL = 2.0 ** -7
 BWD_F32_TOL = 2e-4
+# ~1.1 ms at the H100's 1.755 GHz boost clock: longer than the host takes to
+# enqueue any one timed call (time_ms)
+SPIN_CYCLES = 2_000_000
 
 TRAIN_BATCH, TRAIN_STEPS = 8, 5  # bench.py:920's batch; five Adam steps
 
@@ -142,8 +151,8 @@ TRAIN_BATCH, TRAIN_STEPS = 8, 5  # bench.py:920's batch; five Adam steps
 # transformer's activation, [8*2048, 1024], the one the kernels line
 # reports.  Tails: dim 100 (bf16) and 97 (f32) are no multiple of a
 # 16-byte vector, 900 / 903 / 7 rows no multiple of a CTA's 8; the f16
-# input starts one element past a 16-byte boundary.  All take the
-# scalar path.
+# input starts one element past a 16-byte boundary.  The main shapes take
+# the kernel's registers path, the tails its two-pass scalar path.
 RMS_CASES = [
     ((8, 2048, 1024), torch.bfloat16, 0),
     ((8, 2048, 1024), torch.float32, 0),
@@ -203,33 +212,67 @@ def sass_mma_counts(lib_path):
     return counts
 
 
-def check_bwd_build():
-    """The bf16 backward kernels issue tensor-core MMAs and spill nothing
-    (as ``ptxas`` reported when this process built them); the float32
-    ones are FMA kernels.  Returns {"flash_dq": ..., "flash_dkv": ...}:
-    each bf16 kernel's registers and HMMA count by head_dim."""
-    regs = ptxas_report(_build.build_log.get("flash_bwd", ""))
-    mmas = sass_mma_counts(_build._lib_path("flash_bwd"))
-    out = {"flash_dq": {}, "flash_dkv": {}}
-    for fn, n_mma in mmas.items():
-        name = ("flash_dq" if "flash_dq" in fn else
-                "flash_dkv" if "flash_dkv" in fn else None)
-        if name is None:
-            continue
-        tc = "_tc_kernel" in fn
-        if tc != (n_mma > 0):
-            raise AssertionError(f"{fn}: {n_mma} HMMA instructions")
-        if tc:
-            d = "128" if "Li128E" in fn else "64"
-            r, st, ld = regs.get(fn, (None, None, None))
-            if st or ld:
-                raise AssertionError(f"{fn} spills: {st} bytes stored, "
-                                     f"{ld} loaded")
-            out[name][d] = dict(registers=r, hmma=n_mma)
-    if not all(len(v) == 2 for v in out.values()):
-        raise AssertionError(f"bf16 backward kernels not all found: {out} "
-                             f"in {sorted(mmas)}")
-    print("flash_bwd build " + json.dumps(out), flush=True)
+# kernel library -> the flash kernels in it
+TC_LIBS = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_dq", "flash_dkv")}
+
+
+def check_tc_build():
+    """Every bf16 flash kernel issues tensor-core MMAs and spills nothing
+    at head_dim 64 and 128 (as ``ptxas`` reported when this process built
+    it); the float32 ones are FMA kernels.  Prints a ``flash_fwd build``
+    and a ``flash_bwd build`` line; returns {kernel: {head_dim:
+    {registers, hmma, ...}}} for the bf16 kernels, the forward's with the
+    shared memory, local bytes and CTAs an SM that the card reports."""
+    out = {}
+    for lib, names in TC_LIBS.items():
+        regs = ptxas_report(_build.build_log.get(lib, ""))
+        mmas = sass_mma_counts(_build._lib_path(lib))
+        found = {n: {} for n in names}
+        for fn, n_mma in mmas.items():
+            name = next((n for n in names if n in fn), None)
+            if name is None:
+                continue
+            tc = "_tc_kernel" in fn
+            if tc != (n_mma > 0):
+                raise AssertionError(f"{fn}: {n_mma} HMMA instructions")
+            if tc:
+                d = "128" if "Li128E" in fn else "64"
+                r, st, ld = regs.get(fn, (None, None, None))
+                if st or ld:
+                    raise AssertionError(f"{fn} spills: {st} bytes stored, "
+                                         f"{ld} loaded")
+                found[name][d] = dict(registers=r, hmma=n_mma)
+        if not all(len(v) == 2 for v in found.values()):
+            raise AssertionError(f"bf16 {lib} kernels not all found: "
+                                 f"{found} in {sorted(mmas)}")
+        out.update(found)
+    for d, attrs in fwd_tc_attrs().items():
+        out["flash_fwd"][d].update(attrs)
+        if attrs["local_bytes"]:
+            raise AssertionError(f"flash_fwd_tc_kernel<{d}> uses local "
+                                 f"memory: {attrs}")
+    print("flash_fwd build " + json.dumps(out["flash_fwd"]), flush=True)
+    print("flash_bwd build " + json.dumps(
+        {n: out[n] for n in TC_LIBS["flash_bwd"]}), flush=True)
+    return out
+
+
+def fwd_tc_attrs():
+    """{head_dim: registers, dynamic shared memory, local bytes and CTAs
+    an SM} of the bf16 forward kernel, as the card's runtime reports."""
+    lib = attention._lib()
+    fn = lib.tfos_flash_fwd_tc_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = {}
+    for d in attention.HEAD_DIMS:
+        vals = (ctypes.c_int * 4)()
+        err = fn(d, vals)
+        if err:
+            raise RuntimeError(f"tfos_flash_fwd_tc_attrs({d}) failed: "
+                               f"{lib.tfos_cuda_error_string(err).decode()}")
+        out[str(d)] = dict(zip(("runtime_registers", "shared_bytes",
+                                "local_bytes", "ctas_per_sm"), vals))
     return out
 
 
@@ -241,8 +284,13 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps):
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after warm-up."""
+def time_ms(fn, reps, queued=True):
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after warm-up.
+    ``queued``: each run waits on the card behind a device-side spin of
+    ``SPIN_CYCLES``, so that the events time the device's work and not
+    the host's enqueue of it (tens of microseconds of Python and ctypes a
+    call, as long as the small kernels themselves); otherwise the events
+    also span that enqueue."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -250,6 +298,8 @@ def time_ms(fn, reps):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -320,8 +370,12 @@ def phase_flash(dev):
                 f"of the per-element tolerance, atol {tol}), lse err "
                 f"{lse_err} (tol {LSE_TOL})")
         reps = 20 if s >= 1024 else 50
-        ms = time_ms(lambda: attention._flash_forward(
-            q, k, v, causal=causal, scale=scale), reps)
+        def kernel():
+            return attention._flash_forward(q, k, v, causal=causal,
+                                            scale=scale)
+
+        ms = time_ms(kernel, reps)
+        ms_with_enqueue = time_ms(kernel, reps, queued=False)
         plain_ms = time_ms(lambda: attention.flash_attention_plain(
             q, k, v, causal=causal, scale=scale), reps)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -332,7 +386,8 @@ def phase_flash(dev):
         row = dict(shape=[b, s, h, d], causal=causal,
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                    tol_share=share, lse_err=lse_err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound,
+                   ms_with_enqueue=ms_with_enqueue, plain_ms=plain_ms,
+                   bound_ms=bound,
                    bound_by=bound_by, library_ms=library_ms)
         print("flash_fwd case " + json.dumps(row), flush=True)
         rows.append(row)
@@ -444,6 +499,9 @@ def phase_rmsnorm(dev):
         y = fused_rmsnorm(xk, sk)
         gx, gs = torch.autograd.grad(y, (xk, sk), g)
         path_launches = norm.launches
+        # the wrapper's choice: x as given, y freshly allocated (aligned)
+        path = norm.kernel_path(dim, x.element_size(),
+                                x.data_ptr() % 16 == 0)
         xr = x.detach().requires_grad_()
         sr = scale.detach().requires_grad_()
         yr = norm.rmsnorm_reference(xr, sr)
@@ -461,8 +519,11 @@ def phase_rmsnorm(dev):
                 f"{gerr:.3g}, {path_launches} launches for one call")
         reps = 50 if n >= 1 << 20 else 100
         with torch.no_grad():
-            ms = time_ms(lambda: norm._rmsnorm_cuda(x, scale, 1e-6, 256),
-                         reps)
+            def kernel():
+                return norm._rmsnorm_cuda(x, scale, 1e-6, 256)
+
+            ms = time_ms(kernel, reps)
+            ms_with_enqueue = time_ms(kernel, reps, queued=False)
             plain_ms = time_ms(lambda: norm.rmsnorm_reference(x, scale),
                                reps)
             s_lib = scale.to(dtype)
@@ -472,9 +533,11 @@ def phase_rmsnorm(dev):
         bound, bound_by = bound_ms(4.0 * n, 2 * esize * n + 4 * dim,
                                    torch.float32)
         row = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
-                   offset=offset, max_abs_err=err, tol_share=share,
+                   offset=offset, path=path, max_abs_err=err,
+                   tol_share=share,
                    grad_tol_share=gerr, launches=path_launches, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                   ms_with_enqueue=ms_with_enqueue, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=bound_by,
                    library_ms=library_ms)
         print("rmsnorm case " + json.dumps(row), flush=True)
         rows.append(row)
@@ -997,7 +1060,7 @@ def run_phases(dev, gpu, engine):
         for fn, (regs, st, ld) in ptxas_report(log).items():
             print(f"ptxas {name}: {fn}: {regs} registers, spill stores "
                   f"{st} B, spill loads {ld} B", flush=True)
-    bwd_build = check_bwd_build()
+    tc_build = check_tc_build()
 
     fwd_case = phase_flash(dev)
     bwd_case = phase_flash_bwd(dev)
@@ -1025,7 +1088,8 @@ def run_phases(dev, gpu, engine):
              max_abs_err=fwd_case["max_abs_err"], ms=fwd_case["ms"],
              plain_ms=fwd_case["plain_ms"], bound_ms=fwd_case["bound_ms"],
              bound_by=fwd_case["bound_by"],
-             library_ms=fwd_case["library_ms"]),
+             library_ms=fwd_case["library_ms"],
+             bf16_build=tc_build["flash_fwd"]),
         dict(name="flash_dq", route="cuda", source=bwd_src,
              replaces=f"{attn_src}:216", launches=launches["flash_dq"],
              max_abs_err=bwd_case["max_abs_err"]["dq"],
@@ -1033,7 +1097,7 @@ def run_phases(dev, gpu, engine):
              bound_ms=bwd_case["dq_bound_ms"],
              bound_by=bwd_case["dq_bound_by"],
              library_ms=bwd_case["library_ms"],
-             bf16_build=bwd_build["flash_dq"], **whole_bwd),
+             bf16_build=tc_build["flash_dq"], **whole_bwd),
         dict(name="flash_dkv", route="cuda", source=bwd_src,
              replaces=f"{attn_src}:253", launches=launches["flash_dkv"],
              max_abs_err=max(bwd_case["max_abs_err"]["dk"],
@@ -1042,7 +1106,7 @@ def run_phases(dev, gpu, engine):
              bound_ms=bwd_case["dkv_bound_ms"],
              bound_by=bwd_case["dkv_bound_by"],
              library_ms=bwd_case["library_ms"],
-             bf16_build=bwd_build["flash_dkv"], **whole_bwd),
+             bf16_build=tc_build["flash_dkv"], **whole_bwd),
         dict(name="rmsnorm", route="cuda",
              source="tensorflowonspark_tpu_torch/ops/csrc/rmsnorm.cu",
              replaces="tensorflowonspark_tpu/ops/norm.py:24",

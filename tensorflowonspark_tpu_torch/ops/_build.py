@@ -4,8 +4,9 @@ Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface under ``build/torch_kernels/`` at the repository root,
 and loads through ``ctypes``: seconds per source, where a build that
 includes PyTorch's headers takes minutes.  A library is built at first
-use and rebuilt when its source is newer, so the first call on a fresh
-checkout builds it.  Nothing here runs at import time.
+use and rebuilt when its source, or a shared header ``csrc/*.cuh``, is
+newer, so the first call on a fresh checkout builds it.  Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -46,9 +47,15 @@ def _lib_path(name):
 
 
 def _stale(name):
+    """The library is missing, or older than its source or than the
+    newest shared header (``csrc/*.cuh``), which every source may
+    include."""
     lib = _lib_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or src.stat().st_mtime > lib.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime
+                 for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return newest > lib.stat().st_mtime
 
 
 def _start(name):

@@ -6,7 +6,7 @@ API boundary is ``[batch, seq, heads, head_dim]``, as there.
 ``flash_attention`` on a CUDA tensor launches the hand-written kernels
 (built on first use by ``ops/_build.py``): ``csrc/flash_fwd.cu`` forward,
 the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` backward (bf16 on
-tensor cores, float32 on f32 FMAs).  On a CPU
+tensor cores in both directions, float32 on f32 FMAs).  On a CPU
 tensor it runs the plain PyTorch versions of the same functions
 (:func:`flash_attention_plain`, :func:`flash_backward_plain`).  There is
 no fallback between the two: a CUDA tensor the kernels cannot take
@@ -153,10 +153,10 @@ def _check_device(ref, **tensors):
 
 
 def _check_vectors(**tensors):
-    """The bf16 backward kernels copy q, k, v and g into shared memory in
-    16-byte vectors (``cp.async``): each base pointer, and each batch,
-    sequence and head stride of a dimension longer than 1, must be a
-    multiple of 16 bytes."""
+    """The bf16 flash kernels (forward and backward) copy q, k, v and g
+    into shared memory in 16-byte vectors (``cp.async``): each base
+    pointer, and each batch, sequence and head stride of a dimension
+    longer than 1, must be a multiple of 16 bytes."""
     for name, t in tensors.items():
         esize = t.element_size()
         if t.data_ptr() % 16 or any(
@@ -165,15 +165,18 @@ def _check_vectors(**tensors):
             raise ValueError(
                 f"{name} must start on a 16-byte boundary with batch, seq "
                 f"and head strides of whole 16-byte vectors for the bf16 "
-                f"backward kernels: offset {t.data_ptr() % 16} bytes, "
+                f"flash kernels: offset {t.data_ptr() % 16} bytes, "
                 f"strides {t.stride()} of {esize}-byte elements")
 
 
 def _flash_forward_cuda(q, k, v, *, causal, scale):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream; returns
-    ``(out, lse)``.  Raises on anything the kernel does not take."""
+    """Launch ``csrc/flash_fwd.cu`` on the current stream (bf16: the
+    tensor-core kernel, float32: the FMA kernel); returns ``(out, lse)``.
+    Raises on anything the kernel does not take."""
     global launches
     _check_shapes(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_vectors(q=q, k=k, v=v)
     _check_device(q, q=q, k=k, v=v)
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -199,7 +202,7 @@ def _flash_forward(q, k, v, *, causal, scale, block_q=512, block_kv=512):
     """``(out [B,Sq,H,D], lse [B,H,Sq] f32)``: the CUDA kernel for CUDA
     tensors, :func:`flash_attention_plain` for CPU tensors.
     ``block_q``/``block_kv`` are accepted for API parity with the JAX
-    package and set nothing: the kernel's tiles are fixed (64 x 64)."""
+    package and set nothing: each kernel picks its own tiles."""
     del block_q, block_kv
     if q.is_cuda:
         return _flash_forward_cuda(q, k, v, causal=causal, scale=scale)

@@ -3,34 +3,68 @@
 // Replaces the TPU kernel tensorflowonspark_tpu/ops/attention.py:_flash_kernel
 // (launched by _flash_forward).  Same contract: softmax(q k^T * scale + mask) v
 // with the online-softmax recurrence (running max m, running sum l, rescaled
-// f32 accumulator), q pre-scaled in f32, tail and causal masks on global
-// positions filled with the finite -1e30, the causal kv loop trimmed at the
-// diagonal, out = acc / max(l, 1e-30) in the input type and the per-row f32
-// lse = m + log(max(l, 1e-30)) that the backward consumes.
+// f32 accumulator), tail and causal masks on global positions filled with
+// the finite -1e30, the causal kv loop trimmed at the diagonal,
+// out = acc / max(l, 1e-30) rounded once to the input type, and the per-row
+// f32 lse = m + log(max(l, 1e-30)) that the backward consumes.  q, k, v and
+// out are addressed through (batch, seq, head) strides with unit stride on
+// head_dim, so the wrapper passes views of a fused qkv projection as they
+// are.  With causal masking the CTAs nearest the end of the sequence (the
+// longest kv loops) are scheduled first.  Two implementations behind one
+// interface:
 //
-// What bounds it on the H100.  At the serving path's prompt buckets
-// (Sq = Skv up to 2048, head_dim 128) attention does ~2*Sq*D flops per
-// q row for ~4*D bytes of q/out traffic: far above the card's 295 flop/byte
-// ridge, so the bound is arithmetic.  This first kernel does its products
-// with f32 FMAs from shared memory (no tensor cores), so it is bound by the
-// FMA pipe and shared-memory bandwidth, well below the bf16 tensor-core
-// peak; wgmma/TMA versions are later work.
+// bf16: tensor cores (namespace tc, flash_fwd_tc_kernel).
+//   What bounds it on the H100.  The function needs two products of 2*D
+//   flops per visible (q, kv) pair, 4*D flops, for ~4*D bytes of q/k/v/out
+//   traffic per row: at the training shape (8, 2048, 8, 128) causal that is
+//   134.3 M visible pairs, 68.7 GFLOP against the H100 SXM data sheet's
+//   989 TFLOP/s dense bf16 peak at its 700 W limit (0.069 ms) and 33.6 MB
+//   against its 3.35 TB/s (0.010 ms), so the bound is operations.
+//   What the design does about it.  Both products are warp-level mma.sync
+//   m16n8k16 (bf16 operands, f32 accumulators; bf16 x bf16 products are
+//   exact in f32).  A CTA of 8 warps owns 128 q rows, 16 a warp; each warp
+//   loads its Q A-operand fragments into registers once (ldmatrix) and
+//   keeps them for the whole kv loop, while 64-row K and V tiles stream
+//   through a 3-stage cp.async ring (16-byte copies, rows padded by 16 B so
+//   that ldmatrix is free of bank conflicts): two tiles land while one
+//   computes, and one barrier a tile both publishes the landed tile and
+//   frees the stage the next copy refills, so warps drift apart within a
+//   tile instead of taking their products and their softmax in lockstep.
+//   S = Q K^T stays in the warp's f32 accumulators and is scaled there (q
+//   is not pre-scaled into bf16: 1/sqrt(128) is no power of two, and the
+//   plain version scales after the product); the running max is kept in
+//   log2 units, so each p = 2^(s * scale * log2 e - m) is one FFMA and one
+//   ex2.  Row max and rescale alpha are reduced over the four lanes that
+//   share a row (shuffles) and applied to the accumulator once a tile.  The
+//   m16n8 C fragment of two neighbouring n8 blocks of S is the m16k16 A
+//   fragment of one k-step of P V, so P goes from the accumulators into the
+//   second product without touching shared memory, with V the B operand
+//   (ldmatrix .trans).  P enters as a bf16 hi/lo pair (two MMAs into one f32
+//   accumulator, ~16 significant bits): rounding it once to bf16 would miss
+//   the per-element check against the f32 plain version by ~40x.  That costs
+//   a third product-unit: the kernel spends 3 of 2*D flops a pair, against
+//   the bound's 2.  l is summed from the f32 p, so lse keeps f32 accuracy.
+//   The mask is applied only on tiles that cross the diagonal or a sequence
+//   end; K/V rows past Skv and q rows past Sq are zero-filled; a warp whose
+//   16 rows all lie above a causal tile skips it.  Fully masked rows keep
+//   l == 0 and write 0.  At head_dim 128: 139,264 bytes of shared memory
+//   and 230 registers a thread (ptxas), so one CTA of 8 warps an SM; the
+//   grid puts q tiles on y, so that causal CTAs start longest first across
+//   every head, not only within one.
+//   wgmma with TMA and warp specialisation is the next step.
 //
-// What the design does about it.  The Pallas BlockSpec put the WHOLE K/V
-// sequence of a head into VMEM for each program; that and its VMEM ceiling
-// are TPU artefacts.  Here one CTA owns one (batch*head, 64-row q tile),
+// float32: f32 FMAs (the first version, kept for float32, where TF32 would
+// lose the float32 checks).  One CTA owns one (batch*head, 64-row q tile),
 // keeps the scaled q tile in shared memory, and streams 64-row K/V tiles
-// through shared memory, so shared memory per CTA is fixed whatever the
-// sequence length.  Each of the 256 threads owns a 4x4 score micro-tile and a
-// 4 x (D/16) slice of the accumulator in registers, so S never reaches device
-// memory.  Row statistics reduce across the 16 lanes of a half-warp with
-// shuffles.  With causal masking the CTAs nearest the end of the sequence
-// (longest kv loops) are scheduled first.  q, k, v and out are addressed
-// through (batch, seq, head) strides with unit stride on head_dim, so the
-// wrapper passes non-contiguous views of a fused qkv projection as they are.
+// through shared memory.  Each of the 256 threads owns a 4x4 score
+// micro-tile and a 4 x (D/16) slice of the accumulator in registers, so S
+// never reaches device memory; row statistics reduce across the 16 lanes of
+// a half-warp with shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -44,13 +78,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -209,11 +237,277 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+
+namespace tc {
+
+using sm90::a_split;
+using sm90::bf16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::cp_tile;
+using sm90::ldsm4;
+using sm90::ldsm4_t;
+using sm90::mma;
+using sm90::store2;
+
+constexpr int BM = 128;        // q rows per CTA
+constexpr int BN = 64;         // kv rows per streamed tile
+constexpr int NW = BM / 16;    // warps per CTA, 16 q rows each
+constexpr int NTC = 32 * NW;   // threads per CTA
+constexpr int PAD = 8;         // bf16 padding of a shared-memory row (16 B)
+constexpr int STAGES = 3;      // K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+constexpr size_t smem_bytes() {  // Q; K and V in STAGES stages
+  return sizeof(bf16) * (BM + 2 * STAGES * BN) * (D + PAD);
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; 0 far below)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTC, 1)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, int H, int Sq, int Skv,
+                    Strides qs, Strides ks, Strides vs, Strides os,
+                    float scale, int causal) {
+  constexpr int DP = D + PAD;
+  constexpr int NB = BN / 8;   // n8 blocks of S a tile
+  constexpr int DB = D / 8;    // n8 blocks of O
+  constexpr int KD = D / 16;   // k16 steps of Q K^T
+  constexpr int TS = BN * DP;  // elements of one K or V stage
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);  // [BM][DP]
+  bf16* sK = sQ + BM * DP;                      // [STAGES][BN][DP]
+  bf16* sV = sK + STAGES * TS;                  // [STAGES][BN][DP]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = 16 * warp;  // this warp's rows of the q tile
+  // CTAs start in blockIdx order, x fastest: q tiles on y, so that under
+  // causal masking every head's last q tile (the longest kv loop) starts
+  // before any head's second-to-last
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int qt = causal ? (gridDim.y - 1 - blockIdx.y) : blockIdx.y;
+  const int q0 = qt * BM;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + h * ks.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+
+  int n_kv = (Skv + BN - 1) / BN;
+  if (causal) n_kv = min(n_kv, (q0 + BM + BN - 1) / BN);
+
+  // commit groups: Q, then one per kv tile (empty past the last), so that
+  // before step j's wait the newest STAGES - 2 groups are tiles after j
+  cp_tile<D, BM, NTC, PAD>(sQ, qb, qs.s, q0, Sq);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_kv) {
+      cp_tile<D, BN, NTC, PAD>(sK + t * TS, kb, ks.s, t * BN, Skv);
+      cp_tile<D, BN, NTC, PAD>(sV + t * TS, vb, vs.s, t * BN, Skv);
+    }
+    cp_async_commit();
+  }
+
+  // ldmatrix row addresses: A operand (this warp's rows), B operand
+  // without (b_off) and with (t_off) transpose, before the tile offsets
+  const int a_off = (r0 + lane % 16) * DP + (lane / 16) * 8;
+  const int b_off = (lane % 8 + (lane / 16) * 8) * DP + ((lane / 8) % 2) * 8;
+  const int t_off = (lane % 16) * DP + (lane / 16) * 8;
+
+  cp_async_wait<STAGES - 1>();  // Q has landed
+  __syncthreads();
+  unsigned qa[KD][4];  // Q's A fragments, kept for the whole kv loop
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) ldsm4(qa[kk], sQ + a_off + 16 * kk);
+
+  // Rows g and g + 8 of the warp's 16: running max in log2 units
+  // (m2 = max(s) * scale * log2 e, so that p = 2^(s*c - m2) is one FFMA
+  // and one ex2), this thread's share of the running sum (its 2 of every
+  // 8 columns), and O.
+  const float c = scale * LOG2E;
+  const int qrow = q0 + r0 + lane / 4;
+  float m2[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[DB][4];
+#pragma unroll
+  for (int i = 0; i < DB; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  int st = 0;  // stage of tile j
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j has landed
+    // one barrier a tile: tile j is visible to every warp, and every warp
+    // is done with tile j - 1, whose stage the next copy refills
+    __syncthreads();
+    {
+      const int jn = j + STAGES - 1, sn = st == 0 ? STAGES - 1 : st - 1;
+      if (jn < n_kv) {
+        cp_tile<D, BN, NTC, PAD>(sK + sn * TS, kb, ks.s, jn * BN, Skv);
+        cp_tile<D, BN, NTC, PAD>(sV + sn * TS, vb, vs.s, jn * BN, Skv);
+      }
+      cp_async_commit();
+    }
+    const int k0 = j * BN;
+    // a warp whose rows all lie above this causal tile, or past Sq, skips it
+    if ((!causal || k0 <= q0 + r0 + 15) && q0 + r0 < Sq) {
+      const bf16* tK = sK + st * TS;
+      const bf16* tV = sV + st * TS;
+      float s[NB][4];
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int n2 = 0; n2 < NB / 2; ++n2) {
+          unsigned kf[4];
+          ldsm4(kf, tK + b_off + 16 * n2 * DP + 16 * kk);
+          mma(s[2 * n2], qa[kk], kf[0], kf[1]);
+          mma(s[2 * n2 + 1], qa[kk], kf[2], kf[3]);
+        }
+
+      // mask where the tile crosses the diagonal or a sequence's end
+      const bool masked = (causal && k0 + BN - 1 > q0 + r0) ||
+                          q0 + r0 + 16 > Sq || k0 + BN > Skv;
+      if (masked) {
+        const int kcol = k0 + 2 * (lane % 4);
+#pragma unroll
+        for (int i = 0; i < NB; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qp = qrow + 8 * (e >> 1), kp = kcol + 8 * i + (e & 1);
+            if (!(qp < Sq && kp < Skv && (!causal || qp >= kp)))
+              s[i][e] = NEG_INF;
+          }
+      }
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m2[r], mx[r] * c);
+        const float alpha = ex2(m2[r] - m_new);
+        m2[r] = m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int i = 0; i < DB; ++i) {
+          o[i][2 * r] *= alpha;
+          o[i][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[i][e];
+          // a masked score is 0 even where the row has seen nothing else
+          const float p = masked && x == NEG_INF
+                              ? 0.f
+                              : ex2(fmaf(x, c, -m2[e >> 1]));
+          s[i][e] = p;
+          l[e >> 1] += p;
+        }
+
+      // O += P V, P as a hi/lo pair straight from the accumulators
+#pragma unroll
+      for (int kk = 0; kk < NB / 2; ++kk) {
+        unsigned hi[4], lo[4];
+        a_split<NB>(s, kk, hi, lo);
+#pragma unroll
+        for (int d2 = 0; d2 < DB / 2; ++d2) {
+          unsigned vf[4];
+          ldsm4_t(vf, tV + t_off + 16 * kk * DP + 16 * d2);
+          mma(o[2 * d2], hi, vf[0], vf[1]);
+          mma(o[2 * d2 + 1], hi, vf[2], vf[3]);
+          mma(o[2 * d2], lo, vf[0], vf[1]);
+          mma(o[2 * d2 + 1], lo, vf[2], vf[3]);
+        }
+      }
+    }
+    st = st == STAGES - 1 ? 0 : st + 1;
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qpos = qrow + 8 * r;
+    if (qpos >= Sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);  // fully masked rows: l == 0
+    bf16* row = out + b * os.b + qpos * os.s + h * os.h + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < DB; ++i)
+      store2(row + 8 * i, o[i][2 * r] / denom, o[i][2 * r + 1] / denom);
+    if (lane % 4 == 0)
+      lse[(long long)bh * Sq + qpos] = m2[r] * LN2 + logf(denom);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+           Strides os, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Sq + BM - 1) / BM);
+  flash_fwd_tc_kernel<D><<<grid, NTC, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, H, Sq, Skv,
+      qs, ks, vs, os, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// What the card made of the kernel at head_dim D: registers a thread,
+// dynamic shared memory and local (spill) bytes, CTAs an SM can hold.
+template <int D>
+int attrs(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<D>);
+  if (err != cudaSuccess) return (int)err;
+  constexpr size_t smem = smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, flash_fwd_tc_kernel<D>, NTC, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)smem;
+  out[2] = (int)fa.localSizeBytes;
+  out[3] = ctas;
+  return 0;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, for the
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel; q,
+// k and v 16-byte aligned, with batch, seq and head strides of whole
+// 16-byte vectors).  Strides are in elements, for the
 // [B, S, H, D] layout with unit stride on D.  Returns a cudaError_t
 // (0 on success); -1 for an unsupported dtype or head_dim.
 int tfos_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
@@ -225,14 +519,23 @@ int tfos_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TFOS_LAUNCH(T, D)                                                   \
-  return launch<T, D>(q, k, v, out, lse, B, H, Sq, Skv, qs, ks, vs, os,     \
-                      scale, causal, st)
-  if (dtype == 0 && head_dim == 64) TFOS_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) TFOS_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) TFOS_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) TFOS_LAUNCH(__nv_bfloat16, 128);
-#undef TFOS_LAUNCH
+#define TFOS_ARGS \
+  q, k, v, out, lse, B, H, Sq, Skv, qs, ks, vs, os, scale, causal, st
+  if (dtype == 0 && head_dim == 64) return launch<float, 64>(TFOS_ARGS);
+  if (dtype == 0 && head_dim == 128) return launch<float, 128>(TFOS_ARGS);
+  if (dtype == 1 && head_dim == 64) return tc::launch<64>(TFOS_ARGS);
+  if (dtype == 1 && head_dim == 128) return tc::launch<128>(TFOS_ARGS);
+#undef TFOS_ARGS
+  return -1;
+}
+
+// The bf16 tensor-core kernel at head_dim 64 or 128 as the card holds it:
+// out[0] registers a thread, out[1] dynamic shared memory bytes, out[2]
+// local (spill) bytes a thread, out[3] CTAs an SM.  Returns a cudaError_t;
+// -1 for another head_dim.
+int tfos_flash_fwd_tc_attrs(int head_dim, int* out) {
+  if (head_dim == 64) return tc::attrs<64>(out);
+  if (head_dim == 128) return tc::attrs<128>(out);
   return -1;
 }
 

@@ -20,6 +20,8 @@ from tensorflowonspark_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_ROWS_PER_CTA = 8  # warps (one a row) in one CTA of the kernel
+MAX_VECS_PER_LANE = 8  # 16-byte vectors a lane holds on the registers path
+_MODES = {"scalar": 0, "vector": 1, "registers": 2}
 
 #: Launches of the RMSNorm kernel in this process, one per call that
 #: reached it; callers reset it by assignment.
@@ -48,6 +50,22 @@ def _lib():
     return lib
 
 
+def kernel_path(dim, element_size, aligned):
+    """The path of ``csrc/rmsnorm.cu`` that rows of ``dim`` elements of
+    ``element_size`` bytes take: ``"registers"`` (one pass, the row kept
+    in registers) where ``dim`` is a multiple of 32 16-byte vectors and a
+    lane's share fits ``MAX_VECS_PER_LANE`` vectors; otherwise the
+    two-pass path, by 16-byte ``"vector"`` where ``dim`` is a multiple of
+    the vector, else by ``"scalar"``.  ``aligned``: x and y start on a
+    16-byte boundary (a misaligned input takes the scalar path)."""
+    vec = 16 // element_size
+    if not aligned or dim % vec:
+        return "scalar"
+    if dim % (32 * vec) == 0 and dim // (32 * vec) <= MAX_VECS_PER_LANE:
+        return "registers"
+    return "vector"
+
+
 def _rmsnorm_cuda(x, scale, eps, block_rows):
     """Launch ``csrc/rmsnorm.cu`` on the current stream; returns y in x's
     dtype and shape.  Raises on anything the kernel does not take."""
@@ -64,16 +82,17 @@ def _rmsnorm_cuda(x, scale, eps, block_rows):
     if rows == 0 or dim == 0:
         return y.reshape(x.shape)
     scale_f = scale.to(torch.float32).contiguous()
-    vec_elems = 16 // x.element_size()
-    vec = (dim % vec_elems == 0 and x2.data_ptr() % 16 == 0
-           and y.data_ptr() % 16 == 0)
+    if scale_f.data_ptr() % 16:  # the registers path reads 16-byte vectors
+        scale_f = scale_f.clone()
+    path = kernel_path(dim, x.element_size(),
+                       x2.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.tfos_rmsnorm_fwd(
             _DTYPES[x.dtype], x2.data_ptr(), scale_f.data_ptr(),
             y.data_ptr(), rows, dim, float(eps),
-            min(int(block_rows), MAX_ROWS_PER_CTA), int(vec), stream)
+            min(int(block_rows), MAX_ROWS_PER_CTA), _MODES[path], stream)
     if err != 0:
         msg = (lib.tfos_cuda_error_string(err).decode() if err > 0
                else "arguments the kernel does not take")

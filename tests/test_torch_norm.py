@@ -99,3 +99,22 @@ def test_cpu_tensor_takes_the_plain_version_and_launches_nothing():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tnorm._rmsnorm_cuda(torch.from_numpy(x), torch.from_numpy(scale),
                             1e-6, 256)
+
+
+@pytest.mark.parametrize("dim,esize,aligned,want", [
+    (1024, 2, True, "registers"),   # bf16 activation: 4 vectors a lane
+    (1024, 4, True, "registers"),   # f32: 8 vectors a lane
+    (2048, 2, True, "registers"),   # bf16: 8 vectors a lane, the most
+    (768, 2, True, "registers"),    # 3 vectors a lane
+    (4096, 2, True, "vector"),      # 16 vectors a lane: two-pass
+    (2048, 4, True, "vector"),      # f32, 16 vectors a lane: two-pass
+    (96, 4, True, "vector"),        # no multiple of 32 vectors
+    (100, 2, True, "scalar"),       # no multiple of the 16-byte vector
+    (64, 2, False, "scalar"),       # x one element past a 16-byte boundary
+])
+def test_kernel_path_by_shape(dim, esize, aligned, want):
+    """Which path of the kernel rows take: one pass from registers where
+    the row is a whole number of 32-vector passes of at most
+    MAX_VECS_PER_LANE vectors a lane, else the two-pass path, by 16-byte
+    vectors where dim and alignment allow."""
+    assert tnorm.kernel_path(dim, esize, aligned) == want

@@ -126,15 +126,33 @@ def test_flash_plain_differentiable_on_cpu():
         np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=2e-4)
 
 
-@pytest.mark.parametrize("head_dim,match", [(32, r"\(64, 128\)"),
-                                            (64, "CUDA tensor")])
-def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match):
+@pytest.mark.parametrize("head_dim,match,case", [
+    pytest.param(32, r"\(64, 128\)", "f32", id=r"32-\(64, 128\)"),
+    pytest.param(64, "CUDA tensor", "f32", id="64-CUDA tensor"),
+    pytest.param(128, "q must start on a 16-byte", "bf16 q base",
+                 id="bf16-misaligned-q-base"),
+    pytest.param(128, "CUDA tensor", "bf16 fused qkv",
+                 id="bf16-fused-qkv-views-pass-to-the-device-check"),
+])
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
+                                                            case):
     """The kernel wrapper never falls back: an unsupported head_dim names
-    the supported set, and a CPU tensor handed to it is refused."""
-    q, k, v = (_t(a) for a in _qkv(2, 1, 8, 2, head_dim))
+    the supported set; a bf16 q that the tensor-core kernel cannot copy in
+    16-byte vectors (one element past a 16-byte boundary) is refused
+    before the device check, while views of a fused qkv projection pass
+    that check; and a CPU tensor handed to it is refused last."""
+    dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    qkv = _t(np.random.default_rng(2).standard_normal(
+        (1, 8, 3, 2, head_dim)).astype(np.float32), dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if case != "bf16 fused qkv":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    if case == "bf16 q base":
+        q = _shifted(q)
+    before = tattn.launches
     with pytest.raises(ValueError, match=match):
         tattn._flash_forward_cuda(q, k, v, causal=True, scale=0.125)
-    assert tattn.launches == 0
+    assert tattn.launches == before == 0
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -374,3 +392,33 @@ def test_cuda_backward_wrapper_refuses_what_the_kernels_do_not_take(
         tattn._flash_backward_cuda(q, k, v, out, lse, g, causal=True,
                                    scale=0.125)
     assert (tattn.dq_launches, tattn.dkv_launches) == before
+
+
+def test_a_newer_shared_header_makes_every_library_stale(tmp_path,
+                                                         monkeypatch):
+    """``_build._stale``: a library is rebuilt when it is missing, when its
+    source is newer, and when any shared header ``csrc/*.cuh`` is newer,
+    since every kernel source may include it."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    src, header = csrc / "kern.cu", csrc / "shared.cuh"
+    src.write_text('#include "shared.cuh"\n')
+    header.write_text("\n")
+    assert _build._stale("kern")  # no library yet
+    lib = build / "libkern.so"
+    lib.write_bytes(b"")
+    t0 = 1_700_000_000
+    os.utime(src, (t0, t0))
+    os.utime(header, (t0, t0))
+    os.utime(lib, (t0 + 10, t0 + 10))
+    assert not _build._stale("kern")
+    os.utime(header, (t0 + 20, t0 + 20))
+    assert _build._stale("kern")
+    os.utime(header, (t0, t0))
+    os.utime(src, (t0 + 20, t0 + 20))
+    assert _build._stale("kern")
