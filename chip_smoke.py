@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card (Hopper,
 ``sm_90a``).  It builds the port's kernels from the checkout's sources
 into ``build/torch_kernels/`` and drives the port's three paths: the
 SPARK-fed training path (the main path), in-process training and
-serving, plus the ``fused_rmsnorm`` entry point:
+serving, plus the ``fused_rmsnorm`` entry point, and ResNet-50 in
+process and SPARK-fed (which launches none of the kernels):
 
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; TF32 off for float32
@@ -55,7 +56,27 @@ serving, plus the ``fused_rmsnorm`` entry point:
    prefill;
 9. token-exactness at full width in float32: ``DecodeEngine`` greedy
    tokens equal the full-recompute ``greedy_decode_reference`` with
-   ``mha_reference`` attention.
+   ``mha_reference`` attention;
+10. ResNet-50 in process at the north-star shape (1000 classes, 224x224
+    uint8 images, batch 256, bf16 compute, SGD(0.1, momentum 0.9)): one
+    ``bn_fused=False`` step (its loss equals the fused first step's; its
+    peak memory), two warm-up and six timed steps on one seeded batch
+    (images/s, MFU, peak memory; every loss finite, every BN running
+    statistic finite and moved off (0, 1)), the space-to-depth stem
+    against the 7x7 stem in bf16 and float32, and a profiled rerun split
+    into convolutions (forward, dgrad, wgrad), BN statistics,
+    elementwise work, the optimizer and copies; no transformer kernel
+    launched;
+11. one float32 ResNet-50 step (TF32 off) at batch 4, 64x64, on the card
+    against the same step on the CPU: loss, every gradient, new BN state;
+12. ResNet-50 SPARK-fed (this slice's main path): ``cluster.run`` of
+    ``resnet_imagenet_spark.main_fun`` on the one-executor engine with
+    ``num_gpus=1``, phase 10's batch as 256 (uint8 image, label) records
+    a step for six steps through ``DataFeed`` and
+    ``device_feed(columnar=True)``; its losses equal phase 10's first
+    six, every partition consumed once, no trainer left, and the chief's
+    checkpoint (HWIO on disk) restores in this process into params whose
+    loss is phase 10's seventh.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -88,7 +109,11 @@ import torch
 from tensorflowonspark_tpu_torch import cluster as TFCluster
 from tensorflowonspark_tpu_torch import infeed
 from tensorflowonspark_tpu_torch.engine import LocalEngine
-from tensorflowonspark_tpu_torch.examples import transformer_spark
+from tensorflowonspark_tpu_torch.examples import (
+    resnet_imagenet_spark,
+    transformer_spark,
+)
+from tensorflowonspark_tpu_torch.models import layers, resnet
 from tensorflowonspark_tpu_torch.models import transformer as T
 from tensorflowonspark_tpu_torch.ops import (
     _build,
@@ -96,7 +121,9 @@ from tensorflowonspark_tpu_torch.ops import (
     fused_rmsnorm,
     norm,
 )
+from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
 from tensorflowonspark_tpu_torch.utils import metrics
+from tensorflowonspark_tpu_torch.utils import train as train_utils
 from tensorflowonspark_tpu_torch.serving.decode import (
     DecodeEngine,
     DecodeSpec,
@@ -171,6 +198,29 @@ RMS_ATOL = 1e-5
 # the same batches, but bf16 embedding gradients are summed with atomics
 # in no fixed order
 SPARK_LOSS_RTOL = 1e-3
+
+# ResNet-50 at the JAX package's north-star shape: 1000 classes, 224x224x3
+# uint8 images, batch 256, SGD(0.1, momentum 0.9)
+# (examples/resnet/resnet_imagenet_spark.py's defaults, bench.py's on-chip
+# shape and optimizer); bf16 compute, f32 masters and BN statistics
+RESNET = dict(depth=50, num_classes=1000, image=224, batch=256, lr=0.1)
+RESNET_WARMUP, RESNET_STEPS = 2, 6   # in process: untimed, then timed
+SPARK_RESNET_STEPS = 6               # SPARK-fed: the first six of those
+# bn_fused=False computes the same forward op for op, so the first step's
+# loss agrees but for cuDNN's own run-to-run order
+RESNET_FUSED_RTOL = 1e-5
+# stem_s2d against the 7x7 stem, max |difference| over max |logit|.  The
+# two stems sum the same products in another order; in bf16 each conv
+# output is then one rounding apart in some elements, and that spreads
+# through 53 layers, each renormalised by BN: 2e-2 of the largest logit
+# (2.8e-3 on the H100; a wrong fold of the kernel or the input moves
+# logits by O(1) of it).  float32: 1e-4.
+RESNET_S2D_BF16_RTOL = 2e-2
+RESNET_S2D_F32_RTOL = 1e-4
+# one float32 step on the card against the CPU: max |difference| over each
+# tensor's largest value
+RESNET_EXACT = dict(batch=4, image=64)
+RESNET_EXACT_RTOL = 1e-3
 
 
 def ptxas_report(log):
@@ -885,9 +935,26 @@ def run_engine(params, spec, jobs, dev, timeout):
     return done, streamed, first, wall, stats, eng
 
 
-def device_breakdown(prof, wall_s):
+def _transformer_group(name):
+    """Kernel group of a transformer step's device event."""
+    low = name.lower()
+    return ("flash_fwd" if "flash_fwd" in low else
+            "flash_dq" if "flash_dq" in low else
+            "flash_dkv" if "flash_dkv" in low else
+            "memcpy" if "memcpy" in low else
+            "matmul" if any(w in low for w in ("gemm", "nvjet", "cutlass",
+                                               "cublas"))
+            else "softmax" if "softmax" in low else
+            "optimizer" if any(w in low for w in ("adam", "multi_tensor"))
+            else "index/gather/scatter" if any(
+                w in low for w in ("index", "gather", "scatter"))
+            else "other")
+
+
+def device_breakdown(prof, wall_s, classify=_transformer_group, top=8):
     """Device time of a profiled run: busy time (union of kernel and copy
-    intervals), the idle share of ``wall_s``, and time by kernel group."""
+    intervals), the idle share of ``wall_s``, and time by kernel group
+    (``classify(kernel name) -> group``)."""
     spans, groups, names = [], collections.Counter(), collections.Counter()
     for e in prof.events():
         # device-side ranges of record_function annotations (such as
@@ -898,20 +965,7 @@ def device_breakdown(prof, wall_s):
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
         name = e.name
-        low = name.lower()
-        group = ("flash_fwd" if "flash_fwd" in low else
-                 "flash_dq" if "flash_dq" in low else
-                 "flash_dkv" if "flash_dkv" in low else
-                 "memcpy" if "memcpy" in low else
-                 "matmul" if any(w in low for w in ("gemm", "nvjet",
-                                                    "cutlass", "cublas"))
-                 else "softmax" if "softmax" in low else
-                 "optimizer" if any(w in low for w in ("adam",
-                                                       "multi_tensor"))
-                 else "index/gather/scatter" if any(
-                     w in low for w in ("index", "gather", "scatter"))
-                 else "other")
-        groups[group] += (t1 - t0) / 1e3
+        groups[classify(name)] += (t1 - t0) / 1e3
         names[name[:90]] += (t1 - t0) / 1e3
     busy, end = 0.0, None
     for t0, t1 in sorted(spans):
@@ -926,7 +980,7 @@ def device_breakdown(prof, wall_s):
                 idle_share=1.0 - busy_ms / (1e3 * wall_s),
                 device_events=len(spans),
                 groups_ms=dict(groups.most_common()),
-                top_kernels_ms=names.most_common(8))
+                top_kernels_ms=names.most_common(top))
 
 
 def phase_serving(dev, gpu):
@@ -1022,6 +1076,388 @@ def phase_exact(dev):
           "full-recompute reference", flush=True)
 
 
+# -- ResNet-50 ----------------------------------------------------------------
+
+def _resnet_batch():
+    """The in-process phase's batch: ``RESNET["batch"]`` seeded uint8
+    NHWC images and labels (numpy seed 0, as bench.py seeds its batch)."""
+    rng = np.random.default_rng(0)
+    b, side = RESNET["batch"], RESNET["image"]
+    images = rng.integers(0, 256, (b, side, side, 3), dtype=np.uint8)
+    labels = rng.integers(0, RESNET["num_classes"], b).astype(np.int64)
+    return images, labels
+
+
+def _resnet_net(dev, seed=0, bn_fused=True):
+    params, state = resnet.init(
+        torch.Generator(device=dev).manual_seed(seed), depth=RESNET["depth"],
+        num_classes=RESNET["num_classes"], device=dev)
+    leaves = [p.requires_grad_() for p in resnet.param_leaves(params)]
+    opt = torch.optim.SGD(leaves, lr=RESNET["lr"], momentum=0.9)
+    step = resnet.make_train_step(opt, depth=RESNET["depth"],
+                                  bn_fused=bn_fused)
+    return params, state, step
+
+
+def _rel_max(got, ref):
+    """max |got - ref| over max |ref| (float64 on the host)."""
+    got = got.detach().double().cpu()
+    ref = ref.detach().double().cpu()
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _resnet_group(name):
+    """Kernel group of a ResNet step's device event."""
+    low = name.lower()
+    if "dgrad" in low:
+        return "conv dgrad"
+    if "wgrad" in low:
+        return "conv wgrad"
+    if "fprop" in low or "convolve" in low or "conv2d" in low:
+        return "conv forward"
+    if any(w in low for w in ("xmma", "cudnn", "cutlass", "implicit_gemm",
+                              "nchwtonhwc", "nhwctonchw")):
+        return "conv other (cuDNN)"
+    if any(w in low for w in ("gemm", "nvjet", "cublas")):
+        # cuDNN runs many 1x1 convolutions as plain GEMMs
+        return "GEMM (1x1 convs, fc)"
+    if "reduce" in low:
+        return "BN statistics and reductions"
+    if "max_pool" in low or "maxpool" in low:
+        return "max pool"
+    if any(w in low for w in ("multi_tensor", "sgd", "foreach")):
+        return "optimizer"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    if "copy" in low:
+        return "copies (dtype casts, layouts)"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise (BN apply, ReLU, adds, gates)"
+    return "other"
+
+
+def phase_resnet(dev, gpu):
+    """ResNet-50 in process at the north-star shape (bf16 compute, f32
+    masters and BN statistics, SGD(0.1, momentum 0.9)): one unfused-BN
+    step for its loss and peak memory, then warm-up and timed fused
+    steps on one seeded batch, the stem and state gates, and a profiled
+    rerun.  Returns the summary (its ``losses`` are every step's)."""
+    images_np, labels_np = _resnet_batch()
+    images = torch.from_numpy(images_np).to(dev)
+    labels = torch.from_numpy(labels_np).to(dev)
+    b = RESNET["batch"]
+    flops_img = 3 * resnet.flops_per_image(RESNET["depth"], RESNET["image"])
+    _reset_counts()
+    norm.launches = 0
+
+    # bn_fused=False: autograd over the same forward; the first step's
+    # loss must equal the fused path's, which saves only x per BN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state, step = _resnet_net(dev, bn_fused=False)
+    loss_unfused = step(params, state, images, labels)[0].item()
+    peak_unfused = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, state, step
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state, step = _resnet_net(dev)
+    losses, step_ms = [], []
+    for _ in range(RESNET_WARMUP + RESNET_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, acc, state = step(params, state, images, labels)
+        end.record()
+        losses.append(loss.item())  # waits for the step
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak_fused = torch.cuda.max_memory_allocated(dev) / 1e9
+    timed = step_ms[RESNET_WARMUP:]
+    med = statistics.median(timed)
+    peak = metrics.peak_flops(dev)
+    summary = dict(
+        depth=RESNET["depth"], batch=b, image=RESNET["image"],
+        dtype="bfloat16", warmup_steps=RESNET_WARMUP, losses=losses,
+        step_ms=step_ms, step_ms_median=med, images_per_s=b / (med / 1e3),
+        mfu_median_step=(b / (med / 1e3) * flops_img / peak
+                         if peak else None),
+        flops_per_image=flops_img, peak_mem_gb=peak_fused,
+        peak_mem_gb_unfused_step=peak_unfused,
+        first_loss_fused=losses[0], first_loss_unfused=loss_unfused,
+        cudnn_benchmark=torch.backends.cudnn.benchmark,
+        final_acc=float(acc), gpu=gpu)
+    print("resnet " + json.dumps(summary), flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet losses {losses}")
+    if abs(loss_unfused - losses[0]) > RESNET_FUSED_RTOL * abs(losses[0]):
+        raise AssertionError(f"first-step loss: bn_fused=False "
+                             f"{loss_unfused} vs fused {losses[0]} (rtol "
+                             f"{RESNET_FUSED_RTOL})")
+    for path, t in _leaf_items(state):
+        init = 0.0 if path.endswith("mean") else 1.0
+        if not (torch.isfinite(t).all() and (t != init).any()):
+            raise AssertionError(f"BN running stat {path} not finite or "
+                                 f"still at its initial {init}")
+
+    # the space-to-depth stem against the 7x7/s2 SAME stem on the card,
+    # on the trained params, training-mode BN over the batch
+    checks = {}
+    with torch.no_grad():
+        for name, dtype, rtol in (("bfloat16", torch.bfloat16,
+                                   RESNET_S2D_BF16_RTOL),
+                                  ("float32", torch.float32,
+                                   RESNET_S2D_F32_RTOL)):
+            out = [resnet.apply(params, state, images, depth=RESNET["depth"],
+                                compute_dtype=dtype, stem_s2d=s2d)[0]
+                   for s2d in (True, False)]
+            err = _rel_max(out[0], out[1])
+            checks[f"s2d_vs_7x7_{name}"] = dict(rel_err=err, rtol=rtol)
+            if not (torch.isfinite(out[0]).all() and err <= rtol):
+                raise AssertionError(f"stem_s2d logits differ from the 7x7 "
+                                     f"stem's in {name}: {err} (rtol "
+                                     f"{rtol})")
+    print("resnet checks " + json.dumps(checks), flush=True)
+
+    # two more steps under the profiler: device time by kernel group and
+    # the idle share of their wall (the profiler's overhead lengthens it)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(params, state, images, labels)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    print("resnet profile " + json.dumps(
+        device_breakdown(prof, pwall, _resnet_group, top=25)), flush=True)
+    launches = _counts()
+    launches["rmsnorm"] = norm.launches
+    if any(launches.values()):
+        raise AssertionError(f"ResNet launched a transformer kernel: "
+                             f"{launches}")
+    summary["launches"] = launches
+    del params, state, step, prof
+    torch.cuda.empty_cache()
+    return summary
+
+
+class _PinnedBranches:
+    """Records the branches that ``layers.relu`` (1 above 0, 1/2 at 0, 0
+    below) and ``layers.max_pool`` (each window's argmax) take on one run,
+    and makes a second run take the same ones, counting where its own
+    would differ.  The card's convolutions and the CPU's sum in other
+    orders, so a ReLU input or a pooling window within float32 rounding
+    of a tie can branch differently, and one such element moves every
+    gradient upstream of it by up to O(1) of a small layer's; pinned,
+    both runs differentiate the same function."""
+
+    def __init__(self):
+        self.relu_masks, self.pool_idx = [], []
+        self.replay = False
+        self.relu_differ = self.pool_differ = 0
+
+    def relu(self, x):
+        own = (x > 0).to(x.dtype) + 0.5 * (x == 0).to(x.dtype)
+        if not self.replay:
+            self.relu_masks.append(own.cpu())
+            return layers._max0(x)
+        m = self.relu_masks.pop(0).to(x.device)
+        self.relu_differ += int((own != m).sum())
+        return x * m
+
+    def max_pool(self, x, window, stride, padding):
+        # ResNet's stem pool: SAME
+        w, st = layers._pair(window), layers._pair(stride)
+        xp, _ = layers._pad_same(x, w, st, value=float("-inf"))
+        y, idx = torch.nn.functional.max_pool2d(xp, w, st,
+                                                return_indices=True)
+        if not self.replay:
+            self.pool_idx.append(idx.cpu())
+            return y
+        pinned = self.pool_idx.pop(0).to(x.device)
+        self.pool_differ += int((pinned != idx).sum())
+        return xp.flatten(2).gather(2, pinned.flatten(2)).view_as(y)
+
+
+def phase_resnet_exact(dev):
+    """One float32 step of ResNet-50 (TF32 off) at a small batch and image
+    on the card against the same step on the CPU through the same code
+    (``bn_fused=False``, whose ReLUs all go through ``layers.relu``, the
+    CPU run taking the card's ReLU and pooling branches: see
+    ``_PinnedBranches``): the loss, every gradient and the new BN
+    state."""
+    side, b = RESNET_EXACT["image"], RESNET_EXACT["batch"]
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.integers(0, 256, (b, side, side, 3),
+                                           dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, RESNET["num_classes"], b))
+    params_cpu, state_cpu = resnet.init(
+        torch.Generator().manual_seed(3), depth=RESNET["depth"],
+        num_classes=RESNET["num_classes"], device="cpu")
+    runs = {}
+    pins = _PinnedBranches()
+    real = layers.relu, layers.max_pool
+    layers.relu, layers.max_pool = pins.relu, pins.max_pool
+    try:
+        for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            pins.replay = name == "cpu"
+            runs[name] = _resnet_exact_run(params_cpu, state_cpu, images,
+                                           labels, d)
+    finally:
+        layers.relu, layers.max_pool = real
+    if pins.relu_masks or pins.pool_idx:
+        raise AssertionError("the CPU run took another path than the "
+                             "card's")
+    (loss, grads, new_state), (rloss, rgrads, rstate) = runs["cuda"], \
+        runs["cpu"]
+    worst, worst_names = {}, {}
+    for what, got, ref in (("grads", grads, rgrads),
+                           ("state", new_state, rstate)):
+        errs = sorted(((_rel_max(a, b), path) for (path, a), (_, b) in zip(
+            _leaf_items(got), _leaf_items(ref))), reverse=True)
+        worst[what] = errs[0][0]
+        worst_names[what] = errs[:3]
+    worst["loss"] = _rel_max(loss, rloss)
+    print("resnet exact " + json.dumps(dict(
+        batch=b, image=side, loss=loss.item(), cpu_loss=rloss.item(),
+        rel_err=worst, worst_tensors=worst_names, rtol=RESNET_EXACT_RTOL,
+        cpu_relu_branches_pinned=pins.relu_differ,
+        cpu_pool_branches_pinned=pins.pool_differ)), flush=True)
+    if not all(v <= RESNET_EXACT_RTOL for v in worst.values()):
+        raise AssertionError(f"float32 ResNet step on the card vs the CPU: "
+                             f"{worst} (rtol {RESNET_EXACT_RTOL})")
+
+
+def _resnet_exact_run(params_cpu, state_cpu, images, labels, d):
+    """(loss, grads, new state) of one float32 ResNet-50 step on ``d``,
+    unfused BN."""
+    # on the card through the JAX-layout round trip, which lays the conv
+    # kernels out channels-last there
+    params, state = resnet.params_from_jax(
+        *resnet.params_to_jax(params_cpu, state_cpu), device=d)
+
+    def loss_fn(p):
+        logits, new_state = resnet.apply(
+            p, state, images.to(d), depth=RESNET["depth"],
+            compute_dtype=torch.float32, bn_fused=False)
+        return layers.softmax_cross_entropy(logits, labels.to(d)), new_state
+
+    (loss, new_state), grads = train_utils.value_and_grad(
+        loss_fn, has_aux=True)(params)
+    return loss, grads, new_state
+
+
+def _leaf_items(tree, prefix=""):
+    """(path, tensor) of a tree's leaves in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaf_items(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def phase_spark_resnet(dev, engine, gpu, res):
+    """The main path: ResNet-50 SPARK-fed through the port's cluster on
+    ``engine``: phase_resnet's batch as ``RESNET["batch"]`` (uint8 image,
+    label) records a step, ``SPARK_RESNET_STEPS`` steps, into
+    ``resnet_imagenet_spark.main_fun``.  ``res`` is phase_resnet's
+    summary, whose first losses this run must give."""
+    images_np, labels_np = _resnet_batch()
+    b = RESNET["batch"]
+    records = [(images_np[i], int(labels_np[i])) for i in range(b)] \
+        * SPARK_RESNET_STEPS
+    tmp = tempfile.mkdtemp(prefix="tfos_spark_resnet_")
+    model_dir = os.path.join(tmp, "model")
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, resnet_imagenet_spark.main_fun,
+            {"batch_size": b, "lr": RESNET["lr"], "image_size": RESNET["image"],
+             "num_classes": RESNET["num_classes"], "model_dir": model_dir,
+             "save_every": 10 ** 6, "seed": 0, "out_dir": tmp},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300)
+        t_run = time.time() - t0
+        c.train(engine.parallelize(records, SPARK_RESNET_STEPS),
+                feed_timeout=600)
+        fed = c.server.fed_partitions("input")
+        c.shutdown()
+        t_total = time.time() - t0
+        with open(os.path.join(tmp, "resnet_imagenet-rank0.json")) as f:
+            report = json.load(f)
+        orphan = _alive(report["pid"])
+        tree, saved = ckpt.restore_latest(os.path.join(model_dir, "ckpt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses, ref = report["losses"], res["losses"][:SPARK_RESNET_STEPS]
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref)]
+    med = statistics.median(report["step_ms"][1:])
+    tm = report["train_metrics"]
+
+    # the chief's checkpoint: HWIO kernels on disk, restored into the
+    # port's params on the card, whose loss on the batch is the in-process
+    # run's next step's
+    kernels = {path: v.shape for path, v in _leaf_items(tree["params"])
+               if v.ndim == 4}
+    hwio = kernels.pop("stem/w") == (7, 7, 3, 64) and all(
+        sh[0] == sh[1] in (1, 3) for sh in kernels.values())
+    params, state, _ = _resnet_net(dev)
+    resnet.restore_checkpoint_tree(tree, params, state,
+                                   torch.optim.SGD(resnet.param_leaves(
+                                       params), lr=RESNET["lr"]))
+    with torch.no_grad():
+        logits, _ = resnet.apply(params, state,
+                                 torch.from_numpy(images_np).to(dev),
+                                 depth=RESNET["depth"])
+        restored_loss = layers.softmax_cross_entropy(
+            logits, torch.from_numpy(labels_np).to(dev)).item()
+    next_ref = res["losses"][SPARK_RESNET_STEPS]
+    del params, state, logits
+    torch.cuda.empty_cache()
+    peak = metrics.peak_flops(dev)
+    summary = dict(
+        losses=losses, phase_resnet_losses=ref,
+        max_rel_loss_diff=max(rel) if rel else None,
+        # end to end: TrainMetrics over the timed steps, the trainer's
+        # waits for its next batch included
+        images_per_s=tm.get("items_per_sec"), mfu=tm.get("mfu"),
+        step_ms=report["step_ms"], step_ms_median_after_first=med,
+        device_step_images_per_s=b / (med / 1e3),
+        device_step_mfu=(b / (med / 1e3) * res["flops_per_image"] / peak
+                         if peak else None),
+        train_metrics=tm, infeed_stall_frac=tm["infeed_stall_frac"],
+        feed_wait_s=report["feed_wait_s"],
+        boot_s=report["first_step_wall"] - t0, cluster_run_s=t_run,
+        main_start_s=report["main_start_wall"] - t0,
+        model_ready_s=report["model_wall"] - t0, total_s=t_total,
+        records=report["records"], fed_partitions=fed,
+        trainer_alive_after_shutdown=orphan, peak_mem_gb=report["peak_mem_gb"],
+        checkpoint_step=saved, checkpoint_hwio=hwio,
+        restored_loss=restored_loss, phase_resnet_next_loss=next_ref,
+        phase_resnet_images_per_s=res["images_per_s"],
+        pickled_mb_per_step=b * images_np[0].nbytes / 1e6,
+        cuda_visible_devices=report["cuda_visible_devices"], gpu=gpu)
+    print("spark_resnet " + json.dumps(summary), flush=True)
+    if len(losses) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"SPARK-fed ResNet losses {losses} vs "
+                             f"in-process {ref} (rtol {SPARK_LOSS_RTOL})")
+    if fed != list(range(SPARK_RESNET_STEPS)) or \
+            report["records"] != b * SPARK_RESNET_STEPS:
+        raise AssertionError(f"fed partitions {fed}, records the trainer's "
+                             f"DataFeed handed out {report['records']}")
+    if orphan:
+        raise AssertionError(f"trainer {report['pid']} alive after "
+                             "shutdown")
+    if saved != SPARK_RESNET_STEPS or not hwio or \
+            abs(restored_loss - next_ref) > SPARK_LOSS_RTOL * abs(next_ref):
+        raise AssertionError(
+            f"chief checkpoint: step {saved}, HWIO {hwio}, loss of the "
+            f"restored params {restored_loss} vs in-process {next_ref}")
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1070,6 +1506,9 @@ def run_phases(dev, gpu, engine):
     phase_grad_exact(dev)
     phase_serving(dev, gpu)
     phase_exact(dev)
+    res = phase_resnet(dev, gpu)
+    phase_resnet_exact(dev)
+    phase_spark_resnet(dev, engine, gpu, res)
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -1120,6 +1559,8 @@ def run_phases(dev, gpu, engine):
     ]
     for k in kernels[:3]:
         k["launches_spark_train"] = spark_launches[k["name"]]
+    for k in kernels:
+        k["launches_resnet"] = res["launches"][k["name"]]
     return kernels
 
 

@@ -160,3 +160,29 @@ def accumulated_value_and_grad(loss_fn, accum_steps, has_aux=False,
         return ((loss, aux), grads) if has_aux else (loss, grads)
 
     return vg
+
+
+def sgd_momentum_tree(optimizer, params):
+    """The momentum buffers of a ``torch.optim.SGD`` over ``params``' leaves
+    as a tree shaped like ``params`` (nested dicts of tensors), zeros for a
+    leaf that has none yet: ``optax.sgd``'s ``trace``, which starts at 0
+    and equals torch's buffer once each has taken a step (dampening 0)."""
+    def buf(p):
+        b = optimizer.state.get(p, {}).get("momentum_buffer")
+        return torch.zeros_like(p) if b is None else b.detach()
+
+    return pytree.tree_map(buf, params)
+
+
+def load_sgd_momentum_(optimizer, params, tree):
+    """Set the momentum buffer of each of ``params``' leaves to the
+    matching tensor of ``tree`` (shaped like ``params``), copied."""
+    def walk(ps, ms):
+        for k, p in ps.items():
+            if isinstance(p, dict):
+                walk(p, ms[k])
+            else:
+                optimizer.state[p]["momentum_buffer"] = ms[k].detach().to(
+                    p.device, p.dtype, copy=True)
+
+    walk(params, tree)

@@ -68,8 +68,9 @@ def test_params_from_jax_transposes_conv_kernels(model):
 
 
 def test_layers_match_jax():
-    """SAME 3x3 conv (NCHW/OIHW against NHWC/HWIO), 2x2 VALID max pool
-    on an odd size (the edge row is dropped), dense, cross entropy."""
+    """SAME 3x3 conv (NCHW/OIHW against NHWC/HWIO) at strides 1 and 2,
+    2x2 VALID max pool on an odd size (the edge row is dropped), dense,
+    cross entropy."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 9, 9, 3)).astype(np.float32)
     w = rng.standard_normal((3, 3, 3, 4)).astype(np.float32)
@@ -94,9 +95,14 @@ def test_layers_match_jax():
                                    torch.from_numpy(labels)),
            JL.softmax_cross_entropy(jnp.asarray(logits),
                                     jnp.asarray(labels)), "ce")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        L.conv({"w": torch.zeros((4, 3, 3, 3))}, torch.zeros((1, 3, 8, 8)),
-               stride=2)
+    # SAME at stride 2 pads XLA's way, (0, 1) on a side of 8
+    w2 = rng.standard_normal((3, 3, 3, 4)).astype(np.float32)
+    x2 = rng.standard_normal((1, 8, 8, 3)).astype(np.float32)
+    _close(L.conv({"w": torch.from_numpy(w2.transpose(3, 2, 0, 1).copy())},
+                  torch.from_numpy(x2).permute(0, 3, 1, 2), stride=2)
+           .permute(0, 2, 3, 1),
+           JL.conv({"w": jnp.asarray(w2)}, jnp.asarray(x2), stride=2),
+           "conv stride 2")
 
 
 def test_apply_loss_and_grads_match_jax(model):
@@ -144,3 +150,26 @@ def test_sgd_momentum_steps_match_optax(model):
             if name.startswith("conv") and k == "w":
                 ref = ref.transpose(3, 2, 0, 1)
             _close(v, ref, f"param {name}.{k} after two steps")
+
+
+def test_grads_at_exact_zero_pre_activations_match_jax(model):
+    """All-zero images and the zero-initialised biases make every
+    pre-activation exactly 0, where ``jnp.maximum``'s gradient is 1/2:
+    conv1's bias gradient is then 1/2 of its upstream sum in JAX, and was
+    0 while the port's relu was ``torch.relu``."""
+    pj, tree, images, labels = model
+    images = images[:8].copy()
+    images[:4] = 0.0
+    (_, _), ref_grads = jax.value_and_grad(JM.loss_fn, has_aux=True)(
+        pj, jnp.asarray(images), jnp.asarray(labels[:8], jnp.int32))
+    pt = _torch_params(tree, grad=True)
+    loss, _ = M.loss_fn(pt, torch.from_numpy(images),
+                        torch.from_numpy(labels[:8]))
+    loss.backward()
+    assert float(pt["conv1"]["b"].grad.abs().max()) > 0.0
+    for name, layer in pt.items():
+        for k, v in layer.items():
+            ref = np.asarray(ref_grads[name][k])
+            if name.startswith("conv") and k == "w":
+                ref = ref.transpose(3, 2, 0, 1)
+            _close(v.grad, ref, f"grad {name}.{k}")
