@@ -8,12 +8,19 @@ Run from the root of a checkout on a machine with a CUDA card (Hopper,
 into ``build/torch_kernels/`` and drives the port's three paths: the
 SPARK-fed training path (the main path), in-process training and
 serving, plus the ``fused_rmsnorm`` entry point, and ResNet-50 in
-process and SPARK-fed (which launches none of the kernels):
+process and SPARK-fed (which launches none of the kernels).  It builds
+the feed's host-native ring and marshal
+(``tensorflowonspark_tpu_torch/native/``) into
+``build/torch_native/`` too:
 
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; TF32 off for float32
    matmuls and convolutions, bf16 matmuls accumulate in float32;
-1. build every kernel (one ``nvcc`` per source, started together); the
+1. build every kernel (one ``nvcc`` per source, started together), and
+   the feed's shm ring (``g++``; its failure fails the run) and marshal
+   (``cc``; the numpy marshal runs where it cannot build): their
+   seconds, which marshal, ``/dev/shm``'s free bytes and the ring's
+   capacity (``native build`` line); the
    ``ptxas`` registers and spills of every kernel; the bf16 flash
    kernels (forward, dq, dk/dv) must issue tensor-core MMAs (``HMMA`` in
    their SASS, read with ``cuobjdump``) and spill nothing at head_dim 64
@@ -42,10 +49,13 @@ process and SPARK-fed (which launches none of the kernels):
 6. the same training SPARK-fed (the main path): ``cluster.run`` on a
    one-executor ``LocalEngine`` with ``num_gpus=1``, the same batch as
    8 token records a step through the rendezvous, the node's GPU claim,
-   a forked trainer, ``torch_initialize``, ``DataFeed`` and
+   a forked trainer, ``torch_initialize``, the node's shm ring (columnar
+   chunks; any other transport fails the phase), ``DataFeed`` and
    ``device_feed``; its five losses equal phase 5's, each flash kernel
    launched 8 times a step in the trainer, every partition consumed
-   once (the rendezvous ledger) and no trainer left after shutdown;
+   once (the rendezvous ledger) and no trainer left after shutdown; the
+   line splits each partition's hand-off (engine hop, encode, ring
+   put, pop, the feeder's poll, pop to the next put, pinned copy);
 7. gradient exactness at full width in float32: one step's loss and
    every parameter's gradient through the kernels equal those through
    ``mha_reference`` attention, which never touches a kernel;
@@ -72,11 +82,16 @@ process and SPARK-fed (which launches none of the kernels):
 12. ResNet-50 SPARK-fed (this slice's main path): ``cluster.run`` of
     ``resnet_imagenet_spark.main_fun`` on the one-executor engine with
     ``num_gpus=1``, phase 10's batch as 256 (uint8 image, label) records
-    a step for six steps through ``DataFeed`` and
+    a step for six steps through the node's shm ring as columnar chunks
+    (any other transport fails the phase), ``DataFeed`` and
     ``device_feed(columnar=True)``; its losses equal phase 10's first
     six, every partition consumed once, no trainer left, and the chief's
     checkpoint (HWIO on disk) restores in this process into params whose
-    loss is phase 10's seventh.
+    loss is phase 10's seventh; the hand-off split as in phase 6;
+13. the same six partitions on a second one-executor engine whose
+    executor has ``TFOS_SHM_FEED=0`` (``spark_resnet_manager``): columnar
+    chunks through the manager queue, the same gates, so the ring and
+    the manager queue compare on one card in one run.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -107,7 +122,7 @@ import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import cluster as TFCluster
-from tensorflowonspark_tpu_torch import infeed
+from tensorflowonspark_tpu_torch import infeed, node
 from tensorflowonspark_tpu_torch.engine import LocalEngine
 from tensorflowonspark_tpu_torch.examples import (
     resnet_imagenet_spark,
@@ -121,6 +136,8 @@ from tensorflowonspark_tpu_torch.ops import (
     fused_rmsnorm,
     norm,
 )
+from tensorflowonspark_tpu_torch.recordio import _build as native_build
+from tensorflowonspark_tpu_torch.recordio import marshal, shm
 from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
 from tensorflowonspark_tpu_torch.utils import metrics
 from tensorflowonspark_tpu_torch.utils import train as train_utils
@@ -765,11 +782,106 @@ def _alive(pid):
     return True
 
 
+def _ring_bytes():
+    """The feed ring's capacity, as the executors (which inherit this
+    process's env) make it."""
+    return int(os.environ.get("TFOS_SHM_FEED_BYTES", "") or
+               node.SHM_FEED_BYTES)
+
+
+def feed_summary(report, dispatch):
+    """The SPARK-fed trainer's view of its feed (``DataFeed.stats``, the
+    feeders' timings from the node's KV, the pinned copies), the
+    driver's pickling of the feed job's tasks (``dispatch``, the
+    engine's ``last_dispatch``), and the hand-off of each partition
+    split into its parts: the engine's hop to the executor (its
+    receipt: the wait since the previous task ended, and its
+    unpickling), the feeder task's set-up (manager, ring) up to its
+    first put, its encode and ring put, the trainer's pop (the call, and
+    its copy and decode), the feeder's poll until it saw the ring empty,
+    its ledger entry, the gap between one feeder task's end and the next
+    one's start, the gap from the trainer's pop to the next partition's
+    first put, and the copy into pinned memory a batch."""
+    feed, feeders, pin = report["feed"], report["feeders"] or [], \
+        report["pin"]
+    feeders = sorted(feeders, key=lambda f: f["part"])
+    # the trainer's pops in order: the first sum(chunks) carried data
+    pops = feed["pops"]
+    ends, n = [], 0
+    for f in feeders:
+        n += f["chunks"]
+        ends.append(n - 1)
+    pop_wall = [pops[i][0] if i < len(pops) else None for i in ends]
+    split = []
+    for i, f in enumerate(feeders):
+        popped = ends[i] < len(pops)
+        row = dict(part=f["part"], records=f["records"],
+                   engine_hop_ms=f["recv_ms"] + f["loads_ms"],
+                   engine_recv_ms=f["recv_ms"],
+                   engine_loads_ms=f["loads_ms"],
+                   setup_ms=1e3 * (f["first_put_wall"] - f["start_wall"]),
+                   encode_ms=f["encode_ms"], put_ms=f["put_ms"],
+                   marshal=f["marshal"],
+                   pop_call_ms=pops[ends[i]][1] if popped else None,
+                   pop_copy_ms=pops[ends[i]][2] if popped else None,
+                   ledger_ms=1e3 * (f["done_wall"] - f["consumed_wall"]))
+        if popped:
+            row["poll_ms"] = 1e3 * (f["consumed_wall"] - pop_wall[i])
+        if i + 1 < len(feeders):
+            nxt = feeders[i + 1]
+            row["between_tasks_ms"] = 1e3 * (nxt["start_wall"]
+                                             - f["done_wall"])
+            if popped:
+                row["pop_to_next_put_ms"] = 1e3 * (nxt["first_put_wall"]
+                                                   - pop_wall[i])
+        split.append(row)
+
+    def median(key):
+        vals = [r[key] for r in split if r.get(key) is not None]
+        return statistics.median(vals) if vals else None
+
+    marshals = sorted({f["marshal"] for f in feeders if f["marshal"]})
+    return dict(
+        feed_transport=feed["transport"], columnar=feed["columnar"],
+        columnar_chunks=feed["columnar_chunks"],
+        row_chunks=feed["row_chunks"],
+        marshal="+".join(marshals) if marshals else None,
+        marshal_native_built=marshal.native_available(),
+        ring_capacity_bytes=(_ring_bytes() if feed["transport"] == "shm"
+                             else None),
+        dev_shm_free_bytes=shm.shm_free_bytes(),
+        driver_pickle_ms_per_task=1e3 * dispatch["pickle_s"]
+        / dispatch["tasks"],
+        task_mb=dispatch["bytes"] / dispatch["tasks"] / 1e6,
+        pin_ms_per_batch=(1e3 * pin["s"] / pin["batches"]
+                          if pin["batches"] else None),
+        pin_mb_per_batch=(pin["bytes"] / pin["batches"] / 1e6
+                          if pin["batches"] else None),
+        handoff_median_ms={k: median(k) for k in (
+            "engine_hop_ms", "engine_recv_ms", "engine_loads_ms",
+            "setup_ms", "encode_ms", "put_ms",
+            "pop_call_ms", "pop_copy_ms", "poll_ms", "ledger_ms",
+            "between_tasks_ms", "pop_to_next_put_ms")},
+        handoff=split)
+
+
+def check_feed(line, fs, transport):
+    """The SPARK-fed phase's feed must have taken ``transport`` with
+    columnar chunks: no silent fall-back on the card."""
+    if fs["feed_transport"] != transport or not fs["columnar"]:
+        raise AssertionError(
+            f"{line}: feed transport {fs['feed_transport']!r}, columnar "
+            f"{fs['columnar']} ({fs['columnar_chunks']} columnar and "
+            f"{fs['row_chunks']} row chunks); want {transport!r} and "
+            "columnar")
+
+
 def phase_spark_train(engine, gpu, train):
     """The main path: phase_train's five steps SPARK-fed through the
     port's cluster on ``engine``, a one-executor ``LocalEngine`` started
     with the script (its interpreter boots while the kernel phases run,
-    so the boot time below is the cluster's).  ``train`` is
+    so the boot time below is the cluster's).  The token records go
+    through the node's shm ring as columnar chunks.  ``train`` is
     phase_train's summary, whose losses this run must give."""
     cfg = dict(FULL, dtype="bfloat16", attn_impl="flash")
     n_layers = FULL["n_layers"]
@@ -789,6 +901,7 @@ def phase_spark_train(engine, gpu, train):
             num_gpus=1, reservation_timeout=300)
         t_run = time.time() - t0
         c.train(engine.parallelize(records, TRAIN_STEPS), feed_timeout=600)
+        dispatch = engine.last_dispatch
         fed = c.server.fed_partitions("input")
         c.shutdown()
         t_total = time.time() - t0
@@ -821,8 +934,10 @@ def phase_spark_train(engine, gpu, train):
         trainer_alive_after_shutdown=orphan, health=report["health"],
         cuda_visible_devices=report["cuda_visible_devices"],
         train_metrics=report["train_metrics"],
-        peak_mem_gb=report["peak_mem_gb"], gpu=gpu)
+        peak_mem_gb=report["peak_mem_gb"],
+        **feed_summary(report, dispatch), gpu=gpu)
     print("spark_train " + json.dumps(summary), flush=True)
+    check_feed("spark_train", summary, "shm")
     if len(losses) != TRAIN_STEPS or max(rel) > SPARK_LOSS_RTOL:
         raise AssertionError(f"SPARK-fed losses {losses} vs in-process "
                              f"{ref} (rtol {SPARK_LOSS_RTOL})")
@@ -1358,12 +1473,17 @@ def _leaf_items(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-def phase_spark_resnet(dev, engine, gpu, res):
+def phase_spark_resnet(dev, engine, gpu, res, transport="shm"):
     """The main path: ResNet-50 SPARK-fed through the port's cluster on
     ``engine``: phase_resnet's batch as ``RESNET["batch"]`` (uint8 image,
     label) records a step, ``SPARK_RESNET_STEPS`` steps, into
     ``resnet_imagenet_spark.main_fun``.  ``res`` is phase_resnet's
-    summary, whose first losses this run must give."""
+    summary, whose first losses this run must give.  ``transport``: the
+    feed the run must have taken, ``"shm"`` (the node's ring, the
+    ``spark_resnet`` line) or ``"manager"`` (an engine whose executor
+    has ``TFOS_SHM_FEED=0``, the ``spark_resnet_manager`` line); columnar
+    chunks either way."""
+    line = "spark_resnet" if transport == "shm" else "spark_resnet_manager"
     images_np, labels_np = _resnet_batch()
     b = RESNET["batch"]
     records = [(images_np[i], int(labels_np[i])) for i in range(b)] \
@@ -1382,6 +1502,7 @@ def phase_spark_resnet(dev, engine, gpu, res):
         t_run = time.time() - t0
         c.train(engine.parallelize(records, SPARK_RESNET_STEPS),
                 feed_timeout=600)
+        dispatch = engine.last_dispatch
         fed = c.server.fed_partitions("input")
         c.shutdown()
         t_total = time.time() - t0
@@ -1437,9 +1558,11 @@ def phase_spark_resnet(dev, engine, gpu, res):
         checkpoint_step=saved, checkpoint_hwio=hwio,
         restored_loss=restored_loss, phase_resnet_next_loss=next_ref,
         phase_resnet_images_per_s=res["images_per_s"],
-        pickled_mb_per_step=b * images_np[0].nbytes / 1e6,
-        cuda_visible_devices=report["cuda_visible_devices"], gpu=gpu)
-    print("spark_resnet " + json.dumps(summary), flush=True)
+        image_mb_per_step=b * images_np[0].nbytes / 1e6,
+        cuda_visible_devices=report["cuda_visible_devices"],
+        **feed_summary(report, dispatch), gpu=gpu)
+    print(f"{line} " + json.dumps(summary), flush=True)
+    check_feed(line, summary, transport)
     if len(losses) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
         raise AssertionError(f"SPARK-fed ResNet losses {losses} vs "
                              f"in-process {ref} (rtol {SPARK_LOSS_RTOL})")
@@ -1471,13 +1594,17 @@ def main():
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    # the SPARK-fed phase's executor: spawned now, so its interpreter's
-    # start overlaps the kernel phases; stopped, with every child, below
+    # the SPARK-fed phases' executors: spawned now, so their interpreters'
+    # start overlaps the kernel phases; stopped, with every child, below.
+    # The second feeds through the manager queue, for the
+    # spark_resnet_manager line
     engine = LocalEngine(1)
+    engine_mgr = LocalEngine(1, env={"TFOS_SHM_FEED": "0"})
     try:
-        kernels = run_phases(dev, gpu, engine)
+        kernels = run_phases(dev, gpu, engine, engine_mgr)
     finally:
         engine.stop()
+        engine_mgr.stop()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1486,12 +1613,24 @@ def main():
     return 0
 
 
-def run_phases(dev, gpu, engine):
+def run_phases(dev, gpu, engine, engine_mgr):
     """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # the feed's host-native pieces: the ring (g++), whose failure
+    # raises as a kernel's does, and the marshal (cc), where the numpy
+    # marshal runs if it cannot build (no Python.h)
+    t0 = time.perf_counter()
+    native_build.build(["shmq"])
+    marshal_native = marshal.native_available()
+    print("native build: " + json.dumps(dict(
+        built=native_build.build_seconds,
+        seconds=time.perf_counter() - t0, ring=shm.available(),
+        marshal="native" if marshal_native else "numpy",
+        dev_shm_free_bytes=shm.shm_free_bytes(),
+        ring_capacity_bytes=_ring_bytes())), flush=True)
     for name, log in _build.build_log.items():
         for fn, (regs, st, ld) in ptxas_report(log).items():
             print(f"ptxas {name}: {fn}: {regs} registers, spill stores "
@@ -1509,6 +1648,7 @@ def run_phases(dev, gpu, engine):
     res = phase_resnet(dev, gpu)
     phase_resnet_exact(dev)
     phase_spark_resnet(dev, engine, gpu, res)
+    phase_spark_resnet(dev, engine_mgr, gpu, res, transport="manager")
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"

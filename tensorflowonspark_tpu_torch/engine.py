@@ -71,6 +71,7 @@ def _executor_main(index, workdir, shared_inbox, own_inbox, results):
     os.environ.pop(telemetry.SPOOL_ENV, None)
     os.environ[telemetry.ROLE_ENV] = "executor"
     try:
+        t_wait = time.perf_counter()  # since the previous task ended
         while True:
             try:
                 msg = own_inbox.get(timeout=0.02)
@@ -86,12 +87,20 @@ def _executor_main(index, workdir, shared_inbox, own_inbox, results):
             # engine's analogue of pyspark's TaskContext.partitionId())
             os.environ["TFOS_PARTITION_INDEX"] = str(task_id)
             try:
+                t_got = time.perf_counter()
                 fn, items = pickle.loads(blob)
+                # the task's hop from the driver: the wait since the
+                # previous task ended (its transfer), and its unpickling
+                os.environ["TFOS_TASK_RECV_MS"] = \
+                    f"{1e3 * (t_got - t_wait):.3f}"
+                os.environ["TFOS_TASK_LOADS_MS"] = \
+                    f"{1e3 * (time.perf_counter() - t_got):.3f}"
                 fn(iter(items))
                 results.put(("ok", job_id, task_id, index, None))
             except BaseException:  # noqa: BLE001 - report any task failure
                 results.put(("error", job_id, task_id, index,
                              traceback.format_exc()))
+            t_wait = time.perf_counter()
     finally:
         telemetry.flush()
         _reap_executor_children()
@@ -204,6 +213,9 @@ class LocalEngine:
         self._cancelled = False
         self._stopped = False
         self.executor_dirs = []
+        # the latest job's dispatch: its tasks, the seconds the driver
+        # spent pickling them and the bytes they came to
+        self.last_dispatch = None
         with _patched_env(self._env):
             for i in range(self.num_executors):
                 d = os.path.join(self._root, f"executor-{i}")
@@ -282,9 +294,13 @@ class LocalEngine:
         # only executors that die during this job fail it
         dead_at_start = {i for i, p in enumerate(self._procs)
                          if not p.is_alive()}
+        pickle_s = nbytes = 0
         for task_id, (part, fn) in enumerate(tasks):
-            msg = ("task", job_id, task_id,
-                   pickle.dumps((fn, list(part))))
+            t0 = time.perf_counter()
+            blob = pickle.dumps((fn, list(part)))
+            pickle_s += time.perf_counter() - t0
+            nbytes += len(blob)
+            msg = ("task", job_id, task_id, blob)
             if placement is not None and task_id < len(placement):
                 target = placement[task_id] % self.num_executors
             elif spread:
@@ -296,6 +312,8 @@ class LocalEngine:
                 raise TaskError(f"cannot place task {task_id} on executor "
                                 f"{target}: executor process is dead")
             self._own_inboxes[target].put(msg)
+        self.last_dispatch = {"tasks": len(tasks), "pickle_s": pickle_s,
+                              "bytes": nbytes}
 
         ndone = 0
         while ndone < len(tasks):

@@ -49,7 +49,8 @@ def main_fun(args, ctx):
     """Runs in every trainer.  ``args``: ``batch_size`` (global), ``lr``,
     optional ``device`` (default the card), ``init_params`` (a JAX-layout
     params tree; default random from ``seed``) and ``out_dir`` (where
-    each rank writes ``mnist-rank<r>.json`` and ``.npz``)."""
+    each rank writes ``mnist-rank<r>.json``, with what its ``DataFeed``
+    saw, ``DataFeed.stats``, and ``.npz``)."""
     import torch
 
     from tensorflowonspark_tpu_torch import infeed
@@ -89,7 +90,7 @@ def main_fun(args, ctx):
         rank = env["process_id"]
         with open(os.path.join(out_dir, f"mnist-rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "losses": losses, "pid": os.getpid(),
-                       "report": tm.report()}, f)
+                       "report": tm.report(), "feed": feed.stats()}, f)
         np.savez(os.path.join(out_dir, f"mnist-rank{rank}.npz"),
                  **{f"{n}.{k}": v.detach().cpu().numpy()
                     for n, layer in params.items() for k, v in layer.items()})

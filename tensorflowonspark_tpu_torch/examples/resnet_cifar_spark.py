@@ -43,7 +43,8 @@ def main_fun(args, ctx):
     (default the card), ``compute_dtype`` (``"bfloat16"``), ``seed`` (0,
     for the params when no checkpoint exists) and ``out_dir``, where each
     rank writes ``resnet_cifar-rank<r>.json``: the step it resumed from,
-    its losses and its last step."""
+    its losses, its last step and what its ``DataFeed`` saw
+    (``DataFeed.stats``: the transport, whether chunks were columnar)."""
     import torch
 
     from tensorflowonspark_tpu_torch import infeed
@@ -96,7 +97,8 @@ def main_fun(args, ctx):
         with open(os.path.join(out_dir, f"resnet_cifar-rank{rank}.json"),
                   "w") as f:
             json.dump({"rank": rank, "start_step": start_step,
-                       "step": step, "losses": losses}, f)
+                       "step": step, "losses": losses,
+                       "feed": feed.stats()}, f)
 
 
 def main():

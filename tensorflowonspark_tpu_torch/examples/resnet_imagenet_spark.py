@@ -44,10 +44,12 @@ def main_fun(args, ctx):
     card), ``compute_dtype`` (``"bfloat16"``), ``seed`` (0, for the
     params when no checkpoint exists) and ``out_dir``, where each rank
     writes ``resnet_imagenet-rank<r>.json``: its losses, step times
-    (CUDA events on a card), records its ``DataFeed`` handed out,
-    ``TrainMetrics`` report, feed wait, peak device memory, the step it
-    resumed from, and the wall-clock times at which it began, had its
-    model and began its first step."""
+    (CUDA events on a card), records its ``DataFeed`` handed out and
+    what the feed saw (``DataFeed.stats``: transport, columnar chunks,
+    pop times; the feeders' timings from the node's KV; the copies into
+    pinned memory), ``TrainMetrics`` report, feed wait, peak device
+    memory, the step it resumed from, and the wall-clock times at which
+    it began, had its model and began its first step."""
     main_start_wall = time.time()
     import torch
 
@@ -156,6 +158,8 @@ def main_fun(args, ctx):
                 "losses": losses, "step_ms": step_ms,
                 "start_step": start_step, "step": step,
                 "records": feed.records, "train_metrics": tm.report(),
+                "feed": feed.stats(), "feeders": ctx.mgr.get("feed_stats"),
+                "pin": dict(infeed.pin_stats),
                 "feed_wait_s": feed_tm.infeed_time,
                 "cuda_visible_devices": os.environ.get(
                     "CUDA_VISIBLE_DEVICES"),

@@ -37,11 +37,12 @@ def main_fun(args, ctx):
     tree; default random from ``seed``), ``ce_impl`` and ``out_dir``,
     where each rank writes ``transformer-rank<r>.json``: its losses,
     step times, the records its ``DataFeed`` handed out (counted, a
-    dropped tail included), its ``CUDA_VISIBLE_DEVICES``, kernel
-    launches, ``TrainMetrics`` report,
-    feed wait and
-    the wall-clock times at which it began, joined the job, had its
-    model and optimizer, and began its first step."""
+    dropped tail included) and what the feed saw (``DataFeed.stats``,
+    the feeders' timings from the node's KV, the copies into pinned
+    memory), its ``CUDA_VISIBLE_DEVICES``, kernel launches,
+    ``TrainMetrics`` report, feed wait and the wall-clock times at which
+    it began, joined the job, had its model and optimizer, and began its
+    first step."""
     main_start_wall = time.time()
     import torch
 
@@ -127,6 +128,8 @@ def main_fun(args, ctx):
                 "cuda_visible_devices": os.environ.get(
                     "CUDA_VISIBLE_DEVICES"),
                 "step_ms": step_ms, "records": feed.records,
+                "feed": feed.stats(), "feeders": ctx.mgr.get("feed_stats"),
+                "pin": dict(infeed.pin_stats),
                 "launches": {"flash_fwd": attention.launches,
                              "flash_dq": attention.dq_launches,
                              "flash_dkv": attention.dkv_launches},

@@ -3,19 +3,25 @@
 An own copy of the part of ``tensorflowonspark_tpu/feed.py`` that the
 SPARK-fed training path calls (``next_batch``, ``next_batch_columns``,
 ``should_stop``, ``terminate``, ``poison``, ``batch_results``).  Queue
-items are chunks (lists of records) that the feeder tasks push, so a
-batch costs one IPC hop per chunk, not per record; a chunk that
-overfills a batch carries over to the next call.
+items are chunks that the feeder tasks push, so a batch costs one hop
+per chunk, not per record; a chunk that overfills a batch carries over
+to the next call.
 
-Transport: the executor's manager queue only.  The JAX package turns on
-a shared-memory ring and a native columnar marshal by default
-(``node.py:446``, through ``native/``); the port has neither yet
-(ROADMAP.md queue 1, item 16), so every chunk is a pickled list of rows
-through the manager queue, the transport the JAX package falls back to.
+Transport: the node advertises its shared-memory ring in the manager's
+KV (``shm_input``, ``node.run``); then the 'input' chunks come through
+that ring (``recordio.shm``), with no trip through the manager process,
+and otherwise through the manager queue.  ``open_feed_ring`` is the one
+handshake that producers and the consumer share, so both sides always
+use the same transport.  A chunk is a list of records, or a
+``marker.ColumnChunk`` (numeric records, which the feeder encodes
+column by column, ``node._make_chunk_encoder``): ``next_batch_columns``
+slices its columns into dense batches, a view of the popped buffer when
+one chunk covers the batch.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import queue as _queue
 import threading
@@ -24,15 +30,54 @@ import time
 import numpy as np
 
 from tensorflowonspark_tpu_torch import marker
-from tensorflowonspark_tpu_torch.utils import faults, telemetry
+from tensorflowonspark_tpu_torch.utils import (
+    faults,
+    metrics_registry,
+    telemetry,
+)
 
 logger = logging.getLogger(__name__)
 
-POLL_MS = 1000  # one bounded get per poll; the stop flag is re-read between
+POLL_MS = 1000  # manager queue: one proxy call a poll
+RING_POLL_MS = 100  # ring: a local check; the stop flag is re-read between
+POP_LOG = 1024  # pops kept in ``DataFeed.stats()``
+
+
+def open_feed_ring(mgr, qname="input", producer=False):
+    """The shm ring the node advertised for ``qname``, opened on this
+    side, or None (the manager queue carries the feed).  An advertised
+    ring that this process cannot open raises: a silent one-sided
+    fallback would leave producer and consumer on different transports,
+    and the feed would hang."""
+    if qname != "input":
+        return None
+    ring_name = mgr.get("shm_input")
+    if not ring_name:
+        return None
+    from tensorflowonspark_tpu_torch.recordio import shm
+
+    try:
+        return shm.ShmQueue(str(ring_name), create=False, producer=producer)
+    except (OSError, RuntimeError) as e:
+        raise RuntimeError(
+            f"node advertised shm feed ring {ring_name!r} but this process "
+            f"cannot open it: {e}; set TFOS_SHM_FEED=0 to feed through the "
+            "manager queue") from e
+
+
+def _sliced_column(chunk, i, off, take):
+    """Field ``i``'s records [off, off+take) of a ColumnChunk, reshaped
+    back to the field's trailing shape where the feeder flattened it: a
+    view, no copy.  Every consumer path goes through here."""
+    col = chunk.columns[i][off:off + take]
+    if chunk.shapes is not None and chunk.shapes[i] is not None:
+        col = col.reshape((-1,) + tuple(chunk.shapes[i]))
+    return col
 
 
 class DataFeed:
-    """Consumer of an executor's feed queues."""
+    """Consumer of an executor's feed: the shm ring or the manager
+    queue for 'input' (``open_feed_ring``), the manager for the rest."""
 
     def __init__(self, mgr, train_mode=True, qname_in="input",
                  qname_out="output", input_mapping=None, metrics=None):
@@ -48,6 +93,7 @@ class DataFeed:
         self.input_tensors = (sorted(input_mapping.values())
                               if input_mapping is not None else None)
         self._buffer = []  # leftover records of a partly consumed chunk
+        self._colblock = None  # (ColumnChunk, offset) partly consumed
         self._col_meta = {}  # tensor -> (dtype, trailing shape) last seen
         # single consumer: a prefetch thread and a terminate() caller
         # must never pop at once; gets poll under this lock in slices and
@@ -55,15 +101,25 @@ class DataFeed:
         self._lock = threading.Lock()
         self._stop_requested = False
         self._queue = None  # manager queue proxy, made once
+        self._ring = open_feed_ring(mgr, qname_in)
+        self.transport = "shm" if self._ring is not None else "manager"
+        self.columnar_chunks = 0
+        self.row_chunks = 0
+        # of the latest pops: (wall time after the pop, ms the call took,
+        # ms of its copy and decode once the message was there; None on
+        # the manager queue, where the call's time includes both)
+        self.pops = collections.deque(maxlen=POP_LOG)
 
     def _get_once(self, timeout_ms, honor_stop=False):
-        """One bounded pop; raises TimeoutError when the queue stays
-        empty.  ``honor_stop``: re-check the stop flag after taking the
-        lock, so a consumer queued behind terminate()'s drain does not
-        pop a chunk the drain was meant to absorb."""
+        """One bounded pop; raises TimeoutError when nothing came.
+        ``honor_stop``: re-check the stop flag after taking the lock, so
+        a consumer queued behind terminate()'s drain does not pop a chunk
+        the drain was meant to absorb."""
         with self._lock:
             if honor_stop and self._stop_requested:
                 raise TimeoutError("feed terminating")
+            if self._ring is not None:
+                return self._ring.get(timeout_ms)
             if self._queue is None:
                 self._queue = self.mgr.get_queue(self.qname_in)
             try:
@@ -74,21 +130,35 @@ class DataFeed:
             self._queue.task_done()
             return chunk
 
+    def _pop(self, timeout_ms):
+        """One honouring pop, logged in ``pops`` with its own time."""
+        t0 = time.perf_counter()
+        chunk = self._get_once(timeout_ms, honor_stop=True)
+        copy_s = self._ring.last_pop_s if self._ring is not None else None
+        self.pops.append((time.time(), 1e3 * (time.perf_counter() - t0),
+                          None if copy_s is None else 1e3 * copy_s))
+        return chunk
+
     def _get_chunk(self):
         """The next chunk: blocks until data arrives, or reports
         end-of-feed (None) once terminate() or poison() was called."""
         timed = self.metrics is not None or telemetry.enabled()
         t0 = time.perf_counter() if timed else None
+        slice_ms = RING_POLL_MS if self._ring is not None else POLL_MS
         while True:
             if self._stop_requested:
                 chunk = None
                 break
             try:
-                chunk = self._get_once(POLL_MS, honor_stop=True)
+                chunk = self._pop(slice_ms)
             except TimeoutError:
                 continue
             faults.check("feed.get", eof=chunk is None)
             break
+        if isinstance(chunk, marker.ColumnChunk):
+            self.columnar_chunks += 1
+        elif isinstance(chunk, list):
+            self.row_chunks += 1
         if t0 is not None:
             # one measurement feeds both the counter and the span, so the
             # stall fractions they give agree
@@ -96,7 +166,44 @@ class DataFeed:
             if self.metrics is not None:
                 self.metrics.infeed_wait(dt)
             telemetry.record_span("feed/wait", dt, eof=chunk is None)
+        if self._ring is not None and metrics_registry.enabled():
+            metrics_registry.set_gauge("tfos_feed_ring_bytes",
+                                       self._ring.qsize_bytes())
         return chunk
+
+    def stats(self):
+        """What this feed saw: its transport (``"shm"`` or
+        ``"manager"``), whether every data chunk was columnar, the chunk
+        counts, and the latest pops as ``[wall time, ms, copy ms]``."""
+        return {"transport": self.transport,
+                "columnar": self.columnar_chunks > 0 and not self.row_chunks,
+                "columnar_chunks": self.columnar_chunks,
+                "row_chunks": self.row_chunks,
+                "pops": [list(p) for p in self.pops]}
+
+    def _rows_of(self, chunk, off, take):
+        """Records [off, off+take) of a ColumnChunk as the row path gives
+        them: a bare record as its array, else a tuple with Python
+        scalars for 1-D columns, lists for width columns and arrays for
+        flattened n-D fields.  Arrays are copies: a record a consumer
+        keeps must not pin the whole popped buffer."""
+        if chunk.meta == marker.BARE:
+            return [r.copy() for r in _sliced_column(chunk, 0, off, take)]
+        if chunk.shapes is None:
+            from tensorflowonspark_tpu_torch.recordio import marshal
+
+            return marshal.columns_to_rows(
+                [c[off:off + take] for c in chunk.columns])
+        cols = [_sliced_column(chunk, i, off, take)
+                for i in range(len(chunk.columns))]
+
+        def value(i, c, j):
+            if chunk.shapes[i] is not None:
+                return c[j].copy()
+            return c[j].item() if c.ndim == 1 else c[j].tolist()
+
+        return [tuple(value(i, c, j) for i, c in enumerate(cols))
+                for j in range(take)]
 
     def next_batch(self, batch_size):
         """Up to ``batch_size`` records: a list, or with
@@ -120,6 +227,20 @@ class DataFeed:
             if self._buffer:
                 append(self._buffer.pop(0))
                 continue
+            if self._colblock is not None:
+                chunk, off = self._colblock
+                take = min(batch_size - count, len(chunk) - off)
+                if self.input_tensors is None:
+                    self._buffer.extend(self._rows_of(chunk, off, take))
+                else:
+                    # column slices extend the lists directly: no
+                    # per-record Python work
+                    for i, t in enumerate(self.input_tensors):
+                        tensors[t].extend(_sliced_column(chunk, i, off, take))
+                    count += take
+                off += take
+                self._colblock = (chunk, off) if off < len(chunk) else None
+                continue
             chunk = self._get_chunk()
             if chunk is None:
                 logger.info("next_batch() got None: end of feed")
@@ -129,7 +250,9 @@ class DataFeed:
                 if not self.train_mode and count > 0:
                     break
                 continue
-            if isinstance(chunk, list):
+            if isinstance(chunk, marker.ColumnChunk):
+                self._colblock = (chunk, 0)
+            elif isinstance(chunk, list):
                 self._buffer.extend(chunk)
             else:
                 append(chunk)
@@ -138,16 +261,39 @@ class DataFeed:
 
     def next_batch_columns(self, batch_size):
         """Up to ``batch_size`` records as dense per-tensor arrays,
-        ``{tensor: ndarray[n, ...]}`` (requires ``input_mapping``).  Over
-        row chunks each column is one ``np.asarray`` of its values."""
+        ``{tensor: ndarray[n, ...]}`` (requires ``input_mapping``).
+
+        ColumnChunks are consumed as array segments: an aligned chunk
+        that covers the whole batch passes through as a view of the
+        popped buffer, a batch that spans chunks costs one
+        ``np.concatenate``; row chunks cost one ``np.asarray`` per
+        column.  Flattened n-D fields come back in their own shape."""
         if self.input_tensors is None:
             raise ValueError("next_batch_columns requires input_mapping")
-        rows = []
-        while len(rows) < batch_size:
+        segments = {t: [] for t in self.input_tensors}
+        count = 0
+
+        def rows_segment(rows):
+            nonlocal count
+            for i, t in enumerate(self.input_tensors):
+                segments[t].append(np.asarray([r[i] for r in rows]))
+            count += len(rows)
+
+        while count < batch_size:
             if self._buffer:
-                take = batch_size - len(rows)
-                rows.extend(self._buffer[:take])
-                del self._buffer[:take]
+                take = min(batch_size - count, len(self._buffer))
+                rows, self._buffer = (self._buffer[:take],
+                                      self._buffer[take:])
+                rows_segment(rows)
+                continue
+            if self._colblock is not None:
+                chunk, off = self._colblock
+                take = min(batch_size - count, len(chunk) - off)
+                for i, t in enumerate(self.input_tensors):
+                    segments[t].append(_sliced_column(chunk, i, off, take))
+                count += take
+                off += take
+                self._colblock = (chunk, off) if off < len(chunk) else None
                 continue
             chunk = self._get_chunk()
             if chunk is None:
@@ -155,24 +301,28 @@ class DataFeed:
                 self.done_feeding = True
                 break
             if isinstance(chunk, marker.EndPartition):
-                if not self.train_mode and rows:
+                if not self.train_mode and count > 0:
                     break
                 continue
-            if isinstance(chunk, list):
+            if isinstance(chunk, marker.ColumnChunk):
+                self._colblock = (chunk, 0)
+            elif isinstance(chunk, list):
                 self._buffer.extend(chunk)
             else:
-                rows.append(chunk)
-        self.records += len(rows)
+                rows_segment([chunk])
+        self.records += count
         out = {}
-        for i, t in enumerate(self.input_tensors):
-            if rows:
-                out[t] = np.asarray([r[i] for r in rows])
-                self._col_meta[t] = (out[t].dtype, out[t].shape[1:])
-            else:
+        for t in self.input_tensors:
+            parts = segments[t]
+            if not parts:
                 # an empty pull keeps the dtype and trailing shape last
                 # seen, so callers can concatenate tails
                 dtype, trail = self._col_meta.get(t, (None, ()))
                 out[t] = np.empty((0,) + tuple(trail), dtype=dtype)
+                continue
+            out[t] = parts[0] if len(parts) == 1 else \
+                np.concatenate(parts, axis=0)
+            self._col_meta[t] = (out[t].dtype, out[t].shape[1:])
         return out
 
     def should_stop(self):
@@ -192,11 +342,31 @@ class DataFeed:
     def terminate(self):
         """Stop early: set the node's state to 'terminating' (feeders
         that arrive later drain their partitions without queueing them)
-        and drain what is queued, so every feeder's ``queue.join()``
-        returns.  Safe while another thread is blocked in next_batch."""
+        and drain what is queued, so every feeder's wait for consumption
+        returns.  Safe while another thread is blocked in next_batch.
+
+        On the ring, "drained" is decided by the producer flock, not a
+        timeout: an empty ring ends the drain only once no feeder holds
+        the flock, so a slow feeder mid-partition cannot strand data."""
         logger.info("terminate() invoked")
         self._stop_requested = True
         self.mgr.set("state", "terminating")
+        if self._ring is not None:
+            from tensorflowonspark_tpu_torch.recordio import shm
+
+            empty_checks = 0
+            while True:
+                try:
+                    if self._get_once(POLL_MS) is None:
+                        break  # the producer closed the ring
+                    empty_checks = 0
+                except TimeoutError:
+                    if (self._ring.qsize_bytes() == 0
+                            and not shm.producer_active(self._ring.name)):
+                        empty_checks += 1
+                        if empty_checks >= 2:
+                            break
+            return
         while True:
             try:
                 self._get_once(POLL_MS)

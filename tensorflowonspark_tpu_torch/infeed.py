@@ -8,8 +8,12 @@ memory), ``device_feed`` (the two composed) and ``synchronized`` (every
 process of the job stops on the same step).  On a CUDA device each batch
 is copied from pinned host memory with a non-blocking copy on a side
 stream; the consumer's stream waits on that copy's event before it
-touches the batch.  ``tfrecord_device_feed`` waits in ROADMAP.md
-(queue 1, item 8).
+touches the batch.  A batch that ``next_batch_columns`` returns as a
+view of a buffer popped from the feed ring goes to the card with one
+host copy, the one into pinned memory: every pop owns its buffer (no
+later pop reuses it), and the pinned block is held by PyTorch's host
+allocator until the copy that reads it has finished.
+``tfrecord_device_feed`` waits in ROADMAP.md (queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ from tensorflowonspark_tpu_torch import resolve_device
 logger = logging.getLogger(__name__)
 
 _END = object()
+
+# seconds and bytes of the copies into pinned memory, and the batches
+# staged on a card, in this process
+pin_stats = {"s": 0.0, "bytes": 0, "batches": 0}
 
 
 def _to_tensor(x):
@@ -70,7 +78,10 @@ def _device_placer(device):
         if not torch.is_tensor(x):
             return x
         if cuda and x.device.type == "cpu" and not x.is_pinned():
+            t0 = _time.perf_counter()
             x = x.pin_memory()
+            pin_stats["s"] += _time.perf_counter() - t0
+            pin_stats["bytes"] += x.nbytes
         return x.to(device, non_blocking=cuda)
 
     def place(batch):
@@ -80,6 +91,7 @@ def _device_placer(device):
         stream = side.get("s")
         if stream is None:
             stream = side["s"] = torch.cuda.Stream(device)
+        pin_stats["batches"] += 1
         with torch.cuda.stream(stream):
             staged = pytree.tree_map(copy, batch)
             event = torch.cuda.Event()

@@ -4,9 +4,11 @@ An own copy of the part of ``tensorflowonspark_tpu/manager.py`` that the
 SPARK-fed training path calls.  A ``multiprocessing.managers.BaseManager``
 per executor serves the feed queues ('input', 'output', 'error',
 'control') and a KV store (the node's 'state': running / terminating /
-stopped, the trainer's pid and heartbeat) over loopback TCP, to the
-feeder tasks and the trainer that share the executor.  Queue items are
-chunks (lists of records), one IPC hop per chunk.
+stopped, the trainer's pid and heartbeat, the advertised feed ring)
+over loopback TCP, to the feeder tasks and the trainer that share the
+executor.  Queue items are chunks, one IPC hop per chunk; the 'input'
+chunks take the node's shm ring instead when it advertises one
+(``feed.open_feed_ring``).
 
 Left out: the 'remote' mode that ps/evaluator nodes use, and the
 telemetry-drain and live-metrics channels (ROADMAP.md queue 1, items 20
@@ -65,8 +67,9 @@ def start_heartbeat(mgr):
 
 
 class TFManager(BaseManager):
-    """Manager with ``get``/``set`` over one cached KV proxy (creating a
-    proxy costs several round trips; the cached one is thread-safe)."""
+    """Manager with ``get``/``set`` over one cached KV proxy and cached
+    queue proxies (``queue``): creating a proxy costs several round
+    trips; a proxy opens one connection for each thread that uses it."""
 
     def _kv(self):
         p = getattr(self, "_kv_proxy", None)
@@ -79,6 +82,15 @@ class TFManager(BaseManager):
 
     def set(self, key, value):
         self._kv().update({key: value})
+
+    def queue(self, name):
+        """Queue ``name``'s proxy, made once for this manager object:
+        each new proxy costs a connection and its handshakes over
+        loopback TCP (tens of ms or more)."""
+        proxies = self.__dict__.setdefault("_queue_proxies", {})
+        if name not in proxies:
+            proxies[name] = self.get_queue(name)
+        return proxies[name]
 
 
 # Server-side state, created lazily inside the manager's server process.

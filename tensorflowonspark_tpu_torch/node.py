@@ -16,15 +16,25 @@ task:
    job through ``ctx.torch_initialize()``.
 
 The feeder and shutdown tasks reattach to the node's manager through the
-executor-id file and move data in chunks.  ``run``, ``train`` and
-``shutdown`` return instances of module-level classes, which the
-engine ships with plain ``pickle``.
+executor-id file and move data in chunks.  The 'input' chunks go through
+a shared-memory ring (``recordio.shm``) that the node creates for its
+executor and advertises in the manager's KV (``shm_input``), with no
+trip through the manager process; numeric records travel as
+``marker.ColumnChunk``s (``_make_chunk_encoder``).  Where the ring
+cannot be made (``TFOS_SHM_FEED=0``, no compiler, too little
+``/dev/shm``), the manager queue carries them, as in the JAX package.
+``run``, ``train`` and ``shutdown`` return instances of module-level
+classes, which the engine ships with plain ``pickle``.
+
+Switches, read where the task runs: ``TFOS_SHM_FEED`` (1; 0 for the
+manager queue), ``TFOS_SHM_FEED_BYTES`` (the ring's capacity, 256 MiB),
+``TFOS_COLUMNAR_FEED`` (1; 0 keeps row chunks) and ``TFOS_FEED_CHUNK``
+(records a chunk, 1024).
 
 Left out (each raises NotImplementedError where it would be asked for):
 ps/evaluator nodes, ``inference`` and TensorBoard (ROADMAP.md queue 1,
-item 20); recovery epochs (item 15); the shared-memory feed ring and the
-columnar marshal (item 16); the telemetry drain and live metrics
-(item 21).
+item 20); recovery epochs (item 15); the telemetry drain and live
+metrics (item 21).
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ import threading
 import time
 import traceback
 
-from tensorflowonspark_tpu_torch import gpu_info, rendezvous
+import numpy as np
+
+from tensorflowonspark_tpu_torch import gpu_info, marker, rendezvous
 from tensorflowonspark_tpu_torch import manager as tfmanager
 from tensorflowonspark_tpu_torch.utils import (
     faults,
@@ -59,8 +71,20 @@ ROLES_ITEM = "ROADMAP.md queue 1, item 20 (ps/evaluator, inference, " \
     "TensorBoard)"
 
 
-FEED_CHUNK_RECORDS = 1024  # records per manager-queue chunk
+FEED_CHUNK_RECORDS = 1024  # records a chunk, unless TFOS_FEED_CHUNK says
+SHM_FEED_BYTES = 256 << 20  # the ring's capacity, unless TFOS_SHM_FEED_BYTES
 REAP_TIMEOUT_SECS = 600.0  # shutdown's wait for a healthy trainer to exit
+FEED_STATS_KEPT = 64  # feeder records kept in the KV's 'feed_stats'
+
+
+def _feed_chunk_records():
+    """Records a chunk, read where the feeder runs (an executor's env may
+    differ from the driver's)."""
+    try:
+        return int(os.environ.get("TFOS_FEED_CHUNK", "")) or \
+            FEED_CHUNK_RECORDS
+    except ValueError:
+        return FEED_CHUNK_RECORDS
 
 
 class _NodeState:
@@ -68,11 +92,52 @@ class _NodeState:
 
     mgr = None
     cluster_id = None
+    ring = None  # the shm feed ring this node created, if any
+
+
+def _close_ring():
+    """Close and unlink the node's ring (and stop advertising it)."""
+    ring, _NodeState.ring = _NodeState.ring, None
+    if ring is None:
+        return
+    try:
+        if _NodeState.mgr is not None and \
+                _NodeState.mgr.get("shm_input") == ring.name:
+            _NodeState.mgr.set("shm_input", None)
+    except Exception:  # noqa: BLE001 - the manager may be gone
+        pass
+    ring.close()
+
+
+def feed_ring_name(cluster_id, executor_id):
+    """The POSIX shm name of a node's feed ring (the JAX package's
+    scheme, without its recovery epoch)."""
+    return f"/tfos-{cluster_id & 0xffffffff:x}-{executor_id}"
+
+
+def _make_ring(cluster_id, executor_id, mgr):
+    """Create this node's feed ring and advertise it, unless
+    ``TFOS_SHM_FEED=0``.  A ring that cannot be made is logged, and the
+    manager queue carries the feed."""
+    if os.environ.get("TFOS_SHM_FEED", "1") == "0":
+        return
+    try:
+        from tensorflowonspark_tpu_torch.recordio import shm
+
+        name = feed_ring_name(cluster_id, executor_id)
+        cap = int(os.environ.get("TFOS_SHM_FEED_BYTES", "") or
+                  SHM_FEED_BYTES)
+        _NodeState.ring = shm.ShmQueue(name, cap, create=True)
+        mgr.set("shm_input", name)
+    except (OSError, RuntimeError, ValueError) as e:
+        logger.warning("shm feed ring unavailable, feeding through the "
+                       "manager queue: %s", e)
 
 
 def _teardown_node_state():
-    """Dismantle this executor's node (trainer, manager), so that the
-    next cluster boots clean on it.  Best-effort: it may be half dead."""
+    """Dismantle this executor's node (trainer, ring, manager), so that
+    the next cluster boots clean on it.  Best-effort: it may be half
+    dead."""
     mgr = _NodeState.mgr
     if mgr is not None:
         try:
@@ -81,6 +146,11 @@ def _teardown_node_state():
                 reap_child(int(bg), timeout=0.2, term_first=False)
         except Exception:  # noqa: BLE001 - manager may be gone
             pass
+    try:
+        _close_ring()
+    except Exception:  # noqa: BLE001
+        pass
+    if mgr is not None:
         try:
             mgr.shutdown()
         except Exception:  # noqa: BLE001
@@ -365,6 +435,9 @@ class run:  # noqa: N801 - named as the JAX package's node.run
         # everything up to the user's code is boot: a failure releases
         # the node, so that the executor can host another
         try:
+            # the 'input' feed's ring, before any feeder or the trainer
+            # looks for it
+            _make_ring(meta["id"], executor_id, mgr)
             # (4) reserve the coordinator's port, register, await peers
             client = rendezvous.Client(meta["server_addr"])
             host = get_ip_address()
@@ -417,9 +490,17 @@ class run:  # noqa: N801 - named as the JAX package's node.run
 
 
 def _get_manager(cluster_info, executor_id):
-    """Reattach to this executor's manager."""
+    """This executor's manager: the node's own when this process hosts
+    it (feeder and shutdown tasks run where the node runs), whose KV and
+    queue proxies are made once, else a new connection.  A connection
+    and each proxy cost handshakes over loopback TCP, up to a few hundred
+    ms a task, where a step may take 0.2 s."""
     for meta in cluster_info:
         if meta["executor_id"] == executor_id:
+            mgr = _NodeState.mgr
+            if mgr is not None and \
+                    tuple(mgr.address) == tuple(meta["addr"]):
+                return mgr
             return tfmanager.connect(tuple(meta["addr"]),
                                      bytes.fromhex(meta["authkey"]))
     raise RuntimeError(f"no node of this cluster on executor {executor_id}")
@@ -444,7 +525,7 @@ def _raise_if_consumer_lost(mgr, equeue):
 def _await_consumption(mgr, waiter, feed_timeout, poll=0.05):
     """Wait while ``waiter()`` is True (data still queued), polling the
     error queue and the consumer's heartbeat."""
-    equeue = mgr.get_queue("error")
+    equeue = mgr.queue("error")
     deadline = time.monotonic() + feed_timeout
     while waiter():
         _raise_if_consumer_lost(mgr, equeue)
@@ -462,10 +543,93 @@ def _partition_index():
         return -1
 
 
+def _make_chunk_encoder():
+    """Per-partition chunk encoder: all-numeric row chunks become
+    ``marker.ColumnChunk``s (``recordio.marshal.rows_to_columns``), whose
+    columns the ring carries as raw bytes; chunks with string, object
+    or ragged fields stay row lists, and so does every later chunk of
+    the partition.  ``TFOS_COLUMNAR_FEED=0`` keeps every chunk a row
+    list.
+
+    n-D array fields (images: [H, W, C] uint8) become width-H*W*C
+    columns through reshape views, their shapes carried in
+    ``ColumnChunk.shapes``.  A record that is a bare array (a token
+    sequence) is one field, and the chunk says so
+    (``meta=marker.BARE``), so that row consumers get arrays back."""
+    if os.environ.get("TFOS_COLUMNAR_FEED", "1") == "0":
+        return lambda chunk: chunk
+    from tensorflowonspark_tpu_torch.recordio import marshal
+
+    state = {"spec": None, "off": False, "shapes": None, "bare": False}
+
+    def fields(record):
+        if state["bare"]:
+            if not isinstance(record, np.ndarray):
+                raise TypeError("bare-array records drifted to "
+                                f"{type(record).__name__}")
+            record = (record,)
+        shapes = state["shapes"]
+        if shapes is None:
+            return record
+        out = []
+        for i, v in enumerate(record):
+            if shapes[i] is not None:
+                if not (isinstance(v, np.ndarray) and v.shape == shapes[i]):
+                    raise TypeError(
+                        f"field {i} shape drift: expected {shapes[i]}, "
+                        f"got {getattr(v, 'shape', type(v).__name__)}")
+                v = v.reshape(-1)
+            out.append(v)
+        return tuple(out)
+
+    def encode(chunk):
+        if state["off"]:
+            return chunk
+        try:
+            if state["spec"] is None:
+                row = chunk[0]
+                state["bare"] = isinstance(row, np.ndarray) and row.ndim > 0
+                if state["bare"]:
+                    row = (row,)
+                elif not isinstance(row, (tuple, list)):
+                    raise TypeError("non-tuple row")
+                shapes = tuple(v.shape if isinstance(v, np.ndarray)
+                               and v.ndim > 1 else None for v in row)
+                state["shapes"] = (shapes if any(s is not None
+                                                 for s in shapes) else None)
+                spec = marshal.infer_spec(fields(chunk[0]))
+                if any(c == "O" for c, _ in spec):
+                    raise TypeError("object column")
+                state["spec"] = spec
+            return marker.ColumnChunk(
+                state["spec"],
+                marshal.rows_to_columns([fields(r) for r in chunk],
+                                        state["spec"]),
+                shapes=state["shapes"],
+                meta=marker.BARE if state["bare"] else None)
+        except (TypeError, ValueError, OverflowError) as e:
+            state["off"] = True
+            logger.info("feed: row chunks (columnar does not apply: %s)", e)
+            return chunk
+
+    return encode
+
+
+def _record_feed_stats(mgr, stats):
+    """Append one feeder's record to the KV's 'feed_stats' (the latest
+    ``FEED_STATS_KEPT``), where the trainer's report can read it."""
+    try:
+        kept = list(mgr.get("feed_stats") or [])[-(FEED_STATS_KEPT - 1):]
+        mgr.set("feed_stats", kept + [stats])
+    except Exception as e:  # noqa: BLE001 - accounting only
+        logger.warning("feeder: could not record its timings: %s", e)
+
+
 class train:  # noqa: N801 - named as the JAX package's node.train
-    """The feeder task: push a partition's records as chunks through the
-    manager queue, wait until the trainer consumed them, and record the
-    partition in the rendezvous server's feed ledger."""
+    """The feeder task: push a partition's records as chunks into the
+    node's ring (or its manager queue), wait until the trainer consumed
+    them, and record the partition in the rendezvous server's feed
+    ledger.  Its timings land in the KV's 'feed_stats'."""
 
     def __init__(self, cluster_info, cluster_meta, feed_timeout=600,
                  qname="input", skip=None):
@@ -479,6 +643,7 @@ class train:  # noqa: N801 - named as the JAX package's node.train
         self.qname = qname
 
     def __call__(self, iterator):
+        start_wall = time.time()
         pidx = _partition_index()
         mgr = _get_manager(self.cluster_info, read_executor_id())
         state = str(mgr.get("state"))
@@ -487,22 +652,78 @@ class train:  # noqa: N801 - named as the JAX package's node.train
             logger.info("feeder: state=%s, discarded %d records", state,
                         count)
             return
-        queue = mgr.get_queue(self.qname)
+        from tensorflowonspark_tpu_torch.feed import open_feed_ring
+
+        ring = open_feed_ring(mgr, self.qname, producer=True)
+        try:
+            self._feed(iterator, pidx, mgr, ring, start_wall)
+        finally:
+            if ring is not None:
+                ring.close()
+
+    def _feed(self, iterator, pidx, mgr, ring, start_wall):
+        from tensorflowonspark_tpu_torch.recordio import marshal
+
+        queue = None if ring is not None else mgr.queue(self.qname)
+        equeue = mgr.queue("error")
+        encode = _make_chunk_encoder()
+        stats = {"part": pidx,
+                 "transport": "shm" if ring is not None else "manager",
+                 "start_wall": start_wall,
+                 "recv_ms": float(os.environ.get("TFOS_TASK_RECV_MS", "nan")),
+                 "loads_ms": float(os.environ.get("TFOS_TASK_LOADS_MS",
+                                                  "nan")),
+                 "encode_ms": 0.0, "put_ms": 0.0, "chunks": 0,
+                 "columnar_chunks": 0, "marshal": None,
+                 "first_put_wall": None}
+
+        def put(chunk):
+            """False once the trainer asked to terminate mid-feed: a put
+            blocked on a full ring re-checks the state every second, and
+            fails fast when the trainer errored or stopped beating."""
+            faults.check("feed.put", part=pidx)
+            t0 = time.perf_counter()
+            chunk = encode(chunk)
+            t1 = time.perf_counter()
+            if stats["first_put_wall"] is None:
+                stats["first_put_wall"] = time.time()
+            if ring is not None:
+                while True:
+                    try:
+                        ring.put(chunk, timeout_ms=1000)
+                        break
+                    except TimeoutError:
+                        if str(mgr.get("state")) == "terminating":
+                            return False
+                        _raise_if_consumer_lost(mgr, equeue)
+            else:
+                queue.put(chunk, block=True)
+            stats["encode_ms"] += 1e3 * (t1 - t0)
+            stats["put_ms"] += 1e3 * (time.perf_counter() - t1)
+            stats["chunks"] += 1
+            if isinstance(chunk, marker.ColumnChunk):
+                stats["columnar_chunks"] += 1
+                stats["marshal"] = marshal.path_for(chunk.spec)
+            return True
+
         total, terminated, chunk = 0, False, []
+        chunk_records = _feed_chunk_records()
         for item in iterator:
             chunk.append(item)
-            if len(chunk) >= FEED_CHUNK_RECORDS:
-                faults.check("feed.put", part=pidx)
-                queue.put(chunk, block=True)
+            if len(chunk) >= chunk_records:
+                if not put(chunk):
+                    terminated = True
+                    break
                 total += len(chunk)
                 chunk = []
                 if str(mgr.get("state")) == "terminating":
                     terminated = True
                     break
         if chunk and not terminated:
-            faults.check("feed.put", part=pidx)
-            queue.put(chunk, block=True)
-            total += len(chunk)
+            if put(chunk):
+                total += len(chunk)
+            else:
+                terminated = True
         # a feeder that passed the state check before terminate() may
         # have queued a whole small partition: check again
         if str(mgr.get("state")) == "terminating":
@@ -511,10 +732,18 @@ class train:  # noqa: N801 - named as the JAX package's node.train
             logger.info("feeder: termination mid-feed, discarded %d records",
                         sum(1 for _ in iterator))
         telemetry.event("feed/partition_queued", part=pidx, records=total,
-                        terminated=terminated)
-        joining = threading.Thread(target=queue.join, daemon=True)
-        joining.start()
-        _await_consumption(mgr, joining.is_alive, self.feed_timeout)
+                        path=stats["transport"], terminated=terminated)
+        if ring is not None:
+            if not terminated:
+                # terminate()'s drain pops while this feeder holds the
+                # producer flock, so the ring always empties
+                _await_consumption(mgr, lambda: ring.qsize_bytes() > 0,
+                                   self.feed_timeout)
+        else:
+            joining = threading.Thread(target=queue.join, daemon=True)
+            joining.start()
+            _await_consumption(mgr, joining.is_alive, self.feed_timeout)
+        stats["consumed_wall"] = time.time()
 
         # consumed in full, not cut short: into the feed ledger
         if not terminated and pidx >= 0:
@@ -523,9 +752,30 @@ class train:  # noqa: N801 - named as the JAX package's node.train
                 client.partition_done(self.qname, pidx)
             finally:
                 client.close()
+        stats.update(records=total, terminated=terminated,
+                     done_wall=time.time())
+        _record_feed_stats(mgr, stats)
         if str(mgr.get("state")) == "terminating":
             logger.info("feeder: consumer requested termination")
             rendezvous.Client(self.cluster_meta["server_addr"]).request_stop()
+
+
+def _put_end_of_feed(ring, mgr):
+    """End-of-feed into the ring.  A full ring waits for the trainer to
+    pop, unless the trainer errored or stopped beating: then the reap
+    below ends it anyway."""
+    equeue = mgr.queue("error")
+    while True:
+        try:
+            ring.put(None, timeout_ms=1000)
+            return
+        except TimeoutError:
+            try:
+                _raise_if_consumer_lost(mgr, equeue)
+            except RuntimeError as e:
+                logger.warning("shutdown: no end-of-feed into the full "
+                               "ring: %s", e)
+                return
 
 
 class shutdown:  # noqa: N801 - named as the JAX package's node.shutdown
@@ -542,14 +792,24 @@ class shutdown:  # noqa: N801 - named as the JAX package's node.shutdown
         executor_id = read_executor_id()
         mgr = _get_manager(self.cluster_info, executor_id)
         logger.info("shutdown: end-of-feed on executor %s", executor_id)
-        for qname in self.queues:
-            if qname in ("error", "control"):
-                continue  # end-of-feed applies to data queues only
-            mgr.get_queue(qname).put(None, block=True)
+        from tensorflowonspark_tpu_torch.feed import open_feed_ring
+
+        ring = open_feed_ring(mgr, "input", producer=True)
+        try:
+            for qname in self.queues:
+                if qname in ("error", "control"):
+                    continue  # end-of-feed applies to data queues only
+                if qname == "input" and ring is not None:
+                    _put_end_of_feed(ring, mgr)
+                else:
+                    mgr.queue(qname).put(None, block=True)
+        finally:
+            if ring is not None:
+                ring.close()
         if self.grace_secs:
             time.sleep(self.grace_secs)
         # peek, so that a retried shutdown still sees the failure
-        equeue = mgr.get_queue("error")
+        equeue = mgr.queue("error")
         err = None
         if not equeue.empty():
             err = equeue.get()
@@ -566,6 +826,9 @@ class shutdown:  # noqa: N801 - named as the JAX package's node.shutdown
                 logger.warning("shutdown: trainer %s did not exit cleanly "
                                "and was killed", bg_pid)
             mgr.set("bg_pid", None)
+        # the trainer is gone and every feeder has finished: unlink the
+        # ring, so that no segment outlives the cluster
+        _close_ring()
         if err is not None:
             raise RuntimeError(f"exception in worker:\n{err}")
         mgr.set("state", "stopped")

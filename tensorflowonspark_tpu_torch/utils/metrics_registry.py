@@ -1,11 +1,11 @@
 """Live in-process metrics registry: counters, gauges and histograms.
 
 An own copy of the part of ``tensorflowonspark_tpu/utils/metrics_registry.py``
-that the decode engine and ``TrainMetrics`` call (``inc``, ``set_gauge``,
-``observe``), with the same env gate: enabled iff ``TFOS_OBS_PORT`` is set, a cached no-op
-otherwise, and one registry per process (keyed by pid).  The publisher
-that snapshots the registry for ``/metrics`` comes with the serving
-frontend (ROADMAP.md).  Stdlib only.
+that the decode engine, ``TrainMetrics`` and ``DataFeed`` call (``inc``,
+``set_gauge``, ``observe``), with the same env gate: enabled iff
+``TFOS_OBS_PORT`` is set, a cached no-op otherwise, and one registry per
+process (keyed by pid).  The publisher that snapshots the registry for
+``/metrics`` comes with the serving frontend (ROADMAP.md).  Stdlib only.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ DEFAULT_BUCKETS_MS = (
     1000.0, 2500.0, 5000.0, 10000.0, 30000.0, 60000.0,
 )
 
-# name -> (type, help), the decode tier's and the train step's entries of
-# the reference catalog
+# name -> (type, help), the decode tier's, the feed's and the train step's
+# entries of the reference catalog
 CATALOG = {
     "tfos_train_steps_total": (
         "counter", "Timed train steps completed."),
@@ -34,6 +34,8 @@ CATALOG = {
         "gauge", "Fraction of step time spent waiting on the feed."),
     "tfos_train_mfu": (
         "gauge", "Model FLOPs utilization (2 FLOPs/MAC convention)."),
+    "tfos_feed_ring_bytes": (
+        "gauge", "Bytes resident in the shm feed ring after a pull."),
     "tfos_decode_slot_occupancy": (
         "gauge", "KV-cache slots occupied after the last engine "
                  "iteration."),

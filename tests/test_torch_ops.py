@@ -156,10 +156,12 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port (and chip_smoke.py) leaves jax
-    and every tensorflowonspark_tpu module out of sys.modules."""
+    """Importing every module of the port (and chip_smoke.py), and
+    loading the port's host-native ring and marshal, leaves jax and every
+    tensorflowonspark_tpu module out of sys.modules and maps no library
+    built from ``native/`` or shipped in the JAX package."""
     code = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import tensorflowonspark_tpu_torch as pkg
 names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -167,16 +169,32 @@ for n in names:
     importlib.import_module(n)
 import runpy
 runpy.run_path("chip_smoke.py", run_name="not_main")
+from tensorflowonspark_tpu_torch.recordio import marshal, shm
+assert shm.available() and marshal.native_available()
+q = shm.ShmQueue(f"/tfosq-torch-iso-{os.getpid()}", 1 << 12, create=True)
+q.put(marshal.rows_to_columns([(1.0, 2)], [("d", 0), ("l", 0)]))
+q.close()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "tensorflowonspark_tpu"
              or m.startswith("tensorflowonspark_tpu."))
-print(len(names), bad)
+repo = os.getcwd()
+maps = {line.split()[-1] for line in open("/proc/self/maps")
+        if line.rstrip().endswith(".so") or ".so." in line}
+ours = sorted(m for m in maps if m.startswith(repo))
+foreign = [m for m in ours
+           if m.startswith((os.path.join(repo, "native") + os.sep,
+                            os.path.join(repo, "tensorflowonspark_tpu")
+                            + os.sep))]
+print(len(names), bad, ours)
 assert len(names) >= 15, names
 for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
-             "ops.attention"):
+             "ops.attention", "recordio.shm", "recordio.marshal"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
+assert not foreign, foreign
+assert {os.path.basename(m) for m in ours} >= {
+    "libtfos_torch_shmq.so", "_tfos_torch_marshal.so"}, ours
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
