@@ -8,19 +8,22 @@ Run from the root of a checkout on a machine with a CUDA card (Hopper,
 into ``build/torch_kernels/`` and drives the port's three paths: the
 SPARK-fed training path (the main path), in-process training and
 serving, plus the ``fused_rmsnorm`` entry point, and ResNet-50 in
-process and SPARK-fed (which launches none of the kernels).  It builds
-the feed's host-native ring and marshal
-(``tensorflowonspark_tpu_torch/native/``) into
+process and SPARK-fed (which launches none of the kernels), then the
+TFRecord paths: ResNet-50 fed from TFRecord shards in process and
+SPARK-fed (the executor reads the shards), and MNIST under
+``InputMode.TENSORFLOW``.  It builds the host-native feed ring, marshal
+and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
 ``build/torch_native/`` too:
 
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; TF32 off for float32
    matmuls and convolutions, bf16 matmuls accumulate in float32;
 1. build every kernel (one ``nvcc`` per source, started together), and
-   the feed's shm ring (``g++``; its failure fails the run) and marshal
-   (``cc``; the numpy marshal runs where it cannot build): their
-   seconds, which marshal, ``/dev/shm``'s free bytes and the ring's
-   capacity (``native build`` line); the
+   the feed's shm ring and the TFRecord codec (``g++``, started
+   together; a failure of either fails the run) and marshal (``cc``; the
+   numpy marshal runs where it cannot build): their seconds, which
+   marshal and codec, ``/dev/shm``'s free bytes and the ring's capacity
+   (``native build`` line); the
    ``ptxas`` registers and spills of every kernel; the bf16 flash
    kernels (forward, dq, dk/dv) must issue tensor-core MMAs (``HMMA`` in
    their SASS, read with ``cuobjdump``) and spill nothing at head_dim 64
@@ -91,7 +94,36 @@ the feed's host-native ring and marshal
 13. the same six partitions on a second one-executor engine whose
     executor has ``TFOS_SHM_FEED=0`` (``spark_resnet_manager``): columnar
     chunks through the manager queue, the same gates, so the ring and
-    the manager queue compare on one card in one run.
+    the manager queue compare on one card in one run;
+14. TFRecord IO (``tfrecord_io``): phase 10's batch as six raw-uint8
+    shards of 256 records (``"image"`` 150,528 bytes, ``"label"``
+    int64; ~38.6 MB a shard) through the native writer, read back
+    through ``TFRecordReader`` and ``load_columnar`` with the same bytes
+    and labels; write and read MB/s; the native codec must have run;
+15. ``InputMode.TENSORFLOW``'s fast path at the north-star size
+    (``tfrecord_resnet``): ``infeed.tfrecord_device_feed`` over those
+    shards feeds phase 10's step for six steps in process, losses equal
+    phase 10's first six; images/s, the stall and the ``tfrecord_read``
+    span a batch;
+16. this slice's main path (``spark_tfrecord_resnet``): ``cluster.run``
+    of ``resnet_imagenet_spark.main_fun`` (``num_gpus=1``) fed
+    ``resnet_imagenet_spark._records`` with ``--data_dir`` on phase
+    14's directory: two partitions of three shards' read units, which
+    the executor reads and decodes through the engine's lineage, then
+    the shm ring as columnar chunks (any other transport fails); phase
+    12's gates, no ring left, every task the engine pickled under
+    64 KiB, the executor's reader on the native codec and no kernel
+    launched in the trainer; images/s end to end, the stall, the device
+    step, the hand-off split and the read and decode time a partition;
+17. MNIST under ``InputMode.TENSORFLOW`` (``tf_mode_mnist``), on an
+    engine of its own (the executor runs ``main_fun`` on the card, so it
+    holds a CUDA context and must fork no SPARK trainer after it):
+    ``mnist_data_setup``'s four shards, ``cluster.run`` of
+    ``mnist_tf_ds.main_fun`` for 40 steps; every loss finite and equal
+    to the same batches stepped here (float32, TF32 off, deterministic
+    cuDNN, 1e-5 relative); no kernel launched in the executor's steps;
+    the chief's export loads with ``load_exported`` and predicts as the
+    trained params do.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -99,14 +131,20 @@ not printed.  The last line is
 the line before it names the card, the one before that lists the
 kernels' results, with their launches on the path each is on (the flash
 kernels: in-process training, and ``launches_spark_train`` in the
-SPARK-fed trainer; RMSNorm: one call of ``fused_rmsnorm``).  Imports
-only torch, numpy and the port.
+SPARK-fed trainer; RMSNorm: one call of ``fused_rmsnorm``; and 0 on
+the paths that reach no kernel: ``launches_resnet``, phase 10 in this
+process, ``launches_tfrecord``, phase 15 in this process,
+``launches_spark_tfrecord``, phase 16's trainer, and
+``launches_tf_mode``, phase 17's executor, each counted in that run
+alone).  Imports only torch, numpy and the port.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
+import glob
 import json
 import os
 import re
@@ -122,13 +160,15 @@ import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import cluster as TFCluster
-from tensorflowonspark_tpu_torch import infeed, node
+from tensorflowonspark_tpu_torch import dfutil, infeed, node, recordio
 from tensorflowonspark_tpu_torch.engine import LocalEngine
 from tensorflowonspark_tpu_torch.examples import (
+    mnist_data_setup,
+    mnist_tf_ds,
     resnet_imagenet_spark,
     transformer_spark,
 )
-from tensorflowonspark_tpu_torch.models import layers, resnet
+from tensorflowonspark_tpu_torch.models import layers, mnist, resnet
 from tensorflowonspark_tpu_torch.models import transformer as T
 from tensorflowonspark_tpu_torch.ops import (
     _build,
@@ -139,7 +179,7 @@ from tensorflowonspark_tpu_torch.ops import (
 from tensorflowonspark_tpu_torch.recordio import _build as native_build
 from tensorflowonspark_tpu_torch.recordio import marshal, shm
 from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
-from tensorflowonspark_tpu_torch.utils import metrics
+from tensorflowonspark_tpu_torch.utils import metrics, telemetry
 from tensorflowonspark_tpu_torch.utils import train as train_utils
 from tensorflowonspark_tpu_torch.serving.decode import (
     DecodeEngine,
@@ -238,6 +278,17 @@ RESNET_S2D_F32_RTOL = 1e-4
 # tensor's largest value
 RESNET_EXACT = dict(batch=4, image=64)
 RESNET_EXACT_RTOL = 1e-3
+# the SPARK-fed TFRecord phase ships read units, not images: every task
+# the engine pickles stays under this
+TFRECORD_TASK_MAX_BYTES = 64 << 10
+# InputMode.TENSORFLOW MNIST (mnist_tf_ds): the data setup's four shards
+# of 2048 records, 40 steps of batch 64, SGD(0.05, momentum 0.9), as the
+# example's defaults; float32 with TF32 off and deterministic cuDNN on
+# both sides, so the executor's steps repeat in this process to 1e-5
+# relative (the same kernels on the same batches)
+TF_MNIST = dict(num_examples=2048, partitions=4, batch_size=64, steps=40,
+                lr=0.05)
+TF_MNIST_RTOL = 1e-5
 
 
 def ptxas_report(log):
@@ -822,6 +873,7 @@ def feed_summary(report, dispatch):
                    setup_ms=1e3 * (f["first_put_wall"] - f["start_wall"]),
                    encode_ms=f["encode_ms"], put_ms=f["put_ms"],
                    marshal=f["marshal"],
+                   lineage_ms=f.get("lineage_ms") or [],
                    pop_call_ms=pops[ends[i]][1] if popped else None,
                    pop_copy_ms=pops[ends[i]][2] if popped else None,
                    ledger_ms=1e3 * (f["done_wall"] - f["consumed_wall"]))
@@ -841,18 +893,23 @@ def feed_summary(report, dispatch):
         return statistics.median(vals) if vals else None
 
     marshals = sorted({f["marshal"] for f in feeders if f["marshal"]})
+    codecs = sorted({f["codec"] for f in feeders if f.get("codec")})
     return dict(
         feed_transport=feed["transport"], columnar=feed["columnar"],
         columnar_chunks=feed["columnar_chunks"],
         row_chunks=feed["row_chunks"],
         marshal="+".join(marshals) if marshals else None,
         marshal_native_built=marshal.native_available(),
+        # the codec the executor's dfutil reader ran; None for records the
+        # driver made
+        codec="+".join(codecs) if codecs else None,
         ring_capacity_bytes=(_ring_bytes() if feed["transport"] == "shm"
                              else None),
         dev_shm_free_bytes=shm.shm_free_bytes(),
         driver_pickle_ms_per_task=1e3 * dispatch["pickle_s"]
         / dispatch["tasks"],
         task_mb=dispatch["bytes"] / dispatch["tasks"] / 1e6,
+        task_max_bytes=dispatch["max_bytes"],
         pin_ms_per_batch=(1e3 * pin["s"] / pin["batches"]
                           if pin["batches"] else None),
         pin_mb_per_batch=(pin["bytes"] / pin["batches"] / 1e6
@@ -1581,6 +1638,349 @@ def phase_spark_resnet(dev, engine, gpu, res, transport="shm"):
     return summary
 
 
+def phase_tfrecord_io(gpu, out_dir):
+    """Phase 10's batch, ``SPARK_RESNET_STEPS`` times, as that many raw-
+    uint8 TFRecord shards under ``out_dir`` (one step's records a shard:
+    ``"image"`` the HWC bytes, ``"label"`` int64) through the port's
+    native writer; read back through ``TFRecordReader`` and
+    ``load_columnar``, which must give the same bytes and labels.  The
+    native codec must be the one that ran.  Returns the shard paths."""
+    if recordio.codec() != "native":
+        raise AssertionError("the native TFRecord codec did not load: "
+                             f"{recordio.tfrecord_native.error()}")
+    images_np, labels_np = _resnet_batch()
+    b = RESNET["batch"]
+    examples = [dfutil.to_example({"image": images_np[i].tobytes(),
+                                   "label": int(labels_np[i])})
+                for i in range(b)]
+    files = []
+    t0 = time.perf_counter()
+    for s in range(SPARK_RESNET_STEPS):
+        path = os.path.join(out_dir, f"part-r-{s:05d}")
+        with recordio.TFRecordWriter(path) as w:
+            for ex in examples:
+                w.write(ex)
+        files.append(path)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(f) for f in files)
+
+    t0 = time.perf_counter()
+    recs = [list(recordio.TFRecordReader(f)) for f in files]
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols = [recordio.load_columnar(f) for f in files]
+    columnar_s = time.perf_counter() - t0
+    want = [images_np[i].tobytes() for i in range(b)]
+    for f, rs, col in zip(files, recs, cols):
+        rows = [recordio.decode_example(r) for r in rs]
+        if [r["image"][1][0] for r in rows] != want or \
+                [r["label"][1][0] for r in rows] != labels_np.tolist():
+            raise AssertionError(f"TFRecordReader: {f} reads back other "
+                                 "images or labels")
+        if col["image"] != ("bytes", want) or col["label"][0] != "int64" \
+                or not np.array_equal(col["label"][1], labels_np):
+            raise AssertionError(f"load_columnar: {f} reads back other "
+                                 "images or labels")
+    summary = dict(
+        codec=recordio.codec(), shards=len(files), records_per_shard=b,
+        shard_mb=nbytes / len(files) / 1e6, write_s=write_s,
+        write_mb_per_s=nbytes / write_s / 1e6, read_s=read_s,
+        read_mb_per_s=nbytes / read_s / 1e6, columnar_s=columnar_s,
+        columnar_mb_per_s=nbytes / columnar_s / 1e6,
+        native_build_s=native_build.build_seconds.get("tfrecord"), gpu=gpu)
+    print("tfrecord_io " + json.dumps(summary), flush=True)
+    return files
+
+
+def _resnet_columns(cols):
+    """tfrecord_device_feed's collate: a column batch of raw-uint8 records
+    -> (uint8 [n, H, W, 3], int64 [n]).  The image is a read-only view of
+    the joined bytes; the placer's pinned copy is its one copy."""
+    side = RESNET["image"]
+    images = np.frombuffer(b"".join(cols["image"]), np.uint8).reshape(
+        -1, side, side, 3)
+    return images, np.asarray(cols["label"], np.int64)
+
+
+def phase_tfrecord_resnet(dev, gpu, res, files):
+    """``InputMode.TENSORFLOW``'s fast path at the north-star size:
+    ``infeed.tfrecord_device_feed`` over phase 14's shards feeds phase
+    10's step for ``SPARK_RESNET_STEPS`` steps in this process; the
+    losses must equal phase 10's first ones.  Telemetry is on for the
+    phase, so each batch's read lands as a ``tfrecord_read`` span."""
+    params, state, step = _resnet_net(dev)
+    b = RESNET["batch"]
+    tm = metrics.TrainMetrics(flops_per_item=res["flops_per_image"],
+                              device=dev)
+    spans = tempfile.mkdtemp(prefix="tfos_tfrecord_spans_")
+    saved = os.environ.get(telemetry.DIR_ENV)
+    os.environ[telemetry.DIR_ENV] = spans
+    try:
+        _reset_counts()
+        norm.launches = 0
+        losses, step_ms = [], []
+        batches = infeed.tfrecord_device_feed(files, b,
+                                              collate=_resnet_columns,
+                                              placement=dev)
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            if losses:
+                tm.infeed_wait(time.perf_counter() - t_wait)
+            images, labels = batch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, _, state = step(params, state, images, labels)
+            end.record()
+            losses.append(loss.item())
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            tm.step(items=b)
+        launches = _counts()
+        launches["rmsnorm"] = norm.launches
+        telemetry.flush()
+        reads = [json.loads(line) for f in glob.glob(
+            os.path.join(spans, "*.jsonl")) for line in open(f)]
+    finally:
+        if saved is None:
+            os.environ.pop(telemetry.DIR_ENV, None)
+        else:
+            os.environ[telemetry.DIR_ENV] = saved
+        shutil.rmtree(spans, ignore_errors=True)
+    read_ms = [r["dur_ms"] for r in reads if r["name"] == "data/stage"
+               and r["attrs"].get("stage") == "tfrecord_read"]
+    ref = res["losses"][:SPARK_RESNET_STEPS]
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref)]
+    r = tm.report()
+    summary = dict(
+        losses=losses, phase_resnet_losses=ref,
+        max_rel_loss_diff=max(rel) if rel else None,
+        images_per_s=r.get("items_per_sec"), mfu=r.get("mfu"),
+        infeed_stall_frac=r["infeed_stall_frac"], step_ms=step_ms,
+        step_ms_median_after_first=statistics.median(step_ms[1:]),
+        tfrecord_read_ms_per_batch=(statistics.median(read_ms)
+                                    if read_ms else None),
+        tfrecord_read_spans=len(read_ms),
+        pin_ms_per_batch=(1e3 * infeed.pin_stats["s"]
+                          / max(infeed.pin_stats["batches"], 1)),
+        codec=recordio.codec(), launches=launches, gpu=gpu)
+    print("tfrecord_resnet " + json.dumps(summary), flush=True)
+    del params, state, step
+    torch.cuda.empty_cache()
+    if len(losses) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"TFRecord-fed ResNet losses {losses} vs "
+                             f"in-process {ref} (rtol {SPARK_LOSS_RTOL})")
+    if len(read_ms) != SPARK_RESNET_STEPS:
+        raise AssertionError(f"{len(read_ms)} tfrecord_read spans for "
+                             f"{SPARK_RESNET_STEPS} batches")
+    if any(launches.values()):
+        raise AssertionError(f"the TFRecord-fed ResNet launched {launches}")
+    return launches
+
+
+def phase_spark_tfrecord_resnet(dev, engine, gpu, res, data_dir):
+    """This slice's main path: ResNet-50 SPARK-fed from phase 14's
+    TFRecord shards, which the executor reads itself.  The dataset is
+    ``resnet_imagenet_spark._records`` with ``--data_dir``
+    (``dfutil.load_tfrecords``' read units, then the decode, through
+    ``map_partitions``): the tasks carry file names, never images.  The
+    gates of phase 12 (losses, every partition once, no trainer left),
+    and no ring left, and the shm ring with columnar chunks, and every
+    task the engine pickled under ``TFRECORD_TASK_MAX_BYTES``."""
+    b = RESNET["batch"]
+    args = argparse.Namespace(
+        data_dir=data_dir, cluster_size=1, image_size=RESNET["image"],
+        batch_size=b, num_classes=RESNET["num_classes"],
+        steps=SPARK_RESNET_STEPS)
+    tmp = tempfile.mkdtemp(prefix="tfos_spark_tfrecord_")
+    try:
+        t0 = time.time()
+        ds = resnet_imagenet_spark._records(args, engine)
+        c = TFCluster.run(
+            engine, resnet_imagenet_spark.main_fun,
+            {"batch_size": b, "lr": RESNET["lr"],
+             "image_size": RESNET["image"],
+             "num_classes": RESNET["num_classes"],
+             "model_dir": os.path.join(tmp, "model"),
+             "save_every": 10 ** 6, "seed": 0, "out_dir": tmp},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300)
+        t_run = time.time() - t0
+        c.train(ds, feed_timeout=600)
+        dispatch = engine.last_dispatch
+        fed = c.server.fed_partitions("input")
+        ring = "/dev/shm" + node.feed_ring_name(c.cluster_meta["id"], 0)
+        c.shutdown()
+        t_total = time.time() - t0
+        ring_left = os.path.exists(ring)
+        with open(os.path.join(tmp, "resnet_imagenet-rank0.json")) as f:
+            report = json.load(f)
+        orphan = _alive(report["pid"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses, ref = report["losses"], res["losses"][:SPARK_RESNET_STEPS]
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref)]
+    med = statistics.median(report["step_ms"][1:])
+    tm = report["train_metrics"]
+    fs = feed_summary(report, dispatch)
+    stages = [row["lineage_ms"] for row in fs["handoff"]]
+    summary = dict(
+        losses=losses, phase_resnet_losses=ref,
+        max_rel_loss_diff=max(rel) if rel else None,
+        images_per_s=tm.get("items_per_sec"), mfu=tm.get("mfu"),
+        infeed_stall_frac=tm["infeed_stall_frac"],
+        step_ms=report["step_ms"], step_ms_median_after_first=med,
+        device_step_images_per_s=b / (med / 1e3),
+        feed_wait_s=report["feed_wait_s"],
+        boot_s=report["first_step_wall"] - t0, cluster_run_s=t_run,
+        total_s=t_total, partitions=ds.num_partitions,
+        records_per_partition=[row["records"] for row in fs["handoff"]],
+        read_ms_per_partition=[s[0] for s in stages if s],
+        decode_ms_per_partition=[s[1] for s in stages if len(s) > 1],
+        records=report["records"], fed_partitions=fed,
+        trainer_alive_after_shutdown=orphan, ring_left=ring_left,
+        peak_mem_gb=report["peak_mem_gb"], launches=report["launches"],
+        phase_resnet_images_per_s=res["images_per_s"], **fs, gpu=gpu)
+    print("spark_tfrecord_resnet " + json.dumps(summary), flush=True)
+    check_feed("spark_tfrecord_resnet", summary, "shm")
+    if len(losses) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"TFRecord SPARK-fed ResNet losses {losses} "
+                             f"vs in-process {ref} (rtol {SPARK_LOSS_RTOL})")
+    if fed != list(range(ds.num_partitions)) or \
+            report["records"] != b * SPARK_RESNET_STEPS:
+        raise AssertionError(f"fed partitions {fed} of "
+                             f"{ds.num_partitions}, records the trainer's "
+                             f"DataFeed handed out {report['records']}")
+    if orphan or ring_left:
+        raise AssertionError(f"after shutdown: trainer {report['pid']} "
+                             f"alive {orphan}, ring {ring} left {ring_left}")
+    if dispatch["max_bytes"] >= TFRECORD_TASK_MAX_BYTES:
+        raise AssertionError(f"the engine pickled a task of "
+                             f"{dispatch['max_bytes']} bytes (limit "
+                             f"{TFRECORD_TASK_MAX_BYTES})")
+    if fs["codec"] != "native":
+        raise AssertionError(f"the executor read the shards with the "
+                             f"{fs['codec']!r} codec, not the native one")
+    if any(report["launches"].values()):
+        raise AssertionError(f"the TFRecord SPARK-fed trainer launched "
+                             f"{report['launches']}")
+    return report["launches"]
+
+
+def tf32_off_main(args, ctx):
+    """``mnist_tf_ds.main_fun`` with float32 kept float32 in the executor
+    (TF32 off, deterministic cuDNN), as this process computes its
+    reference: a module-level function, so the engine ships it."""
+    _exact_float32()
+    mnist_tf_ds.main_fun(args, ctx)
+
+
+def _exact_float32():
+    """TF32 off for float32 matmuls and convolutions, and cuDNN's
+    deterministic algorithms; returns the previous determinism flag."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    return saved
+
+
+def phase_tf_mode_mnist(dev, engine, gpu):
+    """``InputMode.TENSORFLOW`` end to end: ``mnist_data_setup``'s four
+    TFRecord shards, then ``cluster.run`` of ``mnist_tf_ds.main_fun`` on
+    ``engine`` (an engine of its own: the executor runs ``main_fun`` and
+    so holds a CUDA context, and must fork no SPARK trainer after it),
+    40 steps on the card.  Every loss finite and equal to the same
+    batches stepped here; the chief's export loads with
+    ``load_exported`` and predicts as this process's trained params."""
+    tmp = tempfile.mkdtemp(prefix="tfos_tf_mnist_")
+    cfg = TF_MNIST
+    try:
+        images, labels = mnist_data_setup.synthetic_mnist(cfg["num_examples"])
+        _, tfr = mnist_data_setup.write_shards(images, labels, tmp,
+                                               cfg["partitions"])
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, tf32_off_main,
+            {"batch_size": cfg["batch_size"], "lr": cfg["lr"],
+             "steps": cfg["steps"], "data_dir": tfr, "seed": 0,
+             "model_dir": os.path.join(tmp, "model"), "out_dir": tmp},
+            num_executors=1, input_mode=TFCluster.InputMode.TENSORFLOW,
+            master_node="chief", num_gpus=1, reservation_timeout=300)
+        c.shutdown()
+        total_s = time.time() - t0
+        with open(os.path.join(tmp, "mnist_tf-rank0.json")) as f:
+            report = json.load(f)
+        exported, meta = ckpt.load_exported(os.path.join(tmp, "model",
+                                                         "export"))
+    finally:
+        engine.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the same steps here: the same init (seed 0), records and batches
+    deterministic = _exact_float32()
+    try:
+        params = mnist.init_params(
+            torch.Generator(device=dev).manual_seed(0), device=dev)
+        leaves = [p.requires_grad_() for layer in params.values()
+                  for p in layer.values()]
+        step_fn = mnist.make_train_step(torch.optim.SGD(
+            leaves, lr=cfg["lr"], momentum=0.9))
+        images_t = torch.from_numpy(images).to(dev)
+        labels_t = torch.from_numpy(labels.astype(np.int64)).to(dev)
+        rng = np.random.default_rng(0)
+        ref = []
+        for _ in range(cfg["steps"]):
+            idx = torch.from_numpy(rng.integers(0, len(images),
+                                                cfg["batch_size"])).to(dev)
+            loss, _ = step_fn(params, images_t[idx], labels_t[idx])
+            ref.append(loss.item())
+        probe = images[:cfg["batch_size"] * 4]
+        with torch.no_grad():
+            want = mnist.apply(params, torch.from_numpy(probe).to(dev)).cpu()
+        got = mnist.predict(exported, {"image": probe}, device=dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    pred_err = (torch.from_numpy(got["logits"]) - want).abs().max().item() \
+        / want.abs().max().item()
+    losses = report["losses"]
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref)]
+    summary = dict(
+        steps=len(losses), losses_first_last=[losses[0], losses[-1]],
+        ref_first_last=[ref[0], ref[-1]],
+        max_rel_loss_diff=max(rel) if rel else None,
+        files=report["files"], records=report["records"],
+        executor_pid=report["pid"], device=report["device"],
+        export_format=meta.get("format"), export_predict=meta.get("predict"),
+        predict_rel_err=pred_err,
+        predict_same_argmax=bool((got["prediction"]
+                                  == want.argmax(-1).numpy()).all()),
+        total_s=total_s, launches=report["launches"], gpu=gpu)
+    print("tf_mode_mnist " + json.dumps(summary), flush=True)
+    if not all(np.isfinite(losses)) or len(losses) != cfg["steps"] or \
+            max(rel) > TF_MNIST_RTOL:
+        raise AssertionError(f"TENSORFLOW-mode MNIST losses {losses} vs "
+                             f"in-process {ref} (rtol {TF_MNIST_RTOL})")
+    if report["pid"] == os.getpid() or not report["device"].startswith(
+            dev.type) or report["records"] != cfg["num_examples"] or \
+            len(report["files"]) != cfg["partitions"]:
+        raise AssertionError(f"main_fun ran in pid {report['pid']} on "
+                             f"{report['device']}, read {report['files']} "
+                             f"({report['records']} records)")
+    if meta.get("format") != ckpt.EXPORT_FORMAT or \
+            meta.get("predict") != mnist.PREDICT or \
+            not summary["predict_same_argmax"] or pred_err > TF_MNIST_RTOL:
+        raise AssertionError(f"export {meta}: predictions off by "
+                             f"{pred_err} of the largest logit")
+    if any(report["launches"].values()):
+        raise AssertionError(f"the TENSORFLOW-mode executor launched "
+                             f"{report['launches']}")
+    return report["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1600,11 +2000,15 @@ def main():
     # spark_resnet_manager line
     engine = LocalEngine(1)
     engine_mgr = LocalEngine(1, env={"TFOS_SHM_FEED": "0"})
+    # InputMode.TENSORFLOW runs main_fun (CUDA) in the executor itself:
+    # an engine of its own, which no SPARK phase forks a trainer from
+    engine_tf = LocalEngine(1)
     try:
-        kernels = run_phases(dev, gpu, engine, engine_mgr)
+        kernels = run_phases(dev, gpu, engine, engine_mgr, engine_tf)
     finally:
         engine.stop()
         engine_mgr.stop()
+        engine_tf.stop()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1613,21 +2017,23 @@ def main():
     return 0
 
 
-def run_phases(dev, gpu, engine, engine_mgr):
+def run_phases(dev, gpu, engine, engine_mgr, engine_tf):
     """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    # the feed's host-native pieces: the ring (g++), whose failure
-    # raises as a kernel's does, and the marshal (cc), where the numpy
-    # marshal runs if it cannot build (no Python.h)
+    # the host-native pieces: the feed's ring and the TFRecord codec
+    # (g++, one compiler each, started together), whose failure raises
+    # as a kernel's does, and the marshal (cc), where the numpy marshal
+    # runs if it cannot build (no Python.h)
     t0 = time.perf_counter()
-    native_build.build(["shmq"])
+    native_build.build(["shmq", "tfrecord"])
     marshal_native = marshal.native_available()
     print("native build: " + json.dumps(dict(
         built=native_build.build_seconds,
         seconds=time.perf_counter() - t0, ring=shm.available(),
+        tfrecord_codec=recordio.codec(),
         marshal="native" if marshal_native else "numpy",
         dev_shm_free_bytes=shm.shm_free_bytes(),
         ring_capacity_bytes=_ring_bytes())), flush=True)
@@ -1649,6 +2055,15 @@ def run_phases(dev, gpu, engine, engine_mgr):
     phase_resnet_exact(dev)
     phase_spark_resnet(dev, engine, gpu, res)
     phase_spark_resnet(dev, engine_mgr, gpu, res, transport="manager")
+    tfr_dir = tempfile.mkdtemp(prefix="tfos_tfrecords_")
+    try:
+        files = phase_tfrecord_io(gpu, tfr_dir)
+        tfr_launches = phase_tfrecord_resnet(dev, gpu, res, files)
+        spark_tfr_launches = phase_spark_tfrecord_resnet(dev, engine, gpu,
+                                                         res, tfr_dir)
+    finally:
+        shutil.rmtree(tfr_dir, ignore_errors=True)
+    tf_mode_launches = phase_tf_mode_mnist(dev, engine_tf, gpu)
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -1701,6 +2116,11 @@ def run_phases(dev, gpu, engine, engine_mgr):
         k["launches_spark_train"] = spark_launches[k["name"]]
     for k in kernels:
         k["launches_resnet"] = res["launches"][k["name"]]
+        # each counted in its own run: phase 15 in this process, phase
+        # 16's trainer, phase 17's executor
+        k["launches_tfrecord"] = tfr_launches[k["name"]]
+        k["launches_spark_tfrecord"] = spark_tfr_launches[k["name"]]
+        k["launches_tf_mode"] = tf_mode_launches[k["name"]]
     return kernels
 
 

@@ -11,8 +11,8 @@ setup(
         "partitions into the TPU infeed."
     ),
     packages=find_packages(include=["tensorflowonspark_tpu*"]),
-    # the PyTorch port builds its CUDA kernels, its feed ring and its
-    # marshal from these sources at first use
+    # the PyTorch port builds its CUDA kernels, its feed ring, its
+    # TFRecord codec and its marshal from these sources at first use
     package_data={"tensorflowonspark_tpu_torch": [
         "ops/csrc/*.cu", "ops/csrc/*.cuh", "native/*.cpp", "native/*.c"]},
     python_requires=">=3.10",

@@ -1,20 +1,31 @@
 """Execution engine: the scheduler the framework federates.
 
 An own copy of the part of ``tensorflowonspark_tpu/engine.py`` that the
-SPARK-fed training path calls: ``LocalEngine``, a pool of executor
-*processes* on this host, and ``LocalDataset``, its partitioned dataset
-(``parallelize``, ``union``, ``foreach_partition``).  Node-placement
+SPARK-fed training path and the TFRecord loaders call: ``LocalEngine``,
+a pool of executor *processes* on this host, and ``LocalDataset``, its
+partitioned dataset (``parallelize``, ``map_partitions``, ``union``,
+``foreach_partition``, ``collect``, ``repartition``).  Node-placement
 jobs run ``spread=True`` or with an explicit ``placement`` (task i on
 executor i's own inbox); other jobs go to a shared queue that any free
 executor pulls from.
+
+``map_partitions`` is lazy: a dataset carries, for each partition, its
+items and the chain of functions to run over them (``Lineage``), and
+the chain runs in the executor before the job's own function, which
+gets the last stage's iterator.  So ``dfutil.load_tfrecords`` ships read
+units ``(path, stride, offset)`` and each executor reads its own shards:
+the records never cross the driver's pipe.  The running task's
+``task_report`` holds each stage's milliseconds (the last stage's grow
+as the job consumes it), where the feeder reads them.
 
 Differences from the JAX package:
 
 - Tasks are shipped with the standard library's ``pickle``, not
   ``cloudpickle``: every function a task carries is a module-level
   function or an instance of a module-level class (the node runtime's
-  closures are such classes), and user ``map_fun``s are module-level
-  functions, as the spawn start already requires.
+  closures, the lineage and ``dfutil``'s readers are such classes), and
+  user ``map_fun``s are module-level functions, as the spawn start
+  already requires.
 - Executors start with ``spawn`` only.  A driver that has used CUDA (as
   ``chip_smoke.py`` has by then) cannot hand a CUDA context to a forked
   child; spawned executors start clean, and do nothing with CUDA, so the
@@ -23,10 +34,8 @@ Differences from the JAX package:
   raises NotImplementedError): they come with ``restarts``
   (ROADMAP.md queue 1, item 15).  An executor that dies fails the job.
   No ``SparkEngine`` adapter (ROADMAP.md queue 1, item 15).
-- No ``map_partitions`` lineage, ``collect`` or ``from_partitions``:
-  the SPARK-fed path only feeds partitions to nodes.  No caller-owned
-  scratch root (``workdir`` raises NotImplementedError, ROADMAP.md
-  queue 1, item 14).
+- No ``from_partitions`` and no caller-owned scratch root (``workdir``
+  raises NotImplementedError, ROADMAP.md queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -54,6 +63,12 @@ RESTARTS_ITEM = "ROADMAP.md queue 1, item 15 (restarts, elastic, SparkEngine)"
 
 class TaskError(RuntimeError):
     """A task raised on an executor; carries the remote traceback."""
+
+
+# the running task's report, in the executor: ``lineage_ms``, each
+# map_partitions stage's milliseconds, and what a stage adds to it
+# (dfutil's reader: the ``codec`` it read with).  Cleared per task.
+task_report = {}
 
 
 # ----------------------------------------------------------------------------
@@ -88,15 +103,23 @@ def _executor_main(index, workdir, shared_inbox, own_inbox, results):
             os.environ["TFOS_PARTITION_INDEX"] = str(task_id)
             try:
                 t_got = time.perf_counter()
-                fn, items = pickle.loads(blob)
+                fn, items, collect, lineage = pickle.loads(blob)
                 # the task's hop from the driver: the wait since the
                 # previous task ended (its transfer), and its unpickling
                 os.environ["TFOS_TASK_RECV_MS"] = \
                     f"{1e3 * (t_got - t_wait):.3f}"
                 os.environ["TFOS_TASK_LOADS_MS"] = \
                     f"{1e3 * (time.perf_counter() - t_got):.3f}"
-                fn(iter(items))
-                results.put(("ok", job_id, task_id, index, None))
+                task_report.clear()
+                task_report["lineage_ms"] = []
+                if lineage is not None:
+                    items = lineage.run(items, task_report["lineage_ms"])
+                out = fn(iter(items)) if fn is not None else items
+                # pickled here: an unpicklable result fails this task,
+                # not the results pipe every job shares
+                payload = (pickle.dumps(list(out)) if collect
+                           and out is not None else None)
+                results.put(("ok", job_id, task_id, index, payload))
             except BaseException:  # noqa: BLE001 - report any task failure
                 results.put(("error", job_id, task_id, index,
                              traceback.format_exc()))
@@ -131,30 +154,109 @@ def _no_retries(retryable, max_retries):
             f"retryable jobs come with {RESTARTS_ITEM}")
 
 
-class LocalDataset:
-    """Partitioned dataset: a list of partitions, each a list of items."""
+class Lineage:
+    """A partition's ``map_partitions`` chain: ``fns`` run in order, each
+    over the list the one before it returned, and the last one's output
+    goes to the job unmaterialised, as the JAX package's composed chain
+    does (so a stage that yields in chunks bounds the executor's
+    memory)."""
 
-    def __init__(self, engine, partitions):
+    def __init__(self, fns):
+        self.fns = tuple(fns)
+
+    def then(self, fn):
+        return Lineage(self.fns + (fn,))
+
+    def run(self, items, stage_ms):
+        """An iterator over the last stage's output.  Appends each
+        stage's milliseconds to ``stage_ms``; the last stage's entry
+        grows with the time spent in its ``next`` as the caller
+        consumes the iterator."""
+        *parents, last = self.fns
+        for fn in parents:
+            t0 = time.perf_counter()
+            out = fn(iter(items))
+            items = [] if out is None else list(out)
+            stage_ms.append(1e3 * (time.perf_counter() - t0))
+        stage_ms.append(0.0)
+        t0 = time.perf_counter()
+        out = last(iter(items))
+        stage_ms[-1] += 1e3 * (time.perf_counter() - t0)
+        return _timed(iter(() if out is None else out), stage_ms)
+
+
+def _timed(it, stage_ms):
+    """``it``'s items, the time spent in each of its ``next`` added to
+    ``stage_ms[-1]``."""
+    end = object()
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, end)
+        stage_ms[-1] += 1e3 * (time.perf_counter() - t0)
+        if item is end:
+            return
+        yield item
+
+
+class LocalDataset:
+    """Partitioned dataset with a lazy ``map_partitions`` lineage: one
+    ``(items, Lineage or None)`` task a partition, so a union of
+    differently derived datasets keeps each branch's chain."""
+
+    def __init__(self, engine, partitions, tasks=None):
         self._engine = engine
-        self._partitions = partitions
+        self._tasks = (list(tasks) if tasks is not None
+                       else [(p, None) for p in partitions])
 
     @property
     def num_partitions(self):
-        return len(self._partitions)
+        return len(self._tasks)
+
+    def map_partitions(self, fn):
+        """A dataset whose partitions are ``fn(iterator)`` of these,
+        computed in the executor when a job runs.  ``fn`` must pickle
+        with plain ``pickle``: a module-level function or an instance of
+        a module-level class."""
+        return LocalDataset(self._engine, None, tasks=[
+            (items, Lineage((fn,)) if chain is None else chain.then(fn))
+            for items, chain in self._tasks])
 
     def foreach_partition(self, fn, spread=False, placement=None,
                           retryable=False, max_retries=None):
-        """Run ``fn`` over every partition.  ``placement`` pins task i
-        to executor ``placement[i]``; ``spread`` to executor i."""
+        """Run ``fn`` over every partition, after its lineage.
+        ``placement`` pins task i to executor ``placement[i]``;
+        ``spread`` to executor i."""
         _no_retries(retryable, max_retries)
-        self._engine._run_job([(p, fn) for p in self._partitions],
-                              spread=spread, placement=placement)
+        self._engine._run_job([(items, fn, chain)
+                               for items, chain in self._tasks],
+                              collect=False, spread=spread,
+                              placement=placement)
+
+    def collect(self, spread=False, retryable=False, max_retries=None):
+        """Every partition's items after its lineage, in partition
+        order, through the driver."""
+        _no_retries(retryable, max_retries)
+        parts = self._engine._run_job([(items, None, chain)
+                                       for items, chain in self._tasks],
+                                      collect=True, spread=spread)
+        return [x for p in parts for x in (p or [])]
 
     def union(self, *others):
-        parts = list(self._partitions)
+        tasks = list(self._tasks)
         for o in others:
-            parts.extend(o._partitions)
-        return LocalDataset(self._engine, parts)
+            tasks.extend(o._tasks)
+        return LocalDataset(self._engine, None, tasks=tasks)
+
+    def repartition(self, num_partitions):
+        """``num_partitions`` round-robin partitions of every item.  This
+        materialises the whole dataset through the driver; for TFRecords
+        ``dfutil.load_tfrecords(..., min_partitions=n)`` stripes the
+        shard files instead, with nothing through the driver."""
+        rows = self.collect()
+        n = max(1, min(num_partitions, max(len(rows), 1)))
+        logger.info("repartition(%d) materialised %d rows through the "
+                    "driver", n, len(rows))
+        return LocalDataset(self._engine, [rows[i::n] for i in range(n)])
 
 
 # ----------------------------------------------------------------------------
@@ -214,7 +316,8 @@ class LocalEngine:
         self._stopped = False
         self.executor_dirs = []
         # the latest job's dispatch: its tasks, the seconds the driver
-        # spent pickling them and the bytes they came to
+        # spent pickling them, the bytes they came to and the largest
+        # task's bytes
         self.last_dispatch = None
         with _patched_env(self._env):
             for i in range(self.num_executors):
@@ -273,9 +376,10 @@ class LocalEngine:
             if q is not None:
                 q.put(item)
 
-    def _run_job(self, tasks, spread, placement=None):
-        """Dispatch one ``(items, fn)`` task per partition; block until
-        every task finished.  The first failure raises ``TaskError``."""
+    def _run_job(self, tasks, collect=False, spread=False, placement=None):
+        """Dispatch one ``(items, fn, lineage)`` task per partition; block
+        until every task finished.  Returns each partition's result list
+        when ``collect``.  The first failure raises ``TaskError``."""
         if self._cancelled:
             raise TaskError("engine cancelled")
         with self._job_lock:
@@ -284,22 +388,24 @@ class LocalEngine:
             my_results = _queue.Queue()
             self._job_queues[job_id] = my_results
         try:
-            self._run_job_inner(tasks, spread, placement, job_id,
-                                my_results)
+            return self._run_job_inner(tasks, collect, spread, placement,
+                                       job_id, my_results)
         finally:
             with self._job_lock:
                 self._job_queues.pop(job_id, None)
 
-    def _run_job_inner(self, tasks, spread, placement, job_id, my_results):
+    def _run_job_inner(self, tasks, collect, spread, placement, job_id,
+                       my_results):
         # only executors that die during this job fail it
         dead_at_start = {i for i, p in enumerate(self._procs)
                          if not p.is_alive()}
-        pickle_s = nbytes = 0
-        for task_id, (part, fn) in enumerate(tasks):
+        pickle_s = nbytes = max_bytes = 0
+        for task_id, (part, fn, lineage) in enumerate(tasks):
             t0 = time.perf_counter()
-            blob = pickle.dumps((fn, list(part)))
+            blob = pickle.dumps((fn, list(part), collect, lineage))
             pickle_s += time.perf_counter() - t0
             nbytes += len(blob)
+            max_bytes = max(max_bytes, len(blob))
             msg = ("task", job_id, task_id, blob)
             if placement is not None and task_id < len(placement):
                 target = placement[task_id] % self.num_executors
@@ -313,14 +419,15 @@ class LocalEngine:
                                 f"{target}: executor process is dead")
             self._own_inboxes[target].put(msg)
         self.last_dispatch = {"tasks": len(tasks), "pickle_s": pickle_s,
-                              "bytes": nbytes}
+                              "bytes": nbytes, "max_bytes": max_bytes}
 
+        results = [None] * len(tasks)
         ndone = 0
         while ndone < len(tasks):
             if self._cancelled:
                 raise TaskError("engine cancelled")
             try:
-                status, _, tid, idx, err = my_results.get(timeout=0.25)
+                status, _, tid, idx, payload = my_results.get(timeout=0.25)
             except _queue.Empty:
                 dead = [i for i, p in enumerate(self._procs)
                         if i not in dead_at_start and not p.is_alive()]
@@ -333,8 +440,11 @@ class LocalEngine:
                 continue
             if status == "error":
                 raise TaskError(f"task {tid} failed on executor {idx}:\n"
-                                f"{err}")
+                                f"{payload}")
+            if payload is not None:
+                results[tid] = pickle.loads(payload)
             ndone += 1
+        return results
 
     def stop(self):
         """Stop every executor, then kill any child they left behind."""

@@ -11,8 +11,10 @@ process group.  On the CPU (gloo)::
         --cluster_size 2 --device cpu
 
 On a host with GPUs, ``--device cuda --num_gpus 1`` gives each executor
-one card (NCCL).  Checkpoint and export wait for ROADMAP.md queue 1,
-item 9; ``--out_dir`` gets each rank's losses and final params instead.
+one card (NCCL).  The chief exports the trained params to
+``--model_dir``/export (``utils.checkpoint.export_model``, which either
+package loads); ``--out_dir`` gets each rank's losses and final params.
+Checkpoints wait for ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -48,13 +50,15 @@ def collate(records):
 def main_fun(args, ctx):
     """Runs in every trainer.  ``args``: ``batch_size`` (global), ``lr``,
     optional ``device`` (default the card), ``init_params`` (a JAX-layout
-    params tree; default random from ``seed``) and ``out_dir`` (where
-    each rank writes ``mnist-rank<r>.json``, with what its ``DataFeed``
-    saw, ``DataFeed.stats``, and ``.npz``)."""
+    params tree; default random from ``seed``), ``model_dir`` (where the
+    chief exports) and ``out_dir`` (where each rank writes
+    ``mnist-rank<r>.json``, with what its ``DataFeed`` saw,
+    ``DataFeed.stats``, and ``.npz``)."""
     import torch
 
     from tensorflowonspark_tpu_torch import infeed
     from tensorflowonspark_tpu_torch.models import mnist
+    from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
     from tensorflowonspark_tpu_torch.utils.metrics import TrainMetrics
 
     env = ctx.torch_initialize(args.get("device"))
@@ -85,6 +89,10 @@ def main_fun(args, ctx):
             print(f"step {len(losses)}: loss={losses[-1]:.4f} "
                   f"acc={float(acc):.3f}", flush=True)
 
+    if args.get("model_dir"):
+        ckpt.export_model(os.path.join(args["model_dir"], "export"),
+                          mnist.params_to_jax(params), ctx,
+                          metadata={"predict": mnist.PREDICT})
     out_dir = args.get("out_dir")
     if out_dir:
         rank = env["process_id"]
@@ -106,6 +114,7 @@ def main():
     p.add_argument("--device", default=None,
                    help="'cpu' for the CPU; default the card")
     p.add_argument("--num_gpus", type=int, default=0)
+    p.add_argument("--model_dir", default="mnist_model")
     p.add_argument("--out_dir", default=None)
     args = p.parse_args()
 
@@ -118,7 +127,8 @@ def main():
         cluster = TFCluster.run(
             engine, main_fun,
             {"batch_size": args.batch_size, "lr": args.lr,
-             "device": args.device, "out_dir": args.out_dir},
+             "device": args.device, "out_dir": args.out_dir,
+             "model_dir": os.path.abspath(args.model_dir)},
             num_executors=args.cluster_size,
             input_mode=TFCluster.InputMode.SPARK, master_node="chief",
             num_gpus=args.num_gpus)

@@ -12,7 +12,12 @@ the card.  Without Spark, on the built-in engine, with synthetic images::
     python -m tensorflowonspark_tpu_torch.examples.resnet_imagenet_spark \\
         --cluster_size 1 --num_gpus 1 --batch_size 256 --steps 20
 
-ImageNet TFRecords (``--data_dir``) wait for ROADMAP.md queue 1, item 8.
+With ``--data_dir``, the records are TFRecord shards of raw uint8 images
+(``"image"``/``"label"`` or the TF-official keys, ``imagenet_records``)
+that each executor reads itself: ``dfutil.load_tfrecords`` ships read
+units, and the executor reads and decodes its partition through the
+engine's ``map_partitions`` lineage, so no image crosses the driver's
+pipe (``_records``).
 """
 
 from __future__ import annotations
@@ -24,9 +29,6 @@ import time
 
 import numpy as np
 
-TFRECORD_ITEM = "ROADMAP.md queue 1, item 8"
-
-
 def synthetic_records(n, image_size=224, num_classes=1000, seed=0):
     """``n`` (uint8 [image_size, image_size, 3], label) rows over a pool
     of 32 seeded images, as the JAX example's ``_records`` makes them
@@ -35,6 +37,49 @@ def synthetic_records(n, image_size=224, num_classes=1000, seed=0):
     pool = [rng.integers(0, 256, (image_size, image_size, 3), dtype=np.uint8)
             for _ in range(32)]
     return [(pool[i % len(pool)], int(i % num_classes)) for i in range(n)]
+
+
+class decode_stream:  # noqa: N801 - the JAX package's closure's name
+    """The ``map_partitions`` stage after ``dfutil``'s read: a partition
+    of record dicts -> (uint8 [S, S, 3] image, label) rows, decoded
+    ``chunk`` records at a time (``imagenet_records``)."""
+
+    def __init__(self, image_size, chunk=256):
+        self.image_size = image_size
+        self.chunk = chunk
+
+    def __call__(self, it):
+        from tensorflowonspark_tpu_torch.examples import imagenet_records
+
+        batch = []
+        for rec in it:
+            batch.append(rec)
+            if len(batch) >= self.chunk:
+                yield from imagenet_records.decode_records_batch(
+                    batch, self.image_size)
+                batch = []
+        if batch:
+            yield from imagenet_records.decode_records_batch(
+                batch, self.image_size)
+
+
+def _records(args, engine):
+    """The training rows as an engine dataset: the TFRecords under
+    ``args.data_dir``, read and decoded in the executors (shard files
+    striped to at least ``args.cluster_size`` partitions, so no feeder
+    starves), else ``args.batch_size * args.steps`` synthetic rows in
+    ``2 * args.cluster_size`` partitions."""
+    if args.data_dir:
+        from tensorflowonspark_tpu_torch import dfutil
+
+        ds, _schema = dfutil.load_tfrecords(
+            engine, args.data_dir,
+            binary_features=("image", "image/encoded"),
+            min_partitions=args.cluster_size)
+        return ds.map_partitions(decode_stream(args.image_size))
+    records = synthetic_records(args.batch_size * args.steps,
+                                args.image_size, args.num_classes)
+    return engine.parallelize(records, args.cluster_size * 2)
 
 
 def main_fun(args, ctx):
@@ -47,13 +92,14 @@ def main_fun(args, ctx):
     (CUDA events on a card), records its ``DataFeed`` handed out and
     what the feed saw (``DataFeed.stats``: transport, columnar chunks,
     pop times; the feeders' timings from the node's KV; the copies into
-    pinned memory), ``TrainMetrics`` report, feed wait, peak device
+    pinned memory), the kernels' launches over its steps,
+    ``TrainMetrics`` report, feed wait, peak device
     memory, the step it resumed from, and the wall-clock times at which
     it began, had its model and began its first step."""
     main_start_wall = time.time()
     import torch
 
-    from tensorflowonspark_tpu_torch import infeed
+    from tensorflowonspark_tpu_torch import infeed, ops
     from tensorflowonspark_tpu_torch.models import resnet
     from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
     from tensorflowonspark_tpu_torch.utils.metrics import TrainMetrics
@@ -104,6 +150,7 @@ def main_fun(args, ctx):
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
     losses, step_ms, first_step_wall = [], [], None
     while True:
         # the host's wait for the next staged batch: infeed_stall_frac
@@ -160,6 +207,7 @@ def main_fun(args, ctx):
                 "records": feed.records, "train_metrics": tm.report(),
                 "feed": feed.stats(), "feeders": ctx.mgr.get("feed_stats"),
                 "pin": dict(infeed.pin_stats),
+                "launches": ops.launch_counts(),
                 "feed_wait_s": feed_tm.infeed_time,
                 "cuda_visible_devices": os.environ.get(
                     "CUDA_VISIBLE_DEVICES"),
@@ -178,27 +226,23 @@ def main():
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--num_classes", type=int, default=1000)
     p.add_argument("--steps", type=int, default=20,
-                   help="synthetic-data steps")
+                   help="synthetic-data steps when --data_dir is absent")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--save_every", type=int, default=200)
     p.add_argument("--accum_steps", type=int, default=1)
     p.add_argument("--data_dir", default=None,
-                   help="ImageNet TFRecords (not yet supported)")
+                   help="TFRecord dir of raw uint8 images (local or "
+                        "file://)")
     p.add_argument("--model_dir", default="resnet_imagenet_model")
     p.add_argument("--device", default=None,
                    help="'cpu' for the CPU; default the card")
     p.add_argument("--num_gpus", type=int, default=0)
     args = p.parse_args()
-    if args.data_dir:
-        raise NotImplementedError(f"ImageNet TFRecords come with "
-                                  f"{TFRECORD_ITEM}")
 
     from tensorflowonspark_tpu_torch import cluster as TFCluster
     from tensorflowonspark_tpu_torch.engine import LocalEngine
 
-    records = synthetic_records(args.batch_size * args.steps,
-                                args.image_size, args.num_classes)
     engine = LocalEngine(args.cluster_size)
     try:
         cluster = TFCluster.run(
@@ -212,8 +256,7 @@ def main():
             num_executors=args.cluster_size,
             input_mode=TFCluster.InputMode.SPARK, master_node="chief",
             num_gpus=args.num_gpus)
-        cluster.train(engine.parallelize(records, args.cluster_size * 2),
-                      num_epochs=args.epochs)
+        cluster.train(_records(args, engine), num_epochs=args.epochs)
         cluster.shutdown()
     finally:
         engine.stop()

@@ -2,7 +2,8 @@
 
 An own copy of the part of ``tensorflowonspark_tpu/feed.py`` that the
 SPARK-fed training path calls (``next_batch``, ``next_batch_columns``,
-``should_stop``, ``terminate``, ``poison``, ``batch_results``).  Queue
+``should_stop``, ``terminate``, ``poison``, ``batch_results``), and
+``hdfs_path``, behind ``TFNodeContext.absolute_path``.  Queue
 items are chunks that the feeder tasks push, so a batch costs one hop
 per chunk, not per record; a chunk that overfills a batch carries over
 to the next call.
@@ -41,6 +42,32 @@ logger = logging.getLogger(__name__)
 POLL_MS = 1000  # manager queue: one proxy call a poll
 RING_POLL_MS = 100  # ring: a local check; the stop flag is re-read between
 POP_LOG = 1024  # pops kept in ``DataFeed.stats()``
+
+
+def hdfs_path(ctx, path):
+    """``path`` normalised against the cluster's default filesystem, as
+    the JAX package's ``feed.hdfs_path`` does: a path with a scheme
+    passes through; an absolute one gets the default filesystem's
+    prefix; a relative one resolves against the working directory
+    (``file://``) or the user's home (``hdfs://``, ``gs://``, ...).
+    Only the ``file://`` results are paths the port can open
+    (``recordio.fs``)."""
+    if path.startswith(("file://", "hdfs://", "viewfs://", "gs://",
+                        "s3://", "s3a://", "har://")):
+        return path
+    if ctx.default_fs.startswith(("hdfs://", "viewfs://", "gs://",
+                                  "s3a://")):
+        if path.startswith("/"):
+            return ctx.default_fs + path
+        import getpass
+
+        return f"{ctx.default_fs}/user/{getpass.getuser()}/{path}"
+    if ctx.default_fs.startswith("file://"):
+        if path.startswith("/"):
+            return ctx.default_fs + path
+        return f"file://{ctx.working_dir}/{path}"
+    logger.warning("unknown default_fs %s, using path as-is", ctx.default_fs)
+    return path
 
 
 def open_feed_ring(mgr, qname="input", producer=False):

@@ -13,7 +13,9 @@ view of a buffer popped from the feed ring goes to the card with one
 host copy, the one into pinned memory: every pop owns its buffer (no
 later pop reuses it), and the pinned block is held by PyTorch's host
 allocator until the copy that reads it has finished.
-``tfrecord_device_feed`` waits in ROADMAP.md (queue 1, item 8).
+``tfrecord_device_feed`` is ``InputMode.TENSORFLOW``'s counterpart:
+TFRecord shards read as dense column batches
+(``dfutil.iter_tfrecords_columnar``) straight into the same staging.
 """
 
 from __future__ import annotations
@@ -38,9 +40,19 @@ _END = object()
 pin_stats = {"s": 0.0, "bytes": 0, "batches": 0}
 
 
-def _to_tensor(x):
-    return torch.from_numpy(np.asarray(x)) if isinstance(x, np.ndarray) \
-        else x
+def _to_tensor(x, pin=False):
+    """A numpy leaf as a CPU tensor (other leaves as they are).  A
+    read-only array (``np.frombuffer`` of record bytes, which
+    ``torch.from_numpy`` warns about) is copied once, into pinned memory
+    when ``pin``."""
+    if not isinstance(x, np.ndarray):
+        return x
+    if x.flags.writeable:
+        return torch.from_numpy(np.asarray(x))
+    dtype = torch.from_numpy(np.empty(0, x.dtype)).dtype
+    t = torch.empty(x.shape, dtype=dtype, pin_memory=pin)
+    t.numpy()[...] = x
+    return t
 
 
 class _Staged:
@@ -74,15 +86,16 @@ def _device_placer(device):
     side = {}
 
     def copy(x):
-        x = _to_tensor(x)
-        if not torch.is_tensor(x):
-            return x
-        if cuda and x.device.type == "cpu" and not x.is_pinned():
-            t0 = _time.perf_counter()
-            x = x.pin_memory()
+        t0 = _time.perf_counter()
+        t = _to_tensor(x, pin=cuda)
+        if not torch.is_tensor(t):
+            return t
+        if cuda and t.device.type == "cpu" and not t.is_pinned():
+            t = t.pin_memory()
+        if cuda and t is not x and t.is_pinned():  # this copy pinned it
             pin_stats["s"] += _time.perf_counter() - t0
-            pin_stats["bytes"] += x.nbytes
-        return x.to(device, non_blocking=cuda)
+            pin_stats["bytes"] += t.nbytes
+        return t.to(device, non_blocking=cuda)
 
     def place(batch):
         if not cuda:
@@ -234,6 +247,52 @@ def device_feed(feed, batch_size, *, collate=None, depth=2, placement=None,
         batch_iterator(feed, batch_size, collate, columnar),
         depth=depth, placement=placement,
         on_abandon=getattr(feed, "poison", None))
+
+
+def _timed_reads(it):
+    """``it``'s batches, each read recorded as a ``data/stage`` span of
+    stage ``tfrecord_read`` (the JAX package's name, so a trace reads
+    both packages alike) while telemetry is on."""
+    from tensorflowonspark_tpu_torch.utils import telemetry
+
+    while True:
+        t0 = _time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            return
+        telemetry.record_span(
+            "data/stage", _time.perf_counter() - t0, stage="tfrecord_read",
+            wait_ms=0.0, records=len(next(iter(batch.values()))))
+        yield batch
+
+
+def tfrecord_device_feed(source, batch_size, *, collate=None, depth=2,
+                         placement=None, drop_remainder=True):
+    """The ``InputMode.TENSORFLOW`` fast path: TFRecord shards as dense
+    column batches (``dfutil.iter_tfrecords_columnar``, one shard
+    resident at a time) into double-buffered device staging
+    (:func:`prefetch_to_device`, whose ``placement`` rules apply: None
+    is the current CUDA device)::
+
+        for x, y in tfrecord_device_feed(files, per_proc,
+                                         collate=my_collate):
+            loss = step(params, x, y)
+
+    ``collate({name: column_batch}) -> tree`` (default: the dict as it
+    is); ``drop_remainder`` defaults True, so every step sees a full
+    batch.  ``source`` is a directory, a file, or this worker's shards.
+    With ``TFOS_TELEMETRY_DIR`` set, each batch's read is a
+    ``data/stage`` span (stage ``tfrecord_read``)."""
+    from tensorflowonspark_tpu_torch import dfutil
+    from tensorflowonspark_tpu_torch.utils import telemetry
+
+    it = dfutil.iter_tfrecords_columnar(source, batch_size,
+                                        drop_remainder=drop_remainder)
+    if telemetry.enabled():
+        it = _timed_reads(it)
+    if collate is not None:
+        it = map(collate, it)
+    return prefetch_to_device(it, depth=depth, placement=placement)
 
 
 def synchronized(it, feed=None):

@@ -5,7 +5,8 @@ workload of the SPARK-fed MNIST example.  ``apply`` takes NHWC images as
 the JAX model does and computes in NCHW; the activations go back to
 NHWC before the flatten ahead of ``fc1``, so ``fc1``'s rows meet the
 features the JAX model feeds them.  ``params_from_jax`` transposes the
-JAX package's HWIO kernels to OIHW.
+JAX package's HWIO kernels to OIHW, ``params_to_jax`` back (the export's
+layout); ``predict`` is the export's predict signature.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import torch
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.models import layers as L
 from tensorflowonspark_tpu_torch.utils import train
+
+# the export metadata's name of :func:`predict`
+PREDICT = f"{__name__}:predict"
 
 
 def init_params(generator, dtype=torch.float32, device=None):
@@ -50,6 +54,37 @@ def params_from_jax(tree, device=None):
         out[name] = {k: (conv(v) if name.startswith("conv") and k == "w"
                          else plain(v)) for k, v in p.items()}
     return out
+
+
+def params_to_jax(params):
+    """Inverse of :func:`params_from_jax`: numpy f32 trees in the JAX
+    package's layout (conv kernels OIHW -> HWIO), as exports hold them."""
+    def leaf(name, k, t):
+        t = t.detach().float().cpu()
+        if name.startswith("conv") and k == "w":
+            t = t.permute(2, 3, 1, 0)
+        return np.ascontiguousarray(t.numpy())
+
+    return {name: {k: leaf(name, k, v) for k, v in p.items()}
+            for name, p in params.items()}
+
+
+def predict(params, inputs, device=None):
+    """The export's predict signature, named in export metadata as
+    ``tensorflowonspark_tpu_torch.models.mnist:predict``: ``params`` in
+    the JAX layout (``utils.checkpoint.load_exported``), ``inputs``
+    ``{tensor_name: images}`` of ``[N, 28, 28, 1]`` or flat 784-wide rows
+    -> ``{"prediction": [N], "logits": [N, 10]}`` as numpy arrays.
+    ``device``: as :func:`params_from_jax` (None is the card)."""
+    params = params_from_jax(params, device=device)
+    (x,) = inputs.values()
+    x = np.asarray(x, dtype=np.float32)
+    if x.ndim == 2:  # flat 784-wide rows (CSV / TFRecord ingestion)
+        x = x.reshape(-1, 28, 28, 1)
+    dev = next(iter(params["fc2"].values())).device
+    with torch.no_grad():
+        logits = apply(params, torch.from_numpy(x).to(dev)).cpu().numpy()
+    return {"prediction": logits.argmax(-1), "logits": logits}
 
 
 def apply(params, images):

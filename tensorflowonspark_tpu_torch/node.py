@@ -52,7 +52,7 @@ import traceback
 
 import numpy as np
 
-from tensorflowonspark_tpu_torch import gpu_info, marker, rendezvous
+from tensorflowonspark_tpu_torch import engine, gpu_info, marker, rendezvous
 from tensorflowonspark_tpu_torch import manager as tfmanager
 from tensorflowonspark_tpu_torch.utils import (
     faults,
@@ -233,6 +233,19 @@ class TFNodeContext:
         self.cluster_info = cluster_info or []
         self.timeout = timeout  # seconds: the process group's timeout
         self._torch_distributed = False
+
+    @property
+    def num_workers(self):
+        """The compute nodes (chief, master, workers) of the cluster."""
+        return sum(len(v) for k, v in self.cluster_spec.items()
+                   if k in COMPUTE_JOBS)
+
+    def absolute_path(self, path):
+        """``path`` against the cluster's default filesystem
+        (``feed.hdfs_path``)."""
+        from tensorflowonspark_tpu_torch import feed
+
+        return feed.hdfs_path(self, path)
 
     def get_data_feed(self, train_mode=True, qname_in="input",
                       qname_out="output", input_mapping=None, metrics=None):
@@ -752,8 +765,13 @@ class train:  # noqa: N801 - named as the JAX package's node.train
                 client.partition_done(self.qname, pidx)
             finally:
                 client.close()
+        # the partition's map_partitions stages, in this executor (dfutil's
+        # read, a decode), and the codec dfutil's reader ran
         stats.update(records=total, terminated=terminated,
-                     done_wall=time.time())
+                     done_wall=time.time(),
+                     lineage_ms=list(engine.task_report.get("lineage_ms",
+                                                            [])),
+                     codec=engine.task_report.get("codec"))
         _record_feed_stats(mgr, stats)
         if str(mgr.get("state")) == "terminating":
             logger.info("feeder: consumer requested termination")

@@ -19,3 +19,21 @@ from tensorflowonspark_tpu_torch.ops.norm import (  # noqa: F401
     fused_rmsnorm,
     rmsnorm_reference,
 )
+
+
+def reset_launch_counts():
+    """Every kernel's launch count in this process to 0."""
+    from tensorflowonspark_tpu_torch.ops import attention, norm
+
+    attention.launches = attention.dq_launches = attention.dkv_launches = 0
+    norm.launches = 0
+
+
+def launch_counts():
+    """``{kernel name: launches in this process}``, by the names the
+    kernels line of ``chip_smoke.py`` gives them."""
+    from tensorflowonspark_tpu_torch.ops import attention, norm
+
+    return dict(flash_fwd=attention.launches,
+                flash_dq=attention.dq_launches,
+                flash_dkv=attention.dkv_launches, rmsnorm=norm.launches)

@@ -1,11 +1,15 @@
 """Build the port's host-native pieces (``native/``) at first use.
 
-Two sources, two libraries under ``build/torch_native/`` at the
+Three sources, three libraries under ``build/torch_native/`` at the
 repository root:
 
 - ``shmqueue.cpp`` -> ``libtfos_torch_shmq.so``: the shared-memory feed
   ring, a plain C interface loaded with ``ctypes`` (``recordio.native``),
   built with ``g++ -O3 -fPIC -std=c++17 -shared ... -lrt``;
+- ``tfrecord.cpp`` -> ``libtfos_torch_tfrecord.so``: TFRecord framing,
+  the ``tf.train.Example`` codec and the columnar bulk loader, a plain C
+  interface loaded with ``ctypes`` (``recordio.tfrecord_native``), built
+  with ``g++ -O3 -fPIC -std=c++17 -shared``;
 - ``marshal.c`` -> ``_tfos_torch_marshal.so``: the CPython extension
   behind ``recordio.marshal``, built with ``cc`` against the running
   interpreter's headers (``sysconfig``).  Without ``Python.h`` it fails
@@ -33,8 +37,10 @@ from pathlib import Path
 NATIVE = Path(__file__).resolve().parents[1] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 
-SOURCES = {"shmq": "shmqueue.cpp", "marshal": "marshal.c"}
-LIBS = {"shmq": "libtfos_torch_shmq.so", "marshal": "_tfos_torch_marshal.so"}
+SOURCES = {"shmq": "shmqueue.cpp", "marshal": "marshal.c",
+           "tfrecord": "tfrecord.cpp"}
+LIBS = {"shmq": "libtfos_torch_shmq.so", "marshal": "_tfos_torch_marshal.so",
+        "tfrecord": "libtfos_torch_tfrecord.so"}
 
 _LOCK = threading.Lock()
 build_seconds = {}  # name -> seconds its last build in this process took
@@ -46,10 +52,11 @@ def lib_path(name):
 
 def _command(name, out):
     src = str(NATIVE / SOURCES[name])
-    if name == "shmq":
+    if name in ("shmq", "tfrecord"):
+        cmd = [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17",
+               "-Wall", "-shared", "-o", str(out), src]
         # -lrt: shm_open/shm_unlink live in librt before glibc 2.34
-        return [os.environ.get("CXX", "g++"), "-O3", "-fPIC", "-std=c++17",
-                "-Wall", "-shared", "-o", str(out), src, "-lrt"]
+        return cmd + ["-lrt"] if name == "shmq" else cmd
     include = sysconfig.get_paths()["include"]
     if not os.path.exists(os.path.join(include, "Python.h")):
         raise RuntimeError(f"no Python.h under {include}: the native "
@@ -67,7 +74,7 @@ def _stale(name):
 
 
 def build(names=None):
-    """Build every stale library of ``names`` (default: both), one
+    """Build every stale library of ``names`` (default: all three), one
     compiler per source, started together.  Returns ``{name: seconds}``
     for those it built; raises RuntimeError naming each that failed."""
     names = sorted(SOURCES) if names is None else list(names)

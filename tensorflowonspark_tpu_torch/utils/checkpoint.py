@@ -22,8 +22,13 @@ are the momentum buffers of the params in sorted-key order, and
 ``pack_pytree(<momentum tree>)`` here writes the same ``opt/<index>``
 entries.
 
-Local paths (and ``file://``) only; a remote URL raises
-NotImplementedError.  Export, the blessing and tombstone writers, the
+``export_model`` is the chief-only export (``params.npz`` with the
+same ``/``-joined keys, and ``export.json`` tagged
+``tfos-tpu-export-v1``), which ``load_exported`` reads back; either
+package loads the other's export.
+
+Local paths (and ``file://``) only (``recordio.fs``); a remote URL
+raises NotImplementedError.  The blessing and tombstone writers, the
 async checkpointer and ``restore_any`` wait in ROADMAP.md (queue 1,
 item 9).
 """
@@ -34,12 +39,12 @@ import hashlib
 import json
 import logging
 import os
-import re
 import time
 import zipfile
 
 import numpy as np
 
+from tensorflowonspark_tpu_torch.recordio import fs as _fs
 from tensorflowonspark_tpu_torch.utils import (
     faults,
     metrics_registry,
@@ -48,22 +53,7 @@ from tensorflowonspark_tpu_torch.utils import (
 
 logger = logging.getLogger(__name__)
 
-CHECKPOINT_ITEM = "ROADMAP.md queue 1, item 9"
-_SCHEME_RE = re.compile(r"^([a-zA-Z][a-zA-Z0-9+.-]*)://")
-
-
-def _local(path):
-    """The OS path of a local path or ``file://`` URL; raises
-    NotImplementedError for any other scheme."""
-    p = str(path)
-    m = _SCHEME_RE.match(p)
-    if m is None:
-        return p
-    scheme = m.group(1).lower()
-    if scheme in ("file", "local"):
-        return p[len(scheme) + 3:] or "/"
-    raise NotImplementedError(f"checkpoints on {scheme}:// come with "
-                              f"{CHECKPOINT_ITEM}")
+EXPORT_FORMAT = "tfos-tpu-export-v1"  # the JAX package's tag
 
 
 def tree_leaves(tree):
@@ -104,7 +94,7 @@ def _unflatten(flat):
 
 
 def _path(ckpt_dir, step):
-    return os.path.join(_local(ckpt_dir), f"ckpt-{step:08d}.npz")
+    return os.path.join(_fs.local_path(ckpt_dir), f"ckpt-{step:08d}.npz")
 
 
 def save_checkpoint(ckpt_dir, params, step, keep=3):
@@ -113,7 +103,7 @@ def save_checkpoint(ckpt_dir, params, step, keep=3):
     rename; keep the ``keep`` newest.  Returns the path."""
     t0 = time.perf_counter()
     faults.check("checkpoint.save", step=step)
-    d = _local(ckpt_dir)
+    d = _fs.local_path(ckpt_dir)
     os.makedirs(d, exist_ok=True)
     flat = _flatten(params)
     path = _path(d, step)
@@ -138,7 +128,7 @@ def save_checkpoint(ckpt_dir, params, step, keep=3):
 def load_checkpoint(path):
     """The tree of numpy arrays in one checkpoint file."""
     t0 = time.perf_counter()
-    with open(_local(path), "rb") as f, np.load(f) as z:
+    with open(_fs.local_path(path), "rb") as f, np.load(f) as z:
         out = _unflatten({k: z[k] for k in z.files})
     dt = time.perf_counter() - t0
     telemetry.record_span("checkpoint/restore", dt,
@@ -155,7 +145,7 @@ def step_of(ckpt_path):
 
 
 def _npz_steps(ckpt_dir):
-    d = _local(ckpt_dir)
+    d = _fs.local_path(ckpt_dir)
     if not os.path.isdir(d):
         return []
     steps = []
@@ -166,6 +156,48 @@ def _npz_steps(ckpt_dir):
             except ValueError:
                 pass
     return sorted(steps)
+
+
+def export_model(export_dir, params, ctx=None, metadata=None):
+    """Chief-only model export: ``params.npz`` (the tree ``params``, in
+    the JAX package's layout, under ``/``-joined keys) and
+    ``export.json`` (``{"format": "tfos-tpu-export-v1"}`` plus
+    ``metadata``, e.g. ``predict``, the ``module:function`` that serves
+    the params).  A node that is not the chief writes nothing and
+    returns None; else returns ``export_dir``."""
+    if ctx is not None and not is_chief(ctx):
+        logger.info("export_model: not chief (%s:%s), skipping",
+                    ctx.job_name, ctx.task_index)
+        return None
+    t0 = time.perf_counter()
+    d = _fs.local_path(export_dir)
+    os.makedirs(d, exist_ok=True)
+    tmp = os.path.join(d, f".params.npz.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **_flatten(params))
+    os.replace(tmp, os.path.join(d, "params.npz"))
+    meta = {"format": EXPORT_FORMAT}
+    meta.update(metadata or {})
+    with open(os.path.join(d, "export.json"), "w") as f:
+        json.dump(meta, f)
+    telemetry.record_span("checkpoint/export", time.perf_counter() - t0)
+    logger.info("exported model to %s", d)
+    return export_dir
+
+
+def load_exported(export_dir):
+    """``(params tree of numpy arrays, metadata dict)`` of an export."""
+    path = os.path.join(_fs.local_path(export_dir), "params.npz")
+    with open(path, "rb") as f, np.load(f) as z:
+        params = _unflatten({k: z[k] for k in z.files})
+    return params, load_export_meta(export_dir)
+
+
+def load_export_meta(export_dir):
+    """An export's metadata alone, without its params."""
+    path = os.path.join(_fs.local_path(export_dir), "export.json")
+    with open(path, "rb") as f:
+        return json.loads(f.read())
 
 
 def is_chief(ctx):
@@ -205,7 +237,7 @@ def unpack_pytree(flat, like):
 # paths here honour them.
 
 def manifest_path(ckpt_dir, step):
-    return os.path.join(_local(ckpt_dir), f"bless-{step:08d}.json")
+    return os.path.join(_fs.local_path(ckpt_dir), f"bless-{step:08d}.json")
 
 
 def _digest(path):
@@ -249,7 +281,7 @@ def verify_manifest(ckpt_dir, step):
     if not files:
         return False, "empty manifest"
     for rel, info in sorted(files.items()):
-        path = os.path.join(_local(ckpt_dir), rel)
+        path = os.path.join(_fs.local_path(ckpt_dir), rel)
         if not os.path.exists(path):
             return False, f"missing file {rel}"
         try:

@@ -157,9 +157,10 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (and chip_smoke.py), and
-    loading the port's host-native ring and marshal, leaves jax and every
-    tensorflowonspark_tpu module out of sys.modules and maps no library
-    built from ``native/`` or shipped in the JAX package."""
+    loading the port's host-native ring, marshal and TFRecord codec,
+    leaves jax and every tensorflowonspark_tpu module out of sys.modules,
+    maps each of those libraries from ``build/torch_native/``, and maps
+    no library built from ``native/`` or shipped in the JAX package."""
     code = r"""
 import importlib, os, pkgutil, sys
 import tensorflowonspark_tpu_torch as pkg
@@ -169,11 +170,15 @@ for n in names:
     importlib.import_module(n)
 import runpy
 runpy.run_path("chip_smoke.py", run_name="not_main")
+from tensorflowonspark_tpu_torch import recordio
 from tensorflowonspark_tpu_torch.recordio import marshal, shm
 assert shm.available() and marshal.native_available()
+assert recordio.codec() == "native"
 q = shm.ShmQueue(f"/tfosq-torch-iso-{os.getpid()}", 1 << 12, create=True)
 q.put(marshal.rows_to_columns([(1.0, 2)], [("d", 0), ("l", 0)]))
 q.close()
+ex = recordio.encode_example({"x": ("int64", [3])})
+assert recordio.decode_example(ex) == {"x": ("int64", [3])}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "tensorflowonspark_tpu"
@@ -189,12 +194,15 @@ foreign = [m for m in ours
 print(len(names), bad, ours)
 assert len(names) >= 15, names
 for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
-             "ops.attention", "recordio.shm", "recordio.marshal"):
+             "ops.attention", "recordio.shm", "recordio.marshal",
+             "recordio.tfrecord_native", "dfutil", "examples.mnist_tf_ds"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign
-assert {os.path.basename(m) for m in ours} >= {
-    "libtfos_torch_shmq.so", "_tfos_torch_marshal.so"}, ours
+built = os.path.join(repo, "build", "torch_native") + os.sep
+for lib in ("libtfos_torch_shmq.so", "_tfos_torch_marshal.so",
+            "libtfos_torch_tfrecord.so"):
+    assert built + lib in ours, (lib, ours)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
