@@ -10,8 +10,10 @@ SPARK-fed training path (the main path), in-process training and
 serving, plus the ``fused_rmsnorm`` entry point, and ResNet-50 in
 process and SPARK-fed (which launches none of the kernels), then the
 TFRecord paths: ResNet-50 fed from TFRecord shards in process and
-SPARK-fed (the executor reads the shards), and MNIST under
-``InputMode.TENSORFLOW``.  It builds the host-native feed ring, marshal
+SPARK-fed (the executor reads the shards), MNIST under
+``InputMode.TENSORFLOW``, and the online serving tier
+(``serving.Server`` over a 2-replica ``ReplicaPool``, its HTTP frontend
+and ``TFCluster.serve``).  It builds the host-native feed ring, marshal
 and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
 ``build/torch_native/`` too:
 
@@ -123,7 +125,41 @@ and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
     to the same batches stepped here (float32, TF32 off, deterministic
     cuDNN, 1e-5 relative); no kernel launched in the executor's steps;
     the chief's export loads with ``load_exported`` and predicts as the
-    trained params do.
+    trained params do;
+18. ``serve_decode``: the full-width transformer (bf16, flash, seed 0)
+    exported with ``export_model`` and served by ``serving.Server`` over
+    a 2-replica ``ReplicaPool`` (slots 8, paged 16-token blocks, prefix
+    sharing, 32 tokens) on a 2-executor engine of its own (each replica
+    a CUDA context on the one card); ``serve_http`` on an ephemeral
+    port; a first burst of phase 8's mix from another seed (the
+    ``cold`` figures), then phase 8's 16 sessions at once as ``POST
+    /v1/generate``: each streams indices 0-31 once, tokens in range, the
+    replicas' ``flash_fwd`` launches at least ``n_layers`` x their plain
+    prefills and no other kernel launched, a prefix hit; TTFT and
+    per-token gap p50/p99 from the sessions' own ``ttft_ms`` /
+    ``token_ms``, tokens/s, pool boot, each replica's peak memory and
+    launches, ``GET /stats``; then ``run_open_loop`` over
+    ``Server.generate`` (``SERVE_OPEN_LOOP``);
+19. ``serve_exact``: the same pool in float32 (seed 1): phase 9's three
+    prompts x 16 greedy tokens through ``Server.generate`` equal
+    ``greedy_decode_reference`` with ``mha_reference`` on the card, and
+    two of them through HTTP the same;
+20. ``serve_failover`` (the float32 pool): 8 sessions in flight, a
+    replica SIGKILLed once one of its sessions streams; every session
+    completes with each index once and the tokens the same prompts got
+    without the kill, the engine respawns the replica (``live_replicas``
+    ``[0, 1]`` again), the time back to ``up``;
+21. ``serve_reload``: a step-2 checkpoint of other params (seed 2) in
+    the pool's ``ckpt_dir``; both replicas report version 2 within
+    ``TFOS_SERVE_RELOAD_SECS`` plus ``SERVE_RELOAD_SLACK_S``, and the
+    next sessions give the step-2 params' reference tokens;
+22. ``serve_predict``: ``TFCluster.serve`` of phase 17's export on phase
+    17's cluster after its shutdown; 64 single-image ``POST
+    /v1/predict`` requests at once equal ``mnist.predict`` here (float32,
+    TF32 off, 1e-5 of the largest logit), at most log2(max_batch)+1
+    signatures a replica; then, every pool and its engine stopped
+    (``serve_cleanup``): no replica process alive, no ``/dev/shm/tfos-*``
+    ring, no child-pid file in the working dir.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -136,7 +172,9 @@ the paths that reach no kernel: ``launches_resnet``, phase 10 in this
 process, ``launches_tfrecord``, phase 15 in this process,
 ``launches_spark_tfrecord``, phase 16's trainer, and
 ``launches_tf_mode``, phase 17's executor, each counted in that run
-alone).  Imports only torch, numpy and the port.
+alone), and ``launches_serve``, phase 18's replicas summed (the flash
+forward > 0, the other three 0).  Imports only torch, numpy and the
+port.
 """
 
 from __future__ import annotations
@@ -155,12 +193,19 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import cluster as TFCluster
-from tensorflowonspark_tpu_torch import dfutil, infeed, node, recordio
+from tensorflowonspark_tpu_torch import (
+    dfutil,
+    infeed,
+    node,
+    recordio,
+    serving,
+)
 from tensorflowonspark_tpu_torch.engine import LocalEngine
 from tensorflowonspark_tpu_torch.examples import (
     mnist_data_setup,
@@ -181,6 +226,7 @@ from tensorflowonspark_tpu_torch.recordio import marshal, shm
 from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
 from tensorflowonspark_tpu_torch.utils import metrics, telemetry
 from tensorflowonspark_tpu_torch.utils import train as train_utils
+from tensorflowonspark_tpu_torch.serving import run_open_loop, serve_http
 from tensorflowonspark_tpu_torch.serving.decode import (
     DecodeEngine,
     DecodeSpec,
@@ -289,6 +335,15 @@ TFRECORD_TASK_MAX_BYTES = 64 << 10
 TF_MNIST = dict(num_examples=2048, partitions=4, batch_size=64, steps=40,
                 lr=0.05)
 TF_MNIST_RTOL = 1e-5
+# online serving: the open loop offered to the bf16 pool (sessions of
+# phase 8's mix, 32 tokens each, Poisson arrivals), the hot-reload poll
+# and the slack a full-width reload gets past it, and the served MNIST
+# logits' tolerance against the in-process predict (float32, TF32 off)
+SERVE_OPEN_LOOP = dict(rate_rps=4.0, sessions=16)
+SERVE_RELOAD_ENV = "TFOS_SERVE_RELOAD_SECS"
+SERVE_RELOAD_SECS = "1"
+SERVE_RELOAD_SLACK_S = 60.0
+SERVE_PREDICT_RTOL = 1e-5
 
 
 def ptxas_report(log):
@@ -1155,14 +1210,10 @@ def device_breakdown(prof, wall_s, classify=_transformer_group, top=8):
                 top_kernels_ms=names.most_common(top))
 
 
-def phase_serving(dev, gpu):
-    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
-    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    n_params = sum(p.numel() for p in params.values() if torch.is_tensor(p))
-    n_params += sum(p.numel() for p in params["layers"].values())
-    spec = DecodeSpec(cfg, slots=8, paged=True, block_size=16,
-                      prefix_sharing=True, max_tokens=32)
-    rng = np.random.default_rng(0)
+def serving_jobs(cfg, seed=0):
+    """The 16 serving sessions ``[(sid, prompt)]``: 64-1536 tokens, 8 of
+    them behind one 512-token system prompt."""
+    rng = np.random.default_rng(seed)
     system = rng.integers(1, cfg.vocab_size, size=512).tolist()
     jobs = []
     for i in range(16):
@@ -1174,6 +1225,17 @@ def phase_serving(dev, gpu):
         else:
             prompt = rng.integers(1, cfg.vocab_size, size=n).tolist()
         jobs.append((f"s{i:02d}", prompt))
+    return jobs
+
+
+def phase_serving(dev, gpu):
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in params.values() if torch.is_tensor(p))
+    n_params += sum(p.numel() for p in params["layers"].values())
+    spec = DecodeSpec(cfg, slots=8, paged=True, block_size=16,
+                      prefix_sharing=True, max_tokens=32)
+    jobs = serving_jobs(cfg)
     attention.launches = 0
     done, streamed, first, wall, stats, eng = run_engine(
         params, spec, jobs, dev, timeout=600)
@@ -1888,15 +1950,16 @@ def _exact_float32():
     return saved
 
 
-def phase_tf_mode_mnist(dev, engine, gpu):
+def phase_tf_mode_mnist(dev, engine, gpu, tmp):
     """``InputMode.TENSORFLOW`` end to end: ``mnist_data_setup``'s four
-    TFRecord shards, then ``cluster.run`` of ``mnist_tf_ds.main_fun`` on
-    ``engine`` (an engine of its own: the executor runs ``main_fun`` and
-    so holds a CUDA context, and must fork no SPARK trainer after it),
-    40 steps on the card.  Every loss finite and equal to the same
-    batches stepped here; the chief's export loads with
-    ``load_exported`` and predicts as this process's trained params."""
-    tmp = tempfile.mkdtemp(prefix="tfos_tf_mnist_")
+    TFRecord shards in ``tmp``, then ``cluster.run`` of
+    ``mnist_tf_ds.main_fun`` on ``engine`` (an engine of its own: the
+    executor runs ``main_fun`` and so holds a CUDA context, and must fork
+    no SPARK trainer after it), 40 steps on the card.  Every loss finite
+    and equal to the same batches stepped here; the chief's export loads
+    with ``load_exported`` and predicts as this process's trained
+    params.  Returns the launches and the shut-down cluster, which
+    ``phase_serve_predict`` serves the export from."""
     cfg = TF_MNIST
     try:
         images, labels = mnist_data_setup.synthetic_mnist(cfg["num_examples"])
@@ -1916,9 +1979,9 @@ def phase_tf_mode_mnist(dev, engine, gpu):
             report = json.load(f)
         exported, meta = ckpt.load_exported(os.path.join(tmp, "model",
                                                          "export"))
-    finally:
+    except BaseException:
         engine.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
+        raise
 
     # the same steps here: the same init (seed 0), records and batches
     deterministic = _exact_float32()
@@ -1978,7 +2041,389 @@ def phase_tf_mode_mnist(dev, engine, gpu):
     if any(report["launches"].values()):
         raise AssertionError(f"the TENSORFLOW-mode executor launched "
                              f"{report['launches']}")
-    return report["launches"]
+    return report["launches"], c
+
+
+# -- online serving -----------------------------------------------------------
+
+def _percentile(vals, q):
+    return float(np.percentile(vals, q)) if len(vals) else None
+
+
+def _http_json(url, body=None, timeout=600):
+    """GET (``body`` None) or POST a JSON body; the decoded reply."""
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _concurrently(fn, items):
+    """``fn(item)`` for every item on a thread each; the results in
+    order.  Any failure raises."""
+    out, errors = [None] * len(items), []
+
+    def one(i):
+        try:
+            out[i] = fn(items[i])
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _decode_server(export_dir, ckpt_dir, cfg, dev, engine, max_tokens):
+    """A started 2-replica decode ``Server`` on ``engine``: slots 8,
+    paged KV in 16-token blocks, prefix sharing."""
+    spec = serving.ModelSpec(
+        export_dir=export_dir, ckpt_dir=ckpt_dir, device=str(dev),
+        decode=DecodeSpec(cfg, slots=8, paged=True, block_size=16,
+                          prefix_sharing=True, max_tokens=max_tokens))
+    return serving.Server(spec, num_replicas=2, engine=engine,
+                          request_timeout=600).start(timeout=600)
+
+
+def _serve_launch_gate(reps, cfg):
+    """Every replica launched the flash forward kernel on each layer of
+    each of its plain prefills, and none of the other kernels."""
+    for idx, r in reps.items():
+        plain = r["decode"]["prefills"] - r["decode"]["extends"]
+        got = r["launches"]
+        if got["flash_fwd"] < cfg.n_layers * plain or (
+                plain and got["flash_fwd"] == 0):
+            raise AssertionError(f"replica {idx}: flash_fwd launched "
+                                 f"{got['flash_fwd']} times for {plain} "
+                                 f"plain prefills x {cfg.n_layers} layers")
+        if any(got[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
+            raise AssertionError(f"replica {idx} launched {got}")
+
+
+def _session_gate(sid, out, max_tokens, vocab):
+    toks = out["tokens"]
+    if len(toks) != max_tokens or len(out["token_ms"]) != max_tokens - 1 \
+            or not all(0 <= t < vocab for t in toks):
+        raise AssertionError(f"{sid}: {len(toks)} tokens, "
+                             f"{len(out['token_ms'])} gaps, tokens {toks}")
+
+
+def phase_serve_decode(dev, gpu, engine, tmp):
+    """``serve_decode``: the full-width transformer (bf16, flash, seed 0)
+    exported with ``export_model`` and served by a 2-replica ``Server``
+    on ``engine``; phase 8's 16 sessions go in at once as ``POST
+    /v1/generate``, after a first burst of the same mix drawn from
+    another seed (fresh replicas: their first cuBLAS calls, kernel-library
+    loads and allocations; its figures are the ``cold`` ones).  Each
+    session streams indices 0-31 exactly once
+    (the session ledger: 32 tokens and 31 gaps), every token in range,
+    each replica launched the flash forward on every layer of each plain
+    prefill and no other kernel, the prefix trie is hit.  Then an open
+    loop of ``SERVE_OPEN_LOOP`` over ``Server.generate``.  Returns the
+    replicas' summed launches."""
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    export_dir = os.path.join(tmp, "lm_bf16")
+    ckpt.export_model(export_dir, params, metadata={"config": FULL})
+    del params
+    torch.cuda.empty_cache()
+    jobs = serving_jobs(cfg)
+    srv = _decode_server(export_dir, None, cfg, dev, engine, 32)
+    httpd = serve_http(srv, port=0, block=False)
+    try:
+        base = "http://%s:%d" % httpd.server_address
+
+        def post(job):
+            t = time.perf_counter()
+            out = _http_json(base + "/v1/generate",
+                             {"prompt": job[1], "max_tokens": 32})
+            out["client_ms"] = 1e3 * (time.perf_counter() - t)
+            return out
+
+        def burst(jobs):
+            t0 = time.perf_counter()
+            outs = _concurrently(post, jobs)
+            wall = time.perf_counter() - t0
+            for (sid, _), out in zip(jobs, outs):
+                _session_gate(sid, out, 32, cfg.vocab_size)
+            return outs, wall
+
+        cold, cold_wall = burst(serving_jobs(cfg, seed=1))
+        outs, wall = burst(jobs)
+        stats_http = _http_json(base + "/stats")
+        reps = srv.summary(include_replicas=True)["replica_stats"]
+        _serve_launch_gate(reps, cfg)
+        hits = sum(r["decode"]["prefix_hits"] for r in reps.values())
+        if hits < 1:
+            raise AssertionError(f"no prefix hit: {reps}")
+        def session(i):
+            out = srv.generate(jobs[i % len(jobs)][1], max_tokens=32)
+            return dict(ttft_ms=out["ttft_ms"], token_ms=out["token_ms"],
+                        tokens=len(out["tokens"]))
+
+        loop = run_open_loop(
+            session,
+            rate_rps=SERVE_OPEN_LOOP["rate_rps"],
+            n_requests=SERVE_OPEN_LOOP["sessions"], seed=0,
+            shed_exc=serving.Overloaded)
+        if loop["completed"] != SERVE_OPEN_LOOP["sessions"]:
+            raise AssertionError(f"open loop: {loop}")
+    finally:
+        httpd.shutdown()
+        srv.stop()
+    ttft = [o["ttft_ms"] for o in outs]
+    gaps = [g for o in outs for g in o["token_ms"]]
+    cold_ttft = [o["ttft_ms"] for o in cold]
+    cold_gaps = [g for o in cold for g in o["token_ms"]]
+    # each session's own time in the pool (submit to its last token):
+    # the wall beyond the longest is the front end's and the clients'
+    total = [o["total_ms"] for o in outs]
+    cold_total = [o["total_ms"] for o in cold]
+    client = [o["client_ms"] for o in outs]
+    launches = {k: sum(r["launches"][k] for r in reps.values())
+                for k in ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm")}
+    summary = dict(
+        sessions=len(jobs), tokens=32 * len(jobs), transport="http",
+        ttft_p50_ms=_percentile(ttft, 50), ttft_p99_ms=_percentile(ttft, 99),
+        tok_p50_ms=_percentile(gaps, 50), tok_p99_ms=_percentile(gaps, 99),
+        tokens_per_s=32 * len(jobs) / wall, wall_s=wall,
+        session_total_p50_ms=_percentile(total, 50),
+        session_total_max_ms=max(total),
+        client_p50_ms=_percentile(client, 50), client_max_ms=max(client),
+        cold=dict(ttft_p50_ms=_percentile(cold_ttft, 50),
+                  ttft_p99_ms=_percentile(cold_ttft, 99),
+                  tok_p50_ms=_percentile(cold_gaps, 50),
+                  tok_p99_ms=_percentile(cold_gaps, 99),
+                  tokens_per_s=32 * len(cold) / cold_wall,
+                  wall_s=cold_wall,
+                  session_total_p50_ms=_percentile(cold_total, 50),
+                  session_total_max_ms=max(cold_total)),
+        pool_boot_s=srv.pool.boot_s,
+        replicas={idx: dict(
+            pid=r["pid"], peak_mem_bytes=r.get("peak_mem_bytes"),
+            launches=r["launches"], prefills=r["decode"]["prefills"],
+            extends=r["decode"]["extends"],
+            prefix_hits=r["decode"]["prefix_hits"],
+            iterations=r["decode"]["iterations"])
+            for idx, r in sorted(reps.items())},
+        stats=stats_http, open_loop=dict(loop, **SERVE_OPEN_LOOP),
+        contexts="two replica processes share the one card", gpu=gpu)
+    print("serve_decode " + json.dumps(summary), flush=True)
+    return launches, srv.pool.replica_pids()
+
+
+def phase_serve_f32(dev, gpu, engine, tmp):
+    """``serve_exact``, ``serve_failover`` and ``serve_reload`` on one
+    2-replica float32 pool (seed 1) with a ``ckpt_dir``.  Returns the
+    replicas' pids, the respawned one's included."""
+    cfg = T.Config(**FULL, dtype="float32", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    export_dir = os.path.join(tmp, "lm_f32")
+    ckpt_dir = os.path.join(tmp, "lm_f32_ckpt")
+    ckpt.export_model(export_dir, params, metadata={"config": FULL})
+    ref_attn = lambda q, k, v: attention.mha_reference(q, k, v, causal=True)
+    rng = np.random.default_rng(1)
+    exact = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+             for n in (40, 300, 1100)]
+    srv = _decode_server(export_dir, ckpt_dir, cfg, dev, engine, 16)
+    pids = set(srv.pool.replica_pids().values())
+    httpd = serve_http(srv, port=0, block=False)
+    try:
+        base = "http://%s:%d" % httpd.server_address
+        # serve_exact: greedy tokens equal the full-recompute reference
+        outs = _concurrently(lambda p: srv.generate(p, max_tokens=16),
+                             exact)
+        refs = [T.greedy_decode_reference(params, p, cfg, max_tokens=16,
+                                          attn_fn=ref_attn) for p in exact]
+        for p, out, ref in zip(exact, outs, refs):
+            if out["tokens"] != ref:
+                raise AssertionError(f"{len(p)}-token prompt: served "
+                                     f"{out['tokens']} != reference {ref}")
+        http = _concurrently(lambda p: _http_json(
+            base + "/v1/generate", {"prompt": p, "max_tokens": 16}),
+            exact[:2])
+        if [o["tokens"] for o in http] != refs[:2]:
+            raise AssertionError(f"HTTP {[o['tokens'] for o in http]} != "
+                                 f"{refs[:2]}")
+        print("serve_exact " + json.dumps(dict(
+            prompts=[len(p) for p in exact], tokens=16, http_pair=2,
+            replicas=sorted({o["replica"] for o in outs}), gpu=gpu)),
+            flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+        # serve_failover: 8 sessions in flight, one replica SIGKILLed
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                   for n in rng.integers(64, 1024, size=8)]
+        want = _concurrently(lambda p: srv.generate(p, max_tokens=16),
+                             prompts)
+        replayed0 = srv.pool.replayed_tokens
+        respawns0 = srv.pool.respawns_observed
+        victim = 0
+        table = srv.pool._table
+
+        def streaming_on_victim():
+            for key in table.owned_by({victim}):
+                entry = table.get(key)
+                if entry is not None and entry["session"].tokens_so_far():
+                    return True
+            return False
+
+        got = [None] * len(prompts)
+        errors = []
+
+        def one(i):
+            try:
+                got[i] = srv.generate(prompts[i], max_tokens=16)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 300
+        while not streaming_on_victim():
+            if time.monotonic() > deadline or not any(
+                    t.is_alive() for t in threads):
+                raise AssertionError("no session streamed on the victim")
+            time.sleep(0.002)
+        victim_pid = srv.pool.replica_pids()[victim]
+        t_kill = time.monotonic()
+        os.kill(victim_pid, 9)
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        for i, (w, g) in enumerate(zip(want, got)):
+            _session_gate(f"failover {i}", g, 16, cfg.vocab_size)
+            if g["tokens"] != w["tokens"]:
+                raise AssertionError(f"session {i}: {g['tokens']} after "
+                                     f"the kill, {w['tokens']} without")
+        deadline = time.monotonic() + 300
+        while srv.pool.respawns_observed <= respawns0 or \
+                srv.pool.live_replicas() != [0, 1]:
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"no respawn: live {srv.pool.live_replicas()}, "
+                    f"respawns {srv.pool.respawns_observed}")
+            time.sleep(0.05)
+        back = srv.pool.up_times[victim][-1] - t_kill
+        pids |= set(srv.pool.replica_pids().values())
+        print("serve_failover " + json.dumps(dict(
+            sessions=len(prompts), victim=victim, victim_pid=victim_pid,
+            respawns_observed=srv.pool.respawns_observed,
+            replayed_tokens_dropped=srv.pool.replayed_tokens - replayed0,
+            live_replicas=srv.pool.live_replicas(),
+            respawn_to_up_s=back, gpu=gpu)), flush=True)
+
+        # serve_reload: a step-2 checkpoint of other params
+        new = T.init(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+        t_save = time.monotonic()
+        ckpt.save_checkpoint(ckpt_dir, new, step=2)
+        saved_s = time.monotonic() - t_save
+        limit = float(os.environ[SERVE_RELOAD_ENV]) + SERVE_RELOAD_SLACK_S
+        t0 = time.monotonic()
+        while srv.pool.versions() != {0: 2, 1: 2}:
+            if time.monotonic() - t0 > limit:
+                raise AssertionError(f"versions {srv.pool.versions()} "
+                                     f"{limit} s after the save")
+            time.sleep(0.05)
+        reload_s = time.monotonic() - t0
+        prompt = exact[1]
+        ref = T.greedy_decode_reference(new, prompt, cfg, max_tokens=16,
+                                        attn_fn=ref_attn)
+        outs = _concurrently(lambda p: srv.generate(p, max_tokens=16),
+                             [prompt, prompt])
+        if [o["tokens"] for o in outs] != [ref, ref]:
+            raise AssertionError(f"after the reload {outs[0]['tokens']}, "
+                                 f"{outs[1]['tokens']} != {ref}")
+        reps = srv.summary(include_replicas=True)["replica_stats"]
+        print("serve_reload " + json.dumps(dict(
+            step=2, save_s=saved_s, versions_2_after_s=reload_s,
+            limit_s=limit, tokens=16,
+            engine_reloads={i: r["decode"]["reloads"]
+                            for i, r in sorted(reps.items())},
+            gpu=gpu)), flush=True)
+        del new
+        torch.cuda.empty_cache()
+    finally:
+        httpd.shutdown()
+        srv.stop()
+    return pids
+
+
+def phase_serve_predict(dev, gpu, cluster, export_dir):
+    """``serve_predict``: ``TFCluster.serve`` of phase 17's MNIST export
+    on phase 17's cluster, after its shutdown; 64 single-image ``POST
+    /v1/predict`` requests at once equal ``mnist.predict`` here on the
+    same export (float32, TF32 off, 1e-5 of the largest logit), with at
+    most log2(max_batch)+1 signatures a replica.  Returns the replicas'
+    pids."""
+    images = mnist_data_setup.synthetic_mnist(64)[0]
+    params, _ = ckpt.load_exported(export_dir)
+    deterministic = _exact_float32()
+    try:
+        want = mnist.predict(params, {"image": images}, device=dev)["logits"]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    t0 = time.perf_counter()
+    srv = cluster.serve(export_dir=export_dir, device=str(dev),
+                        request_timeout=600)
+    boot = time.perf_counter() - t0
+    httpd = serve_http(srv, port=0, block=False)
+    try:
+        base = "http://%s:%d" % httpd.server_address
+        t0 = time.perf_counter()
+        outs = _concurrently(lambda x: _http_json(
+            base + "/v1/predict", {"inputs": {"image": x.tolist()}}),
+            list(images))
+        wall = time.perf_counter() - t0
+        summ = srv.summary(include_replicas=True)
+        pids = set(srv.pool.replica_pids().values())
+    finally:
+        httpd.shutdown()
+        srv.stop()
+    got = np.asarray([o["outputs"]["logits"] for o in outs], np.float32)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    cap = int(np.log2(srv.batcher.max_batch)) + 1
+    summary = dict(
+        requests=len(images), transport="http", rel_err=err,
+        same_argmax=bool((got.argmax(-1) == want.argmax(-1)).all()),
+        boot_s=boot, wall_s=wall, p50_ms=summ["p50_ms"],
+        p99_ms=summ["p99_ms"], batches=summ["batches"],
+        mean_device_batch=summ["mean_device_batch"],
+        buckets=summ["buckets"],
+        signatures={i: len(r["compiles"])
+                    for i, r in sorted(summ["replica_stats"].items())},
+        signature_cap=cap, gpu=gpu)
+    print("serve_predict " + json.dumps(summary), flush=True)
+    if err > SERVE_PREDICT_RTOL or not summary["same_argmax"]:
+        raise AssertionError(f"served logits off by {err} of the largest")
+    if any(n > cap for n in summary["signatures"].values()):
+        raise AssertionError(f"signatures {summary['signatures']} > {cap}")
+    return pids
+
+
+def check_serve_cleanup(pids):
+    """After every pool and its engine stopped: no replica process, no
+    ``/dev/shm/tfos-*`` ring and no child-pid file in the working dir."""
+    alive = sorted(p for p in pids if _alive(p))
+    rings = glob.glob("/dev/shm/tfos-*")
+    pidfile = os.path.exists(os.path.join(os.getcwd(), "tfos_child_pids"))
+    print("serve_cleanup " + json.dumps(dict(
+        replica_pids=sorted(pids), alive=alive, shm=rings,
+        cwd_child_pid_file=pidfile)), flush=True)
+    if alive or rings or pidfile:
+        raise AssertionError(f"left behind: pids {alive}, rings {rings}, "
+                             f"child-pid file {pidfile}")
 
 
 def main():
@@ -2003,12 +2448,17 @@ def main():
     # InputMode.TENSORFLOW runs main_fun (CUDA) in the executor itself:
     # an engine of its own, which no SPARK phase forks a trainer from
     engine_tf = LocalEngine(1)
+    # the decode pool's two replicas (each a CUDA context on the card):
+    # an engine of their own, which forks no trainer
+    engine_serve = LocalEngine(2)
     try:
-        kernels = run_phases(dev, gpu, engine, engine_mgr, engine_tf)
+        kernels = run_phases(dev, gpu, engine, engine_mgr, engine_tf,
+                             engine_serve)
     finally:
         engine.stop()
         engine_mgr.stop()
         engine_tf.stop()
+        engine_serve.stop()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2017,7 +2467,7 @@ def main():
     return 0
 
 
-def run_phases(dev, gpu, engine, engine_mgr, engine_tf):
+def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve):
     """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
@@ -2063,7 +2513,24 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf):
                                                          res, tfr_dir)
     finally:
         shutil.rmtree(tfr_dir, ignore_errors=True)
-    tf_mode_launches = phase_tf_mode_mnist(dev, engine_tf, gpu)
+    serve_tmp = tempfile.mkdtemp(prefix="tfos_serve_")
+    tf_tmp = tempfile.mkdtemp(prefix="tfos_tf_mnist_")
+    try:
+        tf_mode_launches, tf_cluster = phase_tf_mode_mnist(dev, engine_tf,
+                                                           gpu, tf_tmp)
+        os.environ[SERVE_RELOAD_ENV] = SERVE_RELOAD_SECS
+        serve_launches, pids = phase_serve_decode(dev, gpu, engine_serve,
+                                                  serve_tmp)
+        pids = set(pids.values())
+        pids |= phase_serve_f32(dev, gpu, engine_serve, serve_tmp)
+        pids |= phase_serve_predict(
+            dev, gpu, tf_cluster, os.path.join(tf_tmp, "model", "export"))
+        engine_serve.stop()
+        engine_tf.stop()
+        check_serve_cleanup(pids)
+    finally:
+        shutil.rmtree(serve_tmp, ignore_errors=True)
+        shutil.rmtree(tf_tmp, ignore_errors=True)
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -2121,6 +2588,11 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf):
         k["launches_tfrecord"] = tfr_launches[k["name"]]
         k["launches_spark_tfrecord"] = spark_tfr_launches[k["name"]]
         k["launches_tf_mode"] = tf_mode_launches[k["name"]]
+        # the decode pool's replicas in serve_decode, summed
+        k["launches_serve"] = serve_launches[k["name"]]
+    if serve_launches["flash_fwd"] == 0 or any(
+            serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
+        raise AssertionError(f"serving replicas launched {serve_launches}")
     return kernels
 
 

@@ -30,6 +30,8 @@ setup(
             "tfos-inference=tensorflowonspark_tpu.inference:main",
             # online serving (docs/serving.md) — no reference equivalent
             "tfos-serve=tensorflowonspark_tpu.serving.server:main",
+            # the PyTorch/CUDA port's online serving
+            "tfos-serve-torch=tensorflowonspark_tpu_torch.serving.server:main",
             # live cluster view (docs/observability.md)
             "tfos-top=tensorflowonspark_tpu.obs.top:main",
             # flight-recorder dump assembly (docs/telemetry.md)

@@ -19,7 +19,10 @@ path: the package's own copies of the cluster layer (``cluster``,
 ``gpu_info``) feed engine partitions through a ``DataFeed`` into
 trainers forked from the executors, which join one process group
 (``TFNodeContext.torch_initialize``); with it came the last kernel,
-RMSNorm (``ops.fused_rmsnorm``, ``ops/csrc/rmsnorm.cu``).
+RMSNorm (``ops.fused_rmsnorm``, ``ops/csrc/rmsnorm.cu``).  Later slices
+brought ResNet, the feed's shm ring, TFRecord IO and the online serving
+tier (``serving.Server`` over a supervised ``ReplicaPool``, its HTTP
+frontend and ``cluster.TFCluster.serve``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); :func:`resolve_device` never falls

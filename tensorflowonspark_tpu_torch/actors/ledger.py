@@ -1,19 +1,125 @@
-"""Exactly-once delivery ledger.
+"""Resolve-once futures and exactly-once delivery ledgers.
 
-An own copy of ``DeliveryLedger`` from
-``tensorflowonspark_tpu/actors/ledger.py``: named done-sets
-(``feed -> {partition}``), the table behind the rendezvous server's
-PDONE/PQUERY messages.  Feeders record each partition once it was fully
-consumed; the driver reads back which partitions were.
+Own copies of four primitives of ``tensorflowonspark_tpu/actors/ledger.py``:
+
+- :class:`OnceGate` — a claim that exactly one caller wins (the
+  duplicate-answer guard of a re-dispatched batch, ``batcher.Batch``).
+- :class:`ResolveOnce` — a thread-safe future whose first ``resolve`` /
+  ``reject`` wins; later calls are no-ops (``batcher.PendingResult``,
+  ``decode.scheduler.PendingSession``).
+- :class:`IndexLedger` — first-arrival-wins values keyed by a dense
+  index: a decode session's token stream, which a failover replay
+  re-delivers as identical ``(index, token)`` pairs.
+- :class:`DeliveryLedger` — named done-sets (``feed -> {partition}``),
+  the table behind the rendezvous server's PDONE/PQUERY messages.
+
+Stdlib only: imported by executors, replicas and the driver alike.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+
+
+class OnceGate:
+    """First ``claim()`` returns True, every later one False."""
+
+    __slots__ = ("_lock", "_claimed")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._claimed = False
+
+    def claim(self):
+        with self._lock:
+            if self._claimed:
+                return False
+            self._claimed = True
+            return True
+
+    def claimed(self):
+        with self._lock:
+            return self._claimed
+
+
+class ResolveOnce:
+    """A thread-safe future: the first ``resolve``/``reject`` wins."""
+
+    __slots__ = ("_event", "_value", "_error")
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._value = None
+        self._error = None
+
+    def done(self):
+        return self._event.is_set()
+
+    def resolve(self, value):
+        """Resolve with ``value``; True iff this call won the race."""
+        if self._event.is_set():
+            return False
+        self._value = value
+        self._event.set()
+        return True
+
+    def reject(self, exc):
+        """Resolve exceptionally; True iff this call won the race."""
+        if self._event.is_set():
+            return False
+        self._error = exc
+        self._event.set()
+        return True
+
+    def wait(self, timeout, what="result not available"):
+        """Block for the value; raises the stored error, or
+        ``TimeoutError`` ("``{what}`` within ``{timeout}``s")."""
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"{what} within {timeout}s")
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class IndexLedger:
+    """First-arrival-wins values keyed by index, timestamps kept."""
+
+    __slots__ = ("_lock", "_values", "_times")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._values = {}
+        self._times = {}
+
+    def record(self, index, value):
+        """Record ``value`` at ``index``; True iff it was the first."""
+        with self._lock:
+            if index in self._values:
+                return False
+            self._values[index] = value
+            self._times[index] = time.perf_counter()
+            return True
+
+    def values(self):
+        """Recorded values in index order."""
+        with self._lock:
+            return [self._values[i] for i in sorted(self._values)]
+
+    def times(self):
+        """{index: perf_counter-of-first-arrival} copy."""
+        with self._lock:
+            return dict(self._times)
+
+    def __len__(self):
+        with self._lock:
+            return len(self._values)
 
 
 class DeliveryLedger:
-    """Named done-sets: ``record(feed, unit)`` / ``done_units(feed)``."""
+    """Named done-sets: ``record(feed, unit)`` / ``done_units(feed)``.
+    Feeders record each partition once it was fully consumed; the
+    driver reads back which partitions were."""
 
     __slots__ = ("_lock", "_done")
 

@@ -11,10 +11,11 @@ the trainers (``train``) and stops them (``shutdown``).
 counterpart of the JAX package's ``num_chips``.  Arguments the copy does
 not carry raise NotImplementedError naming their ROADMAP.md item: the
 data service and streaming feeds, ``restarts`` / ``min_executors``
-recovery, ``serve()``, ps/evaluator nodes, ``inference()`` and
-TensorBoard.  The live metrics endpoint and the telemetry drain are
-left out too (item 21): with ``TFOS_TELEMETRY_DIR`` set, every process
-writes its spans straight into that directory.
+recovery, ps/evaluator nodes, ``inference()`` and TensorBoard.
+``serve()`` stands up the online serving tier on the cluster's engine
+after ``shutdown()``.  The live metrics endpoint and the telemetry drain
+are left out too (item 21): with ``TFOS_TELEMETRY_DIR`` set, every
+process writes its spans straight into that directory.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ logger = logging.getLogger(__name__)
 
 DATA_SERVICE_ITEM = "ROADMAP.md queue 1, item 17 (data service)"
 STREAMING_ITEM = "ROADMAP.md queue 1, item 18 (streaming feeds)"
-SERVE_ITEM = "ROADMAP.md queue 1, item 19 (serve)"
 
 
 class InputMode:
@@ -97,8 +97,27 @@ class TFCluster:
     def inference(self, *args, **kwargs):
         raise NotImplementedError(f"inference() comes with {ROLES_ITEM}")
 
-    def serve(self, *args, **kwargs):
-        raise NotImplementedError(f"serve() comes with {SERVE_ITEM}")
+    def serve(self, export_dir=None, ckpt_dir=None, num_replicas=None,
+              **kw):
+        """An online inference service on this cluster's engine: a
+        started ``serving.Server`` of ``ModelSpec(export_dir, ckpt_dir,
+        predict=kw.pop("predict"), device=kw.pop("device"))`` with
+        ``num_replicas`` (default: the cluster's executors); the other
+        keywords go to ``Server``.  The caller owns ``stop()``.
+
+        Call after :meth:`shutdown`: replicas are engine tasks and need
+        free executors, and a replica on the card holds a CUDA context,
+        so its executor must fork no SPARK trainer afterwards."""
+        from tensorflowonspark_tpu_torch import serving
+
+        spec = serving.ModelSpec(export_dir=export_dir, ckpt_dir=ckpt_dir,
+                                 predict=kw.pop("predict", None),
+                                 device=kw.pop("device", None))
+        n = num_replicas or self.meta["num_executors"]
+        server = serving.Server(spec, num_replicas=n, engine=self.engine,
+                                **kw)
+        server.start()
+        return server
 
     def shutdown(self, ssc=None, grace_secs=0, timeout=259200):
         """Stop the cluster: end-of-feed to every node and the trainers

@@ -30,10 +30,15 @@ Differences from the JAX package:
   ``chip_smoke.py`` has by then) cannot hand a CUDA context to a forked
   child; spawned executors start clean, and do nothing with CUDA, so the
   trainers they fork can.
-- No task retries, executor respawns or elastic shrink (``retryable``
-  raises NotImplementedError): they come with ``restarts``
-  (ROADMAP.md queue 1, item 15).  An executor that dies fails the job.
-  No ``SparkEngine`` adapter (ROADMAP.md queue 1, item 15).
+- Retryable jobs (``foreach_partition(retryable=True)``, the serving
+  replicas' job) are supervised as in the JAX package: a failed task is
+  retried after a jittered exponential backoff (``TFOS_TASK_RETRIES``,
+  ``TFOS_RETRY_BACKOFF``), and a dead executor is respawned within a
+  budget (``TFOS_EXECUTOR_RESPAWNS``) after its children are killed;
+  its lost tasks are re-dispatched from the kept blobs.  A job that is
+  not retryable fails at the first task error or executor death.
+  Elastic shrink, epoch fences and the ``SparkEngine`` adapter are not
+  ported (ROADMAP.md queue 1, item 15).
 - No ``from_partitions`` and no caller-owned scratch root (``workdir``
   raises NotImplementedError, ROADMAP.md queue 1, item 14).
 """
@@ -54,7 +59,7 @@ import time
 import traceback
 
 from tensorflowonspark_tpu_torch.actors import supervise as _supervise
-from tensorflowonspark_tpu_torch.utils import telemetry
+from tensorflowonspark_tpu_torch.utils import faults, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -98,11 +103,15 @@ def _executor_main(index, workdir, shared_inbox, own_inbox, results):
             if msg[0] == "stop":
                 break
             _, job_id, task_id, blob = msg
+            # start-ack before running: the driver re-dispatches exactly
+            # the tasks that were running on an executor that dies
+            results.put(("start", job_id, task_id, index, None))
             # the feeder recovers its partition number from this (the
             # engine's analogue of pyspark's TaskContext.partitionId())
             os.environ["TFOS_PARTITION_INDEX"] = str(task_id)
             try:
                 t_got = time.perf_counter()
+                faults.check("engine.task", job=job_id, task=task_id)
                 fn, items, collect, lineage = pickle.loads(blob)
                 # the task's hop from the driver: the wait since the
                 # previous task ended (its transfer), and its unpickling
@@ -147,12 +156,6 @@ def _reap_executor_children():
 # ----------------------------------------------------------------------------
 # Dataset (RDD parity surface)
 # ----------------------------------------------------------------------------
-
-def _no_retries(retryable, max_retries):
-    if retryable or max_retries is not None:
-        raise NotImplementedError(
-            f"retryable jobs come with {RESTARTS_ITEM}")
-
 
 class Lineage:
     """A partition's ``map_partitions`` chain: ``fns`` run in order, each
@@ -225,20 +228,27 @@ class LocalDataset:
                           retryable=False, max_retries=None):
         """Run ``fn`` over every partition, after its lineage.
         ``placement`` pins task i to executor ``placement[i]``;
-        ``spread`` to executor i."""
-        _no_retries(retryable, max_retries)
+        ``spread`` to executor i.
+
+        ``retryable=True`` declares every task idempotent: a failed task
+        is retried with backoff (budget ``max_retries``, default
+        ``TFOS_TASK_RETRIES``) and a dead executor is respawned with its
+        lost tasks re-dispatched, instead of failing the job."""
         self._engine._run_job([(items, fn, chain)
                                for items, chain in self._tasks],
                               collect=False, spread=spread,
-                              placement=placement)
+                              placement=placement, retryable=retryable,
+                              max_retries=max_retries)
 
     def collect(self, spread=False, retryable=False, max_retries=None):
         """Every partition's items after its lineage, in partition
-        order, through the driver."""
-        _no_retries(retryable, max_retries)
+        order, through the driver.  ``retryable`` as in
+        :meth:`foreach_partition`, for idempotent lineages only."""
         parts = self._engine._run_job([(items, None, chain)
                                        for items, chain in self._tasks],
-                                      collect=True, spread=spread)
+                                      collect=True, spread=spread,
+                                      retryable=retryable,
+                                      max_retries=max_retries)
         return [x for p in parts for x in (p or [])]
 
     def union(self, *others):
@@ -315,6 +325,16 @@ class LocalEngine:
         self._cancelled = False
         self._stopped = False
         self.executor_dirs = []
+        # supervision of retryable jobs; the mechanisms live in
+        # actors.supervise
+        self._max_retries = int(os.environ.get("TFOS_TASK_RETRIES", "2"))
+        self._retry_backoff = float(os.environ.get("TFOS_RETRY_BACKOFF",
+                                                   "0.25"))
+        self._budget = _supervise.RespawnBudget(
+            int(os.environ.get("TFOS_EXECUTOR_RESPAWNS", "8")),
+            what="executor", env_name="TFOS_EXECUTOR_RESPAWNS",
+            error_cls=TaskError)
+        self._spawn_lock = threading.Lock()
         # the latest job's dispatch: its tasks, the seconds the driver
         # spent pickling them, the bytes they came to and the largest
         # task's bytes
@@ -325,16 +345,7 @@ class LocalEngine:
                 os.makedirs(d, exist_ok=True)
                 self.executor_dirs.append(d)
                 self._own_inboxes.append(self._ctx.Queue())
-                p = self._ctx.Process(
-                    target=_executor_main,
-                    args=(i, d, self._shared_inbox, self._own_inboxes[i],
-                          self._results),
-                    name=f"tfos-executor-{i}",
-                    # not a daemon: an executor forks the trainer and the
-                    # IPC manager's server
-                    daemon=False)
-                p.start()
-                self._procs.append(p)
+                self._procs.append(self._spawn_executor(i))
         # concurrent jobs (the node launcher and a feeder) share one
         # results pipe; the pump sorts results by job
         self._pump = threading.Thread(target=self._pump_results,
@@ -343,6 +354,49 @@ class LocalEngine:
         atexit.register(self.stop)
         logger.info("LocalEngine started %d executors under %s",
                     self.num_executors, self._root)
+
+    def _spawn_executor(self, index):
+        """Start executor ``index``'s process on its inbox and working
+        dir (a respawn reuses both, so queued tasks survive it)."""
+        p = self._ctx.Process(
+            target=_executor_main,
+            args=(index, self.executor_dirs[index], self._shared_inbox,
+                  self._own_inboxes[index], self._results),
+            name=f"tfos-executor-{index}",
+            # not a daemon: an executor forks the trainer and the IPC
+            # manager's server
+            daemon=False)
+        p.start()
+        return p
+
+    @property
+    def _respawns(self):
+        """Respawns consumed so far."""
+        return self._budget.used
+
+    def _respawn_executor(self, index):
+        """Replace a dead executor process; True if a respawn happened.
+        The dead one's children (IPC-manager server, trainer) are killed
+        first, so a relaunched task never meets a half-dead twin.
+        Raises ``TaskError`` once the respawn budget is spent."""
+        with self._spawn_lock:
+            if self._stopped or self._procs[index].is_alive():
+                return False
+            self._budget.consume(index)
+            _supervise.reap_orphans([self.executor_dirs[index]],
+                                    what=f"child of dead executor {index}")
+            with _patched_env(self._env):
+                self._procs[index] = self._spawn_executor(index)
+        telemetry.event("engine/executor_respawn", executor=index,
+                        respawns=self._budget.used)
+        logger.warning("respawned executor %d (%d/%d respawns used)",
+                       index, self._budget.used, self._budget.budget)
+        return True
+
+    def ensure_executors(self):
+        """Respawn every dead executor; returns the respawned indices."""
+        return [i for i, p in enumerate(self._procs)
+                if not p.is_alive() and self._respawn_executor(i)]
 
     @property
     def default_fs(self):
@@ -376,10 +430,12 @@ class LocalEngine:
             if q is not None:
                 q.put(item)
 
-    def _run_job(self, tasks, collect=False, spread=False, placement=None):
+    def _run_job(self, tasks, collect=False, spread=False, placement=None,
+                 retryable=False, max_retries=None):
         """Dispatch one ``(items, fn, lineage)`` task per partition; block
         until every task finished.  Returns each partition's result list
-        when ``collect``.  The first failure raises ``TaskError``."""
+        when ``collect``.  A task that fails for good raises
+        ``TaskError``: at once unless ``retryable``."""
         if self._cancelled:
             raise TaskError("engine cancelled")
         with self._job_lock:
@@ -389,60 +445,129 @@ class LocalEngine:
             self._job_queues[job_id] = my_results
         try:
             return self._run_job_inner(tasks, collect, spread, placement,
-                                       job_id, my_results)
+                                       job_id, my_results, retryable,
+                                       max_retries)
         finally:
             with self._job_lock:
                 self._job_queues.pop(job_id, None)
 
+    def _target(self, task_id, spread, placement):
+        """The executor a task is pinned to, or None (the shared queue)."""
+        if placement is not None and task_id < len(placement):
+            return placement[task_id] % self.num_executors
+        if spread:
+            return task_id % self.num_executors
+        return None
+
     def _run_job_inner(self, tasks, collect, spread, placement, job_id,
-                       my_results):
+                       my_results, retryable=False, max_retries=None):
         # only executors that die during this job fail it
         dead_at_start = {i for i, p in enumerate(self._procs)
                          if not p.is_alive()}
-        pickle_s = nbytes = max_bytes = 0
-        for task_id, (part, fn, lineage) in enumerate(tasks):
+        if max_retries is None:
+            max_retries = self._max_retries
+        if not retryable:
+            max_retries = 0
+        # the blobs are kept for the job's life, so that a failed or lost
+        # task is re-dispatched byte for byte
+        pickle_s = 0.0
+        blobs = []
+        for part, fn, lineage in tasks:
             t0 = time.perf_counter()
-            blob = pickle.dumps((fn, list(part), collect, lineage))
+            blobs.append(pickle.dumps((fn, list(part), collect, lineage)))
             pickle_s += time.perf_counter() - t0
-            nbytes += len(blob)
-            max_bytes = max(max_bytes, len(blob))
-            msg = ("task", job_id, task_id, blob)
-            if placement is not None and task_id < len(placement):
-                target = placement[task_id] % self.num_executors
-            elif spread:
-                target = task_id % self.num_executors
-            else:
-                self._shared_inbox.put(msg)
-                continue
-            if not self._procs[target].is_alive():
-                raise TaskError(f"cannot place task {task_id} on executor "
-                                f"{target}: executor process is dead")
-            self._own_inboxes[target].put(msg)
         self.last_dispatch = {"tasks": len(tasks), "pickle_s": pickle_s,
-                              "bytes": nbytes, "max_bytes": max_bytes}
+                              "bytes": sum(map(len, blobs)),
+                              "max_bytes": max(map(len, blobs), default=0)}
 
+        def dispatch(task_id):
+            msg = ("task", job_id, task_id, blobs[task_id])
+            target = self._target(task_id, spread, placement)
+            if target is None:
+                self._shared_inbox.put(msg)
+                return
+            if not self._procs[target].is_alive():
+                if not retryable:
+                    raise TaskError(
+                        f"cannot place task {task_id} on executor "
+                        f"{target}: executor process is dead")
+                # heal the slot: the inbox survives, so the respawned
+                # executor picks this message up
+                self._respawn_executor(target)
+                dead_at_start.discard(target)
+            self._own_inboxes[target].put(msg)
+
+        sched = _supervise.RetrySchedule(max_retries, self._retry_backoff)
+        running = {}    # task_id -> executor (start-acked)
+        retry_at = {}   # task_id -> monotonic re-dispatch time
+
+        def fail_attempt(tid, subject, reason):
+            """Count a failed attempt; schedule its re-dispatch after a
+            backoff, or raise ``subject``, ``reason`` and the earlier
+            attempts' reasons once the task's retries are spent."""
+            sched.record_failure(tid, reason)
+            running.pop(tid, None)
+            if sched.exhausted(tid):
+                raise TaskError(sched.permanent_error(tid, subject))
+            delay = sched.next_delay(tid)
+            retry_at[tid] = time.monotonic() + delay
+            telemetry.event("engine/task_retry", job=job_id, task=tid,
+                            attempt=sched.attempt(tid),
+                            delay_ms=int(delay * 1000))
+            logger.warning("task %d of job %d failed (attempt %d of %d); "
+                           "retrying in %.2fs", tid, job_id,
+                           sched.attempt(tid), max_retries + 1, delay)
+
+        for task_id in range(len(tasks)):
+            dispatch(task_id)
         results = [None] * len(tasks)
+        done = [False] * len(tasks)
         ndone = 0
         while ndone < len(tasks):
-            if self._cancelled:
-                raise TaskError("engine cancelled")
+            if self._cancelled or self._stopped:
+                raise TaskError("engine cancelled" if self._cancelled
+                                else "engine stopped")
+            now = time.monotonic()
+            for tid in [t for t, at in retry_at.items() if at <= now]:
+                del retry_at[tid]
+                dispatch(tid)
             try:
                 status, _, tid, idx, payload = my_results.get(timeout=0.25)
             except _queue.Empty:
                 dead = [i for i, p in enumerate(self._procs)
                         if i not in dead_at_start and not p.is_alive()]
-                if dead:
+                if not dead:
+                    continue
+                if not retryable:
                     raise TaskError(
                         f"executor(s) {dead} died with tasks in flight (job "
                         f"{job_id}, {len(tasks) - ndone} pending); driver "
                         "scripts must guard their entry with if __name__ == "
                         "'__main__' under the spawn start method") from None
+                for e in dead:
+                    lost = sorted(t for t, ex in running.items() if ex == e)
+                    self._respawn_executor(e)
+                    dead_at_start.discard(e)
+                    for t in lost:
+                        fail_attempt(t, f"task {t} lost",
+                                     f"executor {e} died while running "
+                                     f"task {t} (process loss)")
                 continue
+            if status == "start":
+                running[tid] = idx
+                continue
+            if done[tid]:
+                continue  # a late answer of a superseded attempt
             if status == "error":
-                raise TaskError(f"task {tid} failed on executor {idx}:\n"
-                                f"{payload}")
+                # a job that is not retryable has no retries: the first
+                # failure raises, with the task's traceback
+                fail_attempt(tid, f"task {tid} failed on executor {idx}",
+                             payload)
+                continue
+            running.pop(tid, None)
             if payload is not None:
                 results[tid] = pickle.loads(payload)
+            done[tid] = True
             ndone += 1
         return results
 

@@ -10,14 +10,21 @@ width on the card; on the CPU (gloo, the plain attention)::
 
     python -m tensorflowonspark_tpu_torch.examples.transformer_spark \\
         --device cpu --dim 64 --n_layers 2 --n_heads 2 --max_seq 64 \\
-        --vocab_size 256 --batch_size 4 --steps 3
+        --vocab_size 256 --batch_size 4 --steps 3 \\
+        --ckpt_dir /tmp/lm/ckpt --export_dir /tmp/lm/export
 
-Checkpoint and export wait for ROADMAP.md queue 1, item 9.
+With ``--ckpt_dir`` the chief saves the params (the JAX layout, npz)
+every ``--ckpt_every`` steps and at the end; with ``--export_dir`` it
+exports them with the ``Config`` in the metadata (``config``), which
+``serving.ModelSpec(export_dir=..., decode=DecodeSpec(Config(
+**meta["config"])))`` and the JAX package's ``load_exported`` both
+load.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -34,7 +41,9 @@ def main_fun(args, ctx):
     """Runs in every trainer.  ``args``: ``config`` (``transformer.Config``
     keywords), ``batch_size`` (global), optional ``lr`` (1e-3),
     ``device`` (default the card), ``init_params`` (a JAX-layout params
-    tree; default random from ``seed``), ``ce_impl`` and ``out_dir``,
+    tree; default random from ``seed``), ``ce_impl``, ``ckpt_dir`` and
+    ``ckpt_every`` (the chief's checkpoints), ``export_dir`` (the
+    chief's export) and ``out_dir``,
     where each rank writes ``transformer-rank<r>.json``: its losses,
     step times, the records its ``DataFeed`` handed out (counted, a
     dropped tail included) and what the feed saw (``DataFeed.stats``,
@@ -49,6 +58,7 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch import infeed
     from tensorflowonspark_tpu_torch.models import transformer as T
     from tensorflowonspark_tpu_torch.ops import attention
+    from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
     from tensorflowonspark_tpu_torch.utils import metrics, train
 
     cfg = T.Config(**args["config"])
@@ -117,6 +127,15 @@ def main_fun(args, ctx):
         else:
             step_ms.append(1e3 * (time.perf_counter() - t0))
         tm.step(items=per_proc * cfg.max_seq, loss=losses[-1])  # tokens
+        every = args.get("ckpt_every")
+        if args.get("ckpt_dir") and every and len(losses) % every == 0 \
+                and ckpt.is_chief(ctx):
+            ckpt.save_checkpoint(args["ckpt_dir"], params, len(losses))
+    if args.get("ckpt_dir") and ckpt.is_chief(ctx):
+        ckpt.save_checkpoint(args["ckpt_dir"], params, len(losses))
+    if args.get("export_dir"):
+        ckpt.export_model(args["export_dir"], params, ctx, metadata={
+            "config": dataclasses.asdict(cfg)})
     out_dir = args.get("out_dir")
     if out_dir:
         rank = env["process_id"]
@@ -154,6 +173,12 @@ def main():
     p.add_argument("--device", default=None,
                    help="'cpu' for the CPU; default the card")
     p.add_argument("--out_dir", default=None)
+    p.add_argument("--ckpt_dir", default=None,
+                   help="the chief's npz checkpoints")
+    p.add_argument("--ckpt_every", type=int, default=0,
+                   help="checkpoint every N steps (and at the end)")
+    p.add_argument("--export_dir", default=None,
+                   help="the chief's export, Config in the metadata")
     args = p.parse_args()
 
     from tensorflowonspark_tpu_torch import cluster as TFCluster
@@ -170,7 +195,9 @@ def main():
         cluster = TFCluster.run(
             engine, main_fun,
             {"config": config, "batch_size": args.batch_size,
-             "device": args.device, "out_dir": args.out_dir},
+             "device": args.device, "out_dir": args.out_dir,
+             "ckpt_dir": args.ckpt_dir, "ckpt_every": args.ckpt_every,
+             "export_dir": args.export_dir},
             num_executors=args.cluster_size,
             input_mode=TFCluster.InputMode.SPARK, num_gpus=args.num_gpus)
         cluster.train(engine.parallelize(list(tokens), args.steps))

@@ -356,6 +356,23 @@ class PagedKVCache:
                                   self.block_tables[slot, :nb]],
                          self._incref)
 
+    def drop_prefixes(self):
+        """Forget every resident prefix: the trie's block references are
+        released (blocks a live session maps stay until it retires).
+        Called when the params change, since the resident K/V was
+        computed with the old ones.  Returns the nodes dropped."""
+        if self.trie is None:
+            return 0
+        dropped = 0
+        stack = [self.trie.root]
+        while stack:
+            for node in stack.pop().values():
+                self._release(node.block)
+                dropped += 1
+                stack.append(node.children)
+        self.trie = PrefixTrie(self.block_size)
+        return dropped
+
     # -- device writes ------------------------------------------------------
     def insert_tail(self, slot, k, v, start, length):
         """Install prefill K/V ``[n_layers, n_heads, T, head_dim]``

@@ -15,9 +15,21 @@ the same replica-side loop, with the model steps in PyTorch.
   the host and the token is a pure function of ``(logits, params,
   index)``.
 
-Speculative decoding and the driver-side ``PendingSession`` are not
-ported yet (ROADMAP.md).  Module import is stdlib + numpy; torch and the
-model load on the engine's thread.
+Tokens stream back to the driver-side :class:`PendingSession`, whose
+index-keyed ledger resolves once: a failover replay after a replica
+SIGKILL re-delivers identical ``(index, token)`` pairs (greedy and
+seeded sampling are deterministic), so the first arrival wins and no
+token is dropped or duplicated.
+
+Hot reload (:meth:`DecodeEngine.set_params`) swaps the params at an
+iteration boundary on the engine's own thread, after placing and
+casting them there as at start.  Sessions in flight keep their cached
+K/V, as in the JAX package; the resident prefixes of the paged cache's
+trie are dropped, so that no later session maps K/V of the old params.
+
+Speculative decoding is not ported (ROADMAP.md queue 1, item 2).
+Module import is stdlib + numpy; torch and the model load on the
+engine's thread.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import time
 import numpy as np
 
 from tensorflowonspark_tpu_torch import resolve_device
+from tensorflowonspark_tpu_torch.actors.ledger import IndexLedger, ResolveOnce
 from tensorflowonspark_tpu_torch.serving import batcher as _batcher
 from tensorflowonspark_tpu_torch.serving.decode import sampling as _sampling
 from tensorflowonspark_tpu_torch.utils import (
@@ -42,6 +55,7 @@ from tensorflowonspark_tpu_torch.utils import (
 logger = logging.getLogger(__name__)
 
 SLOTS_ENV = "TFOS_DECODE_SLOTS"
+QUEUE_MAX_ENV = "TFOS_DECODE_QUEUE_MAX"
 MAX_TOKENS_ENV = "TFOS_DECODE_MAX_TOKENS"
 PAGED_ENV = "TFOS_DECODE_PAGED"
 BLOCK_ENV = "TFOS_DECODE_BLOCK"
@@ -50,6 +64,10 @@ PREFIX_SHARING_ENV = "TFOS_DECODE_PREFIX_SHARING"
 
 def slots_default():
     return int(os.environ.get(SLOTS_ENV, "8"))
+
+
+def queue_max_default():
+    return int(os.environ.get(QUEUE_MAX_ENV, "64"))
 
 
 def max_tokens_default():
@@ -77,7 +95,8 @@ class DecodeSpec:
     ``paged`` selects :class:`~.kvcache.PagedKVCache` over
     :class:`~.kvcache.SlotKVCache`; ``block_size``/``num_blocks`` size
     it; ``prefix_sharing`` arms the prefix trie.  Speculative decoding
-    (``draft_params``/``draft_cfg``) is not ported yet and raises.
+    (``draft_params``/``draft_cfg``) is not ported and raises.  The
+    spec rides the replica pool's payload, a plain pickle.
     """
 
     def __init__(self, cfg, slots=None, eos_id=None, max_tokens=None,
@@ -85,7 +104,7 @@ class DecodeSpec:
                  prefix_sharing=None, draft_params=None, draft_cfg=None):
         if draft_params is not None or draft_cfg is not None:
             raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md)")
+                "speculative decoding comes with ROADMAP.md queue 1, item 2")
         self.cfg = cfg
         self.slots = int(slots or slots_default())
         self.eos_id = eos_id
@@ -96,6 +115,74 @@ class DecodeSpec:
         self.prefix_sharing = (prefix_sharing_default()
                                if prefix_sharing is None
                                else bool(prefix_sharing))
+
+
+class PendingSession(ResolveOnce):
+    """One decode session's future, driver side: a streaming token
+    ledger plus the resolve-once result, as ``batcher.PendingResult``.
+
+    The :class:`~tensorflowonspark_tpu_torch.actors.ledger.IndexLedger`
+    keys on token index: after a replica SIGKILL the session re-prefills
+    on a survivor and re-streams the same ``(index, token)`` pairs (the
+    ``sampling`` dict, seed included, rides the dispatch blob), so the
+    first arrival of an index wins, its timestamp included, and a
+    duplicate ``gen_done`` is swallowed by the resolve-once gate.
+    """
+
+    __slots__ = ("id", "prompt", "max_tokens", "eos_id", "sampling",
+                 "trace", "route_id", "t_submit", "_ledger")
+
+    def __init__(self, sid, prompt, max_tokens, eos_id, sampling=None,
+                 trace=None, route_id=None):
+        super().__init__()
+        self.id = sid
+        self.prompt = [int(t) for t in prompt]
+        self.max_tokens = int(max_tokens)
+        self.eos_id = eos_id
+        self.sampling = sampling
+        self.route_id = route_id   # affinity key; no port pool reads it
+        self.trace = trace         # W3C traceparent string, or None
+        self.t_submit = time.perf_counter()
+        self._ledger = IndexLedger()   # index -> token, first arrival wins
+
+    def tokens_so_far(self):
+        return [int(t) for t in self._ledger.values()]
+
+    def result(self, timeout=None):
+        """Block for the session result dict (``tokens``, ``ttft_ms``,
+        ``token_ms`` gaps, ``total_ms`` and the engine's meta); raises
+        the session's error or TimeoutError."""
+        timeout = (_batcher.request_timeout_default()
+                   if timeout is None else timeout)
+        return self.wait(timeout, "decode session not done")
+
+    # -- resolve-once plumbing (the pool's collector calls these) -----------
+    def _token(self, index, token):
+        """Record one streamed token; False for an index already held
+        (a replay's duplicate, dropped)."""
+        return self._ledger.record(index, int(token))
+
+    def _set(self, tokens, meta):
+        if self.done():
+            return
+        now = time.perf_counter()
+        times = self._ledger.times()
+        gaps = []
+        order = sorted(times)
+        for a, b in zip(order, order[1:]):
+            if b == a + 1:  # only adjacent indices time a real gap
+                gaps.append((times[b] - times[a]) * 1e3)
+        self.resolve({
+            "tokens": [int(t) for t in tokens],
+            "ttft_ms": (round((times[0] - self.t_submit) * 1e3, 3)
+                        if 0 in times else None),
+            "token_ms": [round(g, 3) for g in gaps],
+            "total_ms": round((now - self.t_submit) * 1e3, 3),
+            **(meta or {}),
+        })
+
+    def _fail(self, exc):
+        self.reject(exc)
 
 
 class _Slot:
@@ -136,6 +223,7 @@ class DecodeEngine:
 
     def __init__(self, params, spec, emit, replica=0, device=None):
         self._params = params
+        self._new_params = None     # set_params' tree, taken by _run
         self._spec = spec
         self._emit = emit
         self._replica = replica
@@ -157,6 +245,7 @@ class DecodeEngine:
         self.retired = 0
         self.prefix_hits = 0
         self.prefix_tokens_saved = 0
+        self.reloads = 0
 
     # -- lifecycle ----------------------------------------------------------
     def start(self, timeout=120.0):
@@ -176,6 +265,16 @@ class DecodeEngine:
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout)
+
+    def set_params(self, params):
+        """Hot-reload hook: the engine thread takes ``params`` at its next
+        iteration boundary, places and casts them on its device
+        (``transformer.compute_params``) and swaps.  Sessions in flight
+        finish with their cached K/V plus the new params' compute, as in
+        the JAX package; the prefix trie is dropped."""
+        with self._qlock:
+            self._new_params = params
+        self._wake.set()
 
     def submit(self, sid, prompt, max_tokens=None, eos_id=None,
                sampling=None, trace=None):
@@ -214,6 +313,7 @@ class DecodeEngine:
             "queued": queued,
             "slots": self._spec.slots,
             "paged": self._spec.paged,
+            "reloads": self.reloads,
         }
         if self._spec.paged:
             cache = self._cache
@@ -262,6 +362,7 @@ class DecodeEngine:
             while not self._stop.is_set():
                 try:
                     faults.check("decode.step", replica=self._replica)
+                    self._take_new_params(cache)
                     self._admit(cache)
                     if not self._active:
                         self._wake.wait(0.02)
@@ -277,6 +378,18 @@ class DecodeEngine:
                     self._fail_all(repr(e))
                     cache = self._build_cache()
 
+    def _take_new_params(self, cache):
+        """Swap in :meth:`set_params`' tree, if one is waiting."""
+        with self._qlock:
+            params, self._new_params = self._new_params, None
+        if params is None:
+            return
+        self._params = self._transformer.compute_params(
+            params, self._spec.cfg, self._device)
+        if self._spec.paged:
+            cache.drop_prefixes()
+        self.reloads += 1
+
     # -- admission ----------------------------------------------------------
     def _admit(self, cache):
         """Move queued sessions into free slots.
@@ -291,6 +404,10 @@ class DecodeEngine:
         """
         batch = []
         with self._qlock:
+            if self._new_params is not None:
+                # a session queued after set_params must meet the new
+                # params: the next iteration swaps them in first
+                return
             while self._q and len(batch) < cache.free_slots:
                 batch.append(self._q.popleft())
         if not batch:

@@ -27,10 +27,15 @@ same ``/``-joined keys, and ``export.json`` tagged
 ``tfos-tpu-export-v1``), which ``load_exported`` reads back; either
 package loads the other's export.
 
+The serving tier's hot reload polls :func:`latest` (a listing, never a
+restore) and loads with :func:`restore_any` (newest restorable step,
+``blessed_only`` honoured) or :func:`restore_step` (one step exactly).
+
 Local paths (and ``file://``) only (``recordio.fs``); a remote URL
 raises NotImplementedError.  The blessing and tombstone writers, the
-async checkpointer and ``restore_any`` wait in ROADMAP.md (queue 1,
-item 9).
+async (orbax) checkpointer and ``restore_any(target_shardings=)`` wait
+in ROADMAP.md (queue 1, item 9): an orbax step directory is listed by
+:func:`latest`, and skipped by the restores.
 """
 
 from __future__ import annotations
@@ -351,4 +356,92 @@ def restore_latest(ckpt_dir):
             continue
         logger.info("resuming from %s", path)
         return tree, step
+    return None, 0
+
+
+# -- the serving tier's reload: listing and restore across formats ------------
+
+ORBAX_ITEM = "ROADMAP.md queue 1, item 9 (AsyncCheckpointer)"
+
+
+def _steps_by_format(ckpt_dir):
+    """``{"npz": [steps], "orbax": [steps]}`` in ``ckpt_dir``: npz files
+    ``ckpt-<step>.npz`` and orbax step directories (all-digit names),
+    which the JAX package's ``AsyncCheckpointer`` writes."""
+    d = _fs.local_path(ckpt_dir)
+    out = {"npz": _npz_steps(ckpt_dir), "orbax": []}
+    if os.path.isdir(d):
+        out["orbax"] = sorted(int(n) for n in os.listdir(d)
+                              if n.isdigit()
+                              and os.path.isdir(os.path.join(d, n)))
+    return out
+
+
+def latest_step(ckpt_dir):
+    """Newest checkpoint step in ``ckpt_dir`` in either format, or None
+    when the dir is absent or empty."""
+    steps = _steps_by_format(ckpt_dir)
+    every = steps["npz"] + steps["orbax"]
+    return max(every) if every else None
+
+
+def latest(ckpt_dir):
+    """``(step, path)`` of the newest checkpoint in either format, or
+    ``(None, None)``: the hot-reload watcher's poll, a listing that
+    never restores (:func:`restore_any` does the load)."""
+    steps = _steps_by_format(ckpt_dir)
+    best_npz = max(steps["npz"], default=-1)
+    best_orbax = max(steps["orbax"], default=-1)
+    if best_npz < 0 and best_orbax < 0:
+        return None, None
+    if best_orbax >= best_npz:
+        return best_orbax, os.path.join(_fs.local_path(ckpt_dir),
+                                        str(best_orbax))
+    return best_npz, _path(ckpt_dir, best_npz)
+
+
+def restore_step(ckpt_dir, step):
+    """The tree of checkpoint ``step`` exactly (the pinned reload).
+    Raises FileNotFoundError when no checkpoint holds the step, and
+    NotImplementedError when only an orbax directory does."""
+    path = _path(ckpt_dir, int(step))
+    if os.path.exists(path):
+        return load_checkpoint(path)
+    if os.path.isdir(os.path.join(_fs.local_path(ckpt_dir), str(step))):
+        raise NotImplementedError(
+            f"step {step} of {ckpt_dir} is an orbax checkpoint; orbax "
+            f"restores come with {ORBAX_ITEM}")
+    raise FileNotFoundError(
+        f"restore_step: no checkpoint for step {step} in {ckpt_dir}")
+
+
+def restore_any(ckpt_dir, target_shardings=None, blessed_only=False):
+    """``(tree, step)`` from the newest restorable npz checkpoint, or
+    ``(None, 0)``.  Steps that are tombstoned, fail their blessing
+    manifest, are truncated or raise on load are skipped with a warning,
+    and the previous step is tried; ``blessed_only=True`` also requires
+    a verified blessing manifest (only promoted checkpoints serve).
+    Orbax step directories are skipped with a warning."""
+    if target_shardings is not None:
+        raise NotImplementedError(
+            "restore_any(target_shardings=) places a restore on a device "
+            "mesh, which comes with ROADMAP.md queue 1, item 12")
+    steps = _steps_by_format(ckpt_dir)
+    npz = set(steps["npz"])
+    for step in sorted(npz | set(steps["orbax"]), reverse=True):
+        if step not in npz:
+            logger.warning("skipping checkpoint step %d: orbax restores "
+                           "come with %s", step, ORBAX_ITEM)
+            continue
+        ok, reason = _restorable(ckpt_dir, step)
+        if ok and blessed_only and read_manifest(ckpt_dir, step) is None:
+            ok, reason = False, "unblessed"
+        if not ok:
+            logger.warning("skipping checkpoint step %d: %s", step, reason)
+            continue
+        path = _path(ckpt_dir, step)
+        try:
+            return load_checkpoint(path), step
+        except (OSError, ValueError, EOFError, zipfile.BadZipFile) as e:
+            logger.warning("checkpoint %s unreadable: %s", path, e)
     return None, 0

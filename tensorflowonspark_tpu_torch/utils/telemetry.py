@@ -1,9 +1,11 @@
 """Structured telemetry: per-process span/event records on one schema.
 
 An own copy of the part of ``tensorflowonspark_tpu/utils/telemetry.py``
-that the decode engine, fault injection and ``TrainMetrics`` call
-(``activate``, ``enabled``, ``event``, ``record_span``, ``flush`` and
-the ``DECODE_*`` names), with the same env gate and record format:
+that the decode engine, the serving tier, fault injection and
+``TrainMetrics`` call (``activate``, ``enabled``, ``event``,
+``record_span``, ``span``, ``trace_span``, ``flush`` and the
+``SERVE_*`` / ``DECODE_*`` names), with the same env gate and record
+format:
 enabled iff ``TFOS_TELEMETRY_DIR`` is set (a cached no-op otherwise),
 one JSONL file per process, records buffered in a bounded ring::
 
@@ -12,7 +14,11 @@ one JSONL file per process, records buffered in a bounded ring::
      "attrs": {...}}
 
 Under an active W3C-traceparent-shaped context, records carry
-``trace_id``/``span_id``/``parent_id`` in ``attrs``.  Stdlib only.
+``trace_id``/``span_id``/``parent_id`` in ``attrs``; a serving request's
+``traceparent`` header rides its dispatch blob to the replica, whose
+decode spans join the request's tree.  The spool drain and the live
+metrics plane are not ported (ROADMAP.md queue 1, item 21).  Stdlib
+only.
 """
 
 from __future__ import annotations
@@ -37,6 +43,15 @@ BUFFER_ENV = "TFOS_TELEMETRY_BUFFER"
 FLUSH_ENV = "TFOS_TELEMETRY_FLUSH"
 TRACE_ENV = "TFOS_TRACE_PARENT"
 
+# serving names: one span per served request, one event per shed
+SERVE_REQUEST = "serve/request"
+SERVE_SHED = "serve/shed"
+SERVE_BATCH = "serve/replica_batch"   # replica-side device batch span
+SERVE_RELOAD = "serve/reload"         # hot-reload broadcast event
+DECODE_SESSION = "decode/session"     # one autoregressive decode session
+DECODE_SHED = "decode/shed"           # decode admission-control rejection
+SERVE_GENERATE = "serve/generate"     # request-root span, /v1/generate
+SERVE_PREDICT = "serve/predict"       # request-root span, /v1/predict
 DECODE_ADMIT = "decode/admit"         # replica-side session admission
 DECODE_RETIRE = "decode/retire"       # replica-side session retirement
 
@@ -53,6 +68,10 @@ class TraceContext:
         self.trace_id = trace_id or os.urandom(16).hex()
         self.span_id = span_id or os.urandom(8).hex()
         self.parent_id = parent_id
+
+    def child(self):
+        """A fresh context one level down (new span_id, parented here)."""
+        return TraceContext(self.trace_id, None, self.span_id)
 
     def to_header(self):
         return f"00-{self.trace_id}-{self.span_id}-01"
@@ -87,6 +106,19 @@ def current():
     return _ENV_PARENT["ctx"]
 
 
+def _push(ctx):
+    stack = getattr(_TRACE_TLS, "stack", None)
+    if stack is None:
+        stack = _TRACE_TLS.stack = []
+    stack.append(ctx)
+
+
+def _pop(ctx):
+    stack = getattr(_TRACE_TLS, "stack", None)
+    if stack and stack[-1] is ctx:
+        stack.pop()
+
+
 class _Activation:
     """CM scoping an existing context onto this thread."""
 
@@ -97,16 +129,12 @@ class _Activation:
 
     def __enter__(self):
         if self._ctx is not None:
-            stack = getattr(_TRACE_TLS, "stack", None)
-            if stack is None:
-                stack = _TRACE_TLS.stack = []
-            stack.append(self._ctx)
+            _push(self._ctx)
         return self._ctx
 
     def __exit__(self, *exc):
-        stack = getattr(_TRACE_TLS, "stack", None)
-        if self._ctx is not None and stack and stack[-1] is self._ctx:
-            stack.pop()
+        if self._ctx is not None:
+            _pop(self._ctx)
         return False
 
 
@@ -208,6 +236,80 @@ def _get():
 def enabled():
     """True when telemetry is recording in this process."""
     return _get() is not None
+
+
+class _NullSpan:
+    """Shared no-op span: the disabled path allocates nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+_NULL = _NullSpan()
+
+
+class Span:
+    """Context manager measuring one span on the monotonic clock.  Under
+    an active context it derives (or is handed) a child context, makes
+    it the active parent for its body and stamps ``trace_id``/
+    ``span_id``/``parent_id`` into its attrs on exit."""
+
+    __slots__ = ("_rec", "name", "attrs", "_ts", "_t0", "_ctx")
+
+    def __init__(self, rec, name, attrs, ctx=None):
+        self._rec = rec
+        self.name = name
+        self.attrs = attrs
+        self._ctx = ctx
+
+    def __enter__(self):
+        self._ts = time.time()
+        self._t0 = time.perf_counter()
+        if self._ctx is None:
+            parent = current()
+            if parent is not None:
+                self._ctx = parent.child()
+        if self._ctx is not None:
+            _push(self._ctx)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dur_ms = (time.perf_counter() - self._t0) * 1000.0
+        if self._ctx is not None:
+            _pop(self._ctx)
+            self.attrs.setdefault("trace_id", self._ctx.trace_id)
+            self.attrs.setdefault("span_id", self._ctx.span_id)
+            self.attrs.setdefault("parent_id", self._ctx.parent_id)
+        if exc_type is not None:
+            self.attrs.setdefault("error", repr(exc)[:200])
+        self._rec.record("span", self.name, self._ts, dur_ms, self.attrs)
+        return False
+
+
+def span(name, **attrs):
+    """``with telemetry.span("phase/name", k=v): ...`` records a span on
+    exit (an exception annotates ``attrs.error`` and propagates)."""
+    rec = _get()
+    if rec is None:
+        return _NULL
+    return Span(rec, name, attrs)
+
+
+def trace_span(name, header=None, **attrs):
+    """Entry-point span: like :func:`span`, but always traced: it
+    continues the trace in ``header`` (traceparent string or
+    TraceContext), else the thread's active context, else mints a root.
+    The no-op span when telemetry is disabled."""
+    rec = _get()
+    if rec is None:
+        return _NULL
+    parent = TraceContext.from_header(header) if header else current()
+    ctx = parent.child() if parent is not None else TraceContext()
+    return Span(rec, name, attrs, ctx=ctx)
 
 
 def event(name, **attrs):

@@ -10,6 +10,10 @@ the JAX package (CPU, float32):
   digest-mismatched step (manifests written by the JAX package);
 - ``save_checkpoint`` keeps the newest three and leaves no tmp file;
   remote URLs raise;
+- the serving reload's ``latest``, ``latest_step``, ``restore_step`` and
+  ``restore_any`` (``blessed_only``, torn steps) agree with the JAX
+  package's on checkpoints either package wrote; orbax steps are listed
+  and not restored;
 - the port's ``resnet_cifar_spark.main_fun`` at depth 20 on one executor
   starts from a JAX-written checkpoint, and its losses equal the JAX
   package's in-process steps over the same batches; a second run resumes
@@ -231,6 +235,66 @@ def test_save_keeps_the_newest_and_reads_in_jax(tmp_path):
             C.save_checkpoint(url, _tree(1), 1)
         with pytest.raises(NotImplementedError, match="item 9"):
             C.restore_latest(url)
+
+
+def _same_tree(a, b):
+    assert sorted(C._flatten(a)) == sorted(C._flatten(b))
+    for k, v in C._flatten(a).items():
+        np.testing.assert_array_equal(v, C._flatten(b)[k], err_msg=k)
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_latest_restore_step_and_restore_any_across_packages(writer,
+                                                             tmp_path):
+    """The serving reload's listing and restores: checkpoints written by
+    either package give the same ``latest``/``latest_step`` and restore
+    the same trees through ``restore_step``/``restore_any`` in both,
+    ``blessed_only`` and a torn newest step included."""
+    d = str(tmp_path / "ckpt")
+    save = JC.save_checkpoint if writer == "jax" else C.save_checkpoint
+    assert C.latest(d) == (None, None) and C.latest_step(d) is None
+    assert C.restore_any(d) == (None, 0)
+    for s in (1, 2, 3):
+        save(d, _tree(s), s)
+    for mod in (C, JC):
+        step, path = mod.latest(d)
+        assert (step, os.path.basename(path)) == (3, "ckpt-00000003.npz")
+        assert mod.latest_step(d) == 3
+        _same_tree(mod.restore_step(d, 2), _tree(2))
+        tree, step = mod.restore_any(d)
+        assert step == 3
+        _same_tree(tree, _tree(3))
+    with pytest.raises(FileNotFoundError):
+        C.restore_step(d, 7)
+    JC.bless_checkpoint(d, 1)
+    p3 = os.path.join(d, "ckpt-00000003.npz")
+    with open(p3, "rb") as f:
+        blob = f.read()
+    with open(p3, "wb") as f:
+        f.write(blob[:len(blob) // 2])
+    for mod in (C, JC):
+        assert mod.restore_any(d)[1] == 2          # the torn 3 skipped
+        tree, step = mod.restore_any(d, blessed_only=True)
+        assert step == 1
+        _same_tree(tree, _tree(1))
+
+
+def test_orbax_steps_are_listed_and_not_restored(tmp_path):
+    """An orbax step directory (the JAX package's ``AsyncCheckpointer``)
+    is the newest in ``latest``, as in the JAX package; the port's
+    restores skip it or raise, naming ROADMAP item 9."""
+    d = str(tmp_path)
+    C.save_checkpoint(d, _tree(1), 1)
+    os.makedirs(os.path.join(d, "5"))
+    assert C.latest(d) == (5, os.path.join(d, "5"))
+    assert C.latest(d)[0] == JC.latest(d)[0] == C.latest_step(d) == 5
+    tree, step = C.restore_any(d)
+    assert step == 1
+    _same_tree(tree, _tree(1))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        C.restore_step(d, 5)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        C.restore_any(d, target_shardings=lambda t: t)
 
 
 # -- the SPARK-fed ResNet ----------------------------------------------------

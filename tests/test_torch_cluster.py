@@ -249,10 +249,9 @@ def test_cut_features_raise_not_implemented(engine):
                      (dict(tensorboard=True), "item 20")):
         with pytest.raises(NotImplementedError, match=item):
             TFCluster.run(engine, failing_main, {}, 2, **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        engine.parallelize([1, 2]).foreach_partition(print, retryable=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        engine.parallelize([1, 2]).foreach_partition(print, max_retries=2)
+    # retryable jobs are ported: they run (tests/test_torch_engine.py)
+    assert engine.parallelize([1, 2]).foreach_partition(
+        print, retryable=True, max_retries=2) is None
     with pytest.raises(NotImplementedError, match="item 14"):
         TFCluster.run(engine, failing_main, {}, 2, background=True)
     with pytest.raises(NotImplementedError, match="item 14"):

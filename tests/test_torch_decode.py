@@ -178,6 +178,27 @@ def test_paged_kvcache_trie_reclaim_lru_and_oom():
     assert cache.blocks_in_use == 0 and cache.leaked_blocks() == []
 
 
+def test_paged_kvcache_drop_prefixes_keeps_live_sessions():
+    """``drop_prefixes`` (the decode engine's hot reload) forgets every
+    resident prefix: trie-only blocks return to the free list, blocks a
+    live session maps stay until it retires, and no block leaks."""
+    cfg = _cfg()
+    cache = kvcache.PagedKVCache(cfg, slots=2, block_size=4, device="cpu")
+    prompt = list(range(1, 11))
+    done, live = cache.alloc(), cache.alloc()
+    for slot in (done, live):
+        cache.map_session(slot, [], cache.alloc_blocks(3), 10)
+    cache.register_prompt(done, prompt)
+    cache.register_prompt(live, [7] + prompt[1:])
+    cache.retire(done)
+    assert cache.blocks_in_use == 5 and cache.match_prefix(prompt)[1] == 8
+    assert cache.drop_prefixes() == 4
+    assert cache.match_prefix(prompt) == ([], 0)
+    assert cache.blocks_in_use == 3 and cache.leaked_blocks() == []
+    cache.retire(live)
+    assert cache.blocks_in_use == 0 and cache.leaked_blocks() == []
+
+
 @pytest.mark.parametrize("start,length", [(0, 10), (4, 7), (8, 8)])
 def test_insert_tail_edge_pads_on_device_like_numpy(start, length):
     """insert_tail keeps K/V on the device and pads the last block by

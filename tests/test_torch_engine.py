@@ -1,0 +1,185 @@
+"""PyTorch port, the engine's retryable jobs on the CPU (the supervision
+the serving replicas run under), as the JAX package's
+tests/test_supervision.py has them:
+
+- a failed retryable task is retried, and its retry succeeds;
+- a dead executor is respawned and its task re-dispatched from the kept
+  blob, the job then completing;
+- a task that fails past its budget raises ``TaskError`` with every
+  attempt's reason, and a job losing an executor past the respawn
+  budget raises too;
+- a job that is not retryable still fails at the first task error or
+  executor death.
+
+No wait here is on the wall clock: the tasks signal through files and
+the test waits on those conditions with a hang guard (``HANG``)."""
+
+import os
+import threading
+import time
+
+import pytest
+
+pytest.importorskip("torch")
+
+from tensorflowonspark_tpu_torch.engine import (  # noqa: E402
+    LocalEngine,
+    TaskError,
+)
+
+HANG = 120
+
+
+class FailFirst:
+    """Fails the first attempt of each partition (a marker file per
+    partition in ``d``), then returns its items doubled."""
+
+    def __init__(self, d):
+        self.d = d
+
+    def __call__(self, it):
+        part = os.environ["TFOS_PARTITION_INDEX"]
+        mark = os.path.join(self.d, f"tried-{part}")
+        if not os.path.exists(mark):
+            open(mark, "w").close()
+            raise RuntimeError(f"first attempt of partition {part}")
+        return [2 * x for x in it]
+
+
+class AlwaysFail:
+    def __call__(self, it):
+        raise ValueError("poison task")
+
+
+class BlockFirst:
+    """The first attempt of each partition writes ``started-<p>`` with
+    its pid and blocks until ``release`` exists; later attempts return
+    their items at once."""
+
+    def __init__(self, d):
+        self.d = d
+
+    def __call__(self, it):
+        part = os.environ["TFOS_PARTITION_INDEX"]
+        mark = os.path.join(self.d, f"started-{part}")
+        if not os.path.exists(mark):
+            with open(mark, "w") as f:
+                f.write(str(os.getpid()))
+            while not os.path.exists(os.path.join(self.d, "release")):
+                time.sleep(0.02)
+        return list(it)
+
+
+def _wait_file(path):
+    deadline = time.monotonic() + HANG
+    while not os.path.exists(path):
+        assert time.monotonic() < deadline, f"hang guard: {path}"
+        time.sleep(0.02)
+
+
+@pytest.fixture()
+def engine(monkeypatch):
+    monkeypatch.setenv("TFOS_RETRY_BACKOFF", "0.01")
+    e = LocalEngine(2, env={"OMP_NUM_THREADS": "1"})
+    yield e
+    e.stop()
+
+
+def test_failed_retryable_task_is_retried(engine, tmp_path):
+    out = engine.parallelize(range(6), 3).map_partitions(
+        FailFirst(str(tmp_path))).collect(retryable=True, max_retries=2)
+    assert out == [0, 2, 4, 6, 8, 10]
+    assert sorted(os.listdir(tmp_path)) == ["tried-0", "tried-1", "tried-2"]
+    assert engine._respawns == 0
+
+
+def test_dead_executor_is_respawned_and_its_task_redispatched(engine,
+                                                              tmp_path):
+    d = str(tmp_path)
+    results, errors = [], []
+
+    def job():
+        try:
+            results.extend(engine.parallelize(range(4), 2).map_partitions(
+                BlockFirst(d)).collect(spread=True, retryable=True))
+        except TaskError as e:  # pragma: no cover - asserted below
+            errors.append(e)
+
+    t = threading.Thread(target=job)
+    t.start()
+    _wait_file(os.path.join(d, "started-1"))
+    _wait_file(os.path.join(d, "started-0"))
+    proc = engine._procs[1]
+    victim = proc.pid
+    with open(os.path.join(d, "started-1")) as f:
+        assert int(f.read()) == victim
+    os.kill(victim, 9)
+    proc.join(HANG)  # dead before task 0 is released
+    open(os.path.join(d, "release"), "w").close()
+    t.join(HANG)
+    assert not t.is_alive(), "job hung after the executor kill"
+    assert not errors, errors
+    assert sorted(results) == [0, 1, 2, 3]
+    assert engine._respawns == 1
+    assert engine._procs[1].pid != victim
+    assert all(p.is_alive() for p in engine._procs)
+    assert engine.ensure_executors() == []  # nothing left to heal
+
+
+def test_retry_budget_exhaustion_raises_every_attempt(engine):
+    with pytest.raises(TaskError) as ei:
+        engine.parallelize([1], 1).foreach_partition(
+            AlwaysFail(), retryable=True, max_retries=2)
+    msg = str(ei.value)
+    assert "poison task" in msg and "permanent after 3 attempts" in msg
+
+
+def test_respawn_budget_exhaustion_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("TFOS_EXECUTOR_RESPAWNS", "0")
+    eng = LocalEngine(1, env={"OMP_NUM_THREADS": "1"})
+    try:
+        d = str(tmp_path)
+        errors = []
+
+        def job():
+            try:
+                eng.parallelize([1], 1).foreach_partition(
+                    BlockFirst(d), spread=True, retryable=True)
+            except TaskError as e:
+                errors.append(e)
+
+        t = threading.Thread(target=job)
+        t.start()
+        _wait_file(os.path.join(d, "started-0"))
+        os.kill(eng._procs[0].pid, 9)
+        t.join(HANG)
+        assert not t.is_alive()
+        assert errors and "respawn budget" in str(errors[0])
+        assert "TFOS_EXECUTOR_RESPAWNS=0" in str(errors[0])
+    finally:
+        eng.stop()
+
+
+def test_job_that_is_not_retryable_fails_fast(engine, tmp_path):
+    with pytest.raises(TaskError, match="first attempt of partition 0"):
+        engine.parallelize([1], 1).foreach_partition(FailFirst(str(tmp_path)))
+    assert os.listdir(tmp_path) == ["tried-0"]  # no second attempt
+    d = str(tmp_path / "kill")
+    os.makedirs(d)
+    errors = []
+
+    def job():
+        try:
+            engine.parallelize([1], 1).foreach_partition(BlockFirst(d),
+                                                         spread=True)
+        except TaskError as e:
+            errors.append(e)
+
+    t = threading.Thread(target=job)
+    t.start()
+    _wait_file(os.path.join(d, "started-0"))
+    os.kill(engine._procs[0].pid, 9)
+    t.join(HANG)
+    assert not t.is_alive()
+    assert errors and "died with tasks in flight" in str(errors[0])
+    assert engine._respawns == 0

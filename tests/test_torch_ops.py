@@ -158,7 +158,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (and chip_smoke.py), and
     loading the port's host-native ring, marshal and TFRecord codec,
-    leaves jax and every tensorflowonspark_tpu module out of sys.modules,
+    leaves jax, cloudpickle and every tensorflowonspark_tpu module out of
+    sys.modules,
     maps each of those libraries from ``build/torch_native/``, and maps
     no library built from ``native/`` or shipped in the JAX package."""
     code = r"""
@@ -181,6 +182,7 @@ ex = recordio.encode_example({"x": ("int64", [3])})
 assert recordio.decode_example(ex) == {"x": ("int64", [3])}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "cloudpickle"
              or m == "tensorflowonspark_tpu"
              or m.startswith("tensorflowonspark_tpu."))
 repo = os.getcwd()
@@ -195,7 +197,10 @@ print(len(names), bad, ours)
 assert len(names) >= 15, names
 for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "ops.attention", "recordio.shm", "recordio.marshal",
-             "recordio.tfrecord_native", "dfutil", "examples.mnist_tf_ds"):
+             "recordio.tfrecord_native", "dfutil", "examples.mnist_tf_ds",
+             "serving.server", "serving.replicas", "serving.batcher",
+             "actors.dispatch", "actors.liveness", "serving.decode.loadgen",
+             "examples.lm_decode", "examples.mnist_serving"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign

@@ -11,6 +11,9 @@ package's in-process steps over the same batches.
 - The transformer (2 layers, dim 64) on one executor: the losses of
   ``jax.value_and_grad(transformer.loss_fn)`` with ``optax.adam(1e-3)``
   to 1e-4 relative.
+- the transformer's checkpoints and export (``ckpt_dir``,
+  ``export_dir``): the JAX package loads the export as the params of the
+  same steps taken in process;
 - MNIST on two executors over a gloo group, mirroring
   tests/test_mnist_e2e.py without the export (ROADMAP.md queue 1,
   item 9): the loss falls, both ranks end with equal params, and the
@@ -123,6 +126,64 @@ def test_spark_fed_transformer_matches_jax_steps(engine, tmp_path):
         pj = optax.apply_updates(pj, upd)
         ref.append(float(loss))
     np.testing.assert_allclose(report["losses"], ref, rtol=LOSS_RTOL)
+
+
+def test_spark_fed_transformer_checkpoints_and_exports(engine, tmp_path):
+    """``--ckpt_dir``/``--export_dir``: the chief checkpoints every
+    ``ckpt_every`` steps and at the end, and exports with the ``Config``
+    in the metadata; the JAX package's ``load_exported`` reads the
+    export as the trained params: those of the same Adam steps taken in
+    this process from the same init over the same batches (float32, to
+    1e-5 relative; the trainer's and this process's steps run the same
+    ops in the same order)."""
+    import dataclasses
+
+    import jax
+
+    from tensorflowonspark_tpu.models import transformer as JT
+    from tensorflowonspark_tpu.utils import checkpoint as JC
+    from tensorflowonspark_tpu_torch.models import transformer as TT
+    from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
+
+    kw = dict(vocab_size=128, dim=64, n_layers=2, n_heads=2, max_seq=32,
+              dtype="float32")
+    batch, steps = 4, 3
+    tokens = np.random.default_rng(6).integers(
+        0, kw["vocab_size"], (batch * steps, kw["max_seq"])).astype(np.int32)
+    init = jax.tree_util.tree_map(
+        np.asarray, JT.init(jax.random.PRNGKey(1), JT.Config(**kw)))
+    ckpt_dir, export_dir = str(tmp_path / "ckpt"), str(tmp_path / "export")
+    _train(engine, transformer_spark.main_fun, {
+        "config": kw, "batch_size": batch, "device": "cpu",
+        "init_params": init, "ckpt_dir": ckpt_dir, "ckpt_every": 2,
+        "export_dir": export_dir}, list(tokens), steps)
+    assert sorted(os.listdir(ckpt_dir)) == ["ckpt-00000002.npz",
+                                            "ckpt-00000003.npz"]
+    exported, meta = JC.load_exported(export_dir)
+    cfg = TT.Config(**kw)
+    assert meta["config"] == dataclasses.asdict(cfg)
+    params = TT.params_from_jax(init, cfg, device="cpu")
+    leaves = [params["embed"], params["ln_f"], params["head"],
+              *params["layers"].values()]
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    for i in range(steps):
+        loss = TT.loss_fn(params, torch.from_numpy(
+            tokens[i * batch:(i + 1) * batch].astype(np.int64)), cfg)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    want = ckpt._flatten(params)
+    got = ckpt._flatten(exported)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    last = ckpt._flatten(ckpt.load_checkpoint(
+        os.path.join(ckpt_dir, "ckpt-00000003.npz")))
+    for k in want:
+        np.testing.assert_array_equal(last[k], got[k], err_msg=k)
 
 
 def test_two_executor_gloo_mnist_end_to_end(engine, tmp_path,
