@@ -13,7 +13,10 @@ TFRecord paths: ResNet-50 fed from TFRecord shards in process and
 SPARK-fed (the executor reads the shards), MNIST under
 ``InputMode.TENSORFLOW``, and the online serving tier
 (``serving.Server`` over a 2-replica ``ReplicaPool``, its HTTP frontend
-and ``TFCluster.serve``).  It builds the host-native feed ring, marshal
+and ``TFCluster.serve``), then the Spark ML pipeline and SPARK-mode
+inference (``TFEstimator.fit``, ``TFModel.transform``,
+``TFCluster.inference()``, ps and evaluator nodes, the batch-inference
+CLI and ``parallel_run``).  It builds the host-native feed ring, marshal
 and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
 ``build/torch_native/`` too:
 
@@ -159,7 +162,33 @@ and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
     TF32 off, 1e-5 of the largest logit), at most log2(max_batch)+1
     signatures a replica; then, every pool and its engine stopped
     (``serve_cleanup``): no replica process alive, no ``/dev/shm/tfos-*``
-    ring, no child-pid file in the working dir.
+    ring, no child-pid file in the working dir;
+23. ``pipeline_fit``: ``TFEstimator(mnist_pipeline.train_fun)`` fit
+    SPARK-fed (``num_gpus=1``, 4,096 seeded records, batch 64) on a
+    one-executor engine of its own, then ``TFModel.transform`` of 60,000
+    seeded MNIST-shaped rows at batch 1,024 on a second, two-executor
+    engine, cold and again with the cached model; every loss finite,
+    every row back once in order, logits equal ``mnist.predict`` on the
+    export here (float32, TF32 off, 1e-5 of the largest logit), the
+    model cache loaded once an executor, and a SPARK-mode cluster on
+    the second engine refused (its executors hold CUDA contexts); rows/s,
+    the predict's ms a batch, each executor's peak memory;
+24. ``cluster_inference``: ``TFCluster.inference()`` of 16 partitions of
+    10,000 ``(id, image)`` rows into a SPARK-mode trainer on the card
+    (``mnist_pipeline.infer_fun``, ``DataFeed.batch_results``) on the
+    first engine: every row's result once, in partition order, equal to
+    phase 23's reference; rows/s;
+25. ``roles``: ``mnist_eval`` with a ps node, an evaluator and a chief on
+    a four-executor engine (``InputMode.TENSORFLOW``; the chief and the
+    worker train on the card over gloo, ps and evaluator see no GPU, the
+    evaluator evaluates each checkpoint on the CPU; TensorBoard asked
+    for, its absence said in the line): the roles, eval lines for the
+    checkpoint steps, ``shutdown`` returns, and after the engine stops no
+    role process, ring or child-pid file; the wall time;
+26. ``inference_cli``: ``inference.run`` over phase 17's shards with
+    phase 17's export, and ``parallel_run`` of ``mnist_inference`` over
+    the same, on the second engine: every record's prediction (the
+    CLI's logits too) equal ``mnist.predict`` here.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -172,9 +201,10 @@ the paths that reach no kernel: ``launches_resnet``, phase 10 in this
 process, ``launches_tfrecord``, phase 15 in this process,
 ``launches_spark_tfrecord``, phase 16's trainer, and
 ``launches_tf_mode``, phase 17's executor, each counted in that run
-alone), and ``launches_serve``, phase 18's replicas summed (the flash
-forward > 0, the other three 0).  Imports only torch, numpy and the
-port.
+alone), ``launches_serve``, phase 18's replicas summed (the flash
+forward > 0, the other three 0), and ``launches_pipeline``, phases
+23-26's trainers and predicting executors summed (all 0).  Imports only
+torch, numpy and the port.
 """
 
 from __future__ import annotations
@@ -201,14 +231,21 @@ import torch
 from tensorflowonspark_tpu_torch import cluster as TFCluster
 from tensorflowonspark_tpu_torch import (
     dfutil,
+    inference,
     infeed,
     node,
+    ops,
+    parallel_run,
+    pipeline,
     recordio,
     serving,
 )
 from tensorflowonspark_tpu_torch.engine import LocalEngine
 from tensorflowonspark_tpu_torch.examples import (
     mnist_data_setup,
+    mnist_eval,
+    mnist_inference,
+    mnist_pipeline,
     mnist_tf_ds,
     resnet_imagenet_spark,
     transformer_spark,
@@ -224,7 +261,7 @@ from tensorflowonspark_tpu_torch.ops import (
 from tensorflowonspark_tpu_torch.recordio import _build as native_build
 from tensorflowonspark_tpu_torch.recordio import marshal, shm
 from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
-from tensorflowonspark_tpu_torch.utils import metrics, telemetry
+from tensorflowonspark_tpu_torch.utils import metrics, profiler, telemetry
 from tensorflowonspark_tpu_torch.utils import train as train_utils
 from tensorflowonspark_tpu_torch.serving import run_open_loop, serve_http
 from tensorflowonspark_tpu_torch.serving.decode import (
@@ -344,6 +381,18 @@ SERVE_RELOAD_ENV = "TFOS_SERVE_RELOAD_SECS"
 SERVE_RELOAD_SECS = "1"
 SERVE_RELOAD_SLACK_S = 60.0
 SERVE_PREDICT_RTOL = 1e-5
+# the pipeline phases (MNIST at its full width): the fit's seeded records
+# (batch 64, SGD(0.05, momentum 0.9), one epoch), the transform's 60,000
+# rows at batch 1,024 in 8 partitions, inference()'s 16 partitions of
+# 10,000 (id, image) rows, the roles run (mnist_eval's defaults, plus a
+# ps node), and the predictions' tolerance against mnist.predict in this
+# process (float32, TF32 off, of the largest logit)
+PIPELINE = dict(fit_rows=4096, fit_partitions=4, batch_size=64, lr=0.05,
+                rows=60000, partitions=8, transform_batch=1024,
+                infer_partitions=16, infer_rows=10000)
+ROLES = dict(num_examples=2048, batch_size=64, steps=40, ckpt_steps=10,
+             lr=0.05, eval_timeout=300.0)
+PIPELINE_RTOL = 1e-5
 
 
 def ptxas_report(log):
@@ -2426,6 +2475,376 @@ def check_serve_cleanup(pids):
                              f"child-pid file {pidfile}")
 
 
+# -- the Spark ML pipeline and SPARK-mode inference ---------------------------
+
+def tf32_off_predict(params, inputs, device=None):
+    """``mnist.predict`` with float32 kept float32 in the executor (TF32
+    off, deterministic cuDNN), as this process computes its reference:
+    the transform's ``signature_def_key`` names it."""
+    _exact_float32()
+    return mnist.predict(params, inputs, device=device)
+
+
+# the transform converts the export's params once a cache entry through
+# the predict's module's ``params_from_jax``: this module's predict is
+# MNIST's
+params_from_jax = mnist.params_from_jax
+
+
+def tf32_off_infer(args, ctx):
+    """``mnist_pipeline.infer_fun`` with float32 kept float32 in the
+    trainer."""
+    _exact_float32()
+    mnist_pipeline.infer_fun(args, ctx)
+
+
+def tf32_off_parallel_infer(args, ctx):
+    """``mnist_inference.infer_fun`` with float32 kept float32 in the
+    worker."""
+    _exact_float32()
+    return mnist_inference.infer_fun(args, ctx)
+
+
+def executor_launches(it):
+    """A ``map_partitions`` function: the kernels' launches in this
+    executor since it started."""
+    list(it)
+    return [ops.launch_counts()]
+
+
+def _sum_launches(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _reference_logits(params, images, dev, chunk=4096):
+    """``mnist.predict`` on the card in this process (float32, TF32
+    off), ``chunk`` images at a time."""
+    deterministic = _exact_float32()
+    try:
+        tensors = mnist.params_from_jax(params, device=dev)
+        return np.concatenate([
+            mnist.predict(tensors, {"x": images[i:i + chunk]})["logits"]
+            for i in range(0, len(images), chunk)])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _logit_err(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_pipeline_fit(dev, gpu, engine_fit, engine_pred, tmp):
+    """``pipeline_fit``: ``TFEstimator(mnist_pipeline.train_fun)`` fit
+    SPARK-fed with ``num_gpus=1`` on ``engine_fit`` (one executor, which
+    never touches CUDA), then ``TFModel.transform`` of 60,000 seeded
+    MNIST-shaped rows at batch 1,024 on ``engine_pred`` (two executors,
+    each of which then holds a CUDA context), twice: cold, then with the
+    cached model.  Gates: every loss finite; every row back once, in
+    order; the logits equal ``mnist.predict`` on the export here
+    (float32, TF32 off, ``PIPELINE_RTOL`` of the largest logit); the
+    cache loaded once an executor; a SPARK-mode cluster on
+    ``engine_pred`` refused.  Returns the export dir, the rows' images,
+    their reference logits and the kernels' launches."""
+    cfg = PIPELINE
+    fit_images, fit_labels = mnist_data_setup.synthetic_mnist(
+        cfg["fit_rows"])
+    rows = [{"image": img.reshape(-1), "label": int(lbl)}
+            for img, lbl in zip(fit_images, fit_labels)]
+    export_dir = os.path.join(tmp, "export")
+    t0 = time.perf_counter()
+    model = (pipeline.TFEstimator(mnist_pipeline.train_fun,
+                                  {"lr": cfg["lr"], "out_dir": tmp})
+             .setClusterSize(1).setEpochs(1).setBatchSize(cfg["batch_size"])
+             .setExportDir(export_dir).setNumGpus(1).setGraceSecs(0)
+             .setInputMapping({"image": "image", "label": "label"})
+             .fit(engine_fit.parallelize(rows, cfg["fit_partitions"])))
+    fit_s = time.perf_counter() - t0
+    with open(os.path.join(tmp, "pipeline-rank0.json")) as f:
+        report = json.load(f)
+    losses = report["losses"]
+
+    images = mnist_data_setup.synthetic_mnist(cfg["rows"], seed=1)[0] \
+        .reshape(-1, 784)
+    rows = [{"image": img} for img in images]
+    model = (model.setInputMapping({"image": "x"}).setOutputMapping(
+        {"logits": "logits", "prediction": "pred"})
+        .setBatchSize(cfg["transform_batch"])
+        .setSignatureDefKey(f"{__name__}:tf32_off_predict"))
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = model.transform(
+            engine_pred.parallelize(rows, cfg["partitions"])).collect()
+        runs.append((time.perf_counter() - t0, out))
+    stats = engine_pred.parallelize(
+        range(engine_pred.num_executors), engine_pred.num_executors
+    ).map_partitions(pipeline.model_cache_stats).collect(spread=True)
+    exported, meta = ckpt.load_exported(export_dir)
+    want = _reference_logits(exported, images, dev)
+    errs = [_logit_err(np.asarray([r["logits"] for r in out], np.float32),
+                       want) if len(out) == len(want) else None
+            for _, out in runs]
+    same_pred = [len(out) == len(want) and [r["pred"] for r in out]
+                 == want.argmax(-1).tolist() for _, out in runs]
+    entries = [e for s in stats for _, e in s["entries"]]
+    batches = sum(e["batches"] for e in entries)
+    print("pipeline_fit: a SPARK-mode cluster on the transform's engine, "
+          "which must be refused (its traceback follows)", flush=True)
+    try:
+        TFCluster.run(engine_pred, mnist_pipeline.train_fun, {}, 1,
+                      input_mode=TFCluster.InputMode.SPARK,
+                      reservation_timeout=60)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    summary = dict(
+        fit_rows=cfg["fit_rows"], steps=len(losses),
+        losses_first_last=[losses[0], losses[-1]] if losses else None,
+        fit_s=fit_s, trainer_device=report["device"],
+        feed_transport=report["feed"]["transport"],
+        columnar=report["feed"]["columnar"], rows=cfg["rows"],
+        batch=cfg["transform_batch"], partitions=cfg["partitions"],
+        transform_s_cold_warm=[w for w, _ in runs],
+        rows_per_s_cold_warm=[cfg["rows"] / w for w, _ in runs],
+        rel_err=errs, same_prediction=same_pred,
+        executors=[dict(pid=s["pid"], peak_mem_bytes=s["peak_mem_bytes"],
+                        **{k: v for _, e in s["entries"]
+                           for k, v in e.items()}) for s in stats],
+        predict_ms_per_batch=(sum(e["predict_ms"] for e in entries)
+                              / batches if batches else None),
+        cache_loads=[e["loads"] for e in entries],
+        export_predict=meta.get("predict"),
+        refused_after_transform=bool(refused and "CUDA context" in refused),
+        launches_trainer=report["launches"], gpu=gpu)
+    print("pipeline_fit " + json.dumps(summary), flush=True)
+    if not losses or not all(np.isfinite(losses)) or \
+            not report["device"].startswith(dev.type):
+        raise AssertionError(f"fit losses {losses} on {report['device']}")
+    if any(e is None or e > PIPELINE_RTOL for e in errs) or \
+            not all(same_pred):
+        raise AssertionError(f"transform rows or logits off: {errs}, "
+                             f"same predictions {same_pred}")
+    if len(stats) != engine_pred.num_executors or \
+            any(len(s["entries"]) != 1 for s in stats) or \
+            summary["cache_loads"] != [1] * len(stats) or \
+            sum(e["rows"] for e in entries) != 2 * cfg["rows"]:
+        raise AssertionError(f"model caches {stats}")
+    if not summary["refused_after_transform"]:
+        raise AssertionError(f"a SPARK cluster after transform: {refused}")
+    return export_dir, images, want, report["launches"]
+
+
+def phase_cluster_inference(dev, gpu, engine, export_dir, images, want,
+                            tmp):
+    """``cluster_inference``: ``TFCluster.inference()`` of 16 partitions
+    of 10,000 ``(id, image)`` rows (row j is ``pipeline_fit``'s image
+    j mod 60,000) into a SPARK-mode trainer on the card
+    (``mnist_pipeline.infer_fun``, ``num_gpus=1``), which predicts each
+    batch and returns it through ``DataFeed.batch_results``.  Gates:
+    every row's result once, in partition order, equal to
+    ``pipeline_fit``'s reference.  Returns the trainer's launches."""
+    cfg = PIPELINE
+    n = cfg["infer_partitions"] * cfg["infer_rows"]
+    rows = [(j, images[j % len(images)]) for j in range(n)]
+    t0 = time.perf_counter()
+    c = TFCluster.run(engine, tf32_off_infer,
+                      {"export_dir": export_dir, "out_dir": tmp,
+                       "batch_size": cfg["transform_batch"]},
+                      num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+                      num_gpus=1, reservation_timeout=300)
+    boot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = c.inference(engine.parallelize(rows, cfg["infer_partitions"]),
+                      feed_timeout=600).collect()
+    wall = time.perf_counter() - t0
+    c.shutdown()
+    with open(os.path.join(tmp, "infer-rank0.json")) as f:
+        report = json.load(f)
+    ids_ok = [r[0] for r in out] == list(range(n))
+    ref = want[np.arange(n) % len(want)]
+    err = (_logit_err(np.asarray([r[2] for r in out], np.float32), ref)
+           if ids_ok else None)
+    summary = dict(
+        rows=n, partitions=cfg["infer_partitions"], results=len(out),
+        each_once_in_order=ids_ok, rel_err=err,
+        same_prediction=ids_ok and [r[1] for r in out]
+        == ref.argmax(-1).tolist(),
+        boot_s=boot_s, wall_s=wall, rows_per_s=n / wall,
+        trainer_batches=report["batches"],
+        predict_ms_per_batch=report["predict_ms"] / max(report["batches"], 1),
+        peak_mem_bytes=report["peak_mem_bytes"], device=report["device"],
+        launches=report["launches"], gpu=gpu)
+    print("cluster_inference " + json.dumps(summary), flush=True)
+    if not ids_ok or err is None or err > PIPELINE_RTOL or \
+            not summary["same_prediction"] or \
+            not report["device"].startswith(dev.type):
+        raise AssertionError(f"inference(): {len(out)} results, in order "
+                             f"{ids_ok}, logits off by {err}")
+    return report["launches"]
+
+
+def phase_roles(dev, gpu, engine, tmp):
+    """``roles``: ``examples/mnist_eval`` with a ps node, an evaluator
+    and a chief on ``engine`` (four executors, ``InputMode.TENSORFLOW``):
+    the chief and the worker train on the card in their executors over a
+    gloo group (NCCL refuses two ranks on one card); ps and evaluator
+    fork processes that see no GPU, the evaluator evaluating each
+    checkpoint on the CPU; TensorBoard asked for.  Gates: the roles;
+    eval lines for checkpoint steps; ``shutdown`` returns; after the
+    engine stops, no role process, ring or child-pid file left.
+    Returns the trainers' launches."""
+    model_dir = os.path.join(tmp, "model")
+    mnist_eval.reset_model_dir(model_dir)
+    args = dict(ROLES, model_dir=model_dir, device=None, backend="gloo")
+    t0 = time.perf_counter()
+    try:
+        c = TFCluster.run(
+            engine, mnist_eval.main_fun, args, num_executors=4, num_ps=1,
+            eval_node=True, master_node="chief",
+            input_mode=TFCluster.InputMode.TENSORFLOW, tensorboard=True,
+            log_dir=os.path.join(tmp, "tb"), reservation_timeout=300)
+        roles = sorted(m["job_name"] for m in c.cluster_info)
+        tb_url = c.tensorboard_url()
+        c.shutdown(grace_secs=1)
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    with open(os.path.join(model_dir, "eval_results.jsonl")) as f:
+        evals = [json.loads(ln) for ln in f]
+    records = {}
+    for name in ("ps-0", "evaluator-0", "chief-0", "worker-0"):
+        with open(os.path.join(model_dir, f"{name}.json")) as f:
+            records[name] = json.load(f)
+    pids = [r["pid"] for r in records.values()]
+    alive = [p for p in pids if _running(p)]
+    rings = glob.glob("/dev/shm/tfos-*")
+    pidfile = os.path.exists(os.path.join(os.getcwd(), "tfos_child_pids"))
+    tb_found = profiler._find_tensorboard()
+    summary = dict(
+        roles=roles, wall_s=wall, eval_steps=[e["step"] for e in evals],
+        accuracy=[e["accuracy"] for e in evals],
+        trainer_devices=[records[k]["device"]
+                         for k in ("chief-0", "worker-0")],
+        losses_first_last={k: [records[k]["losses"][0],
+                               records[k]["losses"][-1]]
+                           for k in ("chief-0", "worker-0")},
+        side_cuda_visible={k: records[k]["cuda_visible"]
+                           for k in ("ps-0", "evaluator-0")},
+        tensorboard=tb_url or ("no tensorboard binary found" if not tb_found
+                               else "tensorboard did not start"),
+        role_pids=pids, alive=alive, shm=rings, cwd_child_pid_file=pidfile,
+        gpu=gpu)
+    print("roles " + json.dumps(summary), flush=True)
+    if roles != ["chief", "evaluator", "ps", "worker"] or not evals or \
+            any(e["step"] % ROLES["ckpt_steps"] for e in evals) or \
+            evals[-1]["step"] != ROLES["steps"]:
+        raise AssertionError(f"roles {roles}, evaluations {evals}")
+    if alive or rings or pidfile:
+        raise AssertionError(f"left behind: pids {alive}, rings {rings}, "
+                             f"child-pid file {pidfile}")
+    devices = summary["trainer_devices"]
+    side = summary["side_cuda_visible"]
+    if any(not d.startswith(dev.type) for d in devices) or \
+            any(v != "" for v in side.values()):
+        raise AssertionError(f"trainers on {devices}, ps and evaluator "
+                             f"saw GPUs {side}")
+    return _sum_launches(records["chief-0"]["launches"],
+                         records["worker-0"]["launches"])
+
+
+def _running(pid):
+    """True while ``pid`` runs (a zombie has exited)."""
+    if not _alive(pid):
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def phase_inference_cli(dev, gpu, engine_pred, tf_tmp, tmp):
+    """``inference_cli``: ``inference.run`` (the ``tfos-inference-torch``
+    CLI) over phase 17's four TFRecord shards with phase 17's export, and
+    ``parallel_run`` of ``examples/mnist_inference`` over the same, both
+    on ``engine_pred``.  Gate: every record's prediction (and the CLI's
+    logits) equal ``mnist.predict`` on those records here.  Returns the
+    launches in ``engine_pred``'s executors (phase 23's transforms and
+    these)."""
+    tfr = os.path.join(tf_tmp, "tfr")
+    export_dir = os.path.join(tf_tmp, "model", "export")
+    images, labels = mnist_data_setup.synthetic_mnist(
+        TF_MNIST["num_examples"])
+    params, _ = ckpt.load_exported(export_dir)
+    want = _reference_logits(params, images.reshape(-1, 784), dev)
+    out_dir = os.path.join(tmp, "cli")
+    args = inference.build_parser().parse_args([
+        "--export_dir", export_dir, "--input", tfr, "--output", out_dir,
+        "--input_mapping", json.dumps({"image": "x"}),
+        "--output_mapping", json.dumps({"logits": "logits",
+                                        "prediction": "pred"}),
+        "--batch_size", str(PIPELINE["transform_batch"]),
+        "--signature_def_key", f"{__name__}:tf32_off_predict"])
+    t0 = time.perf_counter()
+    shards = inference.run(args, source=engine_pred)
+    cli_s = time.perf_counter() - t0
+    # one shard a partition, one partition a part file, rows in file
+    # order: each shard is held against the file block its logits match
+    per = TF_MNIST["num_examples"] // TF_MNIST["partitions"]
+    blocks = [want[i * per:(i + 1) * per]
+              for i in range(TF_MNIST["partitions"])]
+    got, cli_errs, matched, preds_ok = 0, [], [], True
+    for path in shards:
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+        got += len(rows)
+        logits = np.asarray([r["logits"] for r in rows], np.float32)
+        errs = [_logit_err(logits, b) if b.shape == logits.shape
+                else np.inf for b in blocks]
+        best = int(np.argmin(errs))
+        matched.append(best)
+        cli_errs.append(float(errs[best]))
+        preds_ok &= [r["pred"] for r in rows] == \
+            blocks[best].argmax(-1).tolist()
+    cli_err = max(cli_errs) if cli_errs and np.isfinite(max(cli_errs)) \
+        else None
+    cli_pred = preds_ok and got == len(want) and \
+        sorted(matched) == list(range(TF_MNIST["partitions"]))
+
+    par_dir = os.path.join(tmp, "parallel")
+    t0 = time.perf_counter()
+    counts = parallel_run.run(
+        engine_pred, tf32_off_parallel_infer,
+        {"data_dir": tfr, "export_dir": export_dir, "output": par_dir},
+        num_executors=2)
+    par_s = time.perf_counter() - t0
+    lines = []
+    for name in sorted(os.listdir(par_dir)):
+        with open(os.path.join(par_dir, name)) as f:
+            lines += f.read().splitlines()
+    files = list(range(TF_MNIST["partitions"]))
+    order = [i for w in range(2) for s in files[w::2]
+             for i in range(s * per, (s + 1) * per)]
+    par_ok = lines == [f"{labels[i]} {want[i].argmax()}" for i in order]
+    launches = engine_pred.parallelize(
+        range(engine_pred.num_executors), engine_pred.num_executors
+    ).map_partitions(executor_launches).collect(spread=True)
+    summary = dict(
+        records=len(want), cli_shards=len(shards), cli_rows=got,
+        cli_s=cli_s, cli_rows_per_s=got / cli_s, cli_rel_err=cli_err,
+        cli_same_predictions=cli_pred, cli_shard_files=matched,
+        parallel_workers=len(counts),
+        parallel_predictions=sum(counts), parallel_s=par_s,
+        parallel_same_predictions=par_ok,
+        executor_launches=launches, gpu=gpu)
+    print("inference_cli " + json.dumps(summary), flush=True)
+    if cli_err is None or cli_err > PIPELINE_RTOL or not cli_pred or \
+            not par_ok or sum(counts) != len(want):
+        raise AssertionError(f"CLI logits off by {cli_err}, predictions "
+                             f"{cli_pred}; parallel_run {par_ok}")
+    return _sum_launches(*launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2451,14 +2870,19 @@ def main():
     # the decode pool's two replicas (each a CUDA context on the card):
     # an engine of their own, which forks no trainer
     engine_serve = LocalEngine(2)
+    # the pipeline phases: the fit and inference()'s trainer fork from
+    # one executor that never touches CUDA; the transforms, the CLI and
+    # parallel_run predict inside two others; the roles run on four
+    engine_fit = LocalEngine(1)
+    engine_pred = LocalEngine(2)
+    engine_roles = LocalEngine(4)
+    engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
+               engine_pred, engine_roles)
     try:
-        kernels = run_phases(dev, gpu, engine, engine_mgr, engine_tf,
-                             engine_serve)
+        kernels = run_phases(dev, gpu, *engines)
     finally:
-        engine.stop()
-        engine_mgr.stop()
-        engine_tf.stop()
-        engine_serve.stop()
+        for e in engines:
+            e.stop()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2467,7 +2891,8 @@ def main():
     return 0
 
 
-def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve):
+def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
+               engine_fit, engine_pred, engine_roles):
     """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
@@ -2528,6 +2953,18 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve):
         engine_serve.stop()
         engine_tf.stop()
         check_serve_cleanup(pids)
+        # the pipeline and SPARK-mode inference (phases 23-26)
+        pipe_tmp = tempfile.mkdtemp(prefix="tfos_pipeline_", dir=serve_tmp)
+        export_dir, images, want, fit_launches = phase_pipeline_fit(
+            dev, gpu, engine_fit, engine_pred, pipe_tmp)
+        infer_launches = phase_cluster_inference(
+            dev, gpu, engine_fit, export_dir, images, want, pipe_tmp)
+        del images, want
+        roles_launches = phase_roles(dev, gpu, engine_roles, pipe_tmp)
+        pred_launches = phase_inference_cli(dev, gpu, engine_pred, tf_tmp,
+                                            pipe_tmp)
+        pipeline_launches = _sum_launches(fit_launches, infer_launches,
+                                          roles_launches, pred_launches)
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
         shutil.rmtree(tf_tmp, ignore_errors=True)
@@ -2590,9 +3027,15 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve):
         k["launches_tf_mode"] = tf_mode_launches[k["name"]]
         # the decode pool's replicas in serve_decode, summed
         k["launches_serve"] = serve_launches[k["name"]]
+        # phases 23-26: the fit's and inference()'s trainers, the roles'
+        # chief and worker, and the predicting executors, summed
+        k["launches_pipeline"] = pipeline_launches[k["name"]]
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")
+    if any(pipeline_launches.values()):
+        raise AssertionError(f"the pipeline paths launched "
+                             f"{pipeline_launches}")
     return kernels
 
 

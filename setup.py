@@ -28,6 +28,8 @@ setup(
         "console_scripts": [
             # parity: the reference's spark-submit Inference.scala CLI
             "tfos-inference=tensorflowonspark_tpu.inference:main",
+            # the PyTorch/CUDA port's batch-inference CLI
+            "tfos-inference-torch=tensorflowonspark_tpu_torch.inference:main",
             # online serving (docs/serving.md) — no reference equivalent
             "tfos-serve=tensorflowonspark_tpu.serving.server:main",
             # the PyTorch/CUDA port's online serving

@@ -20,9 +20,13 @@ path: the package's own copies of the cluster layer (``cluster``,
 trainers forked from the executors, which join one process group
 (``TFNodeContext.torch_initialize``); with it came the last kernel,
 RMSNorm (``ops.fused_rmsnorm``, ``ops/csrc/rmsnorm.cu``).  Later slices
-brought ResNet, the feed's shm ring, TFRecord IO and the online serving
+brought ResNet, the feed's shm ring, TFRecord IO, the online serving
 tier (``serving.Server`` over a supervised ``ReplicaPool``, its HTTP
-frontend and ``cluster.TFCluster.serve``).
+frontend and ``cluster.TFCluster.serve``), and the Spark ML layer
+(``pipeline.TFEstimator``/``TFModel``, ``spark_ml``, the
+``tfos-inference-torch`` CLI, ``parallel_run``) with SPARK-mode
+inference (``TFCluster.inference``), ps and evaluator nodes and a
+pyspark ``SparkContext`` as the engine.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); :func:`resolve_device` never falls

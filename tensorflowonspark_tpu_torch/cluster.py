@@ -1,21 +1,27 @@
 """Driver-side cluster orchestration.
 
-An own copy of the part of ``tensorflowonspark_tpu/cluster.py`` that the
-SPARK-fed training path calls: ``run()`` computes the cluster template
-(which executor is chief or worker), starts the rendezvous server,
-launches one node per executor on a background thread and waits for all
-of them to register; the ``TFCluster`` it returns feeds a dataset into
-the trainers (``train``) and stops them (``shutdown``).
+An own copy of ``tensorflowonspark_tpu/cluster.py``, less recovery and
+the observability planes: ``run()`` computes the cluster template
+(which executor is ps, evaluator, chief or worker), starts the
+rendezvous server, launches one node per executor on a background
+thread (and ps nodes on driver threads with ``driver_ps_nodes``) and
+waits for all of them to register; the ``TFCluster`` it returns feeds a
+dataset into the trainers (``train``), maps one through them
+(``inference``) and stops them (``shutdown``: end-of-feed to the
+compute nodes, then a stop message to each ps and evaluator node's
+remote manager).
 
 ``num_gpus`` is the per-executor GPU claim (``gpu_info``), the
-counterpart of the JAX package's ``num_chips``.  Arguments the copy does
-not carry raise NotImplementedError naming their ROADMAP.md item: the
-data service and streaming feeds, ``restarts`` / ``min_executors``
-recovery, ps/evaluator nodes, ``inference()`` and TensorBoard.
-``serve()`` stands up the online serving tier on the cluster's engine
-after ``shutdown()``.  The live metrics endpoint and the telemetry drain
-are left out too (item 21): with ``TFOS_TELEMETRY_DIR`` set, every
-process writes its spans straight into that directory.
+counterpart of the JAX package's ``num_chips``; ps and evaluator nodes
+claim none.  ``sc`` is a ``LocalEngine`` or a pyspark ``SparkContext``
+(``engine.SparkEngine``).  Arguments the copy does not carry raise
+NotImplementedError naming their ROADMAP.md item: the data service and
+streaming feeds, ``restarts`` / ``min_executors`` recovery and a trainer
+process chosen apart from ``input_mode``.  ``serve()`` stands up the
+online serving tier on the cluster's engine after ``shutdown()``.  The
+live metrics endpoint and the telemetry drain are left out too (item
+21): with ``TFOS_TELEMETRY_DIR`` set, every process writes its spans
+straight into that directory.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ import threading
 import time
 
 from tensorflowonspark_tpu_torch import engine as engine_mod
+from tensorflowonspark_tpu_torch import manager as tfmanager
 from tensorflowonspark_tpu_torch import node, rendezvous
-from tensorflowonspark_tpu_torch.node import ROLES_ITEM
 from tensorflowonspark_tpu_torch.utils import telemetry
 
 logger = logging.getLogger(__name__)
@@ -60,13 +66,16 @@ class TFCluster:
     input_mode = None
     queues = None
     server = None
-    _node_ids = None
+    _node_ids = None    # the executors that host a node
+    _feed_ids = None    # those of them that host a compute node
     _launcher = None
+    _driver_ps = ()     # threads of the ps nodes hosted by the driver
 
     def train(self, dataset, num_epochs=1, feed_timeout=600, qname="input"):
         """Feed ``dataset`` into the trainers.  Epochs are the dataset
-        unioned with itself.  Partition i goes to the node on executor
-        ``node_ids[i % n]``, so every trainer gets a balanced share; a
+        unioned with itself.  Partition i goes to the i-th compute node
+        (modulo their number; ps and evaluator nodes are fed nothing), so
+        every trainer gets a balanced share; a
         partition counts as fed once its trainer consumed it (the
         rendezvous server's feed ledger, ``server.fed_partitions``)."""
         if self.input_mode != InputMode.SPARK:
@@ -85,7 +94,7 @@ class TFCluster:
         self.server.reset_feed(qname)
         feeder = node.train(self.cluster_info, self.cluster_meta,
                             feed_timeout, qname)
-        ids = self._node_ids
+        ids = self._feed_ids
         ds.foreach_partition(
             feeder, placement=[ids[i % len(ids)]
                                for i in range(ds.num_partitions)])
@@ -94,8 +103,23 @@ class TFCluster:
         raise NotImplementedError(f"streaming feeds come with "
                                   f"{STREAMING_ITEM}")
 
-    def inference(self, *args, **kwargs):
-        raise NotImplementedError(f"inference() comes with {ROLES_ITEM}")
+    def inference(self, dataset, feed_timeout=600, qname="input"):
+        """``dataset`` mapped through the trainers, lazily: a dataset
+        whose partition i holds, in order, the results the trainer that
+        consumed partition i returned through ``DataFeed.batch_results``,
+        one a record (``node.inference``).  Collect it to run it."""
+        if self.input_mode != InputMode.SPARK:
+            raise ValueError("inference() requires InputMode.SPARK")
+        ds = engine_mod.as_dataset(dataset)
+        return ds.map_partitions(node.inference(
+            self.cluster_info, self.cluster_meta, feed_timeout, qname))
+
+    def tensorboard_url(self):
+        """The dashboard node's TensorBoard URL, or None when none runs."""
+        for m in self.cluster_info:
+            if m.get("tb_port"):
+                return f"http://{m['host']}:{m['tb_port']}"
+        return None
 
     def serve(self, export_dir=None, ckpt_dir=None, num_replicas=None,
               **kw):
@@ -120,10 +144,12 @@ class TFCluster:
         return server
 
     def shutdown(self, ssc=None, grace_secs=0, timeout=259200):
-        """Stop the cluster: end-of-feed to every node and the trainers
-        reaped (the shutdown task), then the launcher joined.  A node's
-        failure raises ``TaskError``, a failure the launcher saw exits
-        the driver with 1, as in the JAX package."""
+        """Stop the cluster: end-of-feed to every compute node and the
+        trainers reaped (the shutdown task), then a stop message to each
+        ps and evaluator node's control queue, which frees its slot, then
+        the launcher joined.  A node's failure raises ``TaskError``, a
+        failure the launcher saw exits the driver with 1, as in the JAX
+        package."""
         if ssc is not None:
             raise NotImplementedError(f"streaming contexts come with "
                                       f"{STREAMING_ITEM}")
@@ -138,12 +164,21 @@ class TFCluster:
         watchdog.start()
         try:
             t0 = time.perf_counter()
-            ids = sorted(m["executor_id"] for m in self.cluster_info)
-            self.engine.parallelize(ids, len(ids)).foreach_partition(
-                node.shutdown(self.cluster_info, self.queues, grace_secs),
-                placement=ids)
+            ids = list(self._feed_ids)
+            if ids:
+                self.engine.parallelize(ids, len(ids)).foreach_partition(
+                    node.shutdown(self.cluster_info, self.queues,
+                                  grace_secs),
+                    placement=ids)
+            # ps and evaluator nodes hold their slots until told to stop,
+            # so the launcher's job ends only after this
+            for m in self.cluster_info:
+                if m["job_name"] in node.SIDE_JOBS:
+                    _stop_remote_node(m)
             if self._launcher is not None:
                 self._launcher.join(timeout=timeout)
+            for t in self._driver_ps:
+                t.join(timeout=timeout)
             telemetry.record_span("cluster/shutdown",
                                   time.perf_counter() - t0)
             if tf_status.get("error"):
@@ -155,6 +190,42 @@ class TFCluster:
             self.server.stop()
             telemetry.flush()
         logger.info("cluster shut down")
+
+
+def _stop_remote_node(m):
+    """None on a ps or evaluator node's control queue, through its
+    remote manager (a 15 s connect timeout; the loopback address too,
+    where the advertised one does not answer)."""
+    import socket
+
+    addr = tuple(m["addr"])
+    candidates = [addr]
+    if addr[0] not in ("127.0.0.1", "localhost"):
+        candidates.append(("127.0.0.1", addr[1]))
+    old = socket.getdefaulttimeout()
+    socket.setdefaulttimeout(15)
+    last = None
+    try:
+        for cand in candidates:
+            try:
+                mgr = tfmanager.connect(cand, bytes.fromhex(m["authkey"]))
+                mgr.get_queue("control").put(None, block=True)
+                return
+            except Exception as e:  # noqa: BLE001 - try the next address
+                last = e
+        logger.warning("could not stop %s:%s at %s: %s", m["job_name"],
+                       m["task_index"], candidates, last)
+    finally:
+        socket.setdefaulttimeout(old)
+
+
+def _run_driver_ps(node_fn, ps_id):
+    """A ps node on a driver thread; its failure goes to ``tf_status``."""
+    try:
+        node_fn([ps_id])
+    except Exception as e:  # noqa: BLE001 - reported through tf_status
+        logger.exception("driver ps node %d failed", ps_id)
+        tf_status["error"] = str(e)
 
 
 def _launch(nodes_ds, node_fn, node_ids):
@@ -175,21 +246,25 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         data_dispatch=None, min_executors=0):
     """Start the cluster and return a :class:`TFCluster`.
 
-    ``sc`` is a ``LocalEngine``.  ``map_fun(args, ctx)`` is a
-    module-level function (executors import it); it runs in a trainer
-    forked from each executor for ``InputMode.SPARK``, in the executor
-    itself otherwise (``background`` other than None raises
-    NotImplementedError: ROADMAP.md queue 1, item 14).  ``num_gpus``:
-    GPUs each executor claims (``CUDA_VISIBLE_DEVICES`` by same-host
-    worker index); 0 leaves the environment as it is, as the CPU runs
-    do.  ``master_node``: "chief" or "master" takes executor 0.
-    ``reservation_timeout`` bounds the wait for the nodes to register
-    and, in each trainer, the process group's collectives."""
-    if num_ps or driver_ps_nodes or eval_node:
-        raise NotImplementedError(f"ps/evaluator nodes come with "
-                                  f"{ROLES_ITEM}")
-    if tensorboard or log_dir is not None:
-        raise NotImplementedError(f"TensorBoard comes with {ROLES_ITEM}")
+    ``sc`` is a ``LocalEngine`` or a pyspark ``SparkContext``.
+    ``map_fun(args, ctx)`` is a module-level function (executors import
+    it); it runs in a trainer forked from each executor for
+    ``InputMode.SPARK``, in the executor itself otherwise, and in a
+    forked process on ps and evaluator nodes (``background`` other than
+    None raises NotImplementedError: ROADMAP.md queue 1, item 14).
+    ``num_ps`` ps nodes take the first executors (or, with
+    ``driver_ps_nodes``, which needs ``InputMode.TENSORFLOW``, run on
+    driver threads beside the ``num_executors`` executors);
+    ``eval_node`` makes the next one an evaluator; ``master_node``
+    ("chief" or "master") takes the next; the rest are workers.
+    ``num_gpus``: GPUs each compute node claims (``CUDA_VISIBLE_DEVICES``
+    by same-host worker index); 0 leaves the environment as it is, as
+    the CPU runs do.  ``tensorboard``: the dashboard node (the chief, or
+    worker 0) starts TensorBoard on ``log_dir`` (default
+    ``<cwd>/tensorboard/cluster-<id>``); see :meth:`TFCluster.
+    tensorboard_url`.  ``reservation_timeout`` bounds the wait for the
+    nodes to register and, in each trainer, the process group's
+    collectives."""
     if restarts or min_executors:
         raise NotImplementedError(
             f"restarts and min_executors come with {engine_mod.RESTARTS_ITEM}")
@@ -200,6 +275,11 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     if data_workers or data_dispatch is not None:
         raise NotImplementedError(f"the data service comes with "
                                   f"{DATA_SERVICE_ITEM}")
+    if driver_ps_nodes and input_mode != InputMode.TENSORFLOW:
+        raise ValueError("driver_ps_nodes requires InputMode.TENSORFLOW")
+    if num_ps >= num_executors and not driver_ps_nodes:
+        raise ValueError("num_ps must be less than num_executors (or use "
+                         "driver_ps_nodes)")
     start_t0 = time.perf_counter()
     eng = engine_mod.as_engine(sc)
     queues = list(queues)
@@ -207,17 +287,28 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         raise ValueError(f"num_executors {num_executors} > the engine's "
                          f"{eng.num_executors}")
 
-    ids = list(range(num_executors))
+    # ids past the executors are the driver's ps nodes
+    cluster_size = num_executors + (num_ps if driver_ps_nodes else 0)
+    ids = list(range(cluster_size))
     template = {}
+    if driver_ps_nodes:
+        template["ps"] = ids[num_executors:]
+        pool = ids[:num_executors]
+    else:
+        if num_ps:
+            template["ps"] = ids[:num_ps]
+        pool = ids[num_ps:]
+    if eval_node:
+        template["evaluator"] = [pool.pop(0)]
     if master_node:
         if master_node not in ("chief", "master"):
             raise ValueError("master_node must be 'chief' or 'master'")
-        template[master_node] = [ids.pop(0)]
-    if ids:
-        template["worker"] = ids
+        template[master_node] = [pool.pop(0)]
+    if pool:
+        template["worker"] = pool
     logger.info("cluster template: %s", template)
 
-    server = rendezvous.Server(num_executors)
+    server = rendezvous.Server(cluster_size)
     server_addr = server.start()
     cluster_meta = {
         "id": random.getrandbits(64),
@@ -230,10 +321,12 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         "reservation_timeout": reservation_timeout,
     }
     tf_status.clear()
-    node_fn = node.run(map_fun, tf_args, cluster_meta, queues=queues,
-                       background=input_mode == InputMode.SPARK,
-                       num_gpus=num_gpus)
+    node_args = dict(tensorboard=tensorboard, log_dir=log_dir,
+                     queues=queues, num_gpus=num_gpus,
+                     background=input_mode == InputMode.SPARK)
+    node_fn = node.run(map_fun, tf_args, cluster_meta, **node_args)
     node_ids = list(range(num_executors))
+    side = {i for job in node.SIDE_JOBS for i in template.get(job, ())}
 
     c = TFCluster()
     c.engine = eng
@@ -242,6 +335,16 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     c.queues = queues
     c.server = server
     c._node_ids = node_ids
+    c._feed_ids = [i for i in node_ids if i not in side]
+    if driver_ps_nodes:
+        driver_fn = node.run(map_fun, tf_args, cluster_meta, in_driver=True,
+                             **node_args)
+        c._driver_ps = [threading.Thread(
+            target=_run_driver_ps, args=(driver_fn, ps_id),
+            name=f"tfos-driver-ps-{ps_id}", daemon=True)
+            for ps_id in template["ps"]]
+        for t in c._driver_ps:
+            t.start()
     c._launcher = threading.Thread(
         target=_launch, name="tfos-launcher", daemon=True,
         args=(eng.parallelize(node_ids, len(node_ids)), node_fn, node_ids))

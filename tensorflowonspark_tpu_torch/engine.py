@@ -37,8 +37,12 @@ Differences from the JAX package:
   budget (``TFOS_EXECUTOR_RESPAWNS``) after its children are killed;
   its lost tasks are re-dispatched from the kept blobs.  A job that is
   not retryable fails at the first task error or executor death.
-  Elastic shrink, epoch fences and the ``SparkEngine`` adapter are not
-  ported (ROADMAP.md queue 1, item 15).
+  Elastic shrink and epoch fences are not ported (ROADMAP.md queue 1,
+  item 15).
+- ``SparkEngine`` and ``SparkDataset`` adapt a pyspark ``SparkContext``
+  and its RDDs, as in the JAX package; ``as_engine`` and ``as_dataset``
+  take them.  Spark ships tasks with its own serializer, but the
+  adapter's own callables are module-level classes all the same.
 - No ``from_partitions`` and no caller-owned scratch root (``workdir``
   raises NotImplementedError, ROADMAP.md queue 1, item 14).
 """
@@ -63,7 +67,7 @@ from tensorflowonspark_tpu_torch.utils import faults, telemetry
 
 logger = logging.getLogger(__name__)
 
-RESTARTS_ITEM = "ROADMAP.md queue 1, item 15 (restarts, elastic, SparkEngine)"
+RESTARTS_ITEM = "ROADMAP.md queue 1, item 15 (restarts, elastic)"
 
 
 class TaskError(RuntimeError):
@@ -600,23 +604,122 @@ class LocalEngine:
         shutil.rmtree(self._root, ignore_errors=True)
 
 
-def as_dataset(obj):
-    """``obj`` if it is a ``LocalDataset``; raises otherwise."""
-    if isinstance(obj, LocalDataset):
-        return obj
+# ----------------------------------------------------------------------------
+# Spark adapter
+# ----------------------------------------------------------------------------
+
+class _BarrierRun:
+    """A ``foreach_partition`` function under barrier execution: runs
+    ``fn`` and yields one item, since a barrier stage ends in an action."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, it):
+        self.fn(it)
+        return iter([0])
+
+
+def _identity(it):
+    return it
+
+
+class SparkDataset:
+    """An RDD behind the dataset contract.
+
+    ``spread`` and ``placement`` map onto Spark's barrier execution
+    (``rdd.barrier()``): every partition is scheduled at once, one a
+    free slot.  Spark pins no task to an executor; the node's feeder and
+    shutdown tasks find their node by the executor-id file of whichever
+    executor they land on, as in the JAX package, so barrier's distinct
+    slots are what they need.  ``retryable`` and ``max_retries`` are
+    accepted and left to Spark's own task retries
+    (``spark.task.maxFailures``)."""
+
+    def __init__(self, rdd):
+        self.rdd = rdd
+
+    @property
+    def num_partitions(self):
+        return self.rdd.getNumPartitions()
+
+    def map_partitions(self, fn):
+        return SparkDataset(self.rdd.mapPartitions(fn))
+
+    def foreach_partition(self, fn, spread=False, placement=None,
+                          retryable=False, max_retries=None):
+        del retryable, max_retries
+        if spread or placement is not None:
+            self.rdd.barrier().mapPartitions(_BarrierRun(fn)).count()
+        else:
+            self.rdd.foreachPartition(fn)
+
+    def collect(self, spread=False, retryable=False, max_retries=None):
+        del retryable, max_retries
+        if spread:
+            return self.rdd.barrier().mapPartitions(_identity).collect()
+        return self.rdd.collect()
+
+    def union(self, *others):
+        rdd = self.rdd
+        for o in others:
+            rdd = rdd.union(o.rdd if isinstance(o, SparkDataset) else o)
+        return SparkDataset(rdd)
+
+    def repartition(self, num_partitions):
+        return SparkDataset(self.rdd.repartition(num_partitions))
+
+
+class SparkEngine:
+    """A pyspark ``SparkContext`` behind the engine contract.  The node
+    runtime needs a fixed executor set for a cluster's life, so dynamic
+    allocation raises, as in the JAX package."""
+
+    def __init__(self, sc):
+        self.sc = sc
+        conf = sc.getConf()
+        self.num_executors = int(conf.get("spark.executor.instances", "1"))
+        if conf.get("spark.dynamicAllocation.enabled",
+                    "false").strip().lower() == "true":
+            raise RuntimeError(
+                "TFCluster requires spark.dynamicAllocation.enabled=false: "
+                "executors host long-lived nodes and must not be reclaimed "
+                "mid-job")
+
+    @property
+    def default_fs(self):
+        return self.sc._jsc.hadoopConfiguration().get("fs.defaultFS")
+
+    def parallelize(self, seq, num_partitions=None):
+        return SparkDataset(self.sc.parallelize(seq, num_partitions))
+
+    def cancel_all_jobs(self):
+        self.sc.cancelAllJobs()
+
+    def stop(self):
+        """Nothing: the caller owns the SparkContext."""
+
+
+def _is_pyspark(obj, name):
     cls = type(obj)
-    if cls.__module__.startswith("pyspark"):
-        raise NotImplementedError(
-            f"pyspark datasets come with {RESTARTS_ITEM}")
-    raise TypeError(f"not a dataset: {obj!r}")
+    return cls.__module__.startswith("pyspark") and cls.__name__ == name
+
+
+def as_dataset(obj):
+    """``obj`` as a dataset: a ``LocalDataset`` or ``SparkDataset`` as it
+    is, a pyspark RDD wrapped; raises otherwise."""
+    if isinstance(obj, (LocalDataset, SparkDataset)):
+        return obj
+    if _is_pyspark(obj, "RDD"):
+        return SparkDataset(obj)
+    raise TypeError(f"not a dataset or RDD: {obj!r}")
 
 
 def as_engine(obj):
-    """``obj`` if it is a ``LocalEngine``; raises otherwise."""
-    if isinstance(obj, LocalEngine):
+    """``obj`` as an engine: a ``LocalEngine`` or ``SparkEngine`` as it
+    is, a pyspark ``SparkContext`` wrapped; raises otherwise."""
+    if isinstance(obj, (LocalEngine, SparkEngine)):
         return obj
-    cls = type(obj)
-    if cls.__module__.startswith("pyspark"):
-        raise NotImplementedError(
-            f"a SparkContext comes with {RESTARTS_ITEM}")
-    raise TypeError(f"not an engine: {obj!r}")
+    if _is_pyspark(obj, "SparkContext"):
+        return SparkEngine(obj)
+    raise TypeError(f"not an engine or SparkContext: {obj!r}")

@@ -2,8 +2,10 @@
 
 An own copy of the part of ``tensorflowonspark_tpu/feed.py`` that the
 SPARK-fed training path calls (``next_batch``, ``next_batch_columns``,
-``should_stop``, ``terminate``, ``poison``, ``batch_results``), and
-``hdfs_path``, behind ``TFNodeContext.absolute_path``.  Queue
+``should_stop``, ``terminate``, ``poison``, ``batch_results``),
+``hdfs_path``, behind ``TFNodeContext.absolute_path``, and the
+deprecated TF1-era shims ``start_cluster_server`` and
+``export_saved_model``, which warn and forward.  Queue
 items are chunks that the feeder tasks push, so a batch costs one hop
 per chunk, not per record; a chunk that overfills a batch carries over
 to the next call.
@@ -357,8 +359,9 @@ class DataFeed:
         return self.done_feeding
 
     def batch_results(self, results):
-        """Push one batch of results to the output queue."""
-        self.mgr.get_queue(self.qname_out).put(list(results))
+        """Push one batch of results to the output queue, through the
+        manager's cached proxy (a new one costs a connection)."""
+        self.mgr.queue(self.qname_out).put(list(results))
 
     def poison(self):
         """End the feed for its consumer without the producer handshake:
@@ -399,3 +402,50 @@ class DataFeed:
                 self._get_once(POLL_MS)
             except Exception:  # noqa: BLE001 - empty, or manager gone
                 break
+
+
+class _ClusterServer:
+    """What ``start_cluster_server`` returns, in place of a
+    ``tf.train.Server``: the coordinator's address as ``target``."""
+
+    def __init__(self, target):
+        self.target = target
+
+    @staticmethod
+    def join():
+        raise RuntimeError(
+            "server.join() has no counterpart: a ps node holds its slot "
+            "through the framework's control queue")
+
+
+def start_cluster_server(ctx, num_gpus=1, rdma=False):
+    """Deprecated TF1-era API: joins the job through
+    ``ctx.torch_initialize()`` and returns an object whose ``target`` is
+    the coordinator's address and whose ``join()`` raises.  Kept so
+    ported ``main_fun``s run."""
+    import warnings
+
+    del num_gpus, rdma
+    warnings.warn("start_cluster_server is deprecated; use "
+                  "ctx.torch_initialize()", DeprecationWarning, stacklevel=2)
+    env = ctx.torch_initialize()
+    return _ClusterServer(env.get("coordinator_address"))
+
+
+def export_saved_model(sess=None, export_dir=None, tag_set=None,
+                       signatures=None, params=None, ctx=None,
+                       metadata=None):
+    """Deprecated TF1-era export: forwards to
+    ``utils.checkpoint.export_model(export_dir, params, ctx,
+    metadata=metadata)`` (chief only), after a warning."""
+    import warnings
+
+    from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
+
+    del sess, tag_set, signatures
+    warnings.warn("TFNode.export_saved_model is deprecated; use "
+                  "utils.checkpoint.export_model", DeprecationWarning,
+                  stacklevel=2)
+    if export_dir is None or params is None:
+        raise ValueError("export_saved_model needs export_dir and params")
+    return ckpt.export_model(export_dir, params, ctx, metadata=metadata)

@@ -10,9 +10,9 @@ executor.  Queue items are chunks, one IPC hop per chunk; the 'input'
 chunks take the node's shm ring instead when it advertises one
 (``feed.open_feed_ring``).
 
-Left out: the 'remote' mode that ps/evaluator nodes use, and the
-telemetry-drain and live-metrics channels (ROADMAP.md queue 1, items 20
-and 21).
+``mode="remote"`` binds every interface, so that the driver can reach
+a ps or evaluator node's control queue.  Left out: the telemetry-drain
+and live-metrics channels (ROADMAP.md queue 1, item 21).
 """
 
 from __future__ import annotations
@@ -109,16 +109,17 @@ def _get_kv():
 
 
 def start(authkey, queues, mode="local"):
-    """Start this executor's manager on loopback; returns it (its
-    ``.address`` is (host, port)).  Its server process is recorded as a
-    child of the executor, so the engine's teardown can kill it."""
-    if mode != "local":
-        raise NotImplementedError(
-            "remote managers (ps/evaluator nodes) come with ROADMAP.md "
-            "queue 1, item 20")
+    """Start this executor's manager; returns it (its ``.address`` is
+    (host, port)).  ``mode``: "local" listens on loopback, "remote" on
+    every interface (ps and evaluator nodes, whose control queue the
+    driver reaches).  Its server process is recorded as a child of the
+    executor, so the engine's teardown can kill it."""
+    if mode not in ("local", "remote"):
+        raise ValueError(f"mode must be 'local' or 'remote', got {mode!r}")
     TFManager.register("get_queue", callable=_get_queue)
     TFManager.register("kv", callable=_get_kv, proxytype=DictProxy)
-    mgr = TFManager(address=("localhost", 0), authkey=authkey)
+    host = "localhost" if mode == "local" else ""
+    mgr = TFManager(address=(host, 0), authkey=authkey)
     mgr.start()
     proc = getattr(mgr, "_process", None)
     if proc is not None and proc.pid:
@@ -126,7 +127,7 @@ def start(authkey, queues, mode="local"):
     for name in queues:  # the queues exist before any consumer asks
         mgr.get_queue(name)
     mgr.set("state", "running")
-    logger.info("started TFManager on %s", mgr.address)
+    logger.info("started TFManager on %s (mode=%s)", mgr.address, mode)
     return mgr
 
 

@@ -71,17 +71,20 @@ def params_to_jax(params):
 
 def predict(params, inputs, device=None):
     """The export's predict signature, named in export metadata as
-    ``tensorflowonspark_tpu_torch.models.mnist:predict``: ``params`` in
-    the JAX layout (``utils.checkpoint.load_exported``), ``inputs``
+    ``tensorflowonspark_tpu_torch.models.mnist:predict``: ``inputs``
     ``{tensor_name: images}`` of ``[N, 28, 28, 1]`` or flat 784-wide rows
     -> ``{"prediction": [N], "logits": [N, 10]}`` as numpy arrays.
-    ``device``: as :func:`params_from_jax` (None is the card)."""
-    params = params_from_jax(params, device=device)
+    ``params``: the JAX layout (``utils.checkpoint.load_exported``), put
+    on ``device`` as :func:`params_from_jax` does (None is the card) on
+    every call, or tensors from :func:`params_from_jax`, used where they
+    are (a caller that predicts many batches converts once)."""
+    if not isinstance(params["fc2"]["w"], torch.Tensor):
+        params = params_from_jax(params, device=device)
     (x,) = inputs.values()
     x = np.asarray(x, dtype=np.float32)
     if x.ndim == 2:  # flat 784-wide rows (CSV / TFRecord ingestion)
         x = x.reshape(-1, 28, 28, 1)
-    dev = next(iter(params["fc2"].values())).device
+    dev = params["fc2"]["w"].device
     with torch.no_grad():
         logits = apply(params, torch.from_numpy(x).to(dev)).cpu().numpy()
     return {"prediction": logits.argmax(-1), "logits": logits}

@@ -1,30 +1,41 @@
 """Executor-side node runtime.
 
-An own copy of the part of ``tensorflowonspark_tpu/node.py`` that the
-SPARK-fed training path calls.  One node per engine executor; the node
-task:
+An own copy of ``tensorflowonspark_tpu/node.py``, less recovery and
+the observability planes.  One node per engine executor; the node task:
 
-1. claims GPUs for this worker (``gpu_info``: ``CUDA_VISIBLE_DEVICES``,
-   with no CUDA call in the executor),
-2. derives its job and task index from the cluster template,
-3. starts the executor's IPC manager (``manager``),
+1. derives its job and task index from the cluster template,
+2. claims GPUs for a compute node (chief, master, worker) through
+   ``gpu_info`` (``CUDA_VISIBLE_DEVICES``, with no CUDA call in the
+   executor); ps and evaluator nodes claim none,
+3. starts the executor's IPC manager (``manager``; "remote" for ps and
+   evaluator nodes, whose control queue the driver reaches), and, on the
+   dashboard node, TensorBoard (``utils.profiler``), whose port travels
+   in the reservation,
 4. reserves a port, registers with the driver's rendezvous server and
    waits for the whole cluster,
 5. runs the user's ``main_fun(args, ctx)``: in the foreground, or for
    ``InputMode.SPARK`` in a trainer *forked* from the executor, so the
    executor's slot frees up for the feeder tasks.  The trainer joins the
-   job through ``ctx.torch_initialize()``.
+   job through ``ctx.torch_initialize()``.  A ps or evaluator node runs
+   ``main_fun`` in a forked process too, with no GPU visible, and holds
+   its slot until the driver's stop message (``_control_wait_loop``).
 
-The feeder and shutdown tasks reattach to the node's manager through the
-executor-id file and move data in chunks.  The 'input' chunks go through
-a shared-memory ring (``recordio.shm``) that the node creates for its
-executor and advertises in the manager's KV (``shm_input``), with no
-trip through the manager process; numeric records travel as
-``marker.ColumnChunk``s (``_make_chunk_encoder``).  Where the ring
-cannot be made (``TFOS_SHM_FEED=0``, no compiler, too little
-``/dev/shm``), the manager queue carries them, as in the JAX package.
-``run``, ``train`` and ``shutdown`` return instances of module-level
-classes, which the engine ships with plain ``pickle``.
+A trainer forked from a process that holds a CUDA context cannot use
+CUDA.  Executors never touch CUDA themselves, but a job run on one may
+(``pipeline.TFModel.transform`` predicts in the executor, and
+``InputMode.TENSORFLOW`` trains there): a node asked to fork a trainer
+in such an executor refuses at once with an error that says so.
+
+The feeder, inference and shutdown tasks reattach to the node's manager
+through the executor-id file and move data in chunks.  The 'input'
+chunks go through a shared-memory ring (``recordio.shm``) that the node
+creates for its executor and advertises in the manager's KV
+(``shm_input``), with no trip through the manager process; numeric
+records travel as ``marker.ColumnChunk``s (``_make_chunk_encoder``).
+Where the ring cannot be made (``TFOS_SHM_FEED=0``, no compiler, too
+little ``/dev/shm``), the manager queue carries them, as in the JAX
+package.  ``run``, ``train``, ``inference`` and ``shutdown`` are
+module-level classes, which the engine ships with plain ``pickle``.
 
 Switches, read where the task runs: ``TFOS_SHM_FEED`` (1; 0 for the
 manager queue), ``TFOS_SHM_FEED_BYTES`` (the ring's capacity, 256 MiB),
@@ -32,9 +43,8 @@ manager queue), ``TFOS_SHM_FEED_BYTES`` (the ring's capacity, 256 MiB),
 (records a chunk, 1024).
 
 Left out (each raises NotImplementedError where it would be asked for):
-ps/evaluator nodes, ``inference`` and TensorBoard (ROADMAP.md queue 1,
-item 20); recovery epochs (item 15); the telemetry drain and live
-metrics (item 21).
+recovery epochs (ROADMAP.md queue 1, item 15); the telemetry drain and
+live metrics (item 21).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import json
 import logging
 import multiprocessing
 import os
+import queue as _queue
 import socket
 import sys
 import threading
@@ -67,8 +78,7 @@ from tensorflowonspark_tpu_torch.utils import (
 logger = logging.getLogger(__name__)
 
 COMPUTE_JOBS = ("chief", "master", "worker")
-ROLES_ITEM = "ROADMAP.md queue 1, item 20 (ps/evaluator, inference, " \
-    "TensorBoard)"
+SIDE_JOBS = ("ps", "evaluator")  # outside the process group; no GPU
 
 
 FEED_CHUNK_RECORDS = 1024  # records a chunk, unless TFOS_FEED_CHUNK says
@@ -93,6 +103,7 @@ class _NodeState:
     mgr = None
     cluster_id = None
     ring = None  # the shm feed ring this node created, if any
+    tb_proc = None  # the dashboard node's TensorBoard
 
 
 def _close_ring():
@@ -155,8 +166,24 @@ def _teardown_node_state():
             mgr.shutdown()
         except Exception:  # noqa: BLE001
             pass
+    _stop_tensorboard()
     _NodeState.mgr = None
     _NodeState.cluster_id = None
+
+
+def _stop_tensorboard():
+    tb, _NodeState.tb_proc = _NodeState.tb_proc, None
+    if tb is not None:
+        from tensorflowonspark_tpu_torch.utils import profiler
+
+        profiler.stop_tensorboard(tb)
+
+
+def _cuda_initialized():
+    """True when this process holds a CUDA context (checked without
+    importing torch: a process that never imported it holds none)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.cuda.is_initialized()
 
 
 def _get_cluster_spec(cluster_info):
@@ -263,18 +290,25 @@ class TFNodeContext:
                 "process_id": env["process_ids"].get(self.executor_id),
                 "local_rank": env["local_ranks"].get(self.executor_id)}
 
-    def torch_initialize(self, device=None):
+    def torch_initialize(self, device=None, backend=None):
         """Join the job's process group and check the device.
 
         ``device``: None or ``"cuda"`` takes CUDA device ``local_rank``
         modulo the visible count (0 after a ``num_gpus`` claim, which
         left this worker only its own); raises without a card.  Pass
         ``"cpu"`` for the CPU.  A job of more than one process calls
-        ``init_process_group`` with ``tcp://<coordinator>``, NCCL on CUDA
-        and gloo on the CPU, and the node's rank; a one-process job
-        skips the group but still runs the health check (device count,
-        one small matmul), which raises when it fails.  Returns
-        :meth:`distributed_env` with ``device`` and ``health`` added."""
+        ``init_process_group`` with ``tcp://<coordinator>``, the node's
+        rank and ``backend``: by default NCCL on CUDA and gloo on the
+        CPU; ``backend="gloo"`` on CUDA lets ranks share one card, which
+        NCCL refuses.  A one-process job skips the group but still runs
+        the health check (device count, one small matmul), which raises
+        when it fails.  Returns :meth:`distributed_env` with ``device``
+        and ``health`` added.
+
+        A ps or evaluator node is outside the job (``process_id``
+        None): it joins no group, claims no device and gets
+        :meth:`distributed_env` back as it is, as the JAX package's
+        ``jax_initialize`` does; its process sees no GPU."""
         import torch
 
         from tensorflowonspark_tpu_torch import resolve_device
@@ -293,8 +327,10 @@ class TFNodeContext:
         if env["num_processes"] > 1:
             import torch.distributed as dist
 
+            if backend is None:
+                backend = "nccl" if dev.type == "cuda" else "gloo"
             dist.init_process_group(
-                "nccl" if dev.type == "cuda" else "gloo",
+                backend,
                 init_method=f"tcp://{env['coordinator_address']}",
                 world_size=env["num_processes"], rank=env["process_id"],
                 timeout=datetime.timedelta(seconds=self.timeout))
@@ -392,22 +428,72 @@ def _run_background(fn, args, ctx, mgr):
         mgr.get_queue("error").put(traceback.format_exc())
 
 
+def _run_side_role(fn, args, ctx, mgr):
+    """A ps or evaluator node's forked process: no GPU visible (the role
+    owns no accelerator, and its parent may hold a CUDA context, which a
+    forked child cannot use), then the user's code, whose failure goes
+    to the error queue that the node's control loop watches."""
+    os.environ[gpu_info.MASK_ENV] = ""
+    _run_background(fn, args, ctx, mgr)
+
+
+def _control_wait_loop(mgr, job_name, bg_pid, poll=0.2):
+    """Hold a ps or evaluator node's slot until the driver puts None on
+    its control queue; then reap its process (it has had until then to
+    finish) and mark the node stopped.  The process's error raises."""
+    queue = mgr.queue("control")
+    equeue = mgr.queue("error")
+    while True:
+        if not equeue.empty():
+            err = equeue.get()
+            reap_child(bg_pid, timeout=0.2)
+            raise RuntimeError(f"exception in {job_name}:\n{err}")
+        try:
+            msg = queue.get(timeout=poll)
+        except _queue.Empty:
+            continue
+        logger.info("%s got control message %r", job_name, msg)
+        if msg is None:
+            break
+    if not reap_child(bg_pid, timeout=5.0):
+        logger.warning("%s: process %s did not exit and was killed",
+                       job_name, bg_pid)
+    mgr.set("bg_pid", None)
+    mgr.set("state", "stopped")
+
+
+def _dashboard(template, job_name, task_index):
+    """True for the node that hosts TensorBoard: task 0 of the chief or
+    master job, or worker 0 when the cluster has neither."""
+    if task_index != 0 or job_name not in COMPUTE_JOBS:
+        return False
+    has_chief = "chief" in template or "master" in template
+    return job_name in ("chief", "master") or not has_chief
+
+
 class run:  # noqa: N801 - named as the JAX package's node.run
     """The node-startup task: ``run(fn, tf_args, cluster_meta, ...)``
     is called by the engine with the iterator of its one partition (the
-    executor id)."""
+    executor id).
+
+    ``in_driver``: the node is a ps node hosted on a driver thread
+    (``cluster.run(driver_ps_nodes=True)``): it keeps no per-process
+    node state and writes no executor-id file, since the driver may host
+    several, and shuts its manager down when it stops."""
 
     def __init__(self, fn, tf_args, cluster_meta, tensorboard=False,
-                 log_dir=None, queues=None, background=False, num_gpus=0):
-        if tensorboard or log_dir is not None:
-            raise NotImplementedError(f"TensorBoard comes with {ROLES_ITEM}")
+                 log_dir=None, queues=None, background=False, num_gpus=0,
+                 in_driver=False):
         self.fn = fn
         self.tf_args = tf_args
         self.cluster_meta = cluster_meta
+        self.tensorboard = tensorboard
+        self.log_dir = log_dir
         self.queues = list(queues or ["input", "output", "error",
                                       "control"])
         self.background = background
         self.num_gpus = int(num_gpus)
+        self.in_driver = in_driver
 
     def __call__(self, iterator):
         boot_t0 = time.perf_counter()
@@ -418,51 +504,90 @@ class run:  # noqa: N801 - named as the JAX package's node.run
             raise RuntimeError("empty node partition")
         meta = self.cluster_meta
 
-        # (1) GPUs first: the trainer forked below reads the env
-        gpu_info.claim_gpus(self.num_gpus, _same_host_index(executor_id))
-
-        # (2) role from the template
+        # (1) role from the template
         job_name, task_index = _job_for_executor(meta["cluster_template"],
                                                  executor_id)
-        if job_name not in COMPUTE_JOBS:
-            raise NotImplementedError(f"{job_name} nodes come with "
-                                      f"{ROLES_ITEM}")
+        side = job_name in SIDE_JOBS
+        forks_trainer = self.background and not side
+        if forks_trainer and _cuda_initialized():
+            raise RuntimeError(
+                f"executor {executor_id} holds a CUDA context (a job on it "
+                "used CUDA in the executor process: TFModel.transform, "
+                "TFCluster.serve, an InputMode.TENSORFLOW main_fun), and a "
+                "trainer forked from it cannot use CUDA; run this cluster "
+                "on an engine whose executors never touched CUDA")
+        # (2) GPUs for a compute node, before the trainer forked below
+        # reads the env; ps and evaluator nodes own none
+        if not side:
+            gpu_info.claim_gpus(self.num_gpus, _same_host_index(executor_id))
         # telemetry identity for this process and the trainer it forks
-        if os.environ.get(telemetry.ROLE_ENV) != "driver":
+        if not self.in_driver and \
+                os.environ.get(telemetry.ROLE_ENV) != "driver":
             os.environ[telemetry.NODE_ENV] = f"{job_name}-{task_index}"
             os.environ[telemetry.ROLE_ENV] = job_name
         faults.check("node.boot", executor=executor_id, job=job_name)
 
         # (3) one node per executor: a live node of this cluster here is
         # a duplicate placement; one of an earlier cluster is torn down
-        if _NodeState.mgr is not None:
+        if not self.in_driver and _NodeState.mgr is not None:
             if _NodeState.cluster_id == meta["id"]:
                 raise RuntimeError(f"executor already hosts a node of "
                                    f"cluster {meta['id']}")
             _teardown_node_state()
-        mgr = tfmanager.start(bytes.fromhex(meta["authkey"]), self.queues)
+        mgr = tfmanager.start(bytes.fromhex(meta["authkey"]), self.queues,
+                              "remote" if side else "local")
+        if self.in_driver:
+            try:
+                self._boot_and_run(mgr, executor_id, job_name, task_index,
+                                   boot_t0)
+            finally:
+                mgr.shutdown()
+            return
         _NodeState.mgr = mgr
         _NodeState.cluster_id = meta["id"]
         write_executor_id(executor_id)
+        self._boot_and_run(mgr, executor_id, job_name, task_index, boot_t0)
 
+    def _boot_and_run(self, mgr, executor_id, job_name, task_index,
+                      boot_t0):
+        meta = self.cluster_meta
         # everything up to the user's code is boot: a failure releases
         # the node, so that the executor can host another
         try:
             # the 'input' feed's ring, before any feeder or the trainer
-            # looks for it
-            _make_ring(meta["id"], executor_id, mgr)
+            # looks for it; ps and evaluator nodes are fed nothing
+            if job_name in COMPUTE_JOBS and not self.in_driver:
+                _make_ring(meta["id"], executor_id, mgr)
             # (4) reserve the coordinator's port, register, await peers
             client = rendezvous.Client(meta["server_addr"])
             host = get_ip_address()
             tmp_sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             tmp_sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
             tmp_sock.bind(("", 0))
+            addr = list(mgr.address)
+            if addr[0] in ("", "0.0.0.0"):
+                addr[0] = host  # a remote manager: a dialable address
             node_meta = {
                 "executor_id": executor_id, "host": host,
                 "job_name": job_name, "task_index": task_index,
                 "port": tmp_sock.getsockname()[1],
-                "addr": list(mgr.address), "authkey": meta["authkey"],
+                "addr": addr, "authkey": meta["authkey"],
             }
+            # the dashboard's port travels with the reservation; its pid
+            # goes to the KV, where the shutdown task finds it
+            if self.tensorboard and _dashboard(meta["cluster_template"],
+                                               job_name, task_index):
+                from tensorflowonspark_tpu_torch.utils import profiler
+
+                tb_dir = self.log_dir or os.path.join(
+                    meta["working_dir"], "tensorboard",
+                    f"cluster-{meta['id'] & 0xffffffff:x}")
+                tb, tb_port = profiler.launch_tensorboard(tb_dir)
+                if tb is not None:
+                    _NodeState.tb_proc = tb
+                    node_meta["tb_port"] = tb_port
+                    mgr.set("tb_pid", tb.pid)
+                    track_child_pid(tb.pid)
             client.register(node_meta)
             cluster_info = client.await_reservations(
                 timeout=meta["reservation_timeout"])
@@ -472,7 +597,8 @@ class run:  # noqa: N801 - named as the JAX package's node.run
                 _get_cluster_spec(cluster_info), meta["default_fs"],
                 meta["working_dir"], mgr, cluster_info,
                 timeout=meta["reservation_timeout"])
-            ctx.export_env()
+            if not self.in_driver:
+                ctx.export_env()
             # released as late as possible: rank 0's process group binds
             # it next
             tmp_sock.close()
@@ -482,22 +608,27 @@ class run:  # noqa: N801 - named as the JAX package's node.run
                                   nodes=len(cluster_info))
         except BaseException:
             telemetry.flush()
-            _teardown_node_state()
+            if not self.in_driver:
+                _teardown_node_state()
             raise
 
         # (5) execute
-        if self.background:
-            # fork, not spawn: the trainer inherits the node's context and
-            # manager; the executor never touched CUDA, so it can
+        side = job_name in SIDE_JOBS
+        if side or self.background:
+            # fork, not spawn: the child inherits the node's context and
+            # manager; a trainer's executor never touched CUDA (checked
+            # above), so the trainer can
             p = multiprocessing.get_context("fork").Process(
-                target=_run_background,
+                target=_run_side_role if side else _run_background,
                 args=(self.fn, self.tf_args, ctx, mgr),
-                name=f"tfos-trainer-{executor_id}")
+                name=f"tfos-{job_name}-{executor_id}", daemon=side)
             p.start()
             # the shutdown task (manager KV) and the engine's teardown
-            # (pid file) can both find the trainer
+            # (pid file) can both find the child
             mgr.set("bg_pid", p.pid)
             track_child_pid(p.pid)
+            if side:
+                _control_wait_loop(mgr, job_name, p.pid)
         else:
             _run_main(self.fn, self.tf_args, ctx, mgr)
 
@@ -549,7 +680,17 @@ def _await_consumption(mgr, waiter, feed_timeout, poll=0.05):
 
 
 def _partition_index():
-    """This feed task's partition id (exported by the engine), or -1."""
+    """This feed task's partition id: Spark's ``TaskContext`` under
+    pyspark, else the one the engine exported; -1 when neither knows."""
+    if "pyspark" in sys.modules:
+        try:
+            from pyspark import TaskContext
+
+            tc = TaskContext.get()
+            if tc is not None:
+                return int(tc.partitionId())
+        except Exception:  # noqa: BLE001 - no Spark task here
+            pass
     try:
         return int(os.environ.get("TFOS_PARTITION_INDEX", "-1"))
     except ValueError:
@@ -778,6 +919,92 @@ class train:  # noqa: N801 - named as the JAX package's node.train
             rendezvous.Client(self.cluster_meta["server_addr"]).request_stop()
 
 
+class inference:  # noqa: N801 - named as the JAX package's node.inference
+    """The inference task, a ``map_partitions`` function: feed the
+    partition's records into the node's ring (or its manager queue),
+    then an ``EndPartition``, wait until the trainer consumed them, and
+    collect exactly as many results from the node's 'output' queue,
+    where the trainer's ``DataFeed.batch_results`` puts them."""
+
+    def __init__(self, cluster_info, cluster_meta, feed_timeout=600,
+                 qname="input"):
+        self.cluster_info = cluster_info
+        self.cluster_meta = cluster_meta
+        self.feed_timeout = feed_timeout
+        self.qname = qname
+
+    def __call__(self, iterator):
+        mgr = _get_manager(self.cluster_info, read_executor_id())
+        from tensorflowonspark_tpu_torch.feed import open_feed_ring
+
+        ring = open_feed_ring(mgr, self.qname, producer=True)
+        try:
+            return self._infer(iterator, mgr, ring)
+        finally:
+            if ring is not None:
+                ring.close()
+
+    def _infer(self, iterator, mgr, ring):
+        queue = None if ring is not None else mgr.queue(self.qname)
+        equeue = mgr.queue("error")
+        encode = _make_chunk_encoder()
+
+        def put(item):
+            if isinstance(item, list):
+                item = encode(item)
+            if ring is None:
+                queue.put(item, block=True)
+                return
+            while True:
+                try:
+                    ring.put(item, timeout_ms=1000)
+                    return
+                except TimeoutError:
+                    _raise_if_consumer_lost(mgr, equeue)
+
+        count, chunk = 0, []
+        chunk_records = _feed_chunk_records()
+        for item in iterator:
+            chunk.append(item)
+            if len(chunk) >= chunk_records:
+                put(chunk)
+                count += len(chunk)
+                chunk = []
+        if chunk:
+            put(chunk)
+            count += len(chunk)
+        put(marker.EndPartition())
+        if ring is not None:
+            _await_consumption(mgr, lambda: ring.qsize_bytes() > 0,
+                               self.feed_timeout)
+        else:
+            joining = threading.Thread(target=queue.join, daemon=True)
+            joining.start()
+            _await_consumption(mgr, joining.is_alive, self.feed_timeout)
+        results = []
+        out_q = mgr.queue("output")
+        deadline = time.monotonic() + self.feed_timeout
+        while len(results) < count:
+            try:
+                got = out_q.get(block=True, timeout=1.0)
+            except _queue.Empty:
+                _raise_if_consumer_lost(mgr, equeue)
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"inference: {len(results)} of {count} results "
+                        f"after {self.feed_timeout}s") from None
+                continue
+            out_q.task_done()
+            if isinstance(got, list):
+                results.extend(got)
+            else:
+                results.append(got)
+        if len(results) != count:
+            raise RuntimeError(f"inference: {len(results)} results for "
+                               f"{count} records")
+        return results
+
+
 def _put_end_of_feed(ring, mgr):
     """End-of-feed into the ring.  A full ring waits for the trainer to
     pop, unless the trainer errored or stopped beating: then the reap
@@ -810,6 +1037,15 @@ class shutdown:  # noqa: N801 - named as the JAX package's node.shutdown
         executor_id = read_executor_id()
         mgr = _get_manager(self.cluster_info, executor_id)
         logger.info("shutdown: end-of-feed on executor %s", executor_id)
+        tb_pid = mgr.get("tb_pid")
+        if tb_pid:
+            # this process started it (the node task ran here)
+            if _NodeState.tb_proc is not None and \
+                    _NodeState.tb_proc.pid == int(tb_pid):
+                _stop_tensorboard()
+            else:
+                reap_child(int(tb_pid), timeout=0, term_first=False)
+            mgr.set("tb_pid", None)
         from tensorflowonspark_tpu_torch.feed import open_feed_ring
 
         ring = open_feed_ring(mgr, "input", producer=True)

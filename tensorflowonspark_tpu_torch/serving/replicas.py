@@ -36,7 +36,8 @@ Differences from the JAX package:
   of the module-level :class:`_ReplicaTask`; ``ModelSpec.predict`` is a
   module-level function or a ``"module:qualname"`` string.  A JAX
   package's predict name in an export's metadata maps to the port's
-  counterpart through :data:`JAX_PREDICTS`; any other JAX name raises.
+  counterpart through :data:`JAX_PREDICTS` (MNIST's and linear
+  regression's); any other JAX name raises.
 - No ``jax.jit``: predicts run eagerly, with the same compile-count
   contract (one entry per new input signature).  ``jit=True`` raises;
   a CUDA graph per bucket is ROADMAP.md queue 1, item 26.
@@ -93,6 +94,8 @@ JAX_PREDICTS = {
         "tensorflowonspark_tpu_torch.models.mnist:predict",
     "tensorflowonspark_tpu.models.mnist:serve_predict":
         "tensorflowonspark_tpu_torch.models.mnist:predict",
+    "tensorflowonspark_tpu.models.linear:predict":
+        "tensorflowonspark_tpu_torch.models.linear:predict",
 }
 
 

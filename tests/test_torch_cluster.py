@@ -243,10 +243,10 @@ def test_failing_main_fun_reaches_the_driver(engine):
 
 
 def test_cut_features_raise_not_implemented(engine):
-    for kw, item in ((dict(num_ps=1), "item 20"),
-                     (dict(restarts=1), "item 15"),
-                     (dict(data_workers=2), "item 17"),
-                     (dict(tensorboard=True), "item 20")):
+    # ps/evaluator nodes and TensorBoard are ported
+    # (tests/test_torch_roles.py)
+    for kw, item in ((dict(restarts=1), "item 15"),
+                     (dict(data_workers=2), "item 17")):
         with pytest.raises(NotImplementedError, match=item):
             TFCluster.run(engine, failing_main, {}, 2, **kw)
     # retryable jobs are ported: they run (tests/test_torch_engine.py)
@@ -258,8 +258,6 @@ def test_cut_features_raise_not_implemented(engine):
         LocalEngine(1, workdir="elsewhere")
     with pytest.raises(NotImplementedError, match="item 15"):
         node.train([], {}, skip={0})
-    with pytest.raises(NotImplementedError, match="item 20"):
-        node.run(failing_main, {}, {}, tensorboard=True)
     with pytest.raises(ValueError, match="spawn"):
         LocalEngine(1, start_method="fork")
 

@@ -156,7 +156,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Importing every module of the port (and chip_smoke.py), and
+    """Importing every module of the port (``spark_ml`` with the pyspark
+    test double on the path) and chip_smoke.py, and
     loading the port's host-native ring, marshal and TFRecord codec,
     leaves jax, cloudpickle and every tensorflowonspark_tpu module out of
     sys.modules,
@@ -164,6 +165,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     no library built from ``native/`` or shipped in the JAX package."""
     code = r"""
 import importlib, os, pkgutil, sys
+# spark_ml needs pyspark: the test double, which imports nothing of JAX
+sys.path.insert(0, os.path.join(os.getcwd(), "tests", "sparkstub"))
+os.environ["TFOS_ALLOW_SPARK_STUB"] = "1"
 import tensorflowonspark_tpu_torch as pkg
 names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -200,7 +204,10 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "recordio.tfrecord_native", "dfutil", "examples.mnist_tf_ds",
              "serving.server", "serving.replicas", "serving.batcher",
              "actors.dispatch", "actors.liveness", "serving.decode.loadgen",
-             "examples.lm_decode", "examples.mnist_serving"):
+             "examples.lm_decode", "examples.mnist_serving", "pipeline",
+             "inference", "parallel_run", "utils.schema", "utils.profiler",
+             "models.linear", "spark_ml", "examples.mnist_pipeline",
+             "examples.mnist_inference", "examples.mnist_eval"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign
