@@ -16,13 +16,17 @@ SPARK-fed (the executor reads the shards), MNIST under
 and ``TFCluster.serve``), then the Spark ML pipeline and SPARK-mode
 inference (``TFEstimator.fit``, ``TFModel.transform``,
 ``TFCluster.inference()``, ps and evaluator nodes, the batch-inference
-CLI and ``parallel_run``).  It builds the host-native feed ring, marshal
-and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
-``build/torch_native/`` too:
+CLI and ``parallel_run``), then the MobileNetV2-UNet segmentation model
+(BASELINE.json config 4) in process and SPARK-fed.  It builds the
+host-native feed ring, marshal and TFRecord codec
+(``tensorflowonspark_tpu_torch/native/``) into ``build/torch_native/``
+too:
 
 0. preflight: a CUDA device must be present (else exit 2 at once); the
-   card's name and power limit from ``nvidia-smi``; TF32 off for float32
-   matmuls and convolutions, bf16 matmuls accumulate in float32;
+   card's name and power limit from ``nvidia-smi``; whether the host has
+   libjpeg's ``jpeglib.h`` and library and PIL (``host`` line, reported
+   only); TF32 off for float32 matmuls and convolutions, bf16 matmuls
+   accumulate in float32;
 1. build every kernel (one ``nvcc`` per source, started together), and
    the feed's shm ring and the TFRecord codec (``g++``, started
    together; a failure of either fails the run) and marshal (``cc``; the
@@ -171,8 +175,10 @@ and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
     every row back once in order, logits equal ``mnist.predict`` on the
     export here (float32, TF32 off, 1e-5 of the largest logit), the
     model cache loaded once an executor, and a SPARK-mode cluster on
-    the second engine refused (its executors hold CUDA contexts); rows/s,
-    the predict's ms a batch, each executor's peak memory;
+    the second engine refused (its executors hold CUDA contexts); rows/s
+    and their MFU (``metrics.mnist_inference_flops_per_row`` a row over
+    float32's dense peak; phases 24 and 26 too), the predict's ms a
+    batch, each executor's peak memory;
 24. ``cluster_inference``: ``TFCluster.inference()`` of 16 partitions of
     10,000 ``(id, image)`` rows into a SPARK-mode trainer on the card
     (``mnist_pipeline.infer_fun``, ``DataFeed.batch_results``) on the
@@ -188,7 +194,27 @@ and TFRecord codec (``tensorflowonspark_tpu_torch/native/``) into
 26. ``inference_cli``: ``inference.run`` over phase 17's shards with
     phase 17's export, and ``parallel_run`` of ``mnist_inference`` over
     the same, on the second engine: every record's prediction (the
-    CLI's logits too) equal ``mnist.predict`` here.
+    CLI's logits too) equal ``mnist.predict`` here;
+27. ``segmentation``: the MobileNetV2-UNet in process at the JAX bench
+    lane's shape (width 1.0, 21 classes, batch 16 x 256x256x3 seeded
+    images and masks, Adam(1e-3)), 2 untimed and 10 timed steps in
+    float32 and again in bf16 (f32 masters): ms a step (CUDA events),
+    images/s, MFU (3 x the forward's 494,206,976 FLOPs an image, which
+    the FLOP counter must give, against the dtype's dense peak, named on
+    the line), peak memory, one profiled step's device time by group and
+    idle share; every loss finite and the last below the first;
+28. ``segmentation_exact``: one float32 step (TF32 off) at 4 x 64x64 on
+    the card against the same step on the CPU from one seeded params
+    tree, the CPU taking the card's ReLU/ReLU6 branches: loss, logits,
+    every gradient and the new BN state within ``SEG_EXACT_RTOL``;
+29. ``spark_segmentation``: ``examples/segmentation_spark`` on the first
+    engine (``num_gpus=1``), the example's synthetic pets at 256x256,
+    width 1.0, batch 16, six partitions of 16 records (~16.8 MB) through
+    the node's shm ring as columnar chunks (any other transport fails);
+    losses equal the same steps here, every partition once, no trainer
+    left, the chief's checkpoint (HWIO) restores through
+    ``params_from_jax`` to this process's trained params; images/s, the
+    stall, the hand-off split.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -202,8 +228,9 @@ process, ``launches_tfrecord``, phase 15 in this process,
 ``launches_spark_tfrecord``, phase 16's trainer, and
 ``launches_tf_mode``, phase 17's executor, each counted in that run
 alone), ``launches_serve``, phase 18's replicas summed (the flash
-forward > 0, the other three 0), and ``launches_pipeline``, phases
-23-26's trainers and predicting executors summed (all 0).  Imports only
+forward > 0, the other three 0), ``launches_pipeline``, phases
+23-26's trainers and predicting executors summed (all 0), and
+``launches_segmentation``, phases 27-29 summed (all 0).  Imports only
 torch, numpy and the port.
 """
 
@@ -248,9 +275,18 @@ from tensorflowonspark_tpu_torch.examples import (
     mnist_pipeline,
     mnist_tf_ds,
     resnet_imagenet_spark,
+    segmentation_spark,
     transformer_spark,
 )
-from tensorflowonspark_tpu_torch.models import layers, mnist, resnet
+from tensorflowonspark_tpu_torch.examples import (
+    segmentation as segmentation_example,
+)
+from tensorflowonspark_tpu_torch.models import (
+    layers,
+    mnist,
+    resnet,
+    segmentation,
+)
 from tensorflowonspark_tpu_torch.models import transformer as T
 from tensorflowonspark_tpu_torch.ops import (
     _build,
@@ -393,6 +429,28 @@ PIPELINE = dict(fit_rows=4096, fit_partitions=4, batch_size=64, lr=0.05,
 ROLES = dict(num_examples=2048, batch_size=64, steps=40, ckpt_steps=10,
              lr=0.05, eval_timeout=300.0)
 PIPELINE_RTOL = 1e-5
+# the segmentation phases (BASELINE.json config 4, MobileNetV2-UNet): the
+# JAX bench lane's shape (bench.py:1080-1095: width 1.0, 21 classes,
+# batch 16 x 256x256x3, Adam(1e-3)), two untimed and ten timed steps in
+# float32 and in bf16; the forward FLOPs an image at that shape, as the
+# JAX package's counter gives them; the float32 card-vs-CPU step at
+# 4 x 64x64 and its tolerances (loss relative; logits of the largest
+# logit; each gradient and state leaf of the larger of its largest
+# element and SEG_ZERO_SCALE of its tree's largest, since a training-mode
+# BN downstream leaves some leaves ~0: their float32 values are rounding
+# noise); the SPARK-fed run: the example's synthetic pets (3 classes) at
+# 256x256, width 1.0, batch 16, six steps of one partition each, and its
+# checkpoint's leaves against the in-process params, absolute: Adam turns
+# the rounding noise of a ~0 gradient into an update of about lr a step
+# whose sign the noise picks, so two runs may part by ~2 lr a step there
+SEG = dict(image=256, num_classes=21, width=1.0, batch=16, lr=1e-3)
+SEG_WARMUP, SEG_STEPS = 2, 10
+SEG_FWD_FLOPS = 494_206_976
+SEG_EXACT = dict(batch=4, image=64)
+SEG_EXACT_RTOL = dict(loss=1e-4, logits=1e-4, grads=1e-3, state=1e-4)
+SEG_ZERO_SCALE = 1e-3
+SPARK_SEG = dict(image=256, width=1.0, batch=16, steps=6)
+SEG_CKPT_ATOL = 3 * SEG["lr"] * SPARK_SEG["steps"]
 
 
 def ptxas_report(log):
@@ -535,6 +593,13 @@ def visible_pairs(sq, skv, causal):
     if causal:
         return sum(min(i + 1, skv) for i in range(sq))
     return sq * skv
+
+
+def peak_name(dtype):
+    """The dense peak an MFU is taken against, named for its line."""
+    return (f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s dense "
+            f"{str(dtype).removeprefix('torch.')} (H100 SXM data sheet, "
+            "700 W)")
 
 
 def bound_ms(flops, nbytes, dtype):
@@ -2505,6 +2570,14 @@ def tf32_off_parallel_infer(args, ctx):
     return mnist_inference.infer_fun(args, ctx)
 
 
+def _mnist_mfu(rows_per_s):
+    """MFU of float32 MNIST predicts at ``rows_per_s`` end to end: the
+    forward's FLOPs a row (``metrics.mnist_inference_flops_per_row``,
+    8,482,304 as the JAX counter gives) over float32's dense peak."""
+    return (rows_per_s * metrics.mnist_inference_flops_per_row()
+            / PEAK_FLOPS[torch.float32])
+
+
 def executor_launches(it):
     """A ``map_partitions`` function: the kernels' launches in this
     executor since it started."""
@@ -2606,7 +2679,9 @@ def phase_pipeline_fit(dev, gpu, engine_fit, engine_pred, tmp):
         batch=cfg["transform_batch"], partitions=cfg["partitions"],
         transform_s_cold_warm=[w for w, _ in runs],
         rows_per_s_cold_warm=[cfg["rows"] / w for w, _ in runs],
-        rel_err=errs, same_prediction=same_pred,
+        mfu_cold_warm=[_mnist_mfu(cfg["rows"] / w) for w, _ in runs],
+        mfu_peak=peak_name(torch.float32), rel_err=errs,
+        same_prediction=same_pred,
         executors=[dict(pid=s["pid"], peak_mem_bytes=s["peak_mem_bytes"],
                         **{k: v for _, e in s["entries"]
                            for k, v in e.items()}) for s in stats],
@@ -2670,6 +2745,8 @@ def phase_cluster_inference(dev, gpu, engine, export_dir, images, want,
         same_prediction=ids_ok and [r[1] for r in out]
         == ref.argmax(-1).tolist(),
         boot_s=boot_s, wall_s=wall, rows_per_s=n / wall,
+        mfu=_mnist_mfu(n / wall),
+        mfu_peak=peak_name(torch.float32),
         trainer_batches=report["batches"],
         predict_ms_per_batch=report["predict_ms"] / max(report["batches"], 1),
         peak_mem_bytes=report["peak_mem_bytes"], device=report["device"],
@@ -2831,7 +2908,10 @@ def phase_inference_cli(dev, gpu, engine_pred, tf_tmp, tmp):
     ).map_partitions(executor_launches).collect(spread=True)
     summary = dict(
         records=len(want), cli_shards=len(shards), cli_rows=got,
-        cli_s=cli_s, cli_rows_per_s=got / cli_s, cli_rel_err=cli_err,
+        cli_s=cli_s, cli_rows_per_s=got / cli_s,
+        cli_mfu=_mnist_mfu(got / cli_s),
+        mfu_peak=peak_name(torch.float32),
+        cli_rel_err=cli_err,
         cli_same_predictions=cli_pred, cli_shard_files=matched,
         parallel_workers=len(counts),
         parallel_predictions=sum(counts), parallel_s=par_s,
@@ -2845,12 +2925,345 @@ def phase_inference_cli(dev, gpu, engine_pred, tf_tmp, tmp):
     return _sum_launches(*launches)
 
 
+# -- segmentation (BASELINE.json config 4) -----------------------------------
+
+def _seg_group(name):
+    """Kernel group of a segmentation step's device event."""
+    low = name.lower()
+    if "depthwise" in low or "dwconv" in low:
+        return "depthwise conv"
+    if "catarray" in low or "cat_" in low:
+        return "concat"
+    if "adam" in low:
+        return "optimizer"
+    return _resnet_group(name)
+
+
+def _seg_batch(batch, side, num_classes, seed=0):
+    """bench.py's segmentation batch: seeded ``rng.random`` images and
+    ``rng.integers(0, num_classes)`` masks."""
+    rng = np.random.default_rng(seed)
+    images = rng.random((batch, side, side, 3), np.float32)
+    masks = rng.integers(0, num_classes, (batch, side, side)).astype(
+        np.int32)
+    return images, masks
+
+
+def _seg_net(dev, num_classes, width, seed=0):
+    params, state = segmentation.init(
+        torch.Generator(device=dev).manual_seed(seed),
+        num_classes=num_classes, width=width, device=dev)
+    leaves = [p.requires_grad_() for p in segmentation.param_leaves(params)]
+    step = segmentation.make_train_step(torch.optim.Adam(leaves,
+                                                         lr=SEG["lr"]))
+    return params, state, step
+
+
+def phase_segmentation(dev, gpu):
+    """The MobileNetV2-UNet in process at the JAX bench lane's shape, in
+    float32 (the lane's dtype, TF32 off) and in bf16 (the images cast,
+    f32 master params and BN statistics): warm-up and timed Adam steps on
+    one seeded batch (ms a step by CUDA events, images/s, MFU against the
+    dtype's dense peak, peak memory), then one profiled step (device time
+    by group and the idle share of its wall).  Returns the kernels'
+    launches over the phase (all must be 0)."""
+    fwd = metrics.segmentation_flops_per_image(SEG["image"],
+                                               SEG["num_classes"],
+                                               SEG["width"])
+    if fwd != SEG_FWD_FLOPS:
+        raise AssertionError(f"segmentation forward FLOPs {fwd}, the JAX "
+                             f"counter's {SEG_FWD_FLOPS}")
+    images_np, masks_np = _seg_batch(SEG["batch"], SEG["image"],
+                                     SEG["num_classes"])
+    masks = torch.from_numpy(masks_np).to(dev)
+    b = SEG["batch"]
+    _reset_counts()
+    norm.launches = 0
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, state, step = _seg_net(dev, SEG["num_classes"], SEG["width"])
+        images = torch.from_numpy(images_np).to(dev).to(dtype)
+        losses, step_ms = [], []
+        for _ in range(SEG_WARMUP + SEG_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, state = step(params, state, images, masks)
+            end.record()
+            losses.append(loss.item())  # waits for the step
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        peak_mem = torch.cuda.max_memory_allocated(dev) / 1e9
+        timed = step_ms[SEG_WARMUP:]
+        med = statistics.median(timed)
+        ips = b / (med / 1e3)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, state, images, masks)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        row = dict(
+            dtype=name, batch=b, image=SEG["image"],
+            num_classes=SEG["num_classes"], width=SEG["width"],
+            params=sum(p.numel() for p in
+                       segmentation.param_leaves(params)),
+            warmup_steps=SEG_WARMUP, losses=losses, step_ms=step_ms,
+            step_ms_median=med, step_ms_mean=statistics.mean(timed),
+            images_per_s=ips, fwd_flops_per_image=fwd,
+            train_flops_per_image=3 * fwd,
+            mfu=3 * fwd * ips / PEAK_FLOPS[dtype],
+            mfu_peak=peak_name(dtype),
+            peak_mem_gb=peak_mem, cudnn_benchmark=torch.backends.cudnn
+            .benchmark, profile=device_breakdown(prof, pwall, _seg_group,
+                                                 top=12), gpu=gpu)
+        print("segmentation " + json.dumps(row), flush=True)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"segmentation {name} losses {losses}")
+        del params, state, step, images, prof
+    torch.cuda.empty_cache()
+    launches = _counts()
+    launches["rmsnorm"] = norm.launches
+    return launches
+
+
+class _PinnedActs:
+    """The segmentation model's activations with pinned branches: the
+    first run records where each ReLU6 input passes (0 < x < 6) and where
+    it saturates high (x >= 6), and where each ReLU input is above or at
+    0; the second run takes the same branches, counting where its own
+    would differ (as ``_PinnedBranches`` does for ResNet).  The values
+    and gradients are relu6's and relu's (gradient 0 at both of relu6's
+    boundaries, 1/2 at relu's 0), over the unfused batch norm."""
+
+    def __init__(self):
+        self.masks = []
+        self.replay = False
+        self.differ = 0
+
+    def _mask(self, own):
+        if not self.replay:
+            self.masks.append(own.cpu())
+            return own
+        m = self.masks.pop(0).to(own.device)
+        self.differ += int((m != own).sum())
+        return m
+
+    def bn_relu6(self, params, state, x, train=True, **kw):
+        pre, ns = layers.batchnorm(params, state, x, train, fused=False)
+        keep = self._mask(((pre > 0) & (pre < 6)).to(pre.dtype))
+        high = self._mask((pre >= 6).to(pre.dtype))
+        return pre * keep + 6.0 * high, ns
+
+    def bn_relu(self, params, state, x, train=True, **kw):
+        pre, ns = layers.batchnorm(params, state, x, train, fused=False)
+        gate = (pre > 0).to(pre.dtype) + 0.5 * (pre == 0).to(pre.dtype)
+        return pre * self._mask(gate), ns
+
+
+def _tree_rel_errs(got, ref, floor_scale=0.0):
+    """(max |got - ref| / max(max |ref leaf|, floor_scale x max |ref|
+    over the tree), path) of every leaf, worst first."""
+    g, r = _leaf_items(got), _leaf_items(ref)
+    floor = floor_scale * max(float(t.detach().abs().max()) for _, t in r)
+    out = []
+    for (path, a), (_, b) in zip(g, r):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        scale = max(float(b.abs().max()), floor, 1e-30)
+        out.append((float((a - b).abs().max()) / scale, path))
+    return sorted(out, reverse=True)
+
+
+def phase_segmentation_exact(dev):
+    """One float32 training step of the segmentation model (width 1.0, 21
+    classes, TF32 off) at ``SEG_EXACT`` on the card against the same step
+    on the CPU, from one seeded params tree copied to both: the loss, the
+    logits, every gradient and the new BN state, the CPU taking the
+    card's activation branches (``_PinnedActs``)."""
+    _reset_counts()
+    norm.launches = 0
+    b, side = SEG_EXACT["batch"], SEG_EXACT["image"]
+    images, masks = (torch.from_numpy(a) for a in _seg_batch(
+        b, side, SEG["num_classes"], seed=5))
+    params_np, state_np = segmentation.params_to_jax(*segmentation.init(
+        torch.Generator().manual_seed(5), num_classes=SEG["num_classes"],
+        width=SEG["width"]))
+
+    def loss_fn(p, s, x, m):
+        logits, ns = segmentation.apply(p, s, x, train=True)
+        loss = layers.softmax_cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), m.reshape(-1))
+        return loss, (logits, ns)
+
+    vg = train_utils.value_and_grad(loss_fn, has_aux=True)
+    saved = _exact_float32()
+    pins = _PinnedActs()
+    real = layers.batchnorm_relu6, layers.batchnorm_relu
+    layers.batchnorm_relu6, layers.batchnorm_relu = pins.bn_relu6, \
+        pins.bn_relu
+    runs = {}
+    try:
+        for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            pins.replay = name == "cpu"
+            p, s = segmentation.params_from_jax(params_np, state_np,
+                                                device=d)
+            runs[name] = vg(p, s, images.to(d), masks.to(d))
+    finally:
+        layers.batchnorm_relu6, layers.batchnorm_relu = real
+        torch.backends.cudnn.deterministic = saved
+    if pins.masks:
+        raise AssertionError("the CPU run took another path than the "
+                             "card's")
+    ((loss, (logits, new_state)), grads), \
+        ((rloss, (rlogits, rstate)), rgrads) = runs["cuda"], runs["cpu"]
+    errs = dict(grads=_tree_rel_errs(grads, rgrads, SEG_ZERO_SCALE),
+                state=_tree_rel_errs(new_state, rstate, SEG_ZERO_SCALE))
+    worst = {k: v[0][0] for k, v in errs.items()}
+    worst["loss"] = _rel_max(loss, rloss)
+    worst["logits"] = _rel_max(logits, rlogits)
+    print("segmentation_exact " + json.dumps(dict(
+        batch=b, image=side, num_classes=SEG["num_classes"],
+        width=SEG["width"], loss=loss.item(), cpu_loss=rloss.item(),
+        rel_err=worst, worst_leaves={k: v[:3] for k, v in errs.items()},
+        rtol=SEG_EXACT_RTOL, zero_scale=SEG_ZERO_SCALE,
+        cpu_branches_pinned=pins.differ)), flush=True)
+    if not all(worst[k] <= SEG_EXACT_RTOL[k] for k in SEG_EXACT_RTOL):
+        raise AssertionError(f"float32 segmentation step on the card vs the "
+                             f"CPU: {worst} (rtol {SEG_EXACT_RTOL})")
+    return _counts() | {"rmsnorm": norm.launches}
+
+
+def phase_spark_segmentation(dev, engine, gpu):
+    """``examples/segmentation_spark`` SPARK-fed on ``engine`` (one
+    executor, ``num_gpus=1``): the example's synthetic pets at
+    ``SPARK_SEG``, one partition a step (~16.8 MB), through the node's
+    shm ring as columnar chunks; the losses equal the same steps taken
+    here on the same batches from the same seeded params, and the chief's
+    checkpoint (JAX layout) restores through ``params_from_jax`` to this
+    process's trained params.  Returns the trainer's launches."""
+    b, steps, side = SPARK_SEG["batch"], SPARK_SEG["steps"], \
+        SPARK_SEG["image"]
+    images, masks = segmentation_example.synthetic_pets(b * steps, hw=side)
+    records = list(zip(list(images), list(masks)))
+    tmp = tempfile.mkdtemp(prefix="tfos_spark_seg_")
+    model_dir = os.path.join(tmp, "model")
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, segmentation_spark.main_fun,
+            {"batch_size": b, "lr": SEG["lr"], "width": SPARK_SEG["width"],
+             "model_dir": model_dir, "seed": 0, "out_dir": tmp},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300)
+        c.train(engine.parallelize(records, steps), feed_timeout=600)
+        dispatch = engine.last_dispatch
+        fed = c.server.fed_partitions("input")
+        c.shutdown()
+        t_total = time.time() - t0
+        with open(os.path.join(tmp, "segmentation-rank0.json")) as f:
+            report = json.load(f)
+        orphan = _alive(report["pid"])
+        tree, saved = ckpt.restore_latest(os.path.join(model_dir, "ckpt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the same steps in this process
+    params, state, step = _seg_net(dev, 3, SPARK_SEG["width"])
+    ref = []
+    for j in range(steps):
+        x = torch.from_numpy(images[j * b:(j + 1) * b]).to(dev)
+        m = torch.from_numpy(masks[j * b:(j + 1) * b]).to(dev)
+        loss, state = step(params, state, x, m)
+        ref.append(loss.item())
+    losses = report["losses"]
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref)]
+    # the chief's checkpoint in this process: each leaf against the
+    # in-process params, and the loss of both on the first batch
+    restored, _ = segmentation.params_from_jax(tree, device=dev)
+    ckpt_diff = max(
+        (float((a - b.detach()).abs().max()), path) for (path, a), (_, b)
+        in zip(_leaf_items(restored), _leaf_items(params)))
+    x = torch.from_numpy(images[:b]).to(dev)
+    m = torch.from_numpy(masks[:b]).to(dev)
+    with torch.no_grad():
+        restored_loss, ref_loss = (segmentation.loss_fn(
+            p, state, x, m)[0].item() for p in (restored, params))
+    hwio = tree["stem"]["w"].shape == (3, 3, 3, 16) and \
+        tree["head"]["w"].shape[2:] == (32, 3)
+    del params, state, step, restored, x, m
+    torch.cuda.empty_cache()
+    tm = report["train_metrics"]
+    med = statistics.median(report["step_ms"][1:])
+    flops_img = 3 * metrics.segmentation_flops_per_image(
+        side, 3, SPARK_SEG["width"])
+    peak = PEAK_FLOPS[torch.float32]
+    summary = dict(
+        image=side, width=SPARK_SEG["width"], batch=b, steps=steps,
+        num_classes=3, dtype="float32", losses=losses, in_process_losses=ref,
+        max_rel_loss_diff=max(rel) if rel else None,
+        # end to end: TrainMetrics over the timed steps, the trainer's
+        # waits for its next batch included
+        images_per_s=tm.get("items_per_sec"),
+        mfu=(tm["items_per_sec"] * flops_img / peak
+             if tm.get("items_per_sec") else None),
+        mfu_peak=peak_name(torch.float32),
+        infeed_stall_frac=tm["infeed_stall_frac"], train_metrics=tm,
+        feed_wait_s=report["feed_wait_s"], step_ms=report["step_ms"],
+        step_ms_median_after_first=med,
+        device_step_images_per_s=b / (med / 1e3), total_s=t_total,
+        records=report["records"], fed_partitions=fed,
+        trainer_alive_after_shutdown=orphan,
+        peak_mem_gb=report["peak_mem_gb"], checkpoint_step=saved,
+        checkpoint_hwio=hwio, checkpoint_max_abs_diff=ckpt_diff,
+        checkpoint_atol=SEG_CKPT_ATOL, restored_loss=restored_loss,
+        in_process_params_loss=ref_loss,
+        partition_mb=(images[0].nbytes + masks[0].nbytes) * b / 1e6,
+        launches=report["launches"], **feed_summary(report, dispatch),
+        gpu=gpu)
+    print("spark_segmentation " + json.dumps(summary), flush=True)
+    check_feed("spark_segmentation", summary, "shm")
+    if len(losses) != steps or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"SPARK-fed segmentation losses {losses} vs "
+                             f"in-process {ref} (rtol {SPARK_LOSS_RTOL})")
+    if fed != list(range(steps)) or report["records"] != b * steps:
+        raise AssertionError(f"fed partitions {fed}, records the trainer's "
+                             f"DataFeed handed out {report['records']}")
+    if orphan:
+        raise AssertionError(f"trainer {report['pid']} alive after "
+                             "shutdown")
+    if saved != steps or not hwio or ckpt_diff[0] > SEG_CKPT_ATOL or \
+            abs(restored_loss - ref_loss) > SPARK_LOSS_RTOL * abs(ref_loss):
+        raise AssertionError(
+            f"chief checkpoint: step {saved}, HWIO {hwio}, largest leaf "
+            f"difference from the in-process params {ckpt_diff} (atol "
+            f"{SEG_CKPT_ATOL}), loss {restored_loss} vs {ref_loss}")
+    return report["launches"]
+
+
+def host_line():
+    """What the card's host offers a JPEG decode (ROADMAP item 24):
+    libjpeg's header and library, and PIL.  Reported only."""
+    import ctypes.util
+    import importlib.util
+
+    headers = [d for d in ("/usr/include", "/usr/local/include")
+               if os.path.exists(os.path.join(d, "jpeglib.h"))]
+    return dict(jpeglib_h=headers[0] if headers else None,
+                libjpeg=ctypes.util.find_library("jpeg"),
+                pil=importlib.util.find_spec("PIL") is not None)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     gpu = gpu_line()
     print(f"gpu: {gpu}", flush=True)
+    print("host: " + json.dumps(host_line()), flush=True)
     # float32 stays float32: no TF32 in matmuls or convolutions, and bf16
     # matmuls accumulate in float32 as the reference's do
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2968,6 +3381,11 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
         shutil.rmtree(tf_tmp, ignore_errors=True)
+    # segmentation (phases 27-29): in process, card vs CPU, SPARK-fed on
+    # the first engine, whose executor has never touched CUDA
+    seg_launches = _sum_launches(phase_segmentation(dev, gpu),
+                                 phase_segmentation_exact(dev),
+                                 phase_spark_segmentation(dev, engine, gpu))
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -3030,12 +3448,18 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         # phases 23-26: the fit's and inference()'s trainers, the roles'
         # chief and worker, and the predicting executors, summed
         k["launches_pipeline"] = pipeline_launches[k["name"]]
+        # phases 27-29: in process (both dtypes, the exact step) and the
+        # SPARK-fed trainer, summed
+        k["launches_segmentation"] = seg_launches[k["name"]]
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")
     if any(pipeline_launches.values()):
         raise AssertionError(f"the pipeline paths launched "
                              f"{pipeline_launches}")
+    if any(seg_launches.values()):
+        raise AssertionError(f"the segmentation paths launched "
+                             f"{seg_launches}")
     return kernels
 
 

@@ -26,7 +26,18 @@ frontend and ``cluster.TFCluster.serve``), and the Spark ML layer
 (``pipeline.TFEstimator``/``TFModel``, ``spark_ml``, the
 ``tfos-inference-torch`` CLI, ``parallel_run``) with SPARK-mode
 inference (``TFCluster.inference``), ps and evaluator nodes and a
-pyspark ``SparkContext`` as the engine.
+pyspark ``SparkContext`` as the engine, then the MobileNetV2-UNet
+segmentation model (``models.segmentation``) with its examples and the
+shape-exact FLOP counter (``utils.flops``).
+
+The import surface is the JAX package's (and the reference's)::
+
+    from tensorflowonspark_tpu_torch import TFCluster, TFNode, InputMode
+    cluster = TFCluster.run(engine, main_fun, args, num_executors, ...)
+    cluster.train(dataset); cluster.shutdown()
+
+Those names load their modules on first use: importing the package
+imports neither torch nor any of its submodules.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); :func:`resolve_device` never falls
@@ -35,7 +46,47 @@ back to the CPU on its own.
 
 from __future__ import annotations
 
+import logging
+
 __version__ = "0.1.0"
+
+# Library-polite logging: a NullHandler on the package's namespace;
+# applications and the example drivers opt in to the reference's root
+# format with configure_logging().
+logging.getLogger(__name__).addHandler(logging.NullHandler())
+
+
+def configure_logging(level=logging.INFO):
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s %(levelname)s (%(threadName)s-%(process)d) "
+               "%(message)s",
+    )
+
+
+_LAZY = {
+    "InputMode": ("tensorflowonspark_tpu_torch.cluster", "InputMode"),
+    # the reference exposes TFCluster as a MODULE (TFCluster.run(...))
+    "TFCluster": ("tensorflowonspark_tpu_torch.cluster", None),
+    "TFNode": ("tensorflowonspark_tpu_torch.feed", None),
+    "TFNodeContext": ("tensorflowonspark_tpu_torch.node", "TFNodeContext"),
+    "TFParallel": ("tensorflowonspark_tpu_torch.parallel_run", None),
+    "compat": ("tensorflowonspark_tpu_torch.compat", None),
+    "dfutil": ("tensorflowonspark_tpu_torch.dfutil", None),
+    "infeed": ("tensorflowonspark_tpu_torch.infeed", None),
+    "pipeline": ("tensorflowonspark_tpu_torch.pipeline", None),
+    "serving": ("tensorflowonspark_tpu_torch.serving", None),
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        mod = importlib.import_module(module)
+        return getattr(mod, attr) if attr else mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def resolve_device(device=None):

@@ -3,15 +3,17 @@
 Counterpart of ``tensorflowonspark_tpu/utils/metrics.py``: one
 lightweight ``TrainMetrics`` aggregator per worker (time steps with
 ``step()``, account feed waits with ``infeed_wait()``, read a summary
-with ``report()``), the transformer's FLOPs-per-token estimate, and a
-``peak_flops`` for the card.  The segmentation and MNIST FLOP counters
-walk a jaxpr and come with their models.
+with ``report()``), the transformer's FLOPs-per-token estimate, the
+segmentation and MNIST forward FLOPs counted shape-exactly by
+``utils.flops`` (the model run on meta tensors), and a ``peak_flops``
+for the card.
 
 MFU convention: model FLOPs per step / (step time x peak FLOPs).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -67,6 +69,44 @@ def transformer_flops_per_token(cfg, causal=False):
     if causal:
         attn //= 2
     return 6 * n_params + attn
+
+
+def segmentation_flops_per_image(image_size=256, num_classes=21, width=1.0):
+    """Forward-pass FLOPs per image of ``models/segmentation.py`` in
+    training mode, counted shape-exactly (``utils.flops``: 2 FLOPs a MAC,
+    transposed-conv zero positions excluded).  Multiply by 3 for the
+    train step.  Runs on meta tensors: no device compute."""
+    return _seg_flops_cached(int(image_size), int(num_classes), float(width))
+
+
+@functools.lru_cache(maxsize=8)
+def _seg_flops_cached(image_size, num_classes, width):
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import segmentation
+    from tensorflowonspark_tpu_torch.utils import flops as F
+
+    ps, ss = segmentation.init(torch.Generator().manual_seed(0),
+                               num_classes=num_classes, width=width)
+    img = torch.empty((1, image_size, image_size, 3), device="meta")
+    return F.count_flops(
+        lambda p, s, x: segmentation.apply(p, s, x, train=True)[0],
+        ps, ss, img)["flops"]
+
+
+@functools.lru_cache(maxsize=1)
+def mnist_inference_flops_per_row():
+    """Forward-pass FLOPs per row of the MNIST export model that
+    BASELINE config #5 (batch inference) serves, ``mnist.apply``, counted
+    like :func:`segmentation_flops_per_image`."""
+    import torch
+
+    from tensorflowonspark_tpu_torch.models import mnist
+    from tensorflowonspark_tpu_torch.utils import flops as F
+
+    params = mnist.init_params(torch.Generator().manual_seed(0))
+    x = torch.empty((1, 28, 28, 1), device="meta")
+    return F.count_flops(mnist.apply, params, x)["flops"]
 
 
 class TrainMetrics:

@@ -157,7 +157,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (``spark_ml`` with the pyspark
-    test double on the path) and chip_smoke.py, and
+    test double on the path), resolving the root's lazy names, importing
+    chip_smoke.py, and
     loading the port's host-native ring, marshal and TFRecord codec,
     leaves jax, cloudpickle and every tensorflowonspark_tpu module out of
     sys.modules,
@@ -173,6 +174,8 @@ names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
+for n in pkg._LAZY:   # the root's lazy names (TFCluster, compat, ...)
+    getattr(pkg, n)
 import runpy
 runpy.run_path("chip_smoke.py", run_name="not_main")
 from tensorflowonspark_tpu_torch import recordio
@@ -207,7 +210,9 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "examples.lm_decode", "examples.mnist_serving", "pipeline",
              "inference", "parallel_run", "utils.schema", "utils.profiler",
              "models.linear", "spark_ml", "examples.mnist_pipeline",
-             "examples.mnist_inference", "examples.mnist_eval"):
+             "examples.mnist_inference", "examples.mnist_eval",
+             "models.segmentation", "utils.flops", "compat",
+             "examples.segmentation", "examples.segmentation_spark"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign
