@@ -13,19 +13,23 @@ TFRecord paths: ResNet-50 fed from TFRecord shards in process and
 SPARK-fed (the executor reads the shards), MNIST under
 ``InputMode.TENSORFLOW``, and the online serving tier
 (``serving.Server`` over a 2-replica ``ReplicaPool``, its HTTP frontend
-and ``TFCluster.serve``), then the Spark ML pipeline and SPARK-mode
+and ``TFCluster.serve``) and, after phase 16, ResNet-50 SPARK-fed from
+JPEG TFRecord shards through the native libjpeg decoder with the raw
+shards ``imagenet_data_setup`` converts from them, remote (``memory://``)
+record IO and checkpoints, the ``AsyncCheckpointer`` and MNIST's chief
+checkpoint, then the Spark ML pipeline and SPARK-mode
 inference (``TFEstimator.fit``, ``TFModel.transform``,
 ``TFCluster.inference()``, ps and evaluator nodes, the batch-inference
 CLI and ``parallel_run``), then the MobileNetV2-UNet segmentation model
 (BASELINE.json config 4) in process and SPARK-fed.  It builds the
-host-native feed ring, marshal and TFRecord codec
+host-native feed ring, marshal, TFRecord codec and JPEG decoder
 (``tensorflowonspark_tpu_torch/native/``) into ``build/torch_native/``
 too:
 
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; whether the host has
-   libjpeg's ``jpeglib.h`` and library and PIL (``host`` line, reported
-   only); TF32 off for float32 matmuls and convolutions, bf16 matmuls
+   libjpeg's ``jpeglib.h`` and library, PIL and the libjpeg its wheel
+   bundles, and fsspec's version (``host`` line, reported only); TF32 off for float32 matmuls and convolutions, bf16 matmuls
    accumulate in float32;
 1. build every kernel (one ``nvcc`` per source, started together), and
    the feed's shm ring and the TFRecord codec (``g++``, started
@@ -124,6 +128,44 @@ too:
     64 KiB, the executor's reader on the native codec and no kernel
     launched in the trainer; images/s end to end, the stall, the device
     step, the hand-off split and the read and decode time a partition;
+16a. ``jpeg_decode``: six shards of 256 seeded JPEG records (PIL,
+    quality 90; 500x375, 375x500, 1024x768 and 224x224, a quarter each;
+    ``image/encoded``, 1-based ``image/class/label``) through the port's
+    writer; the native decoder must build (the system's libjpeg, else
+    the vendored headers and Pillow's bundled ABI-62 libjpeg: the line
+    names the route and file) and pass its self-test; all 1,536 decode
+    natively with 0 PIL arbitrations, on one thread and through
+    ``decode_batch``'s pool, with the same bytes; a CMYK JPEG decodes
+    through one arbitration; a truncated one raises ValueError; images/s
+    of one thread, the pool and the PIL path (``TFOS_NO_NATIVE=1`` in a
+    subprocess, one shard), ``os.cpu_count()``;
+16b. ``imagenet_setup``: ``imagenet_data_setup.convert`` of those shards
+    on the first engine; 0 skipped, and each raw shard equals
+    ``decode_records_batch`` of its JPEG records here;
+16c. ``spark_jpeg_resnet`` (the JPEG slice's main path): phase 16's run with
+    ``--data_dir`` on the JPEG shards (the executor reads and decodes
+    them natively, then the shm ring as columnar chunks), and again on
+    16b's raw shards: losses equal to 1e-3, and the chiefs' restored
+    checkpoints' losses on phase 10's batch too; every partition once,
+    no trainer or ring left, tasks under 64 KiB, every JPEG decoded
+    natively in the executor, no kernel launched; images/s, the stall,
+    the device step, read and decode ms a partition for both;
+16d. ``remote_io``: phase 14's shards through ``memory://`` (fsspec):
+    ``TFRecordWriter`` gives the local files' bytes, ``TFRecordReader``
+    and ``load_columnar`` read them back as locally (MB/s); a ResNet-50
+    checkpoint tree through ``save_checkpoint``/``restore_latest`` and
+    ``export_model``/``load_exported`` equals the local round trip;
+16e. ``async_checkpoint``: phase 10's net on the card (params, BN state,
+    SGD momentum, ~205 MB) saved every 3 steps, 3 times through
+    ``save_checkpoint`` and 4 times through ``AsyncCheckpointer(keep=3)``:
+    the ms each save blocks the step loop; each file holds its own
+    step's tree and not the next one's (the snapshot check), ``keep``
+    prunes, ``close`` waits, a ``checkpoint.save`` fault in the writer
+    surfaces at the next call;
+16f. ``spark_mnist_checkpoint``: ``mnist_spark.main_fun`` SPARK-fed on
+    the card for 16 steps; the chief's ``ckpt`` restores through
+    ``restore_latest`` with the export's values, the trainer's final
+    params;
 17. MNIST under ``InputMode.TENSORFLOW`` (``tf_mode_mnist``), on an
     engine of its own (the executor runs ``main_fun`` on the card, so it
     holds a CUDA context and must fork no SPARK trainer after it):
@@ -227,7 +269,8 @@ the paths that reach no kernel: ``launches_resnet``, phase 10 in this
 process, ``launches_tfrecord``, phase 15 in this process,
 ``launches_spark_tfrecord``, phase 16's trainer, and
 ``launches_tf_mode``, phase 17's executor, each counted in that run
-alone), ``launches_serve``, phase 18's replicas summed (the flash
+alone, and ``launches_jpeg``, phase 16c's two trainers and phase 16e's
+steps summed), ``launches_serve``, phase 18's replicas summed (the flash
 forward > 0, the other three 0), ``launches_pipeline``, phases
 23-26's trainers and predicting executors summed (all 0), and
 ``launches_segmentation``, phases 27-29 summed (all 0).  Imports only
@@ -240,6 +283,7 @@ import argparse
 import collections
 import ctypes
 import glob
+import io
 import json
 import os
 import re
@@ -269,10 +313,13 @@ from tensorflowonspark_tpu_torch import (
 )
 from tensorflowonspark_tpu_torch.engine import LocalEngine
 from tensorflowonspark_tpu_torch.examples import (
+    imagenet_data_setup,
+    imagenet_records,
     mnist_data_setup,
     mnist_eval,
     mnist_inference,
     mnist_pipeline,
+    mnist_spark,
     mnist_tf_ds,
     resnet_imagenet_spark,
     segmentation_spark,
@@ -295,9 +342,15 @@ from tensorflowonspark_tpu_torch.ops import (
     norm,
 )
 from tensorflowonspark_tpu_torch.recordio import _build as native_build
-from tensorflowonspark_tpu_torch.recordio import marshal, shm
+from tensorflowonspark_tpu_torch.recordio import fs as rfs
+from tensorflowonspark_tpu_torch.recordio import jpeg, marshal, shm
 from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
-from tensorflowonspark_tpu_torch.utils import metrics, profiler, telemetry
+from tensorflowonspark_tpu_torch.utils import (
+    faults,
+    metrics,
+    profiler,
+    telemetry,
+)
 from tensorflowonspark_tpu_torch.utils import train as train_utils
 from tensorflowonspark_tpu_torch.serving import run_open_loop, serve_http
 from tensorflowonspark_tpu_torch.serving.decode import (
@@ -400,6 +453,22 @@ RESNET_EXACT_RTOL = 1e-3
 # the SPARK-fed TFRecord phase ships read units, not images: every task
 # the engine pickles stays under this
 TFRECORD_TASK_MAX_BYTES = 64 << 10
+# the JPEG phases (16a-16c): SPARK_RESNET_STEPS shards of RESNET["batch"]
+# records (one SPARK-fed step a shard), JPEGs at PIL's quality 90 in
+# ImageNet's common sizes (h, w): landscape and portrait 500x375, a
+# 1024x768 one (libjpeg decodes it at 1/2 for 224) and a 224x224 one,
+# a quarter each; JPEG_DISTINCT seeded images a size, each shard a seeded
+# permutation of them with its own labels.  The PIL path is timed on one
+# shard (it decodes ~10x slower)
+JPEG_SIZES = ((375, 500), (500, 375), (768, 1024), (224, 224))
+JPEG_DISTINCT = 64
+JPEG_QUALITY = 90
+# phase 16e: a save every `every` steps of phase 10's step on the card,
+# `sync_saves` through save_checkpoint, then `async_saves` through an
+# AsyncCheckpointer that keeps `keep` of them
+ASYNC_CKPT = dict(every=3, sync_saves=3, async_saves=4, keep=3)
+# phase 16f: mnist_spark's chief checkpoint after this many steps of 64
+MNIST_CKPT_STEPS = 16
 # InputMode.TENSORFLOW MNIST (mnist_tf_ds): the data setup's four shards
 # of 2048 records, 40 steps of batch 64, SGD(0.05, momentum 0.9), as the
 # example's defaults; float32 with TF32 off and deterministic cuDNN on
@@ -1757,19 +1826,8 @@ def phase_spark_resnet(dev, engine, gpu, res, transport="shm"):
                if v.ndim == 4}
     hwio = kernels.pop("stem/w") == (7, 7, 3, 64) and all(
         sh[0] == sh[1] in (1, 3) for sh in kernels.values())
-    params, state, _ = _resnet_net(dev)
-    resnet.restore_checkpoint_tree(tree, params, state,
-                                   torch.optim.SGD(resnet.param_leaves(
-                                       params), lr=RESNET["lr"]))
-    with torch.no_grad():
-        logits, _ = resnet.apply(params, state,
-                                 torch.from_numpy(images_np).to(dev),
-                                 depth=RESNET["depth"])
-        restored_loss = layers.softmax_cross_entropy(
-            logits, torch.from_numpy(labels_np).to(dev)).item()
+    restored_loss = _restored_loss(dev, tree)
     next_ref = res["losses"][SPARK_RESNET_STEPS]
-    del params, state, logits
-    torch.cuda.empty_cache()
     peak = metrics.peak_flops(dev)
     summary = dict(
         losses=losses, phase_resnet_losses=ref,
@@ -1959,19 +2017,85 @@ def phase_tfrecord_resnet(dev, gpu, res, files):
 
 def phase_spark_tfrecord_resnet(dev, engine, gpu, res, data_dir):
     """This slice's main path: ResNet-50 SPARK-fed from phase 14's
-    TFRecord shards, which the executor reads itself.  The dataset is
-    ``resnet_imagenet_spark._records`` with ``--data_dir``
+    TFRecord shards, which the executor reads itself
+    (:func:`_spark_data_dir_run`).  The gates of phase 12 (losses, every
+    partition once, no trainer left, the chief's checkpoint gives phase
+    10's next loss), and no ring left, and the shm ring with columnar
+    chunks, and every task the engine pickled under
+    ``TFRECORD_TASK_MAX_BYTES``, the native codec, no kernel launched."""
+    r = _spark_data_dir_run(dev, engine, data_dir)
+    b = RESNET["batch"]
+    losses, ref = r["losses"], res["losses"][:SPARK_RESNET_STEPS]
+    rel = [abs(a - x) / abs(x) for a, x in zip(losses, ref)]
+    next_ref = res["losses"][SPARK_RESNET_STEPS]
+    summary = dict(r, phase_resnet_losses=ref,
+                   max_rel_loss_diff=max(rel) if rel else None,
+                   phase_resnet_next_loss=next_ref,
+                   phase_resnet_images_per_s=res["images_per_s"], gpu=gpu)
+    print("spark_tfrecord_resnet " + json.dumps(summary), flush=True)
+    check_feed("spark_tfrecord_resnet", summary, "shm")
+    if len(losses) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"TFRecord SPARK-fed ResNet losses {losses} "
+                             f"vs in-process {ref} (rtol {SPARK_LOSS_RTOL})")
+    if r["fed_partitions"] != list(range(r["partitions"])) or \
+            r["records"] != b * SPARK_RESNET_STEPS:
+        raise AssertionError(f"fed partitions {r['fed_partitions']} of "
+                             f"{r['partitions']}, records the trainer's "
+                             f"DataFeed handed out {r['records']}")
+    if r["trainer_alive_after_shutdown"] or r["ring_left"]:
+        raise AssertionError(f"after shutdown: trainer alive "
+                             f"{r['trainer_alive_after_shutdown']}, ring "
+                             f"left {r['ring_left']}")
+    if r["task_max_bytes"] >= TFRECORD_TASK_MAX_BYTES:
+        raise AssertionError(f"the engine pickled a task of "
+                             f"{r['task_max_bytes']} bytes (limit "
+                             f"{TFRECORD_TASK_MAX_BYTES})")
+    if r["codec"] != "native":
+        raise AssertionError(f"the executor read the shards with the "
+                             f"{r['codec']!r} codec, not the native one")
+    if r["checkpoint_step"] != SPARK_RESNET_STEPS or \
+            abs(r["restored_loss"] - next_ref) > SPARK_LOSS_RTOL * abs(next_ref):
+        raise AssertionError(f"chief checkpoint: step {r['checkpoint_step']}"
+                             f", loss of the restored params "
+                             f"{r['restored_loss']} vs in-process {next_ref}")
+    if any(r["launches"].values()):
+        raise AssertionError(f"the TFRecord SPARK-fed trainer launched "
+                             f"{r['launches']}")
+    return r["launches"]
+
+
+def _restored_loss(dev, tree):
+    """Phase 10's batch's loss under the params of a checkpoint tree."""
+    images_np, labels_np = _resnet_batch()
+    params, state, _ = _resnet_net(dev)
+    resnet.restore_checkpoint_tree(tree, params, state, torch.optim.SGD(
+        resnet.param_leaves(params), lr=RESNET["lr"]))
+    with torch.no_grad():
+        logits, _ = resnet.apply(params, state,
+                                 torch.from_numpy(images_np).to(dev),
+                                 depth=RESNET["depth"])
+        loss = layers.softmax_cross_entropy(
+            logits, torch.from_numpy(labels_np).to(dev)).item()
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _spark_data_dir_run(dev, engine, data_dir):
+    """``resnet_imagenet_spark.main_fun`` SPARK-fed (``num_gpus=1``) from
+    the TFRecord shards of ``data_dir`` on ``engine``, read and decoded
+    by the executor: ``_records`` with ``--data_dir``
     (``dfutil.load_tfrecords``' read units, then the decode, through
-    ``map_partitions``): the tasks carry file names, never images.  The
-    gates of phase 12 (losses, every partition once, no trainer left),
-    and no ring left, and the shm ring with columnar chunks, and every
-    task the engine pickled under ``TFRECORD_TASK_MAX_BYTES``."""
+    ``map_partitions``), so the tasks carry file names, never images.
+    Returns what the trainer reported, the feed's summary, the
+    partitions, what shutdown left (trainer, ring) and the loss of
+    phase 10's batch under the chief's restored checkpoint."""
     b = RESNET["batch"]
     args = argparse.Namespace(
         data_dir=data_dir, cluster_size=1, image_size=RESNET["image"],
         batch_size=b, num_classes=RESNET["num_classes"],
-        steps=SPARK_RESNET_STEPS)
-    tmp = tempfile.mkdtemp(prefix="tfos_spark_tfrecord_")
+        steps=SPARK_RESNET_STEPS, decode_threads=None)
+    tmp = tempfile.mkdtemp(prefix="tfos_spark_jpeg_")
     try:
         t0 = time.time()
         ds = resnet_imagenet_spark._records(args, engine)
@@ -1990,60 +2114,521 @@ def phase_spark_tfrecord_resnet(dev, engine, gpu, res, data_dir):
         fed = c.server.fed_partitions("input")
         ring = "/dev/shm" + node.feed_ring_name(c.cluster_meta["id"], 0)
         c.shutdown()
-        t_total = time.time() - t0
-        ring_left = os.path.exists(ring)
+        total_s = time.time() - t0
         with open(os.path.join(tmp, "resnet_imagenet-rank0.json")) as f:
             report = json.load(f)
-        orphan = _alive(report["pid"])
+        tree, saved = ckpt.restore_latest(os.path.join(tmp, "model", "ckpt"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    losses, ref = report["losses"], res["losses"][:SPARK_RESNET_STEPS]
-    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref)]
-    med = statistics.median(report["step_ms"][1:])
-    tm = report["train_metrics"]
     fs = feed_summary(report, dispatch)
+    tm = report["train_metrics"]
+    med = statistics.median(report["step_ms"][1:])
     stages = [row["lineage_ms"] for row in fs["handoff"]]
-    summary = dict(
-        losses=losses, phase_resnet_losses=ref,
-        max_rel_loss_diff=max(rel) if rel else None,
-        images_per_s=tm.get("items_per_sec"), mfu=tm.get("mfu"),
-        infeed_stall_frac=tm["infeed_stall_frac"],
+    decodes = collections.Counter()
+    for f in report["feeders"] or []:
+        decodes.update(f.get("jpeg") or {})
+    return dict(
+        losses=report["losses"], images_per_s=tm.get("items_per_sec"),
+        mfu=tm.get("mfu"), infeed_stall_frac=tm["infeed_stall_frac"],
         step_ms=report["step_ms"], step_ms_median_after_first=med,
         device_step_images_per_s=b / (med / 1e3),
-        feed_wait_s=report["feed_wait_s"],
+        feed_wait_s=report["feed_wait_s"], total_s=total_s,
         boot_s=report["first_step_wall"] - t0, cluster_run_s=t_run,
-        total_s=t_total, partitions=ds.num_partitions,
+        main_start_s=report["main_start_wall"] - t0,
+        model_ready_s=report["model_wall"] - t0,
+        first_feeder_start_s=min((f["start_wall"] for f in
+                                  report["feeders"] or []),
+                                 default=t0) - t0,
+        partitions=ds.num_partitions,
         records_per_partition=[row["records"] for row in fs["handoff"]],
         read_ms_per_partition=[s[0] for s in stages if s],
         decode_ms_per_partition=[s[1] for s in stages if len(s) > 1],
-        records=report["records"], fed_partitions=fed,
-        trainer_alive_after_shutdown=orphan, ring_left=ring_left,
-        peak_mem_gb=report["peak_mem_gb"], launches=report["launches"],
-        phase_resnet_images_per_s=res["images_per_s"], **fs, gpu=gpu)
-    print("spark_tfrecord_resnet " + json.dumps(summary), flush=True)
-    check_feed("spark_tfrecord_resnet", summary, "shm")
-    if len(losses) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
-        raise AssertionError(f"TFRecord SPARK-fed ResNet losses {losses} "
-                             f"vs in-process {ref} (rtol {SPARK_LOSS_RTOL})")
-    if fed != list(range(ds.num_partitions)) or \
-            report["records"] != b * SPARK_RESNET_STEPS:
-        raise AssertionError(f"fed partitions {fed} of "
-                             f"{ds.num_partitions}, records the trainer's "
-                             f"DataFeed handed out {report['records']}")
-    if orphan or ring_left:
-        raise AssertionError(f"after shutdown: trainer {report['pid']} "
-                             f"alive {orphan}, ring {ring} left {ring_left}")
-    if dispatch["max_bytes"] >= TFRECORD_TASK_MAX_BYTES:
-        raise AssertionError(f"the engine pickled a task of "
-                             f"{dispatch['max_bytes']} bytes (limit "
-                             f"{TFRECORD_TASK_MAX_BYTES})")
-    if fs["codec"] != "native":
-        raise AssertionError(f"the executor read the shards with the "
-                             f"{fs['codec']!r} codec, not the native one")
-    if any(report["launches"].values()):
-        raise AssertionError(f"the TFRecord SPARK-fed trainer launched "
-                             f"{report['launches']}")
-    return report["launches"]
+        jpeg_decodes=dict(decodes), records=report["records"],
+        fed_partitions=fed, trainer_alive_after_shutdown=_alive(
+            report["pid"]),
+        ring_left=os.path.exists(ring), checkpoint_step=saved,
+        restored_loss=_restored_loss(dev, tree) if tree else None,
+        launches=report["launches"], peak_mem_gb=report["peak_mem_gb"],
+        **fs)
+
+
+def _photo(rng, h, w):
+    """A seeded photo-like uint8 [h, w, 3] image: smooth waves a channel
+    and mild noise, so its JPEG is photo-sized (random noise would make
+    JPEGs several times larger and slower to decode than ImageNet's)."""
+    yy = np.linspace(0, 2 * np.pi, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0, 2 * np.pi, w, dtype=np.float32)[None, :]
+    chans = []
+    for _ in range(3):
+        fx, fy = rng.uniform(1, 6, 2)
+        px, py = rng.uniform(0, 2 * np.pi, 2)
+        chans.append(128 + 90 * np.sin(fx * xx + px) * np.cos(fy * yy + py))
+    img = np.stack(chans, -1) + rng.integers(-12, 13, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _jpeg(arr, mode=None):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode=mode).save(buf, "JPEG", quality=JPEG_QUALITY)
+    return buf.getvalue()
+
+
+def write_jpeg_shards(out_dir):
+    """``SPARK_RESNET_STEPS`` shards of ``RESNET["batch"]`` JPEG records
+    under ``out_dir`` with the TF-official keys (``image/encoded``,
+    1-based ``image/class/label``), through the port's writer.  Returns
+    ``(paths, [[(payload, 0-based label)] a shard], seconds)``."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    pool = [_jpeg(_photo(rng, h, w)) for h, w in JPEG_SIZES
+            for _ in range(JPEG_DISTINCT)]
+    b = RESNET["batch"]
+    os.makedirs(out_dir, exist_ok=True)
+    paths, shards = [], []
+    for s in range(SPARK_RESNET_STEPS):
+        order = rng.permutation(len(pool))[np.arange(b) % len(pool)]
+        labels = rng.integers(0, RESNET["num_classes"], b)
+        recs = [(pool[i], int(lbl)) for i, lbl in zip(order, labels)]
+        path = os.path.join(out_dir, f"part-r-{s:05d}")
+        with recordio.TFRecordWriter(path) as w:
+            for payload, label in recs:
+                w.write(recordio.encode_example({
+                    "image/encoded": ("bytes", [payload]),
+                    "image/class/label": ("int64", [label + 1])}))
+        paths.append(path)
+        shards.append(recs)
+    return paths, shards, time.perf_counter() - t0
+
+
+_PIL_DECODE = r"""
+import json, sys, time
+from tensorflowonspark_tpu_torch import recordio
+from tensorflowonspark_tpu_torch.recordio import jpeg
+datas = [recordio.decode_example(r)["image/encoded"][1][0]
+         for r in recordio.TFRecordReader(sys.argv[1])]
+t0 = time.perf_counter()
+jpeg.decode_batch(datas, int(sys.argv[2]))
+dt = time.perf_counter() - t0
+print(json.dumps(dict(images=len(datas), seconds=dt,
+                      available=jpeg.available(),
+                      counts=jpeg.decode_counts())))
+"""
+
+
+def phase_jpeg_decode(gpu, jpeg_dir):
+    """16a ``jpeg_decode``: the port's native libjpeg decoder on the
+    card's host.  It must build (by the system's libjpeg, or the
+    vendored headers and Pillow's bundled libjpeg) and pass its
+    self-test; every JPEG of the shards decodes natively (0 PIL
+    arbitrations), on one thread and through ``decode_batch``'s pool,
+    with the same bytes; a CMYK JPEG decodes through one arbitration; a
+    truncated stream raises ValueError.  Times the native decode on one
+    thread and the pool, and the PIL path (``TFOS_NO_NATIVE=1``, one
+    shard) in a subprocess.  Returns the shards' records."""
+    t0 = time.perf_counter()
+    native_build.build(["jpeg"])
+    build_s = time.perf_counter() - t0
+    if not jpeg.available():
+        raise AssertionError(f"the native JPEG decoder did not build or "
+                             f"failed its self-test: {jpeg.error()}")
+    paths, shards, make_s = write_jpeg_shards(jpeg_dir)
+    datas = [p for recs in shards for p, _ in recs]
+    size = RESNET["image"]
+    jpeg.reset_decode_counts()
+    t0 = time.perf_counter()
+    one = np.stack([jpeg.decode_resized(d, size) for d in datas])
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pool = jpeg.decode_batch(datas, size)
+    pool_s = time.perf_counter() - t0
+    counts = jpeg.decode_counts()
+    same = bool(np.array_equal(one, pool))
+    jpeg.reset_decode_counts()
+    cmyk = jpeg.decode_resized(_jpeg(np.full((375, 500, 4), 120, np.uint8),
+                                     mode="CMYK"), size)
+    cmyk_counts = jpeg.decode_counts()
+    try:
+        jpeg.decode_resized(datas[0][:int(len(datas[0]) * 0.8)], size)
+        truncated = "decoded"
+    except ValueError:
+        truncated = "ValueError"
+    # the port's root: this file's directory
+    env = dict(os.environ, TFOS_NO_NATIVE="1",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _PIL_DECODE, paths[0],
+                          str(size)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"the PIL decode subprocess failed: "
+                             f"{out.stderr[-2000:]}")
+    pil = json.loads(out.stdout.strip().splitlines()[-1])
+    sizes = [len(d) for d in datas]
+    summary = dict(
+        build=native_build.jpeg_build_info(), build_s=build_s,
+        built_this_run=native_build.build_seconds.get("jpeg"),
+        cpu_count=os.cpu_count(), affinity=len(os.sched_getaffinity(0)),
+        pool_threads=jpeg.default_threads(), images=len(datas),
+        sizes=[f"{w}x{h}" for h, w in JPEG_SIZES],
+        distinct_images=len(JPEG_SIZES) * JPEG_DISTINCT,
+        jpeg_kb_mean=statistics.mean(sizes) / 1e3, make_s=make_s,
+        native_1_thread_images_per_s=len(datas) / one_s,
+        native_pool_images_per_s=len(datas) / pool_s,
+        pil_images_per_s=pil["images"] / pil["seconds"],
+        pil_images=pil["images"], pil_subprocess=pil,
+        counts=counts, pool_equals_sequential=same,
+        cmyk_counts=cmyk_counts, cmyk_shape=list(cmyk.shape),
+        truncated=truncated, gpu=gpu)
+    print("jpeg_decode " + json.dumps(summary), flush=True)
+    if counts != {"native": 2 * len(datas), "pil": 0}:
+        raise AssertionError(f"JPEG decodes {counts}: want all "
+                             f"{2 * len(datas)} native, 0 through PIL")
+    if not same:
+        raise AssertionError("decode_batch differs from decode_resized")
+    if cmyk_counts != {"native": 0, "pil": 1}:
+        raise AssertionError(f"CMYK decode counts {cmyk_counts}")
+    if truncated != "ValueError":
+        raise AssertionError("a truncated JPEG decoded")
+    if pil["available"] or pil["counts"]["native"]:
+        raise AssertionError(f"TFOS_NO_NATIVE=1 decoded natively: {pil}")
+    return shards
+
+
+def phase_imagenet_setup(gpu, engine, jpeg_dir, raw_dir, shards):
+    """16b ``imagenet_setup``: ``imagenet_data_setup.convert`` of the JPEG
+    shards into raw ones through the one-executor engine; nothing
+    skipped, and each raw shard equals ``decode_records_batch`` of its
+    JPEG records in this process."""
+    t0 = time.perf_counter()
+    results = imagenet_data_setup.convert(engine, jpeg_dir, raw_dir,
+                                          RESNET["image"], 1)
+    setup_s = time.perf_counter() - t0
+    records = sum(r[1] for r in results)
+    skipped = sum(r[2] for r in results)
+    mismatched = []
+    for (name, _, _), recs in zip(results, shards):
+        want = imagenet_records.decode_records_batch(
+            [{"image/encoded": [p], "image/class/label": [lbl + 1]}
+             for p, lbl in recs], RESNET["image"])
+        cols = recordio.load_columnar(os.path.join(raw_dir, name))
+        if cols["image"][1] != [img.tobytes() for img, _ in want] or \
+                cols["label"][1].tolist() != [lbl for _, lbl in want]:
+            mismatched.append(name)
+    summary = dict(shards=len(results), records=records, skipped=skipped,
+                   seconds=setup_s, images_per_s=records / setup_s,
+                   mismatched=mismatched, gpu=gpu)
+    print("imagenet_setup " + json.dumps(summary), flush=True)
+    if skipped or records != RESNET["batch"] * SPARK_RESNET_STEPS \
+            or mismatched:
+        raise AssertionError(f"imagenet_data_setup: {records} records, "
+                             f"{skipped} skipped, shards differing from "
+                             f"decode_records_batch: {mismatched}")
+
+
+def phase_spark_jpeg_resnet(dev, engine, gpu, jpeg_dir, raw_dir):
+    """16c ``spark_jpeg_resnet``, the JPEG slice's main path:
+    ``resnet_imagenet_spark.main_fun`` SPARK-fed (``num_gpus=1``) with
+    ``--data_dir`` on the JPEG shards, which the executor reads and
+    decodes natively, then hands over the shm ring as columnar chunks;
+    then the same on ``imagenet_setup``'s raw shards.  The pixels are
+    the same, so the losses (and the chiefs' restored params' losses)
+    agree within ``SPARK_LOSS_RTOL``; every partition once, no trainer
+    and no ring left, every task under ``TFRECORD_TASK_MAX_BYTES``, every
+    JPEG decoded natively, no kernel launched in either trainer.
+    Returns both trainers' launches, summed."""
+    runs = {name: _spark_data_dir_run(dev, engine, d)
+            for name, d in (("jpeg", jpeg_dir), ("raw", raw_dir))}
+    jr, rr = runs["jpeg"], runs["raw"]
+    rel = [abs(a - r) / abs(r) for a, r in zip(jr["losses"], rr["losses"])]
+    n = RESNET["batch"] * SPARK_RESNET_STEPS
+    summary = dict(max_rel_loss_diff=max(rel) if rel else None,
+                   jpeg=jr, raw=rr, gpu=gpu)
+    print("spark_jpeg_resnet " + json.dumps(summary), flush=True)
+    for name, r in runs.items():
+        check_feed(f"spark_jpeg_resnet ({name})", r, "shm")
+        if r["fed_partitions"] != list(range(r["partitions"])) or \
+                r["records"] != n:
+            raise AssertionError(f"{name}: fed partitions "
+                                 f"{r['fed_partitions']} of "
+                                 f"{r['partitions']}, records {r['records']}")
+        if r["trainer_alive_after_shutdown"] or r["ring_left"]:
+            raise AssertionError(f"{name}: trainer or ring left after "
+                                 "shutdown")
+        if r["task_max_bytes"] >= TFRECORD_TASK_MAX_BYTES:
+            raise AssertionError(f"{name}: a task of {r['task_max_bytes']} "
+                                 f"bytes")
+        if r["checkpoint_step"] != SPARK_RESNET_STEPS or \
+                r["restored_loss"] is None:
+            raise AssertionError(f"{name}: the chief's checkpoint did not "
+                                 f"restore (step {r['checkpoint_step']})")
+        if any(r["launches"].values()):
+            raise AssertionError(f"{name}: the trainer launched "
+                                 f"{r['launches']}")
+    if len(jr["losses"]) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"JPEG-fed losses {jr['losses']} vs raw "
+                             f"{rr['losses']} (rtol {SPARK_LOSS_RTOL})")
+    if abs(jr["restored_loss"] - rr["restored_loss"]) > \
+            SPARK_LOSS_RTOL * abs(rr["restored_loss"]):
+        raise AssertionError(f"restored losses {jr['restored_loss']} (JPEG) "
+                             f"vs {rr['restored_loss']} (raw)")
+    if jr["jpeg_decodes"] != {"native": n, "pil": 0}:
+        raise AssertionError(f"the executor's JPEG decodes "
+                             f"{jr['jpeg_decodes']}: want {n} native")
+    return _sum_launches(jr["launches"], rr["launches"])
+
+
+def _remote_url(name):
+    return f"memory://tfos-chip-smoke-{os.getpid()}/{name}"
+
+
+def phase_remote_io(dev, gpu, files):
+    """16d ``remote_io``, in process through ``memory://`` (fsspec):
+    phase 14's shards written with ``TFRecordWriter`` (framed in memory,
+    one PUT each) have the local files' bytes, read back through
+    ``TFRecordReader`` and ``load_columnar`` as the local files read; a
+    ResNet-50 checkpoint tree (``checkpoint_tree`` of phase 10's net)
+    round-trips through ``save_checkpoint``/``restore_latest`` and
+    ``export_model``/``load_exported`` as locally."""
+    base = _remote_url("")
+    mfs, root = rfs.get_fs(base)
+    tmp = tempfile.mkdtemp(prefix="tfos_remote_io_")
+    try:
+        recs = [list(recordio.TFRecordReader(f)) for f in files]
+        nbytes = sum(os.path.getsize(f) for f in files)
+        urls = [_remote_url(f"tfr/{os.path.basename(f)}") for f in files]
+        t0 = time.perf_counter()
+        for url, rs in zip(urls, recs):
+            with recordio.TFRecordWriter(url) as w:
+                for r in rs:
+                    w.write(r)
+        write_s = time.perf_counter() - t0
+        same_bytes = all(rfs.read_bytes(u) == open(f, "rb").read()
+                         for u, f in zip(urls, files))
+        t0 = time.perf_counter()
+        back = [list(recordio.TFRecordReader(u)) for u in urls]
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cols = [recordio.load_columnar(u) for u in urls]
+        columnar_s = time.perf_counter() - t0
+        same_cols = all(
+            c["image"] == lc["image"] and np.array_equal(c["label"][1],
+                                                         lc["label"][1])
+            for c, lc in zip(cols, (recordio.load_columnar(f)
+                                    for f in files)))
+        del recs, back, cols
+
+        params, state, _ = _resnet_net(dev)
+        tree = resnet.checkpoint_tree(params, state, torch.optim.SGD(
+            resnet.param_leaves(params), lr=RESNET["lr"]))
+        del params, state
+        tree_mb = sum(v.nbytes for v in ckpt._flatten(tree).values()) / 1e6
+        trips = {}
+        for where, d in (("remote", _remote_url("model")),
+                         ("local", tmp)):
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(rfs.join(d, "ckpt"), tree, 1)
+            got, step_no = ckpt.restore_latest(rfs.join(d, "ckpt"))
+            ckpt.export_model(rfs.join(d, "export"), tree["params"],
+                              metadata={"predict": "resnet"})
+            exported, meta = ckpt.load_exported(rfs.join(d, "export"))
+            trips[where] = dict(seconds=time.perf_counter() - t0,
+                                step=step_no, tree=ckpt._flatten(got),
+                                export=ckpt._flatten(exported), meta=meta)
+        want = ckpt._flatten(tree)
+        n_params = sum(k.startswith("params/") for k in want)
+        ckpt_same = all(
+            t["step"] == 1 and sorted(t["tree"]) == sorted(want)
+            and all(np.array_equal(t["tree"][k], want[k]) for k in want)
+            and len(t["export"]) == n_params
+            and all(np.array_equal(v, want["params/" + k])
+                    for k, v in t["export"].items())
+            for t in trips.values())
+    finally:
+        if mfs.exists(root):
+            mfs.rm(root, recursive=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = dict(
+        shards=len(files), mb=nbytes / 1e6, write_mb_per_s=nbytes / write_s
+        / 1e6, read_mb_per_s=nbytes / read_s / 1e6,
+        columnar_mb_per_s=nbytes / columnar_s / 1e6,
+        bytes_equal_local=same_bytes, columns_equal_local=same_cols,
+        checkpoint_mb=tree_mb,
+        checkpoint_round_trip_s={k: t["seconds"] for k, t in trips.items()},
+        checkpoint_equal_local=ckpt_same, gpu=gpu)
+    print("remote_io " + json.dumps(summary), flush=True)
+    if not (same_bytes and same_cols and ckpt_same):
+        raise AssertionError(f"memory:// round trips differ from the local "
+                             f"ones: {summary}")
+
+
+def phase_async_checkpoint(dev, gpu):
+    """16e ``async_checkpoint``: phase 10's net (params, BN state and SGD
+    momentum on the card) steps on phase 10's batch, saving its tree
+    every ``ASYNC_CKPT["every"]`` steps: ``sync_saves`` times through
+    ``save_checkpoint``, then ``async_saves`` times through an
+    ``AsyncCheckpointer(keep=ASYNC_CKPT["keep"])``.  Times how long each
+    save blocks the step loop.  Each file must hold the tree of its own
+    step (taken to the host beside the save, outside the timing) and
+    differ from the tree after the steps that follow (the snapshot
+    check); ``keep`` prunes the oldest; ``close`` waits for the last
+    file; a ``checkpoint.save`` fault planned for the writer surfaces at
+    the next call.  Returns the kernels' launches in these steps."""
+    images_np, labels_np = _resnet_batch()
+    images = torch.from_numpy(images_np).to(dev)
+    labels = torch.from_numpy(labels_np).to(dev)
+    params, state = resnet.init(
+        torch.Generator(device=dev).manual_seed(0), depth=RESNET["depth"],
+        num_classes=RESNET["num_classes"], device=dev)
+    leaves = [p.requires_grad_() for p in resnet.param_leaves(params)]
+    opt = torch.optim.SGD(leaves, lr=RESNET["lr"], momentum=0.9)
+    step = resnet.make_train_step(opt, depth=RESNET["depth"])
+    every = ASYNC_CKPT["every"]
+    _reset_counts()
+    norm.launches = 0
+
+    def tree():
+        return {"params": params, "state": state,
+                "opt": train_utils.sgd_momentum_tree(opt, params)}
+
+    def host_tree():  # copies (a CPU tensor's numpy() is a view)
+        return {k: v.copy() for k, v in ckpt._flatten(tree()).items()}
+
+    tmp = tempfile.mkdtemp(prefix="tfos_async_ckpt_")
+    blocked, refs, finals = {"sync": [], "async": []}, {}, {}
+    try:
+        n = 0
+        for mode, saves in (("sync", ASYNC_CKPT["sync_saves"]),
+                            ("async", ASYNC_CKPT["async_saves"])):
+            d = os.path.join(tmp, mode)
+            saver = (ckpt.AsyncCheckpointer(d, keep=ASYNC_CKPT["keep"])
+                     if mode == "async" else None)
+            for _ in range(saves):
+                for _ in range(every):
+                    _, _, state = step(params, state, images, labels)
+                    n += 1
+                t0 = time.perf_counter()
+                if saver is None:
+                    ckpt.save_checkpoint(d, tree(), n, keep=10)
+                else:
+                    saver.save(n, tree())
+                blocked[mode].append(1e3 * (time.perf_counter() - t0))
+                refs[(mode, n)] = host_tree()
+            for _ in range(every):  # the steps after the last save
+                _, _, state = step(params, state, images, labels)
+                n += 1
+            finals[mode] = host_tree()
+            if saver is not None:
+                saver.close()
+                closed = sorted(os.listdir(d))
+                saver.close()  # idempotent
+        launches = _counts()
+        launches["rmsnorm"] = norm.launches
+        tree_mb = sum(v.nbytes for v in finals["sync"].values()) / 1e6
+        # each file against its step's tree, and the tree that followed
+        mismatched, undiscriminating = [], []
+        keys = sorted(refs)
+        for i, (mode, s) in enumerate(keys):
+            path = os.path.join(tmp, mode, f"ckpt-{s:08d}.npz")
+            if not os.path.exists(path):
+                continue
+            got = ckpt._flatten(ckpt.load_checkpoint(path))
+            want = refs[(mode, s)]
+            later = (refs[keys[i + 1]] if i + 1 < len(keys)
+                     and keys[i + 1][0] == mode else finals[mode])
+            if sorted(got) != sorted(want) or not all(
+                    np.array_equal(got[k], want[k]) for k in want):
+                mismatched.append(path)
+            if all(np.array_equal(got[k], later[k]) for k in want):
+                undiscriminating.append(path)
+        async_steps = [s for m, s in keys if m == "async"]
+        want_kept = [f"ckpt-{s:08d}.npz"
+                     for s in async_steps[-ASYNC_CKPT["keep"]:]]
+
+        # a fault planned for the writer surfaces at the next call
+        os.environ[faults.PLAN_ENV] = "checkpoint.save:exc@1"
+        try:
+            saver = ckpt.AsyncCheckpointer(os.path.join(tmp, "fault"))
+            saver.save(1, {"w": np.zeros(4, np.float32)})
+            try:
+                saver.close()
+                fault = "not raised"
+            except faults.FaultInjected as e:
+                fault = f"raised at close: {e}"
+        finally:
+            os.environ.pop(faults.PLAN_ENV, None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del params, state, step, opt
+        torch.cuda.empty_cache()
+    summary = dict(
+        tree_mb=tree_mb, every=every,
+        blocked_ms={k: v for k, v in blocked.items()},
+        blocked_ms_median={k: statistics.median(v)
+                           for k, v in blocked.items()},
+        saves=[f"{m}-{s}" for m, s in keys], kept_async=closed,
+        want_kept_async=want_kept, mismatched=mismatched,
+        equal_to_the_next_tree=undiscriminating, fault=fault,
+        launches=launches, gpu=gpu)
+    print("async_checkpoint " + json.dumps(summary), flush=True)
+    if mismatched or undiscriminating:
+        raise AssertionError(f"checkpoint files not their own step's tree: "
+                             f"{mismatched}; equal to a later tree: "
+                             f"{undiscriminating}")
+    if closed != want_kept:
+        raise AssertionError(f"after close the async directory holds "
+                             f"{closed}, want {want_kept}")
+    if not fault.startswith("raised"):
+        raise AssertionError("a checkpoint.save fault in the writer did "
+                             "not surface")
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet steps launched {launches}")
+    return launches
+
+
+def phase_spark_mnist_checkpoint(engine, gpu):
+    """16f ``spark_mnist_checkpoint``: ``mnist_spark.main_fun`` SPARK-fed
+    on the card (``num_gpus=1``) for ``MNIST_CKPT_STEPS`` steps with a
+    ``model_dir``: the chief's ``ckpt`` restores through
+    ``restore_latest`` at the last step, with the export's values, which
+    are the trainer's final params (HWIO on disk)."""
+    b = 64
+    records = mnist_spark.synthetic_records(b * MNIST_CKPT_STEPS, seed=5)
+    tmp = tempfile.mkdtemp(prefix="tfos_mnist_ckpt_")
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, mnist_spark.main_fun,
+            {"batch_size": b, "lr": 0.05, "seed": 0,
+             "model_dir": os.path.join(tmp, "model"), "out_dir": tmp},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300)
+        c.train(engine.parallelize(records, 4), feed_timeout=600)
+        c.shutdown()
+        total_s = time.time() - t0
+        tree, saved = ckpt.restore_latest(os.path.join(tmp, "model", "ckpt"))
+        exported, meta = ckpt.load_exported(os.path.join(tmp, "model",
+                                                         "export"))
+        final = dict(np.load(os.path.join(tmp, "mnist-rank0.npz")))
+        with open(os.path.join(tmp, "mnist-rank0.json")) as f:
+            losses = json.load(f)["losses"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got, want = ckpt._flatten(tree or {}), ckpt._flatten(exported)
+    same_export = sorted(got) == sorted(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
+    same_final = all(
+        np.array_equal(got[k], final[k.replace("/", ".")].transpose(2, 3, 1, 0)
+                       if got[k].ndim == 4 else final[k.replace("/", ".")])
+        for k in got)
+    summary = dict(steps=len(losses), checkpoint_step=saved,
+                   equals_export=same_export, equals_final_params=same_final,
+                   predict=meta.get("predict"), total_s=total_s,
+                   losses_first_last=[losses[0], losses[-1]] if losses
+                   else None, gpu=gpu)
+    print("spark_mnist_checkpoint " + json.dumps(summary), flush=True)
+    if saved != MNIST_CKPT_STEPS or not (same_export and same_final):
+        raise AssertionError(f"mnist_spark's chief checkpoint: {summary}")
 
 
 def tf32_off_main(args, ctx):
@@ -3245,16 +3830,25 @@ def phase_spark_segmentation(dev, engine, gpu):
 
 
 def host_line():
-    """What the card's host offers a JPEG decode (ROADMAP item 24):
-    libjpeg's header and library, and PIL.  Reported only."""
+    """What the card's host offers the JPEG decode and remote paths:
+    libjpeg's header and library, PIL and the libjpeg its wheel bundles
+    (the decoder's second build route), and fsspec's version.  Reported
+    only."""
     import ctypes.util
+    import importlib.metadata
     import importlib.util
 
     headers = [d for d in ("/usr/include", "/usr/local/include")
                if os.path.exists(os.path.join(d, "jpeglib.h"))]
+    try:
+        fsspec = importlib.metadata.version("fsspec")
+    except importlib.metadata.PackageNotFoundError:
+        fsspec = None
     return dict(jpeglib_h=headers[0] if headers else None,
                 libjpeg=ctypes.util.find_library("jpeg"),
-                pil=importlib.util.find_spec("PIL") is not None)
+                pil=importlib.util.find_spec("PIL") is not None,
+                pillow_libjpeg=native_build._pillow_libjpeg(),
+                fsspec=fsspec)
 
 
 def main():
@@ -3344,13 +3938,28 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     phase_spark_resnet(dev, engine, gpu, res)
     phase_spark_resnet(dev, engine_mgr, gpu, res, transport="manager")
     tfr_dir = tempfile.mkdtemp(prefix="tfos_tfrecords_")
+    jpeg_root = tempfile.mkdtemp(prefix="tfos_jpeg_")
     try:
         files = phase_tfrecord_io(gpu, tfr_dir)
         tfr_launches = phase_tfrecord_resnet(dev, gpu, res, files)
         spark_tfr_launches = phase_spark_tfrecord_resnet(dev, engine, gpu,
                                                          res, tfr_dir)
+        # JPEG shards, their raw conversion, remote paths and the async
+        # checkpointer (phases 16a-16f), on the first engine, whose
+        # executor has never touched CUDA
+        jpeg_dir = os.path.join(jpeg_root, "jpeg")
+        raw_dir = os.path.join(jpeg_root, "raw")
+        shards = phase_jpeg_decode(gpu, jpeg_dir)
+        phase_imagenet_setup(gpu, engine, jpeg_dir, raw_dir, shards)
+        del shards
+        jpeg_launches = _sum_launches(
+            phase_spark_jpeg_resnet(dev, engine, gpu, jpeg_dir, raw_dir),
+            phase_async_checkpoint(dev, gpu))
+        phase_remote_io(dev, gpu, files)
+        phase_spark_mnist_checkpoint(engine, gpu)
     finally:
         shutil.rmtree(tfr_dir, ignore_errors=True)
+        shutil.rmtree(jpeg_root, ignore_errors=True)
     serve_tmp = tempfile.mkdtemp(prefix="tfos_serve_")
     tf_tmp = tempfile.mkdtemp(prefix="tfos_tf_mnist_")
     try:
@@ -3442,6 +4051,9 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         # 16's trainer, phase 17's executor
         k["launches_tfrecord"] = tfr_launches[k["name"]]
         k["launches_spark_tfrecord"] = spark_tfr_launches[k["name"]]
+        # phases 16c and 16e: the JPEG- and raw-fed trainers and the
+        # in-process steps around the checkpoints, summed
+        k["launches_jpeg"] = jpeg_launches[k["name"]]
         k["launches_tf_mode"] = tf_mode_launches[k["name"]]
         # the decode pool's replicas in serve_decode, summed
         k["launches_serve"] = serve_launches[k["name"]]
@@ -3454,6 +4066,9 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")
+    if any(jpeg_launches.values()):
+        raise AssertionError(f"the JPEG and checkpoint paths launched "
+                             f"{jpeg_launches}")
     if any(pipeline_launches.values()):
         raise AssertionError(f"the pipeline paths launched "
                              f"{pipeline_launches}")

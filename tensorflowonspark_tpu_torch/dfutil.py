@@ -4,7 +4,7 @@ The port's own copy of ``tensorflowonspark_tpu/dfutil.py``: rows are
 plain dicts, converted to ``tf.train.Example`` TFRecords and back with a
 schema inferred from the first record (a ``binary_features`` hint tells
 bytes from strings), through the port's record IO (``recordio``) on
-local paths.  ``load_tfrecords`` parallelises *read units*
+local or remote paths (``recordio.fs``).  ``load_tfrecords`` parallelises *read units*
 ``(path, stride, offset)`` and reads them in the executors through the
 engine's ``map_partitions`` lineage, so no record passes through the
 driver; ``load_tfrecords_columnar`` and ``iter_tfrecords_columnar`` are

@@ -11,10 +11,11 @@ process group.  On the CPU (gloo)::
         --cluster_size 2 --device cpu
 
 On a host with GPUs, ``--device cuda --num_gpus 1`` gives each executor
-one card (NCCL).  The chief exports the trained params to
-``--model_dir``/export (``utils.checkpoint.export_model``, which either
-package loads); ``--out_dir`` gets each rank's losses and final params.
-Checkpoints wait for ROADMAP.md queue 1, item 9.
+one card (NCCL).  The chief saves the trained params as the checkpoint
+of its last step under ``--model_dir``/ckpt and exports them to
+``--model_dir``/export (``utils.checkpoint``, in the JAX package's
+layout, so either package restores and loads them); ``--out_dir`` gets
+each rank's losses and final params.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def main_fun(args, ctx):
     """Runs in every trainer.  ``args``: ``batch_size`` (global), ``lr``,
     optional ``device`` (default the card), ``init_params`` (a JAX-layout
     params tree; default random from ``seed``), ``model_dir`` (where the
-    chief exports) and ``out_dir`` (where each rank writes
+    chief checkpoints and exports) and ``out_dir`` (where each rank writes
     ``mnist-rank<r>.json``, with what its ``DataFeed`` saw,
     ``DataFeed.stats``, and ``.npz``)."""
     import torch
@@ -89,10 +90,12 @@ def main_fun(args, ctx):
             print(f"step {len(losses)}: loss={losses[-1]:.4f} "
                   f"acc={float(acc):.3f}", flush=True)
 
-    if args.get("model_dir"):
-        ckpt.export_model(os.path.join(args["model_dir"], "export"),
-                          mnist.params_to_jax(params), ctx,
-                          metadata={"predict": mnist.PREDICT})
+    if args.get("model_dir") and ckpt.is_chief(ctx):
+        tree = mnist.params_to_jax(params)
+        ckpt.save_checkpoint(os.path.join(args["model_dir"], "ckpt"), tree,
+                             len(losses))
+        ckpt.export_model(os.path.join(args["model_dir"], "export"), tree,
+                          ctx, metadata={"predict": mnist.PREDICT})
     out_dir = args.get("out_dir")
     if out_dir:
         rank = env["process_id"]

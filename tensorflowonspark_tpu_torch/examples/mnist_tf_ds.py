@@ -32,12 +32,11 @@ def main_fun(args, ctx):
     whose files hold no record raises."""
     from tensorflowonspark_tpu_torch import dfutil
     from tensorflowonspark_tpu_torch.examples import mnist_tf
-    from tensorflowonspark_tpu_torch.recordio import fs
 
     env = ctx.torch_initialize(args.get("device"))
     rank, nproc = env["process_id"], env["num_processes"]
     files = dfutil.part_files(
-        fs.local_path(ctx.absolute_path(args["data_dir"])))[rank::nproc]
+        ctx.absolute_path(args["data_dir"]))[rank::nproc]
     cols = dfutil.load_tfrecords_columnar(files)
     if not cols:
         raise RuntimeError(

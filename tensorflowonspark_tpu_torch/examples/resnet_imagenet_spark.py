@@ -12,12 +12,14 @@ the card.  Without Spark, on the built-in engine, with synthetic images::
     python -m tensorflowonspark_tpu_torch.examples.resnet_imagenet_spark \\
         --cluster_size 1 --num_gpus 1 --batch_size 256 --steps 20
 
-With ``--data_dir``, the records are TFRecord shards of raw uint8 images
-(``"image"``/``"label"`` or the TF-official keys, ``imagenet_records``)
-that each executor reads itself: ``dfutil.load_tfrecords`` ships read
-units, and the executor reads and decodes its partition through the
-engine's ``map_partitions`` lineage, so no image crosses the driver's
-pipe (``_records``).
+With ``--data_dir``, the records are TFRecord shards of JPEG, PNG or raw
+uint8 images (``"image"``/``"label"`` or the TF-official keys,
+``imagenet_records``) that each executor reads itself:
+``dfutil.load_tfrecords`` ships read units, and the executor reads and
+decodes its partition through the engine's ``map_partitions`` lineage
+(JPEGs on a pool of ``--decode_threads`` native decoders), so no image
+crosses the driver's pipe (``_records``).  ``imagenet_data_setup``
+converts JPEG shards to raw ones once, which then skip the decode.
 """
 
 from __future__ import annotations
@@ -42,25 +44,40 @@ def synthetic_records(n, image_size=224, num_classes=1000, seed=0):
 class decode_stream:  # noqa: N801 - the JAX package's closure's name
     """The ``map_partitions`` stage after ``dfutil``'s read: a partition
     of record dicts -> (uint8 [S, S, 3] image, label) rows, decoded
-    ``chunk`` records at a time (``imagenet_records``)."""
+    ``chunk`` records at a time (``imagenet_records``; JPEGs on a pool of
+    ``threads``, whose threads have ended before a chunk's rows are
+    yielded).  The partition's JPEG decodes, native and through PIL, go
+    into the engine's task report (``"jpeg"``), where the feeder reads
+    them."""
 
-    def __init__(self, image_size, chunk=256):
+    def __init__(self, image_size, chunk=256, threads=None):
         self.image_size = image_size
         self.chunk = chunk
+        self.threads = threads
 
     def __call__(self, it):
+        from tensorflowonspark_tpu_torch import engine
         from tensorflowonspark_tpu_torch.examples import imagenet_records
+        from tensorflowonspark_tpu_torch.recordio import jpeg
+
+        before = jpeg.decode_counts()
+
+        def decoded(batch):
+            rows = imagenet_records.decode_records_batch(
+                batch, self.image_size, threads=self.threads)
+            now = jpeg.decode_counts()
+            engine.task_report["jpeg"] = {k: now[k] - before[k]
+                                          for k in now}
+            return rows
 
         batch = []
         for rec in it:
             batch.append(rec)
             if len(batch) >= self.chunk:
-                yield from imagenet_records.decode_records_batch(
-                    batch, self.image_size)
+                yield from decoded(batch)
                 batch = []
         if batch:
-            yield from imagenet_records.decode_records_batch(
-                batch, self.image_size)
+            yield from decoded(batch)
 
 
 def _records(args, engine):
@@ -76,7 +93,8 @@ def _records(args, engine):
             engine, args.data_dir,
             binary_features=("image", "image/encoded"),
             min_partitions=args.cluster_size)
-        return ds.map_partitions(decode_stream(args.image_size))
+        return ds.map_partitions(decode_stream(
+            args.image_size, threads=getattr(args, "decode_threads", None)))
     records = synthetic_records(args.batch_size * args.steps,
                                 args.image_size, args.num_classes)
     return engine.parallelize(records, args.cluster_size * 2)
@@ -232,8 +250,11 @@ def main():
     p.add_argument("--save_every", type=int, default=200)
     p.add_argument("--accum_steps", type=int, default=1)
     p.add_argument("--data_dir", default=None,
-                   help="TFRecord dir of raw uint8 images (local or "
-                        "file://)")
+                   help="TFRecord dir of JPEG, PNG or raw uint8 images "
+                        "(local or remote)")
+    p.add_argument("--decode_threads", type=int, default=None,
+                   help="JPEG decode threads an executor (default "
+                        "min(8, cores))")
     p.add_argument("--model_dir", default="resnet_imagenet_model")
     p.add_argument("--device", default=None,
                    help="'cpu' for the CPU; default the card")

@@ -52,8 +52,7 @@ def hdfs_path(ctx, path):
     passes through; an absolute one gets the default filesystem's
     prefix; a relative one resolves against the working directory
     (``file://``) or the user's home (``hdfs://``, ``gs://``, ...).
-    Only the ``file://`` results are paths the port can open
-    (``recordio.fs``)."""
+    ``recordio.fs`` opens the results (remote ones through fsspec)."""
     if path.startswith(("file://", "hdfs://", "viewfs://", "gs://",
                         "s3://", "s3a://", "har://")):
         return path

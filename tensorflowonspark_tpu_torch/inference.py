@@ -135,7 +135,7 @@ class _WriteJson:
         # unique even when one executor writes several partitions
         path = fs.join(self.output_dir,
                        f"part-{os.getpid()}-{uuid.uuid4().hex[:8]}.json")
-        with open(fs.local_path(path), "w") as f:
+        with fs.open_file(path, "w") as f:
             for row in rows:
                 f.write(json.dumps(row) + "\n")
         return [path]

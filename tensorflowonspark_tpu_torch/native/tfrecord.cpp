@@ -3,10 +3,11 @@
 // (tensorflowonspark_tpu_torch/recordio/tfrecord_native.py), built at
 // first use by recordio/_build.py into build/torch_native/.
 //
-// The port's own copy of the JAX package's record codec, minus its
-// memory-buffer reader and writer (the remote-filesystem path, which
-// the port does not carry).  Files and Examples are byte-compatible
-// with the JAX package's in both directions.
+// The port's own copy of the JAX package's record codec, with its
+// memory-buffer reader and writer (tfr_mem_*, tfr_load_columnar_mem:
+// the remote-filesystem path, where fsspec moves the bytes and this
+// library frames them).  Files and Examples are byte-compatible with
+// the JAX package's in both directions.
 //
 // File format (TFRecord):
 //   uint64le length
@@ -161,6 +162,73 @@ int tfr_reader_close(TFRReader* r) {
   delete r;
   return rc;
 }
+
+// ---------------------------------------------------------------------------
+// Memory-buffer variants: the same framing over bytes the caller owns, so
+// Python can move remote objects (gs://, hdfs://, s3://, memory://)
+// through fsspec while this library still does the framing and crcs.
+// ---------------------------------------------------------------------------
+
+struct TFRMemWriter {
+  std::string out;
+};
+
+TFRMemWriter* tfr_mem_writer_new() { return new TFRMemWriter(); }
+
+int tfr_mem_writer_write(TFRMemWriter* w, const uint8_t* data, uint64_t len) {
+  uint8_t header[12];
+  memcpy(header, &len, 8);
+  uint32_t lcrc = masked_crc(header, 8);
+  memcpy(header + 8, &lcrc, 4);
+  w->out.append((const char*)header, 12);
+  if (len) w->out.append((const char*)data, len);
+  uint32_t dcrc = masked_crc(data, len);
+  w->out.append((const char*)&dcrc, 4);
+  return 0;
+}
+
+// Valid until the next write or free; *n receives the size.
+const uint8_t* tfr_mem_writer_data(TFRMemWriter* w, uint64_t* n) {
+  *n = w->out.size();
+  return (const uint8_t*)w->out.data();
+}
+
+void tfr_mem_writer_clear(TFRMemWriter* w) { w->out.clear(); }
+
+void tfr_mem_writer_free(TFRMemWriter* w) { delete w; }
+
+struct TFRMemReader {
+  const uint8_t* data;  // caller-owned; must outlive the reader
+  uint64_t len;
+  uint64_t pos;
+};
+
+TFRMemReader* tfr_mem_reader_new(const uint8_t* data, uint64_t len) {
+  return new TFRMemReader{data, len, 0};
+}
+
+// tfr_reader_next's contract; *out points into the caller's buffer.
+int64_t tfr_mem_reader_next(TFRMemReader* r, const uint8_t** out) {
+  if (r->pos == r->len) return -1;  // clean EOF
+  if (r->len - r->pos < 12) return -2;
+  const uint8_t* header = r->data + r->pos;
+  uint64_t len;
+  memcpy(&len, header, 8);
+  uint32_t lcrc;
+  memcpy(&lcrc, header + 8, 4);
+  if (masked_crc(header, 8) != lcrc) return -3;
+  if (len > (1ull << 34)) return -4;
+  if (r->len - r->pos - 12 < len + 4) return -5;
+  const uint8_t* body = header + 12;
+  uint32_t dcrc;
+  memcpy(&dcrc, body + len, 4);
+  if (masked_crc(body, len) != dcrc) return -7;
+  r->pos += 12 + len + 4;
+  *out = body;
+  return (int64_t)len;
+}
+
+void tfr_mem_reader_free(TFRMemReader* r) { delete r; }
 
 // ---------------------------------------------------------------------------
 // Proto wire helpers
@@ -652,6 +720,21 @@ static bool colb_add_record(ColumnarBatch* cb, const uint8_t* data,
       }
   cb->nrows++;
   return true;
+}
+
+ColumnarBatch* tfr_load_columnar_mem(const uint8_t* data, uint64_t len) {
+  auto* cb = new ColumnarBatch();
+  TFRMemReader r{data, len, 0};
+  const uint8_t* rec;
+  int64_t rlen;
+  while ((rlen = tfr_mem_reader_next(&r, &rec)) >= 0) {
+    if (!colb_add_record(cb, rec, (uint64_t)rlen)) {
+      if (cb->error.empty()) cb->error = "unparseable tf.train.Example";
+      return cb;
+    }
+  }
+  if (rlen < -1) cb->error = "corrupt TFRecord framing";
+  return cb;
 }
 
 ColumnarBatch* tfr_load_columnar(const char* path) {

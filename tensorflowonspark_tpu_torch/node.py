@@ -912,7 +912,8 @@ class train:  # noqa: N801 - named as the JAX package's node.train
                      done_wall=time.time(),
                      lineage_ms=list(engine.task_report.get("lineage_ms",
                                                             [])),
-                     codec=engine.task_report.get("codec"))
+                     codec=engine.task_report.get("codec"),
+                     jpeg=engine.task_report.get("jpeg"))
         _record_feed_stats(mgr, stats)
         if str(mgr.get("state")) == "terminating":
             logger.info("feeder: consumer requested termination")

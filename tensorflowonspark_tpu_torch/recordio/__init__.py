@@ -1,13 +1,16 @@
 """Record IO of the port: TFRecord files, the ``tf.train.Example`` codec
 and the columnar bulk loader, plus the feed's host-native transport.
 
-The port's own copy of ``tensorflowonspark_tpu/recordio/__init__.py``,
-on local paths (``fs``).  A C++ library (``native/tfrecord.cpp`` under
-the port's package, bound by ``tfrecord_native``) does the framing,
-crc32c and the Example wire format; where it cannot be built the
-pure-Python codec (``pyimpl``) runs, with the same results.
-``codec()`` names the one that runs.  Files and Examples are the JAX
-package's byte for byte, so either package reads what the other wrote.
+The port's own copy of ``tensorflowonspark_tpu/recordio/__init__.py``.
+A C++ library (``native/tfrecord.cpp`` under the port's package, bound
+by ``tfrecord_native``) does the framing, crc32c and the Example wire
+format; where it cannot be built the pure-Python codec (``pyimpl``)
+runs, with the same results.  ``codec()`` names the one that runs.
+Files and Examples are the JAX package's byte for byte, so either
+package reads what the other wrote.  Local paths (and ``file://``) go
+through the C library's ``FILE*`` reader and writer; remote URLs
+(``gs://``, ``hdfs://``, ``s3://``, ``memory://``) are framed in memory
+and moved whole through fsspec (``fs``).
 
 The transport modules beside it: the shared-memory feed ring (``shm``,
 over ``native/shmqueue.cpp``) and the row <-> column marshal
@@ -42,24 +45,37 @@ def codec():
 
 
 class TFRecordWriter:
-    """Writes TFRecord framing to a local file, through the C library's
-    buffered writer (or the Python codec where it is absent)."""
+    """Writes TFRecord framing to any filesystem.
+
+    A local path goes through the C library's buffered writer (or the
+    Python codec where it is absent).  A remote URL is framed in memory
+    and written with one ``fs.write_bytes`` on close: objects on these
+    stores are immutable, so one terminal PUT is their write pattern."""
 
     def __init__(self, path):
         self._lib = _native.load()
-        self._h = self._f = None
-        lp = _fs.local_path(path)
-        if self._lib is not None:
-            self._h = self._lib.tfr_writer_open(lp.encode())
-            if not self._h:
-                raise IOError(f"cannot open {lp} for writing")
+        self._h = self._mh = self._f = None
+        self._remote_path = None
+        if _fs.is_local(path):
+            lp = _fs.local_path(path)
+            if self._lib is not None:
+                self._h = self._lib.tfr_writer_open(lp.encode())
+                if not self._h:
+                    raise IOError(f"cannot open {lp} for writing")
+            else:
+                self._f = open(lp, "wb")
+        elif self._lib is not None:
+            self._mh = self._lib.tfr_mem_writer_new()
+            self._remote_path = str(path)
         else:
-            self._f = open(lp, "wb")
+            self._f = _fs.open_file(path, "wb")
 
     def write(self, data: bytes):
         if self._h is not None:
             if self._lib.tfr_writer_write(self._h, data, len(data)) != 0:
                 raise IOError("TFRecord write failed")
+        elif self._mh is not None:
+            self._lib.tfr_mem_writer_write(self._mh, data, len(data))
         else:
             _py.write_record(self._f, data)
 
@@ -67,6 +83,16 @@ class TFRecordWriter:
         if self._h is not None:
             self._lib.tfr_writer_close(self._h)
             self._h = None
+        elif self._mh is not None:
+            try:
+                n = ctypes.c_uint64()
+                p = self._lib.tfr_mem_writer_data(self._mh, ctypes.byref(n))
+                _fs.write_bytes(self._remote_path,
+                                ctypes.string_at(p, n.value) if n.value
+                                else b"")
+            finally:
+                self._lib.tfr_mem_writer_free(self._mh)
+                self._mh = None
         elif self._f is not None:
             self._f.close()
             self._f = None
@@ -79,14 +105,21 @@ class TFRecordWriter:
 
 
 class TFRecordReader:
-    """Iterates raw record bytes from one local TFRecord file; corrupt or
-    truncated framing raises IOError."""
+    """Iterates raw record bytes from one TFRecord file on any
+    filesystem; corrupt or truncated framing raises IOError.  A remote
+    file is read whole through fsspec and framed in memory."""
 
     def __init__(self, path):
         self._path = path
         self._lib = _native.load()
 
     def __iter__(self):
+        if _fs.is_local(self._path):
+            yield from self._iter_local()
+        else:
+            yield from self._iter_remote()
+
+    def _iter_local(self):
         lp = _fs.local_path(self._path)
         if self._lib is None:
             with open(lp, "rb") as f:
@@ -96,16 +129,33 @@ class TFRecordReader:
         if not h:
             raise IOError(f"cannot open {self._path}")
         try:
-            buf = ctypes.POINTER(ctypes.c_uint8)()
-            while True:
-                n = self._lib.tfr_reader_next(h, ctypes.byref(buf))
-                if n == -1:
-                    return  # clean EOF
-                if n < -1:
-                    raise IOError(f"corrupt TFRecord ({n}) in {self._path}")
-                yield ctypes.string_at(buf, n) if n else b""
+            yield from self._records(self._lib.tfr_reader_next, h)
         finally:
             self._lib.tfr_reader_close(h)
+
+    def _iter_remote(self):
+        data = _fs.read_bytes(self._path)
+        if self._lib is None:
+            import io
+
+            yield from _py.read_records(io.BytesIO(data))
+            return
+        # the reader points into ``data``, which this frame keeps alive
+        h = self._lib.tfr_mem_reader_new(data, len(data))
+        try:
+            yield from self._records(self._lib.tfr_mem_reader_next, h)
+        finally:
+            self._lib.tfr_mem_reader_free(h)
+
+    def _records(self, next_fn, h):
+        buf = ctypes.POINTER(ctypes.c_uint8)()
+        while True:
+            n = next_fn(h, ctypes.byref(buf))
+            if n == -1:
+                return  # clean EOF
+            if n < -1:
+                raise IOError(f"corrupt TFRecord ({n}) in {self._path}")
+            yield ctypes.string_at(buf, n) if n else b""
 
 
 def encode_example(features: dict) -> bytes:
@@ -188,8 +238,8 @@ def load_columnar(path):
     IOError; a directory raises IsADirectoryError (use ``dfutil``'s
     loaders for a shard directory).
     """
-    lp = _fs.local_path(path)
-    if _os.path.isdir(lp):
+    local = _fs.is_local(path)
+    if local and _os.path.isdir(_fs.local_path(path)):
         # fopen(dir) "succeeds" and reads nothing: a silent empty result
         raise IsADirectoryError(
             f"{path} is a directory; pass a shard file (or use "
@@ -198,7 +248,11 @@ def load_columnar(path):
     lib = _native.load()
     if lib is None:
         return _columnar_fallback(path)
-    h = lib.tfr_load_columnar(lp.encode())
+    if local:
+        h = lib.tfr_load_columnar(_fs.local_path(path).encode())
+    else:  # one read through fsspec, one C pass over the bytes
+        data = _fs.read_bytes(path)
+        h = lib.tfr_load_columnar_mem(data, len(data))
     if not h:
         raise MemoryError("columnar load allocation failed")
     try:

@@ -101,8 +101,28 @@ def _bind(lib):
     lib.exd_bytes.argtypes = [c.c_void_p, c.c_int, c.c_int,
                               c.POINTER(c.c_uint64)]
 
+    # the memory-buffer framing of remote paths (fsspec moves the bytes)
+    lib.tfr_mem_writer_new.restype = c.c_void_p
+    lib.tfr_mem_writer_new.argtypes = []
+    lib.tfr_mem_writer_write.restype = c.c_int
+    lib.tfr_mem_writer_write.argtypes = [c.c_void_p, c.c_char_p, c.c_uint64]
+    lib.tfr_mem_writer_data.restype = u8p
+    lib.tfr_mem_writer_data.argtypes = [c.c_void_p, c.POINTER(c.c_uint64)]
+    lib.tfr_mem_writer_clear.restype = None
+    lib.tfr_mem_writer_clear.argtypes = [c.c_void_p]
+    lib.tfr_mem_writer_free.restype = None
+    lib.tfr_mem_writer_free.argtypes = [c.c_void_p]
+    lib.tfr_mem_reader_new.restype = c.c_void_p
+    lib.tfr_mem_reader_new.argtypes = [c.c_char_p, c.c_uint64]
+    lib.tfr_mem_reader_next.restype = c.c_int64
+    lib.tfr_mem_reader_next.argtypes = [c.c_void_p, c.POINTER(u8p)]
+    lib.tfr_mem_reader_free.restype = None
+    lib.tfr_mem_reader_free.argtypes = [c.c_void_p]
+
     lib.tfr_load_columnar.restype = c.c_void_p
     lib.tfr_load_columnar.argtypes = [c.c_char_p]
+    lib.tfr_load_columnar_mem.restype = c.c_void_p
+    lib.tfr_load_columnar_mem.argtypes = [c.c_char_p, c.c_uint64]
     lib.colb_ok.restype = c.c_int
     lib.colb_ok.argtypes = [c.c_void_p]
     lib.colb_error.restype = c.c_char_p

@@ -31,19 +31,31 @@ The serving tier's hot reload polls :func:`latest` (a listing, never a
 restore) and loads with :func:`restore_any` (newest restorable step,
 ``blessed_only`` honoured) or :func:`restore_step` (one step exactly).
 
-Local paths (and ``file://``) only (``recordio.fs``); a remote URL
-raises NotImplementedError.  The blessing and tombstone writers, the
-async (orbax) checkpointer and ``restore_any(target_shardings=)`` wait
-in ROADMAP.md (queue 1, item 9): an orbax step directory is listed by
-:func:`latest`, and skipped by the restores.
+Every path goes through ``recordio.fs``: a local path (or ``file://``)
+is written to a pid-unique tmp file and renamed into place, a remote URL
+(``gs://``, ``hdfs://``, ``s3://``, ``memory://``) with one PUT through
+fsspec, which object stores publish atomically.
+
+:class:`AsyncCheckpointer` keeps the JAX class's contract (``save``
+returns at once; ``restore_latest``, ``restore_at``, ``wait``,
+``close``, ``keep``) but writes the same npz files as
+:func:`save_checkpoint`, on one background thread, where the JAX class
+writes orbax step directories: importing ``orbax.checkpoint`` imports
+JAX.  So both packages' restores read what the port's class writes; an
+orbax step directory that the JAX class wrote is listed by
+:func:`latest` and skipped by the restores.  The blessing and tombstone
+writers wait in ROADMAP.md (item 25), and
+``restore_any(target_shardings=)`` in item 12.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import logging
 import os
+import threading
 import time
 import zipfile
 
@@ -77,14 +89,17 @@ def _to_host(x):
     return np.asarray(x)
 
 
-def _flatten(tree, prefix=""):
-    out = {}
+def _flatten_leaves(tree, prefix=""):
+    """(``/``-joined key, leaf) pairs of nested dicts, keys sorted."""
     if isinstance(tree, dict):
         for k in sorted(tree):
-            out.update(_flatten(tree[k], f"{prefix}{k}/"))
+            yield from _flatten_leaves(tree[k], f"{prefix}{k}/")
     else:
-        out[prefix[:-1]] = _to_host(tree)
-    return out
+        yield prefix[:-1], tree
+
+
+def _flatten(tree):
+    return {k: _to_host(v) for k, v in _flatten_leaves(tree)}
 
 
 def _unflatten(flat):
@@ -99,30 +114,40 @@ def _unflatten(flat):
 
 
 def _path(ckpt_dir, step):
-    return os.path.join(_fs.local_path(ckpt_dir), f"ckpt-{step:08d}.npz")
+    return _fs.join(ckpt_dir, f"ckpt-{step:08d}.npz")
 
 
-def save_checkpoint(ckpt_dir, params, step, keep=3):
-    """Write the tree ``params`` (nested dicts of tensors or arrays) as
-    ``ckpt-<step>.npz`` through a pid-unique tmp file and an atomic
-    rename; keep the ``keep`` newest.  Returns the path."""
+def _publish(path, write):
+    """Write a file whole, so no reader sees half of it: ``write(f)``
+    fills a pid-unique tmp file that is renamed into place on a local
+    path (writers sharing one filesystem must not clobber each other's
+    in-flight file), or a buffer written with one PUT on a remote one."""
+    if _fs.is_local(path):
+        lp = _fs.local_path(path)
+        tmp = f"{lp}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            write(f)
+        os.replace(tmp, lp)  # atomic publish
+    else:
+        buf = io.BytesIO()
+        write(buf)
+        _fs.write_bytes(path, buf.getvalue())
+
+
+def _save_flat(ckpt_dir, flat, step, keep):
+    """Publish ``flat`` ({``/``-joined key: ndarray}) as checkpoint
+    ``step`` and keep the ``keep`` newest: the save of both
+    :func:`save_checkpoint` and :class:`AsyncCheckpointer`."""
     t0 = time.perf_counter()
     faults.check("checkpoint.save", step=step)
-    d = _fs.local_path(ckpt_dir)
-    os.makedirs(d, exist_ok=True)
-    flat = _flatten(params)
-    path = _path(d, step)
-    # pid-unique tmp: writers sharing one filesystem must not clobber each
-    # other's in-flight file
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **flat)
-    os.replace(tmp, path)  # atomic publish
+    _fs.makedirs(ckpt_dir)
+    path = _path(ckpt_dir, step)
+    _publish(path, lambda f: np.savez(f, **flat))
     logger.info("saved checkpoint %s", path)
-    ckpts = sorted(p for p in os.listdir(d)
+    ckpts = sorted(p for p in _fs.listdir(ckpt_dir)
                    if p.startswith("ckpt-") and p.endswith(".npz"))
     for old in ckpts[:-keep]:
-        os.remove(os.path.join(d, old))
+        _fs.remove(_fs.join(ckpt_dir, old))
     dt = time.perf_counter() - t0
     telemetry.record_span("checkpoint/save", dt, step=step)
     metrics_registry.inc("tfos_checkpoint_saves_total")
@@ -130,10 +155,17 @@ def save_checkpoint(ckpt_dir, params, step, keep=3):
     return path
 
 
+def save_checkpoint(ckpt_dir, params, step, keep=3):
+    """Write the tree ``params`` (nested dicts of tensors or arrays) as
+    ``ckpt-<step>.npz``, whole (see :func:`_publish`); keep the ``keep``
+    newest.  Returns the path."""
+    return _save_flat(ckpt_dir, _flatten(params), step, keep)
+
+
 def load_checkpoint(path):
     """The tree of numpy arrays in one checkpoint file."""
     t0 = time.perf_counter()
-    with open(_fs.local_path(path), "rb") as f, np.load(f) as z:
+    with _fs.open_file(path, "rb") as f, np.load(f) as z:
         out = _unflatten({k: z[k] for k in z.files})
     dt = time.perf_counter() - t0
     telemetry.record_span("checkpoint/restore", dt,
@@ -150,17 +182,7 @@ def step_of(ckpt_path):
 
 
 def _npz_steps(ckpt_dir):
-    d = _fs.local_path(ckpt_dir)
-    if not os.path.isdir(d):
-        return []
-    steps = []
-    for name in os.listdir(d):
-        if name.startswith("ckpt-") and name.endswith(".npz"):
-            try:
-                steps.append(step_of(name))
-            except ValueError:
-                pass
-    return sorted(steps)
+    return _steps_by_format(ckpt_dir)["npz"]
 
 
 def export_model(export_dir, params, ctx=None, metadata=None):
@@ -175,34 +197,30 @@ def export_model(export_dir, params, ctx=None, metadata=None):
                     ctx.job_name, ctx.task_index)
         return None
     t0 = time.perf_counter()
-    d = _fs.local_path(export_dir)
-    os.makedirs(d, exist_ok=True)
-    tmp = os.path.join(d, f".params.npz.{os.getpid()}.tmp")
-    with open(tmp, "wb") as f:
-        np.savez(f, **_flatten(params))
-    os.replace(tmp, os.path.join(d, "params.npz"))
+    _fs.makedirs(export_dir)
+    flat = _flatten(params)
+    _publish(_fs.join(export_dir, "params.npz"),
+             lambda f: np.savez(f, **flat))
     meta = {"format": EXPORT_FORMAT}
     meta.update(metadata or {})
-    with open(os.path.join(d, "export.json"), "w") as f:
-        json.dump(meta, f)
+    _fs.write_bytes(_fs.join(export_dir, "export.json"),
+                    json.dumps(meta).encode())
     telemetry.record_span("checkpoint/export", time.perf_counter() - t0)
-    logger.info("exported model to %s", d)
+    logger.info("exported model to %s", export_dir)
     return export_dir
 
 
 def load_exported(export_dir):
     """``(params tree of numpy arrays, metadata dict)`` of an export."""
-    path = os.path.join(_fs.local_path(export_dir), "params.npz")
-    with open(path, "rb") as f, np.load(f) as z:
+    with _fs.open_file(_fs.join(export_dir, "params.npz"), "rb") as f, \
+            np.load(f) as z:
         params = _unflatten({k: z[k] for k in z.files})
     return params, load_export_meta(export_dir)
 
 
 def load_export_meta(export_dir):
     """An export's metadata alone, without its params."""
-    path = os.path.join(_fs.local_path(export_dir), "export.json")
-    with open(path, "rb") as f:
-        return json.loads(f.read())
+    return json.loads(_fs.read_bytes(_fs.join(export_dir, "export.json")))
 
 
 def is_chief(ctx):
@@ -242,14 +260,14 @@ def unpack_pytree(flat, like):
 # paths here honour them.
 
 def manifest_path(ckpt_dir, step):
-    return os.path.join(_fs.local_path(ckpt_dir), f"bless-{step:08d}.json")
+    return _fs.join(ckpt_dir, f"bless-{step:08d}.json")
 
 
 def _digest(path):
     """(sha256-hex, byte count) of one checkpoint file, streamed."""
     h = hashlib.sha256()
     n = 0
-    with open(path, "rb") as f:
+    with _fs.open_file(path, "rb") as f:
         while True:
             chunk = f.read(1 << 20)
             if not chunk:
@@ -262,11 +280,10 @@ def _digest(path):
 def read_manifest(ckpt_dir, step):
     """Parsed manifest dict for ``step``, or None (absent/unparseable)."""
     path = manifest_path(ckpt_dir, step)
-    if not os.path.exists(path):
+    if not _fs.exists(path):
         return None
     try:
-        with open(path, "rb") as f:
-            manifest = json.loads(f.read())
+        manifest = json.loads(_fs.read_bytes(path))
     except (OSError, ValueError) as e:
         logger.warning("unreadable manifest %s: %s", path, e)
         return None
@@ -286,8 +303,8 @@ def verify_manifest(ckpt_dir, step):
     if not files:
         return False, "empty manifest"
     for rel, info in sorted(files.items()):
-        path = os.path.join(_fs.local_path(ckpt_dir), rel)
-        if not os.path.exists(path):
+        path = _fs.join(ckpt_dir, rel)
+        if not _fs.exists(path):
             return False, f"missing file {rel}"
         try:
             digest, nbytes = _digest(path)
@@ -303,9 +320,12 @@ def verify_manifest(ckpt_dir, step):
 
 def _npz_intact(path):
     """Cheap truncation check: truncation destroys a zip's central
-    directory at its tail."""
+    directory at its tail.  Local paths only (a remote read would not be
+    cheap): a remote one passes, and its load is the arbiter."""
+    if not _fs.is_local(path):
+        return True
     try:
-        with zipfile.ZipFile(path) as z:
+        with zipfile.ZipFile(_fs.local_path(path)) as z:
             z.namelist()
         return True
     except (OSError, zipfile.BadZipFile):
@@ -321,7 +341,7 @@ def _restorable(ckpt_dir, step):
         if not ok:
             return False, reason
     path = _path(ckpt_dir, step)
-    if not os.path.exists(path):
+    if not _fs.exists(path):
         return False, "missing npz"
     if not _npz_intact(path):
         return False, "truncated npz"
@@ -361,20 +381,26 @@ def restore_latest(ckpt_dir):
 
 # -- the serving tier's reload: listing and restore across formats ------------
 
-ORBAX_ITEM = "ROADMAP.md queue 1, item 9 (AsyncCheckpointer)"
-
-
 def _steps_by_format(ckpt_dir):
     """``{"npz": [steps], "orbax": [steps]}`` in ``ckpt_dir``: npz files
     ``ckpt-<step>.npz`` and orbax step directories (all-digit names),
     which the JAX package's ``AsyncCheckpointer`` writes."""
-    d = _fs.local_path(ckpt_dir)
-    out = {"npz": _npz_steps(ckpt_dir), "orbax": []}
-    if os.path.isdir(d):
-        out["orbax"] = sorted(int(n) for n in os.listdir(d)
-                              if n.isdigit()
-                              and os.path.isdir(os.path.join(d, n)))
-    return out
+    out = {"npz": [], "orbax": []}
+    if not _fs.isdir(ckpt_dir):
+        return out
+    for name in _fs.listdir(ckpt_dir):
+        if name.startswith("ckpt-") and name.endswith(".npz"):
+            try:
+                out["npz"].append(step_of(name))
+            except ValueError:
+                pass
+        elif name.isdigit() and _fs.isdir(_fs.join(ckpt_dir, name)):
+            out["orbax"].append(int(name))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+NO_ORBAX = ("the port reads npz checkpoints only: orbax imports JAX, "
+            "and the port's AsyncCheckpointer writes npz")
 
 
 def latest_step(ckpt_dir):
@@ -395,8 +421,7 @@ def latest(ckpt_dir):
     if best_npz < 0 and best_orbax < 0:
         return None, None
     if best_orbax >= best_npz:
-        return best_orbax, os.path.join(_fs.local_path(ckpt_dir),
-                                        str(best_orbax))
+        return best_orbax, _fs.join(ckpt_dir, str(best_orbax))
     return best_npz, _path(ckpt_dir, best_npz)
 
 
@@ -405,12 +430,11 @@ def restore_step(ckpt_dir, step):
     Raises FileNotFoundError when no checkpoint holds the step, and
     NotImplementedError when only an orbax directory does."""
     path = _path(ckpt_dir, int(step))
-    if os.path.exists(path):
+    if _fs.exists(path):
         return load_checkpoint(path)
-    if os.path.isdir(os.path.join(_fs.local_path(ckpt_dir), str(step))):
+    if _fs.isdir(_fs.join(ckpt_dir, str(step))):
         raise NotImplementedError(
-            f"step {step} of {ckpt_dir} is an orbax checkpoint; orbax "
-            f"restores come with {ORBAX_ITEM}")
+            f"step {step} of {ckpt_dir} is an orbax checkpoint; {NO_ORBAX}")
     raise FileNotFoundError(
         f"restore_step: no checkpoint for step {step} in {ckpt_dir}")
 
@@ -430,8 +454,8 @@ def restore_any(ckpt_dir, target_shardings=None, blessed_only=False):
     npz = set(steps["npz"])
     for step in sorted(npz | set(steps["orbax"]), reverse=True):
         if step not in npz:
-            logger.warning("skipping checkpoint step %d: orbax restores "
-                           "come with %s", step, ORBAX_ITEM)
+            logger.warning("skipping checkpoint step %d: an orbax "
+                           "directory; %s", step, NO_ORBAX)
             continue
         ok, reason = _restorable(ckpt_dir, step)
         if ok and blessed_only and read_manifest(ckpt_dir, step) is None:
@@ -445,3 +469,122 @@ def restore_any(ckpt_dir, target_shardings=None, blessed_only=False):
         except (OSError, ValueError, EOFError, zipfile.BadZipFile) as e:
             logger.warning("checkpoint %s unreadable: %s", path, e)
     return None, 0
+
+
+# -- asynchronous saves ---------------------------------------------------------
+
+def _snapshot(tree):
+    """``(flat, events)``: copies of every leaf of ``tree`` under its
+    ``/``-joined key, made now, and the CUDA events that the copies of
+    card tensors complete at.  A card tensor is copied into pinned host
+    memory without blocking, in stream order, so the optimizer's
+    in-place update that follows cannot reach the copy; a host tensor or
+    array is copied at once."""
+    import torch
+
+    flat, devices = {}, set()
+    for key, x in _flatten_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            if x.is_cuda:
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                buf.copy_(x, non_blocking=True)
+                devices.add(x.device)
+                flat[key] = buf
+            else:
+                flat[key] = x.clone()
+        else:
+            flat[key] = np.array(x, copy=True)
+    events = []
+    for d in devices:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        events.append(ev)
+    return flat, events
+
+
+class AsyncCheckpointer:
+    """Checkpoints written on a background thread, so the step loop
+    blocks only for the snapshot: the JAX class's contract over the npz
+    files of :func:`save_checkpoint` (see the module docstring)::
+
+        ckpt = AsyncCheckpointer(model_dir)
+        tree, start = ckpt.restore_latest()
+        for step in range(start, steps):
+            ...
+            if step % save_every == 0:
+                ckpt.save(step, tree)   # returns once the copies are queued
+        ckpt.close()                    # waits for the save in flight
+
+    ``save`` snapshots every leaf before it returns (:func:`_snapshot`),
+    so the file holds the tree of its own step however the caller
+    updates it in place afterwards.  One save is in flight at a time: a
+    second ``save`` first waits for the one before, which bounds the
+    host memory to one tree.  The writer publishes each file whole, so
+    :func:`latest` and the serving tier's reload watcher never see half
+    of one, and keeps the ``keep`` newest.  An exception in the writer
+    (``faults.check("checkpoint.save")`` fires there too) is raised by
+    the next ``save``, ``wait`` or ``close``."""
+
+    def __init__(self, ckpt_dir, keep=3):
+        if _fs.is_local(ckpt_dir):
+            ckpt_dir = os.path.abspath(_fs.local_path(ckpt_dir))
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread = None
+        self._error = None
+        self._closed = False
+
+    def save(self, step, tree):
+        """Snapshot ``tree`` (nested dicts of tensors or arrays) and write
+        it as checkpoint ``step`` in the background."""
+        if self._closed:
+            raise RuntimeError("AsyncCheckpointer.save after close")
+        self.wait()
+        flat, events = _snapshot(tree)
+        self._thread = threading.Thread(
+            target=self._write, args=(step, flat, events),
+            name=f"tfos-ckpt-{step}", daemon=True)
+        self._thread.start()
+
+    def _write(self, step, flat, events):
+        try:
+            for ev in events:
+                ev.synchronize()
+            _save_flat(self.ckpt_dir, {k: _to_host(v) for k, v in
+                                       flat.items()}, step, self.keep)
+        except BaseException as e:  # noqa: BLE001 - raised by the owner
+            self._error = e
+
+    def wait(self):
+        """Wait for the save in flight; raise what its writer raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def latest_step(self):
+        return latest_step(self.ckpt_dir)
+
+    def restore_latest(self):
+        """(tree, step) of the newest restorable checkpoint, or
+        (None, 0)."""
+        return restore_any(self.ckpt_dir)
+
+    def restore_at(self, step):
+        """The tree of one step exactly (the pinned reload)."""
+        return restore_step(self.ckpt_dir, step)
+
+    def close(self):
+        """Wait for the save in flight; later calls return at once."""
+        if self._closed:
+            return
+        self._closed = True
+        self.wait()
+
+
+def async_checkpointer(ckpt_dir, keep=3):
+    """The JAX package's constructor name for :class:`AsyncCheckpointer`."""
+    return AsyncCheckpointer(ckpt_dir, keep=keep)

@@ -230,11 +230,17 @@ def test_save_keeps_the_newest_and_reads_in_jax(tmp_path):
     tree = JC.load_checkpoint(os.path.join(d, names[-1]))
     np.testing.assert_array_equal(tree["params"]["w"], [5.0, 5.0])
     assert C.restore_latest("file://" + d)[1] == 5
-    for url in ("gs://bucket/ckpt", "hdfs://nn/ckpt"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            C.save_checkpoint(url, _tree(1), 1)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            C.restore_latest(url)
+    # a remote URL goes through fsspec: the same pruning, and the JAX
+    # package reads it back
+    url = f"memory://ckpt-keep-{os.getpid()}"
+    for s in range(1, 6):
+        C.save_checkpoint(url, {"params": {"w": torch.full((2,), float(s))}},
+                          s)
+    assert sorted(C._fs.listdir(url)) == names
+    for mod in (C, JC):
+        tree, step = mod.restore_latest(url)
+        assert step == 5
+        np.testing.assert_array_equal(tree["params"]["w"], [5.0, 5.0])
 
 
 def _same_tree(a, b):
@@ -282,7 +288,8 @@ def test_latest_restore_step_and_restore_any_across_packages(writer,
 def test_orbax_steps_are_listed_and_not_restored(tmp_path):
     """An orbax step directory (the JAX package's ``AsyncCheckpointer``)
     is the newest in ``latest``, as in the JAX package; the port's
-    restores skip it or raise, naming ROADMAP item 9."""
+    restores skip it or raise, saying why (by design: orbax imports
+    JAX)."""
     d = str(tmp_path)
     C.save_checkpoint(d, _tree(1), 1)
     os.makedirs(os.path.join(d, "5"))
@@ -291,7 +298,7 @@ def test_orbax_steps_are_listed_and_not_restored(tmp_path):
     tree, step = C.restore_any(d)
     assert step == 1
     _same_tree(tree, _tree(1))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="npz checkpoints only"):
         C.restore_step(d, 5)
     with pytest.raises(NotImplementedError, match="item 12"):
         C.restore_any(d, target_shardings=lambda t: t)

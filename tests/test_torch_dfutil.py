@@ -278,8 +278,9 @@ def test_absolute_path_equals_jax(default_fs):
     if default_fs == "file://":
         assert recordio.fs.local_path(port.absolute_path("rel")) == \
             "/work/dir/rel"
-        with pytest.raises(NotImplementedError, match="item 9"):
-            recordio.fs.local_path("gs://b/y")
+        # a remote URL is left to fsspec, as in the JAX package
+        assert recordio.fs.local_path("gs://b/y") == "gs://b/y"
+        assert not recordio.fs.is_local("gs://b/y")
 
 
 def test_exports_load_in_either_package(tmp_path):

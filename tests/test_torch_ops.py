@@ -159,9 +159,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (``spark_ml`` with the pyspark
     test double on the path), resolving the root's lazy names, importing
     chip_smoke.py, and
-    loading the port's host-native ring, marshal and TFRecord codec,
-    leaves jax, cloudpickle and every tensorflowonspark_tpu module out of
-    sys.modules,
+    loading the port's host-native ring, marshal, TFRecord codec and
+    JPEG decoder (and routing a TFRecord and a checkpoint through
+    ``memory://``), leaves jax, cloudpickle and every
+    tensorflowonspark_tpu module out of sys.modules,
     maps each of those libraries from ``build/torch_native/``, and maps
     no library built from ``native/`` or shipped in the JAX package."""
     code = r"""
@@ -187,6 +188,14 @@ q.put(marshal.rows_to_columns([(1.0, 2)], [("d", 0), ("l", 0)]))
 q.close()
 ex = recordio.encode_example({"x": ("int64", [3])})
 assert recordio.decode_example(ex) == {"x": ("int64", [3])}
+from tensorflowonspark_tpu_torch.recordio import jpeg
+from tensorflowonspark_tpu_torch.utils import checkpoint
+assert jpeg.available(), jpeg.error()
+with recordio.TFRecordWriter("memory://iso/part-r-00000") as w:
+    w.write(ex)
+assert list(recordio.TFRecordReader("memory://iso/part-r-00000")) == [ex]
+checkpoint.save_checkpoint("memory://iso/ckpt", {"w": [1.0]}, 1)
+assert checkpoint.restore_latest("memory://iso/ckpt")[1] == 1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cloudpickle"
@@ -212,13 +221,15 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "models.linear", "spark_ml", "examples.mnist_pipeline",
              "examples.mnist_inference", "examples.mnist_eval",
              "models.segmentation", "utils.flops", "compat",
-             "examples.segmentation", "examples.segmentation_spark"):
+             "examples.segmentation", "examples.segmentation_spark",
+             "recordio.jpeg", "recordio.fs", "utils.checkpoint",
+             "examples.imagenet_data_setup", "examples.imagenet_records"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign
 built = os.path.join(repo, "build", "torch_native") + os.sep
 for lib in ("libtfos_torch_shmq.so", "_tfos_torch_marshal.so",
-            "libtfos_torch_tfrecord.so"):
+            "libtfos_torch_tfrecord.so", "libtfos_torch_jpeg.so"):
     assert built + lib in ours, (lib, ours)
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -14,11 +14,13 @@ package's in-process steps over the same batches.
 - the transformer's checkpoints and export (``ckpt_dir``,
   ``export_dir``): the JAX package loads the export as the params of the
   same steps taken in process;
+- MNIST's chief checkpoint (``model_dir/ckpt``, the step count) and
+  export: the JAX package's ``restore_latest`` reads the checkpoint as
+  the export's params, which are the trainer's own;
 - MNIST on two executors over a gloo group, mirroring
-  tests/test_mnist_e2e.py without the export (ROADMAP.md queue 1,
-  item 9): the loss falls, both ranks end with equal params, and the
-  trainers' ``train/step`` and ``feed/wait`` spans reach the telemetry
-  directory.
+  tests/test_mnist_e2e.py without the export: the loss falls, both
+  ranks end with equal params, and the trainers' ``train/step`` and
+  ``feed/wait`` spans reach the telemetry directory.
 
 Every wait is bounded (``reservation_timeout``, ``feed_timeout``).
 """
@@ -93,6 +95,31 @@ def test_spark_fed_mnist_matches_jax_steps(engine, tmp_path):
                                   jnp.asarray(labels, jnp.int32))
         ref.append(float(loss))
     np.testing.assert_allclose(got, ref, rtol=LOSS_RTOL)
+
+
+def test_spark_fed_mnist_chief_checkpoint_restores_in_jax(engine, tmp_path):
+    from tensorflowonspark_tpu.utils import checkpoint as JC
+    from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
+
+    batch, steps = 16, 4
+    records = mnist_spark.synthetic_records(batch * steps, seed=7)
+    model_dir = tmp_path / "model"
+    _train(engine, mnist_spark.main_fun, {
+        "batch_size": batch, "lr": 0.05, "device": "cpu", "seed": 1,
+        "model_dir": str(model_dir), "out_dir": str(tmp_path)}, records, 2)
+    tree, step = JC.restore_latest(str(model_dir / "ckpt"))
+    assert step == steps
+    assert os.listdir(model_dir / "ckpt") == [f"ckpt-{steps:08d}.npz"]
+    exported, meta = JC.load_exported(str(model_dir / "export"))
+    assert meta["predict"] == "tensorflowonspark_tpu_torch.models.mnist:predict"
+    got, want = ckpt._flatten(tree), ckpt._flatten(exported)
+    assert sorted(got) == sorted(want) and tree["conv1"]["w"].ndim == 4
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    final = np.load(tmp_path / "mnist-rank0.npz")
+    np.testing.assert_array_equal(  # HWIO on disk, OIHW in the trainer
+        tree["conv1"]["w"], final["conv1.w"].transpose(2, 3, 1, 0))
+    np.testing.assert_array_equal(tree["fc2"]["b"], final["fc2.b"])
 
 
 def test_spark_fed_transformer_matches_jax_steps(engine, tmp_path):

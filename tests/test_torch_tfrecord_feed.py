@@ -261,7 +261,8 @@ def test_resnet_data_dir_matches_driver_fed_records(engine1, tmp_path):
     assert len(from_files["losses"]) == 2
     np.testing.assert_allclose(from_files["losses"], from_driver["losses"],
                                rtol=1e-6)
-    # a JPEG payload of exactly 32x32x3 bytes raises, never reads as pixels
-    with pytest.raises(NotImplementedError, match="item 24"):
+    # a JPEG payload of exactly 32x32x3 bytes is decoded as a JPEG (and
+    # this corrupt one raises), never read as pixels
+    with pytest.raises(ValueError, match="JPEG"):
         list(resnet_imagenet_spark.decode_stream(32)(
             iter([{"image": b"\xff\xd8" + bytes(3070), "label": 0}])))
