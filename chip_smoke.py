@@ -256,7 +256,34 @@ too:
     losses equal the same steps here, every partition once, no trainer
     left, the chief's checkpoint (HWIO) restores through
     ``params_from_jax`` to this process's trained params; images/s, the
-    stall, the hand-off split.
+    stall, the hand-off split;
+30. ``spec_decode``: phase 8's 16 sessions (32 tokens, paged, prefix
+    sharing) at full width in bf16 through three engines: plain, a
+    narrow draft (dim 256, 2 layers, 4 heads, window 4) and the target
+    as its own draft: tokens/s, TTFT p50/p99, iterations, the accept
+    rate, flash launches, and the share of sessions whose tokens equal
+    the plain run's; streams contiguous and valid, caches drained, the
+    flash forward on every layer of each target and draft prefill;
+31. ``spec_exact``: the same three runs in float32 (TF32 off) on four
+    sessions, two greedy and two seeded-sampled: every speculative
+    stream equals the plain one and the self draft accepts every
+    proposal (a divergence names its index and the plain run's top-2
+    logit gap there);
+32. ``parallel_one_rank``: a one-rank NCCL group (``tcp://127.0.0.1``)
+    in this process, destroyed after the phase: (a) the full-width bf16
+    transformer's step through ``mesh_value_and_grad`` on a
+    data x fsdp x seq x model mesh of ones, placed by ``param_specs``,
+    Ulysses attention over the flash kernels, against the plain step
+    (loss to 1e-6, gradient norm to 1e-2, the train phase's bounds),
+    the flash forward, dq and dk/dv once a layer, the wrapped and plain
+    steps' ms and the peak memory; (b) ring and zigzag attention at
+    [8, 2048, 8, 128] float32 causal within 2e-5 of ``mha_reference``;
+    (c) ``moe.apply`` at dim 1024, hidden 4096, 8 experts over 8 x 2048
+    tokens in bf16, forward and backward, against its float32 run;
+    (d) ``pipeline_apply`` with one stage and 4 microbatches against
+    the stage itself;
+33. ``dryrun_multichip``: ``parallel.dryrun.dryrun_multichip(8)`` on 8
+    gloo CPU ranks of this host: its three ``OK`` lines.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -272,8 +299,11 @@ process, ``launches_tfrecord``, phase 15 in this process,
 alone, and ``launches_jpeg``, phase 16c's two trainers and phase 16e's
 steps summed), ``launches_serve``, phase 18's replicas summed (the flash
 forward > 0, the other three 0), ``launches_pipeline``, phases
-23-26's trainers and predicting executors summed (all 0), and
-``launches_segmentation``, phases 27-29 summed (all 0).  Imports only
+23-26's trainers and predicting executors summed (all 0),
+``launches_segmentation``, phases 27-29 summed (all 0),
+``launches_spec``, phase 30's three runs summed (the flash forward > 0),
+and ``launches_parallel``, phase 32's sharded step (the three flash
+kernels > 0).  Imports only
 torch, numpy and the port.
 """
 
@@ -306,6 +336,7 @@ from tensorflowonspark_tpu_torch import (
     infeed,
     node,
     ops,
+    parallel,
     parallel_run,
     pipeline,
     recordio,
@@ -1297,13 +1328,14 @@ def phase_grad_exact(dev):
 
 
 def run_engine(params, spec, jobs, dev, timeout):
-    """Submit ``jobs`` = [(sid, prompt)] to a fresh engine on the card and
-    wait for all; any error emission or init error raises.  Returns
+    """Submit ``jobs`` = [(sid, prompt[, submit kwargs])] to a fresh
+    engine on the card and wait for all; any error emission or init
+    error raises.  Returns
     (done {sid: tokens}, streamed {sid: [(index, token)]}, first-token
     times {sid: s}, wall seconds, stats, engine)."""
     lock = threading.Lock()
     done, errors = {}, {}
-    streamed = {sid: [] for sid, _ in jobs}
+    streamed = {job[0]: [] for job in jobs}
     first = {}
     t_submit = {}
 
@@ -1323,10 +1355,10 @@ def run_engine(params, spec, jobs, dev, timeout):
     eng.start(timeout=600)
     try:
         t0 = time.perf_counter()
-        for sid, prompt in jobs:
+        for sid, prompt, *kw in jobs:
             with lock:
                 t_submit[sid] = time.perf_counter()
-            eng.submit(sid, prompt)
+            eng.submit(sid, prompt, **(kw[0] if kw else {}))
         deadline = time.time() + timeout
         while time.time() < deadline:
             with lock:
@@ -3829,6 +3861,481 @@ def phase_spark_segmentation(dev, engine, gpu):
     return report["launches"]
 
 
+# -- speculative decoding (phases 30-31) --------------------------------------
+
+SPEC_DRAFT = dict(FULL, dim=256, n_layers=2, n_heads=4)   # head_dim 64
+SPEC_WINDOW = 4
+# spec_exact: phase 30's traffic shape (16 sessions of 64-1536 tokens, 8
+# behind a shared system prompt, 32 tokens each), every other session
+# sampled
+SPEC_EXACT = dict(sessions=16, max_tokens=32)
+
+
+class _CountPrefills:
+    """Counts ``transformer.prefill`` calls by config while in force (the
+    draft's prefills launch the flash forward on each of its layers)."""
+
+    def __init__(self):
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        self._real = T.prefill
+
+        def counted(params, tokens, cfg, **kw):
+            self.calls[cfg] += 1
+            return self._real(params, tokens, cfg, **kw)
+
+        T.prefill = counted
+        return self
+
+    def __exit__(self, *exc):
+        T.prefill = self._real
+
+
+def _spec_runs(dev, cfg, params, drafts, jobs, max_tokens, slots):
+    """A plain run of one traffic, then one speculative run for each of
+    ``drafts`` ({name: (draft params, draft config)}), window
+    ``SPEC_WINDOW``.  Returns {name: (done, streamed, first, wall, stats,
+    engine, launches, prefill calls)}."""
+    common = dict(slots=slots, paged=True, block_size=16,
+                  prefix_sharing=True, max_tokens=max_tokens)
+    specs = {"plain": DecodeSpec(cfg, **common)}
+    for name, (dparams, dcfg) in drafts.items():
+        specs[name] = DecodeSpec(cfg, **common, draft_params=dparams,
+                                 draft_cfg=dcfg, spec_window=SPEC_WINDOW)
+    runs = {}
+    for name, spec in specs.items():
+        ops.reset_launch_counts()
+        with _CountPrefills() as counter:
+            out = run_engine(params, spec, jobs, dev, timeout=600)
+        runs[name] = (*out, ops.launch_counts(), counter.calls)
+    return runs
+
+
+def _spec_gates(name, runs, jobs, cfg, run_dcfg, max_tokens):
+    """Gates of one run (``run_dcfg`` its draft's config, None for the
+    plain run); returns (target prefills, draft prefills)."""
+    done, streamed, _, _, stats, eng, launches, calls = runs[name]
+    for job in jobs:
+        sid = job[0]
+        if [i for i, _ in streamed[sid]] != list(range(max_tokens)):
+            raise AssertionError(f"{name} {sid}: streamed indices "
+                                 f"{[i for i, _ in streamed[sid]]}")
+        if [t for _, t in streamed[sid]] != done[sid] or not all(
+                0 <= t < cfg.vocab_size for t in done[sid]):
+            raise AssertionError(f"{name} {sid}: bad tokens {done[sid]}")
+    cache = eng._cache
+    if cache.occupancy != 0 or cache.leaked_blocks() != []:
+        raise AssertionError(f"{name}: cache not drained: occupancy "
+                             f"{cache.occupancy}, leaked "
+                             f"{cache.leaked_blocks()}")
+    plain_prefills = stats["prefills"] - stats["extends"]
+    # the draft's prefill calls: every call with its config beyond the
+    # target's own plain prefills (a draft may share the target's config)
+    draft_layers = run_dcfg.n_layers if run_dcfg else 0
+    draft_calls = (calls[run_dcfg] - (plain_prefills if run_dcfg == cfg
+                                      else 0)) if run_dcfg else 0
+    want = cfg.n_layers * plain_prefills + draft_layers * draft_calls
+    if launches["flash_fwd"] < want or launches["flash_fwd"] == 0 \
+            or (run_dcfg and draft_calls < 1):
+        raise AssertionError(
+            f"{name}: flash forward launched {launches['flash_fwd']} times "
+            f"for {plain_prefills} target prefills x {cfg.n_layers} layers "
+            f"and {draft_calls} draft prefills x {draft_layers} layers")
+    if any(launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
+        raise AssertionError(f"{name}: launches {launches}")
+    return plain_prefills, draft_calls
+
+
+def phase_spec_decode(dev, gpu):
+    """``spec_decode``: phase 8's 16 sessions (32 tokens each, paged,
+    prefix sharing) at full width in bf16, after an unreported warm-up
+    burst, through three engines: plain,
+    a narrow draft (``SPEC_DRAFT``, window 4), and the target as its own
+    draft.  Gates: contiguous streams of valid tokens, drained caches,
+    the flash forward on every layer of each target and draft prefill.
+    Reported: tokens/s, TTFT, iterations, accept rate, launches, and the
+    share of sessions whose tokens equal the plain run's (bf16 rounding
+    differs with the verify window's shape, so that share is reported,
+    not gated; ``spec_exact`` gates equality in float32).  Returns the
+    three runs' summed launches."""
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    dcfg = T.Config(**SPEC_DRAFT, dtype="bfloat16", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    dparams = T.init(dcfg, torch.Generator(device=dev).manual_seed(5), dev)
+    drafts = {"draft": (dparams, dcfg), "self_draft": (params, cfg)}
+    jobs = serving_jobs(cfg)
+    # a first plain burst of another seed's mix, not reported: the
+    # process's first full-width decode pays cuBLAS and allocator warm-up
+    run_engine(params, DecodeSpec(cfg, slots=8, paged=True, block_size=16,
+                                  prefix_sharing=True, max_tokens=32),
+               serving_jobs(cfg, seed=1), dev, timeout=600)
+    runs = _spec_runs(dev, cfg, params, drafts, jobs, 32, 8)
+    plain = runs["plain"][0]
+    summary, total = {}, collections.Counter()
+    for name, run in runs.items():
+        done, _, first, wall, stats, _, launches, _ = run
+        prefills, draft_calls = _spec_gates(
+            name, runs, jobs, cfg, drafts.get(name, (None, None))[1], 32)
+        total.update(launches)
+        ttft = sorted(first.values())
+        summary[name] = dict(
+            tokens_per_s=32 * len(jobs) / wall, wall_s=wall,
+            ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+            ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
+            iterations=stats["iterations"], target_prefills=prefills,
+            draft_prefills=draft_calls,
+            spec_accept_rate=stats.get("spec_accept_rate"),
+            spec_proposed=stats.get("spec_proposed"),
+            spec_accepted=stats.get("spec_accepted"),
+            flash_launches=launches["flash_fwd"],
+            sessions_equal_plain=sum(done[s] == plain[s] for s, _ in jobs)
+            / len(jobs))
+    print("spec_decode " + json.dumps(dict(
+        sessions=len(jobs), tokens=32 * len(jobs), window=SPEC_WINDOW,
+        draft=SPEC_DRAFT, runs=summary,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, gpu=gpu)),
+        flush=True)
+    del params, dparams, drafts, runs
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
+def _top2_gap(params, cfg, prompt, tokens, index):
+    """The plain run's top-2 logit gap at generated ``index``."""
+    with torch.inference_mode():
+        logits = T.apply(params, [prompt + tokens[:index]], cfg)[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _even_head_draft(params):
+    """The target with its head's odd-token columns zeroed: the same
+    hidden states, so it proposes the target's greedy token exactly when
+    that token is even (an odd token's logit is 0, below the target's
+    positive maximum).  Its proposals are accepted in part, and rejected
+    ones leave stale draft K/V past the rolled-back cursor."""
+    head = params["head"].clone()
+    head[:, 1::2] = 0
+    return dict(params, head=head)
+
+
+def phase_spec_exact(dev):
+    """``spec_exact``: in float32 (TF32 off) at full width on phase 30's
+    traffic shape (``SPEC_EXACT``), greedy and seeded sampling, a plain
+    run and three drafts: the narrow ``SPEC_DRAFT`` (accepts nothing),
+    the target itself (accepts everything) and the even-head draft
+    (accepts in part).  Every speculative stream equals the plain one;
+    the self draft's accept rate is 1.0 and the even-head draft's lies
+    strictly between 0 and 1.  A divergence raises with its index and the
+    plain run's top-2 logit gap there."""
+    cfg = T.Config(**FULL, dtype="float32", attn_impl="flash")
+    dcfg = T.Config(**SPEC_DRAFT, dtype="float32", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    dparams = T.init(dcfg, torch.Generator(device=dev).manual_seed(6), dev)
+    drafts = {"draft": (dparams, dcfg), "self_draft": (params, cfg),
+              "even_head_draft": (_even_head_draft(params), cfg)}
+    from tensorflowonspark_tpu_torch.serving.decode import sampling
+
+    jobs = []
+    for i, (sid, prompt) in enumerate(serving_jobs(cfg, seed=2)):
+        kw = ({"sampling": sampling.make(temperature=0.8, top_k=40,
+                                         seed=10 + i)} if i % 2 else {})
+        jobs.append((sid, prompt, kw))
+    jobs = jobs[:SPEC_EXACT["sessions"]]
+    n = SPEC_EXACT["max_tokens"]
+    runs = _spec_runs(dev, cfg, params, drafts, jobs, n, len(jobs))
+    plain = runs["plain"][0]
+    for name, (_, run_dcfg) in drafts.items():
+        _spec_gates(name, runs, jobs, cfg, run_dcfg, n)
+        done = runs[name][0]
+        for sid, prompt, _ in jobs:
+            if done[sid] != plain[sid]:
+                i = next(j for j, (a, b) in enumerate(zip(done[sid],
+                                                          plain[sid]))
+                         if a != b)
+                raise AssertionError(
+                    f"spec_exact {name} {sid}: tokens diverge at index {i}"
+                    f" (plain top-2 logit gap "
+                    f"{_top2_gap(params, cfg, prompt, plain[sid], i)})")
+    rates = {k: runs[k][4]["spec_accept_rate"] for k in drafts}
+    if rates["self_draft"] != 1.0 or \
+            not 0.0 < rates["even_head_draft"] < 1.0:
+        raise AssertionError(f"spec_exact accept rates {rates}: want 1.0 "
+                             f"for the self draft, strictly between 0 and "
+                             f"1 for the even-head draft")
+    print("spec_exact " + json.dumps(dict(
+        sessions=len(jobs), tokens=n, sampled=len(jobs) // 2,
+        accept_rate=rates,
+        proposed={k: runs[k][4]["spec_proposed"] for k in drafts},
+        accepted={k: runs[k][4]["spec_accepted"] for k in drafts},
+        iterations={k: runs[k][4]["iterations"] for k in runs})),
+        flush=True)
+    del params, dparams, drafts, runs
+    torch.cuda.empty_cache()
+
+
+# -- the parallel layer at world size 1 (phase 32) and the dry run (33) -------
+
+PARALLEL_REPS = 3
+# (a)'s per-leaf gradient bounds against the plain step, relative to the
+# leaf's largest entry
+PARALLEL_GRAD_RTOL = 1e-6
+PARALLEL_EMBED_GRAD_RTOL = 1e-2
+RING_SHAPE = (8, 2048, 8, 128)
+RING_ATOL = 2e-5
+MOE = dict(dim=1024, hidden=4096, experts=8, batch=8, seq=2048)
+MOE_RTOL = dict(out=2e-2, grads=5e-2)
+PIPE = dict(dim=1024, batch=64, micro=4)
+DRYRUN_RANKS = 8
+
+
+def _step_ms(fn, reps=PARALLEL_REPS):
+    """Median wall time of ``fn()`` ending in a synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _rel_norm(got, ref):
+    ref = ref.float()
+    return float((got.float() - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def _parallel_transformer(dev, gpu):
+    """(a): the FULL transformer, bf16, one Adam step through the mesh's
+    sharded step (all axes 1, the ``param_specs`` plan, Ulysses over the
+    flash kernels) against the plain in-process step."""
+    from torch.utils import _pytree as pytree
+
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    mesh = parallel.make_mesh({"data": 1, "fsdp": 1, "seq": 1, "model": 1},
+                              device_type="cuda")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_seq))).to(dev)
+    leaves = _param_leaves(params)
+    placed = T.shard_params(params, mesh, T.param_specs(cfg, mesh=mesh))
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    popt = torch.optim.Adam(pytree.tree_leaves(placed), lr=1e-3)
+    attn_fn = parallel.sequence_parallel_attention(
+        mesh, "ulysses", causal=True, attn_fn=ops.flash_attention)
+    sharded_vg = T.mesh_value_and_grad(cfg, mesh, attn_fn=attn_fn)
+
+    # one forward and backward each on the same params and batch; every
+    # kernel's count zeroed just before the sharded step and read after
+    ops.reset_launch_counts()
+    loss = T.loss_fn(params, tokens, cfg)
+    loss.backward()
+    plain_loss = loss.item()
+    plain_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    wrapped_loss = float(sharded_vg(placed, tokens))
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = dict(flash_fwd=cfg.n_layers, flash_dq=cfg.n_layers,
+                flash_dkv=cfg.n_layers, rmsnorm=0)
+    if counts != want or plain_counts != want:
+        raise AssertionError(f"parallel step launches {counts}, plain "
+                             f"{plain_counts}, want {want}")
+    grads = T.mesh_params(pytree.tree_map(lambda p: p.grad, placed),
+                          tuple(mesh.mesh_dim_names))
+    grad_err = {}
+    for path, g in ckpt._flatten_leaves(grads):
+        ref = dict(ckpt._flatten_leaves(
+            pytree.tree_map(lambda p: p.grad, params)))[path]
+        grad_err[path] = float((g - ref).abs().max()
+                               / ref.abs().max().clamp(min=1e-30))
+    gnorm = torch.sqrt(sum((g.float() ** 2).sum()
+                           for g in pytree.tree_leaves(grads))).item()
+    pnorm = _grad_norm(leaves)
+    # the train phase's tolerances: the loss to 1e-6, the gradient norm
+    # to 1e-2 (bf16 embedding gradients are summed with atomics)
+    if abs(wrapped_loss - plain_loss) > 1e-6 * abs(plain_loss) or \
+            abs(gnorm - pnorm) > 1e-2 * pnorm:
+        raise AssertionError(f"parallel step loss {wrapped_loss} grad norm "
+                             f"{gnorm} vs plain {plain_loss} {pnorm}")
+    # and each leaf on its own, so a wrong or missing gradient of a small
+    # leaf (an ln scale, one of wqkv's q/k/v blocks) cannot hide in the
+    # norm: at world 1 both steps run the same kernels on the same
+    # tensors, so every leaf but the embedding is held bitwise (1e-6 of
+    # its largest entry, below one bf16 step), the embedding to the
+    # norm's 1e-2 (its gradient's atomics)
+    bad = {path: err for path, err in grad_err.items()
+           if err > (PARALLEL_EMBED_GRAD_RTOL if path == "embed"
+                     else PARALLEL_GRAD_RTOL)}
+    if bad:
+        raise AssertionError(f"parallel step gradients off the plain "
+                             f"step's: {bad}")
+    opt.step()
+    popt.step()
+    opt.zero_grad(set_to_none=True)
+    popt.zero_grad(set_to_none=True)
+
+    def plain_step():
+        T.loss_fn(params, tokens, cfg).backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    def wrapped_step():
+        sharded_vg(placed, tokens)
+        popt.step()
+        popt.zero_grad(set_to_none=True)
+
+    plain_ms = _step_ms(plain_step)
+    wrapped_ms = _step_ms(wrapped_step)
+    out = dict(loss=wrapped_loss, plain_loss=plain_loss, grad_norm=gnorm,
+               plain_grad_norm=pnorm, worst_grad_rel_err=max(
+                   grad_err.values()), launches=counts,
+               step_ms=wrapped_ms, plain_step_ms=plain_ms,
+               wrapper_cost_ms=wrapped_ms - plain_ms, peak_mem_gb=peak_gb,
+               mesh=dict(data=1, fsdp=1, seq=1, model=1), gpu=gpu)
+    del params, placed, opt, popt, grads, leaves
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def _parallel_rings(dev):
+    """(b): ring and zigzag attention over the one-rank seq group against
+    ``mha_reference`` at ``RING_SHAPE``, float32 causal."""
+    mesh = parallel.make_mesh({"seq": 1}, device_type="cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=dev)
+               for _ in range(3))
+    ref = attention.mha_reference(q, k, v, causal=True)
+    out = {}
+    for impl in ("ring", "zigzag"):
+        fn = parallel.sequence_parallel_attention(mesh, impl, causal=True)
+        perm = (parallel.zigzag_permutation(RING_SHAPE[1], 1).to(dev)
+                if impl == "zigzag" else torch.arange(RING_SHAPE[1],
+                                                      device=dev))
+        inv = parallel.inverse_permutation(perm.cpu()).to(dev)
+        got = fn(q[:, perm], k[:, perm], v[:, perm])[:, inv]
+        err = float((got - ref).abs().max())
+        if err > RING_ATOL:
+            raise AssertionError(f"{impl} attention err {err} > {RING_ATOL}")
+        out[impl] = dict(max_abs_err=err, ms=time_ms(
+            lambda: fn(q, k, v), 3, queued=False))
+    del q, k, v, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_moe(dev):
+    """(c): ``moe.apply`` at the FULL MLP width over 8 x 2048 tokens, bf16
+    forward and backward against its own float32 run from the same
+    (bf16-valued) params and input: the router's float32 logits of those
+    values route every token alike in both runs."""
+    from tensorflowonspark_tpu_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p32 = moe.init(gen, MOE["dim"], MOE["hidden"], MOE["experts"],
+                   device=dev)
+    p32 = {k: v.to(torch.bfloat16).float() for k, v in p32.items()}
+    x32 = torch.randn((MOE["batch"], MOE["seq"], MOE["dim"]), generator=gen,
+                      device=dev).to(torch.bfloat16).float()
+    runs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = {k: v.clone().requires_grad_() for k, v in p32.items()}
+        x = x32.to(dt)
+        t0 = time.perf_counter()
+        y, aux = moe.apply(p, x)
+        ((y.float() ** 2).mean() + aux).backward()
+        torch.cuda.synchronize()
+        runs[dt] = (y.detach(), aux.detach(), {k: v.grad for k, v in
+                                               p.items()},
+                    1e3 * (time.perf_counter() - t0))
+    (y32, a32, g32, ms32), (y16, a16, g16, ms16) = (
+        runs[torch.float32], runs[torch.bfloat16])
+    out_err = _rel_norm(y16, y32)
+    grad_err = {k: _rel_norm(g16[k], g32[k]) for k in g32}
+    if out_err > MOE_RTOL["out"] or \
+            max(grad_err.values()) > MOE_RTOL["grads"] or \
+            not torch.isfinite(y16).all():
+        raise AssertionError(f"moe bf16 vs float32: out {out_err}, "
+                             f"grads {grad_err}")
+    res = dict(tokens=MOE["batch"] * MOE["seq"], out_rel_err=out_err,
+               grad_rel_err=grad_err,
+        aux=[float(a16), float(a32)], bf16_fwd_bwd_ms=ms16,
+        f32_fwd_bwd_ms=ms32)
+    del runs, p32, x32
+    torch.cuda.empty_cache()
+    return res
+
+
+def _parallel_pipeline(dev):
+    """(d): ``pipeline_apply`` on a one-stage pp group, 4 microbatches,
+    against the stage applied to the whole batch (float32)."""
+    mesh = parallel.make_mesh({"pp": 1}, device_type="cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d = PIPE["dim"]
+    stage = {"w": torch.randn((d, d), generator=gen, device=dev) / d ** 0.5,
+             "b": torch.randn((d,), generator=gen, device=dev)}
+    x = torch.randn((PIPE["batch"], d), generator=gen, device=dev)
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    stacked = parallel.stack_stage_params([stage])
+    placed = parallel.apply_shardings(
+        stacked, parallel.stage_sharding(mesh, stacked))
+    got = parallel.pipeline_apply(stage_fn, placed, x, mesh=mesh,
+                                  n_microbatches=PIPE["micro"])
+    err = float((got - stage_fn(stage, x)).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"pipeline_apply err {err}")
+    return dict(max_abs_err=err, microbatches=PIPE["micro"])
+
+
+def _parallel_one_rank(dev, gpu):
+    a, counts = _parallel_transformer(dev, gpu)
+    b = _parallel_rings(dev)
+    c = _parallel_moe(dev)
+    d = _parallel_pipeline(dev)
+    return dict(transformer=a, rings=b, moe=c, pipeline=d), counts
+
+
+def phase_parallel_one_rank(dev, gpu):
+    """``parallel_one_rank``: a one-rank NCCL group in this process (made
+    and destroyed around the phase), the parallel layer on the card at
+    full width: (a) the transformer's sharded step (Ulysses over the
+    flash kernels, the ``param_specs`` plan) against the plain step,
+    (b) ring and zigzag attention against ``mha_reference``, (c) MoE bf16
+    against float32, (d) the pipeline against its sequential stage.
+    Returns (a)'s launches."""
+    from tensorflowonspark_tpu_torch.parallel.launch import run_ranks
+
+    out, counts = run_ranks(1, _parallel_one_rank, dev, gpu,
+                            backend="nccl")[0]
+    print("parallel_one_rank " + json.dumps(out), flush=True)
+    return counts
+
+
+def phase_dryrun_multichip(gpu):
+    """``dryrun_multichip``: the port's dry run on ``DRYRUN_RANKS`` gloo
+    CPU ranks of this host, its three lines and its wall time."""
+    from tensorflowonspark_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    lines = dryrun.dryrun_multichip(DRYRUN_RANKS)
+    if len(lines) != 3 or not all(line.endswith(" OK") for line in lines):
+        raise AssertionError(f"dryrun_multichip: {lines}")
+    print("dryrun_multichip " + json.dumps(dict(
+        ranks=DRYRUN_RANKS, backend="gloo", torch=torch.__version__,
+        wall_s=time.perf_counter() - t0, host_cpus=os.cpu_count(),
+        gpu=gpu)), flush=True)
+
+
 def host_line():
     """What the card's host offers the JPEG decode and remote paths:
     libjpeg's header and library, PIL and the libjpeg its wheel bundles
@@ -3995,6 +4502,14 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     seg_launches = _sum_launches(phase_segmentation(dev, gpu),
                                  phase_segmentation_exact(dev),
                                  phase_spark_segmentation(dev, engine, gpu))
+    # speculative decoding (30-31), the parallel layer on a one-rank NCCL
+    # group (32) and the dry run on gloo CPU ranks (33): each path's
+    # counts zeroed just before it and read just after
+    spec_launches = phase_spec_decode(dev, gpu)
+    phase_spec_exact(dev)
+    ops.reset_launch_counts()
+    parallel_launches = phase_parallel_one_rank(dev, gpu)
+    phase_dryrun_multichip(gpu)
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -4063,6 +4578,10 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         # phases 27-29: in process (both dtypes, the exact step) and the
         # SPARK-fed trainer, summed
         k["launches_segmentation"] = seg_launches[k["name"]]
+        # phase 30's three runs summed (prefills of target and draft);
+        # phase 32's sharded transformer step
+        k["launches_spec"] = spec_launches[k["name"]]
+        k["launches_parallel"] = parallel_launches[k["name"]]
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")
@@ -4075,6 +4594,13 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     if any(seg_launches.values()):
         raise AssertionError(f"the segmentation paths launched "
                              f"{seg_launches}")
+    if spec_launches["flash_fwd"] == 0 or spec_launches["rmsnorm"]:
+        raise AssertionError(f"the speculative runs launched "
+                             f"{spec_launches}")
+    if not all(parallel_launches[k] for k in ("flash_fwd", "flash_dq",
+                                              "flash_dkv")):
+        raise AssertionError(f"the parallel step launched "
+                             f"{parallel_launches}")
     return kernels
 
 

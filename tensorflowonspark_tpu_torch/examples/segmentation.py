@@ -1,7 +1,7 @@
 """U-Net segmentation, single process: step 1 of the conversion ladder.
 
 Counterpart of ``examples/segmentation/segmentation.py`` (single process
--> multi-GPU, which waits for ROADMAP.md queue 1, item 12 -> cluster-fed,
+-> over a process group, ``segmentation_dist`` -> cluster-fed,
 ``segmentation_spark``).  The same flags and defaults; ``--device cpu``
 runs on the CPU, the default is the card::
 

@@ -19,6 +19,17 @@ JAX package's custom VJPs as ``torch.autograd.Function``s: each saves
 only its inputs, recomputes the activation's gate in the backward, and
 runs the shared two-pass backward (:func:`_bn_bwd_core`).
 
+Training statistics are those of the global batch.  The JAX package gets
+them from XLA when the batch is sharded over the mesh; here, in a
+process group of more than one process (:func:`utils.train.batch_group`,
+the group whose gradients ``all_reduce_mean_`` averages), the
+per-channel sums are all-reduced in the forward, and the backward's two
+per-channel sums (``Σ dy`` and ``Σ dy·x``, with the statistics'
+cotangents) are all-reduced too: each rank's loss is its local mean and
+the gradients are averaged afterwards, so the backward computes each
+rank's share of the global loss's gradient.  One process issues no
+collective, and evaluation (``train=False``) never does.
+
 ReLU's gradient where its input is exactly 0 is 1/2, ``jnp.maximum``'s
 convention, in every path (``torch.relu`` gives 0 there).
 """
@@ -30,6 +41,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from tensorflowonspark_tpu_torch.parallel import collectives as _coll
+from tensorflowonspark_tpu_torch.utils import train as _train
 
 
 def _he_init(generator, shape, fan_in, dtype, device):
@@ -158,16 +172,24 @@ def _max0(x):
     return torch.maximum(x, x.new_zeros(()))
 
 
-def _bn_stats(x, eps):
-    """One-pass E[x]/E[x²] in f32 over every axis but the channels ->
-    (mean, var, inv)."""
+def _bn_stats(x, eps, group=None):
+    """One-pass E[x]/E[x²] in f32 over every axis but the channels, and
+    over every rank's batch of ``group`` -> (mean, var, inv, n), n the
+    global count per channel.  The group's all-reduce is differentiable
+    (its backward sums the cotangents), which the unfused path needs."""
     dims = _reduce_dims(x)
     n = x.numel() // x.shape[1]
     xf = x.float()
-    mean = xf.sum(dims) / n
-    mean_sq = (xf * xf).sum(dims) / n
+    s1, s2 = xf.sum(dims), (xf * xf).sum(dims)
+    if group is not None:
+        c = s1.shape[0]
+        tot = _coll.all_reduce(
+            torch.cat([s1, s2, s1.new_full((1,), float(n))]), group)
+        s1, s2, n = tot[:c], tot[c:2 * c], tot[2 * c]
+    mean = s1 / n
+    mean_sq = s2 / n
     var = _max0(mean_sq - mean * mean)
-    return mean, var, torch.rsqrt(var + eps)
+    return mean, var, torch.rsqrt(var + eps), n
 
 
 def _bn_scale_bias(mean, inv, scale, bias, dtype):
@@ -184,19 +206,30 @@ def _bn_apply(x, mul, add):
     return torch.addcmul(_per_channel(add, x), x, _per_channel(mul, x))
 
 
-def _bn_bwd_core(gm, x, mean, inv, scale, mean_ct, var_ct):
+def _bn_bwd_core(gm, x, mean, inv, scale, mean_ct, var_ct, group=None,
+                 n=None):
     """The shared two-pass BN backward, given the (possibly gated) f32
     cotangent ``gm``; returns (dx, dscale, dbias).
 
     Pass 1 reduces over (gm, x); pass 2 is ``dx = a·gm + b·x + c``
     (γ·inv·(gm − Σgm/n − x̂·Σ(gm·x̂)/n) rearranged), with the (mean, var)
-    output cotangents folded into b and c."""
+    output cotangents folded into b and c.  With a ``group`` the sums in
+    b and c (and the statistics' cotangents) are the group's, over its
+    global count ``n``; dscale and dbias stay this rank's, for the
+    gradient average to combine."""
     dims = _reduce_dims(x)
-    n = x.numel() // x.shape[1]
     xf = x.float()
     sum_g = gm.sum(dims)
     sum_gx = (gm * xf).sum(dims)
     sum_g_xhat = (sum_gx - mean * sum_g) * inv
+    dscale, dbias = sum_g_xhat.to(scale.dtype), sum_g.to(scale.dtype)
+    if group is None:
+        n = x.numel() // x.shape[1]
+    else:
+        tot = _coll.all_reduce(torch.stack([sum_g, sum_gx, mean_ct, var_ct]),
+                               group)
+        sum_g, sum_gx, mean_ct, var_ct = tot.unbind(0)
+        sum_g_xhat = (sum_gx - mean * sum_g) * inv
     sf = scale.float()
     a = sf * inv
     b = -sf * inv * inv * sum_g_xhat / n
@@ -206,7 +239,7 @@ def _bn_bwd_core(gm, x, mean, inv, scale, mean_ct, var_ct):
     dx = torch.addcmul(
         torch.addcmul(_per_channel(c, x), _per_channel(a, x), gm),
         _per_channel(b, x), xf).to(x.dtype)
-    return dx, sum_g_xhat.to(scale.dtype), sum_g.to(scale.dtype)
+    return dx, dscale, dbias
 
 
 class _BNTrainFused(torch.autograd.Function):
@@ -214,18 +247,19 @@ class _BNTrainFused(torch.autograd.Function):
     hand-written backward (``_bn_train_fused`` in the JAX package)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        mean, var, inv = _bn_stats(x, eps)
+    def forward(ctx, x, scale, bias, eps, group):
+        mean, var, inv, ctx.n = _bn_stats(x, eps, group)
         mul, add = _bn_scale_bias(mean, inv, scale, bias, x.dtype)
         ctx.save_for_backward(x, mean, inv, scale)
+        ctx.group = group
         return _bn_apply(x, mul, add), mean, var
 
     @staticmethod
     def backward(ctx, g, mean_ct, var_ct):
         x, mean, inv, scale = ctx.saved_tensors
         dx, dscale, dbias = _bn_bwd_core(g.float(), x, mean, inv, scale,
-                                         mean_ct, var_ct)
-        return dx, dscale, dbias, None
+                                         mean_ct, var_ct, ctx.group, ctx.n)
+        return dx, dscale, dbias, None, None
 
 
 def _make_bn_act_fused(act, gate):
@@ -237,10 +271,11 @@ def _make_bn_act_fused(act, gate):
 
     class BNAct(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, x, scale, bias, eps):
-            mean, var, inv = _bn_stats(x, eps)
+        def forward(ctx, x, scale, bias, eps, group):
+            mean, var, inv, ctx.n = _bn_stats(x, eps, group)
             mul, add = _bn_scale_bias(mean, inv, scale, bias, x.dtype)
             ctx.save_for_backward(x, mean, inv, scale, bias)
+            ctx.group = group
             return act(_bn_apply(x, mul, add)), mean, var
 
         @staticmethod
@@ -249,8 +284,9 @@ def _make_bn_act_fused(act, gate):
             mul, add = _bn_scale_bias(mean, inv, scale, bias, x.dtype)
             gm = g.float() * gate(_bn_apply(x, mul, add))
             dx, dscale, dbias = _bn_bwd_core(gm, x, mean, inv, scale,
-                                             mean_ct, var_ct)
-            return dx, dscale, dbias, None
+                                             mean_ct, var_ct, ctx.group,
+                                             ctx.n)
+            return dx, dscale, dbias, None, None
 
     return BNAct.apply
 
@@ -276,10 +312,11 @@ class _BNAddReluTrainFused(torch.autograd.Function):
     Function saving x and the shortcut, not the pre-relu sum."""
 
     @staticmethod
-    def forward(ctx, x, shortcut, scale, bias, eps):
-        mean, var, inv = _bn_stats(x, eps)
+    def forward(ctx, x, shortcut, scale, bias, eps, group):
+        mean, var, inv, ctx.n = _bn_stats(x, eps, group)
         mul, add = _bn_scale_bias(mean, inv, scale, bias, x.dtype)
         ctx.save_for_backward(x, shortcut, mean, inv, scale, bias)
+        ctx.group = group
         return (_bn_apply(x, mul, add) + shortcut).clamp_min_(0), mean, var
 
     @staticmethod
@@ -288,8 +325,8 @@ class _BNAddReluTrainFused(torch.autograd.Function):
         mul, add = _bn_scale_bias(mean, inv, scale, bias, x.dtype)
         gm = g.float() * _relu_gate(_bn_apply(x, mul, add) + shortcut)
         dx, dscale, dbias = _bn_bwd_core(gm, x, mean, inv, scale,
-                                         mean_ct, var_ct)
-        return dx, gm.to(shortcut.dtype), dscale, dbias, None
+                                         mean_ct, var_ct, ctx.group, ctx.n)
+        return dx, gm.to(shortcut.dtype), dscale, dbias, None, None
 
 
 def _ema_state(state, mean, var, momentum):
@@ -305,13 +342,16 @@ def batchnorm(params, state, x, train=True, momentum=0.9, eps=1e-5,
     ``momentum·old + (1 − momentum)·batch`` (biased variance); else the
     running statistics, and the state comes back unchanged.  ``fused``
     (training only): the hand-written two-pass backward; False is plain
-    autograd over the same forward.  Returns (y, new_state)."""
+    autograd over the same forward.  Training in a process group of more
+    than one process uses the global batch's statistics (module
+    docstring).  Returns (y, new_state)."""
     if train:
+        group = _train.batch_group()
         if fused:
             y, mean, var = _BNTrainFused.apply(
-                x, params["scale"], params["bias"], eps)
+                x, params["scale"], params["bias"], eps, group)
         else:
-            mean, var, inv = _bn_stats(x, eps)
+            mean, var, inv, _ = _bn_stats(x, eps, group)
             mul, add = _bn_scale_bias(
                 mean, inv, params["scale"], params["bias"], x.dtype)
             y = _bn_apply(x, mul, add)
@@ -325,7 +365,8 @@ def batchnorm(params, state, x, train=True, momentum=0.9, eps=1e-5,
 def _batchnorm_act(fused_core, act, params, state, x, train, momentum,
                    eps, fused):
     if train and fused:
-        y, mean, var = fused_core(x, params["scale"], params["bias"], eps)
+        y, mean, var = fused_core(x, params["scale"], params["bias"], eps,
+                                  _train.batch_group())
         return y, _ema_state(state, mean, var, momentum)
     y, new_state = batchnorm(params, state, x, train=train,
                              momentum=momentum, eps=eps, fused=fused)
@@ -354,7 +395,8 @@ def batchnorm_add_relu(params, state, x, shortcut, train=True, momentum=0.9,
     training saves no pre-relu sum.  Returns (y, new_state)."""
     if train and fused:
         y, mean, var = _BNAddReluTrainFused.apply(
-            x, shortcut, params["scale"], params["bias"], eps)
+            x, shortcut, params["scale"], params["bias"], eps,
+            _train.batch_group())
         return y, _ema_state(state, mean, var, momentum)
     y, new_state = batchnorm(params, state, x, train=train,
                              momentum=momentum, eps=eps, fused=fused)

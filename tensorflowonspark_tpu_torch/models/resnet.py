@@ -232,11 +232,17 @@ def make_train_step(optimizer, depth=50, small_inputs=False,
     buffer is optax's ``trace``, ``g`` on the first step); the step
     updates the params in place, where the JAX step returns new params
     and optimizer state.  In a process group of more than one process the
-    gradients are averaged across it (:func:`utils.train.all_reduce_mean_`).
+    gradients are averaged across it (:func:`utils.train.average_gradients_`)
+    and batch norm uses the statistics of every process's batch, as the
+    JAX step does over a mesh-sharded batch (``models.layers``).
+    ``params`` may be placed on a ``data x fsdp`` mesh
+    (``parallel.shard_train_state``): the step then gathers them for the
+    forward and reduce-scatters their gradients.
 
     ``remat``: recompute the forward in the backward
     (``torch.utils.checkpoint``).  ``accum_steps > 1``: the batch in that
-    many microbatches, each normalised with its own statistics, the
+    many microbatches, each normalised with its own statistics (over
+    that microbatch on every process of the group), the
     running statistics advancing once per microbatch; the loss and
     gradients are the microbatches' mean and the accuracy is the last
     microbatch's, as in the JAX package."""
@@ -245,9 +251,9 @@ def make_train_step(optimizer, depth=50, small_inputs=False,
         fwd = functools.partial(_remat.checkpoint, apply, use_reentrant=False)
 
     def loss_fn(params, state, images, labels):
-        logits, new_state = fwd(params, state, images, depth, True,
-                                small_inputs, compute_dtype, stem_s2d,
-                                bn_fused)
+        logits, new_state = fwd(_train.full_params(params), state, images,
+                                depth, True, small_inputs, compute_dtype,
+                                stem_s2d, bn_fused)
         return L.softmax_cross_entropy(logits, labels), (logits, new_state)
 
     if accum_steps == 1:
@@ -266,10 +272,10 @@ def make_train_step(optimizer, depth=50, small_inputs=False,
     def train_step(params, state, images, labels):
         (loss, (logits, new_state)), grads = vg(params, state, images,
                                                 labels)
-        leaves, grad_leaves = param_leaves(params), ckpt.tree_leaves(grads)
-        for p, g in zip(leaves, grad_leaves):
+        leaves = param_leaves(params)
+        for p, g in zip(leaves, ckpt.tree_leaves(grads)):
             p.grad = g
-        _train.all_reduce_mean_(grad_leaves)
+        _train.average_gradients_(leaves)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         # accum path: logits are the last microbatch's

@@ -163,8 +163,10 @@ def apply(params, state, x, train=False):
 
 
 def loss_fn(params, state, images, masks, train=True):
-    """Per-pixel CE; masks ``[B, H, W]`` int.  Returns (loss, new_state)."""
-    logits, ns = apply(params, state, images, train=train)
+    """Per-pixel CE; masks ``[B, H, W]`` int.  Returns (loss, new_state).
+    Placed params are gathered first (:func:`utils.train.full_params`)."""
+    logits, ns = apply(_train.full_params(params), state, images,
+                       train=train)
     loss = L.softmax_cross_entropy(
         logits.reshape(-1, logits.shape[-1]), masks.reshape(-1))
     return loss, ns
@@ -179,16 +181,20 @@ def make_train_step(optimizer):
     ``optax.adam(1e-3)``); the step updates the params in place, where
     the JAX step returns new params and optimizer state.  In a process
     group of more than one process the gradients are averaged across it
-    (:func:`utils.train.all_reduce_mean_`); each process normalises with
-    its own batch statistics."""
+    (:func:`utils.train.average_gradients_`), and batch norm normalises
+    with the statistics of every process's batch, as the JAX package's
+    step does over a mesh-sharded batch (``models.layers``).  ``params``
+    may be placed on a ``data x fsdp`` mesh
+    (``parallel.shard_train_state``): the step then gathers them for the
+    forward and reduce-scatters their gradients."""
     vg = _train.value_and_grad(loss_fn, has_aux=True)
 
     def train_step(params, state, images, masks):
         (loss, new_state), grads = vg(params, state, images, masks)
-        leaves, grad_leaves = param_leaves(params), ckpt.tree_leaves(grads)
-        for p, g in zip(leaves, grad_leaves):
+        leaves = param_leaves(params)
+        for p, g in zip(leaves, ckpt.tree_leaves(grads)):
             p.grad = g
-        _train.all_reduce_mean_(grad_leaves)
+        _train.average_gradients_(leaves)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return loss, new_state

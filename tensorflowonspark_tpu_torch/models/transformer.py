@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (
 )
 
 from tensorflowonspark_tpu_torch import ops, resolve_device
+from tensorflowonspark_tpu_torch.parallel import collectives as _coll
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NEG_INF = -1e30  # finite mask fill (ops.attention convention: never -inf)
@@ -145,6 +146,80 @@ def params_from_jax(tree, cfg: Config, device=None):
     return out
 
 
+def param_specs(cfg: Config, *, tp_axis="model", fsdp_axis="fsdp",
+                mesh=None):
+    """Megatron-style specs (PartitionSpec-like tuples, one entry per
+    tensor dim) matching :func:`init`'s tree, the JAX package's plan:
+    ``wqkv``, ``w1`` and ``head`` column-parallel (out dim over
+    ``tp_axis``), ``wo`` and ``w2`` row-parallel (in dim over it), the
+    other big dim over ``fsdp_axis``; layer trees carry the leading
+    layer axis (None).  Pass ``mesh`` to drop axes it does not define.
+
+    One difference from the JAX spec: ``wqkv``'s is for its
+    ``[n_layers, dim, 3, dim]`` view (:func:`shard_params` places it so),
+    whose model axis splits each of q, k and v by heads.  A contiguous
+    split of the 3·dim columns would give the first rank all of q and
+    part of k; GSPMD reshards behind that in JAX, Megatron's layers here
+    compute on their blocks."""
+    if mesh is not None:
+        axes = set(mesh.mesh_dim_names)
+        tp_axis = tp_axis if tp_axis in axes else None
+        fsdp_axis = fsdp_axis if fsdp_axis in axes else None
+    lcol = (None, fsdp_axis, tp_axis)
+    lrow = (None, tp_axis, fsdp_axis)
+    return {
+        "embed": (None, fsdp_axis),
+        "layers": {
+            "ln1": (None, None),
+            "wqkv": (None, fsdp_axis, None, tp_axis),
+            "wo": lrow,
+            "ln2": (None, None),
+            "w1": lcol,
+            "w2": lrow,
+        },
+        "ln_f": (None,),
+        "head": (fsdp_axis, tp_axis),
+    }
+
+
+def _qkv_view(params):
+    """``params`` with ``wqkv`` [L, D, 3D] viewed as [L, D, 3, D]."""
+    layers = dict(params["layers"])
+    w = layers["wqkv"]
+    layers["wqkv"] = w.reshape(w.shape[0], w.shape[1], 3, w.shape[2] // 3)
+    return {**params, "layers": layers}
+
+
+def shard_params(params, mesh, specs):
+    """Place full float32 ``params`` (the same on every rank) on ``mesh``
+    by ``specs`` (:func:`param_specs`): DTensor leaves that require
+    grad, ``wqkv`` as its [L, D, 3, D] view."""
+    from tensorflowonspark_tpu_torch.parallel import sharding
+    from tensorflowonspark_tpu_torch.parallel.mesh import sharded
+    from torch.utils import _pytree as pytree
+
+    tree = pytree.tree_map(lambda p: p.detach().requires_grad_(),
+                           _qkv_view(params))
+    shardings = pytree.tree_map(lambda spec: sharded(mesh, *spec), specs,
+                                is_leaf=lambda x: isinstance(x, tuple))
+    return sharding.apply_shardings(tree, shardings)
+
+
+def mesh_params(placed, axes=("fsdp",)):
+    """The tensors a rank computes with: the dims of :func:`shard_params`'
+    DTensors sharded over ``axes`` gathered (differentiably), the
+    ``model`` blocks kept, ``wqkv`` back to [L, D, 3·D_local] (q, k and
+    v of this rank's heads).  ``axes`` = every mesh axis gives the full
+    params again."""
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    tree = sharding.gather_params(placed, axes)
+    layers = dict(tree["layers"])
+    w = layers["wqkv"]
+    layers["wqkv"] = w.reshape(w.shape[0], w.shape[1], -1)
+    return {**tree, "layers": layers}
+
+
 def compute_params(params, cfg: Config, device=None):
     """Params on ``device`` (default: where they are) with the matmul
     weights and the embedding cast once to the compute dtype (norm
@@ -191,30 +266,37 @@ def _default_attn(cfg):
     return functools.partial(base, causal=True)
 
 
-def _block_tail(x, p):
-    """The MLP half of a block, with its residual."""
-    y = ops.rmsnorm_reference(x, p["ln2"])
-    return x + _matmul(_gelu(_matmul(y, p["w1"])), p["w2"])
+def _block_tail(x, p, tp=None):
+    """The MLP half of a block, with its residual.  With a tensor-parallel
+    group ``tp``, ``w1``/``w2`` are this rank's column/row blocks:
+    Megatron's identity-forward, sum-backward op before ``w1`` and the
+    sum after ``w2``."""
+    y = _coll.copy_to(ops.rmsnorm_reference(x, p["ln2"]), tp)
+    return x + _coll.reduce_from(
+        _matmul(_gelu(_matmul(y, p["w1"])), p["w2"]), tp)
 
 
-def _layer_apply_kv(p, x, cfg, rope, attn_fn):
+def _layer_apply_kv(p, x, cfg, rope, attn_fn, tp=None):
     """One transformer block; also returns the layer's rope-rotated
-    keys and values in cache layout [B, H, S, D]."""
-    b, s, dim = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    keys and values in cache layout [B, H, S, D].  With ``tp``, ``wqkv``
+    holds this rank's heads of q, k and v and ``wo`` their rows."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    h = p["wqkv"].shape[-1] // (3 * hd)
     cos, sin, positions = rope
-    y = ops.rmsnorm_reference(x, p["ln1"])
+    y = _coll.copy_to(ops.rmsnorm_reference(x, p["ln1"]), tp)
     qkv = _matmul(y, p["wqkv"]).reshape(b, s, 3, h, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = ops.apply_rope(q, cos, sin, positions=positions)
     k = ops.apply_rope(k, cos, sin, positions=positions)
-    attn = attn_fn(q, k, v).reshape(b, s, dim)
-    x = _block_tail(x + _matmul(attn, p["wo"]), p)
+    attn = attn_fn(q, k, v).reshape(b, s, h * hd)
+    x = x + _coll.reduce_from(_matmul(attn, p["wo"]), tp)
+    x = _block_tail(x, p, tp)
     return x, k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _layer_apply(p, x, cfg, rope, attn_fn):
-    return _layer_apply_kv(p, x, cfg, rope, attn_fn)[0]
+def _layer_apply(p, x, cfg, rope, attn_fn, tp=None):
+    return _layer_apply_kv(p, x, cfg, rope, attn_fn, tp)[0]
 
 
 # matmuls without batch dims: what jax's dots_with_no_batch_dims_saveable
@@ -241,8 +323,8 @@ def _layer_fn(remat):
     else:
         raise ValueError(f"remat must be bool or 'dots'; got {remat!r}")
 
-    def fn(p, x, cfg, rope, attn_fn):
-        return checkpoint(_layer_apply, p, x, cfg, rope, attn_fn,
+    def fn(p, x, cfg, rope, attn_fn, tp=None):
+        return checkpoint(_layer_apply, p, x, cfg, rope, attn_fn, tp,
                           use_reentrant=False, context_fn=context_fn)
 
     return fn
@@ -250,7 +332,7 @@ def _layer_fn(remat):
 
 def apply(params, tokens, cfg: Config, *, attn_fn=None,
           logits_dtype=torch.float32, remat=False, positions=None,
-          return_hidden=False):
+          return_hidden=False, tp_group=None):
     """tokens [B, S] int -> logits [B, S, vocab] in ``logits_dtype``
     (default float32; None keeps the compute dtype, as the training
     loss does).  ``return_hidden=True`` skips the head matmul and
@@ -265,7 +347,12 @@ def apply(params, tokens, cfg: Config, *, attn_fn=None,
 
     ``remat=True`` checkpoints each layer (the backward recomputes its
     internals, flash forward included); ``remat="dots"`` saves every
-    matmul output and recomputes only the elementwise chain."""
+    matmul output and recomputes only the elementwise chain.
+
+    ``tp_group``: Megatron tensor parallelism over that process group;
+    ``params`` are then this rank's blocks (:func:`mesh_params`) and the
+    column-parallel head's logits are gathered over the vocab, so every
+    rank returns the full logits."""
     if positions is not None and attn_fn is None:
         # the default flash mask is causal by ARRAY INDEX; on permuted
         # input that silently attends to the future
@@ -288,11 +375,16 @@ def apply(params, tokens, cfg: Config, *, attn_fn=None,
     cos, sin = ops.rope_angles(rope_len, cfg.head_dim, cfg.rope_base,
                                device=dev)
     for i in range(cfg.n_layers):
-        x = layer_fn(_layer(params, i), x, cfg, (cos, sin, pos2d), attn_fn)
+        x = layer_fn(_layer(params, i), x, cfg, (cos, sin, pos2d), attn_fn,
+                     tp_group)
     x = ops.rmsnorm_reference(x, params["ln_f"])
     if return_hidden:
+        if _coll.group_size(tp_group) > 1:
+            raise ValueError("return_hidden (the blockwise CE) needs the "
+                             "whole head; tensor parallelism shards it")
         return x
-    logits = _matmul(x, params["head"])
+    logits = _matmul(_coll.copy_to(x, tp_group), params["head"])
+    logits = _coll.gather_from(logits, -1, tp_group)
     return logits if logits_dtype is None else logits.to(logits_dtype)
 
 
@@ -338,27 +430,17 @@ def _blockwise_nll(x, head, labels, block_v):
     return m + torch.log(s) - gold
 
 
-def loss_fn(params, tokens, cfg: Config, *, attn_fn=None, remat=False,
-            labels=None, positions=None, ce_impl="dense", ce_block=2048):
-    """Next-token cross entropy (mean over B, S-1), differentiable.
-
-    Default labels are ``tokens`` shifted by one.  Explicit ``labels``
-    align with ``tokens``' positions, -1 = ignore; the mean is then over
-    the labelled positions.
-
-    ``ce_impl="dense"``: logits stay in the compute dtype and the
-    logsumexp runs on their float32 upcast.  Unlike XLA, which fuses the
-    upcast into the reduction, torch materialises the float32
-    [B, S, vocab] tensor (PERF.md gives its size at full width).
-    ``ce_impl="blockwise"``: the head matmul streams in ``ce_block``-wide
-    vocab slices (``_blockwise_nll``) and [B, S, vocab] never exists."""
+def _nll(params, tokens, cfg, *, attn_fn, remat, labels, positions, ce_impl,
+         ce_block, tp_group):
+    """Per-position next-token NLL and its mask of labelled positions
+    (None: every position of ``tokens[:, :-1]``)."""
     if ce_impl not in ("dense", "blockwise"):
         raise ValueError(f"unknown ce_impl {ce_impl!r}")
     dev = _device(params)
     tokens = _tokens(tokens, dev)
     out = apply(params, tokens, cfg, attn_fn=attn_fn, remat=remat,
                 positions=positions, logits_dtype=None,
-                return_hidden=ce_impl == "blockwise")
+                return_hidden=ce_impl == "blockwise", tp_group=tp_group)
     if labels is None:
         out = out[:, :-1]
         labels = tokens[:, 1:]
@@ -375,10 +457,113 @@ def loss_fn(params, tokens, cfg: Config, *, attn_fn=None, remat=False,
         lse = torch.logsumexp(out.float(), dim=-1)
         gold = out.gather(-1, labels[..., None])[..., 0].float()
         nll = lse - gold
+    return nll, valid
+
+
+def loss_fn(params, tokens, cfg: Config, *, attn_fn=None, remat=False,
+            labels=None, positions=None, ce_impl="dense", ce_block=2048,
+            tp_group=None):
+    """Next-token cross entropy (mean over B, S-1), differentiable.
+
+    Default labels are ``tokens`` shifted by one.  Explicit ``labels``
+    align with ``tokens``' positions, -1 = ignore; the mean is then over
+    the labelled positions.
+
+    ``ce_impl="dense"``: logits stay in the compute dtype and the
+    logsumexp runs on their float32 upcast.  Unlike XLA, which fuses the
+    upcast into the reduction, torch materialises the float32
+    [B, S, vocab] tensor (PERF.md gives its size at full width).
+    ``ce_impl="blockwise"``: the head matmul streams in ``ce_block``-wide
+    vocab slices (``_blockwise_nll``) and [B, S, vocab] never exists.
+    ``tp_group``: as :func:`apply`'s (dense CE only)."""
+    nll, valid = _nll(params, tokens, cfg, attn_fn=attn_fn, remat=remat,
+                      labels=labels, positions=positions, ce_impl=ce_impl,
+                      ce_block=ce_block, tp_group=tp_group)
     if valid is None:
         return nll.mean()
     vf = valid.float()
     return (nll * vf).sum() / vf.sum().clamp(min=1.0)
+
+
+def zigzag_lm_batch(tokens, perm):
+    """A contiguous LM batch prepared for zigzag training:
+    ``(tokens_p, labels_p, positions)``, ``tokens_p`` the permuted
+    sequence, ``labels_p`` each position's next token in the ORIGINAL
+    order (-1 at the last global position), permuted alike, and
+    ``positions`` the global rope positions; feed them to
+    ``loss_fn(..., labels=labels_p, positions=positions)`` with an
+    ``attn_fn`` that masks by global position.  ``perm =
+    torch.arange(S)`` gives the contiguous layout's labels and
+    positions."""
+    tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(
+        tokens) else tokens)
+    perm = torch.as_tensor(np.asarray(perm) if not torch.is_tensor(perm)
+                           else perm, dtype=torch.long)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    return tokens[:, perm], labels[:, perm], perm.clone()
+
+
+def mesh_value_and_grad(cfg: Config, mesh, *, attn_fn, zigzag=False):
+    """``fn(placed, tokens) -> loss``: the loss of the global batch
+    ``tokens`` [B, S] (the same on every rank) under ``mesh``, its
+    gradients left on the placed params (:func:`shard_params`).
+
+    Each rank takes its block of the batch (rows over ``data`` and
+    ``fsdp``, the sequence over ``seq``, in zigzag order when
+    ``zigzag``, labels and rope positions explicit,
+    :func:`zigzag_lm_batch`), gathers the fsdp-sharded params, runs
+    Megatron's layers over ``model`` with ``attn_fn`` (a
+    :func:`parallel.ring.sequence_parallel_attention` of the mesh), and
+    backpropagates its
+    share of the global loss: its positions' NLL sum over the global
+    count of labelled positions.  The gradients are then summed over the
+    batch and sequence axes (``sharding.reduce_gradients_``); the
+    returned loss is that of the global batch, as the JAX package's
+    ``loss_fn`` under ``jax.grad`` gives, on every rank."""
+    from tensorflowonspark_tpu_torch.parallel import ring, sharding
+    from tensorflowonspark_tpu_torch.parallel.mesh import (
+        local_shard,
+        mesh_shape,
+        sharded,
+    )
+
+    shape = mesh_shape(mesh)
+    batch = tuple(a for a in ("data", "fsdp") if a in shape)
+    seq = "seq" if "seq" in shape else None
+    reduce_axes = batch + ((seq,) if seq else ())
+    tp = mesh.get_group("model") if "model" in shape else None
+    groups = [mesh.get_group(a) for a in reduce_axes]
+    _, rows = sharded(mesh, batch or None, seq)
+    _, cols = sharded(mesh, seq)
+
+    def global_sum(x):
+        for g in groups:
+            if _coll.group_size(g) > 1:
+                x = _coll._sum(x, g)
+        return x
+
+    def fn(placed, tokens):
+        s = tokens.shape[1]
+        perm = (ring.zigzag_permutation(s, shape.get("seq", 1))
+                if zigzag else torch.arange(s))
+        toks, labels, positions = zigzag_lm_batch(tokens, perm)
+        params = mesh_params(placed, ("fsdp",))
+        dev = _device(params)
+        toks = local_shard(toks, mesh, rows).to(dev)
+        labels = local_shard(labels, mesh, rows).to(dev)
+        positions = local_shard(positions, mesh, cols).to(dev)
+        nll, valid = _nll(params, toks, cfg, attn_fn=attn_fn, remat=False,
+                          labels=labels, positions=positions,
+                          ce_impl="dense", ce_block=None, tp_group=tp)
+        vf = valid.float()
+        count = global_sum(vf.sum())
+        share = (nll * vf).sum() / count.clamp(min=1.0)
+        share.backward()
+        sharding.reduce_gradients_(placed, reduce_axes, mean=False)
+        return global_sum(share.detach())
+
+    return fn
 
 
 def _last_rows(x, lengths, t):

@@ -14,6 +14,11 @@ the same replica-side loop, with the model steps in PyTorch.
 - Seeded sampling (``serving/decode/sampling.py``): logits come back to
   the host and the token is a pure function of ``(logits, params,
   index)``.
+- Speculative decoding (``spec_window`` and a draft model): the draft
+  proposes K-1 tokens, one windowed ``decode_step_paged`` over the
+  K-token window verifies them, and a draft token is accepted iff it
+  equals the target's seeded sample at that index, so speculative
+  output equals plain output token for token at the same seed.
 
 Tokens stream back to the driver-side :class:`PendingSession`, whose
 index-keyed ledger resolves once: a failover replay after a replica
@@ -26,8 +31,9 @@ iteration boundary on the engine's own thread, after placing and
 casting them there as at start.  Sessions in flight keep their cached
 K/V, as in the JAX package; the resident prefixes of the paged cache's
 trie are dropped, so that no later session maps K/V of the old params.
+The draft model is not swapped: a reload changes the target only, as in
+the JAX package.
 
-Speculative decoding is not ported (ROADMAP.md queue 1, item 2).
 Module import is stdlib + numpy; torch and the model load on the
 engine's thread.
 """
@@ -60,6 +66,7 @@ MAX_TOKENS_ENV = "TFOS_DECODE_MAX_TOKENS"
 PAGED_ENV = "TFOS_DECODE_PAGED"
 BLOCK_ENV = "TFOS_DECODE_BLOCK"
 PREFIX_SHARING_ENV = "TFOS_DECODE_PREFIX_SHARING"
+SPEC_WINDOW_ENV = "TFOS_DECODE_SPEC_WINDOW"
 
 
 def slots_default():
@@ -86,6 +93,10 @@ def prefix_sharing_default():
     return os.environ.get(PREFIX_SHARING_ENV, "1") != "0"
 
 
+def spec_window_default():
+    return int(os.environ.get(SPEC_WINDOW_ENV, "4"))
+
+
 class DecodeSpec:
     """The decode tier's config.
 
@@ -95,16 +106,19 @@ class DecodeSpec:
     ``paged`` selects :class:`~.kvcache.PagedKVCache` over
     :class:`~.kvcache.SlotKVCache`; ``block_size``/``num_blocks`` size
     it; ``prefix_sharing`` arms the prefix trie.  Speculative decoding
-    (``draft_params``/``draft_cfg``) is not ported and raises.  The
-    spec rides the replica pool's payload, a plain pickle.
+    arms when both ``draft_params`` (a draft transformer's params: float32
+    tensors, or numpy arrays in the JAX package's layout, which the
+    engine converts) and ``draft_cfg`` are given: the draft proposes ``spec_window - 1``
+    tokens an iteration (default ``TFOS_DECODE_SPEC_WINDOW``, 4) and one
+    windowed verify step scores them (paged mode only: the verify step is
+    ``decode_step_paged``).  The spec, draft included, rides the replica
+    pool's payload, a plain pickle.
     """
 
     def __init__(self, cfg, slots=None, eos_id=None, max_tokens=None,
                  paged=None, block_size=None, num_blocks=None,
-                 prefix_sharing=None, draft_params=None, draft_cfg=None):
-        if draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError(
-                "speculative decoding comes with ROADMAP.md queue 1, item 2")
+                 prefix_sharing=None, draft_params=None, draft_cfg=None,
+                 spec_window=None):
         self.cfg = cfg
         self.slots = int(slots or slots_default())
         self.eos_id = eos_id
@@ -115,6 +129,24 @@ class DecodeSpec:
         self.prefix_sharing = (prefix_sharing_default()
                                if prefix_sharing is None
                                else bool(prefix_sharing))
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_window = int(spec_window or spec_window_default())
+        if self.spec_window < 2:
+            raise ValueError(
+                f"spec_window must be >= 2, got {self.spec_window}")
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError(
+                "speculative decoding needs BOTH draft_params and "
+                "draft_cfg (or neither)")
+        if draft_params is not None and not self.paged:
+            raise ValueError(
+                "speculative decoding requires paged=True (the verify "
+                "step is decode_step_paged)")
+
+    @property
+    def speculative(self):
+        return self.draft_params is not None
 
 
 class PendingSession(ResolveOnce):
@@ -216,9 +248,9 @@ class DecodeEngine:
     ``transformer.init`` or ``transformer.params_from_jax``);
     ``device=None`` means ``cuda``, and :meth:`start` raises when no
     CUDA device is present — pass ``device="cpu"`` for the CPU.  The
-    engine thread moves the params to the device, casts the matmul
-    weights to the compute dtype once, and runs every step under
-    ``torch.inference_mode()``.
+    engine thread moves the params (and a speculative spec's draft
+    params) to the device, casts the matmul weights to the compute dtype
+    once, and runs every step under ``torch.inference_mode()``.
     """
 
     def __init__(self, params, spec, emit, replica=0, device=None):
@@ -246,6 +278,8 @@ class DecodeEngine:
         self.prefix_hits = 0
         self.prefix_tokens_saved = 0
         self.reloads = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     # -- lifecycle ----------------------------------------------------------
     def start(self, timeout=120.0):
@@ -321,10 +355,17 @@ class DecodeEngine:
             out["prefix_tokens_saved"] = self.prefix_tokens_saved
             out["blocks_in_use"] = (cache.blocks_in_use
                                     if cache is not None else 0)
+        if self._spec.speculative:
+            out["spec_proposed"] = self.spec_proposed
+            out["spec_accepted"] = self.spec_accepted
+            out["spec_accept_rate"] = round(
+                self.spec_accepted / max(1, self.spec_proposed), 4)
         return out
 
     # -- engine thread ------------------------------------------------------
-    def _build_cache(self):
+    def _build_caches(self):
+        """The target's cache and, for a speculative spec, the draft's
+        slot cache (else None)."""
         spec = self._spec
         if spec.paged:
             cache = self._kvcache_mod.PagedKVCache(
@@ -334,8 +375,12 @@ class DecodeEngine:
         else:
             cache = self._kvcache_mod.SlotKVCache(
                 spec.cfg, spec.slots, device=self._device)
+        dcache = None
+        if spec.speculative:
+            dcache = self._kvcache_mod.SlotKVCache(
+                spec.draft_cfg, spec.slots, device=self._device)
         self._cache = cache
-        return cache
+        return cache, dcache
 
     def _run(self):
         try:
@@ -349,10 +394,13 @@ class DecodeEngine:
                 torch.cuda.set_device(self._device)
             self._transformer = transformer
             self._kvcache_mod = kvcache
+            spec = self._spec
             with torch.inference_mode():
                 self._params = transformer.compute_params(
-                    self._params, self._spec.cfg, self._device)
-                cache = self._build_cache()
+                    self._params, spec.cfg, self._device)
+                self._draft = (self._draft_params(transformer)
+                               if spec.speculative else None)
+                cache, dcache = self._build_caches()
         except BaseException as e:  # noqa: BLE001 - surface via start()
             self._init_error = e
             self._started.set()
@@ -363,20 +411,33 @@ class DecodeEngine:
                 try:
                     faults.check("decode.step", replica=self._replica)
                     self._take_new_params(cache)
-                    self._admit(cache)
+                    self._admit(cache, dcache)
                     if not self._active:
                         self._wake.wait(0.02)
                         self._wake.clear()
                         continue
                     if self._spec.paged:
-                        self._iterate_paged(cache)
+                        self._iterate_paged(cache, dcache)
                     else:
                         self._iterate(cache)
                 except BaseException as e:  # noqa: BLE001 - fail the
-                    # cohort, rebuild the cache, keep the replica serving
+                    # cohort, rebuild the caches, keep the replica serving
                     logger.exception("decode engine iteration failed")
                     self._fail_all(repr(e))
-                    cache = self._build_cache()
+                    cache, dcache = self._build_caches()
+
+    def _draft_params(self, transformer):
+        """The draft's params placed and cast on the engine's device; a
+        tree of numpy arrays (the JAX package's layout, as an export
+        holds) is converted first."""
+        import torch
+
+        spec = self._spec
+        tree = spec.draft_params
+        if not torch.is_tensor(tree["embed"]):
+            tree = transformer.params_from_jax(tree, spec.draft_cfg,
+                                               device="cpu")
+        return transformer.compute_params(tree, spec.draft_cfg, self._device)
 
     def _take_new_params(self, cache):
         """Swap in :meth:`set_params`' tree, if one is waiting."""
@@ -391,7 +452,7 @@ class DecodeEngine:
         self.reloads += 1
 
     # -- admission ----------------------------------------------------------
-    def _admit(self, cache):
+    def _admit(self, cache, dcache=None):
         """Move queued sessions into free slots.
 
         Paged mode: each prompt is first matched against the prefix
@@ -400,7 +461,9 @@ class DecodeEngine:
         bucket).  Misses (and slot mode) run the plain bucketed
         ``prefill``.  Every admitted prompt's whole-block prefix is then
         offered to the trie.  The first token comes from the prefill
-        logits either way (sampled at index 0).
+        logits either way (sampled at index 0).  A speculative engine
+        also prefills each whole prompt through the draft (bucketed the
+        same way) and installs its K/V in the draft's slot cache.
         """
         batch = []
         with self._qlock:
@@ -479,6 +542,26 @@ class DecodeEngine:
                 self.prefix_hits += 1
                 self.prefix_tokens_saved += mlen
                 metrics_registry.inc("tfos_decode_prefix_hits")
+        # -- draft prefill (speculative: whole prompt, own cache) -----------
+        draft_kv = {}  # sid -> (k_i, v_i)
+        if dcache is not None:
+            dcfg = self._spec.draft_cfg
+            groups = {}
+            for req in batch:
+                t = _batcher.bucket_seq(len(req["prompt"]), dcfg.max_seq)
+                groups.setdefault(t, []).append(req)
+            for t, members in groups.items():
+                rows = _batcher.bucket_size(len(members), self._spec.slots)
+                toks = np.stack([
+                    _batcher.pad_seq(np.asarray(m["prompt"], np.int32), t)
+                    for m in members])
+                lens = np.asarray([len(m["prompt"]) for m in members],
+                                  np.int32)
+                toks = _batcher.pad_rows(toks, rows)
+                lens = _batcher.pad_rows(lens, rows)
+                _, dk, dv = T.prefill(self._draft, toks, dcfg, lengths=lens)
+                for i, req in enumerate(members):
+                    draft_kv[req["sid"]] = (dk[i], dv[i])
 
         # -- slot installation + first-token emission -----------------------
         for req, logits_row, k_i, v_i, shared, mlen in admitted:
@@ -493,6 +576,9 @@ class DecodeEngine:
                 cache.register_prompt(slot, req["prompt"])
             else:
                 cache.insert(slot, k_i, v_i, plen)
+            if dcache is not None:
+                dk, dv = draft_kv[req["sid"]]
+                dcache.insert(slot, dk, dv, plen)
             first = _sampling.sample_token(logits_row, req["sampling"], 0)
             mt = min(req["max_tokens"], cache.max_seq - plen)
             st = _Slot(req["sid"], plen, max(1, mt), req["eos_id"], first,
@@ -542,36 +628,87 @@ class DecodeEngine:
                                    cache.occupancy)
 
     # -- iteration: paged cache ---------------------------------------------
-    def _iterate_paged(self, cache):
-        """One fused one-token ``decode_step_paged`` over every occupied
-        slot."""
-        window = np.zeros((cache.slots, 1), np.int32)
+    def _iterate_paged(self, cache, dcache=None):
+        """One fused windowed step over every occupied slot.
+
+        Without a draft the window is one token: the plain paged step.
+        With one, the draft runs K ``decode_step``s over the window
+        ``[last, d_1 .. d_{K-1}]``, sampling ``d_j`` at its future index
+        ``len(generated) + j - 1``; one ``decode_step_paged`` verifies the
+        window, and ``d_j`` is accepted iff it equals the target's seeded
+        sample at that index, so every emitted token is the target's
+        sample on a correct history.  The draft ingests all K window
+        tokens (only active slots advance); both cursors then roll back to
+        the accepted prefix by assignment, and the stale K/V past a
+        cursor is masked by length until a later write lands on it.
+        """
+        spec = self._spec
+        T = self._transformer
+        k_win = spec.spec_window if dcache is not None else 1
+        window = np.zeros((cache.slots, k_win), np.int32)
         for slot, st in self._active.items():
             window[slot, 0] = st.last
         n0 = cache.lengths.copy()
+        if dcache is not None:
+            for j in range(k_win):
+                dlogits, dcache.k, dcache.v = T.decode_step(
+                    self._draft, window[:, j], spec.draft_cfg, dcache.k,
+                    dcache.v, dcache.lengths)
+                for slot in self._active:
+                    dcache.lengths[slot] += 1
+                if j < k_win - 1:
+                    dlogits = dlogits.float().cpu().numpy()
+                    for slot, st in self._active.items():
+                        window[slot, j + 1] = _sampling.sample_token(
+                            dlogits[slot], st.sampling,
+                            len(st.generated) + j)
         for slot in self._active:
-            cache.ensure_capacity(slot, int(n0[slot]) + 1)
-        logits, cache.k, cache.v = self._transformer.decode_step_paged(
-            self._params, window, self._spec.cfg, cache.k, cache.v,
+            cache.ensure_capacity(slot, int(n0[slot]) + k_win)
+        logits, cache.k, cache.v = T.decode_step_paged(
+            self._params, window, spec.cfg, cache.k, cache.v,
             cache.block_tables, n0)
-        logits = logits.float().cpu().numpy()           # [slots, 1, vocab]
+        logits = logits.float().cpu().numpy()           # [slots, K, vocab]
         self.iterations += 1
         for slot in list(self._active):
             st = self._active[slot]
-            tok = _sampling.sample_token(logits[slot, 0], st.sampling,
-                                         len(st.generated))
-            st.generated.append(tok)
-            st.last = tok
-            cache.lengths[slot] += 1
-            self._emit("token", st.sid, len(st.generated) - 1, tok)
-            if (st.eos_id is not None and tok == st.eos_id) \
-                    or len(st.generated) >= st.max_tokens \
-                    or cache.lengths[slot] >= cache.max_seq:
+            n = int(n0[slot])
+            base = len(st.generated)
+            # rows past max_seq wrote their token's k/v to the sentinel,
+            # so their logits miss history: never emit from them
+            valid = min(k_win, cache.max_seq - n)
+            emitted = []
+            for j in range(valid):
+                if j > 0 and int(window[slot, j]) != emitted[j - 1]:
+                    break               # draft diverged; later rows stale
+                if j > 0:
+                    self.spec_accepted += 1
+                emitted.append(_sampling.sample_token(
+                    logits[slot, j], st.sampling, base + j))
+            if dcache is not None:
+                self.spec_proposed += k_win - 1
+            done = False
+            for tok in emitted:
+                st.generated.append(tok)
+                st.last = tok
+                cache.lengths[slot] += 1
+                self._emit("token", st.sid, len(st.generated) - 1, tok)
+                if (st.eos_id is not None and tok == st.eos_id) \
+                        or len(st.generated) >= st.max_tokens:
+                    done = True
+                    break
+            if dcache is not None:
+                # roll the draft cursor back onto the accepted prefix
+                dcache.lengths[slot] = cache.lengths[slot]
+            if done or cache.lengths[slot] >= cache.max_seq:
                 self._retire(cache, slot)
         metrics_registry.set_gauge("tfos_decode_slot_occupancy",
                                    cache.occupancy)
         metrics_registry.set_gauge("tfos_decode_blocks_in_use",
                                    cache.blocks_in_use)
+        if dcache is not None:
+            metrics_registry.set_gauge(
+                "tfos_decode_spec_accept",
+                round(self.spec_accepted / max(1, self.spec_proposed), 4))
 
     def _retire(self, cache, slot):
         st = self._active.pop(slot)

@@ -44,8 +44,8 @@ writes orbax step directories: importing ``orbax.checkpoint`` imports
 JAX.  So both packages' restores read what the port's class writes; an
 orbax step directory that the JAX class wrote is listed by
 :func:`latest` and skipped by the restores.  The blessing and tombstone
-writers wait in ROADMAP.md (item 25), and
-``restore_any(target_shardings=)`` in item 12.
+writers wait in ROADMAP.md (item 25).  ``restore_any(target_shardings=)``
+places a restore on a device mesh (``parallel.sharding``).
 """
 
 from __future__ import annotations
@@ -445,11 +445,35 @@ def restore_any(ckpt_dir, target_shardings=None, blessed_only=False):
     manifest, are truncated or raise on load are skipped with a warning,
     and the previous step is tried; ``blessed_only=True`` also requires
     a verified blessing manifest (only promoted checkpoints serve).
-    Orbax step directories are skipped with a warning."""
-    if target_shardings is not None:
-        raise NotImplementedError(
-            "restore_any(target_shardings=) places a restore on a device "
-            "mesh, which comes with ROADMAP.md queue 1, item 12")
+    Orbax step directories are skipped with a warning.
+
+    Without ``target_shardings`` the leaves are host numpy arrays.
+    ``target_shardings`` places them on a device mesh: a tree of
+    ``(mesh, placements)`` matching the restored tree, or a callable
+    ``tree -> shardings`` (e.g. ``lambda t: fsdp_sharding(mesh, t)``);
+    the leaves come back as DTensors holding this rank's blocks
+    (``parallel.sharding.apply_shardings``).  The restore is host-side,
+    so a checkpoint written under another mesh shape re-places as well,
+    as the JAX package's reshard does."""
+    tree, step = _restore_host(ckpt_dir, blessed_only)
+    if tree is None or target_shardings is None:
+        return tree, step
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    shardings = (target_shardings(tree) if callable(target_shardings)
+                 else target_shardings)
+    return sharding.apply_shardings(_torch_tree(tree), shardings), step
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    import torch
+
+    return torch.from_numpy(np.array(tree))
+
+
+def _restore_host(ckpt_dir, blessed_only):
     steps = _steps_by_format(ckpt_dir)
     npz = set(steps["npz"])
     for step in sorted(npz | set(steps["orbax"]), reverse=True):

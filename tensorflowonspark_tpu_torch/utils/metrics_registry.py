@@ -47,6 +47,9 @@ CATALOG = {
     "tfos_decode_blocks_in_use": (
         "gauge", "Paged-KV blocks referenced by live sessions or the "
                  "prefix trie (sentinel excluded)."),
+    "tfos_decode_spec_accept": (
+        "gauge", "Speculative-decode draft acceptance rate (accepted / "
+                 "proposed, cumulative)."),
 }
 
 

@@ -26,8 +26,20 @@ def gradnorm_enabled():
         "1", "true", "on", "yes")
 
 
+def batch_group():
+    """The process group the training batch is split over: the default
+    group when it holds more than one process, else None.  Gradients are
+    averaged over it (:func:`all_reduce_mean_`) and batch norm reduces
+    its statistics over it (``models.layers``)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return dist.group.WORLD if dist.get_world_size() > 1 else None
+
+
 def all_reduce_mean_(grads):
-    """Sum each gradient tensor across the process group and divide by
+    """Sum each gradient tensor across :func:`batch_group` and divide by
     its size, in place; nothing outside a group of more than one
     process.  The JAX package gets this all-reduce from XLA through the
     batch sharded over the mesh (``local_to_global``); here it runs
@@ -36,15 +48,63 @@ def all_reduce_mean_(grads):
     and dropping ragged tails (``infeed.batch_iterator``) guarantee."""
     import torch.distributed as dist
 
-    if not (dist.is_available() and dist.is_initialized()):
+    group = batch_group()
+    if group is None:
         return
-    world = dist.get_world_size()
-    if world == 1:
-        return
+    world = dist.get_world_size(group)
     for g in grads:
         if g is not None:
-            dist.all_reduce(g, op=dist.ReduceOp.SUM)
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
             g.div_(world)
+
+
+def _placed_mesh(leaves):
+    """The mesh of placed (DTensor) param leaves, else None."""
+    if not leaves:
+        return None
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:  # a torch built without distributed
+        return None
+    return leaves[0].device_mesh if isinstance(leaves[0], DTensor) else None
+
+
+def full_params(params):
+    """The tensors a model computes with.  Params placed on a mesh
+    (``parallel.shard_train_state``: DTensor leaves) are all-gathered over
+    the fsdp axis, differentiably (``parallel.sharding.gather_params``:
+    the backward reduce-scatters); plain params are returned as they
+    are."""
+    if _placed_mesh(pytree.tree_leaves(params)) is None:
+        return params
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    return sharding.gather_params(params)
+
+
+def average_gradients_(leaves):
+    """Average the gradients (``.grad``) of the param ``leaves`` over the
+    training batch's processes, in place: the one reduction of a data
+    parallel step.
+
+    Placed leaves (on a ``data x fsdp`` mesh) are reduced over those
+    axes (``parallel.sharding.reduce_gradients_``, mean); plain leaves
+    over :func:`batch_group` (:func:`all_reduce_mean_`).  Either way the
+    group is every process, the one batch norm reduces its statistics
+    over (``models.layers``), so a mesh with another axis of size > 1
+    is refused."""
+    mesh = _placed_mesh(leaves)
+    if mesh is None:
+        all_reduce_mean_([p.grad for p in leaves])
+        return
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    other = {n: s for n, s in zip(mesh.mesh_dim_names, mesh.mesh.shape)
+             if n not in ("data", "fsdp") and s > 1}
+    if other:
+        raise ValueError(f"a data parallel step needs a data x fsdp mesh; "
+                         f"this one also has {other}")
+    sharding.reduce_gradients_(leaves, mean=True)
 
 
 def global_norm(tree):

@@ -300,8 +300,32 @@ def test_orbax_steps_are_listed_and_not_restored(tmp_path):
     _same_tree(tree, _tree(1))
     with pytest.raises(NotImplementedError, match="npz checkpoints only"):
         C.restore_step(d, 5)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        C.restore_any(d, target_shardings=lambda t: t)
+    # a placed restore skips the orbax step as well, and places step 1
+    _placed_restore_is_step(d, 1, tmp_path)
+
+
+def _placed_restore_is_step(d, step, tmp_path):
+    """``restore_any(target_shardings=)`` in a one-process gloo group:
+    DTensor leaves on a one-rank mesh whose values are the step's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from tensorflowonspark_tpu_torch.parallel import fsdp_sharding, make_mesh
+    from tensorflowonspark_tpu_torch.parallel.sharding import local_tree
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "pg"), 1), rank=0,
+        world_size=1)
+    try:
+        mesh = make_mesh({"data": 1}, device_type="cpu")
+        tree, got = C.restore_any(
+            d, target_shardings=lambda t: fsdp_sharding(mesh, t))
+        assert got == step
+        assert all(isinstance(x, DTensor)
+                   for x in C.tree_leaves(tree))
+        _same_tree(local_tree(tree), _tree(step))
+    finally:
+        dist.destroy_process_group()
 
 
 # -- the SPARK-fed ResNet ----------------------------------------------------

@@ -240,8 +240,19 @@ def test_sample_token_matches_jax_package_bit_for_bit():
 # --- engine -----------------------------------------------------------------
 
 def test_spec_refuses_speculative_and_engine_rejects_bad_prompts():
-    with pytest.raises(NotImplementedError):
-        D.DecodeSpec(_cfg(), draft_params={}, draft_cfg=_cfg())
+    """A speculative spec is refused as the JAX package refuses it: a
+    draft without its config (or the reverse), a window below 2, a
+    draft on the slot cache."""
+    with pytest.raises(ValueError, match="BOTH"):
+        D.DecodeSpec(_cfg(), draft_params={}, draft_cfg=None)
+    with pytest.raises(ValueError, match="BOTH"):
+        D.DecodeSpec(_cfg(), draft_params=None, draft_cfg=_cfg())
+    with pytest.raises(ValueError, match="spec_window"):
+        D.DecodeSpec(_cfg(), draft_params={}, draft_cfg=_cfg(),
+                     spec_window=1)
+    with pytest.raises(ValueError, match="paged"):
+        D.DecodeSpec(_cfg(), paged=False, draft_params={},
+                     draft_cfg=_cfg())
     events = []
     eng = D.DecodeEngine(None, D.DecodeSpec(_cfg(), slots=2),
                          lambda kind, sid, *rest: events.append((kind, sid)))

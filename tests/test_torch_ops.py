@@ -223,7 +223,12 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "models.segmentation", "utils.flops", "compat",
              "examples.segmentation", "examples.segmentation_spark",
              "recordio.jpeg", "recordio.fs", "utils.checkpoint",
-             "examples.imagenet_data_setup", "examples.imagenet_records"):
+             "examples.imagenet_data_setup", "examples.imagenet_records",
+             "parallel", "parallel.mesh", "parallel.sharding",
+             "parallel.ring", "parallel.pipeline_parallel",
+             "parallel.collectives", "parallel.launch", "parallel.dryrun",
+             "models.moe", "examples.transformer_longcontext",
+             "examples.segmentation_dist", "serving.decode.scheduler"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign

@@ -352,8 +352,10 @@ def spark_run(tmp_path_factory):
 
 def _in_process(pj, records):
     """The two ranks' steps in one process: each step, each partition's
-    next 4 records normalised on their own, the gradients averaged, one
-    Adam step.  Returns (per-step [loss of partition 0, of 1], params)."""
+    next 4 records, normalised with the statistics of all 8 (the global
+    batch, as the ranks' batch norm reduces them), one Adam step on the
+    gradient of the mean of the two halves' losses (the ranks' averaged
+    gradients).  Returns (per-step [loss of partition 0, of 1], params)."""
     half = SPARK["batch"] // 2
     parts = (records[:len(records) // 2], records[len(records) // 2:])
     _, st = S.init(torch.Generator().manual_seed(0), num_classes=3,
@@ -364,17 +366,20 @@ def _in_process(pj, records):
     vg = TU.value_and_grad(S.loss_fn, has_aux=True)
     losses = []
     for j in range(SPARK["steps"]):
-        grads, step_losses = [], []
-        for part in parts:
-            x, m = segmentation_spark.collate(part[j * half:(j + 1) * half])
-            (loss, _), g = vg(pt, st, torch.from_numpy(x),
-                              torch.from_numpy(m))
-            step_losses.append(float(loss))
-            grads.append(S.param_leaves(g))
-        for p, a, b in zip(leaves, *grads):
-            p.grad = (a + b) / 2
+        xs, ms = zip(*(segmentation_spark.collate(
+            part[j * half:(j + 1) * half]) for part in parts))
+        x = torch.from_numpy(np.concatenate(xs))
+        m = torch.from_numpy(np.concatenate(ms))
+        with torch.no_grad():
+            logits, _ = S.apply(pt, st, x, train=True)
+        losses.append([float(S.L.softmax_cross_entropy(
+            lg.reshape(-1, lg.shape[-1]), mk.reshape(-1)))
+            for lg, mk in ((logits[:half], m[:half]),
+                           (logits[half:], m[half:]))])
+        _, g = vg(pt, st, x, m)
+        for p, a in zip(leaves, S.param_leaves(g)):
+            p.grad = a
         opt.step()
-        losses.append(step_losses)
     return losses, pt
 
 

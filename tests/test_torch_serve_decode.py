@@ -376,5 +376,9 @@ def test_jit_and_cut_pool_features_raise():
     pool = serving.ReplicaPool(spec)
     with pytest.raises(NotImplementedError, match="item 25"):
         pool.set_canary([0], 2, 10)
-    with pytest.raises(NotImplementedError, match="item 2"):
+    # speculative decoding is ported: a draft with its config is a valid
+    # spec, one without it the JAX package's ValueError
+    assert D.DecodeSpec(TT.Config(**KW), draft_params={},
+                        draft_cfg=TT.Config(**KW)).speculative
+    with pytest.raises(ValueError, match="BOTH"):
         D.DecodeSpec(TT.Config(**KW), draft_params={}, draft_cfg=None)
