@@ -283,7 +283,31 @@ too:
     (d) ``pipeline_apply`` with one stage and 4 microbatches against
     the stage itself;
 33. ``dryrun_multichip``: ``parallel.dryrun.dryrun_multichip(8)`` on 8
-    gloo CPU ranks of this host: its three ``OK`` lines.
+    gloo CPU ranks of this host: its three ``OK`` lines;
+34. ``spark_recover``: the full-width bf16 transformer (flash) SPARK-fed
+    through ``cluster.run(restarts=1, num_gpus=1)`` on a one-executor
+    engine of its own, 6 partitions of 8 records, the chief checkpointing
+    params and Adam's state every step; the plan ``feed.put:kill@6``
+    SIGKILLs the executor while it feeds the 6th partition.  One
+    recovery to epoch 1, one respawn, every partition in the ledger once,
+    the epoch-1 trainer resumed at the dead one's last checkpoint, its
+    losses those of a replay here from that checkpoint over the same rows
+    (``SPARK_LOSS_RTOL``), each incarnation's flash launches 8 x its
+    steps, no epoch-0 trainer and no feed ring left; seconds from the
+    kill to ``cluster/recover_done`` and to the first resumed step,
+    steps lost, the saves' ms;
+35. ``spark_elastic``: two trainers on this card (gloo, ``cuda:0``, no
+    GPU claim) at full width through ``elastic_data=2`` (global batch
+    8 x 2048), on a two-executor engine built with no respawn budget;
+    ``feed.put:kill@7`` on executor 1 and ``run(restarts=1,
+    min_executors=1)`` shrink the cluster to ``{"worker": [0]}``: epoch
+    0 at world 2 with accum 1, epoch 1 at world 1 with accum 2, every
+    partition in the ledger once, the first resumed step's loss that of
+    an accum-2 replay here from the restored checkpoint, flash launches
+    8 x the microbatches; each incarnation's step ms and the restore ms;
+35a. ``elastic_exact``: float32 at full width, 2 layers, batch 2, here
+    at world 1: the layout's accum-2 gradient equals the flat one leaf
+    by leaf (1e-5 of each leaf's largest value).
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -302,8 +326,10 @@ forward > 0, the other three 0), ``launches_pipeline``, phases
 23-26's trainers and predicting executors summed (all 0),
 ``launches_segmentation``, phases 27-29 summed (all 0),
 ``launches_spec``, phase 30's three runs summed (the flash forward > 0),
-and ``launches_parallel``, phase 32's sharded step (the three flash
-kernels > 0).  Imports only
+``launches_parallel``, phase 32's sharded step (the three flash
+kernels > 0), and ``launches_recover`` and ``launches_elastic``, phases
+34 and 35's trainer incarnations summed (the three flash kernels > 0,
+RMSNorm 0).  Imports only
 torch, numpy and the port.
 """
 
@@ -312,6 +338,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import dataclasses
 import glob
 import io
 import json
@@ -332,6 +359,7 @@ import torch
 from tensorflowonspark_tpu_torch import cluster as TFCluster
 from tensorflowonspark_tpu_torch import (
     dfutil,
+    elastic,
     inference,
     infeed,
     node,
@@ -4336,6 +4364,353 @@ def phase_dryrun_multichip(gpu):
         gpu=gpu)), flush=True)
 
 
+# phases 34-35: supervised recovery and the elastic shrink at full width.
+# A trainer pops a partition only when its prefetch (2 staged batches and
+# 1 in hand) has room, and a feeder starts the next partition only once
+# the last one was popped; so when a feeder starts partition j, its
+# trainer has finished at least j - 4 steps (one more is taken and
+# waiting), and the chief's saves of them are done.
+# 34: one executor, 6 partitions of one step (8 records) each; the plan
+# SIGKILLs the executor at its 6th put (the last partition), when the
+# trainer has saved at least step 1 (at the 4th put it had finished none
+# on the H100).  The respawned executor counts its puts from
+# 0 and re-feeds 1 partition, so the plan cannot fire again.  The chief
+# saves params and Adam's state every step; keep enough saves that the
+# one the recovery restored is still there for the replay.
+RECOVER = dict(partitions=6, records=8, kill_put=6, keep=10)
+# 35: two executors, no respawn budget, min_executors=1; a logical data
+# axis of 2 and a global batch of 8 (4 records a partition, a rank's
+# share at world 2, half a step at world 1).  Executor 1 dies at its 7th
+# put: its trainer has finished 2 steps, and the second's exchange
+# waited for the chief's save of the first, so epoch 0 logged steps on
+# both ranks; its partitions 8 and later (at least 2) are left for the
+# survivor's accum-2 steps.
+ELASTIC = dict(partitions=16, records=4, data=2, kill_put=7, keep=10)
+# 35a: the layout's accum-2 gradient against the flat one, float32,
+# batch 2 at full width and 2 layers
+ELASTIC_EXACT = dict(n_layers=2, batch=2, rel=1e-5)
+
+
+def _proc_alive(pid):
+    """True for a live process that is not a zombie (a trainer orphaned
+    by its executor's death is reparented and may linger as one)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _rings_left(c):
+    """The cluster's feed rings still in ``/dev/shm``, any epoch."""
+    return glob.glob(f"/dev/shm/tfos-{c.cluster_meta['id'] & 0xffffffff:x}"
+                     "*")
+
+
+def _steps_log(out_dir, executor):
+    path = os.path.join(out_dir, f"steps-exec{executor}.jsonl")
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _events(tdir, name):
+    """Telemetry records named ``name`` under ``tdir``, by time."""
+    out = []
+    for path in glob.glob(os.path.join(tdir, "**", "*.jsonl"),
+                          recursive=True):
+        with open(path) as f:
+            out += [r for r in map(json.loads, f) if r["name"] == name]
+    return sorted(out, key=lambda r: r["ts"])
+
+
+def _keyed_rows(tokens):
+    k = transformer_spark.ROW_KEY_TOKENS
+    index = {tuple(int(t) for t in row[:k]): i
+             for i, row in enumerate(tokens)}
+    if len(index) != len(tokens):
+        raise AssertionError("token rows share their first tokens")
+    return index
+
+
+def _replay(dev, cfg, tokens, ckpt_dir, step, batches, data=None):
+    """The losses of ``batches`` (lists of row keys) stepped in this
+    process from the chief's checkpoint at ``step`` (the seeded init at
+    0), through the trainer's own functions and kernels; with ``data``,
+    through a one-process layout of that logical data axis."""
+    index = _keyed_rows(tokens)
+    if step:
+        tree = ckpt.load_checkpoint(os.path.join(ckpt_dir,
+                                                 f"ckpt-{step:08d}.npz"))
+        params = T.params_from_jax(tree["params"], cfg, device=dev)
+    else:
+        params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    _, opt = transformer_spark.make_optimizer(params)
+    if step:
+        transformer_spark.load_train_state(tree, params, opt)
+        del tree
+    vg = None
+    if data:
+        layout = elastic.virtualize({"data": data}, [dev])
+        vg = layout.value_and_grad(transformer_spark.elastic_loss(cfg))
+    out = []
+    for keys in batches:
+        batch = torch.from_numpy(np.stack(
+            [tokens[index[tuple(k)]] for k in keys]).astype(np.int64)).to(dev)
+        out.append(transformer_spark.train_step(params, opt, batch, cfg,
+                                                vg).item())
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _incarnation_gate(line, steps, per_step):
+    """Each trainer's flash launches: 8 (layers) x the microbatches it
+    ran, from its last step's counts; RMSNorm none."""
+    if not steps:
+        return dict(flash_fwd=0, flash_dq=0, flash_dkv=0, rmsnorm=0)
+    got = steps[-1]["launches"]
+    want = FULL["n_layers"] * per_step * len(steps)
+    if any(got[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) \
+            or got["rmsnorm"]:
+        raise AssertionError(f"{line}: launches {got}, want {want} of each "
+                             "flash kernel and no RMSNorm")
+    return got
+
+
+def phase_spark_recover(dev, engine, gpu, tdir):
+    """Phase 34: the SPARK-fed transformer at full width on ``engine``, a
+    one-executor engine that has never touched CUDA, with the fault plan
+    of ``RECOVER`` in its env and telemetry into ``tdir``.  ``run(
+    restarts=1)`` must heal: one recovery, one respawn, every partition in
+    the ledger once, the epoch-1 trainer resumed at the last checkpoint
+    and its losses those of an in-process replay; no epoch-0 trainer and
+    no feed ring (of any epoch) left.
+    Returns the two incarnations' launches, summed."""
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    n, rows = RECOVER["partitions"], RECOVER["records"]
+    tokens = np.random.default_rng(34).integers(
+        0, FULL["vocab_size"], (n * rows, FULL["max_seq"])).astype(np.int32)
+    _keyed_rows(tokens)
+    work = tempfile.mkdtemp(prefix="tfos_recover_")
+    ckpt_dir = os.path.join(work, "ckpt")
+    os.environ[telemetry.DIR_ENV] = tdir  # the driver's recovery events
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, transformer_spark.main_fun,
+            {"config": dataclasses.asdict(cfg), "batch_size": rows,
+             "seed": 0, "ckpt_dir": ckpt_dir, "ckpt_every": 1,
+             "ckpt_keep": RECOVER["keep"], "out_dir": work},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300, restarts=1)
+        c.train(engine.parallelize(list(tokens), n), feed_timeout=600)
+        fed = c.server.fed_partitions("input")
+        restarts, epoch = c._restarts_used, c.meta["epoch"]
+        c.shutdown()
+        rings = _rings_left(c)
+        total_s = time.time() - t0
+        telemetry.flush()
+        log = _steps_log(work, 0)
+        starts = [r for r in log if r["event"] == "start"]
+        e0 = [r for r in log if r["event"] == "step" and r["epoch"] == 0]
+        e1 = [r for r in log if r["event"] == "step" and r["epoch"] == 1]
+        resumed = starts[-1]["resumed_step"]
+        saved0 = [r["step"] for r in e0 if r["save_ms"] is not None]
+        want = _replay(dev, cfg, tokens, ckpt_dir, resumed,
+                       [r["rows"] for r in e1])
+        free = shutil.disk_usage(work).free
+    finally:
+        os.environ.pop(telemetry.DIR_ENV, None)
+        shutil.rmtree(work, ignore_errors=True)
+    kill = _events(tdir, "fault/injected")
+    done = _events(tdir, "cluster/recover_done")
+    # the recovery's timeline: the engine's respawn of the dead executor
+    # (the feed job saw it die), the feed job's failure once the lost
+    # tasks' retries were spent, the recovered cluster
+    marks = {name: _events(tdir, name)
+             for name in ("engine/executor_respawn", "cluster/recover_begin")}
+    timeline = ({name: ev[0]["ts"] - kill[0]["ts"]
+                 for name, ev in marks.items() if ev} if kill else {})
+    got = [r["loss"] for r in e1]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    consumed0 = n - len(e1)  # the partitions the ledger held at the kill
+    summary = dict(
+        restarts_used=restarts, epoch=epoch, respawns=engine._respawns,
+        fed_partitions=fed, epochs=[r["epoch"] for r in starts],
+        steps_epoch0=len(e0), resumed_step=resumed,
+        last_logged_save_epoch0=max(saved0, default=0),
+        steps_epoch1=len(e1), losses_epoch1=got, replay_losses=want,
+        max_rel_loss_diff=max(rel) if rel else None,
+        steps_lost=consumed0 - resumed,
+        kill_to_recover_done_s=(done[0]["ts"] - kill[0]["ts"]
+                                if kill and done else None),
+        kill_to_event_s=timeline,
+        kill_to_first_resumed_step_s=(e1[0]["wall"] - kill[0]["ts"]
+                                      if kill and e1 else None),
+        restore_ms=starts[-1]["restore_ms"],
+        save_ms=[r["save_ms"] for r in e0 + e1 if r["save_ms"]],
+        step_ms_epoch0=[r["step_ms"] for r in e0],
+        step_ms_epoch1=[r["step_ms"] for r in e1],
+        trainer_pids=[r["pid"] for r in starts],
+        epoch0_trainer_alive=_proc_alive(starts[0]["pid"]),
+        rings_left=rings, total_s=total_s, disk_free_bytes=free, gpu=gpu)
+    print("spark_recover " + json.dumps(summary), flush=True)
+    if restarts != 1 or epoch != 1 or engine._respawns != 1:
+        raise AssertionError(f"spark_recover: {restarts} recoveries to "
+                             f"epoch {epoch}, {engine._respawns} respawns; "
+                             "want one of each")
+    if fed != list(range(n)) or [r["epoch"] for r in starts] != [0, 1]:
+        raise AssertionError(f"spark_recover: ledger {fed}, incarnations "
+                             f"{[r['epoch'] for r in starts]}")
+    if not kill or not done:
+        raise AssertionError("spark_recover: no fault/injected or "
+                             "cluster/recover_done event on disk")
+    last = max(saved0, default=0)
+    if resumed not in (last, last + 1) or not 1 <= resumed <= consumed0 \
+            or not starts[-1]["restore_ms"]:
+        raise AssertionError(f"spark_recover: resumed at step {resumed}, the "
+                             f"dead trainer's last logged save {last}")
+    if [r["step"] for r in e1] != list(range(resumed + 1,
+                                             resumed + 1 + len(e1))) \
+            or not e1 or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"spark_recover: epoch-1 losses {got} vs the "
+                             f"replay {want} (rtol {SPARK_LOSS_RTOL})")
+    if _proc_alive(starts[0]["pid"]) or rings:
+        raise AssertionError(f"spark_recover: epoch-0 trainer "
+                             f"{starts[0]['pid']} alive, rings left {rings}")
+    return _sum_launches(_incarnation_gate("spark_recover epoch 0", e0, 1),
+                         _incarnation_gate("spark_recover epoch 1", e1, 1))
+
+
+def phase_spark_elastic(dev, engine, gpu, tdir):
+    """Phase 35: two trainers on the one card (gloo, ``cuda:0``, no GPU
+    claim) at full width through ``elastic_data=2``, on ``engine``, two
+    executors with no respawn budget and the plan of ``ELASTIC``.
+    ``run(restarts=1, min_executors=1)`` must shrink the cluster to
+    ``{"worker": [0]}``: epoch 0 at world 2 with accum 1, epoch 1 at world
+    1 with accum 2, every partition in the ledger once, no feed ring
+    left (the dead executor's unlinked by the recovery), the first resumed
+    step's loss that of an in-process accum-2 replay.  Returns the three
+    trainers' launches, summed."""
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    n, rows, data = ELASTIC["partitions"], ELASTIC["records"], \
+        ELASTIC["data"]
+    tokens = np.random.default_rng(35).integers(
+        0, FULL["vocab_size"], (n * rows, FULL["max_seq"])).astype(np.int32)
+    _keyed_rows(tokens)
+    work = tempfile.mkdtemp(prefix="tfos_elastic_")
+    ckpt_dir = os.path.join(work, "ckpt")
+    os.environ[telemetry.DIR_ENV] = tdir
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, transformer_spark.main_fun,
+            {"config": dataclasses.asdict(cfg), "batch_size": rows * data,
+             "seed": 0, "device": f"cuda:{dev.index}", "backend": "gloo",
+             "elastic_data": data, "ckpt_dir": ckpt_dir, "ckpt_every": 1,
+             "ckpt_keep": ELASTIC["keep"], "out_dir": work},
+            num_executors=2, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=0, reservation_timeout=300, restarts=1,
+            min_executors=1)
+        c.train(engine.parallelize(list(tokens), n), feed_timeout=600)
+        fed = c.server.fed_partitions("input")
+        template, restarts = c.meta["cluster_template"], c._restarts_used
+        c.shutdown()
+        rings = _rings_left(c)
+        total_s = time.time() - t0
+        telemetry.flush()
+        logs = [_steps_log(work, e) for e in (0, 1)]
+        steps = [[r for r in log if r["event"] == "step"] for log in logs]
+        e0 = [[r for r in st if r["epoch"] == 0] for st in steps]
+        e1 = [r for r in steps[0] if r["epoch"] == 1]
+        start1 = [r for r in logs[0] if r["event"] == "start"][-1]
+        resumed = start1["resumed_step"]
+        want = _replay(dev, cfg, tokens, ckpt_dir, resumed,
+                       [e1[0]["rows"]] if e1 else [], data=data)
+    finally:
+        os.environ.pop(telemetry.DIR_ENV, None)
+        shutil.rmtree(work, ignore_errors=True)
+    resize = _events(tdir, "cluster/resize")
+    rel = (abs(e1[0]["loss"] - want[0]) / abs(want[0])) if e1 else None
+    summary = dict(
+        restarts_used=restarts, template=template, fed_partitions=fed,
+        world_accum_epoch0=sorted({(r["world"], r["accum"])
+                                   for st in e0 for r in st}),
+        world_accum_epoch1=sorted({(r["world"], r["accum"]) for r in e1}),
+        steps_epoch0=[len(st) for st in e0], steps_epoch1=len(e1),
+        resumed_step=resumed, first_resumed_loss=e1[0]["loss"] if e1
+        else None, replay_loss=want[0] if want else None,
+        rel_loss_diff=rel,
+        step_ms_epoch0=[r["step_ms"] for r in e0[0]],
+        step_ms_epoch1=[r["step_ms"] for r in e1],
+        step_ms_median_epoch0=(statistics.median(r["step_ms"] for r in e0[0])
+                               if e0[0] else None),
+        step_ms_median_epoch1=(statistics.median(r["step_ms"] for r in e1)
+                               if e1 else None),
+        restore_ms=start1["restore_ms"],
+        save_ms=[r["save_ms"] for r in e0[0] + e1 if r["save_ms"]],
+        resize_events=len(resize), rings_left=rings, total_s=total_s,
+        gpu=gpu)
+    print("spark_elastic " + json.dumps(summary), flush=True)
+    wa0, wa1 = summary["world_accum_epoch0"], summary["world_accum_epoch1"]
+    if restarts != 1 or template != {"worker": [0]} or len(resize) != 1:
+        raise AssertionError(f"spark_elastic: {restarts} recoveries, "
+                             f"template {template}, {len(resize)} resizes")
+    if fed != list(range(n)) or rings:
+        raise AssertionError(f"spark_elastic: ledger {fed}, rings left "
+                             f"{rings}")
+    if not all(e0) or wa0 != [(2, 1)] or wa1 != [(1, 2)]:
+        raise AssertionError(f"spark_elastic: epoch 0 at {wa0}, epoch 1 at "
+                             f"{wa1} (world, accum)")
+    if e1[0]["step"] != resumed + 1 or rel > SPARK_LOSS_RTOL:
+        raise AssertionError(f"spark_elastic: first resumed step "
+                             f"{e1[0]['step']} (resumed at {resumed}), loss "
+                             f"{e1[0]['loss']} vs the replay {want} (rtol "
+                             f"{SPARK_LOSS_RTOL})")
+    return _sum_launches(
+        _incarnation_gate("spark_elastic epoch 0 rank 0", e0[0], 1),
+        _incarnation_gate("spark_elastic epoch 0 rank 1", e0[1], 1),
+        _incarnation_gate("spark_elastic epoch 1", e1, data))
+
+
+def phase_elastic_exact(dev):
+    """Phase 35a: float32 at full width (``ELASTIC_EXACT``'s layers and
+    batch), in this process at world 1: the layout's accum-2 gradient (two
+    microbatches into ``.grad``) equals the flat full-batch gradient leaf
+    by leaf, to ``rel`` of each leaf's largest value."""
+    cfg = T.Config(**dict(FULL, n_layers=ELASTIC_EXACT["n_layers"]),
+                   dtype="float32", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(35), dev)
+    transformer_spark.make_optimizer(params)
+    toks = torch.from_numpy(np.random.default_rng(35).integers(
+        0, cfg.vocab_size, (ELASTIC_EXACT["batch"], cfg.max_seq))).to(dev)
+    layout = elastic.virtualize({"data": ELASTIC_EXACT["batch"]}, [dev])
+    loss, grads = layout.value_and_grad(
+        transformer_spark.elastic_loss(cfg))(params, toks)
+    grads = {k: g.clone() for k, g in ckpt._flatten_leaves(grads)}
+    flat_loss, flat = train_utils.value_and_grad(
+        lambda p, t: T.loss_fn(p, t, cfg))(params, toks)
+    worst = {}
+    for k, g in ckpt._flatten_leaves(flat):
+        scale = g.abs().max().item()
+        err = (grads[k] - g).abs().max().item()
+        worst[k] = err / scale
+        if not (torch.isfinite(grads[k]).all()
+                and err <= ELASTIC_EXACT["rel"] * scale):
+            raise AssertionError(f"elastic_exact: grad {k} max err {err}, "
+                                 f"largest flat gradient {scale}")
+    lrel = abs(loss.item() - flat_loss.item()) / abs(flat_loss.item())
+    print("elastic_exact " + json.dumps(dict(
+        accum_steps=layout.accum_steps, loss=loss.item(),
+        flat_loss=flat_loss.item(), rel_loss_diff=lrel,
+        rel_err_by_param=worst)), flush=True)
+    if layout.accum_steps != 2 or lrel > ELASTIC_EXACT["rel"]:
+        raise AssertionError(f"elastic_exact: accum {layout.accum_steps}, "
+                             f"loss {loss.item()} vs flat {flat_loss.item()}")
+    del params, grads, flat
+    torch.cuda.empty_cache()
+
+
 def host_line():
     """What the card's host offers the JPEG decode and remote paths:
     libjpeg's header and library, PIL and the libjpeg its wheel bundles
@@ -4390,13 +4765,31 @@ def main():
     engine_fit = LocalEngine(1)
     engine_pred = LocalEngine(2)
     engine_roles = LocalEngine(4)
-    engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
-               engine_pred, engine_roles)
+    # phases 34-35: engines of their own, whose executors never touch
+    # CUDA, with the fault plans in their env and telemetry on (the
+    # recovery's timings are its events); the second with no respawn
+    # budget, which the engine reads in the driver at construction
+    tdirs = [tempfile.mkdtemp(prefix="tfos_recover_telemetry_")
+             for _ in range(2)]
+    engine_recover = LocalEngine(1, env={
+        faults.PLAN_ENV: f"feed.put:kill@{RECOVER['kill_put']}",
+        faults.EXECUTOR_ENV: "0", telemetry.DIR_ENV: tdirs[0]})
+    os.environ["TFOS_EXECUTOR_RESPAWNS"] = "0"
     try:
-        kernels = run_phases(dev, gpu, *engines)
+        engine_elastic = LocalEngine(2, env={
+            faults.PLAN_ENV: f"feed.put:kill@{ELASTIC['kill_put']}",
+            faults.EXECUTOR_ENV: "1", telemetry.DIR_ENV: tdirs[1]})
+    finally:
+        os.environ.pop("TFOS_EXECUTOR_RESPAWNS")
+    engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
+               engine_pred, engine_roles, engine_recover, engine_elastic)
+    try:
+        kernels = run_phases(dev, gpu, *engines, tdirs=tdirs)
     finally:
         for e in engines:
             e.stop()
+        for d in tdirs:
+            shutil.rmtree(d, ignore_errors=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4406,7 +4799,8 @@ def main():
 
 
 def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
-               engine_fit, engine_pred, engine_roles):
+               engine_fit, engine_pred, engine_roles, engine_recover,
+               engine_elastic, tdirs):
     """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
@@ -4510,6 +4904,16 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     ops.reset_launch_counts()
     parallel_launches = phase_parallel_one_rank(dev, gpu)
     phase_dryrun_multichip(gpu)
+    # supervised recovery (34) and the elastic shrink (35), each counted
+    # in its trainers (every incarnation's own counts, summed), and the
+    # accumulated gradient in float32 (35a)
+    recover_launches = phase_spark_recover(dev, engine_recover, gpu,
+                                           tdirs[0])
+    engine_recover.stop()
+    elastic_launches = phase_spark_elastic(dev, engine_elastic, gpu,
+                                           tdirs[1])
+    engine_elastic.stop()
+    phase_elastic_exact(dev)
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -4582,6 +4986,9 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         # phase 32's sharded transformer step
         k["launches_spec"] = spec_launches[k["name"]]
         k["launches_parallel"] = parallel_launches[k["name"]]
+        # phases 34 and 35: every trainer incarnation's own counts
+        k["launches_recover"] = recover_launches[k["name"]]
+        k["launches_elastic"] = elastic_launches[k["name"]]
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")
@@ -4601,6 +5008,11 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
                                               "flash_dkv")):
         raise AssertionError(f"the parallel step launched "
                              f"{parallel_launches}")
+    for name, got in (("recover", recover_launches),
+                      ("elastic", elastic_launches)):
+        if not all(got[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")) \
+                or got["rmsnorm"]:
+            raise AssertionError(f"the {name} trainers launched {got}")
     return kernels
 
 

@@ -1,7 +1,7 @@
 """Driver-side cluster orchestration.
 
-An own copy of ``tensorflowonspark_tpu/cluster.py``, less recovery and
-the observability planes: ``run()`` computes the cluster template
+An own copy of ``tensorflowonspark_tpu/cluster.py``, less the
+observability planes: ``run()`` computes the cluster template
 (which executor is ps, evaluator, chief or worker), starts the
 rendezvous server, launches one node per executor on a background
 thread (and ps nodes on driver threads with ``driver_ps_nodes``) and
@@ -14,10 +14,23 @@ remote manager).
 ``num_gpus`` is the per-executor GPU claim (``gpu_info``), the
 counterpart of the JAX package's ``num_chips``; ps and evaluator nodes
 claim none.  ``sc`` is a ``LocalEngine`` or a pyspark ``SparkContext``
-(``engine.SparkEngine``).  Arguments the copy does not carry raise
-NotImplementedError naming their ROADMAP.md item: the data service and
-streaming feeds, ``restarts`` / ``min_executors`` recovery and a trainer
-process chosen apart from ``input_mode``.  ``serve()`` stands up the
+(``engine.SparkEngine``).
+
+Supervised recovery, as in the JAX package: with ``run(restarts=N)``,
+``train()`` survives a lost executor up to N times.  The feed job fails,
+and ``_recover`` quiesces the surviving nodes, heals the engine's pool,
+bumps the cluster epoch (``meta["epoch"]``, the rendezvous server's
+fence), relaunches the nodes and waits for them; the trainers resume
+from their latest checkpoint (``ctx.restore_latest``) and the re-feed
+skips the partitions the ledger holds.  With ``min_executors=k`` a pool
+that cannot be healed is not fatal: the cluster re-forms over the k or
+more executors that survive (``_elastic_template``), and the trainers
+fold the missing devices into gradient accumulation
+(``elastic.ElasticRuntime``).
+
+Arguments the copy does not carry raise NotImplementedError naming
+their ROADMAP.md item: the data service and streaming feeds, and a
+trainer process chosen apart from ``input_mode``.  ``serve()`` stands up the
 online serving tier on the cluster's engine after ``shutdown()``.  The
 live metrics endpoint and the telemetry drain are left out too (item
 21): with ``TFOS_TELEMETRY_DIR`` set, every process writes its spans
@@ -37,7 +50,12 @@ import time
 from tensorflowonspark_tpu_torch import engine as engine_mod
 from tensorflowonspark_tpu_torch import manager as tfmanager
 from tensorflowonspark_tpu_torch import node, rendezvous
-from tensorflowonspark_tpu_torch.utils import telemetry
+from tensorflowonspark_tpu_torch.utils import (
+    get_ip_address,
+    kill_pid,
+    metrics_registry,
+    telemetry,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -66,8 +84,15 @@ class TFCluster:
     input_mode = None
     queues = None
     server = None
+    restarts = 0        # recoveries train() may make
+    min_executors = 0   # the elastic floor; 0: heal to full strength
+    _restarts_used = 0
+    _node_fn = None
+    _nodes_ds = None
     _node_ids = None    # the executors that host a node
+    _all_node_ids = None  # those of the first incarnation
     _feed_ids = None    # those of them that host a compute node
+    _template0 = None   # the first incarnation's template
     _launcher = None
     _driver_ps = ()     # threads of the ps nodes hosted by the driver
 
@@ -77,7 +102,12 @@ class TFCluster:
         (modulo their number; ps and evaluator nodes are fed nothing), so
         every trainer gets a balanced share; a
         partition counts as fed once its trainer consumed it (the
-        rendezvous server's feed ledger, ``server.fed_partitions``)."""
+        rendezvous server's feed ledger, ``server.fed_partitions``).
+
+        With ``run(restarts=N)`` this call supervises the job: a lost
+        executor fails the feed job, :meth:`_recover` brings the next
+        incarnation up, and the partitions the ledger does not hold are
+        fed again, up to N times; then the error raises."""
         if self.input_mode != InputMode.SPARK:
             raise ValueError("train() requires InputMode.SPARK")
         if hasattr(dataset, "_blocks") and hasattr(dataset, "chunks"):
@@ -92,12 +122,135 @@ class TFCluster:
             ds = ds.union(*[ds for _ in range(num_epochs - 1)])
         # this train() owns the ledger's scope
         self.server.reset_feed(qname)
-        feeder = node.train(self.cluster_info, self.cluster_meta,
-                            feed_timeout, qname)
-        ids = self._feed_ids
-        ds.foreach_partition(
-            feeder, placement=[ids[i % len(ids)]
-                               for i in range(ds.num_partitions)])
+        while True:
+            # partitions consumed in full before a failure are not fed
+            # again (exactly once a partition)
+            done = set(self.server.fed_partitions(qname))
+            if done:
+                logger.info("resuming feed: %d partitions already "
+                            "consumed: %s", len(done), sorted(done))
+            feeder = node.train(self.cluster_info, self.cluster_meta,
+                                feed_timeout, qname, skip=done)
+            ids = self._feed_ids
+            try:
+                ds.foreach_partition(
+                    feeder, placement=[ids[i % len(ids)]
+                                       for i in range(ds.num_partitions)],
+                    retryable=self.restarts > 0)
+                return
+            except (engine_mod.TaskError, RuntimeError, TimeoutError) as e:
+                if self._restarts_used >= self.restarts:
+                    raise
+                self._recover(e)
+
+    def _spawn_launcher(self):
+        """Launch the node job on a background thread; also the
+        relaunch half of a recovery."""
+        t = threading.Thread(
+            target=_launch, name="tfos-launcher", daemon=True,
+            args=(self._nodes_ds, self._node_fn, self._node_ids,
+                  self.restarts > 0))
+        t.start()
+        return t
+
+    def _recover(self, err):
+        """One supervised restart, in the JAX package's order:
+
+        1. quiesce every node of the failed incarnation (state
+           terminating, a poison on its error queue, so that feeders
+           still waiting on consumption fail and free their executors,
+           and its trainer killed), and unlink its feed rings, which no
+           later node opens (their names carry the epoch);
+        2. respawn the dead executors; with ``min_executors``, a heal
+           that falls short re-forms the cluster over the survivors;
+        3. bump the epoch on the rendezvous server before joining the
+           old launcher, so that a stale registration is rejected;
+        4. relaunch the nodes and wait for them."""
+        self._restarts_used += 1
+        epoch = int(self.meta.get("epoch", 0)) + 1
+        telemetry.event("cluster/recover_begin", epoch=epoch,
+                        restart=self._restarts_used, restarts=self.restarts,
+                        error=str(err)[:400])
+        logger.warning("cluster failure (%s); recovery %d/%d -> epoch %d",
+                       str(err)[:200], self._restarts_used, self.restarts,
+                       epoch)
+        t0 = time.perf_counter()
+        for m in self.cluster_info:
+            _quiesce_node(m)
+            _unlink_ring(self.meta, m)
+        heal_err = None
+        if hasattr(self.engine, "ensure_executors"):
+            try:
+                self.engine.ensure_executors()
+            except Exception as e:  # noqa: BLE001 - the budget is spent
+                if not self.min_executors:
+                    raise
+                heal_err = e
+                logger.warning("pool heal failed (%s); re-forming over "
+                               "the surviving executors", str(e)[:200])
+        if self.min_executors:
+            alive = self._alive_node_ids()
+            if len(alive) < self.min_executors:
+                raise RuntimeError(
+                    f"elastic recovery impossible: {len(alive)} "
+                    f"executor(s) survive, min_executors="
+                    f"{self.min_executors}") from (heal_err or err)
+            if set(alive) != set(self._node_ids):
+                self._resize_cluster(alive)
+        self.meta["epoch"] = epoch  # the node tasks carry this dict
+        self.server.reset(epoch)
+        if self._launcher is not None:
+            self._launcher.join(timeout=60)
+            if self._launcher.is_alive():
+                logger.warning("the old launcher still runs after 60 s; "
+                               "relaunching (its registrations are "
+                               "fenced by the epoch)")
+        tf_status.pop("error", None)
+        self._launcher = self._spawn_launcher()
+        self.cluster_info = _await_cluster(
+            self.server, tf_status, self.meta["reservation_timeout"])
+        telemetry.record_span("cluster/recover", time.perf_counter() - t0,
+                              epoch=epoch, restart=self._restarts_used)
+        telemetry.event("cluster/recover_done", epoch=epoch,
+                        nodes=len(self.cluster_info))
+        logger.info("recovery complete: epoch %d with %d nodes", epoch,
+                    len(self.cluster_info))
+
+    def _alive_node_ids(self):
+        """The first incarnation's node ids whose executor is alive, so
+        that a healed pool re-grows the cluster.  An engine that cannot
+        report liveness (pyspark) keeps the current ids."""
+        alive_fn = getattr(self.engine, "alive_executors", None)
+        if alive_fn is None:
+            return list(self._node_ids)
+        alive = set(alive_fn())
+        return sorted(i for i in self._all_node_ids if i in alive)
+
+    def _resize_cluster(self, alive_ids):
+        """Re-form the template over ``alive_ids`` (a shrink, or a
+        re-grow after the pool came back): the node tasks read it from
+        the meta dict, the engine retires the other slots, and the
+        rendezvous server awaits that many nodes, set before the epoch
+        reset."""
+        template = _elastic_template(self._template0, alive_ids)
+        old_n = len(self._node_ids)
+        self.meta["cluster_template"] = template
+        self.meta["num_executors"] = len(alive_ids)
+        self._node_ids = sorted(alive_ids)
+        side = {i for job in node.SIDE_JOBS for i in template.get(job, ())}
+        self._feed_ids = [i for i in self._node_ids if i not in side]
+        retire = getattr(self.engine, "retire_executors", None)
+        if retire is not None:
+            retire(sorted(set(self._all_node_ids) - set(alive_ids)))
+        self._nodes_ds = self.engine.parallelize(self._node_ids,
+                                                 len(self._node_ids))
+        self.server.resize(len(self._node_ids))
+        telemetry.event("cluster/resize", from_nodes=old_n,
+                        to_nodes=len(self._node_ids),
+                        template={k: list(v) for k, v in template.items()})
+        metrics_registry.inc("tfos_elastic_resizes_total", scope="cluster")
+        logger.warning("elastic resize: %d -> %d node(s), template %s",
+                       old_n, len(self._node_ids), template)
 
     def train_stream(self, *args, **kwargs):
         raise NotImplementedError(f"streaming feeds come with "
@@ -192,16 +345,102 @@ class TFCluster:
         logger.info("cluster shut down")
 
 
+def _manager_candidates(m):
+    """A node's manager address, and the loopback one where the
+    advertised address does not answer."""
+    addr = tuple(m["addr"])
+    if addr[0] in ("127.0.0.1", "localhost"):
+        return [addr]
+    return [addr, ("127.0.0.1", addr[1])]
+
+
+def _quiesce_node(m):
+    """Drive one node of a failed incarnation, perhaps already dead, to
+    a terminal state: state terminating, a poison on its error queue
+    (feeders waiting on consumption raise and free their executor) and
+    its trainer killed.  Best effort, with a 5 s socket timeout: the
+    manager may have died with its executor, whose children the respawn
+    killed."""
+    import socket
+
+    old = socket.getdefaulttimeout()
+    socket.setdefaulttimeout(5)
+    try:
+        for cand in _manager_candidates(m):
+            try:
+                mgr = tfmanager.connect(cand, bytes.fromhex(m["authkey"]))
+            except Exception:  # noqa: BLE001 - dead with its executor
+                continue
+            try:
+                mgr.set("state", "terminating")
+                mgr.get_queue("error").put(
+                    "cluster recovery: node quiesced (epoch fence)")
+                bg = mgr.get("bg_pid")
+                if bg:
+                    kill_pid(int(str(bg)))
+                    mgr.set("bg_pid", None)
+            except Exception as e:  # noqa: BLE001 - best effort
+                logger.warning("quiesce executor %s: %s", m["executor_id"],
+                               e)
+            return
+        logger.info("quiesce: no manager reachable for executor %s (the "
+                    "node is dead)", m["executor_id"])
+    finally:
+        socket.setdefaulttimeout(old)
+
+
+def _unlink_ring(meta, m):
+    """Unlink a quiesced compute node's feed ring when the node ran on
+    this host: one that died with its executor would leave it in
+    ``/dev/shm`` for good (a survivor's unmaps it at its teardown)."""
+    if m["job_name"] not in node.COMPUTE_JOBS or \
+            m["host"] != get_ip_address():
+        return
+    from tensorflowonspark_tpu_torch.recordio import shm
+
+    name = node.feed_ring_name(meta["id"], m["executor_id"],
+                               int(meta.get("epoch", 0)))
+    if shm.unlink(name):
+        logger.info("unlinked the feed ring %s", name)
+
+
+def _elastic_template(template, alive_ids):
+    """``template`` shrunk (or re-grown) to the executors in
+    ``alive_ids``: every job keeps its surviving ids; a lost chief or
+    master seat goes to the lowest surviving worker (some node must be
+    the coordinator's task 0); dead ps and evaluator seats are dropped
+    (their state lives in checkpoints); jobs left empty go."""
+    alive = set(alive_ids)
+    out = {job: [i for i in ids if i in alive]
+           for job, ids in template.items()}
+    for coord in ("chief", "master"):
+        if coord in template and not out.get(coord):
+            workers = out.get("worker") or []
+            if workers:
+                out[coord] = [workers.pop(0)]
+    return {job: ids for job, ids in out.items() if ids}
+
+
+def _await_cluster(server, status, timeout):
+    """Wait until every node of the (re)launched incarnation registered,
+    then refuse a duplicate (host, executor) registration."""
+    cluster_info = server.await_reservations(status, timeout)
+    seen = set()
+    for m in cluster_info:
+        key = (m["host"], m["executor_id"])
+        if key in seen:
+            raise RuntimeError(f"duplicate node registration for {key}")
+        seen.add(key)
+    return cluster_info
+
+
 def _stop_remote_node(m):
     """None on a ps or evaluator node's control queue, through its
     remote manager (a 15 s connect timeout; the loopback address too,
     where the advertised one does not answer)."""
     import socket
 
-    addr = tuple(m["addr"])
-    candidates = [addr]
-    if addr[0] not in ("127.0.0.1", "localhost"):
-        candidates.append(("127.0.0.1", addr[1]))
+    candidates = _manager_candidates(m)
     old = socket.getdefaulttimeout()
     socket.setdefaulttimeout(15)
     last = None
@@ -228,11 +467,13 @@ def _run_driver_ps(node_fn, ps_id):
         tf_status["error"] = str(e)
 
 
-def _launch(nodes_ds, node_fn, node_ids):
+def _launch(nodes_ds, node_fn, node_ids, retryable=False):
     """The node job, run on a background thread: node tasks of background
-    trainers return at once, foreground ones when ``main_fun`` does."""
+    trainers return at once, foreground ones when ``main_fun`` does.
+    Retryable under supervision (``run(restarts=)``)."""
     try:
-        nodes_ds.foreach_partition(node_fn, placement=node_ids)
+        nodes_ds.foreach_partition(node_fn, placement=node_ids,
+                                   retryable=retryable)
     except Exception as e:  # noqa: BLE001 - reported through tf_status
         logger.exception("node launch failed")
         tf_status["error"] = str(e)
@@ -264,10 +505,17 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     ``<cwd>/tensorboard/cluster-<id>``); see :meth:`TFCluster.
     tensorboard_url`.  ``reservation_timeout`` bounds the wait for the
     nodes to register and, in each trainer, the process group's
-    collectives."""
-    if restarts or min_executors:
-        raise NotImplementedError(
-            f"restarts and min_executors come with {engine_mod.RESTARTS_ITEM}")
+    collectives.
+
+    ``restarts``: how many times ``train()`` may recover the cluster
+    from a failed feed job (a lost executor, a trainer's error) before
+    the error raises; 0 fails at once, with the remote traceback.
+    ``min_executors``: the elastic floor; 0 requires a recovery to heal
+    the pool to full strength, ``k > 0`` lets it re-form the cluster
+    over the k or more executors that survive when the respawn budget
+    is spent, and re-grow it at a later recovery when the pool came
+    back.  The trainers read the new shape from ``ctx`` and place their
+    state through ``ctx.elastic_runtime``."""
     if background is not None:
         raise NotImplementedError(
             "a trainer process chosen apart from input_mode comes with "
@@ -312,6 +560,7 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     server_addr = server.start()
     cluster_meta = {
         "id": random.getrandbits(64),
+        "epoch": 0,  # the cluster incarnation; _recover bumps it in place
         "cluster_template": template,
         "num_executors": num_executors,
         "default_fs": eng.default_fs,
@@ -334,7 +583,13 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     c.input_mode = input_mode
     c.queues = queues
     c.server = server
+    c.restarts = int(restarts)
+    c.min_executors = int(min_executors)
+    c._node_fn = node_fn
+    c._nodes_ds = eng.parallelize(node_ids, len(node_ids))
     c._node_ids = node_ids
+    c._all_node_ids = list(node_ids)
+    c._template0 = {k: list(v) for k, v in template.items()}
     c._feed_ids = [i for i in node_ids if i not in side]
     if driver_ps_nodes:
         driver_fn = node.run(map_fun, tf_args, cluster_meta, in_driver=True,
@@ -345,22 +600,13 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
             for ps_id in template["ps"]]
         for t in c._driver_ps:
             t.start()
-    c._launcher = threading.Thread(
-        target=_launch, name="tfos-launcher", daemon=True,
-        args=(eng.parallelize(node_ids, len(node_ids)), node_fn, node_ids))
-    c._launcher.start()
+    c._launcher = c._spawn_launcher()
     try:
-        c.cluster_info = server.await_reservations(tf_status,
-                                                   reservation_timeout)
+        c.cluster_info = _await_cluster(server, tf_status,
+                                        reservation_timeout)
     except BaseException:
         server.stop()
         raise
-    seen = set()
-    for m in c.cluster_info:
-        key = (m["host"], m["executor_id"])
-        if key in seen:
-            raise RuntimeError(f"duplicate node registration for {key}")
-        seen.add(key)
     telemetry.record_span("cluster/start", time.perf_counter() - start_t0,
                           executors=num_executors,
                           nodes=len(c.cluster_info))

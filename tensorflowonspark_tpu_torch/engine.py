@@ -37,8 +37,10 @@ Differences from the JAX package:
   budget (``TFOS_EXECUTOR_RESPAWNS``) after its children are killed;
   its lost tasks are re-dispatched from the kept blobs.  A job that is
   not retryable fails at the first task error or executor death.
-  Elastic shrink and epoch fences are not ported (ROADMAP.md queue 1,
-  item 15).
+  Cluster recovery heals the pool with ``ensure_executors``; an elastic
+  shrink (``cluster.run(min_executors=)``) reads ``alive_executors`` and
+  takes dead slots out of the pool with ``retire_executors``: a retired
+  slot is never respawned and spread jobs skip it.
 - ``SparkEngine`` and ``SparkDataset`` adapt a pyspark ``SparkContext``
   and its RDDs, as in the JAX package; ``as_engine`` and ``as_dataset``
   take them.  Spark ships tasks with its own serializer, but the
@@ -66,9 +68,6 @@ from tensorflowonspark_tpu_torch.actors import supervise as _supervise
 from tensorflowonspark_tpu_torch.utils import faults, telemetry
 
 logger = logging.getLogger(__name__)
-
-RESTARTS_ITEM = "ROADMAP.md queue 1, item 15 (restarts, elastic)"
-
 
 class TaskError(RuntimeError):
     """A task raised on an executor; carries the remote traceback."""
@@ -338,6 +337,7 @@ class LocalEngine:
             int(os.environ.get("TFOS_EXECUTOR_RESPAWNS", "8")),
             what="executor", env_name="TFOS_EXECUTOR_RESPAWNS",
             error_cls=TaskError)
+        self._retired = set()  # slots an elastic shrink took out
         self._spawn_lock = threading.Lock()
         # the latest job's dispatch: its tasks, the seconds the driver
         # spent pickling them, the bytes they came to and the largest
@@ -381,14 +381,20 @@ class LocalEngine:
     def _respawn_executor(self, index):
         """Replace a dead executor process; True if a respawn happened.
         The dead one's children (IPC-manager server, trainer) are killed
-        first, so a relaunched task never meets a half-dead twin.
-        Raises ``TaskError`` once the respawn budget is spent."""
+        first, so a relaunched task never meets a half-dead twin, and
+        also when the respawn budget is spent, which raises
+        ``TaskError``."""
         with self._spawn_lock:
             if self._stopped or self._procs[index].is_alive():
                 return False
-            self._budget.consume(index)
+            if index in self._retired:
+                raise TaskError(
+                    f"executor {index} is retired (elastic cluster shrink); "
+                    "its slot is no longer part of the dispatch pool")
+            # its children die with it, also when no respawn follows
             _supervise.reap_orphans([self.executor_dirs[index]],
                                     what=f"child of dead executor {index}")
+            self._budget.consume(index)
             with _patched_env(self._env):
                 self._procs[index] = self._spawn_executor(index)
         telemetry.event("engine/executor_respawn", executor=index,
@@ -398,9 +404,29 @@ class LocalEngine:
         return True
 
     def ensure_executors(self):
-        """Respawn every dead executor; returns the respawned indices."""
+        """Respawn every dead executor that is not retired; returns the
+        respawned indices.  Cluster recovery heals the pool with it; it
+        raises ``TaskError`` once the respawn budget is spent, which an
+        elastic recovery (``cluster.run(min_executors=k)``) answers by
+        re-forming the cluster over :meth:`alive_executors`."""
         return [i for i, p in enumerate(self._procs)
-                if not p.is_alive() and self._respawn_executor(i)]
+                if i not in self._retired and not p.is_alive()
+                and self._respawn_executor(i)]
+
+    def alive_executors(self):
+        """Sorted indices of the executor processes alive now."""
+        return sorted(i for i, p in enumerate(self._procs) if p.is_alive())
+
+    def retire_executors(self, indices):
+        """Replace the set of slots out of the dispatch pool (an elastic
+        shrink): spread jobs skip them and they are never respawned; a
+        later ``retire_executors([])`` (the cluster re-grew) restores
+        them."""
+        self._retired = {int(i) for i in indices}
+        telemetry.event("engine/retire", retired=sorted(self._retired))
+        if self._retired:
+            logger.warning("engine: retired executor slot(s) %s",
+                           sorted(self._retired))
 
     @property
     def default_fs(self):
@@ -460,7 +486,12 @@ class LocalEngine:
         if placement is not None and task_id < len(placement):
             return placement[task_id] % self.num_executors
         if spread:
-            return task_id % self.num_executors
+            # retired slots are out of the pool
+            pool = [i for i in range(self.num_executors)
+                    if i not in self._retired]
+            if not pool:
+                raise TaskError("all executor slots are retired")
+            return pool[task_id % len(pool)]
         return None
 
     def _run_job_inner(self, tasks, collect, spread, placement, job_id,

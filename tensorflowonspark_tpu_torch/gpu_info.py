@@ -12,16 +12,18 @@ counted with ``nvidia-smi --list-gpus`` (or ``TFOS_GPUS_PER_HOST``,
 which tests set to fake a count); the trainer's health check
 (``TFNodeContext.torch_initialize``) is the first CUDA call.
 
-The claim follows ``tpu_info.claim_chips``' decision order, minus the
-scheduler's resources (the port has no Spark engine yet, ROADMAP.md
-queue 1, item 15): a claim inside a Spark-on-K8s pod raises
-NotImplementedError (the reference trusts no host scan there, since
-device plugins may advertise GPUs to pods without them, and takes the
-scheduler's resources instead); otherwise same-host worker ``i`` takes
-the ``i``-th contiguous block of ``num_gpus`` GPUs out of those the
-executor was given: the entries of the ``CUDA_VISIBLE_DEVICES`` it
-inherited, or every GPU of the host when it inherited none.  A request
-that cannot be met raises.
+The claim follows ``tpu_info.claim_chips``' decision table:
+
+1. the scheduler first: a Spark 3 task's ``TaskContext.resources()``
+   addresses under ``gpu``, ``tpu`` or ``accelerator`` win when present
+   (cut to ``num_gpus`` when the caller asked for fewer);
+2. otherwise, for an explicit request, the host: same-host worker ``i``
+   takes the ``i``-th contiguous block of ``num_gpus`` GPUs out of those
+   the executor was given (the entries of the ``CUDA_VISIBLE_DEVICES``
+   it inherited, or every GPU of the host when it inherited none), but
+   not inside a Spark-on-K8s pod, where device plugins may advertise
+   GPUs to pods without them;
+3. a request that cannot be met raises ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ MASK_ENV = "CUDA_VISIBLE_DEVICES"
 # claim; NO_MASK stands for "inherited none"
 INHERITED_ENV = "TFOS_INHERITED_CUDA_VISIBLE_DEVICES"
 NO_MASK = "<unset>"
-K8S_ITEM = "ROADMAP.md queue 1, item 15 (recovery and other engines)"
+# Spark resource names that may carry this task's accelerator addresses
+RESOURCE_NAMES = ("gpu", "tpu", "accelerator")
 
 
 def count_gpus():
@@ -77,6 +80,30 @@ def is_k8s():
     return "SPARK_EXECUTOR_POD_IP" in os.environ
 
 
+def _has_spark_resource_api():
+    """True when a pyspark 3 ``TaskContext`` with ``resources()`` is
+    importable."""
+    try:
+        from pyspark import TaskContext
+    except ImportError:
+        return False
+    return hasattr(TaskContext, "resources")
+
+
+def _task_resources():
+    """``{resource name: [addresses]}`` from the scheduler's task
+    context, or None outside a Spark 3 task."""
+    if not _has_spark_resource_api():
+        return None
+    from pyspark import TaskContext
+
+    context = TaskContext.get()
+    if context is None:
+        return None
+    return {name: list(info.addresses)
+            for name, info in (context.resources() or {}).items()}
+
+
 def get_gpus(num_gpus, worker_index=-1):
     """The ``num_gpus`` GPUs worker ``worker_index`` takes out of
     :func:`visible_gpus`: the first block without an index, else the
@@ -97,16 +124,31 @@ def get_gpus(num_gpus, worker_index=-1):
 
 
 def claim_gpus(num_gpus=0, worker_index=-1):
-    """Claim ``num_gpus`` GPUs for this process and export them as
-    ``CUDA_VISIBLE_DEVICES``; returns their ids.  ``num_gpus=0`` claims
-    nothing and leaves the environment as it is."""
-    if num_gpus <= 0:
-        return []
-    if is_k8s():
-        raise NotImplementedError(
-            f"claiming GPUs inside a Spark-on-K8s pod takes the scheduler's "
-            f"resources, which come with {K8S_ITEM}")
-    os.environ.setdefault(INHERITED_ENV, os.environ.get(MASK_ENV, NO_MASK))
-    gpus = get_gpus(num_gpus, worker_index)
-    os.environ[MASK_ENV] = ",".join(str(g) for g in gpus)
+    """Claim GPUs for this process by the module's decision table and
+    export them as ``CUDA_VISIBLE_DEVICES``; returns their ids (possibly
+    []).  With no scheduler resources, ``num_gpus=0`` claims nothing and
+    leaves the environment as it is."""
+    requested = num_gpus > 0
+    gpus = []
+    resources = _task_resources()
+    if resources:
+        for name in RESOURCE_NAMES:
+            if resources.get(name):
+                gpus = [str(a) for a in resources[name]]
+                logger.info("scheduler %s resources: %s", name, gpus)
+                break
+        if gpus and requested and num_gpus < len(gpus):
+            logger.warning("requested %d GPU(s), the scheduler assigned "
+                           "%d; taking the first %d", num_gpus, len(gpus),
+                           num_gpus)
+            gpus = gpus[:num_gpus]
+    if not gpus and requested and not is_k8s():
+        os.environ.setdefault(INHERITED_ENV,
+                              os.environ.get(MASK_ENV, NO_MASK))
+        gpus = get_gpus(num_gpus, worker_index)
+    if requested and len(gpus) < num_gpus:
+        raise RuntimeError(f"unable to allocate {num_gpus} GPU(s); the "
+                           f"scheduler and the host offered {gpus}")
+    if gpus:
+        os.environ[MASK_ENV] = ",".join(str(g) for g in gpus)
     return gpus

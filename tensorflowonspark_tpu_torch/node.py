@@ -1,7 +1,7 @@
 """Executor-side node runtime.
 
-An own copy of ``tensorflowonspark_tpu/node.py``, less recovery and
-the observability planes.  One node per engine executor; the node task:
+An own copy of ``tensorflowonspark_tpu/node.py``, less the
+observability planes.  One node per engine executor; the node task:
 
 1. derives its job and task index from the cluster template,
 2. claims GPUs for a compute node (chief, master, worker) through
@@ -42,9 +42,15 @@ manager queue), ``TFOS_SHM_FEED_BYTES`` (the ring's capacity, 256 MiB),
 ``TFOS_COLUMNAR_FEED`` (1; 0 keeps row chunks) and ``TFOS_FEED_CHUNK``
 (records a chunk, 1024).
 
-Left out (each raises NotImplementedError where it would be asked for):
-recovery epochs (ROADMAP.md queue 1, item 15); the telemetry drain and
-live metrics (item 21).
+Cluster recovery relaunches nodes as a new incarnation (the cluster
+meta's ``epoch``): a node of an earlier epoch still on the executor is
+torn down before the new one boots, the ring's name carries the epoch,
+the node registers stamped with it, and its context hands it to
+``main_fun`` (``ctx.epoch``, ``ctx.restore_latest``,
+``ctx.elastic_runtime``).  The re-fed ``train`` task drains the
+partitions consumed before the recovery (``skip``) without feeding
+them.  Left out (ROADMAP.md queue 1, item 21): the telemetry drain and
+live metrics.
 """
 
 from __future__ import annotations
@@ -102,6 +108,7 @@ class _NodeState:
 
     mgr = None
     cluster_id = None
+    epoch = 0  # the cluster incarnation this node belongs to
     ring = None  # the shm feed ring this node created, if any
     tb_proc = None  # the dashboard node's TensorBoard
 
@@ -120,13 +127,15 @@ def _close_ring():
     ring.close()
 
 
-def feed_ring_name(cluster_id, executor_id):
-    """The POSIX shm name of a node's feed ring (the JAX package's
-    scheme, without its recovery epoch)."""
-    return f"/tfos-{cluster_id & 0xffffffff:x}-{executor_id}"
+def feed_ring_name(cluster_id, executor_id, epoch=0):
+    """The POSIX shm name of a node's feed ring, the JAX package's
+    scheme: the epoch in the name, so that a recovered node never opens
+    the segment of a dead incarnation."""
+    return (f"/tfos-{cluster_id & 0xffffffff:x}"
+            f"{f'-e{epoch}' if epoch else ''}-{executor_id}")
 
 
-def _make_ring(cluster_id, executor_id, mgr):
+def _make_ring(cluster_id, executor_id, mgr, epoch=0):
     """Create this node's feed ring and advertise it, unless
     ``TFOS_SHM_FEED=0``.  A ring that cannot be made is logged, and the
     manager queue carries the feed."""
@@ -135,7 +144,7 @@ def _make_ring(cluster_id, executor_id, mgr):
     try:
         from tensorflowonspark_tpu_torch.recordio import shm
 
-        name = feed_ring_name(cluster_id, executor_id)
+        name = feed_ring_name(cluster_id, executor_id, epoch)
         cap = int(os.environ.get("TFOS_SHM_FEED_BYTES", "") or
                   SHM_FEED_BYTES)
         _NodeState.ring = shm.ShmQueue(name, cap, create=True)
@@ -169,6 +178,7 @@ def _teardown_node_state():
     _stop_tensorboard()
     _NodeState.mgr = None
     _NodeState.cluster_id = None
+    _NodeState.epoch = 0
 
 
 def _stop_tensorboard():
@@ -249,7 +259,7 @@ class TFNodeContext:
 
     def __init__(self, executor_id, job_name, task_index, cluster_spec,
                  default_fs, working_dir, mgr, cluster_info=None,
-                 timeout=600):
+                 timeout=600, epoch=0):
         self.executor_id = executor_id
         self.job_name = job_name
         self.task_index = task_index
@@ -259,6 +269,8 @@ class TFNodeContext:
         self.mgr = mgr
         self.cluster_info = cluster_info or []
         self.timeout = timeout  # seconds: the process group's timeout
+        self.epoch = epoch  # the cluster incarnation (recovery bumps it)
+        self.device = None  # torch_initialize's device
         self._torch_distributed = False
 
     @property
@@ -280,6 +292,41 @@ class TFNodeContext:
 
         return DataFeed(self.mgr, train_mode, qname_in, qname_out,
                         input_mapping, metrics)
+
+    def restore_latest(self, ckpt_dir, target_shardings=None):
+        """``(tree, step)`` from the newest restorable checkpoint in
+        ``ckpt_dir``, or ``(None, 0)``: a training ``main_fun`` calls it
+        at start, so a relaunched incarnation goes on from where the
+        dead one last saved.  ``target_shardings`` (a tree of ``(mesh,
+        placements)`` or a callable ``tree -> shardings``) places the
+        leaves on this incarnation's mesh, as after an elastic resize
+        (``utils.checkpoint.restore_any``)."""
+        from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
+
+        tree, step = ckpt.restore_any(ckpt_dir,
+                                      target_shardings=target_shardings)
+        telemetry.event("node/resume", step=step, epoch=self.epoch,
+                        found=tree is not None,
+                        resharded=target_shardings is not None)
+        if tree is not None:
+            logger.info("node %s:%s resuming from step %d (epoch %d)",
+                        self.job_name, self.task_index, step, self.epoch)
+        return tree, step
+
+    def elastic_runtime(self, mesh_axes, devices=None, global_batch=0,
+                        accum_axis="data"):
+        """An ``elastic.ElasticRuntime`` for this node: the logical mesh
+        ``mesh_axes`` resolved over this incarnation's devices (default:
+        one a rank of the job, this rank's being the one
+        :meth:`torch_initialize` took), the deficit of a shrunk cluster
+        made up by gradient accumulation."""
+        from tensorflowonspark_tpu_torch import elastic
+
+        return elastic.from_context(
+            self, elastic.TrainSpec(mesh_axes=dict(mesh_axes),
+                                    global_batch=int(global_batch),
+                                    accum_axis=accum_axis),
+            devices=devices)
 
     def distributed_env(self):
         """``{coordinator_address, num_processes, process_id,
@@ -322,6 +369,7 @@ class TFNodeContext:
             dev = torch.device(
                 "cuda", env["local_rank"] % torch.cuda.device_count())
         dev = resolve_device(dev)
+        self.device = dev
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         if env["num_processes"] > 1:
@@ -527,12 +575,23 @@ class run:  # noqa: N801 - named as the JAX package's node.run
             os.environ[telemetry.ROLE_ENV] = job_name
         faults.check("node.boot", executor=executor_id, job=job_name)
 
-        # (3) one node per executor: a live node of this cluster here is
-        # a duplicate placement; one of an earlier cluster is torn down
+        # (3) one node per executor: a live node of this cluster and
+        # epoch here is a duplicate placement; one of an earlier cluster
+        # or epoch (recovery relaunched this node) is torn down
+        epoch = int(meta.get("epoch", 0))
         if not self.in_driver and _NodeState.mgr is not None:
             if _NodeState.cluster_id == meta["id"]:
-                raise RuntimeError(f"executor already hosts a node of "
-                                   f"cluster {meta['id']}")
+                try:
+                    state = str(_NodeState.mgr.get("state"))
+                except Exception:  # noqa: BLE001 - its server is dead
+                    state = None
+                if _NodeState.epoch == epoch and \
+                        state in ("running", "terminating"):
+                    raise RuntimeError(f"executor already hosts a node of "
+                                       f"cluster {meta['id']}")
+                logger.info("tearing down the node of epoch %d (state %s) "
+                            "before booting epoch %d", _NodeState.epoch,
+                            state, epoch)
             _teardown_node_state()
         mgr = tfmanager.start(bytes.fromhex(meta["authkey"]), self.queues,
                               "remote" if side else "local")
@@ -545,19 +604,22 @@ class run:  # noqa: N801 - named as the JAX package's node.run
             return
         _NodeState.mgr = mgr
         _NodeState.cluster_id = meta["id"]
+        _NodeState.epoch = epoch
         write_executor_id(executor_id)
         self._boot_and_run(mgr, executor_id, job_name, task_index, boot_t0)
 
     def _boot_and_run(self, mgr, executor_id, job_name, task_index,
                       boot_t0):
         meta = self.cluster_meta
-        # everything up to the user's code is boot: a failure releases
-        # the node, so that the executor can host another
+        epoch = int(meta.get("epoch", 0))
+        # everything up to the user's code is boot: a failure (a REJECT
+        # of a stale epoch among them) releases the node, so that the
+        # executor can host another
         try:
             # the 'input' feed's ring, before any feeder or the trainer
             # looks for it; ps and evaluator nodes are fed nothing
             if job_name in COMPUTE_JOBS and not self.in_driver:
-                _make_ring(meta["id"], executor_id, mgr)
+                _make_ring(meta["id"], executor_id, mgr, epoch)
             # (4) reserve the coordinator's port, register, await peers
             client = rendezvous.Client(meta["server_addr"])
             host = get_ip_address()
@@ -588,7 +650,7 @@ class run:  # noqa: N801 - named as the JAX package's node.run
                     node_meta["tb_port"] = tb_port
                     mgr.set("tb_pid", tb.pid)
                     track_child_pid(tb.pid)
-            client.register(node_meta)
+            client.register(node_meta, epoch=epoch)
             cluster_info = client.await_reservations(
                 timeout=meta["reservation_timeout"])
             client.close()
@@ -596,7 +658,7 @@ class run:  # noqa: N801 - named as the JAX package's node.run
                 executor_id, job_name, task_index,
                 _get_cluster_spec(cluster_info), meta["default_fs"],
                 meta["working_dir"], mgr, cluster_info,
-                timeout=meta["reservation_timeout"])
+                timeout=meta["reservation_timeout"], epoch=epoch)
             if not self.in_driver:
                 ctx.export_env()
             # released as late as possible: rank 0's process group binds
@@ -783,22 +845,30 @@ class train:  # noqa: N801 - named as the JAX package's node.train
     """The feeder task: push a partition's records as chunks into the
     node's ring (or its manager queue), wait until the trainer consumed
     them, and record the partition in the rendezvous server's feed
-    ledger.  Its timings land in the KV's 'feed_stats'."""
+    ledger.  Its timings land in the KV's 'feed_stats'.
+
+    ``skip``: partition indices consumed in full before a cluster
+    recovery (the ledger's): the re-fed job drains them without feeding
+    them, so a resumed trainer never sees a record twice."""
 
     def __init__(self, cluster_info, cluster_meta, feed_timeout=600,
                  qname="input", skip=None):
-        if skip:
-            raise NotImplementedError("skipping partitions consumed before "
-                                      "a recovery comes with ROADMAP.md "
-                                      "queue 1, item 15")
         self.cluster_info = cluster_info
         self.cluster_meta = cluster_meta
         self.feed_timeout = feed_timeout
         self.qname = qname
+        self.skip = frozenset(skip or ())
 
     def __call__(self, iterator):
         start_wall = time.time()
         pidx = _partition_index()
+        if pidx >= 0 and pidx in self.skip:
+            count = sum(1 for _ in iterator)
+            logger.info("feeder: partition %d consumed before the "
+                        "recovery, skipping its %d records", pidx, count)
+            telemetry.event("feed/partition_skipped", part=pidx,
+                            records=count)
+            return
         mgr = _get_manager(self.cluster_info, read_executor_id())
         state = str(mgr.get("state"))
         if state in ("terminating", "stopped"):

@@ -14,7 +14,9 @@ workloads and their printed lines): one training step each of
    pipeline feeding a MoE layer whose experts are split over ``ep``.
 
 The JAX dry run also shrinks the ResNet mesh onto half the devices
-(its elastic runtime); that is ROADMAP.md queue 1, item 13, not here.
+(its elastic runtime); here that would take half the ranks out of the
+group, which this dry run does not do (ROADMAP.md queue 1, item 13's
+residue; the port's runtime is ``elastic``).
 Run it as ``python -m tensorflowonspark_tpu_torch.parallel.dryrun 8``.
 """
 

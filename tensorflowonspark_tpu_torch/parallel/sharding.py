@@ -68,16 +68,22 @@ def fsdp_sharding(mesh, tree, axis="fsdp", min_shard_elems=2 ** 12):
 
 
 def _is_sharding(x):
-    return isinstance(x, tuple) and len(x) == 2 and hasattr(
-        x[0], "mesh_dim_names")
+    return (isinstance(x, tuple) and len(x) == 2 and hasattr(
+        x[0], "mesh_dim_names")) or isinstance(x, torch.device)
 
 
 def _map_with(fn, tree, shardings):
     """``fn(leaf, sharding)`` over ``tree`` and the matching tree of
-    shardings, by key (nested dicts, lists, tuples)."""
+    shardings, by key (nested dicts, lists, tuples); one sharding where
+    a subtree stands applies to all of its leaves (a prefix tree, as
+    ``jax.device_put`` takes)."""
     if isinstance(tree, dict):
+        if _is_sharding(shardings):
+            return {k: _map_with(fn, v, shardings) for k, v in tree.items()}
         return {k: _map_with(fn, v, shardings[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)) and not _is_sharding(shardings):
+    if isinstance(tree, (list, tuple)):
+        if _is_sharding(shardings):
+            return type(tree)(_map_with(fn, v, shardings) for v in tree)
         return type(tree)(_map_with(fn, v, s)
                           for v, s in zip(tree, shardings, strict=True))
     return fn(tree, shardings)
@@ -86,13 +92,17 @@ def _map_with(fn, tree, shardings):
 def apply_shardings(tree, shardings):
     """Place every leaf of ``tree`` (full tensors, the same on every rank)
     by the matching tree of ``(mesh, placements)``: a tree of DTensors.
+    A ``torch.device`` in place of a sharding (a one-process layout,
+    which has no mesh) copies the leaf onto that device as it is.
     Leaves that require grad stay leaves that require grad."""
 
     def one(x, sh):
         if not _is_sharding(sh):
             raise ValueError(f"not a (mesh, placements) sharding: {sh!r}")
         req = bool(getattr(x, "requires_grad", False))
-        dt = place(torch.as_tensor(x).detach(), sh)
+        x = torch.as_tensor(x).detach()
+        dt = (x.to(sh, copy=True) if isinstance(sh, torch.device)
+              else place(x, sh))
         return dt.requires_grad_() if req else dt
 
     return _map_with(one, tree, shardings)

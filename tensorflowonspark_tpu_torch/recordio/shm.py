@@ -281,6 +281,20 @@ class ShmQueue:
             pass
 
 
+def unlink(name):
+    """Remove a ring whose creator died without closing it: its segment
+    and its producer flock's file.  True when the segment was there."""
+    try:
+        os.unlink(_lock_path(name))
+    except OSError:
+        pass
+    try:
+        os.unlink(os.path.join(_SHM_DIR, name.lstrip("/")))
+    except FileNotFoundError:
+        return False
+    return True
+
+
 def available():
     """True when the ring's library built and loaded."""
     return _native.load() is not None

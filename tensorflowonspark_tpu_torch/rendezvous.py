@@ -8,8 +8,12 @@ registry produces is what ``torch.distributed.init_process_group``
 needs: every node's host and reserved port, from which the node runtime
 derives the coordinator address, the world size and each rank.
 
-Left out: the epoch fence and resize of cluster recovery (ROADMAP.md
-queue 1, item 15).  Env overrides as in the JAX package:
+Cluster recovery (``cluster.run(restarts=, min_executors=)``) fences
+each incarnation with an epoch: ``Server.reset(epoch)`` drops the
+reservations and rejects a REG stamped with an older epoch, and
+``Server.resize`` changes how many registrations complete the next
+one.  The feed ledger survives both; only ``reset_feed`` clears it.
+Env overrides as in the JAX package:
 ``TFOS_SERVER_HOST`` (bind/advertise host) and ``TFOS_SERVER_PORT``
 (port, comma list and/or ``lo-hi`` ranges).
 """
@@ -27,7 +31,11 @@ import threading
 import time
 
 from tensorflowonspark_tpu_torch.actors.ledger import DeliveryLedger
-from tensorflowonspark_tpu_torch.utils import faults, get_ip_address
+from tensorflowonspark_tpu_torch.utils import (
+    faults,
+    get_ip_address,
+    telemetry,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -66,7 +74,27 @@ class Reservations:
 
     def add(self, meta):
         with self._lock:
+            eid = meta.get("executor_id") if isinstance(meta, dict) else None
+            if eid is not None:
+                for i, m in enumerate(self._reservations):
+                    if isinstance(m, dict) and m.get("executor_id") == eid:
+                        # a node retried within the epoch replaces its
+                        # stale reservation instead of duplicating it
+                        logger.info("replacing reservation of executor %s",
+                                    eid)
+                        self._reservations[i] = meta
+                        return
             self._reservations.append(meta)
+
+    def reset(self):
+        with self._lock:
+            self._reservations = []
+
+    def resize(self, required):
+        """Change how many registrations complete the cluster (an
+        elastic recovery re-forms it over the surviving executors)."""
+        with self._lock:
+            self.required = int(required)
 
     def done(self):
         with self._lock:
@@ -129,8 +157,34 @@ class Server(MessageSocket):
         self._closing = threading.Event()
         self._listener = None
         self._thread = None
+        # the epoch fence: recovery bumps it through reset(); a REG
+        # stamped with another epoch is rejected, so a node of an earlier
+        # incarnation never takes a seat in the new one
+        self.epoch = 0
         # feed ledger: feeders report each fully consumed partition
         self._feeds = DeliveryLedger()
+
+    def reset(self, epoch):
+        """Fence a new cluster incarnation: drop the reservations and the
+        STOP flag, and reject REGs of any other epoch from now on.  The
+        feed ledger survives: it is what lets the re-feed skip the
+        partitions already consumed."""
+        self.epoch = int(epoch)
+        self.reservations.reset()
+        self.done.clear()
+        telemetry.event("rendezvous/epoch_reset", epoch=self.epoch)
+        logger.info("rendezvous: reset to epoch %d", self.epoch)
+
+    def resize(self, required):
+        """The next incarnation completes with ``required`` registrations
+        (fewer after an executor loss that could not be healed, all of
+        them after the pool came back).  Call before ``reset(epoch)``."""
+        old = self.reservations.required
+        self.reservations.resize(required)
+        telemetry.event("rendezvous/resize", from_required=old,
+                        to_required=int(required))
+        logger.info("rendezvous: required registrations %d -> %d", old,
+                    int(required))
 
     def fed_partitions(self, feed="input"):
         """Sorted partition indices recorded as fully consumed."""
@@ -202,6 +256,14 @@ class Server(MessageSocket):
     def _handle_message(self, sock, msg):
         kind = msg.get("type")
         if kind == "REG":
+            epoch = int(msg.get("epoch", 0))
+            if epoch != self.epoch:
+                logger.warning("rejecting registration from epoch %d "
+                               "(current %d): %s", epoch, self.epoch,
+                               msg.get("data"))
+                self.send(sock, {"type": "REJECT",
+                                 "data": {"epoch": self.epoch}})
+                return
             self.reservations.add(msg["data"])
             self.send(sock, {"type": "OK"})
         elif kind == "PDONE":
@@ -216,6 +278,9 @@ class Server(MessageSocket):
         elif kind == "QINFO":
             self.send(sock, {"type": "QINFO",
                              "data": self.reservations.get()})
+        elif kind == "QNUM":
+            self.send(sock, {"type": "QNUM",
+                             "data": self.reservations.remaining()})
         elif kind == "STOP":
             self.done.set()  # before the reply: an acknowledged STOP holds
             self.send(sock, {"type": "OK"})
@@ -249,7 +314,7 @@ class Client(MessageSocket):
 
     # pure queries may be replayed on a fresh connection; REG, STOP and
     # PDONE change state and must not be
-    IDEMPOTENT = frozenset({"QUERY", "QINFO", "PQUERY"})
+    IDEMPOTENT = frozenset({"QUERY", "QINFO", "QNUM", "PQUERY"})
 
     def __init__(self, server_addr):
         self.server_addr = (server_addr[0], int(server_addr[1]))
@@ -293,11 +358,18 @@ class Client(MessageSocket):
         return reply
 
     def register(self, node_meta, epoch=0):
-        if epoch:
-            raise NotImplementedError("cluster epochs come with ROADMAP.md "
-                                      "queue 1, item 15")
+        """Register this node, stamped with its cluster epoch.  A REJECT
+        (the cluster recovered past this node's incarnation) raises, so
+        the task that hosts the node dies."""
         faults.check("rendezvous.register")
-        return self._call({"type": "REG", "data": node_meta})
+        reply = self._call({"type": "REG", "data": node_meta,
+                            "epoch": int(epoch)})
+        if reply.get("type") == "REJECT":
+            raise RuntimeError(
+                f"rendezvous registration rejected: node epoch {epoch} "
+                f"!= cluster epoch {reply['data']['epoch']} (stale node "
+                "from a previous cluster incarnation)")
+        return reply
 
     def get_reservations(self):
         return self._call({"type": "QINFO"})["data"]

@@ -1,7 +1,8 @@
 """Live in-process metrics registry: counters, gauges and histograms.
 
 An own copy of the part of ``tensorflowonspark_tpu/utils/metrics_registry.py``
-that the decode engine, ``TrainMetrics`` and ``DataFeed`` call (``inc``,
+that the decode engine, ``TrainMetrics``, ``DataFeed``, the cluster's
+recovery and the elastic runtime call (``inc``,
 ``set_gauge``, ``observe``), with the same env gate: enabled iff
 ``TFOS_OBS_PORT`` is set, a cached no-op otherwise, and one registry per
 process (keyed by pid).  The publisher that snapshots the registry for
@@ -50,6 +51,19 @@ CATALOG = {
     "tfos_decode_spec_accept": (
         "gauge", "Speculative-decode draft acceptance rate (accepted / "
                  "proposed, cumulative)."),
+    "tfos_elastic_resizes_total": (
+        "counter", "Mesh/cluster elastic resizes, by scope "
+                   "(runtime|cluster)."),
+    "tfos_elastic_mesh_devices": (
+        "gauge", "Physical devices in the current elastic mesh."),
+    "tfos_elastic_virtual_devices": (
+        "gauge", "Virtual devices (logical mesh size) of the TrainSpec."),
+    "tfos_elastic_accum_steps": (
+        "gauge", "Gradient-accumulation steps folding virtual onto "
+                 "physical devices."),
+    "tfos_elastic_reshard_ms": (
+        "histogram", "Train-state reshard latency (host round-trip), "
+                     "milliseconds."),
 }
 
 

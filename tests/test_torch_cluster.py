@@ -73,9 +73,10 @@ def test_gpu_claim_by_same_host_index_without_cuda(monkeypatch):
     """A faked count of 4 GPUs and no inherited mask: worker i takes the
     block [i*n, (i+1)*n) as CUDA_VISIBLE_DEVICES, and a later claim
     takes from the host again, not from the previous claim; a demand
-    past the host's supply raises, and a claim inside a K8s pod raises
-    NotImplementedError; num_gpus=0 leaves the environment.  No call
-    reaches torch.cuda (each would raise here)."""
+    past the host's supply raises, and a claim inside a K8s pod, where
+    no host scan runs and the scheduler offered nothing, raises
+    RuntimeError; num_gpus=0 leaves the environment.  No call reaches
+    torch.cuda (each would raise here)."""
     _forbid_cuda(monkeypatch)
     monkeypatch.setenv(gpu_info.COUNT_ENV, "4")
     monkeypatch.delenv(gpu_info.INHERITED_ENV, raising=False)
@@ -91,7 +92,7 @@ def test_gpu_claim_by_same_host_index_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="of the 4 visible"):
         gpu_info.claim_gpus(2, 2)
     monkeypatch.setenv("SPARK_EXECUTOR_POD_IP", "10.0.0.1")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(RuntimeError, match="unable to allocate 1 GPU"):
         gpu_info.claim_gpus(1, 0)
     monkeypatch.delenv(gpu_info.COUNT_ENV)
     monkeypatch.setenv("PATH", "")  # no nvidia-smi: no GPUs
@@ -242,11 +243,11 @@ def test_failing_main_fun_reaches_the_driver(engine):
         c.shutdown()
 
 
-def test_cut_features_raise_not_implemented(engine):
+def test_cut_features_raise_not_implemented(engine, monkeypatch):
     # ps/evaluator nodes and TensorBoard are ported
     # (tests/test_torch_roles.py)
-    for kw, item in ((dict(restarts=1), "item 15"),
-                     (dict(data_workers=2), "item 17")):
+    # recovery is ported (tests/test_torch_recovery.py)
+    for kw, item in ((dict(data_workers=2), "item 17"),):
         with pytest.raises(NotImplementedError, match=item):
             TFCluster.run(engine, failing_main, {}, 2, **kw)
     # retryable jobs are ported: they run (tests/test_torch_engine.py)
@@ -256,8 +257,9 @@ def test_cut_features_raise_not_implemented(engine):
         TFCluster.run(engine, failing_main, {}, 2, background=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         LocalEngine(1, workdir="elsewhere")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        node.train([], {}, skip={0})
+    # a skipped partition is drained without reaching a node
+    monkeypatch.setenv("TFOS_PARTITION_INDEX", "0")
+    assert node.train([], {}, skip={0})(iter(range(3))) is None
     with pytest.raises(ValueError, match="spawn"):
         LocalEngine(1, start_method="fork")
 

@@ -228,7 +228,9 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "parallel.ring", "parallel.pipeline_parallel",
              "parallel.collectives", "parallel.launch", "parallel.dryrun",
              "models.moe", "examples.transformer_longcontext",
-             "examples.segmentation_dist", "serving.decode.scheduler"):
+             "examples.segmentation_dist", "serving.decode.scheduler",
+             "elastic", "elastic.virtual", "elastic.reshard",
+             "elastic.runtime"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign

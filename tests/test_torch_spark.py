@@ -156,8 +156,9 @@ def test_spark_fed_transformer_matches_jax_steps(engine, tmp_path):
 
 
 def test_spark_fed_transformer_checkpoints_and_exports(engine, tmp_path):
-    """``--ckpt_dir``/``--export_dir``: the chief checkpoints every
-    ``ckpt_every`` steps and at the end, and exports with the ``Config``
+    """``--ckpt_dir``/``--export_dir``: the chief checkpoints the params
+    and Adam's state every ``ckpt_every`` steps and at the end, and
+    exports with the ``Config``
     in the metadata; the JAX package's ``load_exported`` reads the
     export as the trained params: those of the same Adam steps taken in
     this process from the same init over the same batches (float32, to
@@ -207,10 +208,25 @@ def test_spark_fed_transformer_checkpoints_and_exports(engine, tmp_path):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-7,
                                    err_msg=k)
-    last = ckpt._flatten(ckpt.load_checkpoint(
-        os.path.join(ckpt_dir, "ckpt-00000003.npz")))
+    last_tree = ckpt.load_checkpoint(
+        os.path.join(ckpt_dir, "ckpt-00000003.npz"))
+    last = ckpt._flatten(last_tree["params"])
     for k in want:
         np.testing.assert_array_equal(last[k], got[k], err_msg=k)
+    # Adam's (count, mu, nu) beside the params, packed as the JAX
+    # package packs optax.adam's state: the count, then each moment tree
+    # in sorted-key order
+    opt_leaves = [last_tree["opt"][k] for k in sorted(last_tree["opt"])]
+    assert int(opt_leaves[0]) == steps
+    order = ckpt.tree_leaves(params)
+    assert len(opt_leaves) == 1 + 2 * len(order)
+    for i, p in enumerate(order):
+        st = opt.state[p]
+        np.testing.assert_allclose(opt_leaves[1 + i], st["exp_avg"].numpy(),
+                                   rtol=1e-5, atol=1e-9)
+        np.testing.assert_allclose(opt_leaves[1 + len(order) + i],
+                                   st["exp_avg_sq"].numpy(), rtol=1e-5,
+                                   atol=1e-12)
 
 
 def test_two_executor_gloo_mnist_end_to_end(engine, tmp_path,
