@@ -307,7 +307,30 @@ too:
     8 x the microbatches; each incarnation's step ms and the restore ms;
 35a. ``elastic_exact``: float32 at full width, 2 layers, batch 2, here
     at world 1: the layout's accum-2 gradient equals the flat one leaf
-    by leaf (1e-5 of each leaf's largest value).
+    by leaf (1e-5 of each leaf's largest value);
+36. ``obs``: the main path (phase 6's transformer, 100 partitions of one
+    step) with the observability plane on (``TFOS_OBS_PORT=0``,
+    ``TFOS_TELEMETRY_DIR``, ``TFOS_HEALTH_GRADNORM=1``): while it trains,
+    ``tfos_train_steps_total`` rises between two ``/metrics`` scrapes
+    beside the step histogram, ``/statusz`` names the worker, ``/healthz``
+    is ok, ``POST /profilez`` (2 s) acks a ``torch.profiler`` capture
+    that holds the flash forward and backward kernels (``obs capture``
+    line: the device's idle share over the capture, the busy union of
+    kernel and copy intervals) and ``POST /flightz`` a flight dump; after
+    ``shutdown()`` the run directory holds the driver's, the executor's
+    and the trainer's spools, ``tfos-postmortem-torch`` and the JAX
+    package's ``scripts/trace_merge.py`` (stdlib only, run as a
+    subprocess) read it, no ring is left, and each flash kernel launched
+    8 times a step; 36b ``obs_halt``: a NaN planned on the 4th step's
+    loss under ``TFOS_HEALTH_ACTION=halt`` halts the trainer, whose chief
+    checkpointed every step: the latest checkpoint is step 3's and
+    finite, the shutdown raises nothing and leaves no trainer or ring;
+    36c ``obs cost``: the median step with the plane on beside phase 6's
+    with every gate off;
+37. ``engine_outside_kill``: on the host, executor 1 of a fresh
+    two-executor engine SIGKILLed from outside while idle heals: a
+    spread job runs on its respawn and a shared-queue job of four tasks
+    finishes within 60 s (``heal_s``).
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -327,10 +350,12 @@ forward > 0, the other three 0), ``launches_pipeline``, phases
 ``launches_segmentation``, phases 27-29 summed (all 0),
 ``launches_spec``, phase 30's three runs summed (the flash forward > 0),
 ``launches_parallel``, phase 32's sharded step (the three flash
-kernels > 0), and ``launches_recover`` and ``launches_elastic``, phases
+kernels > 0), ``launches_recover`` and ``launches_elastic``, phases
 34 and 35's trainer incarnations summed (the three flash kernels > 0,
-RMSNorm 0).  Imports only
-torch, numpy and the port.
+RMSNorm 0), and ``launches_obs``, phase 36a's trainer (8 a step of
+each flash kernel, RMSNorm 0).  Imports only torch, numpy and the
+port; phase 36a runs the JAX package's stdlib-only
+``scripts/trace_merge.py`` in a subprocess.
 """
 
 from __future__ import annotations
@@ -1272,6 +1297,8 @@ def phase_spark_train(engine, gpu, train):
         losses=losses, phase_train_losses=ref,
         max_rel_loss_diff=max(rel) if rel else None,
         step_ms=report["step_ms"], step_ms_median=med,
+        step_wall_ms=report["step_wall_ms"],
+        step_wall_ms_median=statistics.median(report["step_wall_ms"]),
         tokens_per_s=items / (med / 1e3),
         phase_train_step_ms_median=train["step_ms_median"],
         phase_train_tokens_per_s=train["tokens_per_s"],
@@ -1307,7 +1334,7 @@ def phase_spark_train(engine, gpu, train):
     if orphan:
         raise AssertionError(f"trainer {report['pid']} alive after "
                              "shutdown")
-    return report["launches"]
+    return report["launches"], summary
 
 
 def phase_grad_exact(dev):
@@ -1421,6 +1448,19 @@ def _transformer_group(name):
             else "other")
 
 
+def _union(spans):
+    """The length of the union of ``(start, end)`` intervals."""
+    busy, end = 0.0, None
+    for t0, t1 in sorted(spans):
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    return busy
+
+
 def device_breakdown(prof, wall_s, classify=_transformer_group, top=8):
     """Device time of a profiled run: busy time (union of kernel and copy
     intervals), the idle share of ``wall_s``, and time by kernel group
@@ -1437,15 +1477,7 @@ def device_breakdown(prof, wall_s, classify=_transformer_group, top=8):
         name = e.name
         groups[classify(name)] += (t1 - t0) / 1e3
         names[name[:90]] += (t1 - t0) / 1e3
-    busy, end = 0.0, None
-    for t0, t1 in sorted(spans):
-        if end is None or t0 > end:
-            busy += t1 - t0
-            end = t1
-        elif t1 > end:
-            busy += t1 - end
-            end = t1
-    busy_ms = busy / 1e3
+    busy_ms = _union(spans) / 1e3
     return dict(wall_ms=1e3 * wall_s, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / (1e3 * wall_s),
                 device_events=len(spans),
@@ -4414,10 +4446,15 @@ def _steps_log(out_dir, executor):
 
 
 def _events(tdir, name):
-    """Telemetry records named ``name`` under ``tdir``, by time."""
+    """Telemetry records named ``name`` under ``tdir``, by time, each
+    once: the drained ``run-<id>/`` directories hold copies of the
+    spools and of the driver's file, and are skipped."""
     out = []
     for path in glob.glob(os.path.join(tdir, "**", "*.jsonl"),
                           recursive=True):
+        rel = os.path.relpath(path, tdir).split(os.sep)
+        if any(part.startswith("run-") for part in rel[:-1]):
+            continue
         with open(path) as f:
             out += [r for r in map(json.loads, f) if r["name"] == name]
     return sorted(out, key=lambda r: r["ts"])
@@ -4733,6 +4770,400 @@ def host_line():
                 fsspec=fsspec)
 
 
+# 36: the observed main path.  One executor, one step a partition: 36a
+# runs long enough (~100 steps of ~85 ms) for two /metrics scrapes, the
+# other GETs and a 2 s /profilez capture while it trains; 36b poisons
+# the 4th step's loss under TFOS_HEALTH_ACTION=halt, its chief
+# checkpointing every step.
+OBS = dict(partitions=100, records=8, profile_ms=2000, interval=0.5)
+HALT = dict(partitions=6, records=8, nan_step=4)
+# the JAX package's trace merger (stdlib only), run on 36a's run dir
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+TRACE_MERGE = os.path.join(REPO_DIR, "scripts", "trace_merge.py")
+# the gates 36a's executor (and so its trainer) runs under; the driver
+# sets TFOS_OBS_PORT=0 and TFOS_TELEMETRY_DIR for the phase itself
+OBS_ENV = {"TFOS_OBS_PORT": "0", "TFOS_OBS_INTERVAL": str(OBS["interval"]),
+           "TFOS_HEALTH_GRADNORM": "1"}
+HALT_ENV = {"TFOS_OBS_PORT": "0", "TFOS_OBS_INTERVAL": str(OBS["interval"]),
+            faults.PLAN_ENV: f"train.step:nan@{HALT['nan_step']}",
+            "TFOS_HEALTH_ACTION": "halt"}
+
+
+def trace_breakdown(path, classify=_transformer_group, top=8):
+    """``device_breakdown``'s numbers from a Chrome trace file (a
+    ``/profilez`` capture): the busy union of kernel and copy intervals
+    over the capture's extent (every event's), its idle share, and time
+    by kernel group."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if isinstance(e, dict) and e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans, groups, names = [], collections.Counter(), collections.Counter()
+    for e in device:
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+        spans.append((t0, t1))
+        name = e.get("name", "")
+        groups[classify(name)] += (t1 - t0) / 1e3
+        names[name[:90]] += (t1 - t0) / 1e3
+    busy = _union(spans)
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    kernels = [e.get("name", "") for e in device if e.get("cat") == "kernel"]
+    return dict(window_ms=(hi - lo) / 1e3, device_busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / (hi - lo), device_events=len(spans),
+                kernel_events=len(kernels),
+                flash_kernels={g: sum(1 for k in kernels
+                                      if classify(k) == g)
+                               for g in ("flash_fwd", "flash_dq",
+                                         "flash_dkv")},
+                groups_ms=dict(groups.most_common()),
+                top_kernels_ms=names.most_common(top))
+
+
+def _http(method, url, timeout=120):
+    """``(status, body)`` of one request; an HTTP error's too."""
+    req = urllib.request.Request(url, data=b"" if method == "POST" else None,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+def _metric_sum(text, name):
+    """The sum of one metric's samples in Prometheus text, or None."""
+    vals = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+            if line.startswith(name + "{") or line.startswith(name + " ")]
+    return sum(vals) if vals else None
+
+
+def _obs_env(tdir):
+    """The driver's gates for a phase 36 run: its ObsServer and the
+    drain (popped again by the caller, with the identity and trace the
+    cluster pins)."""
+    os.environ["TFOS_OBS_PORT"] = "0"
+    os.environ["TFOS_OBS_INTERVAL"] = str(OBS["interval"])
+    os.environ[telemetry.DIR_ENV] = tdir
+
+
+def _obs_env_off():
+    for k in ("TFOS_OBS_PORT", "TFOS_OBS_INTERVAL", telemetry.DIR_ENV,
+              telemetry.NODE_ENV, telemetry.ROLE_ENV, telemetry.TRACE_ENV):
+        os.environ.pop(k, None)
+
+
+def _observe(c, out, errors):
+    """36a's checks while the trainer runs (a thread beside train()):
+    two /metrics scrapes with steps rising and the step histogram,
+    /statusz naming the chief, /healthz ok, a /profilez capture and a
+    /flightz dump of the trainer."""
+    try:
+        base = c.obs.url
+        deadline = time.monotonic() + 600
+        first = None
+        while time.monotonic() < deadline:
+            _, text = _http("GET", base + "/metrics")
+            first = _metric_sum(text, "tfos_train_steps_total")
+            if first:
+                break
+            time.sleep(0.1)
+        out["scrape1_steps"] = first
+        out["scrape1_step_hist"] = "tfos_train_step_ms_bucket" in text
+        node = next(f"{m['job_name']}-{m['task_index']}"
+                    for m in c.cluster_info)
+        code, body = _http("GET", base + "/statusz")
+        status = json.loads(body)
+        out["statusz_code"] = code
+        out["statusz_nodes"] = sorted(status.get("nodes", {}))
+        out["statusz_roles"] = sorted({n.get("role") for n in
+                                       status.get("nodes", {}).values()})
+        code, body = _http("GET", base + "/healthz")
+        out["healthz"] = [code, json.loads(body)["status"]]
+        t0 = time.perf_counter()
+        code, body = _http("POST", f"{base}/profilez?node={node}"
+                                   f"&ms={OBS['profile_ms']}&wait_s=120")
+        out["profilez_code"] = code
+        out["profilez_ack"] = json.loads(body)
+        out["profilez_round_trip_s"] = time.perf_counter() - t0
+        code, body = _http("POST", f"{base}/flightz?node={node}&wait_s=60")
+        out["flightz"] = [code, json.loads(body)]
+        _, text = _http("GET", base + "/metrics")
+        out["scrape2_steps"] = _metric_sum(text, "tfos_train_steps_total")
+        out["scrape2_step_hist"] = "tfos_train_step_ms_bucket" in text
+        out["metrics_bytes"] = len(text)
+        out["grad_norm"] = _metric_sum(text, "tfos_health_grad_norm")
+    except BaseException as e:  # noqa: BLE001 - raised by the phase
+        errors.append(e)
+
+
+def _run_obs_cluster(engine, tdir, args, records, partitions, watch=None):
+    """One SPARK-fed run of the transformer on ``engine`` with the obs
+    gates on in the driver; returns (the run directory the drain
+    filled, the partitions fed, the shutdown's error or None, the
+    watcher's checks)."""
+    out, errors = {}, []
+    _obs_env(tdir)
+    try:
+        c = TFCluster.run(engine, transformer_spark.main_fun, args,
+                          num_executors=1,
+                          input_mode=TFCluster.InputMode.SPARK,
+                          num_gpus=1, reservation_timeout=300)
+        if c.obs is None:
+            raise AssertionError("obs: TFOS_OBS_PORT set and no ObsServer")
+        t = None
+        if watch is not None:
+            t = threading.Thread(target=watch, args=(c, out, errors),
+                                 daemon=True)
+            t.start()
+        c.train(engine.parallelize(records, partitions), feed_timeout=600)
+        if t is not None:
+            t.join(600)
+        fed = c.server.fed_partitions("input")
+        shutdown_error = None
+        try:
+            c.shutdown()
+        except (Exception, SystemExit) as e:  # noqa: BLE001 - checked
+            shutdown_error = repr(e)
+        rdir = telemetry.run_dir(c.meta["id"])
+        out["rings_left"] = _rings_left(c)
+    finally:
+        _obs_env_off()
+    if errors:
+        raise errors[0]
+    return rdir, fed, shutdown_error, out
+
+
+def phase_obs(dev, engine, gpu, tdir, spark):
+    """Phase 36a: the SPARK-fed transformer at full width on ``engine``
+    (one executor, started under ``OBS_ENV``) with the observability
+    plane on; the checks of ``_observe`` while it trains; after
+    shutdown, the run directory (the driver's, the executor's and the
+    trainer's spools and the /flightz dump), read by
+    ``tfos-postmortem-torch`` and ``scripts/trace_merge.py``; no ring
+    left.  ``spark`` is phase 6's summary, the same path with every
+    gate off (36c).  Returns the trainer's launches."""
+    cfg = dict(FULL, dtype="bfloat16", attn_impl="flash")
+    n, rows = OBS["partitions"], OBS["records"]
+    tokens = np.random.default_rng(36).integers(
+        0, FULL["vocab_size"], (rows, FULL["max_seq"])).astype(np.int32)
+    records = list(tokens) * n
+    out_dir = tempfile.mkdtemp(prefix="tfos_obs_")
+    try:
+        t0 = time.time()
+        rdir, fed, shut_err, seen = _run_obs_cluster(
+            engine, tdir, {"config": cfg, "batch_size": rows, "seed": 0,
+                           "out_dir": out_dir},
+            records, n, watch=_observe)
+        total_s = time.time() - t0
+        with open(os.path.join(out_dir, "transformer-rank0.json")) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ack = seen.get("profilez_ack") or {}
+    trace = ack.get("trace")
+    breakdown = trace_breakdown(trace) if trace and \
+        os.path.isfile(trace) else None
+    files = sorted(os.listdir(rdir)) if os.path.isdir(rdir) else []
+    exec_files = [f for f in files if f.startswith("exec0-")
+                  and f.endswith(".jsonl")]
+    trainer_file = [f for f in exec_files
+                    if f.endswith(f"-{report['pid']}.jsonl")]
+    pm = subprocess.run([sys.executable, "-m",
+                         "tensorflowonspark_tpu_torch.obs.postmortem",
+                         "--dir", rdir, "--all"], cwd=REPO_DIR,
+                        capture_output=True, text=True, timeout=120)
+    summary_json = os.path.join(tdir, "trace_merge_summary.json")
+    tm = subprocess.run([sys.executable, TRACE_MERGE, rdir, "--out",
+                         os.path.join(tdir, "trace.json"),
+                         "--summary-json", summary_json],
+                        capture_output=True, text=True, timeout=300)
+    merged = {}
+    if tm.returncode == 0 and os.path.isfile(summary_json):
+        with open(summary_json) as f:
+            merged = json.load(f)
+    rings = seen.pop("rings_left")
+    med = statistics.median(report["step_ms"])
+    summary = dict(
+        steps=len(report["losses"]), fed_partitions=len(fed),
+        shutdown_error=shut_err, total_s=total_s, **seen,
+        capture=breakdown, run_dir_files=files,
+        trainer_spool=trainer_file, executor_spools=exec_files,
+        postmortem_rc=pm.returncode,
+        postmortem_head=pm.stdout.splitlines()[:3],
+        postmortem_err=pm.stderr[-400:],
+        trace_merge_rc=tm.returncode,
+        trace_merge_keys=sorted(merged)[:20],
+        trace_merge_err=tm.stderr[-400:], rings_left=rings,
+        step_ms_median=med, launches=report["launches"],
+        train_metrics=report["train_metrics"], gpu=gpu)
+    print("obs " + json.dumps(summary, default=str), flush=True)
+    if breakdown is not None:
+        print("obs capture " + json.dumps(dict(
+            idle_share=breakdown["idle_share"],
+            window_ms=breakdown["window_ms"],
+            device_busy_ms=breakdown["device_busy_ms"],
+            kernel_events=breakdown["kernel_events"],
+            flash_kernels=breakdown["flash_kernels"], gpu=gpu)), flush=True)
+    # 36c: the plane's cost, the same path with every gate off beside it:
+    # the device step (CUDA events) and the loop's step (host clock,
+    # one step's end to the next's), medians and means
+    wall = report["step_wall_ms"]
+    print("obs cost " + json.dumps(dict(
+        step_ms_median_plane_on=med,
+        step_ms_median_plane_off=spark["step_ms_median"],
+        step_wall_ms_median_plane_on=statistics.median(wall),
+        step_wall_ms_median_plane_off=spark["step_wall_ms_median"],
+        step_wall_ms_mean_plane_on=statistics.fmean(wall),
+        step_wall_ms_mean_plane_off=statistics.fmean(spark["step_wall_ms"]),
+        step_wall_ms_max_plane_on=max(wall),
+        steps_on=len(report["step_ms"]), steps_off=len(spark["step_ms"]),
+        gpu=gpu)), flush=True)
+    want = FULL["n_layers"] * n
+    problems = []
+    if shut_err is not None or len(report["losses"]) != n or \
+            fed != list(range(n)):
+        problems.append(f"run: {len(report['losses'])} steps, fed "
+                        f"{len(fed)}, shutdown {shut_err}")
+    if report["launches"] != dict(flash_fwd=want, flash_dq=want,
+                                  flash_dkv=want):
+        problems.append(f"launches {report['launches']}, want {want} each")
+    if not (seen.get("scrape1_steps") and seen.get("scrape2_steps")
+            and seen["scrape2_steps"] > seen["scrape1_steps"]
+            and seen.get("scrape1_step_hist")
+            and seen.get("scrape2_step_hist")):
+        problems.append("/metrics: steps did not rise between two scrapes "
+                        "or no step histogram")
+    if "worker-0" not in seen.get("statusz_nodes", ()) or \
+            "worker" not in seen.get("statusz_roles", ()):
+        problems.append(f"/statusz nodes {seen.get('statusz_nodes')}")
+    if seen.get("healthz") != [200, "ok"]:
+        problems.append(f"/healthz {seen.get('healthz')}")
+    if seen.get("profilez_code") != 200 or ack.get("ok") is not True or \
+            breakdown is None:
+        problems.append(f"/profilez {seen.get('profilez_code')} {ack}")
+    elif not all(breakdown["flash_kernels"].values()):
+        problems.append(f"the capture holds flash kernels "
+                        f"{breakdown['flash_kernels']}")
+    if not seen.get("flightz") or seen["flightz"][0] != 200 or \
+            seen["flightz"][1].get("ok") is not True:
+        problems.append(f"/flightz {seen.get('flightz')}")
+    if not any(f.startswith("driver-") for f in files) or \
+            len(trainer_file) != 1 or len(exec_files) < 2:
+        problems.append(f"run dir files {files}")
+    if pm.returncode != 0 or tm.returncode != 0:
+        problems.append(f"postmortem rc {pm.returncode}, trace_merge rc "
+                        f"{tm.returncode}: {tm.stderr[-400:]}")
+    if rings:
+        problems.append(f"rings left {rings}")
+    if problems:
+        raise AssertionError("obs: " + "; ".join(problems))
+    return report["launches"]
+
+
+def phase_obs_halt(dev, engine, gpu, tdir):
+    """Phase 36b: the same path on ``engine`` (started under
+    ``HALT_ENV``), the chief checkpointing every step: the NaN planned
+    on the 4th step's loss halts the trainer (``HealthHalt``), its
+    latest checkpoint is step 3's, the cluster shuts down with no error,
+    no trainer and no ring left, and the drained run holds the
+    ``health/nan`` and ``health/halt`` events."""
+    cfg = dict(FULL, dtype="bfloat16", attn_impl="flash")
+    n, rows = HALT["partitions"], HALT["records"]
+    tokens = np.random.default_rng(37).integers(
+        0, FULL["vocab_size"], (n * rows, FULL["max_seq"])).astype(np.int32)
+    work = tempfile.mkdtemp(prefix="tfos_halt_")
+    ckpt_dir = os.path.join(work, "ckpt")
+    try:
+        t0 = time.time()
+        rdir, fed, shut_err, seen = _run_obs_cluster(
+            engine, tdir, {"config": cfg, "batch_size": rows, "seed": 0,
+                           "ckpt_dir": ckpt_dir, "ckpt_every": 1,
+                           "out_dir": work}, list(tokens), n)
+        total_s = time.time() - t0
+        log = _steps_log(work, 0)
+        latest = ckpt.latest_step(ckpt_dir)
+        restored, step = ckpt.restore_latest(ckpt_dir)
+        finite = all(np.isfinite(np.asarray(x)).all() for x in
+                     torch.utils._pytree.tree_leaves(restored))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    events = {}
+    for path in glob.glob(os.path.join(rdir, "*.jsonl")):
+        with open(path) as f:
+            for r in map(json.loads, f):
+                events.setdefault(r["name"], r)
+    trainer = [r["pid"] for r in log if r["event"] == "start"]
+    alive = [p for p in trainer if _proc_alive(p)]
+    steps = [r for r in log if r["event"] == "step"]
+    summary = dict(
+        steps_logged=[r["step"] for r in steps],
+        losses=[r["loss"] for r in steps], latest_checkpoint=latest,
+        restored_step=step, restored_finite=finite, fed_partitions=fed,
+        shutdown_error=shut_err, trainer_alive=alive,
+        halt_event=events.get("health/halt", {}).get("attrs"),
+        nan_event=events.get("health/nan", {}).get("attrs"),
+        rings_left=seen["rings_left"], total_s=total_s, gpu=gpu)
+    print("obs_halt " + json.dumps(summary, default=str), flush=True)
+    bad = HALT["nan_step"]
+    if latest != bad - 1 or step != bad - 1 or not finite or \
+            shut_err is not None or alive or summary["rings_left"] or \
+            summary["halt_event"] is None or summary["nan_event"] is None \
+            or summary["nan_event"].get("step") != bad:
+        raise AssertionError(f"obs_halt: {summary}")
+
+
+def _where(it):
+    list(it)
+    return [int(os.environ["TFOS_EXECUTOR_INDEX"])]
+
+
+def phase_engine_outside_kill(gpu):
+    """Phase 37: on the card's host, no CUDA: executor 1 of a fresh
+    two-executor engine SIGKILLed from outside while it waits on its
+    inbox; ``ensure_executors`` respawns it, a spread job's task 1 runs
+    on it and a shared-queue job of four tasks finishes, within 60 s;
+    the time from the kill to the shared job's end is the heal."""
+    import signal
+
+    engine = LocalEngine(2)
+    try:
+        engine.parallelize(range(2), 2).map_partitions(_where) \
+            .collect(spread=True)
+        time.sleep(0.2)
+        victim = engine._procs[1].pid
+        t0 = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        engine._procs[1].join(10)
+        respawned = engine.ensure_executors()
+        res, errs = {}, []
+
+        def jobs():
+            try:
+                res["spread"] = engine.parallelize(range(2), 2) \
+                    .map_partitions(_where).collect(spread=True)
+                res["shared"] = engine.parallelize(range(4), 4) \
+                    .map_partitions(_where).collect()
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        t = threading.Thread(target=jobs, daemon=True)
+        t.start()
+        t.join(60)
+        heal_s = time.perf_counter() - t0
+        summary = dict(victim=victim, respawned=respawned,
+                       new_pid=engine._procs[1].pid, heal_s=heal_s,
+                       hung=t.is_alive(), errors=[repr(e) for e in errs],
+                       **res, gpu=gpu)
+    finally:
+        engine.stop()
+    print("engine_outside_kill " + json.dumps(summary), flush=True)
+    if summary["hung"] or errs or respawned != [1] or \
+            res.get("spread") != [0, 1] or len(res.get("shared", ())) != 4:
+        raise AssertionError(f"engine_outside_kill: {summary}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4781,8 +5212,17 @@ def main():
             faults.EXECUTOR_ENV: "1", telemetry.DIR_ENV: tdirs[1]})
     finally:
         os.environ.pop("TFOS_EXECUTOR_RESPAWNS")
+    # phase 36: engines of their own, whose executors (and so trainers)
+    # run under the plane's gates, 36b's with the NaN plan and the halt
+    tdirs += [tempfile.mkdtemp(prefix="tfos_obs_telemetry_")
+              for _ in range(2)]
+    engine_obs = LocalEngine(1, env=dict(OBS_ENV,
+                                         **{telemetry.DIR_ENV: tdirs[2]}))
+    engine_halt = LocalEngine(1, env=dict(HALT_ENV,
+                                          **{telemetry.DIR_ENV: tdirs[3]}))
     engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
-               engine_pred, engine_roles, engine_recover, engine_elastic)
+               engine_pred, engine_roles, engine_recover, engine_elastic,
+               engine_obs, engine_halt)
     try:
         kernels = run_phases(dev, gpu, *engines, tdirs=tdirs)
     finally:
@@ -4800,7 +5240,7 @@ def main():
 
 def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
                engine_fit, engine_pred, engine_roles, engine_recover,
-               engine_elastic, tdirs):
+               engine_elastic, engine_obs, engine_halt, tdirs):
     """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
@@ -4830,7 +5270,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     bwd_case = phase_flash_bwd(dev)
     rms_case = phase_rmsnorm(dev)
     launches, train = phase_train(dev, gpu)
-    spark_launches = phase_spark_train(engine, gpu, train)
+    spark_launches, spark = phase_spark_train(engine, gpu, train)
     phase_grad_exact(dev)
     phase_serving(dev, gpu)
     phase_exact(dev)
@@ -4914,6 +5354,14 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
                                            tdirs[1])
     engine_elastic.stop()
     phase_elastic_exact(dev)
+    # the observability plane on the main path (36a, its launches
+    # counted in its trainer), the health halt (36b) and the plane's
+    # cost against phase 6 (36c); the outside kill on the host (37)
+    obs_launches = phase_obs(dev, engine_obs, gpu, tdirs[2], spark)
+    engine_obs.stop()
+    phase_obs_halt(dev, engine_halt, gpu, tdirs[3])
+    engine_halt.stop()
+    phase_engine_outside_kill(gpu)
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -4989,6 +5437,8 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         # phases 34 and 35: every trainer incarnation's own counts
         k["launches_recover"] = recover_launches[k["name"]]
         k["launches_elastic"] = elastic_launches[k["name"]]
+        # phase 36a's observed trainer
+        k["launches_obs"] = obs_launches.get(k["name"], 0)
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")

@@ -38,6 +38,10 @@ setup(
             "tfos-top=tensorflowonspark_tpu.obs.top:main",
             # flight-recorder dump assembly (docs/telemetry.md)
             "tfos-postmortem=tensorflowonspark_tpu.obs.postmortem:main",
+            # the PyTorch/CUDA port's cluster view and postmortem
+            "tfos-top-torch=tensorflowonspark_tpu_torch.obs.top:main",
+            "tfos-postmortem-torch="
+            "tensorflowonspark_tpu_torch.obs.postmortem:main",
         ],
     },
 )

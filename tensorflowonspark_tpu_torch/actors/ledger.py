@@ -145,6 +145,11 @@ class DeliveryLedger:
         with self._lock:
             return sorted(self._done.get(str(feed), ()))
 
+    def counts(self):
+        """``{feed: units done}`` for every feed, by name."""
+        with self._lock:
+            return {f: len(u) for f, u in sorted(self._done.items())}
+
     def reset(self, feed):
         """Forget ``feed``'s done-set (each ``train()`` owns one scope)."""
         with self._lock:

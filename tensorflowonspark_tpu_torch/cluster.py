@@ -1,7 +1,6 @@
 """Driver-side cluster orchestration.
 
-An own copy of ``tensorflowonspark_tpu/cluster.py``, less the
-observability planes: ``run()`` computes the cluster template
+An own copy of ``tensorflowonspark_tpu/cluster.py``: ``run()`` computes the cluster template
 (which executor is ps, evaluator, chief or worker), starts the
 rendezvous server, launches one node per executor on a background
 thread (and ps nodes on driver threads with ``driver_ps_nodes``) and
@@ -31,10 +30,18 @@ fold the missing devices into gradient accumulation
 Arguments the copy does not carry raise NotImplementedError naming
 their ROADMAP.md item: the data service and streaming feeds, and a
 trainer process chosen apart from ``input_mode``.  ``serve()`` stands up the
-online serving tier on the cluster's engine after ``shutdown()``.  The
-live metrics endpoint and the telemetry drain are left out too (item
-21): with ``TFOS_TELEMETRY_DIR`` set, every process writes its spans
-straight into that directory.
+online serving tier on the cluster's engine after ``shutdown()``.
+
+Observability, as in the JAX package: with ``TFOS_TELEMETRY_DIR`` set
+the driver records as ``driver`` and roots the run's trace
+(``cluster/run``, exported on ``TFOS_TRACE_PARENT``), each node spools
+into a directory of its own, and ``shutdown()`` drains every spool and
+flight dump, the driver's own records too, into
+``<TFOS_TELEMETRY_DIR>/run-<cluster id>/`` (on the clean and the error
+path alike).  With ``TFOS_OBS_PORT`` set, ``run()`` starts the driver's
+``obs.ObsServer`` (``TFCluster.obs``: ``/metrics``, ``/healthz``,
+``/statusz``, ``/slo``, ``POST /profilez`` and ``/flightz``), which
+``shutdown()`` stops last.
 """
 
 from __future__ import annotations
@@ -95,6 +102,7 @@ class TFCluster:
     _template0 = None   # the first incarnation's template
     _launcher = None
     _driver_ps = ()     # threads of the ps nodes hosted by the driver
+    obs = None          # the ObsServer, with TFOS_OBS_PORT set
 
     def train(self, dataset, num_epochs=1, feed_timeout=600, qname="input"):
         """Feed ``dataset`` into the trainers.  Epochs are the dataset
@@ -103,6 +111,9 @@ class TFCluster:
         every trainer gets a balanced share; a
         partition counts as fed once its trainer consumed it (the
         rendezvous server's feed ledger, ``server.fed_partitions``).
+        A re-feed deals the partitions the ledger does not hold round
+        robin over the compute nodes, in order, so the trainers' shares
+        differ by one partition at most, as in a fresh job over them.
 
         With ``run(restarts=N)`` this call supervises the job: a lost
         executor fails the feed job, :meth:`_recover` brings the next
@@ -131,11 +142,10 @@ class TFCluster:
                             "consumed: %s", len(done), sorted(done))
             feeder = node.train(self.cluster_info, self.cluster_meta,
                                 feed_timeout, qname, skip=done)
-            ids = self._feed_ids
             try:
                 ds.foreach_partition(
-                    feeder, placement=[ids[i % len(ids)]
-                                       for i in range(ds.num_partitions)],
+                    feeder, placement=_feed_placement(
+                        ds.num_partitions, done, self._feed_ids),
                     retryable=self.restarts > 0)
                 return
             except (engine_mod.TaskError, RuntimeError, TimeoutError) as e:
@@ -315,34 +325,108 @@ class TFCluster:
         watchdog = threading.Timer(timeout, _watchdog)
         watchdog.daemon = True
         watchdog.start()
+        drained = []
+
+        def _drain_once():
+            # one drain a shutdown, clean or failed: a failed run's
+            # timeline is the one most worth keeping
+            if not drained:
+                drained.append(True)
+                try:
+                    self._drain_telemetry()
+                except Exception as e:  # noqa: BLE001 - best effort
+                    logger.warning("telemetry drain failed: %s", e)
+
         try:
-            t0 = time.perf_counter()
-            ids = list(self._feed_ids)
-            if ids:
-                self.engine.parallelize(ids, len(ids)).foreach_partition(
-                    node.shutdown(self.cluster_info, self.queues,
-                                  grace_secs),
-                    placement=ids)
-            # ps and evaluator nodes hold their slots until told to stop,
-            # so the launcher's job ends only after this
-            for m in self.cluster_info:
-                if m["job_name"] in node.SIDE_JOBS:
-                    _stop_remote_node(m)
-            if self._launcher is not None:
-                self._launcher.join(timeout=timeout)
-            for t in self._driver_ps:
-                t.join(timeout=timeout)
-            telemetry.record_span("cluster/shutdown",
-                                  time.perf_counter() - t0)
-            if tf_status.get("error"):
-                logger.error("cluster failed: %s", tf_status["error"])
-                self.engine.cancel_all_jobs()
-                sys.exit(1)
+            with telemetry.span("cluster/shutdown", grace_secs=grace_secs):
+                try:
+                    ids = list(self._feed_ids)
+                    if ids:
+                        self.engine.parallelize(ids, len(ids)) \
+                            .foreach_partition(
+                                node.shutdown(self.cluster_info,
+                                              self.queues, grace_secs),
+                                placement=ids)
+                    # ps and evaluator nodes hold their slots until told
+                    # to stop, so the launcher's job ends only after this
+                    for m in self.cluster_info:
+                        if m["job_name"] in node.SIDE_JOBS:
+                            _stop_remote_node(m)
+                    if self._launcher is not None:
+                        self._launcher.join(timeout=timeout)
+                    for t in self._driver_ps:
+                        t.join(timeout=timeout)
+                except BaseException:
+                    _drain_once()
+                    raise
+                _drain_once()
+                if tf_status.get("error"):
+                    logger.error("cluster failed: %s", tf_status["error"])
+                    telemetry.event("cluster/error",
+                                    error=str(tf_status["error"])[:500])
+                    self.engine.cancel_all_jobs()
+                    sys.exit(1)
         finally:
             watchdog.cancel()
+            if self.obs is not None:
+                try:
+                    self.obs.stop()
+                except Exception:  # noqa: BLE001 - teardown
+                    pass
+                self.obs = None
             self.server.stop()
             telemetry.flush()
         logger.info("cluster shut down")
+
+    def _drain_telemetry(self):
+        """Collect every node's spools and flight dumps, and the driver's
+        own records, into ``telemetry.run_dir(cluster id)``; returns the
+        directory, or None when telemetry is off.  The executor half is
+        ``node.drain_telemetry``, run on every node's executor that is
+        alive."""
+        from tensorflowonspark_tpu_torch.obs import flight
+
+        rdir = telemetry.run_dir(self.meta["id"])
+        if rdir is None:
+            return None
+        alive = set(getattr(self.engine, "alive_executors",
+                            lambda: self._node_ids)())
+        ids = [i for i in self._node_ids if i in alive]
+        with telemetry.span("cluster/telemetry_drain",
+                            executors=len(ids)) as sp:
+            rows = self.engine.parallelize(ids, len(ids)).map_partitions(
+                node.drain_telemetry(self.cluster_info)).collect(
+                    placement=ids) if ids else []
+            os.makedirs(rdir, exist_ok=True)
+            for executor_id, name, text in rows:
+                # a dump keeps its name, which postmortem tools glob for
+                if not name.startswith(flight.PREFIX):
+                    name = f"exec{executor_id}-{name}"
+                with open(os.path.join(rdir, name), "a",
+                          encoding="utf-8") as f:
+                    f.write(text)
+            # the driver's file, as it stands now
+            telemetry.flush()
+            own = telemetry.sink_path()
+            for name, text in telemetry.read_spool(os.path.dirname(own)):
+                if name == os.path.basename(own):
+                    with open(os.path.join(rdir, name), "w",
+                              encoding="utf-8") as f:
+                        f.write(text)
+            sp.add(files=len(rows))
+        logger.info("telemetry: drained %d node files into %s", len(rows),
+                    rdir)
+        return rdir
+
+
+def _feed_placement(n, done, ids):
+    """The executor of each of ``n`` partitions: those not in ``done``
+    dealt round robin over ``ids`` in partition order; a partition in
+    ``done`` (its feeder only drains it) goes where its index names."""
+    placement = [ids[i % len(ids)] for i in range(n)]
+    for k, i in enumerate(i for i in range(n) if i not in done):
+        placement[i] = ids[k % len(ids)]
+    return placement
 
 
 def _manager_candidates(m):
@@ -529,6 +613,11 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         raise ValueError("num_ps must be less than num_executors (or use "
                          "driver_ps_nodes)")
     start_t0 = time.perf_counter()
+    if os.environ.get(telemetry.DIR_ENV):
+        # the driver's identity before any node runs in this process
+        # (driver ps nodes keep it), and the run's root trace
+        telemetry.configure(node_id="driver", role="driver")
+        telemetry.trace_root(telemetry.CLUSTER_RUN, executors=num_executors)
     eng = engine_mod.as_engine(sc)
     queues = list(queues)
     if num_executors > eng.num_executors:
@@ -608,6 +697,10 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         server.stop()
         raise
     telemetry.record_span("cluster/start", time.perf_counter() - start_t0,
+                          cluster=f"{cluster_meta['id'] & 0xffffffff:x}",
                           executors=num_executors,
                           nodes=len(c.cluster_info))
+    from tensorflowonspark_tpu_torch import obs
+
+    c.obs = obs.start_for_cluster(c)
     return c

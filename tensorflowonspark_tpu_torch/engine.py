@@ -4,10 +4,14 @@ An own copy of the part of ``tensorflowonspark_tpu/engine.py`` that the
 SPARK-fed training path and the TFRecord loaders call: ``LocalEngine``,
 a pool of executor *processes* on this host, and ``LocalDataset``, its
 partitioned dataset (``parallelize``, ``map_partitions``, ``union``,
-``foreach_partition``, ``collect``, ``repartition``).  Node-placement
-jobs run ``spread=True`` or with an explicit ``placement`` (task i on
-executor i's own inbox); other jobs go to a shared queue that any free
-executor pulls from.
+``foreach_partition``, ``collect``, ``repartition``).  Every executor
+reads its own inbox only.  Node-placement jobs run ``spread=True`` or
+with an explicit ``placement`` (task i on executor i's inbox); other
+jobs' tasks wait in a shared queue on the driver, which hands each to
+the inbox of an executor that has nothing queued or running.  A process
+killed while it waits on a queue keeps that queue's reader lock, so a
+respawned executor gets a fresh inbox, and the tasks that were queued
+for the dead one and not yet started follow it there.
 
 ``map_partitions`` is lazy: a dataset carries, for each partition, its
 items and the chain of functions to run over them (``Lineage``), and
@@ -41,6 +45,11 @@ Differences from the JAX package:
   shrink (``cluster.run(min_executors=)``) reads ``alive_executors`` and
   takes dead slots out of the pool with ``retire_executors``: a retired
   slot is never respawned and spread jobs skip it.
+- No inbox is read by more than one process, and none outlives its
+  reader: the JAX package's executors also poll one inbox they all
+  share and keep theirs across a respawn, so an executor killed from
+  outside while it waits leaves a reader lock taken for good (ROADMAP.md
+  queue 3, repaired in the port).
 - ``SparkEngine`` and ``SparkDataset`` adapt a pyspark ``SparkContext``
   and its RDDs, as in the JAX package; ``as_engine`` and ``as_dataset``
   take them.  Spark ships tasks with its own serializer, but the
@@ -52,6 +61,7 @@ Differences from the JAX package:
 from __future__ import annotations
 
 import atexit
+import collections
 import contextlib
 import logging
 import multiprocessing as mp
@@ -65,7 +75,11 @@ import time
 import traceback
 
 from tensorflowonspark_tpu_torch.actors import supervise as _supervise
-from tensorflowonspark_tpu_torch.utils import faults, telemetry
+from tensorflowonspark_tpu_torch.utils import (
+    faults,
+    metrics_registry,
+    telemetry,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -83,8 +97,11 @@ task_report = {}
 # Executor worker process
 # ----------------------------------------------------------------------------
 
-def _executor_main(index, workdir, shared_inbox, own_inbox, results):
-    """Executor process loop: pull a task, run it, report the result."""
+def _executor_main(index, incarnation, workdir, inbox, results):
+    """Executor process loop: take a task from this executor's own inbox,
+    run it, report the result.  Every result names the executor and its
+    incarnation, so the driver can tell a dead incarnation's late
+    answers from the live one's."""
     os.chdir(workdir)
     os.environ["TFOS_EXECUTOR_INDEX"] = str(index)
     # an executor is never the driver: shed any telemetry identity and
@@ -93,22 +110,17 @@ def _executor_main(index, workdir, shared_inbox, own_inbox, results):
     os.environ.pop(telemetry.NODE_ENV, None)
     os.environ.pop(telemetry.SPOOL_ENV, None)
     os.environ[telemetry.ROLE_ENV] = "executor"
+    who = (index, incarnation)
     try:
         t_wait = time.perf_counter()  # since the previous task ended
         while True:
-            try:
-                msg = own_inbox.get(timeout=0.02)
-            except _queue.Empty:
-                try:
-                    msg = shared_inbox.get(timeout=0.02)
-                except _queue.Empty:
-                    continue
+            msg = inbox.get()
             if msg[0] == "stop":
                 break
-            _, job_id, task_id, blob = msg
+            _, job_id, task_id, blob, trace = msg
             # start-ack before running: the driver re-dispatches exactly
             # the tasks that were running on an executor that dies
-            results.put(("start", job_id, task_id, index, None))
+            results.put(("start", job_id, task_id, who, None))
             # the feeder recovers its partition number from this (the
             # engine's analogue of pyspark's TaskContext.partitionId())
             os.environ["TFOS_PARTITION_INDEX"] = str(task_id)
@@ -124,16 +136,31 @@ def _executor_main(index, workdir, shared_inbox, own_inbox, results):
                     f"{1e3 * (time.perf_counter() - t_got):.3f}"
                 task_report.clear()
                 task_report["lineage_ms"] = []
-                if lineage is not None:
-                    items = lineage.run(items, task_report["lineage_ms"])
-                out = fn(iter(items)) if fn is not None else items
-                # pickled here: an unpicklable result fails this task,
-                # not the results pipe every job shares
-                payload = (pickle.dumps(list(out)) if collect
-                           and out is not None else None)
-                results.put(("ok", job_id, task_id, index, payload))
+                # the dispatcher's trace, for the task's records and, on
+                # the env, for the processes it forks (a trainer)
+                prev = os.environ.get(telemetry.TRACE_ENV)
+                if trace is not None:
+                    os.environ[telemetry.TRACE_ENV] = trace
+                try:
+                    with telemetry.activate(trace), telemetry.span(
+                            "engine/task", job=job_id, task=task_id):
+                        if lineage is not None:
+                            items = lineage.run(items,
+                                                task_report["lineage_ms"])
+                        out = fn(iter(items)) if fn is not None else items
+                        # pickled here: an unpicklable result fails this
+                        # task, not the results pipe every job shares
+                        payload = (pickle.dumps(list(out)) if collect
+                                   and out is not None else None)
+                finally:
+                    if trace is not None:
+                        if prev is None:
+                            os.environ.pop(telemetry.TRACE_ENV, None)
+                        else:
+                            os.environ[telemetry.TRACE_ENV] = prev
+                results.put(("ok", job_id, task_id, who, payload))
             except BaseException:  # noqa: BLE001 - report any task failure
-                results.put(("error", job_id, task_id, index,
+                results.put(("error", job_id, task_id, who,
                              traceback.format_exc()))
             t_wait = time.perf_counter()
     finally:
@@ -243,13 +270,16 @@ class LocalDataset:
                               placement=placement, retryable=retryable,
                               max_retries=max_retries)
 
-    def collect(self, spread=False, retryable=False, max_retries=None):
+    def collect(self, spread=False, retryable=False, max_retries=None,
+                placement=None):
         """Every partition's items after its lineage, in partition
-        order, through the driver.  ``retryable`` as in
-        :meth:`foreach_partition`, for idempotent lineages only."""
+        order, through the driver.  ``spread``, ``placement`` and
+        ``retryable`` as in :meth:`foreach_partition` (``retryable`` for
+        idempotent lineages only)."""
         parts = self._engine._run_job([(items, None, chain)
                                        for items, chain in self._tasks],
                                       collect=True, spread=spread,
+                                      placement=placement,
                                       retryable=retryable,
                                       max_retries=max_retries)
         return [x for p in parts for x in (p or [])]
@@ -318,9 +348,18 @@ class LocalEngine:
         self._ctx = mp.get_context("spawn")
         self._env = dict(env) if env else {}
         self._root = tempfile.mkdtemp(prefix="tfos_engine_")
-        self._shared_inbox = self._ctx.Queue()
         self._results = self._ctx.Queue()
-        self._own_inboxes = []
+        # one inbox an executor, read by it alone, and replaced at each
+        # respawn: a process killed while it waits in ``get`` keeps the
+        # queue's reader lock, so no later reader could take from it.
+        # Work any executor may run waits in ``_shared`` on the driver,
+        # which hands it to an idle executor's inbox (``_feed_idle``).
+        self._inboxes = []
+        self._incarnation = []
+        self._queued = []    # per slot: (job, task) -> (msg, pinned), unstarted
+        self._running = []   # per slot: the (job, task) started, unfinished
+        self._shared = collections.deque()
+        self._dispatch_lock = threading.Lock()
         self._procs = []
         self._job_counter = 0
         self._job_lock = threading.Lock()
@@ -348,7 +387,10 @@ class LocalEngine:
                 d = os.path.join(self._root, f"executor-{i}")
                 os.makedirs(d, exist_ok=True)
                 self.executor_dirs.append(d)
-                self._own_inboxes.append(self._ctx.Queue())
+                self._inboxes.append(self._ctx.Queue())
+                self._incarnation.append(0)
+                self._queued.append({})
+                self._running.append(set())
                 self._procs.append(self._spawn_executor(i))
         # concurrent jobs (the node launcher and a feeder) share one
         # results pipe; the pump sorts results by job
@@ -356,16 +398,18 @@ class LocalEngine:
                                       name="tfos-result-pump", daemon=True)
         self._pump.start()
         atexit.register(self.stop)
+        metrics_registry.set_gauge("tfos_engine_executors",
+                                   self.num_executors)
         logger.info("LocalEngine started %d executors under %s",
                     self.num_executors, self._root)
 
     def _spawn_executor(self, index):
         """Start executor ``index``'s process on its inbox and working
-        dir (a respawn reuses both, so queued tasks survive it)."""
+        dir."""
         p = self._ctx.Process(
             target=_executor_main,
-            args=(index, self.executor_dirs[index], self._shared_inbox,
-                  self._own_inboxes[index], self._results),
+            args=(index, self._incarnation[index], self.executor_dirs[index],
+                  self._inboxes[index], self._results),
             name=f"tfos-executor-{index}",
             # not a daemon: an executor forks the trainer and the IPC
             # manager's server
@@ -395,10 +439,45 @@ class LocalEngine:
             _supervise.reap_orphans([self.executor_dirs[index]],
                                     what=f"child of dead executor {index}")
             self._budget.consume(index)
+            with self._dispatch_lock:
+                old = self._inboxes[index]
+                self._inboxes[index] = self._ctx.Queue()
+                self._incarnation[index] += 1
+                # started tasks are the jobs' to retry or fail; the
+                # unstarted ones of live jobs go to the new incarnation
+                # (pinned) or back to the shared queue
+                self._running[index].clear()
+                queued, self._queued[index] = self._queued[index], {}
+                with self._job_lock:
+                    live = set(self._job_queues)
+                for key, (msg, pinned) in queued.items():
+                    if key[0] not in live:
+                        continue
+                    if pinned:
+                        self._queued[index][key] = (msg, True)
+                        self._inboxes[index].put(msg)
+                    else:
+                        self._shared.appendleft(msg)
+            with contextlib.suppress(OSError, ValueError):
+                old.cancel_join_thread()
+                old.close()
             with _patched_env(self._env):
                 self._procs[index] = self._spawn_executor(index)
         telemetry.event("engine/executor_respawn", executor=index,
                         respawns=self._budget.used)
+        try:  # the flight ring's last seconds; never blocks a respawn
+            from tensorflowonspark_tpu_torch.obs import flight
+
+            flight.snapshot("engine/executor_respawn",
+                            node=f"executor-{index}",
+                            reason=f"respawn {self._budget.used}/"
+                                   f"{self._budget.budget}")
+        except Exception:  # noqa: BLE001 - dumps are best-effort
+            logger.debug("flight snapshot failed", exc_info=True)
+        metrics_registry.inc("tfos_engine_respawns_total")
+        metrics_registry.set_gauge("tfos_engine_executors",
+                                   len(self.alive_executors()))
+        self._feed_idle()
         logger.warning("respawned executor %d (%d/%d respawns used)",
                        index, self._budget.used, self._budget.budget)
         return True
@@ -424,6 +503,7 @@ class LocalEngine:
         them."""
         self._retired = {int(i) for i in indices}
         telemetry.event("engine/retire", retired=sorted(self._retired))
+        self._feed_idle()
         if self._retired:
             logger.warning("engine: retired executor slot(s) %s",
                            sorted(self._retired))
@@ -447,6 +527,32 @@ class LocalEngine:
         """Abort every running and later job."""
         self._cancelled = True
 
+    def _send(self, index, msg, pinned):
+        """Put ``msg`` on executor ``index``'s inbox, kept until the
+        executor acks its start, so that a respawn hands it on.  Call
+        under ``_dispatch_lock``."""
+        self._queued[index][(msg[1], msg[2])] = (msg, pinned)
+        self._inboxes[index].put(msg)
+
+    def _feed_idle(self):
+        """Hand shared-queue tasks, oldest first, to every live slot in
+        the pool that has nothing queued or running; a task of a job
+        that has ended is dropped."""
+        with self._dispatch_lock:
+            with self._job_lock:
+                live = set(self._job_queues)
+            for i, p in enumerate(self._procs):
+                if not self._shared:
+                    return
+                if (i in self._retired or self._queued[i]
+                        or self._running[i] or not p.is_alive()):
+                    continue
+                while self._shared:
+                    msg = self._shared.popleft()
+                    if msg[1] in live:
+                        self._send(i, msg, pinned=False)
+                        break
+
     def _pump_results(self):
         while not self._stopped:
             try:
@@ -455,10 +561,22 @@ class LocalEngine:
                 continue
             except (OSError, EOFError, ValueError):
                 break
+            status, job_id, task_id, (index, incarnation), payload = item
+            key = (job_id, task_id)
+            with self._dispatch_lock:
+                # a dead incarnation's late answer changes no slot
+                if incarnation == self._incarnation[index]:
+                    if status == "start":
+                        self._queued[index].pop(key, None)
+                        self._running[index].add(key)
+                    else:
+                        self._running[index].discard(key)
+            if status != "start":
+                self._feed_idle()
             with self._job_lock:
-                q = self._job_queues.get(item[1])
+                q = self._job_queues.get(job_id)
             if q is not None:
-                q.put(item)
+                q.put((status, job_id, task_id, index, payload))
 
     def _run_job(self, tasks, collect=False, spread=False, placement=None,
                  retryable=False, max_retries=None):
@@ -474,9 +592,17 @@ class LocalEngine:
             my_results = _queue.Queue()
             self._job_queues[job_id] = my_results
         try:
-            return self._run_job_inner(tasks, collect, spread, placement,
-                                       job_id, my_results, retryable,
-                                       max_retries)
+            with telemetry.span("engine/job", job=job_id, tasks=len(tasks),
+                                spread=bool(spread or placement is not None),
+                                retryable=bool(retryable)):
+                out = self._run_job_inner(tasks, collect, spread, placement,
+                                          job_id, my_results, retryable,
+                                          max_retries)
+            metrics_registry.inc("tfos_engine_jobs_total", status="ok")
+            return out
+        except BaseException:
+            metrics_registry.inc("tfos_engine_jobs_total", status="error")
+            raise
         finally:
             with self._job_lock:
                 self._job_queues.pop(job_id, None)
@@ -515,22 +641,26 @@ class LocalEngine:
                               "bytes": sum(map(len, blobs)),
                               "max_bytes": max(map(len, blobs), default=0)}
 
+        ctx = telemetry.current()
+        trace = ctx.to_header() if ctx is not None else None
+
         def dispatch(task_id):
-            msg = ("task", job_id, task_id, blobs[task_id])
+            msg = ("task", job_id, task_id, blobs[task_id], trace)
             target = self._target(task_id, spread, placement)
             if target is None:
-                self._shared_inbox.put(msg)
+                with self._dispatch_lock:
+                    self._shared.append(msg)
+                self._feed_idle()
                 return
             if not self._procs[target].is_alive():
                 if not retryable:
                     raise TaskError(
                         f"cannot place task {task_id} on executor "
                         f"{target}: executor process is dead")
-                # heal the slot: the inbox survives, so the respawned
-                # executor picks this message up
                 self._respawn_executor(target)
                 dead_at_start.discard(target)
-            self._own_inboxes[target].put(msg)
+            with self._dispatch_lock:
+                self._send(target, msg, pinned=True)
 
         sched = _supervise.RetrySchedule(max_retries, self._retry_backoff)
         running = {}    # task_id -> executor (start-acked)
@@ -541,14 +671,19 @@ class LocalEngine:
             backoff, or raise ``subject``, ``reason`` and the earlier
             attempts' reasons once the task's retries are spent."""
             sched.record_failure(tid, reason)
+            metrics_registry.inc("tfos_engine_tasks_total", status="error")
             running.pop(tid, None)
             if sched.exhausted(tid):
+                if retryable:
+                    telemetry.event("engine/task_poison", job=job_id,
+                                    task=tid, attempts=sched.attempt(tid) + 1)
                 raise TaskError(sched.permanent_error(tid, subject))
             delay = sched.next_delay(tid)
             retry_at[tid] = time.monotonic() + delay
             telemetry.event("engine/task_retry", job=job_id, task=tid,
                             attempt=sched.attempt(tid),
                             delay_ms=int(delay * 1000))
+            metrics_registry.inc("tfos_engine_task_retries_total")
             logger.warning("task %d of job %d failed (attempt %d of %d); "
                            "retrying in %.2fs", tid, job_id,
                            sched.attempt(tid), max_retries + 1, delay)
@@ -604,6 +739,7 @@ class LocalEngine:
                 results[tid] = pickle.loads(payload)
             done[tid] = True
             ndone += 1
+            metrics_registry.inc("tfos_engine_tasks_total", status="ok")
         return results
 
     def stop(self):
@@ -611,13 +747,13 @@ class LocalEngine:
         if self._stopped:
             return
         self._stopped = True
-        for inbox in self._own_inboxes:
+        for inbox in self._inboxes:
             try:
                 inbox.put(("stop",))
             except (OSError, ValueError):
                 pass
         # never block interpreter exit on a flush to a dead reader
-        for q in (self._shared_inbox, self._results, *self._own_inboxes):
+        for q in (self._results, *self._inboxes):
             try:
                 q.cancel_join_thread()
             except (OSError, ValueError):
@@ -685,9 +821,10 @@ class SparkDataset:
         else:
             self.rdd.foreachPartition(fn)
 
-    def collect(self, spread=False, retryable=False, max_retries=None):
+    def collect(self, spread=False, retryable=False, max_retries=None,
+                placement=None):
         del retryable, max_retries
-        if spread:
+        if spread or placement is not None:
             return self.rdd.barrier().mapPartitions(_identity).collect()
         return self.rdd.collect()
 

@@ -189,7 +189,7 @@ def main_fun(args, ctx):
     from tensorflowonspark_tpu_torch.models import transformer as T
     from tensorflowonspark_tpu_torch.ops import attention, norm
     from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
-    from tensorflowonspark_tpu_torch.utils import metrics
+    from tensorflowonspark_tpu_torch.utils import metrics, train
 
     cfg = T.Config(**args["config"])
     env = ctx.torch_initialize(args.get("device"), backend=args.get(
@@ -245,7 +245,8 @@ def main_fun(args, ctx):
     tm = metrics.TrainMetrics(
         flops_per_item=metrics.transformer_flops_per_token(cfg, causal=True),
         device=dev)
-    feed_tm = metrics.TrainMetrics()  # accumulates the DataFeed's waits
+    # accumulates the DataFeed's waits
+    feed_tm = metrics.TrainMetrics(health=False)
     feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm)
     batches = iter(infeed.synchronized(infeed.device_feed(
         feed, per_proc, collate=collate, placement=dev), feed=feed))
@@ -255,6 +256,10 @@ def main_fun(args, ctx):
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms, first_step_wall, saved = [], [], None, None
+    # host time from one step's end to the next's: the step as the
+    # loop sees it (the wait for the batch, the step, the probe's read,
+    # TrainMetrics and its health monitor)
+    step_wall_ms, last_end = [], None
     while True:
         # the host's wait for the next staged batch: infeed_stall_frac
         t_wait = time.perf_counter()
@@ -271,6 +276,10 @@ def main_fun(args, ctx):
             start.record()
         t0 = time.perf_counter()
         loss = train_step(params, opt, batch, cfg, vg, ce_impl)
+        # the watchtower's gradient probe (TFOS_HEALTH_GRADNORM=1, else
+        # None), on the card, inside the step's timing
+        probe = train.health_probe(loss.detach(), [
+            p.grad for p in param_leaves(params)])
         if cuda:
             end.record()
         losses.append(loss.item())  # waits for the step
@@ -279,7 +288,13 @@ def main_fun(args, ctx):
             step_ms.append(start.elapsed_time(end))
         else:
             step_ms.append(1e3 * (time.perf_counter() - t0))
-        tm.step(items=per_proc * cfg.max_seq, loss=losses[-1])  # tokens
+        tm.step(items=per_proc * cfg.max_seq, loss=losses[-1],  # tokens
+                grad_norm=probe and probe["grad_norm"],
+                grad_finite=probe and probe["finite"])
+        now = time.perf_counter()
+        if last_end is not None:
+            step_wall_ms.append(1e3 * (now - last_end))
+        last_end = now
         step = start_step + len(losses)
         every = args.get("ckpt_every")
         save_ms = None
@@ -314,7 +329,8 @@ def main_fun(args, ctx):
                 "health": env["health"], "losses": losses,
                 "cuda_visible_devices": os.environ.get(
                     "CUDA_VISIBLE_DEVICES"),
-                "step_ms": step_ms, "records": feed.records,
+                "step_ms": step_ms, "step_wall_ms": step_wall_ms,
+                "records": feed.records,
                 "feed": feed.stats(), "feeders": ctx.mgr.get("feed_stats"),
                 "pin": dict(infeed.pin_stats),
                 "launches": {"flash_fwd": attention.launches,

@@ -187,6 +187,8 @@ class DataFeed:
             self.columnar_chunks += 1
         elif isinstance(chunk, list):
             self.row_chunks += 1
+        live = metrics_registry.enabled()
+        dt = None
         if t0 is not None:
             # one measurement feeds both the counter and the span, so the
             # stall fractions they give agree
@@ -194,9 +196,23 @@ class DataFeed:
             if self.metrics is not None:
                 self.metrics.infeed_wait(dt)
             telemetry.record_span("feed/wait", dt, eof=chunk is None)
-        if self._ring is not None and metrics_registry.enabled():
-            metrics_registry.set_gauge("tfos_feed_ring_bytes",
-                                       self._ring.qsize_bytes())
+        if live:
+            if dt is not None:
+                metrics_registry.inc("tfos_feed_wait_seconds_total", dt)
+            metrics_registry.inc("tfos_feed_chunks_total")
+            try:
+                metrics_registry.inc("tfos_feed_records_total", len(chunk))
+            except TypeError:  # end-of-feed, or a marker with no length
+                pass
+            try:  # the depth is best effort
+                if self._ring is not None:
+                    metrics_registry.set_gauge("tfos_feed_ring_bytes",
+                                               self._ring.qsize_bytes())
+                elif self._queue is not None:
+                    metrics_registry.set_gauge("tfos_feed_queue_depth",
+                                               self._queue.qsize())
+            except Exception:  # noqa: BLE001 - a proxy may be gone
+                pass
         return chunk
 
     def stats(self):

@@ -11,8 +11,16 @@ chunks take the node's shm ring instead when it advertises one
 (``feed.open_feed_ring``).
 
 ``mode="remote"`` binds every interface, so that the driver can reach
-a ps or evaluator node's control queue.  Left out: the telemetry-drain
-and live-metrics channels (ROADMAP.md queue 1, item 21).
+a ps or evaluator node's control queue.
+
+Three channels of the observability plane go over the KV, each on keys
+unique to the writer (no read-modify-write across processes): the
+telemetry drain (every process on the executor advertises its spool
+under ``telemetry_spool:<path>``; the driver's drain asks for the set),
+the live metrics (each publisher's registry snapshot under
+``obs:<node id>``, which the driver's ``ObsServer`` polls) and the
+on-demand control plane (one directive slot ``obsctl:<node id>`` that
+the node's publisher pops, and one ack slot ``obsack:<node id>``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,16 @@ logger = logging.getLogger(__name__)
 HEARTBEAT_KEY = "heartbeat"
 HEARTBEAT_SECS = 2.0         # beat cadence
 HEARTBEAT_STALE_SECS = 60.0  # beat age past which the consumer is dead
+
+SPOOL_KEY = "telemetry_spool:"  # + spool path: the drain channel
+OBS_KEY = "obs:"                # + node id: a registry snapshot
+CTL_KEY = "obsctl:"             # + node id: a control directive
+ACK_KEY = "obsack:"             # + node id: the directive's result
+
+
+def stale_after():
+    """Heartbeat age (seconds) past which a consumer counts as dead."""
+    return HEARTBEAT_STALE_SECS
 
 
 def heartbeat_age(mgr):
@@ -82,6 +100,36 @@ class TFManager(BaseManager):
 
     def set(self, key, value):
         self._kv().update({key: value})
+
+    # -- the observability plane's channels
+
+    def telemetry_register(self, path):
+        self._kv().update({SPOOL_KEY + str(path): str(path)})
+
+    def telemetry_spools(self):
+        return sorted(v for k, v in self._kv().items()
+                      if str(k).startswith(SPOOL_KEY))
+
+    def obs_publish(self, node_id, payload):
+        self._kv().update({OBS_KEY + str(node_id): payload})
+
+    def obs_snapshots(self):
+        return {str(k)[len(OBS_KEY):]: v for k, v in self._kv().items()
+                if str(k).startswith(OBS_KEY)}
+
+    def obs_control_post(self, node_id, directive):
+        self._kv().update({CTL_KEY + str(node_id): directive})
+
+    def obs_control_take(self, node_id):
+        """Pop the node's directive: the proxy's ``pop`` is one call in
+        the manager, so a directive is taken once."""
+        return self._kv().pop(CTL_KEY + str(node_id), None)
+
+    def obs_control_ack(self, node_id, result):
+        self._kv().update({ACK_KEY + str(node_id): result})
+
+    def obs_control_result(self, node_id):
+        return self._kv().get(ACK_KEY + str(node_id))
 
     def queue(self, name):
         """Queue ``name``'s proxy, made once for this manager object:

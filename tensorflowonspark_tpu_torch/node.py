@@ -49,13 +49,24 @@ the node registers stamped with it, and its context hands it to
 ``main_fun`` (``ctx.epoch``, ``ctx.restore_latest``,
 ``ctx.elastic_runtime``).  The re-fed ``train`` task drains the
 partitions consumed before the recovery (``skip``) without feeding
-them.  Left out (ROADMAP.md queue 1, item 21): the telemetry drain and
-live metrics.
+them.
+
+Observability: the node pins its processes' telemetry identity
+(``<job>-<task>``) and a spool directory outside the engine's scratch
+(``<TFOS_TELEMETRY_DIR>/spool-<cluster>-<job>-<task>``), which it and
+its trainer advertise in the manager's KV, where ``drain_telemetry``
+finds them at shutdown.  The process that runs ``main_fun`` (the forked
+trainer, whose registry and CUDA context live there) runs the metrics
+publisher (``obs.publish``) beside the heartbeat.  A ``HealthHalt``
+from the health watchtower stops the node cleanly: state
+``terminating`` (feeders drain), no exit barrier, a ``health/halt``
+event.
 """
 
 from __future__ import annotations
 
 import datetime
+import glob
 import json
 import logging
 import multiprocessing
@@ -63,6 +74,7 @@ import os
 import queue as _queue
 import socket
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -447,20 +459,39 @@ def _same_host_index(executor_id):
 
 
 def _run_main(fn, args, ctx, mgr):
-    """The user's ``main_fun`` with the heartbeat, the exit barrier and a
-    final telemetry flush around it."""
+    """The user's ``main_fun`` with the heartbeat, the metrics publisher,
+    the exit barrier and a final telemetry flush around it.  A
+    ``HealthHalt`` (the watchtower's ``halt``, its checkpoint written)
+    stops the node cleanly: state terminating, so that the feeders
+    drain, and no exit barrier."""
+    from tensorflowonspark_tpu_torch.obs import health, publish
+
     if isinstance(args, list):
         sys.argv = args
     hb = tfmanager.start_heartbeat(mgr)
+    obs_id = f"{ctx.job_name}-{ctx.task_index}"
+    pub = publish.start_publisher(mgr, obs_id, role=ctx.job_name)
     try:
-        faults.check("node.main", job=ctx.job_name, task=ctx.task_index)
-        t0 = time.perf_counter()
-        fn(args, ctx)
-        telemetry.record_span("node/main", time.perf_counter() - t0,
-                              job=ctx.job_name, task=ctx.task_index)
+        with telemetry.span("node/main", job=ctx.job_name,
+                            task=ctx.task_index):
+            faults.check("node.main", job=ctx.job_name, task=ctx.task_index)
+            fn(args, ctx)
         ctx.sync_exit_barrier()
+    except health.HealthHalt as e:
+        logger.warning("node %s:%d health halt: %s", ctx.job_name,
+                       ctx.task_index, e)
+        telemetry.event("health/halt", job=ctx.job_name,
+                        task=ctx.task_index, reason=str(e))
+        try:
+            mgr.set("state", "terminating")
+        except Exception:  # noqa: BLE001 - the manager is tearing down
+            pass
     finally:
         hb.set()
+        if pub is not None:
+            pub.set()
+            # the thread's last publish races the exit: land it here
+            publish.publish_once(mgr, obs_id, role=ctx.job_name)
         try:
             ctx._leave_group()  # after a failure: no barrier, just leave
         finally:
@@ -468,8 +499,10 @@ def _run_main(fn, args, ctx, mgr):
 
 
 def _run_background(fn, args, ctx, mgr):
-    """The forked trainer: a failure goes to the error queue, where the
-    feeders and the shutdown task find it."""
+    """The forked trainer: its own spool file advertised for the drain,
+    and a failure put on the error queue, where the feeders and the
+    shutdown task find it."""
+    telemetry.register_with(mgr)
     try:
         _run_main(fn, args, ctx, mgr)
     except Exception:  # noqa: BLE001 - forwarded through the error queue
@@ -568,11 +601,19 @@ class run:  # noqa: N801 - named as the JAX package's node.run
         # reads the env; ps and evaluator nodes own none
         if not side:
             gpu_info.claim_gpus(self.num_gpus, _same_host_index(executor_id))
-        # telemetry identity for this process and the trainer it forks
+        # telemetry identity and spool for this process and the trainer
+        # it forks, outside the engine's scratch (which stop() deletes:
+        # a flight dump written before a crash must survive it)
         if not self.in_driver and \
                 os.environ.get(telemetry.ROLE_ENV) != "driver":
-            os.environ[telemetry.NODE_ENV] = f"{job_name}-{task_index}"
-            os.environ[telemetry.ROLE_ENV] = job_name
+            base = os.environ.get(telemetry.DIR_ENV) or os.path.join(
+                tempfile.gettempdir(), ".tfos_telemetry")
+            telemetry.configure(
+                node_id=f"{job_name}-{task_index}", role=job_name,
+                spool=os.path.join(
+                    os.path.abspath(base),
+                    f"spool-{meta['id'] & 0xffffffff:x}-{job_name}-"
+                    f"{task_index}"))
         faults.check("node.boot", executor=executor_id, job=job_name)
 
         # (3) one node per executor: a live node of this cluster and
@@ -646,6 +687,8 @@ class run:  # noqa: N801 - named as the JAX package's node.run
                     f"cluster-{meta['id'] & 0xffffffff:x}")
                 tb, tb_port = profiler.launch_tensorboard(tb_dir)
                 if tb is not None:
+                    telemetry.event("node/tb_spawn", port=tb_port,
+                                    pid=tb.pid)
                     _NodeState.tb_proc = tb
                     node_meta["tb_port"] = tb_port
                     mgr.set("tb_pid", tb.pid)
@@ -664,6 +707,8 @@ class run:  # noqa: N801 - named as the JAX package's node.run
             # released as late as possible: rank 0's process group binds
             # it next
             tmp_sock.close()
+            # the spool, advertised for the shutdown's drain
+            telemetry.register_with(mgr)
             telemetry.record_span("node/boot",
                                   time.perf_counter() - boot_t0,
                                   executor=executor_id,
@@ -730,15 +775,22 @@ def _raise_if_consumer_lost(mgr, equeue):
 
 def _await_consumption(mgr, waiter, feed_timeout, poll=0.05):
     """Wait while ``waiter()`` is True (data still queued), polling the
-    error queue and the consumer's heartbeat."""
+    error queue and the consumer's heartbeat; True once consumed, False
+    when the node turned ``terminating`` first (its consumer stopped,
+    a health halt among the causes: what is queued stays unconsumed)."""
     equeue = mgr.queue("error")
     deadline = time.monotonic() + feed_timeout
+    polls = 0
     while waiter():
         _raise_if_consumer_lost(mgr, equeue)
         if time.monotonic() > deadline:
             raise TimeoutError("timed out waiting for consumption of "
                                "partition")
+        polls += 1
+        if polls % 20 == 0 and str(mgr.get("state")) == "terminating":
+            return False
         time.sleep(poll)
+    return True
 
 
 def _partition_index():
@@ -958,15 +1010,18 @@ class train:  # noqa: N801 - named as the JAX package's node.train
         telemetry.event("feed/partition_queued", part=pidx, records=total,
                         path=stats["transport"], terminated=terminated)
         if ring is not None:
-            if not terminated:
-                # terminate()'s drain pops while this feeder holds the
-                # producer flock, so the ring always empties
-                _await_consumption(mgr, lambda: ring.qsize_bytes() > 0,
-                                   self.feed_timeout)
+            # terminate()'s drain pops while this feeder holds the
+            # producer flock, so the ring empties, unless the trainer
+            # stopped without draining (a health halt)
+            if not terminated and not _await_consumption(
+                    mgr, lambda: ring.qsize_bytes() > 0, self.feed_timeout):
+                terminated = True
         else:
             joining = threading.Thread(target=queue.join, daemon=True)
             joining.start()
-            _await_consumption(mgr, joining.is_alive, self.feed_timeout)
+            if not _await_consumption(mgr, joining.is_alive,
+                                      self.feed_timeout):
+                terminated = True
         stats["consumed_wall"] = time.time()
 
         # consumed in full, not cut short: into the feed ledger
@@ -1157,3 +1212,40 @@ class shutdown:  # noqa: N801 - named as the JAX package's node.shutdown
         if err is not None:
             raise RuntimeError(f"exception in worker:\n{err}")
         mgr.set("state", "stopped")
+
+
+class drain_telemetry:  # noqa: N801 - named as the JAX package's function
+    """The executor half of the telemetry drain, a ``map_partitions``
+    function: flush this process, then read every spool the node's
+    processes advertised in its manager's KV and return ``(executor_id,
+    name, text)`` rows: each ``*.jsonl`` file (``telemetry.read_spool``)
+    and each flight dump.  Best effort: a drain never fails a
+    shutdown."""
+
+    def __init__(self, cluster_info):
+        self.cluster_info = cluster_info
+
+    def __call__(self, iterator):
+        list(iterator)
+        telemetry.flush()
+        out = []
+        try:
+            executor_id = read_executor_id()
+            spools = _get_manager(self.cluster_info,
+                                  executor_id).telemetry_spools()
+        except Exception as e:  # noqa: BLE001 - the drain is best-effort
+            logger.warning("telemetry drain: no manager/spools: %s", e)
+            return out
+        for spool in spools:
+            out += [(executor_id, name, text)
+                    for name, text in telemetry.read_spool(spool)]
+            for path in sorted(glob.glob(os.path.join(spool,
+                                                      "flight-*.json"))):
+                try:
+                    with open(path, encoding="utf-8",
+                              errors="replace") as f:
+                        out.append((executor_id, os.path.basename(path),
+                                    f.read()))
+                except OSError:
+                    continue
+        return out

@@ -291,16 +291,22 @@ class Server(MessageSocket):
     def await_reservations(self, status=None, timeout=DEFAULT_TIMEOUT):
         """Block until every node registered.  ``status`` is the driver's
         shared dict; an 'error' set by the launcher thread aborts."""
-        deadline = time.time() + timeout
-        while not self.reservations.done():
-            if status and status.get("error"):
-                raise RuntimeError(f"node startup failed: {status['error']}")
-            if time.time() > deadline:
-                raise TimeoutError(
-                    f"timed out waiting for {self.reservations.remaining()} "
-                    f"of {self.reservations.required} reservations")
-            time.sleep(0.05)
-        return self.reservations.get()
+        with telemetry.span("rendezvous/await_reservations",
+                            required=self.reservations.required) as sp:
+            deadline = time.time() + timeout
+            while not self.reservations.done():
+                if status and status.get("error"):
+                    raise RuntimeError(
+                        f"node startup failed: {status['error']}")
+                if time.time() > deadline:
+                    raise TimeoutError(
+                        f"timed out waiting for "
+                        f"{self.reservations.remaining()} of "
+                        f"{self.reservations.required} reservations")
+                time.sleep(0.05)
+            got = self.reservations.get()
+            sp.add(registered=len(got))
+            return got
 
     def stop(self):
         self.done.set()
@@ -361,15 +367,18 @@ class Client(MessageSocket):
         """Register this node, stamped with its cluster epoch.  A REJECT
         (the cluster recovered past this node's incarnation) raises, so
         the task that hosts the node dies."""
-        faults.check("rendezvous.register")
-        reply = self._call({"type": "REG", "data": node_meta,
-                            "epoch": int(epoch)})
-        if reply.get("type") == "REJECT":
-            raise RuntimeError(
-                f"rendezvous registration rejected: node epoch {epoch} "
-                f"!= cluster epoch {reply['data']['epoch']} (stale node "
-                "from a previous cluster incarnation)")
-        return reply
+        meta = node_meta if isinstance(node_meta, dict) else {}
+        with telemetry.span("rendezvous/register", job=meta.get("job_name"),
+                            task=meta.get("task_index"), epoch=epoch):
+            faults.check("rendezvous.register")
+            reply = self._call({"type": "REG", "data": node_meta,
+                                "epoch": int(epoch)})
+            if reply.get("type") == "REJECT":
+                raise RuntimeError(
+                    f"rendezvous registration rejected: node epoch {epoch} "
+                    f"!= cluster epoch {reply['data']['epoch']} (stale node "
+                    "from a previous cluster incarnation)")
+            return reply
 
     def get_reservations(self):
         return self._call({"type": "QINFO"})["data"]
@@ -385,16 +394,22 @@ class Client(MessageSocket):
     def await_reservations(self, timeout=DEFAULT_TIMEOUT):
         """Poll until the cluster is complete, then return every node's
         metadata."""
-        deadline = time.time() + timeout
-        while True:
-            faults.check("rendezvous.query")
-            if self._call({"type": "QUERY"})["data"]:
-                break
-            if time.time() > deadline:
-                raise TimeoutError("timed out awaiting cluster completion")
-            # jittered, so nodes registering together do not poll in step
-            time.sleep(POLL_SECS * (0.5 + random.random()))
-        return self.get_reservations()
+        with telemetry.span("rendezvous/await_cluster_spec") as sp:
+            deadline = time.time() + timeout
+            polls = 0
+            while True:
+                faults.check("rendezvous.query")
+                if self._call({"type": "QUERY"})["data"]:
+                    break
+                polls += 1
+                if time.time() > deadline:
+                    raise TimeoutError("timed out awaiting cluster "
+                                       "completion")
+                # jittered, so nodes registering together do not poll in
+                # step
+                time.sleep(POLL_SECS * (0.5 + random.random()))
+            sp.add(polls=polls)
+            return self.get_reservations()
 
     def request_stop(self):
         try:

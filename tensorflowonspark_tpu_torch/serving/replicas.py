@@ -787,7 +787,31 @@ class ReplicaPool:
                             sessions=moved["gen"], to=self._table.live())
 
     def _record_lost(self, idx, why):
+        """One replica death: the event, and a flight dump with the
+        dispatch table's keys (never a prompt or a blob)."""
         telemetry.event("serve/replica_lost", replica=idx, reason=why)
+        try:  # a dump never blocks the failover
+            from tensorflowonspark_tpu_torch.obs import flight
+
+            flight.snapshot("serve/replica_lost", node=f"replica-{idx}",
+                            reason=why, inflight=self._inflight_summary())
+        except Exception:  # noqa: BLE001 - dumps are best-effort
+            logger.debug("flight snapshot failed", exc_info=True)
+
+    def _inflight_summary(self, limit=32):
+        """The dispatch table in small scalars: kind, id and the
+        session's trace header."""
+        out = []
+        for key in list(self._table.keys())[:limit]:
+            entry = self._table.get(key)
+            if entry is None:
+                continue
+            item = {"kind": key[0], "id": key[1]}
+            sess = entry.get("session") if isinstance(entry, dict) else None
+            if sess is not None and getattr(sess, "trace", None):
+                item["trace"] = sess.trace
+            out.append(item)
+        return out
 
     def _proc_alive(self, idx):
         procs = getattr(self._engine, "_procs", None)

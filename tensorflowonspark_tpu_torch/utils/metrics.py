@@ -112,17 +112,26 @@ def mnist_inference_flops_per_row():
 class TrainMetrics:
     """Windowed counters; cheap enough for the hot loop.
 
-    ``health``: an optional monitor with the reference watchtower's
-    ``observe_step(loss=, step_time_s=, infeed_frac=, grad_norm=,
-    grad_finite=, step=)``; every ``step()`` hands it the step's numbers.
-    The port has no watchtower yet, so the default is none."""
+    Also the feed point of the training-health watchtower
+    (``obs.health``): by default ``obs.health.monitor_from_env()`` rides
+    along (none under ``TFOS_HEALTH=0``); ``health=False`` opts one
+    instance out, and a monitor of the caller's own can carry a
+    ``checkpoint_fn`` for the ``TFOS_HEALTH_ACTION`` reactions.  Every
+    ``step()`` hands it the step's time, the stall fraction and the loss
+    and gradient probe the caller passes; a ``halt`` reaction raises
+    ``obs.health.HealthHalt`` out of ``step()``."""
 
     def __init__(self, flops_per_item=None, device=None, window=50,
                  health=None):
         self.flops_per_item = flops_per_item
         self.window = window
         self._peak = peak_flops(device) if flops_per_item else None
-        self.health = health or None
+        if health is None:
+            from tensorflowonspark_tpu_torch.obs import health as _health
+
+            self.health = _health.monitor_from_env()
+        else:
+            self.health = health or None  # health=False opts out
         self.reset()
 
     def reset(self):

@@ -1,13 +1,9 @@
 """Structured telemetry: per-process span/event records on one schema.
 
-An own copy of the part of ``tensorflowonspark_tpu/utils/telemetry.py``
-that the decode engine, the serving tier, fault injection and
-``TrainMetrics`` call (``activate``, ``enabled``, ``event``,
-``record_span``, ``span``, ``trace_span``, ``flush`` and the
-``SERVE_*`` / ``DECODE_*`` names), with the same env gate and record
-format:
-enabled iff ``TFOS_TELEMETRY_DIR`` is set (a cached no-op otherwise),
-one JSONL file per process, records buffered in a bounded ring::
+An own copy of ``tensorflowonspark_tpu/utils/telemetry.py``, with the
+same env gate and record format: enabled iff ``TFOS_TELEMETRY_DIR`` is
+set (a cached no-op otherwise), one JSONL file per process, records
+buffered in a bounded ring::
 
     {"ts": <epoch s>, "node_id": ..., "role": ...,
      "kind": "span"|"event", "name": ..., "dur_ms": <float>|null,
@@ -16,9 +12,25 @@ one JSONL file per process, records buffered in a bounded ring::
 Under an active W3C-traceparent-shaped context, records carry
 ``trace_id``/``span_id``/``parent_id`` in ``attrs``; a serving request's
 ``traceparent`` header rides its dispatch blob to the replica, whose
-decode spans join the request's tree.  The spool drain and the live
-metrics plane are not ported (ROADMAP.md queue 1, item 21).  Stdlib
-only.
+decode spans join the request's tree.  ``trace_root`` anchors a
+long-lived scope (``cluster.run``) and exports its context on
+``TFOS_TRACE_PARENT``, where spawned and forked children inherit it.
+
+The drain: a node pins its processes' identity and a node-local spool
+directory (``configure``; ``TFOS_TELEMETRY_SPOOL``), advertises the
+spool in its manager's KV (``register_with``), and at shutdown the
+driver collects every spool (``read_spool``, which drops a line a
+killed writer left truncated) into ``run_dir(cluster_id)``.  Every
+process also keeps its last ``TFOS_FLIGHT_RING`` records in memory
+(``recent``), which ``obs.flight`` freezes to disk when supervision
+sees a death.  Stdlib only.
+
+Env vars: ``TFOS_TELEMETRY_DIR`` (the switch and the driver's sink and
+run directory), ``TFOS_TELEMETRY_SPOOL`` (a process's sink, node-local),
+``TFOS_TELEMETRY_NODE`` / ``TFOS_TELEMETRY_ROLE`` (identity, inherited
+by children), ``TFOS_TELEMETRY_BUFFER`` (ring capacity, 4096 records),
+``TFOS_TELEMETRY_FLUSH`` (flush threshold, 128), ``TFOS_TRACE_PARENT``
+(the causal parent) and ``TFOS_FLIGHT_RING`` (512 records).
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import atexit
 import collections
 import json
 import logging
+import multiprocessing.util
 import os
 import re
 import socket
@@ -42,6 +55,9 @@ ROLE_ENV = "TFOS_TELEMETRY_ROLE"
 BUFFER_ENV = "TFOS_TELEMETRY_BUFFER"
 FLUSH_ENV = "TFOS_TELEMETRY_FLUSH"
 TRACE_ENV = "TFOS_TRACE_PARENT"
+RING_ENV = "TFOS_FLIGHT_RING"
+
+SCHEMA_KEYS = ("ts", "node_id", "role", "kind", "name", "dur_ms", "attrs")
 
 # serving names: one span per served request, one event per shed
 SERVE_REQUEST = "serve/request"
@@ -54,6 +70,15 @@ SERVE_GENERATE = "serve/generate"     # request-root span, /v1/generate
 SERVE_PREDICT = "serve/predict"       # request-root span, /v1/predict
 DECODE_ADMIT = "decode/admit"         # replica-side session admission
 DECODE_RETIRE = "decode/retire"       # replica-side session retirement
+ACTOR_MESSAGE = "actor/message"       # one actor envelope handled
+EVAL_RUN = "eval/run"                 # one eval-sidecar evaluation
+BENCH_REQUEST = "bench/request"       # loadgen per-request root span
+CLUSTER_RUN = "cluster/run"           # cluster root-trace anchor
+DATA_UNIT = "data/unit"               # one exactly-once data unit served
+DEPLOY_BLESS = "deploy/bless"         # checkpoint passed gate, manifest out
+DEPLOY_CANARY = "deploy/canary"       # canary arm opened on a candidate
+DEPLOY_PROMOTE = "deploy/promote"     # candidate promoted fleet-wide
+DEPLOY_ROLLBACK = "deploy/rollback"   # candidate rejected, blessed re-pinned
 
 _TRACEPARENT_RE = re.compile(
     r"^00-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
@@ -150,7 +175,8 @@ def activate(ctx):
 
 
 class Recorder:
-    """Per-process span/event sink: bounded buffer -> one JSONL file."""
+    """Per-process span/event sink: bounded buffer -> one JSONL file,
+    and the flight ring of the last records, which flushing leaves."""
 
     def __init__(self, sink_dir):
         self.sink_dir = sink_dir
@@ -158,17 +184,22 @@ class Recorder:
         self.node_id = (os.environ.get(NODE_ENV)
                         or f"{socket.gethostname()}-{self.pid}")
         self.role = os.environ.get(ROLE_ENV) or "proc"
-        safe = "".join(c if (c.isalnum() or c in "-_.") else "_"
-                       for c in str(self.node_id)) or "node"
-        self.path = os.path.join(sink_dir, f"{safe}-{self.pid}.jsonl")
+        self.path = os.path.join(sink_dir,
+                                 f"{_safe(self.node_id)}-{self.pid}.jsonl")
         cap = int(os.environ.get(BUFFER_ENV, "4096"))
         self._flush_every = int(os.environ.get(FLUSH_ENV, "128"))
         self._buf = collections.deque(maxlen=max(cap, 1))
+        self.ring = collections.deque(
+            maxlen=max(int(os.environ.get(RING_ENV, "512")), 1))
         self._lock = threading.Lock()
         self._last_flush = time.monotonic()
         self._sink_warned = False
         self.dropped = 0
+        # a multiprocessing child leaves through os._exit and runs only
+        # the Finalize registry, a plain interpreter only atexit
         atexit.register(self.flush)
+        multiprocessing.util.Finalize(self, Recorder.flush, args=(self,),
+                                      exitpriority=100)
 
     def record(self, kind, name, ts, dur_ms, attrs):
         rec = {"ts": ts, "node_id": self.node_id, "role": self.role,
@@ -178,6 +209,7 @@ class Recorder:
             if len(self._buf) == self._buf.maxlen:
                 self.dropped += 1
             self._buf.append(rec)
+            self.ring.append(rec)
             need = (len(self._buf) >= self._flush_every
                     or time.monotonic() - self._last_flush > 1.0)
         if need:
@@ -211,6 +243,11 @@ class Recorder:
                                self.path, e)
 
 
+def _safe(name):
+    return "".join(c if (c.isalnum() or c in "-_.") else "_"
+                   for c in str(name)) or "node"
+
+
 _STATE = {"key": None, "rec": None}
 _STATE_LOCK = threading.Lock()
 
@@ -238,6 +275,23 @@ def enabled():
     return _get() is not None
 
 
+def sink_path():
+    """This process's JSONL sink, or None when disabled."""
+    rec = _get()
+    return rec.path if rec is not None else None
+
+
+def configure(node_id=None, role=None, spool=None):
+    """Pin this process's identity and sink through the env, so that
+    forked and spawned children inherit them; returns the recorder (or
+    None when disabled)."""
+    for env, value in ((NODE_ENV, node_id), (ROLE_ENV, role),
+                       (SPOOL_ENV, spool)):
+        if value is not None:
+            os.environ[env] = str(value)
+    return _get()
+
+
 class _NullSpan:
     """Shared no-op span: the disabled path allocates nothing."""
 
@@ -248,6 +302,10 @@ class _NullSpan:
 
     def __exit__(self, *exc):
         return False
+
+    def add(self, **attrs):
+        return self
+
 
 _NULL = _NullSpan()
 
@@ -276,6 +334,15 @@ class Span:
         if self._ctx is not None:
             _push(self._ctx)
         return self
+
+    def add(self, **attrs):
+        self.attrs.update(attrs)
+        return self
+
+    @property
+    def ctx(self):
+        """This span's TraceContext (None outside any trace)."""
+        return self._ctx
 
     def __exit__(self, exc_type, exc, tb):
         dur_ms = (time.perf_counter() - self._t0) * 1000.0
@@ -337,8 +404,102 @@ def record_span(name, dur_s, **attrs):
                    attrs)
 
 
+def trace_root(name, export=True, **attrs):
+    """Mint a root context for a long-lived scope and record an instant
+    anchor span for it, so every child's ``parent_id`` resolves; with
+    ``export`` the context goes on ``TFOS_TRACE_PARENT`` for this
+    process's later records and its children.  None when disabled."""
+    rec = _get()
+    if rec is None:
+        return None
+    ctx = TraceContext()
+    attrs.setdefault("trace_id", ctx.trace_id)
+    attrs.setdefault("span_id", ctx.span_id)
+    attrs.setdefault("parent_id", None)
+    rec.record("span", name, time.time(), 0.0, attrs)
+    if export:
+        os.environ[TRACE_ENV] = ctx.to_header()
+    return ctx
+
+
+def recent(window_s=None):
+    """The flight ring: this process's last records, oldest first,
+    clipped to the trailing ``window_s`` seconds when given; empty when
+    disabled."""
+    rec = _get()
+    if rec is None:
+        return []
+    with rec._lock:
+        records = list(rec.ring)
+    if window_s is not None:
+        cutoff = time.time() - float(window_s)
+        records = [r for r in records if r.get("ts", 0) >= cutoff]
+    return records
+
+
 def flush():
     """Flush this process's buffered records to the JSONL sink."""
     rec = _get()
     if rec is not None:
         rec.flush()
+
+
+def run_dir(cluster_id):
+    """The run's collection directory under ``TFOS_TELEMETRY_DIR``,
+    which the driver's drain fills at shutdown; None when disabled."""
+    base = os.environ.get(DIR_ENV)
+    if not base:
+        return None
+    return os.path.join(base, f"run-{int(cluster_id) & 0xffffffff:x}")
+
+
+def register_with(mgr):
+    """Advertise this process's spool in the manager's KV (the drain
+    channel), best effort: telemetry never takes a worker down."""
+    rec = _get()
+    if rec is None:
+        return
+    try:
+        mgr.telemetry_register(os.path.abspath(rec.sink_dir))
+    except Exception as e:  # noqa: BLE001 - the drain is best-effort
+        logger.debug("telemetry spool registration failed: %s", e)
+
+
+def read_spool(spool_dir):
+    """``[(filename, jsonl_text), ...]`` for every ``*.jsonl`` file in a
+    spool, each line a whole JSON record: a line a killed writer left
+    truncated (or garbage) is dropped and counted, one warning a file.
+    Never raises: the drain runs on live executors."""
+    out = []
+    try:
+        names = sorted(os.listdir(spool_dir))
+    except OSError:
+        return out
+    for name in names:
+        if not name.endswith(".jsonl"):
+            continue
+        try:
+            # a record cut inside a multi-byte character must not abort
+            # the file
+            with open(os.path.join(spool_dir, name), encoding="utf-8",
+                      errors="replace") as f:
+                raw = f.read()
+        except OSError as e:
+            logger.warning("telemetry drain: unreadable %s: %s", name, e)
+            continue
+        kept, skipped = [], 0
+        for line in raw.splitlines():
+            if not line.strip():
+                continue
+            try:
+                json.loads(line)
+            except ValueError:
+                skipped += 1
+                continue
+            kept.append(line)
+        if skipped:
+            logger.warning("telemetry drain: skipped %d truncated/corrupt "
+                           "line(s) in %s", skipped, name)
+        if kept:
+            out.append((name, "\n".join(kept) + "\n"))
+    return out

@@ -9,7 +9,9 @@ tests/test_supervision.py has them:
   attempt's reason, and a job losing an executor past the respawn
   budget raises too;
 - a job that is not retryable still fails at the first task error or
-  executor death.
+  executor death;
+- shared-queue jobs from six driver threads at once each get every item
+  back exactly once (the driver's hand-off to idle executors).
 
 No wait here is on the wall clock: the tasks signal through files and
 the test waits on those conditions with a hang guard (``HANG``)."""
@@ -183,3 +185,46 @@ def test_job_that_is_not_retryable_fails_fast(engine, tmp_path):
     assert not t.is_alive()
     assert errors and "died with tasks in flight" in str(errors[0])
     assert engine._respawns == 0
+
+
+def _tagged(it):
+    """Each item with the executor that ran it."""
+    return [(x, int(os.environ["TFOS_EXECUTOR_INDEX"])) for x in it]
+
+
+def test_concurrent_shared_jobs_run_each_task_once():
+    """The driver hands shared-queue tasks to idle executors from several
+    threads at once (the jobs' and the result pump's): six jobs of eight
+    partitions from six threads, a tiny switch interval, and every job
+    gets each of its items back exactly once, from executors that ran
+    one task at a time."""
+    import sys
+
+    engine = LocalEngine(3, env={"OMP_NUM_THREADS": "1"})
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    out, errors = {}, []
+
+    def job(j):
+        try:
+            items = list(range(100 * j, 100 * j + 16))
+            out[j] = engine.parallelize(items, 8).map_partitions(
+                _tagged).collect()
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=job, args=(j,)) for j in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(HANG)
+        assert not any(t.is_alive() for t in threads), "a job hung"
+    finally:
+        sys.setswitchinterval(old)
+        engine.stop()
+    assert not errors, errors
+    for j, got in out.items():
+        assert [x for x, _ in got] == list(range(100 * j, 100 * j + 16))
+        assert {e for _, e in got} <= {0, 1, 2}
+    assert len(out) == 6

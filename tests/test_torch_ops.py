@@ -158,7 +158,7 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (``spark_ml`` with the pyspark
     test double on the path), resolving the root's lazy names, importing
-    chip_smoke.py, and
+    chip_smoke.py, running both observability CLIs, and
     loading the port's host-native ring, marshal, TFRecord codec and
     JPEG decoder (and routing a TFRecord and a checkpoint through
     ``memory://``), leaves jax, cloudpickle and every
@@ -196,6 +196,11 @@ with recordio.TFRecordWriter("memory://iso/part-r-00000") as w:
 assert list(recordio.TFRecordReader("memory://iso/part-r-00000")) == [ex]
 checkpoint.save_checkpoint("memory://iso/ckpt", {"w": [1.0]}, 1)
 assert checkpoint.restore_latest("memory://iso/ckpt")[1] == 1
+# both observability CLIs run: no endpoint, no flight dump
+import io, tempfile
+from tensorflowonspark_tpu_torch.obs import postmortem, top
+assert top.main(["--url", "http://127.0.0.1:9", "--once"]) == 2
+assert postmortem.main(["--dir", tempfile.mkdtemp()], out=io.StringIO()) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cloudpickle"
@@ -230,7 +235,9 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "models.moe", "examples.transformer_longcontext",
              "examples.segmentation_dist", "serving.decode.scheduler",
              "elastic", "elastic.virtual", "elastic.reshard",
-             "elastic.runtime"):
+             "elastic.runtime", "obs", "obs.flight", "obs.health",
+             "obs.publish", "obs.slo", "obs.http", "obs.top",
+             "obs.postmortem"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign

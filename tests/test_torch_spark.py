@@ -246,9 +246,9 @@ def test_two_executor_gloo_mnist_end_to_end(engine, tmp_path,
     assert sorted(p0.files) == sorted(p1.files)
     for k in p0.files:
         np.testing.assert_array_equal(p0[k], p1[k], err_msg=k)
-    # each trainer's spans, in its own JSONL file
+    # each trainer's spans, in its own JSONL file of its node's spool
     for r in runs:
-        files = glob.glob(os.path.join(str(telemetry_dir),
+        files = glob.glob(os.path.join(str(telemetry_dir), "spool-*",
                                        f"*-{r['pid']}.jsonl"))
         names = {json.loads(line)["name"] for f in files
                  for line in open(f)}
