@@ -21,7 +21,9 @@ checkpoint, then the Spark ML pipeline and SPARK-mode
 inference (``TFEstimator.fit``, ``TFModel.transform``,
 ``TFCluster.inference()``, ps and evaluator nodes, the batch-inference
 CLI and ``parallel_run``), then the MobileNetV2-UNet segmentation model
-(BASELINE.json config 4) in process and SPARK-fed.  It builds the
+(BASELINE.json config 4) in process and SPARK-fed, and last the data
+service (``cluster.train`` of a ``data.Pipeline``, static and dynamic
+dispatch, a data worker killed mid-split).  It builds the
 host-native feed ring, marshal, TFRecord codec and JPEG decoder
 (``tensorflowonspark_tpu_torch/native/``) into ``build/torch_native/``
 too:
@@ -331,6 +333,26 @@ too:
     two-executor engine SIGKILLed from outside while idle heals: a
     spread job runs on its respawn and a shared-queue job of four tasks
     finishes within 60 s (``heal_s``).
+38. the data service, ``cluster.train(data.Pipeline)``:
+    ``service_static`` (38a): ResNet-50 fed phase 14's shards through
+    ``data.from_tfrecords(...).map(decode_block)`` with
+    ``data_dispatch="static"`` and two data workers on a two-executor
+    engine (the serving worker on executor 1): losses equal phase 10's
+    (``SPARK_LOSS_RTOL``), the unit once in the ledger, no trainer or
+    ring left, no executor holding a CUDA context, images/s and stall
+    beside ``spark_tfrecord_resnet``'s; ``service_dynamic`` (38b): the
+    default dynamic dispatch with one-batch splits under the plane's
+    gates: every split id once in ``split_feed`` and in the trainer's
+    feed, the batch digests the shards', each worker's
+    ``tfos_data_splits_claimed_total``, and ``/statusz``'s ``actors``
+    and ``data`` read once mid-run; ``service_kill`` (38c): two-batch
+    splits, the serving worker SIGKILLed mid-split
+    (``data.split_serve:kill@4``, its first incarnation): the job
+    completes, the provider requeued >= 1 split, the trainer dropped
+    the re-served prefix, the digests cover the shards once;
+    ``service_transformer`` (38d): the full-width transformer fed phase
+    6's records through ``data.from_arrays`` (static): losses equal
+    ``spark_train``'s, 8 launches of each flash kernel a step.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -352,8 +374,9 @@ forward > 0, the other three 0), ``launches_pipeline``, phases
 ``launches_parallel``, phase 32's sharded step (the three flash
 kernels > 0), ``launches_recover`` and ``launches_elastic``, phases
 34 and 35's trainer incarnations summed (the three flash kernels > 0,
-RMSNorm 0), and ``launches_obs``, phase 36a's trainer (8 a step of
-each flash kernel, RMSNorm 0).  Imports only torch, numpy and the
+RMSNorm 0), ``launches_obs``, phase 36a's trainer (8 a step of
+each flash kernel, RMSNorm 0), and ``launches_service``, phases
+38a-38d's trainers summed (38d's flash kernels, RMSNorm 0).  Imports only torch, numpy and the
 port; phase 36a runs the JAX package's stdlib-only
 ``scripts/trace_merge.py`` in a subprocess.
 """
@@ -361,6 +384,7 @@ port; phase 36a runs the JAX package's stdlib-only
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import ctypes
 import dataclasses
@@ -1324,9 +1348,9 @@ def phase_spark_train(engine, gpu, train):
                              f"{ref} (rtol {SPARK_LOSS_RTOL})")
     want = n_layers * TRAIN_STEPS
     if report["launches"] != dict(flash_fwd=want, flash_dq=want,
-                                  flash_dkv=want):
+                                  flash_dkv=want, rmsnorm=0):
         raise AssertionError(f"trainer launches {report['launches']}, want "
-                             f"{want} of each")
+                             f"{want} of each flash kernel, no RMSNorm")
     if fed != list(range(TRAIN_STEPS)) or \
             report["records"] != TRAIN_BATCH * TRAIN_STEPS:
         raise AssertionError(f"fed partitions {fed}, records the trainer's "
@@ -2153,7 +2177,7 @@ def phase_spark_tfrecord_resnet(dev, engine, gpu, res, data_dir):
     if any(r["launches"].values()):
         raise AssertionError(f"the TFRecord SPARK-fed trainer launched "
                              f"{r['launches']}")
-    return r["launches"]
+    return r["launches"], r
 
 
 def _restored_loss(dev, tree):
@@ -5027,8 +5051,9 @@ def phase_obs(dev, engine, gpu, tdir, spark):
         problems.append(f"run: {len(report['losses'])} steps, fed "
                         f"{len(fed)}, shutdown {shut_err}")
     if report["launches"] != dict(flash_fwd=want, flash_dq=want,
-                                  flash_dkv=want):
-        problems.append(f"launches {report['launches']}, want {want} each")
+                                  flash_dkv=want, rmsnorm=0):
+        problems.append(f"launches {report['launches']}, want {want} each "
+                        "flash kernel, no RMSNorm")
     if not (seen.get("scrape1_steps") and seen.get("scrape2_steps")
             and seen["scrape2_steps"] > seen["scrape1_steps"]
             and seen.get("scrape1_step_hist")
@@ -5164,6 +5189,365 @@ def phase_engine_outside_kill(gpu):
         raise AssertionError(f"engine_outside_kill: {summary}")
 
 
+# phases 38a-38d: the data service.  ResNet-50 from phase 14's shards
+# through ``cluster.train(data.Pipeline)``: one trainer on the card and
+# two data workers on a two-executor engine (the worker that serves sits
+# on executor 1, off the node's executor; the other owns no trainer),
+# static, dynamic with one-batch splits, and dynamic with two-batch
+# splits and the serving worker SIGKILLed in its second split
+SERVICE = dict(workers=2, beat_s="0.5", stale_s="5", kill_hit=4)
+SERVICE_DYN_ENV = {"TFOS_OBS_PORT": "0",
+                   "TFOS_OBS_INTERVAL": str(OBS["interval"]),
+                   "TFOS_ACTOR_HEARTBEAT_SECS": SERVICE["beat_s"],
+                   "TFOS_DATA_SPLIT_BLOCKS": "1"}
+SERVICE_KILL_ENV = {"TFOS_ACTOR_HEARTBEAT_SECS": SERVICE["beat_s"],
+                    "TFOS_DATA_SPLIT_BLOCKS": "2",
+                    faults.PLAN_ENV:
+                        f"data.split_serve:kill@{SERVICE['kill_hit']}",
+                    faults.EXECUTOR_ENV: "1",
+                    faults.INCARNATION_ENV: "0"}
+
+
+def executor_cuda_state(it):
+    """A ``map_partitions`` function: this executor's index, pid and
+    whether it holds a CUDA context."""
+    list(it)
+    return [(int(os.environ.get("TFOS_EXECUTOR_INDEX", "-1")), os.getpid(),
+             torch.cuda.is_initialized())]
+
+
+def _executors_cuda(engine):
+    ids = list(range(engine.num_executors))
+    return engine.parallelize(ids, len(ids)).map_partitions(
+        executor_cuda_state).collect(placement=ids)
+
+
+def _service_pipe(files):
+    """Phase 14's shards as a pipeline of 256-record blocks, decoded to
+    uint8 images in the data worker."""
+    from tensorflowonspark_tpu_torch import data
+
+    return data.from_tfrecords(files, block_size=RESNET["batch"]).map(
+        resnet_imagenet_spark.decode_block(RESNET["image"]))
+
+
+def _shard_digests(files):
+    """The digest of each shard's batch, as the trainer computes it."""
+    dec = resnet_imagenet_spark.decode_block(RESNET["image"])
+    out = []
+    for f in files:
+        col = recordio.load_columnar(f)
+        block = dec({"image": col["image"][1], "label": col["label"][1]})
+        out.append(resnet_imagenet_spark.batch_digest(block["image"],
+                                                      block["label"]))
+    return out
+
+
+def _watch_statusz(c, out, errors):
+    """38b's read of ``/statusz`` while the trainer runs: the first
+    answer holding both the ``actors`` and the ``data`` sections."""
+    try:
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and not out.get("done"):
+            _, body = _http("GET", c.obs.url + "/statusz", timeout=30)
+            st = json.loads(body)
+            if st.get("actors") and st.get("data"):
+                out["statusz"] = {"actors": st["actors"], "data": st["data"]}
+                return
+            time.sleep(0.25)
+    except BaseException as e:  # noqa: BLE001 - raised by the phase
+        errors.append(e)
+
+
+def _service_resnet(engine, files, dispatch, restarts=0, watch=False):
+    """ResNet-50 (``resnet_imagenet_spark.main_fun``, ``num_gpus=1``)
+    fed phase 14's shards through the data service on ``engine``.
+    Returns the trainer's report with what the driver saw: the ledgers,
+    the split provider's status, each worker's published counters, what
+    shutdown left, the executors' CUDA state and the timings."""
+    from tensorflowonspark_tpu_torch.data import service, splits
+
+    b = RESNET["batch"]
+    tmp = tempfile.mkdtemp(prefix="tfos_service_")
+    out, errors, t = {}, [], None
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, resnet_imagenet_spark.main_fun,
+            {"batch_size": b, "lr": RESNET["lr"],
+             "image_size": RESNET["image"],
+             "num_classes": RESNET["num_classes"],
+             "model_dir": os.path.join(tmp, "model"),
+             "save_every": 10 ** 6, "seed": 0, "out_dir": tmp,
+             "digests": True},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300,
+            data_workers=SERVICE["workers"], data_dispatch=dispatch,
+            restarts=restarts)
+        t_run = time.time() - t0
+        if watch:
+            if c.obs is None:
+                raise AssertionError("service: TFOS_OBS_PORT set and no "
+                                     "ObsServer")
+            t = threading.Thread(target=_watch_statusz,
+                                 args=(c, out, errors), daemon=True)
+            t.start()
+        try:
+            c.train(_service_pipe(files), feed_timeout=600)
+        finally:
+            out["done"] = True
+        t_train = time.time() - t0
+        if t is not None:
+            t.join(60)
+        units = c.server.fed_partitions(service.ledger_feed("input", 0))
+        split_ids = sorted(splits.part_to_sid(p) for p in
+                           c.server.fed_partitions(splits.split_feed(
+                               "input")))
+        snaps = node._get_manager(c.cluster_info, 0).obs_snapshots()
+        ring = "/dev/shm" + node.feed_ring_name(c.cluster_meta["id"], 0)
+        c.shutdown()
+        total_s = time.time() - t0
+        with open(os.path.join(tmp, "resnet_imagenet-rank0.json")) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        raise errors[0]
+    tm = report["train_metrics"]
+
+    def claimed(w):
+        ent = (snaps.get(f"data-{w}") or {}).get("metrics", {}).get(
+            "tfos_data_splits_claimed_total")
+        return sum(x["value"] for x in ent["series"]) if ent else 0
+
+    return dict(
+        losses=report["losses"], images_per_s=tm.get("items_per_sec"),
+        infeed_stall_frac=tm["infeed_stall_frac"],
+        step_ms=report["step_ms"],
+        step_ms_median_after_first=statistics.median(report["step_ms"][1:]),
+        feed_wait_s=report["feed_wait_s"], records=report["records"],
+        digests=report["digests"], boot_s=report["first_step_wall"] - t0,
+        cluster_run_s=t_run, train_s=t_train, total_s=total_s,
+        unit_ledger=units, split_ledger=[list(s) for s in split_ids],
+        provider=c.data_status, restarts_used=c._restarts_used,
+        claimed_per_worker=[claimed(w) for w in range(SERVICE["workers"])],
+        feed_transport=report["feed"]["transport"],
+        columnar=report["feed"]["columnar"],
+        split_chunks=report["feed"]["split_chunks"],
+        split_dup_chunks=report["feed"]["split_dup_chunks"],
+        statusz=out.get("statusz"),
+        trainer_alive_after_shutdown=_alive(report["pid"]),
+        ring_left=os.path.exists(ring), executors_cuda=_executors_cuda(
+            engine), incarnations=list(engine._incarnation),
+        launches=report["launches"], peak_mem_gb=report["peak_mem_gb"])
+
+
+def _service_gates(line, r, res, cover):
+    """What every ResNet service phase must show: six finite losses, the
+    records once, the shm ring with columnar chunks, nothing left after
+    shutdown, no executor holding a CUDA context, no kernel launched."""
+    losses = r["losses"]
+    if len(losses) != SPARK_RESNET_STEPS or not all(
+            np.isfinite(x) for x in losses):
+        raise AssertionError(f"{line}: losses {losses}")
+    if r["records"] != RESNET["batch"] * SPARK_RESNET_STEPS:
+        raise AssertionError(f"{line}: the trainer's DataFeed handed out "
+                             f"{r['records']} records")
+    check_feed(line, r, "shm")
+    if r["trainer_alive_after_shutdown"] or r["ring_left"]:
+        raise AssertionError(f"{line}: after shutdown: trainer alive "
+                             f"{r['trainer_alive_after_shutdown']}, ring "
+                             f"left {r['ring_left']}")
+    if any(held for _i, _pid, held in r["executors_cuda"]):
+        raise AssertionError(f"{line}: an executor holds a CUDA context: "
+                             f"{r['executors_cuda']}")
+    if any(r["launches"].values()):
+        raise AssertionError(f"{line}: the ResNet trainer launched "
+                             f"{r['launches']}")
+    if sorted(r["digests"]) != sorted(cover):
+        raise AssertionError(f"{line}: batch digests {r['digests']} vs the "
+                             f"shards' {cover}")
+
+
+def phase_service_static(engine, gpu, res, tfr, files):
+    """38a: ``cluster.train(data.from_tfrecords(...))`` with
+    ``data_dispatch="static"``: the worker reads and decodes the shards;
+    the losses equal phase 10's (``SPARK_LOSS_RTOL``) as phase 16's do,
+    the one (short) unit is in the trainer's unit ledger once.  Printed
+    beside ``spark_tfrecord_resnet`` (``tfr``)."""
+    r = _service_resnet(engine, files, "static")
+    ref = res["losses"][:SPARK_RESNET_STEPS]
+    rel = [abs(a - x) / abs(x) for a, x in zip(r["losses"], ref)]
+    summary = dict(r, phase_resnet_losses=ref,
+                   max_rel_loss_diff=max(rel) if rel else None,
+                   spark_tfrecord_resnet_images_per_s=tfr["images_per_s"],
+                   spark_tfrecord_resnet_stall=tfr["infeed_stall_frac"],
+                   gpu=gpu)
+    print("service_static " + json.dumps(summary), flush=True)
+    _service_gates("service_static", r, res, _shard_digests(files))
+    if max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"service_static: losses {r['losses']} vs "
+                             f"in-process {ref} (rtol {SPARK_LOSS_RTOL})")
+    if r["unit_ledger"] != [0] or r["split_ledger"]:
+        raise AssertionError(f"service_static: unit ledger "
+                             f"{r['unit_ledger']}, split ledger "
+                             f"{r['split_ledger']}")
+    return r["launches"]
+
+
+def _split_cover(line, r, split_blocks):
+    n = SPARK_RESNET_STEPS // split_blocks
+    want = {f"0.{k}": split_blocks for k in range(n)}
+    if r["split_chunks"] != want:
+        raise AssertionError(f"{line}: the trainer saw split chunks "
+                             f"{r['split_chunks']}, want {want}")
+    got = [tuple(s) for s in r["split_ledger"]]
+    if got[:n] != [(0, k) for k in range(n)] or \
+            any(k < n for _e, k in got[n:]):
+        raise AssertionError(f"{line}: split ledger {got}")
+    if not (r["provider"] or {}).get("complete"):
+        raise AssertionError(f"{line}: provider {r['provider']}")
+
+
+def phase_service_dynamic(engine, gpu, res, tfr, files):
+    """38b: the same model with the default (dynamic) dispatch and splits
+    of one batch (``TFOS_DATA_SPLIT_BLOCKS=1`` in the engine), the
+    observability plane on.  Held by content, not by step: every split
+    id once in ``split_feed`` and in the trainer's feed, the multiset of
+    batch digests the shards', finite losses; ``/statusz`` read once
+    during the run, with its ``actors`` and ``data`` sections."""
+    os.environ.update({"TFOS_OBS_PORT": "0",
+                       "TFOS_OBS_INTERVAL": str(OBS["interval"]),
+                       "TFOS_ACTOR_HEARTBEAT_SECS": SERVICE["beat_s"],
+                       "TFOS_ACTOR_HEARTBEAT_STALE": SERVICE["stale_s"]})
+    try:
+        r = _service_resnet(engine, files, None, watch=True)
+    finally:
+        for k in ("TFOS_OBS_PORT", "TFOS_OBS_INTERVAL",
+                  "TFOS_ACTOR_HEARTBEAT_SECS", "TFOS_ACTOR_HEARTBEAT_STALE"):
+            os.environ.pop(k, None)
+    ref = res["losses"][:SPARK_RESNET_STEPS]
+    rel = [abs(a - x) / abs(x) for a, x in zip(r["losses"], ref)]
+    summary = dict(r, max_rel_loss_diff_phase_resnet=max(rel) if rel
+                   else None,
+                   spark_tfrecord_resnet_images_per_s=tfr["images_per_s"],
+                   spark_tfrecord_resnet_stall=tfr["infeed_stall_frac"],
+                   gpu=gpu)
+    print("service_dynamic " + json.dumps(summary), flush=True)
+    _service_gates("service_dynamic", r, res, _shard_digests(files))
+    _split_cover("service_dynamic", r, 1)
+    st = r["statusz"] or {}
+    if not any(row.get("group") == "split-provider"
+               for row in st.get("actors", ())) or not st.get("data"):
+        raise AssertionError(f"service_dynamic: /statusz read {st}")
+    if r["split_dup_chunks"] or r["provider"].get("requeued"):
+        raise AssertionError(f"service_dynamic: with no fault, "
+                             f"{r['split_dup_chunks']} duplicate chunks, "
+                             f"provider {r['provider']}")
+    return r["launches"]
+
+
+def phase_service_kill(engine, gpu, res, files):
+    """38c: as 38b (no plane) with splits of two batches and
+    ``data.split_serve:kill@4`` on executor 1's first incarnation: the
+    serving worker dies after the first chunk of its second split.  The
+    engine respawns it, the provider requeues the dead incarnation's
+    unrecorded splits pinned to the trainer, the trainer's DataFeed
+    drops their re-served prefixes, and the job completes with every
+    split once and the shards' digests, without a cluster recovery."""
+    os.environ.update({"TFOS_ACTOR_HEARTBEAT_SECS": SERVICE["beat_s"],
+                       "TFOS_ACTOR_HEARTBEAT_STALE": SERVICE["stale_s"]})
+    try:
+        r = _service_resnet(engine, files, None, restarts=1)
+    finally:
+        for k in ("TFOS_ACTOR_HEARTBEAT_SECS", "TFOS_ACTOR_HEARTBEAT_STALE"):
+            os.environ.pop(k, None)
+    summary = dict(r, kill_plan=SERVICE_KILL_ENV[faults.PLAN_ENV], gpu=gpu)
+    print("service_kill " + json.dumps(summary), flush=True)
+    _service_gates("service_kill", r, res, _shard_digests(files))
+    _split_cover("service_kill", r, 2)
+    if r["incarnations"] != [0, 1] or r["restarts_used"]:
+        raise AssertionError(f"service_kill: executor incarnations "
+                             f"{r['incarnations']}, cluster recoveries "
+                             f"{r['restarts_used']}")
+    if r["provider"].get("requeued", 0) < 1 or r["split_dup_chunks"] < 1:
+        raise AssertionError(f"service_kill: requeued "
+                             f"{r['provider']}, duplicate chunks dropped "
+                             f"{r['split_dup_chunks']}")
+    return r["launches"]
+
+
+def phase_service_transformer(engine, gpu, spark):
+    """38d: the full-width transformer fed phase 6's records through the
+    data service (``data.from_arrays({"tokens": ...})``, static, one
+    worker) on phase 6's engine: its losses equal ``spark_train``'s
+    (``SPARK_LOSS_RTOL``), and the trainer launches each flash kernel 8
+    times a step, counted there alone."""
+    from tensorflowonspark_tpu_torch import data
+    from tensorflowonspark_tpu_torch.data import service
+
+    cfg = dict(FULL, dtype="bfloat16", attn_impl="flash")
+    tokens = np.random.default_rng(0).integers(
+        0, FULL["vocab_size"], (TRAIN_BATCH, FULL["max_seq"]))
+    pipe = data.from_arrays(
+        {"tokens": np.tile(tokens, (TRAIN_STEPS, 1)).astype(np.int32)},
+        block_size=TRAIN_BATCH)
+    out_dir = tempfile.mkdtemp(prefix="tfos_service_train_")
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, transformer_spark.main_fun,
+            {"config": cfg, "batch_size": TRAIN_BATCH, "seed": 0,
+             "out_dir": out_dir, "field": "tokens"},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300, data_workers=1,
+            data_dispatch="static")
+        c.train(pipe, feed_timeout=600)
+        units = c.server.fed_partitions(service.ledger_feed("input", 0))
+        c.shutdown()
+        total_s = time.time() - t0
+        with open(os.path.join(out_dir, "transformer-rank0.json")) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses, ref = report["losses"], spark["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    med = statistics.median(report["step_ms"])
+    summary = dict(
+        losses=losses, spark_train_losses=ref,
+        max_rel_loss_diff=max(rel) if rel else None,
+        step_ms=report["step_ms"], step_ms_median=med,
+        tokens_per_s=TRAIN_BATCH * FULL["max_seq"] / (med / 1e3),
+        spark_train_tokens_per_s=spark["tokens_per_s"],
+        infeed_stall_frac=report["train_metrics"]["infeed_stall_frac"],
+        spark_train_infeed_stall_frac=spark["infeed_stall_frac"],
+        records=report["records"], unit_ledger=units,
+        feed_transport=report["feed"]["transport"],
+        columnar=report["feed"]["columnar"],
+        columnar_chunks=report["feed"]["columnar_chunks"],
+        row_chunks=report["feed"]["row_chunks"],
+        boot_s=report["first_step_wall"] - t0, total_s=total_s,
+        trainer_alive_after_shutdown=_alive(report["pid"]),
+        launches=report["launches"], gpu=gpu)
+    print("service_transformer " + json.dumps(summary), flush=True)
+    check_feed("service_transformer", summary, "shm")
+    if len(losses) != TRAIN_STEPS or max(rel) > SPARK_LOSS_RTOL:
+        raise AssertionError(f"service-fed losses {losses} vs spark_train "
+                             f"{ref} (rtol {SPARK_LOSS_RTOL})")
+    want = FULL["n_layers"] * TRAIN_STEPS
+    if report["launches"] != dict(flash_fwd=want, flash_dq=want,
+                                  flash_dkv=want, rmsnorm=0):
+        raise AssertionError(f"service-fed trainer launches "
+                             f"{report['launches']}, want {want} of each "
+                             "flash kernel, no RMSNorm")
+    if units != [0] or report["records"] != TRAIN_BATCH * TRAIN_STEPS or \
+            summary["trainer_alive_after_shutdown"]:
+        raise AssertionError(f"service_transformer: unit ledger {units}, "
+                             f"records {report['records']}, trainer alive "
+                             f"{summary['trainer_alive_after_shutdown']}")
+    return report["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5220,9 +5604,15 @@ def main():
                                          **{telemetry.DIR_ENV: tdirs[2]}))
     engine_halt = LocalEngine(1, env=dict(HALT_ENV,
                                           **{telemetry.DIR_ENV: tdirs[3]}))
+    # phases 38a-38c: two executors each, the node's and the serving data
+    # worker's, never touching CUDA; 38b's under the plane's gates and
+    # one-batch splits, 38c's with two-batch splits and the kill plan
+    engine_svc = LocalEngine(2)
+    engine_dyn = LocalEngine(2, env=SERVICE_DYN_ENV)
+    engine_kill = LocalEngine(2, env=SERVICE_KILL_ENV)
     engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
                engine_pred, engine_roles, engine_recover, engine_elastic,
-               engine_obs, engine_halt)
+               engine_obs, engine_halt, engine_svc, engine_dyn, engine_kill)
     try:
         kernels = run_phases(dev, gpu, *engines, tdirs=tdirs)
     finally:
@@ -5240,7 +5630,8 @@ def main():
 
 def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
                engine_fit, engine_pred, engine_roles, engine_recover,
-               engine_elastic, engine_obs, engine_halt, tdirs):
+               engine_elastic, engine_obs, engine_halt, engine_svc,
+               engine_dyn, engine_kill, tdirs):
     """Every phase in order; returns the kernels line's entries."""
     t0 = time.perf_counter()
     built = _build.build()
@@ -5283,8 +5674,8 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     try:
         files = phase_tfrecord_io(gpu, tfr_dir)
         tfr_launches = phase_tfrecord_resnet(dev, gpu, res, files)
-        spark_tfr_launches = phase_spark_tfrecord_resnet(dev, engine, gpu,
-                                                         res, tfr_dir)
+        spark_tfr_launches, spark_tfr = phase_spark_tfrecord_resnet(
+            dev, engine, gpu, res, tfr_dir)
         # JPEG shards, their raw conversion, remote paths and the async
         # checkpointer (phases 16a-16f), on the first engine, whose
         # executor has never touched CUDA
@@ -5298,9 +5689,13 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
             phase_async_checkpoint(dev, gpu))
         phase_remote_io(dev, gpu, files)
         phase_spark_mnist_checkpoint(engine, gpu)
-    finally:
+    except BaseException:
         shutil.rmtree(tfr_dir, ignore_errors=True)
+        raise
+    finally:
         shutil.rmtree(jpeg_root, ignore_errors=True)
+    # phase 14's shards stay for the data service's phases (38a-38c)
+    atexit.register(shutil.rmtree, tfr_dir, True)
     serve_tmp = tempfile.mkdtemp(prefix="tfos_serve_")
     tf_tmp = tempfile.mkdtemp(prefix="tfos_tf_mnist_")
     try:
@@ -5362,6 +5757,20 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     phase_obs_halt(dev, engine_halt, gpu, tdirs[3])
     engine_halt.stop()
     phase_engine_outside_kill(gpu)
+    # the data service (38a-38c: ResNet-50 from phase 14's shards, each
+    # trainer's counts its own), and 38d, the transformer through it
+    try:
+        service_launches = _sum_launches(
+            phase_service_static(engine_svc, gpu, res, spark_tfr, files),
+            phase_service_dynamic(engine_dyn, gpu, res, spark_tfr, files),
+            phase_service_kill(engine_kill, gpu, res, files))
+    finally:
+        shutil.rmtree(tfr_dir, ignore_errors=True)
+        for e in (engine_svc, engine_dyn, engine_kill):
+            e.stop()
+    service_launches = _sum_launches(
+        service_launches,
+        phase_service_transformer(engine, gpu, spark))
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -5439,6 +5848,8 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         k["launches_elastic"] = elastic_launches[k["name"]]
         # phase 36a's observed trainer
         k["launches_obs"] = obs_launches.get(k["name"], 0)
+        # phases 38a-38d's trainers summed (38d's the flash kernels)
+        k["launches_service"] = service_launches[k["name"]]
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")
@@ -5459,7 +5870,8 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         raise AssertionError(f"the parallel step launched "
                              f"{parallel_launches}")
     for name, got in (("recover", recover_launches),
-                      ("elastic", elastic_launches)):
+                      ("elastic", elastic_launches),
+                      ("service", service_launches)):
         if not all(got[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")) \
                 or got["rmsnorm"]:
             raise AssertionError(f"the {name} trainers launched {got}")

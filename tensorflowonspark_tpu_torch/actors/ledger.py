@@ -1,6 +1,6 @@
 """Resolve-once futures and exactly-once delivery ledgers.
 
-Own copies of four primitives of ``tensorflowonspark_tpu/actors/ledger.py``:
+Own copies of the primitives of ``tensorflowonspark_tpu/actors/ledger.py``:
 
 - :class:`OnceGate` — a claim that exactly one caller wins (the
   duplicate-answer guard of a re-dispatched batch, ``batcher.Batch``).
@@ -12,6 +12,12 @@ Own copies of four primitives of ``tensorflowonspark_tpu/actors/ledger.py``:
   re-delivers as identical ``(index, token)`` pairs.
 - :class:`DeliveryLedger` — named done-sets (``feed -> {partition}``),
   the table behind the rendezvous server's PDONE/PQUERY messages.
+  :class:`KVLedger` is the same contract kept in a manager KV (one key a
+  unit), so it outlives the recording process: an actor's respawn
+  resumes past everything recorded.
+- :class:`NullLedgerClient` and :func:`resume_cursor`: the data
+  service's ledger stand-in when no rendezvous server answers, and the
+  unit a respawned data worker resumes at.
 
 Stdlib only: imported by executors, replicas and the driver alike.
 """
@@ -154,3 +160,63 @@ class DeliveryLedger:
         """Forget ``feed``'s done-set (each ``train()`` owns one scope)."""
         with self._lock:
             self._done.pop(str(feed), None)
+
+
+class KVLedger:
+    """A :class:`DeliveryLedger` kept in a manager KV, one key a
+    ``(feed, unit)``: writes are idempotent, never read-modify-write, so
+    concurrent recorders cannot race, and the ledger lives in the
+    manager's process, past the recording actor's death."""
+
+    __slots__ = ("_mgr", "_prefix")
+
+    def __init__(self, mgr, namespace):
+        self._mgr = mgr
+        self._prefix = f"actor_ledger:{namespace}:"
+
+    def _key(self, feed, unit):
+        return f"{self._prefix}{feed}:{unit!r}"
+
+    def record(self, feed, unit):
+        if self.done(feed, unit):
+            return False
+        self._mgr.set(self._key(feed, unit), unit)
+        return True
+
+    def done(self, feed, unit):
+        try:
+            return self._mgr.get(self._key(feed, unit)) is not None
+        except Exception:  # noqa: BLE001 - manager tearing down
+            return False
+
+    def done_units(self, feed):
+        want = f"{self._prefix}{feed}:"
+        try:
+            items = self._mgr.kv().items()
+        except Exception:  # noqa: BLE001 - manager tearing down
+            return []
+        return sorted(v for k, v in items if str(k).startswith(want))
+
+
+class NullLedgerClient:
+    """The rendezvous client's ledger calls when no server is reachable
+    (a data service or an actor run alone, in tests)."""
+
+    def fed_partitions(self, feed):
+        return []
+
+    def partition_done(self, feed, part):
+        pass
+
+    def close(self):
+        pass
+
+
+def resume_cursor(done_units, start=0):
+    """The first unit index >= ``start`` not in ``done_units``: where a
+    respawned data worker resumes its shard."""
+    done = set(done_units)
+    unit = int(start)
+    while unit in done:
+        unit += 1
+    return unit

@@ -13,7 +13,6 @@ heartbeat's ``manager.HEARTBEAT_SECS`` and ``HEARTBEAT_STALE_SECS``.
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 
@@ -23,19 +22,8 @@ __all__ = ["beat", "beat_age", "heartbeat_interval", "scan",
            "stale_after", "start_heartbeat"]
 
 
-def heartbeat_interval():
-    """Beat cadence in seconds."""
-    return float(os.environ.get(
-        "TFOS_ACTOR_HEARTBEAT_SECS",
-        os.environ.get("TFOS_HEARTBEAT_SECS", tfmanager.HEARTBEAT_SECS)))
-
-
-def stale_after():
-    """Beat age in seconds past which a member counts as dead."""
-    return float(os.environ.get(
-        "TFOS_ACTOR_HEARTBEAT_STALE",
-        os.environ.get("TFOS_HEARTBEAT_STALE",
-                       tfmanager.HEARTBEAT_STALE_SECS)))
+heartbeat_interval = tfmanager.heartbeat_interval
+stale_after = tfmanager.stale_after
 
 
 def beat(mgr, key):

@@ -27,9 +27,19 @@ more executors that survive (``_elastic_template``), and the trainers
 fold the missing devices into gradient accumulation
 (``elastic.ElasticRuntime``).
 
+Given a ``data.Pipeline``, ``train()`` feeds it through the data
+service, as in the JAX package: ``run(data_workers=N,
+data_dispatch="static" | "dynamic")`` sets N data workers, engine tasks
+that run the pipeline and push its chunks into the trainers' rings,
+rank-strided or by first-come-first-served splits from a supervised
+split provider (``data.service``, ``data.splits``); a failed worker or
+trainer goes through the same recovery.  The workers run on the
+executors that host no node first, so that a worker's death does not
+take a trainer with it.
+
 Arguments the copy does not carry raise NotImplementedError naming
-their ROADMAP.md item: the data service and streaming feeds, and a
-trainer process chosen apart from ``input_mode``.  ``serve()`` stands up the
+their ROADMAP.md item: streaming feeds, and a trainer process chosen
+apart from ``input_mode``.  ``serve()`` stands up the
 online serving tier on the cluster's engine after ``shutdown()``.
 
 Observability, as in the JAX package: with ``TFOS_TELEMETRY_DIR`` set
@@ -66,7 +76,6 @@ from tensorflowonspark_tpu_torch.utils import (
 
 logger = logging.getLogger(__name__)
 
-DATA_SERVICE_ITEM = "ROADMAP.md queue 1, item 17 (data service)"
 STREAMING_ITEM = "ROADMAP.md queue 1, item 18 (streaming feeds)"
 
 
@@ -103,6 +112,7 @@ class TFCluster:
     _launcher = None
     _driver_ps = ()     # threads of the ps nodes hosted by the driver
     obs = None          # the ObsServer, with TFOS_OBS_PORT set
+    data_status = None  # the split provider's status after a dynamic feed
 
     def train(self, dataset, num_epochs=1, feed_timeout=600, qname="input"):
         """Feed ``dataset`` into the trainers.  Epochs are the dataset
@@ -118,12 +128,15 @@ class TFCluster:
         With ``run(restarts=N)`` this call supervises the job: a lost
         executor fails the feed job, :meth:`_recover` brings the next
         incarnation up, and the partitions the ledger does not hold are
-        fed again, up to N times; then the error raises."""
+        fed again, up to N times; then the error raises.
+
+        A ``data.Pipeline`` goes through the data service instead
+        (:meth:`_train_data_service`)."""
         if self.input_mode != InputMode.SPARK:
             raise ValueError("train() requires InputMode.SPARK")
         if hasattr(dataset, "_blocks") and hasattr(dataset, "chunks"):
-            raise NotImplementedError(
-                f"feeding a data.Pipeline comes with {DATA_SERVICE_ITEM}")
+            return self._train_data_service(dataset, num_epochs,
+                                            feed_timeout, qname)
         if hasattr(dataset, "foreachRDD"):
             raise NotImplementedError(f"DStreams come with {STREAMING_ITEM}")
         ds = engine_mod.as_dataset(dataset)
@@ -152,6 +165,191 @@ class TFCluster:
                 if self._restarts_used >= self.restarts:
                     raise
                 self._recover(e)
+
+    def _data_placement(self, n_workers):
+        """The executor of each of ``n_workers`` data workers: the live
+        executors that host no node first, then the nodes' own, round
+        robin.  A worker shares its host's ring either way; on an
+        executor of its own, its death does not reap a trainer (the
+        engine kills a dead executor's children before it respawns)."""
+        alive = getattr(self.engine, "alive_executors", None)
+        pool = (list(alive()) if alive is not None
+                else list(range(self.engine.num_executors)))
+        nodes = set(self._node_ids)
+        order = [i for i in pool if i not in nodes] + \
+            [i for i in pool if i in nodes]
+        return [order[j % len(order)] for j in range(n_workers)]
+
+    def _train_data_service(self, pipeline, num_epochs, feed_timeout,
+                            qname):
+        """Feed the trainers from a ``data.Pipeline`` through the data
+        service: ``data_workers`` engine tasks each run the pipeline and
+        push their trainers' shares over the feed's wire
+        (``data/service.py``).  The supervision of feeder-mode
+        ``train()``: a failed task or worker triggers a recovery, up to
+        ``restarts`` times, and the re-served streams resume at the unit
+        ledger instead of feeding consumed data again.
+
+        Dispatch is **dynamic** (first-come-first-served splits,
+        ``data/splits.py``) by default; ``TFOS_DATA_DISPATCH=static`` or
+        ``run(..., data_dispatch="static")`` selects the rank-strided
+        shards of this method's body."""
+        from tensorflowonspark_tpu_torch.data import service as data_service
+
+        if data_service.dispatch_mode(self.meta) == "dynamic":
+            return self._train_data_service_dynamic(
+                pipeline, num_epochs, feed_timeout, qname)
+        n_workers = int(self.meta.get("data_workers") or
+                        data_service.default_workers())
+        if num_epochs < 0:
+            raise ValueError("num_epochs cannot be negative")
+        if num_epochs > 1:
+            pipeline = pipeline.repeat(num_epochs)
+        # this train() owns the unit ledgers' scope
+        for rank, _m in data_service.trainer_ranks(self.cluster_info):
+            self.server.reset_feed(data_service.ledger_feed(qname, rank))
+        logger.info("data service: %d worker task(s) feeding %d trainers",
+                    n_workers,
+                    len(data_service.trainer_ranks(self.cluster_info)))
+        while True:
+            fn = data_service.serve_task(
+                pipeline, self.cluster_info, self.cluster_meta,
+                qname=qname, num_workers=n_workers,
+                feed_timeout=feed_timeout)
+            try:
+                self.engine.parallelize(
+                    list(range(n_workers)), n_workers
+                ).foreach_partition(
+                    fn, placement=self._data_placement(n_workers),
+                    retryable=self.restarts > 0)
+                return
+            except (engine_mod.TaskError, RuntimeError, TimeoutError) as e:
+                if self._restarts_used >= self.restarts:
+                    raise
+                self._recover(e)
+
+    def _train_data_service_dynamic(self, pipeline, num_epochs,
+                                    feed_timeout, qname):
+        """The data service with dynamic dispatch.  Each attempt: a new
+        ``ActorSystem`` in the driver (one executor of its own) holds
+        the split board (its manager's KV and queues) and the supervised
+        ``SplitProvider``; ``data_workers`` dynamic worker tasks claim
+        splits from it and push each to the least backlogged trainer
+        they own.  Exactly once is a split id on the durable
+        ``split_feed`` ledger: a recovery's attempt builds a new board,
+        and the provider posts only what the ledger lacks.  Where
+        ``TFOS_DATA_MAX_WORKERS`` leaves room, a stall-driven autoscaler
+        (``data/autoscale.py``) adds and retires worker tasks through
+        the board's plan."""
+        from tensorflowonspark_tpu_torch.actors.runtime import ActorSystem
+        from tensorflowonspark_tpu_torch.data import autoscale as data_autoscale
+        from tensorflowonspark_tpu_torch.data import service as data_service
+        from tensorflowonspark_tpu_torch.data import splits as data_splits
+
+        n_workers = int(self.meta.get("data_workers") or
+                        data_service.default_workers())
+        if num_epochs < 0:
+            raise ValueError("num_epochs cannot be negative")
+        num_epochs = max(1, int(num_epochs))
+        n_trainers = len(data_service.trainer_ranks(self.cluster_info))
+        # this train() owns the split ledger's scope
+        self.server.reset_feed(data_splits.split_feed(qname))
+        try:
+            max_workers = int(
+                os.environ.get(data_autoscale.MAX_WORKERS_ENV, "0"))
+        except ValueError:
+            max_workers = 0
+        max_workers = max(n_workers, max_workers)
+        try:
+            window = int(os.environ.get(data_splits.WINDOW_ENV, "0"))
+        except ValueError:
+            window = 0
+        window = window or max(16, 4 * max(1, n_trainers))
+        logger.info("data service (dynamic): %d worker task(s) feeding "
+                    "%d trainers, split window %d, max workers %d",
+                    n_workers, n_trainers, window, max_workers)
+        while True:
+            system = ActorSystem(capacity=1)
+            scaler = None
+            try:
+                board = data_splits.SplitBoard(system._mgr, qname)
+                board.set_plan(range(n_workers))
+                system.spawn(
+                    data_splits.SplitProvider(
+                        qname,
+                        server_addr=self.cluster_meta["server_addr"],
+                        num_epochs=num_epochs, window=window),
+                    "split-provider")
+                meta = dict(self.cluster_meta)
+                meta[data_service.SPLIT_BOARD_META] = {
+                    "address": tuple(system._mgr.address),
+                    "authkey": system._authkey,
+                }
+                fn = data_service.dynamic_serve_task(
+                    pipeline, self.cluster_info, meta, qname=qname,
+                    feed_timeout=feed_timeout)
+                if max_workers > n_workers:
+                    scaler = self._start_data_autoscaler(
+                        board, fn, n_workers, max_workers)
+                self.engine.parallelize(
+                    list(range(n_workers)), n_workers
+                ).foreach_partition(
+                    fn, placement=self._data_placement(n_workers),
+                    retryable=self.restarts > 0)
+                # the provider's last word: its cursor, the eof, and the
+                # splits it requeued (a dead worker's)
+                self.data_status = system.group("split-provider").ask(
+                    "status").result(60)
+                return
+            except (engine_mod.TaskError, RuntimeError, TimeoutError) as e:
+                if self._restarts_used >= self.restarts:
+                    raise
+                self._recover(e)
+            finally:
+                if scaler is not None:
+                    scaler.stop()
+                system.stop()
+
+    def _start_data_autoscaler(self, board, serve_fn, n_workers,
+                               max_workers):
+        """A ``StallAutoscaler`` wired to this cluster: the signal is the
+        trainers' published feed-wait counters (read through their
+        managers); scaling up launches one more dynamic worker task and
+        grows the board's plan, scaling down shrinks the plan (the
+        worker drains and exits)."""
+        from tensorflowonspark_tpu_torch.data import autoscale as data_autoscale
+        from tensorflowonspark_tpu_torch.data import service as data_service
+
+        mgrs = {}
+
+        def _snapshots():
+            out = {}
+            for rank, m in data_service.trainer_ranks(self.cluster_info):
+                try:
+                    mgr = mgrs.get(rank)
+                    if mgr is None:
+                        mgr = mgrs[rank] = node._get_manager(
+                            self.cluster_info, m["executor_id"])
+                    for k, v in mgr.obs_snapshots().items():
+                        out[f"{rank}:{k}"] = v
+                except Exception:  # noqa: BLE001 - trainer mid-restart
+                    mgrs.pop(rank, None)
+            return out
+
+        def _scale_up(widx):
+            board.set_plan(board.plan() + [widx])
+            threading.Thread(
+                target=_run_scaled_worker, args=(self.engine, widx,
+                                                 serve_fn),
+                name=f"tfos-data-scale-{widx}", daemon=True).start()
+
+        def _scale_down(widx):
+            board.set_plan([w for w in board.plan() if w != widx])
+
+        return data_autoscale.StallAutoscaler(
+            data_autoscale.obs_stall_reader(_snapshots),
+            _scale_up, _scale_down,
+            min_workers=n_workers, max_workers=max_workers).start()
 
     def _spawn_launcher(self):
         """Launch the node job on a background thread; also the
@@ -419,6 +617,14 @@ class TFCluster:
         return rdir
 
 
+def _run_scaled_worker(engine, widx, serve_fn):
+    """One data worker the autoscaler added, on an idle executor."""
+    try:
+        engine.parallelize([widx], 1).foreach_partition(serve_fn)
+    except Exception:  # noqa: BLE001 - scaling is best effort
+        logger.exception("data worker %d (scaled up) failed", widx)
+
+
 def _feed_placement(n, done, ids):
     """The executor of each of ``n`` partitions: those not in ``done``
     dealt round robin over ``ids`` in partition order; a partition in
@@ -599,14 +805,17 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     over the k or more executors that survive when the respawn budget
     is spent, and re-grow it at a later recovery when the pool came
     back.  The trainers read the new shape from ``ctx`` and place their
-    state through ``ctx.elastic_runtime``."""
+    state through ``ctx.elastic_runtime``.
+
+    ``data_workers``: the data service's worker count when ``train()``
+    is given a ``data.Pipeline`` (0: ``TFOS_DATA_WORKERS``, default 1);
+    ``data_dispatch``: ``"dynamic"`` (the default: first-come-first-
+    served splits) or ``"static"`` (rank-strided shards);
+    ``TFOS_DATA_DISPATCH`` overrides it."""
     if background is not None:
         raise NotImplementedError(
             "a trainer process chosen apart from input_mode comes with "
             "ROADMAP.md queue 1, item 14")
-    if data_workers or data_dispatch is not None:
-        raise NotImplementedError(f"the data service comes with "
-                                  f"{DATA_SERVICE_ITEM}")
     if driver_ps_nodes and input_mode != InputMode.TENSORFLOW:
         raise ValueError("driver_ps_nodes requires InputMode.TENSORFLOW")
     if num_ps >= num_executors and not driver_ps_nodes:
@@ -657,6 +866,8 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
         "server_addr": list(server_addr),
         "authkey": secrets.token_hex(16),
         "reservation_timeout": reservation_timeout,
+        "data_workers": int(data_workers),
+        "data_dispatch": data_dispatch,
     }
     tf_status.clear()
     node_args = dict(tensorboard=tensorboard, log_dir=log_dir,

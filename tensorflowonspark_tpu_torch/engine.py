@@ -104,6 +104,7 @@ def _executor_main(index, incarnation, workdir, inbox, results):
     answers from the live one's."""
     os.chdir(workdir)
     os.environ["TFOS_EXECUTOR_INDEX"] = str(index)
+    os.environ["TFOS_EXECUTOR_INCARNATION"] = str(incarnation)
     # an executor is never the driver: shed any telemetry identity and
     # spool directory it inherited, so its records (and its trainers')
     # go to TFOS_TELEMETRY_DIR
@@ -576,7 +577,7 @@ class LocalEngine:
             with self._job_lock:
                 q = self._job_queues.get(job_id)
             if q is not None:
-                q.put((status, job_id, task_id, index, payload))
+                q.put((status, job_id, task_id, index, payload, incarnation))
 
     def _run_job(self, tasks, collect=False, spread=False, placement=None,
                  retryable=False, max_retries=None):
@@ -663,7 +664,7 @@ class LocalEngine:
                 self._send(target, msg, pinned=True)
 
         sched = _supervise.RetrySchedule(max_retries, self._retry_backoff)
-        running = {}    # task_id -> executor (start-acked)
+        running = {}    # task_id -> (executor, incarnation), start-acked
         retry_at = {}   # task_id -> monotonic re-dispatch time
 
         def fail_attempt(tid, subject, reason):
@@ -702,29 +703,40 @@ class LocalEngine:
                 del retry_at[tid]
                 dispatch(tid)
             try:
-                status, _, tid, idx, payload = my_results.get(timeout=0.25)
+                status, _, tid, idx, payload, inc = my_results.get(
+                    timeout=0.25)
             except _queue.Empty:
                 dead = [i for i, p in enumerate(self._procs)
                         if i not in dead_at_start and not p.is_alive()]
-                if not dead:
+                # tasks whose executor died and was respawned already, by
+                # another job's loop (jobs share executors): this loop
+                # never sees that process dead
+                gone = sorted(t for t, (ex, life) in running.items()
+                              if ex not in dead
+                              and life != self._incarnation[ex])
+                if not dead and not gone:
                     continue
                 if not retryable:
                     raise TaskError(
-                        f"executor(s) {dead} died with tasks in flight (job "
-                        f"{job_id}, {len(tasks) - ndone} pending); driver "
-                        "scripts must guard their entry with if __name__ == "
-                        "'__main__' under the spawn start method") from None
+                        f"executor(s) {dead or [running[t][0] for t in gone]}"
+                        f" died with tasks in flight (job {job_id}, "
+                        f"{len(tasks) - ndone} pending); driver scripts must "
+                        "guard their entry with if __name__ == '__main__' "
+                        "under the spawn start method") from None
+                lost = []
                 for e in dead:
-                    lost = sorted(t for t, ex in running.items() if ex == e)
+                    lost += [(t, e) for t, (ex, _) in running.items()
+                             if ex == e]
                     self._respawn_executor(e)
                     dead_at_start.discard(e)
-                    for t in lost:
-                        fail_attempt(t, f"task {t} lost",
-                                     f"executor {e} died while running "
-                                     f"task {t} (process loss)")
+                lost += [(t, running[t][0]) for t in gone]
+                for t, e in sorted(lost):
+                    fail_attempt(t, f"task {t} lost",
+                                 f"executor {e} died while running "
+                                 f"task {t} (process loss)")
                 continue
             if status == "start":
-                running[tid] = idx
+                running[tid] = (idx, inc)
                 continue
             if done[tid]:
                 continue  # a late answer of a superseded attempt

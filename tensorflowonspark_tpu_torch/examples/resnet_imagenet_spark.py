@@ -80,6 +80,38 @@ class decode_stream:  # noqa: N801 - the JAX package's closure's name
             yield from decoded(batch)
 
 
+class decode_block:  # noqa: N801 - a pipeline stage, named as decode_stream
+    """A ``data.Pipeline`` ``map`` stage over TFRecord blocks
+    (``data.from_tfrecords``): ``{"image": [bytes], "label": int64}`` ->
+    ``{"image": uint8 [n, S, S, 3], "label": int64 [n]}``, what the
+    trainer reads from the feeder's chunks; raw, JPEG and PNG payloads
+    as ``imagenet_records.decode_records_batch`` decodes them (JPEGs on
+    a pool of ``threads``).  It runs in the data worker."""
+
+    def __init__(self, image_size, threads=None):
+        self.image_size = image_size
+        self.threads = threads
+
+    def __call__(self, block):
+        from tensorflowonspark_tpu_torch.examples import imagenet_records
+
+        rows = imagenet_records.decode_records_batch(
+            [{"image": b, "label": int(y)}
+             for b, y in zip(block["image"], block["label"])],
+            self.image_size, threads=self.threads)
+        return {"image": np.stack([r[0] for r in rows]),
+                "label": np.asarray([r[1] for r in rows], np.int64)}
+
+
+def batch_digest(images, labels):
+    """A batch's content digest: sha1 of its image bytes and labels."""
+    import hashlib
+
+    h = hashlib.sha1(np.ascontiguousarray(images).tobytes())
+    h.update(np.asarray(labels, np.int64).tobytes())
+    return h.hexdigest()[:16]
+
+
 def _records(args, engine):
     """The training rows as an engine dataset: the TFRecords under
     ``args.data_dir``, read and decoded in the executors (shard files
@@ -113,7 +145,10 @@ def main_fun(args, ctx):
     pinned memory), the kernels' launches over its steps,
     ``TrainMetrics`` report, feed wait, peak device
     memory, the step it resumed from, and the wall-clock times at which
-    it began, had its model and began its first step."""
+    it began, had its model and began its first step; with ``digests``,
+    each batch's :func:`batch_digest` as the trainer got it.  Its feed
+    reads the fields ``image`` and ``label``: the feeder's rows, or the
+    data service's chunks of a pipeline ending in :class:`decode_block`."""
     main_start_wall = time.time()
     import torch
 
@@ -149,12 +184,17 @@ def main_fun(args, ctx):
                              input_mapping={"image": "image",
                                             "label": "label"})
 
+    digests = [] if args.get("digests") else None
+
     def collate(cols):
         # uint8 HWC records; the step casts them to the compute dtype on
         # the card, unnormalised, as the JAX model does
         imgs = np.asarray(cols["image"], dtype=np.uint8).reshape(
             -1, image, image, 3)
-        return imgs, np.asarray(cols["label"], dtype=np.int64)
+        labels = np.asarray(cols["label"], dtype=np.int64)
+        if digests is not None:
+            digests.append(batch_digest(imgs, labels))
+        return imgs, labels
 
     def save(step):
         ckpt.save_checkpoint(ckpt_dir,
@@ -226,6 +266,7 @@ def main_fun(args, ctx):
                 "feed": feed.stats(), "feeders": ctx.mgr.get("feed_stats"),
                 "pin": dict(infeed.pin_stats),
                 "launches": ops.launch_counts(),
+                "digests": digests,
                 "feed_wait_s": feed_tm.infeed_time,
                 "cuda_visible_devices": os.environ.get(
                     "CUDA_VISIBLE_DEVICES"),

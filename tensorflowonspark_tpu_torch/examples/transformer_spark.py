@@ -169,7 +169,10 @@ def main_fun(args, ctx):
     ``device`` (default the card), ``backend`` (the process group's;
     ``"gloo"`` lets ranks share one card), ``init_params`` (a JAX-layout
     params tree; default random from ``seed``), ``ce_impl``,
-    ``ckpt_dir``, ``ckpt_every`` and ``ckpt_keep`` (the chief's
+    ``field`` (read the feed as dense columns under this name, as a
+    ``data.Pipeline`` of ``{field: tokens}`` through the data service
+    sends it; default: records), ``ckpt_dir``, ``ckpt_every`` and
+    ``ckpt_keep`` (the chief's
     checkpoints, the newest 3 kept by default, which every trainer
     resumes from), ``elastic_data`` (the logical data
     axis of an elastic layout), ``export_dir`` (the chief's export) and
@@ -247,9 +250,19 @@ def main_fun(args, ctx):
         device=dev)
     # accumulates the DataFeed's waits
     feed_tm = metrics.TrainMetrics(health=False)
-    feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm)
-    batches = iter(infeed.synchronized(infeed.device_feed(
-        feed, per_proc, collate=collate, placement=dev), feed=feed))
+    field = args.get("field")
+    if field:
+        # the data service's named chunks (or the feeder's bare ones,
+        # whose one column takes the name), as dense columns
+        feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm,
+                                 input_mapping={field: field})
+        batches = iter(infeed.synchronized(infeed.device_feed(
+            feed, per_proc, collate=lambda cols: collate(cols[field]),
+            placement=dev, columnar=True), feed=feed))
+    else:
+        feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm)
+        batches = iter(infeed.synchronized(infeed.device_feed(
+            feed, per_proc, collate=collate, placement=dev), feed=feed))
     cuda = dev.type == "cuda"
     attention.launches = attention.dq_launches = attention.dkv_launches = 0
     norm.launches = 0
@@ -335,7 +348,8 @@ def main_fun(args, ctx):
                 "pin": dict(infeed.pin_stats),
                 "launches": {"flash_fwd": attention.launches,
                              "flash_dq": attention.dq_launches,
-                             "flash_dkv": attention.dkv_launches},
+                             "flash_dkv": attention.dkv_launches,
+                             "rmsnorm": norm.launches},
                 "train_metrics": tm.report(),
                 "feed_wait_s": feed_tm.infeed_time,
                 "main_start_wall": main_start_wall,

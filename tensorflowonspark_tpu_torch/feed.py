@@ -71,9 +71,13 @@ def hdfs_path(ctx, path):
     return path
 
 
-def open_feed_ring(mgr, qname="input", producer=False):
+def open_feed_ring(mgr, qname="input", producer=False,
+                   producer_nonblock=False):
     """The shm ring the node advertised for ``qname``, opened on this
-    side, or None (the manager queue carries the feed).  An advertised
+    side, or None (the manager queue carries the feed).
+    ``producer_nonblock``: a producer raises BlockingIOError while
+    another one holds the ring's producer flock, instead of waiting
+    (a data worker taking a trainer over from another).  An advertised
     ring that this process cannot open raises: a silent one-sided
     fallback would leave producer and consumer on different transports,
     and the feed would hang."""
@@ -85,7 +89,10 @@ def open_feed_ring(mgr, qname="input", producer=False):
     from tensorflowonspark_tpu_torch.recordio import shm
 
     try:
-        return shm.ShmQueue(str(ring_name), create=False, producer=producer)
+        return shm.ShmQueue(str(ring_name), create=False, producer=producer,
+                            producer_nonblock=producer_nonblock)
+    except BlockingIOError:
+        raise
     except (OSError, RuntimeError) as e:
         raise RuntimeError(
             f"node advertised shm feed ring {ring_name!r} but this process "
@@ -123,6 +130,13 @@ class DataFeed:
         self._buffer = []  # leftover records of a partly consumed chunk
         self._colblock = None  # (ColumnChunk, offset) partly consumed
         self._col_meta = {}  # tensor -> (dtype, trailing shape) last seen
+        # dynamic split dispatch: the next chunk seq expected a split id.
+        # A re-served split (its worker died mid-split, the provider
+        # requeued it pinned to this trainer) replays from seq 0; chunks
+        # below the expected seq were consumed and are dropped here, the
+        # consumer half of the exactly-once contract (data/splits.py)
+        self._split_next = {}
+        self.split_dup_chunks = 0
         # single consumer: a prefetch thread and a terminate() caller
         # must never pop at once; gets poll under this lock in slices and
         # re-check the stop flag between them
@@ -182,6 +196,15 @@ class DataFeed:
             except TimeoutError:
                 continue
             faults.check("feed.get", eof=chunk is None)
+            tag = getattr(chunk, "meta", None)
+            if marker.is_split_tag(tag):
+                _kind, sid, seq, _nblocks = tag
+                if seq < self._split_next.get(sid, 0):
+                    # a re-served split's prefix: consumed already
+                    self.split_dup_chunks += 1
+                    metrics_registry.inc("tfos_data_split_dup_chunks_total")
+                    continue
+                self._split_next[sid] = seq + 1
             break
         if isinstance(chunk, marker.ColumnChunk):
             self.columnar_chunks += 1
@@ -218,11 +241,17 @@ class DataFeed:
     def stats(self):
         """What this feed saw: its transport (``"shm"`` or
         ``"manager"``), whether every data chunk was columnar, the chunk
-        counts, and the latest pops as ``[wall time, ms, copy ms]``."""
+        counts, the split-tagged chunks (each split's count, and the
+        re-served ones dropped), and the latest pops as ``[wall time,
+        ms, copy ms]``."""
         return {"transport": self.transport,
                 "columnar": self.columnar_chunks > 0 and not self.row_chunks,
                 "columnar_chunks": self.columnar_chunks,
                 "row_chunks": self.row_chunks,
+                "split_dup_chunks": self.split_dup_chunks,
+                # each split id seen and the chunks of it handed out
+                "split_chunks": {f"{sid[0]}.{sid[1]}": n for sid, n in
+                                 sorted(self._split_next.items())},
                 "pops": [list(p) for p in self.pops]}
 
     def _rows_of(self, chunk, off, take):

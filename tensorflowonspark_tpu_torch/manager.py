@@ -26,6 +26,7 @@ the node's publisher pops, and one ack slot ``obsack:<node id>``).
 from __future__ import annotations
 
 import logging
+import os
 import queue as _queue
 import threading
 import time
@@ -45,9 +46,22 @@ CTL_KEY = "obsctl:"             # + node id: a control directive
 ACK_KEY = "obsack:"             # + node id: the directive's result
 
 
+def heartbeat_interval():
+    """Beat cadence in seconds: ``TFOS_ACTOR_HEARTBEAT_SECS``, else its
+    alias ``TFOS_HEARTBEAT_SECS``, else ``HEARTBEAT_SECS``.  Every
+    liveness producer (trainer, replica and actor beats) reads it."""
+    return float(os.environ.get(
+        "TFOS_ACTOR_HEARTBEAT_SECS",
+        os.environ.get("TFOS_HEARTBEAT_SECS", HEARTBEAT_SECS)))
+
+
 def stale_after():
-    """Heartbeat age (seconds) past which a consumer counts as dead."""
-    return HEARTBEAT_STALE_SECS
+    """Heartbeat age (seconds) past which a member counts as dead:
+    ``TFOS_ACTOR_HEARTBEAT_STALE``, else its alias
+    ``TFOS_HEARTBEAT_STALE``, else ``HEARTBEAT_STALE_SECS``."""
+    return float(os.environ.get(
+        "TFOS_ACTOR_HEARTBEAT_STALE",
+        os.environ.get("TFOS_HEARTBEAT_STALE", HEARTBEAT_STALE_SECS)))
 
 
 def heartbeat_age(mgr):
@@ -67,10 +81,11 @@ def heartbeat_age(mgr):
 
 def start_heartbeat(mgr):
     """A daemon thread that writes the time into the KV every
-    ``HEARTBEAT_SECS``; returns the Event that stops it.  The trainer
+    :func:`heartbeat_interval`; returns the Event that stops it.  The trainer
     runs one for the life of the user's ``main_fun``, so a feeder can
     tell a dead consumer (stale beat) from a slow one."""
     stop = threading.Event()
+    interval = heartbeat_interval()
 
     def _run():
         while not stop.is_set():
@@ -78,7 +93,7 @@ def start_heartbeat(mgr):
                 mgr.set(HEARTBEAT_KEY, time.time())
             except Exception:  # noqa: BLE001 - manager gone: node exiting
                 return
-            stop.wait(HEARTBEAT_SECS)
+            stop.wait(interval)
 
     threading.Thread(target=_run, name="tfos-heartbeat", daemon=True).start()
     return stop

@@ -40,7 +40,11 @@ class ColumnChunk:
         # views: the round trip copies nothing
         self.shapes = shapes
         # a small tag riding the wire with the chunk: BARE when each
-        # record was a bare array and not a tuple of fields
+        # record was a bare array and not a tuple of fields (the feeder's
+        # chunks), ("split", sid, seq, nblocks) on a chunk of dynamic
+        # split dispatch (the data service's, whose records are named
+        # columns and never bare), so that DataFeed drops the prefix of
+        # a re-served split it already consumed; None otherwise
         self.meta = meta
 
     def __getstate__(self):
@@ -61,3 +65,17 @@ class ColumnChunk:
 # token sequence a record, not a tuple of fields): its one column holds
 # them, and row consumers get each record back as an array, not a tuple
 BARE = ("bare",)
+
+# first element of a split tag (``("split", sid, seq, nblocks)``): one
+# namespace with BARE's, so the two tags never collide
+SPLIT = "split"
+
+
+def split_tag(sid, seq):
+    """The tag of chunk ``seq`` of split ``sid``."""
+    return (SPLIT, tuple(sid), int(seq), int(seq) + 1)
+
+
+def is_split_tag(meta):
+    """True for a ``ColumnChunk.meta`` that :func:`split_tag` made."""
+    return isinstance(meta, tuple) and len(meta) == 4 and meta[0] == SPLIT

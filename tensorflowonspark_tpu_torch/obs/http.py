@@ -11,8 +11,10 @@ heartbeat, merges them with the driver's own registry and serves:
   node reports a health anomaly, else 503 with ``unhealthy`` (a stale
   heartbeat) or ``degraded`` (an anomaly);
 - ``GET /statusz``: the cluster (epoch, restarts, the feed ledger), one
-  summary a node (``node_summary``), the straggler table and the SLO
-  report: what ``tfos-top-torch`` renders;
+  summary a node (``node_summary``), the straggler table, the SLO
+  report, the driver's supervised actors (``actors``: a row a member,
+  ``actors.runtime.actor_table``) and the data service's rollup
+  (``data``): what ``tfos-top-torch`` renders;
 - ``GET /slo``: the objectives evaluated afresh (``obs.slo``);
 - ``POST /profilez?node=&ms=`` and ``POST /flightz?node=``: a directive
   to the node's publisher, answered with its ack (the capture's path),
@@ -464,6 +466,19 @@ class ObsServer:
         rep = self.slo.report()
         if rep.get("objectives"):
             out["slo"] = rep["objectives"]
+        # the supervised actors: a row a member of every live
+        # ActorSystem of this process (imported lazily: nothing of the
+        # actors loads unless a system was spawned)
+        try:
+            from tensorflowonspark_tpu_torch.actors.runtime import (
+                actor_table,
+            )
+
+            rows = actor_table()
+        except Exception:  # noqa: BLE001 - actors tearing down
+            rows = []
+        if rows:
+            out["actors"] = rows
         snaps = [ent.get("metrics")
                  for ent in self._node_entries().values()]
         if driver:

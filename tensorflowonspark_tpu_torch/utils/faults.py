@@ -10,6 +10,11 @@ executor scoping::
     kind  := "exc" | "kill" | "hang" | "delay" | "nan"
     hits  := N | N "+" | "*"
 
+``TFOS_FAULT_EXECUTOR`` scopes a plan to one executor (and the
+processes it forks); ``TFOS_FAULT_INCARNATION`` further to one of its
+incarnations (0 the first, each respawn one more), so that a kill does
+not fire again in the respawn, whose hit counts start from 0.
+
 ``check`` and ``poison`` are free when no plan is set.  Every fault that
 fires emits a ``fault/injected`` telemetry event.  ``nan`` entries are
 value poison: ``poison`` fires them, ``check`` ignores them, as the
@@ -29,6 +34,7 @@ logger = logging.getLogger(__name__)
 
 PLAN_ENV = "TFOS_FAULT_PLAN"
 EXECUTOR_ENV = "TFOS_FAULT_EXECUTOR"
+INCARNATION_ENV = "TFOS_FAULT_INCARNATION"
 
 KINDS = ("exc", "kill", "hang", "delay", "nan")
 
@@ -156,11 +162,14 @@ def _faults_for_this_process():
 
 def _scoped_out():
     """True when TFOS_FAULT_EXECUTOR is set and this process (or its
-    executor ancestor) is a different executor."""
+    executor ancestor) is a different executor, or TFOS_FAULT_INCARNATION
+    is set and this is another incarnation of it."""
     want = os.environ.get(EXECUTOR_ENV, "").strip()
-    if not want:
-        return False
-    return os.environ.get("TFOS_EXECUTOR_INDEX", "").strip() != want
+    if want and os.environ.get("TFOS_EXECUTOR_INDEX", "").strip() != want:
+        return True
+    life = os.environ.get(INCARNATION_ENV, "").strip()
+    return bool(life) and \
+        os.environ.get("TFOS_EXECUTOR_INCARNATION", "").strip() != life
 
 
 def check(site, **attrs):

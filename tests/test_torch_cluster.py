@@ -246,10 +246,8 @@ def test_failing_main_fun_reaches_the_driver(engine):
 def test_cut_features_raise_not_implemented(engine, monkeypatch):
     # ps/evaluator nodes and TensorBoard are ported
     # (tests/test_torch_roles.py)
-    # recovery is ported (tests/test_torch_recovery.py)
-    for kw, item in ((dict(data_workers=2), "item 17"),):
-        with pytest.raises(NotImplementedError, match=item):
-            TFCluster.run(engine, failing_main, {}, 2, **kw)
+    # recovery is ported (tests/test_torch_recovery.py), the data
+    # service too (tests/test_torch_data.py)
     # retryable jobs are ported: they run (tests/test_torch_engine.py)
     assert engine.parallelize([1, 2]).foreach_partition(
         print, retryable=True, max_retries=2) is None

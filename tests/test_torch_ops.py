@@ -157,7 +157,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (``spark_ml`` with the pyspark
-    test double on the path), resolving the root's lazy names, importing
+    test double on the path), resolving the root's lazy names, running a
+    pipeline of the data service's ``data`` package, importing
     chip_smoke.py, running both observability CLIs, and
     loading the port's host-native ring, marshal, TFRecord codec and
     JPEG decoder (and routing a TFRecord and a checkpoint through
@@ -177,6 +178,16 @@ for n in names:
     importlib.import_module(n)
 for n in pkg._LAZY:   # the root's lazy names (TFCluster, compat, ...)
     getattr(pkg, n)
+# the data service and the actor runtime, by name and used
+from tensorflowonspark_tpu_torch import data
+from tensorflowonspark_tpu_torch.actors import runtime
+from tensorflowonspark_tpu_torch.data import service, splits
+import numpy as np
+blocks = list(data.from_arrays({"y": np.arange(6)}, 4).shuffle(4, 1)
+              .batch(3).blocks())
+assert sorted(int(v) for b in blocks for v in b["y"]) == list(range(6))
+assert runtime.actor_table() == [] and splits.sid_to_part((1, 2))
+assert service.dispatch_mode({"data_dispatch": "static"}) == "static"
 import runpy
 runpy.run_path("chip_smoke.py", run_name="not_main")
 from tensorflowonspark_tpu_torch import recordio
@@ -237,7 +248,9 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "elastic", "elastic.virtual", "elastic.reshard",
              "elastic.runtime", "obs", "obs.flight", "obs.health",
              "obs.publish", "obs.slo", "obs.http", "obs.top",
-             "obs.postmortem"):
+             "obs.postmortem", "data", "data.pipeline", "data.service",
+             "data.splits", "data.cache", "data.autoscale",
+             "actors.runtime", "actors.mailbox", "actors.policy"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign
