@@ -21,9 +21,12 @@ checkpoint, then the Spark ML pipeline and SPARK-mode
 inference (``TFEstimator.fit``, ``TFModel.transform``,
 ``TFCluster.inference()``, ps and evaluator nodes, the batch-inference
 CLI and ``parallel_run``), then the MobileNetV2-UNet segmentation model
-(BASELINE.json config 4) in process and SPARK-fed, and last the data
-service (``cluster.train`` of a ``data.Pipeline``, static and dynamic
-dispatch, a data worker killed mid-split).  It builds the
+(BASELINE.json config 4) in process and SPARK-fed, the data service
+(``cluster.train`` of a ``data.Pipeline``, static and dynamic dispatch,
+a data worker killed mid-split), and last the streaming feed
+(``TFCluster.train_stream``, a STOP from outside) with the eval
+sidecar evaluating its checkpoints, and a successive-halving sweep of
+actors on the card.  It builds the
 host-native feed ring, marshal, TFRecord codec and JPEG decoder
 (``tensorflowonspark_tpu_torch/native/``) into ``build/torch_native/``
 too:
@@ -223,7 +226,7 @@ too:
     and their MFU (``metrics.mnist_inference_flops_per_row`` a row over
     float32's dense peak; phases 24 and 26 too), the predict's ms a
     batch, each executor's peak memory;
-24. ``cluster_inference``: ``TFCluster.inference()`` of 16 partitions of
+24. ``cluster_inference``: ``TFCluster.inference()`` of 8 partitions of
     10,000 ``(id, image)`` rows into a SPARK-mode trainer on the card
     (``mnist_pipeline.infer_fun``, ``DataFeed.batch_results``) on the
     first engine: every row's result once, in partition order, equal to
@@ -285,7 +288,10 @@ too:
     (d) ``pipeline_apply`` with one stage and 4 microbatches against
     the stage itself;
 33. ``dryrun_multichip``: ``parallel.dryrun.dryrun_multichip(8)`` on 8
-    gloo CPU ranks of this host: its three ``OK`` lines;
+    gloo CPU ranks of this host: its four ``OK`` lines, the second the
+    elastic shrink (4 of the ranks leave, the other 4 re-form a group and
+    step at accumulation 2: ``8 virtual -> 4 devices accum=2``); it
+    runs on a thread beside phase 36b, after phase 36a;
 34. ``spark_recover``: the full-width bf16 transformer (flash) SPARK-fed
     through ``cluster.run(restarts=1, num_gpus=1)`` on a one-executor
     engine of its own, 6 partitions of 8 records, the chief checkpointing
@@ -310,7 +316,7 @@ too:
 35a. ``elastic_exact``: float32 at full width, 2 layers, batch 2, here
     at world 1: the layout's accum-2 gradient equals the flat one leaf
     by leaf (1e-5 of each leaf's largest value);
-36. ``obs``: the main path (phase 6's transformer, 100 partitions of one
+36. ``obs``: the main path (phase 6's transformer, 70 partitions of one
     step) with the observability plane on (``TFOS_OBS_PORT=0``,
     ``TFOS_TELEMETRY_DIR``, ``TFOS_HEALTH_GRADNORM=1``): while it trains,
     ``tfos_train_steps_total`` rises between two ``/metrics`` scrapes
@@ -353,6 +359,31 @@ too:
     ``service_transformer`` (38d): the full-width transformer fed phase
     6's records through ``data.from_arrays`` (static): losses equal
     ``spark_train``'s, 8 launches of each flash kernel a step.
+39. streaming feeds: ``stream_transformer`` (39a): phase 6's
+    transformer fed through ``TFCluster.train_stream`` on phase 6's
+    engine, 12 micro-batches of phase 6's 8 records, the chief
+    checkpointing every 4 steps: the first 5 losses equal
+    ``spark_train``'s exactly, 8 launches of each flash kernel a step, no
+    ring left, no CUDA context in the feeding executor; step ms, tokens/s
+    and the stall beside ``spark_train``'s; ``eval_sidecar``: a
+    ``workloads.EvalSidecar`` in an ``ActorSystem`` on a one-executor
+    engine of its own watches the checkpoints (the stream waits at each
+    one until it was evaluated): steps 4, 8 and 12 evaluated once each,
+    the held-out loss (8 x 2048, bf16, the flash forward 8 times in the
+    sidecar's executor) within ``SPARK_LOSS_RTOL`` of the driver's from
+    the same checkpoint; ``stream_stop`` (39b): a fresh cluster whose
+    stream is STOPped by ``examples/stop_streaming.py`` in a subprocess
+    after the 4th micro-batch: ``train_stream`` returns within one
+    micro-batch (the seconds from the STOP), ``shutdown()`` raises
+    nothing, the trainer took fewer than 12 steps, its losses
+    ``spark_train``'s;
+40. ``sweep``: ``workloads.successive_halving`` over 4 SGD learning rates
+    (budget 1, eta 2) with 2 ``TrialActor``s on a two-executor engine,
+    each trial MNIST on the card for 10 x budget steps from seeded params
+    and records (score: minus the last loss): the rungs and the best
+    config equal those of the same trials run here in the same order,
+    each score within 1e-5; it runs on a thread beside phases 36b and
+    37 (36b gates on correctness alone).
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -376,8 +407,12 @@ kernels > 0), ``launches_recover`` and ``launches_elastic``, phases
 34 and 35's trainer incarnations summed (the three flash kernels > 0,
 RMSNorm 0), ``launches_obs``, phase 36a's trainer (8 a step of
 each flash kernel, RMSNorm 0), and ``launches_service``, phases
-38a-38d's trainers summed (38d's flash kernels, RMSNorm 0).  Imports only torch, numpy and the
-port; phase 36a runs the JAX package's stdlib-only
+38a-38d's trainers summed (38d's flash kernels, RMSNorm 0),
+``launches_stream``, phase 39's two streaming trainers summed (the three
+flash kernels, RMSNorm 0), and ``launches_eval``, the eval sidecar's
+evaluations summed (the flash forward only).  A ``phase_seconds`` line
+before the kernels line gives each phase's seconds.  Imports only torch,
+numpy and the port; phase 36a runs the JAX package's stdlib-only
 ``scripts/trace_merge.py`` in a subprocess.
 """
 
@@ -386,6 +421,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import collections
+import concurrent.futures
 import ctypes
 import dataclasses
 import glob
@@ -569,12 +605,12 @@ TFRECORD_TASK_MAX_BYTES = 64 << 10
 # permutation of them with its own labels.  The PIL path is timed on one
 # shard (it decodes ~10x slower)
 JPEG_SIZES = ((375, 500), (500, 375), (768, 1024), (224, 224))
-JPEG_DISTINCT = 64
+JPEG_DISTINCT = 32
 JPEG_QUALITY = 90
 # phase 16e: a save every `every` steps of phase 10's step on the card,
 # `sync_saves` through save_checkpoint, then `async_saves` through an
 # AsyncCheckpointer that keeps `keep` of them
-ASYNC_CKPT = dict(every=3, sync_saves=3, async_saves=4, keep=3)
+ASYNC_CKPT = dict(every=3, sync_saves=2, async_saves=3, keep=2)
 # phase 16f: mnist_spark's chief checkpoint after this many steps of 64
 MNIST_CKPT_STEPS = 16
 # InputMode.TENSORFLOW MNIST (mnist_tf_ds): the data setup's four shards
@@ -596,13 +632,13 @@ SERVE_RELOAD_SLACK_S = 60.0
 SERVE_PREDICT_RTOL = 1e-5
 # the pipeline phases (MNIST at its full width): the fit's seeded records
 # (batch 64, SGD(0.05, momentum 0.9), one epoch), the transform's 60,000
-# rows at batch 1,024 in 8 partitions, inference()'s 16 partitions of
+# rows at batch 1,024 in 8 partitions, inference()'s 8 partitions of
 # 10,000 (id, image) rows, the roles run (mnist_eval's defaults, plus a
 # ps node), and the predictions' tolerance against mnist.predict in this
 # process (float32, TF32 off, of the largest logit)
 PIPELINE = dict(fit_rows=4096, fit_partitions=4, batch_size=64, lr=0.05,
                 rows=60000, partitions=8, transform_batch=1024,
-                infer_partitions=16, infer_rows=10000)
+                infer_partitions=8, infer_rows=10000)
 ROLES = dict(num_examples=2048, batch_size=64, steps=40, ckpt_steps=10,
              lr=0.05, eval_timeout=300.0)
 PIPELINE_RTOL = 1e-5
@@ -3412,7 +3448,7 @@ def phase_pipeline_fit(dev, gpu, engine_fit, engine_pred, tmp):
 
 def phase_cluster_inference(dev, gpu, engine, export_dir, images, want,
                             tmp):
-    """``cluster_inference``: ``TFCluster.inference()`` of 16 partitions
+    """``cluster_inference``: ``TFCluster.inference()`` of 8 partitions
     of 10,000 ``(id, image)`` rows (row j is ``pipeline_fit``'s image
     j mod 60,000) into a SPARK-mode trainer on the card
     (``mnist_pipeline.infer_fun``, ``num_gpus=1``), which predicts each
@@ -4405,18 +4441,25 @@ def phase_parallel_one_rank(dev, gpu):
     return counts
 
 
-def phase_dryrun_multichip(gpu):
+def phase_dryrun_multichip(gpu, beside=()):
     """``dryrun_multichip``: the port's dry run on ``DRYRUN_RANKS`` gloo
-    CPU ranks of this host, its three lines and its wall time."""
+    CPU ranks of this host, its four lines (the elastic shrink to half
+    the ranks at accumulation 2 the second) and its wall time, taken
+    while the phases named in ``beside`` run (``measured_beside``)."""
     from tensorflowonspark_tpu_torch.parallel import dryrun
 
     t0 = time.perf_counter()
     lines = dryrun.dryrun_multichip(DRYRUN_RANKS)
-    if len(lines) != 3 or not all(line.endswith(" OK") for line in lines):
+    n = DRYRUN_RANKS
+    shrink = (f"dryrun_multichip({n}) elastic: {n} virtual -> {n // 2} "
+              "devices accum=2 ")
+    if len(lines) != 4 or not all(line.endswith(" OK") for line in lines) \
+            or not lines[1].startswith(shrink):
         raise AssertionError(f"dryrun_multichip: {lines}")
     print("dryrun_multichip " + json.dumps(dict(
-        ranks=DRYRUN_RANKS, backend="gloo", torch=torch.__version__,
-        wall_s=time.perf_counter() - t0, host_cpus=os.cpu_count(),
+        ranks=n, backend="gloo", torch=torch.__version__,
+        elastic=lines[1], wall_s=time.perf_counter() - t0,
+        measured_beside=list(beside), host_cpus=os.cpu_count(),
         gpu=gpu)), flush=True)
 
 
@@ -4795,11 +4838,13 @@ def host_line():
 
 
 # 36: the observed main path.  One executor, one step a partition: 36a
-# runs long enough (~100 steps of ~85 ms) for two /metrics scrapes, the
-# other GETs and a 2 s /profilez capture while it trains; 36b poisons
-# the 4th step's loss under TFOS_HEALTH_ACTION=halt, its chief
-# checkpointing every step.
-OBS = dict(partitions=100, records=8, profile_ms=2000, interval=0.5)
+# runs long enough for two /metrics scrapes, the other GETs and a 2 s
+# /profilez capture while it trains.  The watcher needs ~6 s after the
+# first step (on an H100 80GB HBM3 at 700 W: the /profilez round trip
+# 4.56 s, the loop's mean step 110.5 ms with the capture), ~55 steps; 70
+# leave a margin.  36b poisons the 4th step's loss under
+# TFOS_HEALTH_ACTION=halt, its chief checkpointing every step.
+OBS = dict(partitions=70, records=8, profile_ms=2000, interval=0.5)
 HALT = dict(partitions=6, records=8, nan_step=4)
 # the JAX package's trace merger (stdlib only), run on 36a's run dir
 REPO_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -5087,13 +5132,14 @@ def phase_obs(dev, engine, gpu, tdir, spark):
     return report["launches"]
 
 
-def phase_obs_halt(dev, engine, gpu, tdir):
+def phase_obs_halt(dev, engine, gpu, tdir, beside=()):
     """Phase 36b: the same path on ``engine`` (started under
     ``HALT_ENV``), the chief checkpointing every step: the NaN planned
     on the 4th step's loss halts the trainer (``HealthHalt``), its
     latest checkpoint is step 3's, the cluster shuts down with no error,
     no trainer and no ring left, and the drained run holds the
-    ``health/nan`` and ``health/halt`` events."""
+    ``health/nan`` and ``health/halt`` events.  ``total_s`` is taken
+    while the phases named in ``beside`` run (``measured_beside``)."""
     cfg = dict(FULL, dtype="bfloat16", attn_impl="flash")
     n, rows = HALT["partitions"], HALT["records"]
     tokens = np.random.default_rng(37).integers(
@@ -5129,7 +5175,8 @@ def phase_obs_halt(dev, engine, gpu, tdir):
         shutdown_error=shut_err, trainer_alive=alive,
         halt_event=events.get("health/halt", {}).get("attrs"),
         nan_event=events.get("health/nan", {}).get("attrs"),
-        rings_left=seen["rings_left"], total_s=total_s, gpu=gpu)
+        rings_left=seen["rings_left"], total_s=total_s,
+        measured_beside=list(beside), gpu=gpu)
     print("obs_halt " + json.dumps(summary, default=str), flush=True)
     bad = HALT["nan_step"]
     if latest != bad - 1 or step != bad - 1 or not finite or \
@@ -5144,12 +5191,13 @@ def _where(it):
     return [int(os.environ["TFOS_EXECUTOR_INDEX"])]
 
 
-def phase_engine_outside_kill(gpu):
+def phase_engine_outside_kill(gpu, beside=()):
     """Phase 37: on the card's host, no CUDA: executor 1 of a fresh
     two-executor engine SIGKILLed from outside while it waits on its
     inbox; ``ensure_executors`` respawns it, a spread job's task 1 runs
     on it and a shared-queue job of four tasks finishes, within 60 s;
-    the time from the kill to the shared job's end is the heal."""
+    the time from the kill to the shared job's end is the heal, taken
+    while the phases named in ``beside`` run (``measured_beside``)."""
     import signal
 
     engine = LocalEngine(2)
@@ -5179,6 +5227,7 @@ def phase_engine_outside_kill(gpu):
         heal_s = time.perf_counter() - t0
         summary = dict(victim=victim, respawned=respawned,
                        new_pid=engine._procs[1].pid, heal_s=heal_s,
+                       measured_beside=list(beside),
                        hung=t.is_alive(), errors=[repr(e) for e in errs],
                        **res, gpu=gpu)
     finally:
@@ -5548,6 +5597,416 @@ def phase_service_transformer(engine, gpu, spark):
     return report["launches"]
 
 
+# 39: the streaming feed.  Phase 6's batch is one micro-batch of 8 token
+# records; 39a streams 12 of them through train_stream, the chief
+# checkpointing every 4 steps, while an EvalSidecar on an engine of its
+# own evaluates each checkpoint at full width on the card (a held-out
+# batch); before the micro-batch after a checkpoint, the stream waits
+# until the sidecar evaluated it, so every checkpoint is evaluated, and
+# the driver computes its own loss from the same checkpoint meanwhile.
+# 39b streams to a fresh cluster and sends STOP from another process
+# after the 4th micro-batch.
+STREAM = dict(micro_batches=12, ckpt_every=4, stop_after=4, eval_seed=39)
+
+
+def stream_records():
+    """Phase 6's batch as 8 token records, in ``spark_train``'s order:
+    one micro-batch."""
+    tokens = np.random.default_rng(0).integers(
+        0, FULL["vocab_size"], (TRAIN_BATCH, FULL["max_seq"]))
+    return [tokens[i].astype(np.int32) for i in range(TRAIN_BATCH)]
+
+
+def transformer_eval_loss(params_tree, dev):
+    """The loss (bf16, the flash kernels) of a JAX-layout params tree on
+    the held-out batch, and the kernels it launched in this process."""
+    cfg = T.Config(**dict(FULL, dtype="bfloat16", attn_impl="flash"))
+    params = T.params_from_jax(params_tree, cfg, device=dev)
+    batch = torch.from_numpy(np.random.default_rng(
+        STREAM["eval_seed"]).integers(
+            0, FULL["vocab_size"], (TRAIN_BATCH, FULL["max_seq"]))).to(dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        loss = float(T.loss_fn(params, batch, cfg))
+    return loss, ops.launch_counts()
+
+
+def stream_eval(tree, step):
+    """The eval sidecar's ``eval_fn``, run in its executor on the card:
+    the restored params' held-out loss, under this script's numerics."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    loss, launches = transformer_eval_loss(tree["params"],
+                                           torch.device("cuda", 0))
+    return {"loss": loss, "launches": launches, "pid": os.getpid(),
+            "eval_ms": 1e3 * (time.perf_counter() - t0)}
+
+
+def _evaluated(side):
+    """The steps of the sidecar's ``eval/result`` events so far, read in
+    the driver: an ask each poll would keep the member's mailbox busy,
+    and it ticks (polls its directory) only when the mailbox idles."""
+    return [p["step"] for _i, kind, p in list(side.events)
+            if kind == "eval/result"]
+
+
+def _checkpoint_params(ckpt_dir, step):
+    """The ``params`` subtree of checkpoint ``step``, read alone (a third
+    of the train state: Adam's moments stay on disk)."""
+    with np.load(ckpt._path(ckpt_dir, step)) as z:
+        return ckpt._unflatten({k[len("params/"):]: z[k] for k in z.files
+                                if k.startswith("params/")})
+
+
+def _await_eval(side, ckpt_dir, step, refs, dev, timeout=600):
+    """Wait for the chief's checkpoint ``step``, compute the driver's
+    loss from it (on a thread, while the sidecar evaluates the same
+    checkpoint), then wait until the sidecar evaluated it; returns the
+    seconds waited."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout
+    while (ckpt.latest(ckpt_dir)[0] or 0) < step:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"stream: no checkpoint {step} in "
+                                 f"{timeout} s")
+        time.sleep(0.05)
+    errors = []
+
+    def _reference():
+        try:
+            refs[step] = transformer_eval_loss(
+                _checkpoint_params(ckpt_dir, step), dev)[0]
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    ref = threading.Thread(target=_reference, name=f"eval-ref-{step}")
+    ref.start()
+    while step not in _evaluated(side):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"eval_sidecar: step {step} not evaluated "
+                                 f"in {timeout} s")
+        time.sleep(0.1)
+    ref.join(timeout)
+    if errors or step not in refs:
+        raise AssertionError(f"the driver's loss of checkpoint {step}: "
+                             f"{errors}")
+    return time.perf_counter() - t0
+
+
+def _stream_summary(report, spark, t0):
+    med = statistics.median(report["step_ms"])
+    return dict(
+        steps=len(report["losses"]), losses=report["losses"],
+        step_ms_median=med,
+        tokens_per_s=TRAIN_BATCH * FULL["max_seq"] / (med / 1e3),
+        infeed_stall_frac=report["train_metrics"]["infeed_stall_frac"],
+        spark_train_step_ms_median=spark["step_ms_median"],
+        spark_train_tokens_per_s=spark["tokens_per_s"],
+        spark_train_infeed_stall_frac=spark["infeed_stall_frac"],
+        boot_s=report["first_step_wall"] - t0,
+        trainer_alive_after_shutdown=_alive(report["pid"]),
+        feed_transport=report["feed"]["transport"],
+        launches=report["launches"])
+
+
+def phase_stream_transformer(dev, engine, engine_eval, gpu, spark):
+    """39a ``stream_transformer`` and ``eval_sidecar``: phase 6's
+    transformer fed by ``TFCluster.train_stream`` on phase 6's engine;
+    its first 5 losses equal ``spark_train``'s exactly (the same
+    batches), each flash kernel launched 8 times a step, no ring left
+    and no CUDA context in the feeding executor; every checkpoint
+    evaluated once by the sidecar (8 launches of the flash forward an
+    evaluation in its executor), each loss within ``SPARK_LOSS_RTOL`` of
+    the driver's from the same checkpoint.  39b ``stream_stop``: a
+    second cluster, STOPped by ``examples/stop_streaming.py`` in a
+    subprocess after the 4th micro-batch: ``train_stream`` returns
+    within one micro-batch, ``shutdown()`` raises nothing, the trainer
+    took fewer than 12 steps.  Returns the trainers' launches (both
+    runs summed) and the evaluations' (summed)."""
+    from tensorflowonspark_tpu_torch import workloads
+    from tensorflowonspark_tpu_torch.actors import (
+        ActorSystem,
+        SupervisionPolicy,
+    )
+
+    cfg = dict(FULL, dtype="bfloat16", attn_impl="flash")
+    records = stream_records()
+    n, every = STREAM["micro_batches"], STREAM["ckpt_every"]
+    tmp = tempfile.mkdtemp(prefix="tfos_stream_")
+    ckpt_dir, out_dir, out_stop = (os.path.join(tmp, d)
+                                   for d in ("ckpt", "out", "out_stop"))
+    for d in (ckpt_dir, out_dir, out_stop):
+        os.makedirs(d)
+    system = ActorSystem(1, engine=engine_eval)
+    try:
+        # 39a: the stream, and the sidecar watching the chief's saves
+        side = system.spawn(workloads.EvalSidecar(ckpt_dir, stream_eval),
+                            "eval", policy=SupervisionPolicy(tick_secs=0.2),
+                            timeout=300)
+        refs, waits = {}, {}
+
+        def stream():
+            for i in range(n):
+                if i and i % every == 0:
+                    waits[i] = _await_eval(side, ckpt_dir, i, refs, dev)
+                yield engine.parallelize(records, 1)
+
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, transformer_spark.main_fun,
+            {"config": cfg, "batch_size": TRAIN_BATCH, "seed": 0,
+             "out_dir": out_dir, "ckpt_dir": ckpt_dir, "ckpt_every": every,
+             "ckpt_keep": n},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300)
+        c.train_stream(stream(), feed_timeout=600)
+        done_after_stream = c.server.done.is_set()
+        c.shutdown()
+        total_s = time.time() - t0
+        rings = _rings_left(c)
+        executors_cuda = _executors_cuda(engine)
+        with open(os.path.join(out_dir, "transformer-rank0.json")) as f:
+            report = json.load(f)
+        # the last checkpoint's evaluation, on a thread while 39b's
+        # cluster boots
+        last = {}
+
+        def _last_eval():
+            try:
+                last["wait_s"] = _await_eval(side, ckpt_dir, n, refs, dev)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                last["error"] = e
+
+        last_eval = threading.Thread(target=_last_eval, name="eval-last")
+        last_eval.start()
+
+        # 39b: a fresh cluster, STOPped from outside
+        stop = {}
+
+        def stop_stream(host, port):
+            for i in range(n):
+                if i == STREAM["stop_after"]:
+                    proc = subprocess.run(
+                        [sys.executable, "-m",
+                         "tensorflowonspark_tpu_torch.examples."
+                         "stop_streaming", host, str(port)], cwd=REPO_DIR,
+                        capture_output=True, text=True, timeout=120)
+                    stop.update(rc=proc.returncode, out=proc.stdout.strip(),
+                                err=proc.stderr[-400:],
+                                t=time.perf_counter())
+                stop.setdefault("pulled", []).append(i)
+                yield engine.parallelize(records, 1)
+
+        t1 = time.time()
+        try:
+            c2 = TFCluster.run(
+                engine, transformer_spark.main_fun,
+                {"config": cfg, "batch_size": TRAIN_BATCH, "seed": 0,
+                 "out_dir": out_stop},
+                num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+                num_gpus=1, reservation_timeout=300)
+        finally:
+            last_eval.join()
+        if "error" in last:
+            raise last["error"]
+        waits[n] = last["wait_s"]
+        evaluated = side.ask("evaluated").result(60)
+        evals = [p for _i, kind, p in side.events if kind == "eval/result"]
+        saved = ckpt._npz_steps(ckpt_dir)
+        side_pid = side.pids()[0]
+        # the member holds its executor until it stops
+        system.stop()
+        eval_cuda = _executors_cuda(engine_eval)
+        host, port = c2.cluster_meta["server_addr"]
+        c2.train_stream(stop_stream(host, port), feed_timeout=600)
+        stop_to_return_s = time.perf_counter() - stop.get("t", np.nan)
+        stopped = c2.server.done.is_set()
+        shutdown_error = None
+        try:
+            c2.shutdown()
+        except (Exception, SystemExit) as e:  # noqa: BLE001 - checked
+            shutdown_error = repr(e)
+        stop_total_s = time.time() - t1
+        stop_rings = _rings_left(c2)
+        with open(os.path.join(out_stop, "transformer-rank0.json")) as f:
+            report2 = json.load(f)
+    finally:
+        system.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = spark["losses"]
+    summary = dict(
+        micro_batches=n, **_stream_summary(report, spark, t0),
+        spark_train_losses=ref, total_s=total_s, rings_left=rings,
+        stop_after_stream=done_after_stream, executors_cuda=executors_cuda,
+        saved_steps=saved, gpu=gpu)
+    print("stream_transformer " + json.dumps(summary), flush=True)
+    rel = [abs(e["metrics"]["loss"] - refs.get(e["step"], np.nan))
+           / abs(refs.get(e["step"], np.nan)) for e in evals]
+    eval_summary = dict(
+        evaluated=evaluated, events=[e["step"] for e in evals],
+        losses={e["step"]: e["metrics"]["loss"] for e in evals},
+        driver_losses=refs, max_rel_loss_diff=max(rel) if rel else None,
+        eval_ms=[e["metrics"]["eval_ms"] for e in evals],
+        launches=[e["metrics"]["launches"] for e in evals],
+        stream_wait_s=waits, sidecar_pid=side_pid,
+        sidecar_executor_cuda=eval_cuda, cluster_executor_cuda=executors_cuda,
+        gpu=gpu)
+    print("eval_sidecar " + json.dumps(eval_summary), flush=True)
+    pulled_after_stop = [i for i in stop.get("pulled", [])
+                         if i >= STREAM["stop_after"]]
+    stop_summary = dict(
+        **_stream_summary(report2, spark, t1), stop_rc=stop.get("rc"),
+        stop_out=stop.get("out"), pulled=stop.get("pulled"),
+        stop_to_return_s=stop_to_return_s, done=stopped,
+        shutdown_error=shutdown_error, rings_left=stop_rings,
+        total_s=stop_total_s, gpu=gpu)
+    print("stream_stop " + json.dumps(stop_summary), flush=True)
+    problems = []
+    if report["losses"][:TRAIN_STEPS] != ref or len(report["losses"]) != n:
+        problems.append(f"losses {report['losses']} against spark_train's "
+                        f"{ref}")
+    for name, r in (("stream", report), ("stop", report2)):
+        want = FULL["n_layers"] * len(r["losses"])
+        if r["launches"] != dict(flash_fwd=want, flash_dq=want,
+                                 flash_dkv=want, rmsnorm=0):
+            problems.append(f"{name} trainer launches {r['launches']}, "
+                            f"want {want} of each flash kernel")
+    if rings or stop_rings or summary["trainer_alive_after_shutdown"] or \
+            stop_summary["trainer_alive_after_shutdown"]:
+        problems.append(f"rings left {rings} {stop_rings} or a trainer "
+                        "alive after shutdown")
+    if done_after_stream or any(cuda for _i, _p, cuda in executors_cuda):
+        problems.append(f"STOP set after a full stream {done_after_stream}; "
+                        f"executors' CUDA {executors_cuda}")
+    steps = list(range(every, n + 1, every))
+    if saved != steps or evaluated != steps or \
+            [e["step"] for e in evals] != steps:
+        problems.append(f"checkpoints {saved}, evaluated {evaluated}, "
+                        f"eval events {[e['step'] for e in evals]}")
+    if not rel or not max(rel) <= SPARK_LOSS_RTOL:
+        problems.append(f"eval losses {eval_summary['losses']} against the "
+                        f"driver's {refs} (rtol {SPARK_LOSS_RTOL})")
+    if any(e["metrics"]["launches"] != dict(flash_fwd=FULL["n_layers"],
+                                            flash_dq=0, flash_dkv=0,
+                                            rmsnorm=0) for e in evals):
+        problems.append(f"evaluation launches {eval_summary['launches']}")
+    if not any(cuda for _i, _p, cuda in eval_cuda):
+        problems.append(f"the sidecar's executor holds no CUDA context: "
+                        f"{eval_cuda}")
+    if stop.get("rc") != 0 or not stopped or shutdown_error is not None or \
+            len(pulled_after_stop) > 1 or \
+            not len(report2["losses"]) < n or \
+            len(report2["losses"]) > STREAM["stop_after"] + 1 or \
+            report2["losses"] != ref[:len(report2["losses"])]:
+        problems.append(f"stop: rc {stop.get('rc')} {stop.get('err')}, "
+                        f"done {stopped}, shutdown {shutdown_error}, pulled "
+                        f"{stop.get('pulled')}, losses {report2['losses']}")
+    if problems:
+        raise AssertionError("stream_transformer: " + "; ".join(problems))
+    launches = _sum_launches(report["launches"], report2["launches"])
+    return launches, _sum_launches(*[e["metrics"]["launches"]
+                                     for e in evals])
+
+
+# 40: successive halving over 4 SGD learning rates (budget 1, eta 2) with
+# 2 TrialActors on a two-executor engine of their own; a trial trains
+# MNIST on the card for 10 x budget steps from fixed params and data
+SWEEP = dict(lrs=[0.1, 0.03, 0.01, 0.003], batch=64, steps=10, seed=40,
+             rtol=1e-5)
+
+
+def sweep_trial(lr, budget):
+    """One trial, in a TrialActor's executor or here: MNIST on the card
+    (float32, TF32 off, deterministic cuDNN) from the seeded params,
+    ``SGD(lr, momentum 0.9)`` for ``10 * budget`` steps of the seeded
+    records; the score is minus the last loss."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", 0)
+    params = {k: {n: v.to(dev) for n, v in layer.items()}
+              for k, layer in mnist.init_params(
+                  torch.Generator().manual_seed(SWEEP["seed"])).items()}
+    leaves = [p.requires_grad_() for layer in params.values()
+              for p in layer.values()]
+    step = mnist.make_train_step(torch.optim.SGD(leaves, lr=lr,
+                                                 momentum=0.9))
+    steps, b = SWEEP["steps"] * budget, SWEEP["batch"]
+    images, labels = mnist_spark.collate(mnist_spark.synthetic_records(
+        steps * b, seed=SWEEP["seed"]))
+    images = torch.from_numpy(images).to(dev)
+    labels = torch.from_numpy(labels).to(dev)
+    loss = None
+    for i in range(steps):
+        loss, _ = step(params, images[i * b:(i + 1) * b],
+                       labels[i * b:(i + 1) * b])
+    return -float(loss)
+
+
+def _halving_here(configs, budget, eta):
+    """Successive halving with ``sweep_trial`` called in this process,
+    rung after rung in the order the sweep asks: the reference."""
+    survivors, history = list(enumerate(configs)), []
+    while survivors:
+        scores = {tid: sweep_trial(cfg, budget) for tid, cfg in survivors}
+        ranked = sorted(survivors, key=lambda s: (-scores[s[0]], s[0]))
+        history.append({"rung": len(history), "budget": budget,
+                        "scores": scores})
+        if len(ranked) == 1:
+            break
+        survivors = ranked[:max(1, -(-len(ranked) // eta))]
+        budget *= eta
+    return history, configs[ranked[0][0]]
+
+
+def phase_sweep(engine_sweep, gpu, beside=()):
+    """40 ``sweep``: ``workloads.successive_halving`` over ``SWEEP``'s
+    learning rates with 2 ``TrialActor``s on ``engine_sweep``: its rungs
+    (trials and budgets) and best config equal those of the same
+    ``trial_fn`` called here in the same order, each score within
+    ``SWEEP["rtol"]``; its times are taken while the phases named in
+    ``beside`` run (``measured_beside``).  Returns the summary; the
+    caller prints it."""
+    from tensorflowonspark_tpu_torch import workloads
+    from tensorflowonspark_tpu_torch.actors import ActorSystem
+
+    system = ActorSystem(2, engine=engine_sweep)
+    try:
+        t0 = time.perf_counter()
+        out = workloads.successive_halving(
+            sweep_trial, SWEEP["lrs"], budget=1, eta=2, workers=2,
+            system=system, timeout=600)
+        sweep_s = time.perf_counter() - t0
+        pids = system.group("sweep").pids()
+    finally:
+        system.stop()
+    t0 = time.perf_counter()
+    ref, ref_best = _halving_here(SWEEP["lrs"], 1, 2)
+    here_s = time.perf_counter() - t0
+    got = out["history"]
+    rel = [abs(r["scores"][t] - h["scores"][t]) / abs(h["scores"][t])
+           for r, h in zip(got, ref) for t in h["scores"]
+           if t in r["scores"]]
+    summary = dict(
+        lrs=SWEEP["lrs"], rungs=[[r["budget"], sorted(r["scores"])]
+                                 for r in got],
+        scores=[r["scores"] for r in got], best=out["best"],
+        driver_rungs=[[h["budget"], sorted(h["scores"])] for h in ref],
+        driver_best=ref_best, max_rel_score_diff=max(rel) if rel else None,
+        sweep_s=sweep_s, driver_s=here_s, measured_beside=list(beside),
+        trial_pids=pids, executors_cuda=_executors_cuda(engine_sweep),
+        gpu=gpu)
+    if summary["rungs"] != summary["driver_rungs"] or \
+            out["best"]["config"] != ref_best or len(rel) != sum(
+                len(h["scores"]) for h in ref) or \
+            not max(rel) <= SWEEP["rtol"]:
+        raise AssertionError(f"sweep: {json.dumps(summary, default=str)}")
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5610,9 +6069,15 @@ def main():
     engine_svc = LocalEngine(2)
     engine_dyn = LocalEngine(2, env=SERVICE_DYN_ENV)
     engine_kill = LocalEngine(2, env=SERVICE_KILL_ENV)
+    # phases 39-40: the actor workloads on the card, each on an engine of
+    # its own (their executors hold CUDA contexts and fork no trainer):
+    # the eval sidecar's one executor and the sweep's two
+    engine_eval = LocalEngine(1)
+    engine_sweep = LocalEngine(2)
     engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
                engine_pred, engine_roles, engine_recover, engine_elastic,
-               engine_obs, engine_halt, engine_svc, engine_dyn, engine_kill)
+               engine_obs, engine_halt, engine_svc, engine_dyn, engine_kill,
+               engine_eval, engine_sweep)
     try:
         kernels = run_phases(dev, gpu, *engines, tdirs=tdirs)
     finally:
@@ -5628,21 +6093,37 @@ def main():
     return 0
 
 
+class _Laps:
+    """The seconds each phase took, for the ``phase_seconds`` line."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t, 1)
+        self.t = now
+
+
 def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
                engine_fit, engine_pred, engine_roles, engine_recover,
                engine_elastic, engine_obs, engine_halt, engine_svc,
-               engine_dyn, engine_kill, tdirs):
+               engine_dyn, engine_kill, engine_eval, engine_sweep, tdirs):
     """Every phase in order; returns the kernels line's entries."""
+    lap = _Laps()
+    # the kernels (one nvcc a source) and the host-native pieces, the
+    # feed's ring and the TFRecord codec (one g++ each), all started
+    # together; a failure of either raises as a kernel's does.  The
+    # marshal (cc) builds after them, where the numpy marshal runs if it
+    # cannot build (no Python.h)
     t0 = time.perf_counter()
-    built = _build.build()
-    print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    # the host-native pieces: the feed's ring and the TFRecord codec
-    # (g++, one compiler each, started together), whose failure raises
-    # as a kernel's does, and the marshal (cc), where the numpy marshal
-    # runs if it cannot build (no Python.h)
-    t0 = time.perf_counter()
-    native_build.build(["shmq", "tfrecord"])
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        native = pool.submit(native_build.build, ["shmq", "tfrecord"])
+        built = _build.build()
+        print(f"build: {json.dumps(built)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        native.result()
     marshal_native = marshal.native_available()
     print("native build: " + json.dumps(dict(
         built=native_build.build_seconds,
@@ -5656,19 +6137,26 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
             print(f"ptxas {name}: {fn}: {regs} registers, spill stores "
                   f"{st} B, spill loads {ld} B", flush=True)
     tc_build = check_tc_build()
+    lap("build")
 
     fwd_case = phase_flash(dev)
     bwd_case = phase_flash_bwd(dev)
     rms_case = phase_rmsnorm(dev)
+    lap("kernels")
     launches, train = phase_train(dev, gpu)
+    lap("train")
     spark_launches, spark = phase_spark_train(engine, gpu, train)
+    lap("spark_train")
     phase_grad_exact(dev)
     phase_serving(dev, gpu)
     phase_exact(dev)
+    lap("grad_exact, serving, exact")
     res = phase_resnet(dev, gpu)
     phase_resnet_exact(dev)
+    lap("resnet, resnet_exact")
     phase_spark_resnet(dev, engine, gpu, res)
     phase_spark_resnet(dev, engine_mgr, gpu, res, transport="manager")
+    lap("spark_resnet, spark_resnet_manager")
     tfr_dir = tempfile.mkdtemp(prefix="tfos_tfrecords_")
     jpeg_root = tempfile.mkdtemp(prefix="tfos_jpeg_")
     try:
@@ -5676,6 +6164,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         tfr_launches = phase_tfrecord_resnet(dev, gpu, res, files)
         spark_tfr_launches, spark_tfr = phase_spark_tfrecord_resnet(
             dev, engine, gpu, res, tfr_dir)
+        lap("tfrecord_io, tfrecord_resnet, spark_tfrecord_resnet")
         # JPEG shards, their raw conversion, remote paths and the async
         # checkpointer (phases 16a-16f), on the first engine, whose
         # executor has never touched CUDA
@@ -5689,6 +6178,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
             phase_async_checkpoint(dev, gpu))
         phase_remote_io(dev, gpu, files)
         phase_spark_mnist_checkpoint(engine, gpu)
+        lap("16a-16f")
     except BaseException:
         shutil.rmtree(tfr_dir, ignore_errors=True)
         raise
@@ -5711,6 +6201,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         engine_serve.stop()
         engine_tf.stop()
         check_serve_cleanup(pids)
+        lap("tf_mode_mnist, serve phases")
         # the pipeline and SPARK-mode inference (phases 23-26)
         pipe_tmp = tempfile.mkdtemp(prefix="tfos_pipeline_", dir=serve_tmp)
         export_dir, images, want, fit_launches = phase_pipeline_fit(
@@ -5723,6 +6214,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
                                             pipe_tmp)
         pipeline_launches = _sum_launches(fit_launches, infer_launches,
                                           roles_launches, pred_launches)
+        lap("pipeline phases")
     finally:
         shutil.rmtree(serve_tmp, ignore_errors=True)
         shutil.rmtree(tf_tmp, ignore_errors=True)
@@ -5731,32 +6223,73 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     seg_launches = _sum_launches(phase_segmentation(dev, gpu),
                                  phase_segmentation_exact(dev),
                                  phase_spark_segmentation(dev, engine, gpu))
-    # speculative decoding (30-31), the parallel layer on a one-rank NCCL
-    # group (32) and the dry run on gloo CPU ranks (33): each path's
-    # counts zeroed just before it and read just after
+    lap("segmentation phases")
+    # speculative decoding (30-31) and the parallel layer on a one-rank
+    # NCCL group (32): each path's counts zeroed just before it and read
+    # just after (the dry run, 33, runs on gloo CPU ranks beside 36b)
     spec_launches = phase_spec_decode(dev, gpu)
     phase_spec_exact(dev)
+    lap("spec_decode, spec_exact")
     ops.reset_launch_counts()
     parallel_launches = phase_parallel_one_rank(dev, gpu)
-    phase_dryrun_multichip(gpu)
+    lap("parallel_one_rank")
     # supervised recovery (34) and the elastic shrink (35), each counted
     # in its trainers (every incarnation's own counts, summed), and the
     # accumulated gradient in float32 (35a)
     recover_launches = phase_spark_recover(dev, engine_recover, gpu,
                                            tdirs[0])
     engine_recover.stop()
+    lap("spark_recover")
     elastic_launches = phase_spark_elastic(dev, engine_elastic, gpu,
                                            tdirs[1])
     engine_elastic.stop()
     phase_elastic_exact(dev)
+    lap("spark_elastic, elastic_exact")
     # the observability plane on the main path (36a, its launches
     # counted in its trainer), the health halt (36b) and the plane's
     # cost against phase 6 (36c); the outside kill on the host (37)
     obs_launches = phase_obs(dev, engine_obs, gpu, tdirs[2], spark)
     engine_obs.stop()
-    phase_obs_halt(dev, engine_halt, gpu, tdirs[3])
-    engine_halt.stop()
-    phase_engine_outside_kill(gpu)
+    lap("obs")
+    # 36b gates on correctness alone and is mostly its trainer's boot:
+    # the dry run (33, CPU work on 8 gloo ranks) and the sweep (40,
+    # actors on the card) run beside it on threads, the sweep beside 37
+    # too; the dry run ends before 37, whose heal it would slow.  The
+    # times these phases print are taken under that contention, and
+    # each names what ran beside it (``measured_beside``)
+    beside = {}
+
+    def _beside(name, fn, *args):
+        try:
+            beside[name] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            beside[f"{name} error"] = e
+
+    threads = [threading.Thread(target=_beside, name=f"phase-{name}",
+                                args=(name, fn, *args))
+               for name, fn, args in (
+                   ("dryrun_multichip", phase_dryrun_multichip,
+                    (gpu, ("obs_halt", "sweep"))),
+                   ("sweep", phase_sweep,
+                    (engine_sweep, gpu, ("obs_halt", "dryrun_multichip",
+                                         "engine_outside_kill"))))]
+    for t in threads:
+        t.start()
+    try:
+        phase_obs_halt(dev, engine_halt, gpu, tdirs[3],
+                       beside=("dryrun_multichip", "sweep"))
+        engine_halt.stop()
+        threads[0].join()
+        phase_engine_outside_kill(gpu, beside=("sweep",))
+    finally:
+        for t in threads:
+            t.join()
+        engine_sweep.stop()
+    for name in ("dryrun_multichip", "sweep"):
+        if f"{name} error" in beside:
+            raise beside[f"{name} error"]
+    print("sweep " + json.dumps(beside["sweep"], default=str), flush=True)
+    lap("obs_halt, dryrun_multichip, engine_outside_kill, sweep")
     # the data service (38a-38c: ResNet-50 from phase 14's shards, each
     # trainer's counts its own), and 38d, the transformer through it
     try:
@@ -5768,9 +6301,19 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         shutil.rmtree(tfr_dir, ignore_errors=True)
         for e in (engine_svc, engine_dyn, engine_kill):
             e.stop()
+    lap("service_static, service_dynamic, service_kill")
     service_launches = _sum_launches(
         service_launches,
         phase_service_transformer(engine, gpu, spark))
+    lap("service_transformer")
+    # the streaming feed on phase 6's engine, its checkpoints evaluated
+    # by the eval sidecar on its own engine (39)
+    stream_launches, eval_launches = phase_stream_transformer(
+        dev, engine, engine_eval, gpu, spark)
+    engine_eval.stop()
+    lap("stream_transformer, eval_sidecar, stream_stop")
+    print("phase_seconds " + json.dumps(dict(
+        lap.seconds, total=round(sum(lap.seconds.values()), 1))), flush=True)
 
     attn_src = "tensorflowonspark_tpu/ops/attention.py"
     bwd_src = "tensorflowonspark_tpu_torch/ops/csrc/flash_bwd.cu"
@@ -5850,6 +6393,10 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         k["launches_obs"] = obs_launches.get(k["name"], 0)
         # phases 38a-38d's trainers summed (38d's the flash kernels)
         k["launches_service"] = service_launches[k["name"]]
+        # phase 39's two streaming trainers summed, and the eval
+        # sidecar's evaluations in its executor summed (the forward)
+        k["launches_stream"] = stream_launches[k["name"]]
+        k["launches_eval"] = eval_launches[k["name"]]
     if serve_launches["flash_fwd"] == 0 or any(
             serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
         raise AssertionError(f"serving replicas launched {serve_launches}")
@@ -5875,6 +6422,14 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         if not all(got[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")) \
                 or got["rmsnorm"]:
             raise AssertionError(f"the {name} trainers launched {got}")
+    if not all(stream_launches[k] for k in ("flash_fwd", "flash_dq",
+                                            "flash_dkv")) or \
+            stream_launches["rmsnorm"] or not eval_launches["flash_fwd"] or \
+            any(eval_launches[k] for k in ("flash_dq", "flash_dkv",
+                                           "rmsnorm")):
+        raise AssertionError(f"the streaming trainers launched "
+                             f"{stream_launches}, the evaluations "
+                             f"{eval_launches}")
     return kernels
 
 

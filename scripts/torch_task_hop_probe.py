@@ -22,7 +22,16 @@ pickled), and two ways around it, in this order:
   and popped from the port's ring (``recordio.shm``, the node's default
   256 MiB) in one process, twelve times: the first six touch ring pages
   for the first time, the rest reuse them; every pop copies into a
-  buffer of its own.
+  buffer of its own;
+- ``manager_start``: a node's boot in an engine executor.  An executor
+  is spawned, so it imports the driver's main module (this script,
+  which imports torch as a training driver does), and its default start
+  method is spawn.  In one executor, a ``manager.TFManager`` server
+  started with each start method, ``--reps`` times (``spawn`` imports
+  the main module again; ``fork`` copies the executor); then
+  ``cluster.run`` of a one-node SPARK-mode cluster whose ``main_fun``
+  only drains its feed, from the call to its return (the manager, the
+  ring, the rendezvous).
 
 Prints one JSON object per line: the pickling, each row of times in ms,
 and the host's kernel release and the card (``nvidia-smi``), when there
@@ -44,8 +53,9 @@ import tempfile
 import time
 
 import numpy as np
+import torch  # noqa: F401 - the main module's weight, as a driver's
 
-sys.path.insert(0, os.getcwd())  # the checkout's port, for the ring
+sys.path.insert(0, os.getcwd())  # the checkout's port
 
 F_SETPIPE_SZ, F_GETPIPE_SZ = 1031, 1032
 
@@ -133,6 +143,66 @@ def ring_hop(records, reps=12):
     return rows
 
 
+def drain_main(args, ctx):
+    """A ``main_fun`` that only drains its feed."""
+    feed = ctx.get_data_feed(train_mode=True)
+    while not feed.should_stop():
+        feed.next_batch(8)
+
+
+class ManagerStart:
+    """An engine task: a manager server started and shut down with
+    each start method, ``reps`` times; the seconds of each start."""
+
+    def __init__(self, reps):
+        self.reps = reps
+
+    def __call__(self, it):
+        import secrets
+
+        from tensorflowonspark_tpu_torch import manager
+
+        list(it)
+        manager.TFManager.register("get_queue", callable=manager._get_queue)
+        out = {"default_start_method": mp.get_start_method()}
+        for method in ("spawn", "fork"):
+            seconds = []
+            for _ in range(self.reps):
+                t0 = time.perf_counter()
+                mgr = manager.TFManager(address=("localhost", 0),
+                                        authkey=secrets.token_bytes(8),
+                                        ctx=mp.get_context(method))
+                mgr.start()
+                mgr.get_queue("input")
+                seconds.append(time.perf_counter() - t0)
+                mgr.shutdown()
+            out[f"{method}_start_s"] = seconds
+        return [out]
+
+
+def manager_start(reps):
+    """The manager's start with each method in an executor, and the
+    seconds of ``cluster.run`` of one node, ``reps`` times each."""
+    from tensorflowonspark_tpu_torch import cluster as TFCluster
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+
+    engine = LocalEngine(1)
+    try:
+        starts = engine.parallelize([0], 1).map_partitions(
+            ManagerStart(reps)).collect()[0]
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            c = TFCluster.run(engine, drain_main, {}, num_executors=1,
+                              input_mode=TFCluster.InputMode.SPARK)
+            runs.append(time.perf_counter() - t0)
+            c.train(engine.parallelize(list(range(16)), 1))
+            c.shutdown()
+    finally:
+        engine.stop()
+    return dict(starts, cluster_run_s=runs)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=6)
@@ -162,6 +232,8 @@ def main():
     print(json.dumps({"shm_file": {"write_read_ms": shm_file_hop(
         blob, args.reps)}}), flush=True)
     print(json.dumps({"ring": {"put_get_ms": ring_hop(records)}}),
+          flush=True)
+    print(json.dumps({"manager_start": manager_start(args.reps)}),
           flush=True)
     return 0
 

@@ -25,8 +25,10 @@ them:
 As everywhere in the port, what crosses a process is pickled with plain
 pickle: an actor is an instance of a module-level class whose state
 pickles, and the member task is the module-level :class:`_actor_task`.
-Members are CPU code: nothing here touches CUDA, so an actor's executor
-never holds a CUDA context.
+The runtime touches no CUDA.  An actor's own code may (the eval
+sidecar's ``eval_fn`` on the card, a sweep's trials): its executor then
+holds a CUDA context and must fork no trainer, so such actors get an
+``ActorSystem`` of their own.
 """
 
 from __future__ import annotations

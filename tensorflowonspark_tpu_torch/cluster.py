@@ -37,10 +37,13 @@ trainer goes through the same recovery.  The workers run on the
 executors that host no node first, so that a worker's death does not
 take a trainer with it.
 
-Arguments the copy does not carry raise NotImplementedError naming
-their ROADMAP.md item: streaming feeds, and a trainer process chosen
-apart from ``input_mode``.  ``serve()`` stands up the
-online serving tier on the cluster's engine after ``shutdown()``.
+Streaming feeds, as in the JAX package: ``train_stream`` feeds an
+iterable of datasets (micro-batches), ``train`` a pyspark DStream
+(``foreachRDD``), and ``shutdown(ssc=)`` stops the streaming context once
+a consumer's STOP reached the rendezvous server.  Streaming feeds are
+not supervised: ``run(restarts=)`` recovers ``train()`` jobs only.
+``serve()`` stands up the online serving tier on the cluster's engine
+after ``shutdown()``.
 
 Observability, as in the JAX package: with ``TFOS_TELEMETRY_DIR`` set
 the driver records as ``driver`` and roots the run's trace
@@ -75,8 +78,6 @@ from tensorflowonspark_tpu_torch.utils import (
 )
 
 logger = logging.getLogger(__name__)
-
-STREAMING_ITEM = "ROADMAP.md queue 1, item 18 (streaming feeds)"
 
 
 class InputMode:
@@ -131,14 +132,21 @@ class TFCluster:
         fed again, up to N times; then the error raises.
 
         A ``data.Pipeline`` goes through the data service instead
-        (:meth:`_train_data_service`)."""
+        (:meth:`_train_data_service`).  A pyspark DStream registers the
+        feeder on each of its micro-batch RDDs (``foreachRDD``) and
+        returns; the streaming context drives it, and
+        ``shutdown(ssc=)`` stops it (no supervision, as in the JAX
+        package)."""
         if self.input_mode != InputMode.SPARK:
             raise ValueError("train() requires InputMode.SPARK")
         if hasattr(dataset, "_blocks") and hasattr(dataset, "chunks"):
             return self._train_data_service(dataset, num_epochs,
                                             feed_timeout, qname)
         if hasattr(dataset, "foreachRDD"):
-            raise NotImplementedError(f"DStreams come with {STREAMING_ITEM}")
+            feeder = node.train(self.cluster_info, self.cluster_meta,
+                                feed_timeout, qname)
+            dataset.foreachRDD(lambda rdd: rdd.foreachPartition(feeder))
+            return
         ds = engine_mod.as_dataset(dataset)
         if num_epochs < 0:
             raise ValueError("num_epochs cannot be negative")
@@ -460,9 +468,34 @@ class TFCluster:
         logger.warning("elastic resize: %d -> %d node(s), template %s",
                        old_n, len(self._node_ids), template)
 
-    def train_stream(self, *args, **kwargs):
-        raise NotImplementedError(f"streaming feeds come with "
-                                  f"{STREAMING_ITEM}")
+    def train_stream(self, stream, feed_timeout=600, qname="input"):
+        """Feed a stream, an iterable of datasets (micro-batches): each
+        one's partitions go through ``node.train``'s feeder, dealt round
+        robin over the compute nodes, one micro-batch after the other;
+        the deal carries on from one micro-batch to the next, so
+        micro-batches of fewer partitions than nodes feed every node.
+        The loop ends after the micro-batch in flight once the
+        rendezvous server's ``done`` is set: a consumer's
+        ``DataFeed.terminate()`` (its feeder sends STOP) or a STOP from
+        outside (``examples/stop_streaming.py``).  Not supervised, as in
+        the JAX package: a failure raises, ``run(restarts=)`` does not
+        recover it, and the micro-batches go into no feed ledger."""
+        if self.input_mode != InputMode.SPARK:
+            raise ValueError("train_stream() requires InputMode.SPARK")
+        feeder = node.train(self.cluster_info, self.cluster_meta,
+                            feed_timeout, qname)
+        turn = 0   # the deal goes on across micro-batches
+        for micro in stream:
+            if self.server.done.is_set():
+                logger.info("train_stream: STOP received, ending the "
+                            "stream's feed")
+                break
+            ds = engine_mod.as_dataset(micro)
+            ids = self._feed_ids
+            k = turn % len(ids)
+            ds.foreach_partition(feeder, placement=_feed_placement(
+                ds.num_partitions, (), ids[k:] + ids[:k]))
+            turn = k + ds.num_partitions
 
     def inference(self, dataset, feed_timeout=600, qname="input"):
         """``dataset`` mapped through the trainers, lazily: a dataset
@@ -510,10 +543,10 @@ class TFCluster:
         ps and evaluator node's control queue, which frees its slot, then
         the launcher joined.  A node's failure raises ``TaskError``, a
         failure the launcher saw exits the driver with 1, as in the JAX
-        package."""
-        if ssc is not None:
-            raise NotImplementedError(f"streaming contexts come with "
-                                      f"{STREAMING_ITEM}")
+        package.  ``ssc``: a pyspark ``StreamingContext`` feeding the
+        cluster (``train(<DStream>)``); this waits until it terminates,
+        and stops it gracefully, leaving the SparkContext running, once
+        a consumer's STOP reached the rendezvous server."""
 
         def _watchdog():
             logger.error("shutdown watchdog fired after %ss", timeout)
@@ -538,6 +571,14 @@ class TFCluster:
         try:
             with telemetry.span("cluster/shutdown", grace_secs=grace_secs):
                 try:
+                    if ssc is not None:
+                        while not ssc.awaitTerminationOrTimeout(1):
+                            if self.server.done.is_set():
+                                logger.info("STOP received: stopping the "
+                                            "streaming context")
+                                ssc.stop(stopSparkContext=False,
+                                         stopGraceFully=True)
+                                break
                     ids = list(self._feed_ids)
                     if ids:
                         self.engine.parallelize(ids, len(ids)) \
@@ -779,10 +820,14 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
 
     ``sc`` is a ``LocalEngine`` or a pyspark ``SparkContext``.
     ``map_fun(args, ctx)`` is a module-level function (executors import
-    it); it runs in a trainer forked from each executor for
-    ``InputMode.SPARK``, in the executor itself otherwise, and in a
-    forked process on ps and evaluator nodes (``background`` other than
-    None raises NotImplementedError: ROADMAP.md queue 1, item 14).
+    it); it runs in a process forked from each executor with
+    ``background=True`` (the default for ``InputMode.SPARK``), in the
+    executor itself with ``background=False`` (the default for
+    ``InputMode.TENSORFLOW``), and in a forked process on ps and
+    evaluator nodes whatever ``background`` says.  A forked trainer needs
+    an executor that never touched CUDA (``node.run`` refuses one that
+    did); a foreground SPARK-mode trainer holds its executor, so the
+    feeders placed there wait until it returns.
     ``num_ps`` ps nodes take the first executors (or, with
     ``driver_ps_nodes``, which needs ``InputMode.TENSORFLOW``, run on
     driver threads beside the ``num_executors`` executors);
@@ -800,6 +845,9 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     ``restarts``: how many times ``train()`` may recover the cluster
     from a failed feed job (a lost executor, a trainer's error) before
     the error raises; 0 fails at once, with the remote traceback.
+    Streaming feeds (``train_stream``, a DStream) and
+    ``InputMode.TENSORFLOW`` jobs are not recovered, as in the JAX
+    package.
     ``min_executors``: the elastic floor; 0 requires a recovery to heal
     the pool to full strength, ``k > 0`` lets it re-form the cluster
     over the k or more executors that survive when the respawn budget
@@ -812,10 +860,8 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     ``data_dispatch``: ``"dynamic"`` (the default: first-come-first-
     served splits) or ``"static"`` (rank-strided shards);
     ``TFOS_DATA_DISPATCH`` overrides it."""
-    if background is not None:
-        raise NotImplementedError(
-            "a trainer process chosen apart from input_mode comes with "
-            "ROADMAP.md queue 1, item 14")
+    if background is None:
+        background = input_mode == InputMode.SPARK
     if driver_ps_nodes and input_mode != InputMode.TENSORFLOW:
         raise ValueError("driver_ps_nodes requires InputMode.TENSORFLOW")
     if num_ps >= num_executors and not driver_ps_nodes:
@@ -872,7 +918,7 @@ def run(sc, map_fun, tf_args, num_executors, num_ps=0, tensorboard=False,
     tf_status.clear()
     node_args = dict(tensorboard=tensorboard, log_dir=log_dir,
                      queues=queues, num_gpus=num_gpus,
-                     background=input_mode == InputMode.SPARK)
+                     background=bool(background))
     node_fn = node.run(map_fun, tf_args, cluster_meta, **node_args)
     node_ids = list(range(num_executors))
     side = {i for job in node.SIDE_JOBS for i in template.get(job, ())}

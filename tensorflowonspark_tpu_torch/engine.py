@@ -54,8 +54,11 @@ Differences from the JAX package:
   and its RDDs, as in the JAX package; ``as_engine`` and ``as_dataset``
   take them.  Spark ships tasks with its own serializer, but the
   adapter's own callables are module-level classes all the same.
-- No ``from_partitions`` and no caller-owned scratch root (``workdir``
-  raises NotImplementedError, ROADMAP.md queue 1, item 14).
+- ``LocalEngine(workdir=)``: the executors' directories go under a
+  root the caller owns, which ``stop()`` keeps (the pid ledgers of the
+  executors' children are swept, so it is left clean); without one, a
+  temporary root is made and removed.  ``from_partitions`` takes the
+  partitions as they are given.
 """
 
 from __future__ import annotations
@@ -335,11 +338,9 @@ class LocalEngine:
         """``env``: environment overrides for the executor processes, set
         before they boot (a value of None removes the variable).
         Construction briefly changes ``os.environ``: construct engines
-        from the driver's main thread."""
-        if workdir is not None:
-            raise NotImplementedError(
-                "a caller-owned scratch root comes with ROADMAP.md queue 1, "
-                "item 14")
+        from the driver's main thread.  ``workdir``: the root of the
+        executors' directories, the caller's (kept by :meth:`stop`);
+        default a temporary one, removed by :meth:`stop`."""
         if start_method != "spawn":
             raise ValueError(
                 f"LocalEngine starts executors with 'spawn' only, got "
@@ -348,7 +349,8 @@ class LocalEngine:
         self.num_executors = int(num_executors)
         self._ctx = mp.get_context("spawn")
         self._env = dict(env) if env else {}
-        self._root = tempfile.mkdtemp(prefix="tfos_engine_")
+        self._root = workdir or tempfile.mkdtemp(prefix="tfos_engine_")
+        self._owns_root = workdir is None
         self._results = self._ctx.Queue()
         # one inbox an executor, read by it alone, and replaced at each
         # respawn: a process killed while it waits in ``get`` keeps the
@@ -523,6 +525,10 @@ class LocalEngine:
         for i, item in enumerate(items):
             parts[i * n // max(len(items), 1)].append(item)
         return LocalDataset(self, parts)
+
+    def from_partitions(self, partitions):
+        """A dataset of ``partitions`` as given, one list each."""
+        return LocalDataset(self, [list(p) for p in partitions])
 
     def cancel_all_jobs(self):
         """Abort every running and later job."""
@@ -779,8 +785,18 @@ class LocalEngine:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=2)
+        # the pid ledgers are cleared once swept, so a caller's root is
+        # left without them
         _supervise.reap_orphans(self.executor_dirs, what="leftover child")
-        shutil.rmtree(self._root, ignore_errors=True)
+        # the pump (which sees _stopped), then the queues' feeder threads
+        # end: the driver's process outlives its engines (a test run, a
+        # long-lived driver), and may fork later
+        self._pump.join(timeout=5)
+        for q in (self._results, *self._inboxes):
+            with contextlib.suppress(OSError, ValueError):
+                q.close()
+        if self._owns_root:
+            shutil.rmtree(self._root, ignore_errors=True)
 
 
 # ----------------------------------------------------------------------------

@@ -26,6 +26,7 @@ the node's publisher pops, and one ack slot ``obsack:<node id>``).
 from __future__ import annotations
 
 import logging
+import multiprocessing
 import os
 import queue as _queue
 import threading
@@ -176,13 +177,19 @@ def start(authkey, queues, mode="local"):
     (host, port)).  ``mode``: "local" listens on loopback, "remote" on
     every interface (ps and evaluator nodes, whose control queue the
     driver reaches).  Its server process is recorded as a child of the
-    executor, so the engine's teardown can kill it."""
+    executor, so the engine's teardown can kill it.
+
+    The server is forked.  A spawned process (every engine executor)
+    inherits ``spawn`` as its default start method, and a spawned server
+    imports the driver's main module again before it serves: seconds for
+    a driver that imports torch, at every node's boot."""
     if mode not in ("local", "remote"):
         raise ValueError(f"mode must be 'local' or 'remote', got {mode!r}")
     TFManager.register("get_queue", callable=_get_queue)
     TFManager.register("kv", callable=_get_kv, proxytype=DictProxy)
     host = "localhost" if mode == "local" else ""
-    mgr = TFManager(address=(host, 0), authkey=authkey)
+    mgr = TFManager(address=(host, 0), authkey=authkey,
+                    ctx=multiprocessing.get_context("fork"))
     mgr.start()
     proc = getattr(mgr, "_process", None)
     if proc is not None and proc.pid:

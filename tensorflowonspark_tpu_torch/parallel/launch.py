@@ -55,7 +55,9 @@ def _rank_main(rank, world, store_path, backend, env, tasks, results):
             except BaseException:  # noqa: BLE001 - reported to the parent
                 results.put((rank, False, traceback.format_exc()))
     finally:
-        dist.destroy_process_group()
+        # a function may have left the group (the dry run's shrink)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 class RankPool:

@@ -477,7 +477,12 @@ class ReplicaPool:
     def start(self, timeout=180.0):
         """Launch the replicas and wait until all are up.  Raises when a
         replica reports an init error (no CUDA device, a bad export), when
-        the job fails, or after ``timeout``; the pool is stopped first."""
+        the job fails, or after ``timeout``; the pool is stopped first.
+        A started pool is returned as it is (``with Server(...).start()``
+        starts it once): a second launch would leave the first engine's
+        executors and manager running, unstopped."""
+        if self._mgr is not None:
+            return self
         t0 = time.monotonic()
         try:
             self._start(timeout)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu.utils import checkpoint as JC  # noqa: E402
 from tensorflowonspark_tpu_torch.utils import checkpoint as C  # noqa: E402

@@ -14,12 +14,15 @@ executors import (so this file imports no JAX at the top).
 
 import json
 import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu_torch import cluster as TFCluster  # noqa: E402
 from tensorflowonspark_tpu_torch import (  # noqa: E402
@@ -251,15 +254,70 @@ def test_cut_features_raise_not_implemented(engine, monkeypatch):
     # retryable jobs are ported: they run (tests/test_torch_engine.py)
     assert engine.parallelize([1, 2]).foreach_partition(
         print, retryable=True, max_retries=2) is None
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TFCluster.run(engine, failing_main, {}, 2, background=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        LocalEngine(1, workdir="elsewhere")
+    # run(background=) and LocalEngine(workdir=) are ported
+    # (test_background_chooses_the_trainer_process_as_jax_does below,
+    # tests/test_torch_engine.py)
     # a skipped partition is drained without reaching a node
     monkeypatch.setenv("TFOS_PARTITION_INDEX", "0")
     assert node.train([], {}, skip={0})(iter(range(3))) is None
     with pytest.raises(ValueError, match="spawn"):
         LocalEngine(1, start_method="fork")
+
+
+def where_main(args, ctx):
+    """Record the process ``main_fun`` runs in, and its parent."""
+    path = os.path.join(args["out_dir"], f"where-{ctx.executor_id}.json")
+    with open(path, "w") as f:
+        json.dump({"pid": os.getpid(), "ppid": os.getppid()}, f)
+
+
+class ExecutorPid:
+    """A ``map_partitions`` function: the executor's pid."""
+
+    def __call__(self, it):
+        list(it)
+        return [os.getpid()]
+
+
+def _where(cluster_mod, eng, mode, background, out_dir):
+    """``where_main`` on a 2-node cluster of ``cluster_mod`` (either
+    package's) under ``mode`` and ``background``: for each executor,
+    whether main_fun ran in the executor itself or in a child it
+    forked."""
+    os.makedirs(out_dir)
+    c = cluster_mod.run(eng, where_main, {"out_dir": str(out_dir)}, 2,
+                        input_mode=mode, background=background,
+                        reservation_timeout=TIMEOUT)
+    c.shutdown()
+    execs = eng.parallelize([0, 1], 2).map_partitions(ExecutorPid()) \
+        .collect(spread=True)
+    out = []
+    for i, pid in enumerate(execs):
+        w = json.load(open(os.path.join(out_dir, f"where-{i}.json")))
+        out.append("executor" if w["pid"] == pid else
+                   "forked" if w["ppid"] == pid else "elsewhere")
+    return out
+
+
+@pytest.mark.parametrize("mode,background,want", [
+    ("TENSORFLOW", True, "forked"), ("SPARK", False, "executor")])
+def test_background_chooses_the_trainer_process_as_jax_does(
+        engine, tmp_path, mode, background, want):
+    """``run(background=)`` against each package's default for the
+    mode: a TENSORFLOW-mode main_fun forked from its executor, a
+    SPARK-mode one run in the executor, as the JAX package runs them."""
+    from tensorflowonspark_tpu import cluster as JC
+    from tensorflowonspark_tpu.engine import LocalEngine as JaxEngine
+
+    got = _where(TFCluster, engine, getattr(TFCluster.InputMode, mode),
+                 background, tmp_path / "torch")
+    jeng = JaxEngine(2)
+    try:
+        ref = _where(JC, jeng, getattr(JC.InputMode, mode), background,
+                     tmp_path / "jax")
+    finally:
+        jeng.stop()
+    assert got == ref == [want, want]
 
 
 # -- units ---------------------------------------------------------------------
@@ -353,3 +411,47 @@ def test_datafeed_batches_markers_columns_and_terminate():
         assert q.qsize() == 0 and mgr.get("state") == "terminating"
     finally:
         mgr.shutdown()
+
+
+MANAGER_PROBE = '''
+import multiprocessing as mp
+import sys
+
+if __name__ == "__mp_main__":  # imported again by a spawned process
+    with open(sys.argv[1], "a") as f:
+        f.write("imported\\n")
+
+
+def child():
+    from tensorflowonspark_tpu_torch import manager
+    mgr = manager.start(b"k" * 16, ["input"])
+    mgr.set("state", "ok")
+    assert mgr.get("state") == "ok"
+    mgr.shutdown()
+
+
+if __name__ == "__main__":
+    p = mp.get_context("spawn").Process(target=child)
+    p.start()
+    p.join(120)
+    sys.exit(p.exitcode)
+'''
+
+
+def test_a_spawned_executors_manager_does_not_import_the_main_module(
+        tmp_path):
+    """An engine's executor is spawned, so its default start method is
+    spawn; the node's manager server is forked all the same: the main
+    module is imported once, by the executor, and not again by the
+    server (a driver that imports torch would pay for it at every
+    node's boot)."""
+    script, marks = tmp_path / "driver.py", tmp_path / "imports"
+    script.write_text(MANAGER_PROBE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+         os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, str(script), str(marks)],
+                          env=env, capture_output=True, text=True,
+                          timeout=TIMEOUT)
+    assert proc.returncode == 0, proc.stderr
+    assert marks.read_text().splitlines() == ["imported"]

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu import data as jdata  # noqa: E402
 from tensorflowonspark_tpu import feed as jfeed  # noqa: E402

@@ -23,6 +23,7 @@ import time
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu_torch.engine import (  # noqa: E402
     LocalEngine,
@@ -228,3 +229,102 @@ def test_concurrent_shared_jobs_run_each_task_once():
         assert [x for x, _ in got] == list(range(100 * j, 100 * j + 16))
         assert {e for _, e in got} <= {0, 1, 2}
     assert len(out) == 6
+
+
+# -- a caller's root and partitions as given ----------------------------------
+
+class TrackChild:
+    """Start a sleeping child of the executor and record it in the
+    executor's pid ledger, with ``pkg``'s helper, as a node records its
+    trainer; returns the child's pid."""
+
+    def __init__(self, pkg):
+        self.pkg = pkg
+
+    def __call__(self, it):
+        import importlib
+        import subprocess
+        import sys
+
+        list(it)
+        utils = importlib.import_module(f"{self.pkg}.utils")
+        p = subprocess.Popen([sys.executable, "-c",
+                              "import time; time.sleep(600)"])
+        utils.track_child_pid(p.pid)
+        return [p.pid]
+
+
+def _part_items(it):
+    return [(int(os.environ["TFOS_PARTITION_INDEX"]), list(it))]
+
+
+def _gone(pid):
+    """True once ``pid`` is dead (absent, or a zombie awaiting its reaper),
+    within the hang guard."""
+    deadline = time.monotonic() + HANG
+    while time.monotonic() < deadline:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().split(")")[-1].split()[0] in ("Z", "X"):
+                    return True
+        except OSError:
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def _tree(root):
+    return sorted(os.path.relpath(os.path.join(d, n), root)
+                  for d, dirs, files in os.walk(root) for n in dirs + files)
+
+
+def _engine_of(pkg, n, **kw):
+    if pkg == "jax":
+        from tensorflowonspark_tpu.engine import LocalEngine as JaxEngine
+
+        return JaxEngine(n, **kw)
+    return LocalEngine(n, env={"OMP_NUM_THREADS": "1"}, **kw)
+
+
+def test_workdir_is_kept_without_pid_droppings_as_in_jax(tmp_path):
+    """``LocalEngine(workdir=)``: the executors work under the caller's
+    root, which ``stop()`` keeps; the children an executor recorded are
+    killed and its pid ledger is swept, so the root holds what the JAX
+    engine's holds after the same job: the executors' empty dirs."""
+    left = {}
+    for pkg in ("tensorflowonspark_tpu_torch", "tensorflowonspark_tpu"):
+        root = tmp_path / pkg
+        eng = _engine_of("jax" if pkg == "tensorflowonspark_tpu" else pkg, 2,
+                         workdir=str(root))
+        try:
+            pids = eng.parallelize(range(2), 2).map_partitions(
+                TrackChild(pkg)).collect(spread=True)
+            assert any(n == "tfos_child_pids" for n in
+                       (os.path.basename(p) for p in _tree(root))), \
+                _tree(root)
+        finally:
+            eng.stop()
+        assert root.is_dir()
+        assert all(_gone(p) for p in pids), pids
+        left[pkg] = _tree(root)
+    assert left["tensorflowonspark_tpu_torch"] == \
+        left["tensorflowonspark_tpu"] == ["executor-0", "executor-1"]
+    # without a workdir the engine's own root goes with it
+    eng = LocalEngine(1, env={"OMP_NUM_THREADS": "1"})
+    root = eng._root
+    eng.stop()
+    assert not os.path.exists(root)
+
+
+def test_from_partitions_keeps_the_partitions_as_jax_does():
+    parts = [[1, 2, 3], [], [4], ["a", "b"]]
+    got = {}
+    for pkg in ("torch", "jax"):
+        eng = _engine_of(pkg, 2)
+        try:
+            ds = eng.from_partitions(parts)
+            got[pkg] = (ds.num_partitions,
+                        sorted(ds.map_partitions(_part_items).collect()))
+        finally:
+            eng.stop()
+    assert got["torch"] == got["jax"] == (4, list(enumerate(parts)))

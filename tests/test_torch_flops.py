@@ -13,6 +13,7 @@ import pytest
 from jax import lax
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu.utils import flops as JF  # noqa: E402
 from tensorflowonspark_tpu.utils import metrics as JM  # noqa: E402

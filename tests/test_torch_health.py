@@ -36,6 +36,7 @@ import urllib.request
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu.obs import health as jhealth  # noqa: E402
 from tensorflowonspark_tpu.utils import metrics_registry as jreg  # noqa: E402

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu.recordio import jpeg as J  # noqa: E402
 from tensorflowonspark_tpu_torch.examples import (  # noqa: E402

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu_torch.recordio import marshal  # noqa: E402
 

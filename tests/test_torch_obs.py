@@ -38,6 +38,7 @@ import urllib.request
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu.obs import http as jhttp  # noqa: E402
 from tensorflowonspark_tpu.obs import slo as jslo  # noqa: E402

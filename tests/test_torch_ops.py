@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -158,7 +159,8 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (``spark_ml`` with the pyspark
     test double on the path), resolving the root's lazy names, running a
-    pipeline of the data service's ``data`` package, importing
+    pipeline of the data service's ``data`` package, running the actor
+    workloads' members and the streaming examples' helpers, importing
     chip_smoke.py, running both observability CLIs, and
     loading the port's host-native ring, marshal, TFRecord codec and
     JPEG decoder (and routing a TFRecord and a checkpoint through
@@ -188,6 +190,41 @@ blocks = list(data.from_arrays({"y": np.arange(6)}, 4).shuffle(4, 1)
 assert sorted(int(v) for b in blocks for v in b["y"]) == list(range(6))
 assert runtime.actor_table() == [] and splits.sid_to_part((1, 2))
 assert service.dispatch_mode({"data_dispatch": "static"}) == "static"
+# the actor workloads and the streaming examples, imported and run
+import operator, tempfile
+from tensorflowonspark_tpu_torch import rendezvous, workloads
+from tensorflowonspark_tpu_torch.actors import ledger
+from tensorflowonspark_tpu_torch.examples import (
+    mnist_reshape, mnist_spark_streaming, stop_streaming)
+from tensorflowonspark_tpu_torch.utils import checkpoint as ck
+assert workloads.TrialActor(operator.add).on_message(
+    None, "trial", {"trial": 0, "config": 2, "budget": 1})["score"] == 3.0
+class _KV(dict):
+    set = dict.__setitem__
+    def kv(self):
+        return self
+class _Ctx:
+    ledger = ledger.KVLedger(_KV(), "eval")
+    events = []
+    def kv_set(self, key, value):
+        pass
+    def emit(self, kind, payload):
+        self.events.append((kind, payload))
+ckdir = tempfile.mkdtemp()
+ck.save_checkpoint(ckdir, {"w": np.ones(3)}, 2)
+side, ctx = workloads.EvalSidecar(ckdir, lambda tree, step: {"n": 3}), _Ctx()
+side.on_tick(ctx)
+side.on_tick(ctx)
+assert ctx.events == [("eval/result", {"step": 2, "metrics": {"n": 3}})]
+assert side.on_message(ctx, "evaluated", None) == [2]
+assert len(mnist_reshape.reshape(",".join(["9"] * 784)).splitlines()) == 28
+assert len(mnist_spark_streaming.pad_tail(
+    np.zeros((1, 28, 28, 1)), np.zeros(1), 4)[1]) == 4
+server = rendezvous.Server(1)
+host, port = server.start()
+stop_streaming.main([host, str(port)])
+assert server.done.wait(10)
+server.stop()
 import runpy
 runpy.run_path("chip_smoke.py", run_name="not_main")
 from tensorflowonspark_tpu_torch import recordio
@@ -250,7 +287,10 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "obs.publish", "obs.slo", "obs.http", "obs.top",
              "obs.postmortem", "data", "data.pipeline", "data.service",
              "data.splits", "data.cache", "data.autoscale",
-             "actors.runtime", "actors.mailbox", "actors.policy"):
+             "actors.runtime", "actors.mailbox", "actors.policy",
+             "workloads", "workloads.eval_sidecar", "workloads.sweep",
+             "examples.mnist_spark_streaming", "examples.stop_streaming",
+             "examples.mnist_reshape"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)
 assert not bad, bad
 assert not foreign, foreign

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 import tensorflowonspark_tpu_torch as pkg  # noqa: E402
 from tensorflowonspark_tpu_torch import compat  # noqa: E402

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu import pipeline as jax_pipeline  # noqa: E402
 from tensorflowonspark_tpu_torch import cluster as TFCluster  # noqa: E402

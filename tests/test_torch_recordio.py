@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu import recordio as J  # noqa: E402
 from tensorflowonspark_tpu.recordio import native as JN  # noqa: E402

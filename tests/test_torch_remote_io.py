@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu import dfutil as JD  # noqa: E402
 from tensorflowonspark_tpu import recordio as JR  # noqa: E402

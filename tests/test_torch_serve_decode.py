@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu_torch import serving  # noqa: E402
 from tensorflowonspark_tpu_torch.models import transformer as TT  # noqa: E402

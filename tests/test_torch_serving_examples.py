@@ -11,6 +11,7 @@ bounded (300 s)."""
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu_torch.examples import (  # noqa: E402
     lm_decode,

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu_torch import marker, node  # noqa: E402
 from tensorflowonspark_tpu_torch.recordio import shm  # noqa: E402

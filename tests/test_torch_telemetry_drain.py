@@ -29,6 +29,7 @@ import threading
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu.obs import postmortem as jpost  # noqa: E402
 from tensorflowonspark_tpu.utils import telemetry as jtel  # noqa: E402
