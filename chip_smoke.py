@@ -25,8 +25,9 @@ CLI and ``parallel_run``), then the MobileNetV2-UNet segmentation model
 (``cluster.train`` of a ``data.Pipeline``, static and dynamic dispatch,
 a data worker killed mid-split), and last the streaming feed
 (``TFCluster.train_stream``, a STOP from outside) with the eval
-sidecar evaluating its checkpoints, and a successive-halving sweep of
-actors on the card.  It builds the
+sidecar evaluating its checkpoints, a successive-halving sweep of
+actors on the card, and the serving tier's elastic pool, fabric and
+deploy loop on the full-width transformer.  It builds the
 host-native feed ring, marshal, TFRecord codec and JPEG decoder
 (``tensorflowonspark_tpu_torch/native/``) into ``build/torch_native/``
 too:
@@ -133,12 +134,12 @@ too:
     64 KiB, the executor's reader on the native codec and no kernel
     launched in the trainer; images/s end to end, the stall, the device
     step, the hand-off split and the read and decode time a partition;
-16a. ``jpeg_decode``: six shards of 256 seeded JPEG records (PIL,
+16a. ``jpeg_decode``: three shards of 256 seeded JPEG records (PIL,
     quality 90; 500x375, 375x500, 1024x768 and 224x224, a quarter each;
     ``image/encoded``, 1-based ``image/class/label``) through the port's
     writer; the native decoder must build (the system's libjpeg, else
     the vendored headers and Pillow's bundled ABI-62 libjpeg: the line
-    names the route and file) and pass its self-test; all 1,536 decode
+    names the route and file) and pass its self-test; all 768 decode
     natively with 0 PIL arbitrations, on one thread and through
     ``decode_batch``'s pool, with the same bytes; a CMYK JPEG decodes
     through one arbitration; a truncated one raises ValueError; images/s
@@ -150,8 +151,9 @@ too:
 16c. ``spark_jpeg_resnet`` (the JPEG slice's main path): phase 16's run with
     ``--data_dir`` on the JPEG shards (the executor reads and decodes
     them natively, then the shm ring as columnar chunks), and again on
-    16b's raw shards: losses equal to 1e-3, and the chiefs' restored
-    checkpoints' losses on phase 10's batch too; every partition once,
+    16b's raw shards, three steps each: losses equal to 1e-3, and the
+    chiefs' restored checkpoints' losses on phase 10's batch too; every
+    partition once,
     no trainer or ring left, tasks under 64 KiB, every JPEG decoded
     natively in the executor, no kernel launched; images/s, the stall,
     the device step, read and decode ms a partition for both;
@@ -168,7 +170,7 @@ too:
     prunes, ``close`` waits, a ``checkpoint.save`` fault in the writer
     surfaces at the next call;
 16f. ``spark_mnist_checkpoint``: ``mnist_spark.main_fun`` SPARK-fed on
-    the card for 16 steps; the chief's ``ckpt`` restores through
+    the card for 8 steps; the chief's ``ckpt`` restores through
     ``restore_latest`` with the export's values, the trainer's final
     params;
 17. MNIST under ``InputMode.TENSORFLOW`` (``tf_mode_mnist``), on an
@@ -383,7 +385,49 @@ too:
     and records (score: minus the last loss): the rungs and the best
     config equal those of the same trials run here in the same order,
     each score within 1e-5; it runs on a thread beside phases 36b and
-    37 (36b gates on correctness alone).
+    37 (36b gates on correctness alone);
+41. ``serve_elastic``: ``Server(elastic=True, num_replicas=3,
+    logical_replicas=6)`` over a float32 export and ``ckpt_dir`` of the
+    full-width transformer (seed 2) on an engine of its own: 12 greedy
+    sessions (40-1100-token prompts, 16 tokens) in flight, the params
+    files deleted, a replica SIGKILLed while it streams; the generation
+    bumps and the survivors cover 3+3 slots; the pool is degraded and
+    sessions past its shrunk admission are shed with Retry-After; every
+    session gives ``greedy_decode_reference``'s tokens; the respawn sends
+    ``hello``, adopts the mirror (``stats()["elastic"]["boot"]``
+    ``"adopted"``: a cold boot would find no params) and the pool
+    re-grows to 2+2+2; 4 more sessions (one on the adopted replica)
+    equal the reference; ``drain`` lets a replica finish its in-flight
+    sessions and refuses the last; the resize ms, kill to resize and to
+    re-grown, the mirror's bytes and seconds, the adoption's seconds,
+    each replica's peak memory and ``torch.cuda.mem_get_info``;
+42. ``serve_fabric``: ``Server(fabric=True, fabric_hosts=2,
+    replicas_per_host=1, autoscale=...)`` over the same transformer on
+    an engine of its own: 8 sessions with distinct route ids equal the
+    reference ("miss"); each one's second turn (its prompt and answer,
+    the same route id) is a "hit" on the same (host, worker) and maps
+    its prefix from that worker's trie; bursts of 16 sessions until the
+    ``ServeAutoscaler`` grows a host to 2 workers (the directive acked,
+    the worker map grown), whose new worker prefills with the flash
+    forward; ``/statusz`` has a pods row a host; a host SIGKILLed with 8
+    sessions in flight (each the reference's tokens), its respawn booted
+    at a newer checkpoint and steered back to the pinned version; the
+    affinity hit rate, kill to failover, the scale-up's seconds, the
+    launches a host;
+43. ``serve_deploy``: a 3-replica bf16 decode pool with a ``ckpt_dir`` on
+    an engine of its own, an ``ActorSystem`` on a second engine with an
+    ``EvalSidecar`` (``deploy_eval``: the held-out 8 x 2048 loss on the
+    card, the flash forward 8 times) and a ``PromotionController``, and
+    a ``DeployLoop(pct=50, canary_count=1, burn_secs=4, min_samples=3)``
+    under 4 threads of sessions: step 1 (phase 6's init) blessed and
+    bootstrap-pinned, step 2 (10 Adam steps on the held-out batch)
+    canaried and promoted, step 3 (step 2's embedding x 1000) canaried and
+    rolled back for an eval regression with a ``deploy/rollback`` flight
+    dump and a tombstone, step 4 (a NaN weight) tombstoned at the gate;
+    the watermark ends at 2 on every replica, no session dropped,
+    versions 1-3 each served, every eval loss within ``SPARK_LOSS_RTOL``
+    of the driver's on the same checkpoint, a ``/statusz`` deploy row;
+    canary to verdict seconds, each arm's p95, the eval ms.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -409,8 +453,11 @@ RMSNorm 0), ``launches_obs``, phase 36a's trainer (8 a step of
 each flash kernel, RMSNorm 0), and ``launches_service``, phases
 38a-38d's trainers summed (38d's flash kernels, RMSNorm 0),
 ``launches_stream``, phase 39's two streaming trainers summed (the three
-flash kernels, RMSNorm 0), and ``launches_eval``, the eval sidecar's
-evaluations summed (the flash forward only).  A ``phase_seconds`` line
+flash kernels, RMSNorm 0), ``launches_eval``, the eval sidecar's
+evaluations summed (the flash forward only), and
+``launches_serve_elastic``, ``launches_fabric`` and
+``launches_deploy``, phases 41-43's replicas (42's hosts; 43's
+evaluations too) summed (the flash forward only).  A ``phase_seconds`` line
 before the kernels line gives each phase's seconds.  Imports only torch,
 numpy and the port; phase 36a runs the JAX package's stdlib-only
 ``scripts/trace_merge.py`` in a subprocess.
@@ -426,6 +473,7 @@ import ctypes
 import dataclasses
 import glob
 import io
+import itertools
 import json
 import os
 import re
@@ -597,7 +645,7 @@ RESNET_EXACT_RTOL = 1e-3
 # the SPARK-fed TFRecord phase ships read units, not images: every task
 # the engine pickles stays under this
 TFRECORD_TASK_MAX_BYTES = 64 << 10
-# the JPEG phases (16a-16c): SPARK_RESNET_STEPS shards of RESNET["batch"]
+# the JPEG phases (16a-16c): JPEG_SHARDS shards of RESNET["batch"]
 # records (one SPARK-fed step a shard), JPEGs at PIL's quality 90 in
 # ImageNet's common sizes (h, w): landscape and portrait 500x375, a
 # 1024x768 one (libjpeg decodes it at 1/2 for 224) and a 224x224 one,
@@ -606,13 +654,14 @@ TFRECORD_TASK_MAX_BYTES = 64 << 10
 # shard (it decodes ~10x slower)
 JPEG_SIZES = ((375, 500), (500, 375), (768, 1024), (224, 224))
 JPEG_DISTINCT = 32
+JPEG_SHARDS = 3   # three SPARK-fed steps (phases 10 and 16 run six)
 JPEG_QUALITY = 90
 # phase 16e: a save every `every` steps of phase 10's step on the card,
 # `sync_saves` through save_checkpoint, then `async_saves` through an
 # AsyncCheckpointer that keeps `keep` of them
 ASYNC_CKPT = dict(every=3, sync_saves=2, async_saves=3, keep=2)
 # phase 16f: mnist_spark's chief checkpoint after this many steps of 64
-MNIST_CKPT_STEPS = 16
+MNIST_CKPT_STEPS = 8
 # InputMode.TENSORFLOW MNIST (mnist_tf_ds): the data setup's four shards
 # of 2048 records, 40 steps of batch 64, SGD(0.05, momentum 0.9), as the
 # example's defaults; float32 with TF32 off and deterministic cuDNN on
@@ -2233,7 +2282,7 @@ def _restored_loss(dev, tree):
     return loss
 
 
-def _spark_data_dir_run(dev, engine, data_dir):
+def _spark_data_dir_run(dev, engine, data_dir, steps=SPARK_RESNET_STEPS):
     """``resnet_imagenet_spark.main_fun`` SPARK-fed (``num_gpus=1``) from
     the TFRecord shards of ``data_dir`` on ``engine``, read and decoded
     by the executor: ``_records`` with ``--data_dir``
@@ -2246,7 +2295,7 @@ def _spark_data_dir_run(dev, engine, data_dir):
     args = argparse.Namespace(
         data_dir=data_dir, cluster_size=1, image_size=RESNET["image"],
         batch_size=b, num_classes=RESNET["num_classes"],
-        steps=SPARK_RESNET_STEPS, decode_threads=None)
+        steps=steps, decode_threads=None)
     tmp = tempfile.mkdtemp(prefix="tfos_spark_jpeg_")
     try:
         t0 = time.time()
@@ -2328,7 +2377,7 @@ def _jpeg(arr, mode=None):
 
 
 def write_jpeg_shards(out_dir):
-    """``SPARK_RESNET_STEPS`` shards of ``RESNET["batch"]`` JPEG records
+    """``JPEG_SHARDS`` shards of ``RESNET["batch"]`` JPEG records
     under ``out_dir`` with the TF-official keys (``image/encoded``,
     1-based ``image/class/label``), through the port's writer.  Returns
     ``(paths, [[(payload, 0-based label)] a shard], seconds)``."""
@@ -2339,7 +2388,7 @@ def write_jpeg_shards(out_dir):
     b = RESNET["batch"]
     os.makedirs(out_dir, exist_ok=True)
     paths, shards = [], []
-    for s in range(SPARK_RESNET_STEPS):
+    for s in range(JPEG_SHARDS):
         order = rng.permutation(len(pool))[np.arange(b) % len(pool)]
         labels = rng.integers(0, RESNET["num_classes"], b)
         recs = [(pool[i], int(lbl)) for i, lbl in zip(order, labels)]
@@ -2471,7 +2520,7 @@ def phase_imagenet_setup(gpu, engine, jpeg_dir, raw_dir, shards):
                    seconds=setup_s, images_per_s=records / setup_s,
                    mismatched=mismatched, gpu=gpu)
     print("imagenet_setup " + json.dumps(summary), flush=True)
-    if skipped or records != RESNET["batch"] * SPARK_RESNET_STEPS \
+    if skipped or records != RESNET["batch"] * JPEG_SHARDS \
             or mismatched:
         raise AssertionError(f"imagenet_data_setup: {records} records, "
                              f"{skipped} skipped, shards differing from "
@@ -2489,11 +2538,11 @@ def phase_spark_jpeg_resnet(dev, engine, gpu, jpeg_dir, raw_dir):
     and no ring left, every task under ``TFRECORD_TASK_MAX_BYTES``, every
     JPEG decoded natively, no kernel launched in either trainer.
     Returns both trainers' launches, summed."""
-    runs = {name: _spark_data_dir_run(dev, engine, d)
+    runs = {name: _spark_data_dir_run(dev, engine, d, steps=JPEG_SHARDS)
             for name, d in (("jpeg", jpeg_dir), ("raw", raw_dir))}
     jr, rr = runs["jpeg"], runs["raw"]
     rel = [abs(a - r) / abs(r) for a, r in zip(jr["losses"], rr["losses"])]
-    n = RESNET["batch"] * SPARK_RESNET_STEPS
+    n = RESNET["batch"] * JPEG_SHARDS
     summary = dict(max_rel_loss_diff=max(rel) if rel else None,
                    jpeg=jr, raw=rr, gpu=gpu)
     print("spark_jpeg_resnet " + json.dumps(summary), flush=True)
@@ -2510,14 +2559,14 @@ def phase_spark_jpeg_resnet(dev, engine, gpu, jpeg_dir, raw_dir):
         if r["task_max_bytes"] >= TFRECORD_TASK_MAX_BYTES:
             raise AssertionError(f"{name}: a task of {r['task_max_bytes']} "
                                  f"bytes")
-        if r["checkpoint_step"] != SPARK_RESNET_STEPS or \
+        if r["checkpoint_step"] != JPEG_SHARDS or \
                 r["restored_loss"] is None:
             raise AssertionError(f"{name}: the chief's checkpoint did not "
                                  f"restore (step {r['checkpoint_step']})")
         if any(r["launches"].values()):
             raise AssertionError(f"{name}: the trainer launched "
                                  f"{r['launches']}")
-    if len(jr["losses"]) != SPARK_RESNET_STEPS or max(rel) > SPARK_LOSS_RTOL:
+    if len(jr["losses"]) != JPEG_SHARDS or max(rel) > SPARK_LOSS_RTOL:
         raise AssertionError(f"JPEG-fed losses {jr['losses']} vs raw "
                              f"{rr['losses']} (rtol {SPARK_LOSS_RTOL})")
     if abs(jr["restored_loss"] - rr["restored_loss"]) > \
@@ -2932,13 +2981,25 @@ def _concurrently(fn, items):
     return out
 
 
+def _decode_spec(cfg, max_tokens):
+    """The serve phases' decode tier: slots 8, paged KV in 16-token
+    blocks, prefix sharing."""
+    return DecodeSpec(cfg, slots=8, paged=True, block_size=16,
+                      prefix_sharing=True, max_tokens=max_tokens)
+
+
+def _replica_launches(reps):
+    """The kernels' launches of a pool's replicas (or hosts), summed."""
+    return {k: sum(r["launches"][k] for r in reps.values())
+            for k in ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm")}
+
+
 def _decode_server(export_dir, ckpt_dir, cfg, dev, engine, max_tokens):
-    """A started 2-replica decode ``Server`` on ``engine``: slots 8,
-    paged KV in 16-token blocks, prefix sharing."""
+    """A started 2-replica decode ``Server`` on ``engine`` with
+    :func:`_decode_spec`'s tier."""
     spec = serving.ModelSpec(
         export_dir=export_dir, ckpt_dir=ckpt_dir, device=str(dev),
-        decode=DecodeSpec(cfg, slots=8, paged=True, block_size=16,
-                          prefix_sharing=True, max_tokens=max_tokens))
+        decode=_decode_spec(cfg, max_tokens))
     return serving.Server(spec, num_replicas=2, engine=engine,
                           request_timeout=600).start(timeout=600)
 
@@ -3038,8 +3099,7 @@ def phase_serve_decode(dev, gpu, engine, tmp):
     total = [o["total_ms"] for o in outs]
     cold_total = [o["total_ms"] for o in cold]
     client = [o["client_ms"] for o in outs]
-    launches = {k: sum(r["launches"][k] for r in reps.values())
-                for k in ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm")}
+    launches = _replica_launches(reps)
     summary = dict(
         sessions=len(jobs), tokens=32 * len(jobs), transport="http",
         ttft_p50_ms=_percentile(ttft, 50), ttft_p99_ms=_percentile(ttft, 99),
@@ -6007,6 +6067,781 @@ def phase_sweep(engine_sweep, gpu, beside=()):
     return summary
 
 
+
+# -- the serving tier's elastic pool, fabric and deploy loop (41-43) ---------
+
+# 41: a float32 pool of 3 replicas over 6 logical slots; 12 sessions in
+# flight, one replica SIGKILLed; decode admission 24 sessions at full
+# capacity (12 at the pool's 3/6, 8 at 2/6)
+SERVE_ELASTIC = dict(replicas=3, logical=6, sessions=12, after=4,
+                     queue_max=24, tokens=16)
+# 42: 2 fabric hosts of 1 worker; the autoscaler may grow a host to 2
+# when the in-flight sessions a worker pass 5: the 8 sessions of a
+# turn (4 a worker) stay under it, the burst of 16 (8) goes over
+SERVE_FABRIC = dict(hosts=2, sessions=8, burst=16, tokens=16,
+                    autoscale=dict(max_replicas=2, high=5.0, low=0.0,
+                                   cooldown=2.0, tick_secs=0.2))
+# 43: the deploy loop's knobs; step 2 is step 1 after `adam_steps` Adam
+# steps on the held-out batch, step 3 step 2 with its embedding x
+# `embed_scale`, step 4 step 2 with one NaN weight.  The embedding is
+# initialised at 0.02 std, small beside what the layers add to the
+# residual stream: x 8 moved the held-out loss too little to regress
+# (a chip run promoted it); x 1000 makes the embedding swamp the layers.
+# The latency guard's tolerance is the JAX end-to-end test's: a canary
+# arm reloads ~0.5 GB of params when it opens, and its first sessions
+# wait for it
+SERVE_DEPLOY = dict(replicas=3, pct=50, canary_count=1, burn_secs=4.0,
+                    min_samples=3, lat_tol=10.0, eval_tol=0.1,
+                    adam_steps=10, lr=1e-3, embed_scale=1000.0,
+                    traffic_threads=4, tokens=16)
+
+
+def _mem_info(dev):
+    free, total = torch.cuda.mem_get_info(dev)
+    return dict(free_bytes=free, total_bytes=total)
+
+
+def _greedy_refs(params, cfg, prompts, max_tokens):
+    """``greedy_decode_reference`` of each prompt on the card, with
+    ``mha_reference`` attention (no kernel)."""
+    ref_attn = lambda q, k, v: attention.mha_reference(q, k, v, causal=True)
+    return [T.greedy_decode_reference(params, p, cfg, max_tokens=max_tokens,
+                                      attn_fn=ref_attn) for p in prompts]
+
+
+def _wait_until(cond, what, timeout=300):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.02)
+    return time.monotonic()
+
+
+def _host_launch_gate(hosts, cfg):
+    """Every fabric host launched the flash forward on each layer of
+    each plain prefill of its workers (the counts are the process's),
+    and none of the other kernels."""
+    for h, st in hosts.items():
+        plain = sum(w["decode"]["prefills"] - w["decode"]["extends"]
+                    for w in st["workers"].values())
+        got = st["launches"]
+        if got["flash_fwd"] < cfg.n_layers * plain or (
+                plain and got["flash_fwd"] == 0) or any(
+                got[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
+            raise AssertionError(f"host {h} launched {got} for {plain} "
+                                 f"plain prefills x {cfg.n_layers} layers")
+
+
+def phase_serve_elastic(dev, gpu, engine, tmp):
+    """41 ``serve_elastic``: ``Server(elastic=True, num_replicas=3,
+    logical_replicas=6)`` over a float32 export and a ``ckpt_dir`` (seed
+    2) on an engine of its own.  12 greedy sessions (prompts of 40-1100
+    tokens, 16 tokens) in flight; the export's and the checkpoint's
+    params files deleted; one replica SIGKILLed while it streams.  The
+    generation bumps and the survivors cover 3+3 slots; the pool is
+    degraded and a session past the shrunk admission is shed with
+    Retry-After; every session completes once with the reference's
+    tokens; the respawned incarnation adopts the mirror (a cold boot
+    would find no params file) and the pool re-grows to 2+2+2; its next
+    4 sessions equal the reference; ``drain`` finishes a replica's
+    in-flight work, and refuses the last; each replica launched the
+    flash forward on every layer of each plain prefill.  Returns the
+    replicas' launches and pids."""
+    from tensorflowonspark_tpu_torch.serving import elastic as serve_elastic
+
+    c = SERVE_ELASTIC
+    cfg = T.Config(**FULL, dtype="float32", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+    export_dir = os.path.join(tmp, "lm_elastic")
+    ckpt_dir = os.path.join(tmp, "lm_elastic_ckpt")
+    ckpt.export_model(export_dir, params, metadata={"config": FULL})
+    ckpt.save_checkpoint(ckpt_dir, params, step=1)
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(40, 1101, size=c["sessions"])]
+    after = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+             for n in rng.integers(40, 1101, size=c["after"])]
+    refs = _greedy_refs(params, cfg, prompts + after, c["tokens"])
+    del params
+    torch.cuda.empty_cache()
+    spec = serving.ModelSpec(export_dir=export_dir, ckpt_dir=ckpt_dir,
+                             device=str(dev),
+                             decode=_decode_spec(cfg, c["tokens"]))
+    srv = serving.Server(spec, num_replicas=c["replicas"], elastic=True,
+                         logical_replicas=c["logical"], engine=engine,
+                         request_timeout=600,
+                         decode_queue_max=c["queue_max"])
+    mem = {"before_boot": _mem_info(dev)}
+    t_boot = time.monotonic()
+    srv.start(timeout=600)
+    pool = srv.pool
+    pids = set(pool.replica_pids().values())
+    try:
+        boot_s = time.monotonic() - t_boot
+        live = list(range(c["replicas"]))
+        _wait_until(lambda: pool.mirror_bytes is not None, "the mirror")
+        formed = pool.describe()
+        if formed["assignments"] != {str(i): 2 for i in live} or \
+                formed["capacity"] != 0.5:
+            raise AssertionError(f"formation: {formed}")
+        # a cold boot from here would find no params file: the respawn
+        # must adopt (the export's metadata stays: it names the predict)
+        os.remove(os.path.join(export_dir, "params.npz"))
+        shutil.rmtree(ckpt_dir)
+        mem["pool_up"] = _mem_info(dev)
+        gen0, adoptions0 = pool.generation, pool.adoptions
+        respawns0 = pool.respawns_observed
+        victim = 0
+        table = pool._table
+
+        def streaming_on_victim():
+            for key in table.owned_by({victim}):
+                entry = table.get(key)
+                if entry is not None and entry["session"].tokens_so_far():
+                    return True
+            return False
+
+        got, errors = [None] * len(prompts), []
+
+        def one(i):
+            try:
+                got[i] = srv.generate(prompts[i], max_tokens=c["tokens"])
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        _wait_until(lambda: streaming_on_victim() or not any(
+            t.is_alive() for t in threads), "a session on the victim")
+        if not streaming_on_victim():
+            raise AssertionError("no session streamed on the victim")
+        victim_pid = pool.replica_pids()[victim]
+        t_kill = time.monotonic()
+        os.kill(victim_pid, 9)
+        t_shrunk = _wait_until(lambda: pool.capacity_frac < 0.5,
+                               "the shrink")
+        shrunk = pool.describe()
+        # load past the shrunk admission, a session every 2 ms (each sees
+        # the ones before it outstanding): the excess is shed, with the
+        # degraded backoff; the admitted ones serve as any other
+        limit = int(round(c["queue_max"] * pool.capacity_frac))
+        sheds = []
+
+        def probe(i):
+            j = i % len(prompts)
+            try:
+                probed.append((j, srv.generate(prompts[j],
+                                               max_tokens=c["tokens"])))
+            except serving.Overloaded as e:
+                sheds.append(dict(depth=e.depth, limit=e.limit,
+                                  retry_after=e.retry_after))
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        probed = []
+        for i in range(limit + 4):
+            threads.append(threading.Thread(target=probe, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.002)
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        if shrunk["generation"] <= gen0 or not shrunk["degraded"] or \
+                {int(k): v for k, v in shrunk["assignments"].items()} != \
+                serve_elastic.assign_slots(c["logical"], [1, 2]) or \
+                shrunk["assignments"] != {"1": 3, "2": 3}:
+            raise AssertionError(f"the shrink: {shrunk}")
+        if not sheds or any(s["retry_after"] < 0.25 for s in sheds):
+            raise AssertionError(f"no shed past the shrunk admission "
+                                 f"(limit {limit}): {sheds}")
+        got += [out for _j, out in probed]
+        refs_got = refs[:len(prompts)] + [refs[j] for j, _out in probed]
+        for i, (g, ref) in enumerate(zip(got, refs_got)):
+            _session_gate(f"elastic {i}", g, c["tokens"], cfg.vocab_size)
+            if g["tokens"] != ref:
+                raise AssertionError(f"elastic session {i}: {g['tokens']} "
+                                     f"!= reference {ref}")
+        t_regrown = _wait_until(
+            lambda: pool.live_replicas() == live
+            and pool.respawns_observed > respawns0
+            and pool.describe()["assignments"] == {str(i): 2 for i in live},
+            "the re-grow")
+        regrown = pool.describe()
+        mem["regrown"] = _mem_info(dev)
+        reps = pool.stats(timeout=60)
+        el = reps[victim]["elastic"]
+        if el["boot"] != "adopted" or pool.adoptions <= adoptions0 or \
+                regrown["generation"] < shrunk["generation"] + 1 or \
+                reps[victim]["version"] != 1:
+            raise AssertionError(f"the respawn did not adopt: {el}, "
+                                 f"{regrown}, version "
+                                 f"{reps[victim]['version']}")
+        outs = _concurrently(lambda p: srv.generate(p,
+                                                    max_tokens=c["tokens"]),
+                             after)
+        for i, (o, ref) in enumerate(zip(outs, refs[len(prompts):])):
+            if o["tokens"] != ref:
+                raise AssertionError(f"after the re-grow, session {i}: "
+                                     f"{o['tokens']} != {ref}")
+        if victim not in {o["replica"] for o in outs}:
+            raise AssertionError(f"the adopted replica served none of "
+                                 f"{[o['replica'] for o in outs]}")
+        reps = pool.stats(timeout=60)
+        _serve_launch_gate(reps, cfg)
+        launches = _replica_launches(reps)
+        pids |= set(pool.replica_pids().values())
+        # drain: a replica finishes its in-flight work, then leaves; the
+        # last live one is refused
+        pending = [None] * 2
+        drains = []
+
+        def drained_one(i):
+            pending[i] = srv.generate(after[i], max_tokens=c["tokens"])
+
+        ts = [threading.Thread(target=drained_one, args=(i,))
+              for i in range(2)]
+        for t in ts:
+            t.start()
+        _wait_until(lambda: pool.outstanding_sessions() > 0 or not any(
+            t.is_alive() for t in ts), "in-flight work to drain")
+        t0 = time.monotonic()
+        drains.append(dict(replica=0, ok=pool.drain(0, timeout=120),
+                           s=time.monotonic() - t0))
+        for t in ts:
+            t.join()
+        if [p["tokens"] for p in pending] != refs[len(prompts):][:2]:
+            raise AssertionError(f"sessions across the drain: {pending}")
+        drains.append(dict(replica=1, ok=pool.drain(1, timeout=120)))
+        try:
+            pool.drain(2)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("drain of the last replica not refused")
+        if not all(d["ok"] for d in drains) or pool.live_replicas() != [2]:
+            raise AssertionError(f"drains {drains}, live "
+                                 f"{pool.live_replicas()}")
+    finally:
+        srv.stop()
+    mem["stopped"] = _mem_info(dev)
+    print("serve_elastic " + json.dumps(dict(
+        replicas=c["replicas"], logical=c["logical"],
+        sessions=len(prompts), tokens=c["tokens"], pool_boot_s=boot_s,
+        formed=formed, shrunk=shrunk, regrown=regrown,
+        resize_ms=dict(shrink=shrunk["last_resize_ms"],
+                       regrow=regrown["last_resize_ms"]),
+        kill_to_resize_s=t_shrunk - t_kill,
+        kill_to_regrown_s=t_regrown - t_kill,
+        mirror_bytes=pool.mirror_bytes, mirror_s=el["directive_s"],
+        adopt_s=el["ready_s"], adoptions=pool.adoptions,
+        replayed_tokens_dropped=pool.replayed_tokens,
+        shed_sessions=sheds, admitted_past_shrink=len(probed),
+        victim=victim, victim_pid=victim_pid, drains=drains,
+        drain_refused=refused, mem_info=mem,
+        replicas_stats={i: dict(pid=r["pid"], boot=r["elastic"]["boot"],
+                                peak_mem_bytes=r.get("peak_mem_bytes"),
+                                launches=r["launches"],
+                                prefills=r["decode"]["prefills"],
+                                extends=r["decode"]["extends"])
+                        for i, r in sorted(reps.items())},
+        gpu=gpu)), flush=True)
+    return launches, pids
+
+
+def phase_serve_fabric(dev, gpu, engine, tmp):
+    """42 ``serve_fabric``: ``Server(fabric=True, fabric_hosts=2,
+    replicas_per_host=1, autoscale=...)`` over the float32 transformer
+    (seed 2) on an engine of its own.  8 sessions with distinct route ids
+    give the reference's tokens ("miss"); each one's second turn (its
+    prompt and answer, the same route id) is routed "hit" to the same
+    (host, worker) and maps its prefix from that worker's trie; a burst
+    of 16 sessions drives the ``ServeAutoscaler`` to grow a host to 2
+    workers (the directive acked, the worker map grown) and the new
+    worker prefills with the flash forward; ``/statusz`` then has a pods
+    row a host; one host SIGKILLed with sessions in flight (none
+    dropped or duplicated, the reference's tokens) and its respawn,
+    which boots at a newer checkpoint, converges to the pool's pinned
+    version.  Returns the hosts' launches and pids."""
+    from tensorflowonspark_tpu_torch.obs import http as obs_http
+
+    c = SERVE_FABRIC
+    cfg = T.Config(**FULL, dtype="float32", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(2), dev)
+    export_dir = os.path.join(tmp, "lm_fabric")
+    ckpt_dir = os.path.join(tmp, "lm_fabric_ckpt")
+    ckpt.export_model(export_dir, params, metadata={"config": FULL})
+    ckpt.save_checkpoint(ckpt_dir, params, step=1)
+    rng = np.random.default_rng(42)
+    firsts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+              for n in rng.integers(40, 1101, size=c["sessions"])]
+    refs = _greedy_refs(params, cfg, firsts, c["tokens"])
+    seconds = [p + r for p, r in zip(firsts, refs)]
+    refs2 = _greedy_refs(params, cfg, seconds, c["tokens"])
+    del params
+    torch.cuda.empty_cache()
+    spec = serving.ModelSpec(export_dir=export_dir, ckpt_dir=ckpt_dir,
+                             device=str(dev),
+                             decode=_decode_spec(cfg, c["tokens"]))
+    srv = serving.Server(spec, fabric=True, fabric_hosts=c["hosts"],
+                         replicas_per_host=1, autoscale=c["autoscale"],
+                         engine=engine, request_timeout=600,
+                         decode_queue_max=64)
+    t_boot = time.monotonic()
+    srv.start(timeout=600)
+    pool = srv.pool
+    pids = set(pool.host_pids().values())
+    try:
+        boot_s = time.monotonic() - t_boot
+        gen = lambda p, rid=None: srv.generate(p, max_tokens=c["tokens"],
+                                               route_id=rid)
+
+        def check(outs, want, what):
+            for i, (o, w) in enumerate(zip(outs, want)):
+                _session_gate(f"{what} {i}", o, c["tokens"], cfg.vocab_size)
+                if o["tokens"] != w:
+                    raise AssertionError(f"{what} {i}: {o['tokens']} != "
+                                         f"reference {w}")
+
+        # first turns: distinct route ids, each a "miss" placed by the ring
+        rids = [f"user-{i}" for i in range(len(firsts))]
+        outs1 = _concurrently(lambda i: gen(firsts[i], rids[i]),
+                              list(range(len(firsts))))
+        check(outs1, refs, "first turn")
+        if any(o["affinity"] != "miss" for o in outs1):
+            raise AssertionError(f"first turns: "
+                                 f"{[o['affinity'] for o in outs1]}")
+        bound = [pool.affinity_binding(r) for r in rids]
+        before = pool.stats(timeout=60)
+        # second turns: the same route id lands on the same worker, whose
+        # trie holds the first turn's whole blocks
+        outs2 = _concurrently(lambda i: gen(seconds[i], rids[i]),
+                              list(range(len(seconds))))
+        check(outs2, refs2, "second turn")
+        if any(o["affinity"] != "hit" for o in outs2) or \
+                [pool.affinity_binding(r) for r in rids] != bound or \
+                any((o["host"], o["worker"]) != tuple(b)
+                    for o, b in zip(outs2, bound)):
+            got = [(o["affinity"], o["host"]) for o in outs2]
+            raise AssertionError(f"second turns: {got}, bound {bound}")
+        after2 = pool.stats(timeout=60)
+        hits = {}
+        for h, w in set(map(tuple, bound)):
+            d0 = before[h]["workers"][w]["decode"]
+            d1 = after2[h]["workers"][w]["decode"]
+            hits[f"{h}/{w}"] = d1["prefix_hits"] - d0["prefix_hits"]
+        if sum(hits.values()) < len(seconds):
+            raise AssertionError(f"second turns' prefix hits: {hits}")
+        # bursts until the autoscaler grows a host (its signal is published
+        # every 0.5 s, so a burst may end before one is read)
+        t_burst = time.monotonic()
+        burst = (firsts * 2)[:c["burst"]]
+        rounds = 0
+        while not pool.scale_times and rounds < 10:
+            outs3 = _concurrently(gen, burst)
+            check(outs3, (refs * 2)[:c["burst"]], "burst")
+            rounds += 1
+        t_scaled = _wait_until(lambda: pool.scale_times, "a scale-up's ack",
+                               timeout=60)
+        scaled_h, scaled_n, t_dir, t_ack = pool.scale_times[0]
+        if pool.scale_ups < 1 or scaled_n != 2 or \
+                pool._live_workers()[scaled_h] != 2:
+            raise AssertionError(f"scale-up: {pool.describe()}")
+        statusz = obs_http.ObsServer(cluster=None, port=0,
+                                     interval=999).render_statusz()
+        pods = statusz.get("pods") or []
+        if sorted(r["host"] for r in pods) != list(range(c["hosts"])):
+            raise AssertionError(f"/statusz pods: {pods}")
+        # the new worker prefills: a route id the ring places on it
+        ring = pool._ring_for(pool._live_workers())
+        key = next(f"new-{k}" for k in range(10000)
+                   if ring.lookup(f"new-{k}") == (scaled_h, 1))
+        o = gen(firsts[0], key)
+        check([o], refs[:1], "the new worker")
+        st = pool.stats(timeout=60)
+        new_dec = st[scaled_h]["workers"][1]["decode"]
+        if (o["host"], o["worker"]) != (scaled_h, 1) or \
+                new_dec["prefills"] < 1:
+            raise AssertionError(f"the new worker: {o['host']}/"
+                                 f"{o['worker']}, {new_dec}")
+        pre_kill = st
+        # pin the version, then a newer checkpoint: the respawned host
+        # boots at it and is steered back to the pin
+        pool.set_watermark(1)
+        shutil.copy(ckpt._path(ckpt_dir, 1), ckpt._path(ckpt_dir, 2))
+        target = 1 - scaled_h
+        got, errors = [None] * len(firsts), []
+
+        def one(i):
+            try:
+                got[i] = gen(firsts[i])
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(firsts))]
+        respawns0 = pool.respawns_observed
+        redisp0 = pool.redispatched
+        for t in threads:
+            t.start()
+        _wait_until(lambda: any(pool._table.get(k) is not None and
+                                pool._table.get(k)["session"].tokens_so_far()
+                                for k in pool._table.owned_by({target}))
+                    or not any(t.is_alive() for t in threads),
+                    "a session on the target host")
+        victim_pid = pool.host_pids()[target]
+        t_kill = time.monotonic()
+        os.kill(victim_pid, 9)
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        check(got, refs, "through the kill")
+        lost = pool.lost_times.get(target, [])
+        _wait_until(lambda: pool.respawns_observed > respawns0 and
+                    len(pool.live_replicas()) == c["hosts"],
+                    "the host's respawn")
+        t_back = pool.up_times[target][-1]
+        _wait_until(lambda: pool.versions() == {h: 1 for h in
+                                                range(c["hosts"])},
+                    "the respawn's version")
+        post = gen(firsts[1])
+        check([post], refs[1:2], "after the respawn")
+        final = pool.stats(timeout=60)
+        _host_launch_gate(final, cfg)
+        launches = _replica_launches(final)
+        pids |= set(pool.host_pids().values())
+        desc = pool.describe()
+    finally:
+        srv.stop()
+    counts = desc["affinity"]
+    print("serve_fabric " + json.dumps(dict(
+        hosts=c["hosts"], sessions=len(firsts), tokens=c["tokens"],
+        pool_boot_s=boot_s, affinity=counts,
+        affinity_hit_rate=counts["hit"] / max(1, sum(counts.values())),
+        second_turn_prefix_hits=hits,
+        scale_up=dict(host=scaled_h, workers=scaled_n,
+                      burst_to_ack_s=t_ack - t_burst,
+                      directive_to_ack_s=t_ack - t_dir,
+                      seen_s=t_scaled - t_burst, burst_rounds=rounds),
+        new_worker=new_dec, pods=pods,
+        kill=dict(host=target, pid=victim_pid,
+                  kill_to_failover_s=(lost[-1] - t_kill) if lost else None,
+                  kill_to_up_s=t_back - t_kill,
+                  redispatched=pool.redispatched - redisp0,
+                  replayed_tokens_dropped=pool.replayed_tokens),
+        versions=pool.versions(),
+        launches_a_host={h: s["launches"] for h, s in final.items()},
+        launches_before_kill={h: s["launches"]
+                              for h, s in pre_kill.items()},
+        peak_mem_bytes={h: s.get("peak_mem_bytes")
+                        for h, s in final.items()},
+        describe={k: v for k, v in desc.items() if k != "hosts"},
+        gpu=gpu)), flush=True)
+    return launches, pids
+
+
+def serve_elastic_beside_fabric(dev, gpu, engine_elastic, engine_fabric,
+                                tmp):
+    """Phases 41 and 42 at once, 42 on a thread (two pools on engines
+    of their own, the card shared; each line's times are taken beside the
+    other: ``measured_beside``).  Returns both launch counts and every
+    replica's and host's pid; each engine stopped."""
+    out = {}
+
+    def _fabric():
+        try:
+            out["fabric"] = phase_serve_fabric(dev, gpu, engine_fabric, tmp)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            out["fabric error"] = e
+        finally:
+            engine_fabric.stop()
+
+    t = threading.Thread(target=_fabric, name="phase-serve_fabric")
+    t.start()
+    try:
+        elastic = phase_serve_elastic(dev, gpu, engine_elastic, tmp)
+    finally:
+        engine_elastic.stop()
+        t.join()
+    if "fabric error" in out:
+        raise out["fabric error"]
+    print("serve_tier measured_beside " + json.dumps(
+        {"serve_elastic": ["serve_fabric"],
+         "serve_fabric": ["serve_elastic"]}), flush=True)
+    return (elastic[0], out["fabric"][0]), elastic[1] | out["fabric"][1]
+
+
+def deploy_eval(tree, step):
+    """The deploy loop's sidecar ``eval_fn``, in its executor on the
+    card: the restored params' held-out loss (bf16, the flash kernels)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    loss, launches = transformer_eval_loss(tree, torch.device("cuda", 0))
+    return {"loss": loss, "launches": launches, "pid": os.getpid(),
+            "eval_ms": 1e3 * (time.perf_counter() - t0)}
+
+
+def _deploy_checkpoints(dev):
+    """Steps 1-4's params trees (JAX layout, float32 host arrays)."""
+    c = SERVE_DEPLOY
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    host = lambda p: ckpt._unflatten({k: np.array(v, copy=True)
+                                      for k, v in ckpt._flatten(p).items()})
+    steps = {1: host(params)}
+    leaves = _param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=c["lr"])
+    batch = torch.from_numpy(np.random.default_rng(
+        STREAM["eval_seed"]).integers(
+            0, FULL["vocab_size"], (TRAIN_BATCH, FULL["max_seq"]))).to(dev)
+    for _ in range(c["adam_steps"]):
+        loss = T.loss_fn(params, batch, cfg)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    del opt, leaves
+    steps[2] = host(params)
+    del params
+    torch.cuda.empty_cache()
+    steps[3] = dict(steps[2], embed=steps[2]["embed"] * c["embed_scale"])
+    nan = dict(steps[2], layers=dict(steps[2]["layers"]))
+    w = nan["layers"]["wo"].copy()
+    w.flat[0] = np.nan
+    nan["layers"]["wo"] = w
+    steps[4] = nan
+    return steps
+
+
+def phase_serve_deploy(dev, gpu, engine, engine_actors, tmp, tdir):
+    """43 ``serve_deploy``: a 3-replica bf16 decode pool with a
+    ``ckpt_dir`` on an engine of its own, beside an ``ActorSystem`` on a
+    second engine holding an ``EvalSidecar`` (``deploy_eval`` on the
+    card) and a ``PromotionController``, and a ``DeployLoop(pct=50,
+    canary_count=1, burn_secs=4, min_samples=3)``; sessions with distinct
+    route ids run throughout.  Step 1 (phase 6's init) is blessed and
+    bootstrap-pinned; step 2 (Adam steps on the held-out batch) is
+    canaried and promoted, its manifest verifying; step 3 (step 2's
+    embedding x 1000) is blessed, canaried and rolled back for an eval
+    regression, tombstoned, with a ``deploy/rollback`` flight dump; step
+    4 (a NaN weight) is tombstoned at the gate and never canaried; the
+    watermark ends at 2 and every replica serves version 2; no session
+    dropped, versions 1, 2 and 3 each served; each eval loss within
+    ``SPARK_LOSS_RTOL`` of the driver's on the same checkpoint;
+    ``/statusz`` has a deploy row.  Returns the replicas' and the
+    evaluations' launches, the replicas' pids."""
+    from tensorflowonspark_tpu_torch import workloads
+    from tensorflowonspark_tpu_torch.actors import (
+        ActorSystem,
+        SupervisionPolicy,
+    )
+    from tensorflowonspark_tpu_torch.obs import flight
+    from tensorflowonspark_tpu_torch.obs import http as obs_http
+
+    c = SERVE_DEPLOY
+    cfg = T.Config(**FULL, dtype="bfloat16", attn_impl="flash")
+    steps = _deploy_checkpoints(dev)
+    # the driver's held-out losses, which the sidecar's must equal; step
+    # 2 must improve on step 1 and step 3 regress from step 2 past the
+    # loop's tolerance, or the phase tests nothing
+    driver_loss = {k: transformer_eval_loss(tree, dev)[0]
+                   for k, tree in steps.items()}
+    print("serve_deploy losses " + json.dumps(driver_loss), flush=True)
+    if not (driver_loss[2] < driver_loss[1] and driver_loss[3] >
+            driver_loss[2] * (1 + c["eval_tol"])
+            and np.isnan(driver_loss[4])):
+        raise AssertionError(f"deploy checkpoints' losses {driver_loss}")
+    ckpt_dir = os.path.join(tmp, "lm_deploy_ckpt")
+    ckpt.save_checkpoint(ckpt_dir, steps[1], step=1, keep=10)
+    rng = np.random.default_rng(43)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in rng.integers(64, 513, size=32)]
+    spec = serving.ModelSpec(ckpt_dir=ckpt_dir, device=str(dev),
+                             decode=_decode_spec(cfg, c["tokens"]))
+    srv = serving.Server(spec, num_replicas=c["replicas"], engine=engine,
+                         request_timeout=600)
+    os.environ[telemetry.DIR_ENV] = tdir
+    srv.start(timeout=600)
+    pool = srv.pool
+    pids = set(pool.replica_pids().values())
+    system = ActorSystem(2, engine=engine_actors)
+    stop = threading.Event()
+    served, drops, sent = [], [], itertools.count()
+
+    def traffic():
+        while not stop.is_set():
+            i = next(sent)
+            try:
+                out = srv.generate(prompts[i % len(prompts)],
+                                   max_tokens=c["tokens"],
+                                   route_id=f"client-{i}")
+                served.append(out["version"])
+            except Exception as e:  # noqa: BLE001 - any loss counts
+                drops.append(repr(e))
+
+    threads = [threading.Thread(target=traffic, name=f"deploy-traffic-{i}")
+               for i in range(c["traffic_threads"])]
+    verdicts = []
+    try:
+        pol = SupervisionPolicy(tick_secs=0.2)
+        side = system.spawn(workloads.EvalSidecar(ckpt_dir, deploy_eval),
+                            "eval", policy=pol, timeout=600)
+        system.spawn(workloads.PromotionController(ckpt_dir), "deploy",
+                     policy=pol, timeout=600)
+        loop = workloads.DeployLoop(
+            pool, ckpt_dir, pct=c["pct"], canary_count=c["canary_count"],
+            burn_secs=c["burn_secs"], min_samples=c["min_samples"],
+            eval_tol=c["eval_tol"], lat_tol=c["lat_tol"])
+        if loop.recover() is not None:
+            raise AssertionError("a watermark before any blessing")
+        for t in threads:
+            t.start()
+
+        def pump_until(cond, what, timeout=180):
+            deadline = time.monotonic() + timeout
+            burn_t0 = None
+            while not cond():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"deploy: {what} not within "
+                                         f"{timeout} s ({loop.status()})")
+                row = loop.pump()
+                if row["state"] == "burn" and burn_t0 is None:
+                    burn_t0 = time.monotonic()
+                time.sleep(0.05)
+            if burn_t0 is not None:
+                verdicts.append(dict(loop.last_verdict,
+                                     canary_to_verdict_s=(
+                                         time.monotonic() - burn_t0),
+                                     arms=pool.canary_stats()))
+
+        def gated(step):
+            _wait_until(lambda: ckpt.read_manifest(ckpt_dir, step)
+                        is not None, f"step {step}'s gate", timeout=300)
+            return ckpt.verify_manifest(ckpt_dir, step)
+
+        if gated(1) != (True, "ok"):
+            raise AssertionError(f"step 1: {gated(1)}")
+        pump_until(lambda: pool.watermark() == 1, "the bootstrap pin")
+        for step in (2, 3, 4):
+            ckpt.save_checkpoint(ckpt_dir, steps[step], step=step, keep=10)
+            ok, why = gated(step)
+            if step == 2:
+                if not ok:
+                    raise AssertionError(f"step 2 gated: {why}")
+                pump_until(lambda: loop.promotions >= 2 and
+                           loop.state == "idle", "step 2's promotion")
+                if pool.watermark() != 2 or \
+                        ckpt.verify_manifest(ckpt_dir, 2) != (True, "ok"):
+                    raise AssertionError(f"step 2: {loop.status()}")
+                _wait_until(lambda: set(pool.versions().values()) == {2},
+                            "version 2 everywhere")
+            elif step == 3:
+                if not ok:
+                    raise AssertionError(f"step 3 not blessed: {why}")
+                pump_until(lambda: loop.rollbacks >= 1, "step 3's rollback")
+                why3 = ckpt.verify_manifest(ckpt_dir, 3)[1]
+                if pool.watermark() != 2 or not any(
+                        "eval regression" in r
+                        for r in loop.last_verdict["reasons"]) or \
+                        "tombstoned" not in why3:
+                    raise AssertionError(f"step 3: {loop.last_verdict}, "
+                                         f"{why3}")
+                _wait_until(lambda: set(pool.versions().values()) == {2},
+                            "version 2 back on the canary arm")
+            else:
+                if ok or "tombstoned" not in why:
+                    raise AssertionError(f"step 4 at the gate: {why}")
+                for _ in range(10):
+                    row = loop.pump()
+                    if row["state"] != "idle" or row["candidate"]:
+                        raise AssertionError(f"step 4 canaried: {row}")
+                    time.sleep(0.1)
+        statusz = obs_http.ObsServer(cluster=None, port=0,
+                                     interval=999).render_statusz()
+        rows = [r for r in statusz.get("deploy") or []
+                if r["ckpt_dir"] == ckpt_dir]
+        _wait_until(lambda: len(_evaluated(side)) >= 4, "4 evaluations")
+        results = {p["step"]: p["metrics"] for _i, kind, p
+                   in list(side.events) if kind == "eval/result"}
+        stop.set()
+        for t in threads:
+            t.join(600)
+        reps = pool.stats(timeout=60)
+        versions = pool.versions()
+        summary = loop.summary()
+    finally:
+        stop.set()
+        for t in threads:
+            if t.ident is not None:
+                t.join(600)
+        system.stop()
+        srv.stop()
+        os.environ.pop(telemetry.DIR_ENV, None)
+    if summary["watermark"] != 2 or set(versions.values()) != {2} or \
+            [v["verdict"] for v in summary["history"]] != \
+            ["promote", "promote", "rollback"] or \
+            [v["step"] for v in summary["history"]] != [1, 2, 3]:
+        raise AssertionError(f"deploy: {summary}, versions {versions}")
+    if drops or not {1, 2, 3} <= set(served):
+        raise AssertionError(f"deploy traffic: {len(drops)} dropped "
+                             f"({drops[:3]}), versions served "
+                             f"{sorted(set(served))}")
+    if len(rows) != 1 or rows[0]["watermark"] != 2:
+        raise AssertionError(f"/statusz deploy: {rows}")
+    dumps = []
+    for root, _dirs, files in os.walk(tdir):
+        for name in files:
+            if name.startswith("flight-") and name.endswith(".json"):
+                with open(os.path.join(root, name), encoding="utf-8") as f:
+                    dumps.append(json.load(f))
+    rollback_dumps = [d for d in dumps
+                      if d["trigger"] == telemetry.DEPLOY_ROLLBACK and
+                      "eval regression" in (d.get("reason") or "")]
+    if not rollback_dumps:
+        raise AssertionError(f"no deploy/rollback flight dump in {tdir}")
+    rel = {}
+    for step, want in driver_loss.items():
+        got = results[step]["loss"]
+        if np.isnan(want) or np.isnan(got):
+            rel[step] = None if (np.isnan(want) and np.isnan(got)) else 1.0
+        else:
+            rel[step] = abs(got - want) / abs(want)
+        if rel[step] is not None and rel[step] > SPARK_LOSS_RTOL:
+            raise AssertionError(f"step {step}: sidecar loss {got}, the "
+                                 f"driver's {want}")
+    eval_launches = collections.Counter()
+    for step, m in results.items():
+        if m["launches"]["flash_fwd"] != cfg.n_layers or any(
+                m["launches"][k] for k in ("flash_dq", "flash_dkv",
+                                           "rmsnorm")):
+            raise AssertionError(f"step {step}'s evaluation launched "
+                                 f"{m['launches']}")
+        eval_launches.update(m["launches"])
+    _serve_launch_gate(reps, cfg)
+    launches = _replica_launches(reps)
+    launches = {k: launches[k] + eval_launches[k] for k in launches}
+    print("serve_deploy " + json.dumps(dict(
+        replicas=c["replicas"], knobs=c,
+        history=summary["history"], verdicts=verdicts,
+        eval_losses={s: results[s]["loss"] for s in sorted(results)},
+        driver_losses=driver_loss, loss_rel_diff=rel,
+        eval_ms={s: results[s]["eval_ms"] for s in sorted(results)},
+        sessions=len(served), versions_served=dict(
+            collections.Counter(served)), dropped=len(drops),
+        flight_dumps=len(rollback_dumps), versions=versions,
+        replica_launches=_replica_launches(reps),
+        eval_launches=dict(eval_launches), statusz_deploy=rows[0]["state"],
+        gpu=gpu), default=str), flush=True)
+    return launches, pids
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6074,10 +6909,21 @@ def main():
     # the eval sidecar's one executor and the sweep's two
     engine_eval = LocalEngine(1)
     engine_sweep = LocalEngine(2)
+    # phases 41-43: the serving tier's pools, each replica or host a CUDA
+    # context, each pool on an engine of its own: the elastic pool's
+    # three replicas, the fabric's two hosts, the deploy pool's three
+    # replicas and its ActorSystem's two members (the sidecar on the
+    # card); 43's driver writes telemetry for its rollback's flight dump
+    engine_serve_elastic = LocalEngine(3)
+    engine_serve_fabric = LocalEngine(2)
+    engine_deploy = LocalEngine(3)
+    engine_deploy_actors = LocalEngine(2)
+    tdirs.append(tempfile.mkdtemp(prefix="tfos_deploy_telemetry_"))
     engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
                engine_pred, engine_roles, engine_recover, engine_elastic,
                engine_obs, engine_halt, engine_svc, engine_dyn, engine_kill,
-               engine_eval, engine_sweep)
+               engine_eval, engine_sweep, engine_serve_elastic,
+               engine_serve_fabric, engine_deploy, engine_deploy_actors)
     try:
         kernels = run_phases(dev, gpu, *engines, tdirs=tdirs)
     finally:
@@ -6109,7 +6955,9 @@ class _Laps:
 def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
                engine_fit, engine_pred, engine_roles, engine_recover,
                engine_elastic, engine_obs, engine_halt, engine_svc,
-               engine_dyn, engine_kill, engine_eval, engine_sweep, tdirs):
+               engine_dyn, engine_kill, engine_eval, engine_sweep,
+               engine_serve_elastic, engine_serve_fabric, engine_deploy,
+               engine_deploy_actors, tdirs):
     """Every phase in order; returns the kernels line's entries."""
     lap = _Laps()
     # the kernels (one nvcc a source) and the host-native pieces, the
@@ -6312,6 +7160,25 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         dev, engine, engine_eval, gpu, spark)
     engine_eval.stop()
     lap("stream_transformer, eval_sidecar, stream_stop")
+    # the serving tier (41-43): the elastic pool, the fabric, the deploy
+    # loop, each path's launches counted in its replicas (and 43's
+    # evaluations) and read at its end
+    tier_tmp = tempfile.mkdtemp(prefix="tfos_serve_tier_")
+    try:
+        (serve_elastic_launches, fabric_launches), tier_pids = \
+            serve_elastic_beside_fabric(dev, gpu, engine_serve_elastic,
+                                        engine_serve_fabric, tier_tmp)
+        lap("serve_elastic, serve_fabric")
+        deploy_launches, pids = phase_serve_deploy(
+            dev, gpu, engine_deploy, engine_deploy_actors, tier_tmp,
+            tdirs[4])
+        tier_pids |= pids
+        engine_deploy.stop()
+        engine_deploy_actors.stop()
+        check_serve_cleanup(tier_pids)
+        lap("serve_deploy")
+    finally:
+        shutil.rmtree(tier_tmp, ignore_errors=True)
     print("phase_seconds " + json.dumps(dict(
         lap.seconds, total=round(sum(lap.seconds.values()), 1))), flush=True)
 
@@ -6397,9 +7264,20 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         # sidecar's evaluations in its executor summed (the forward)
         k["launches_stream"] = stream_launches[k["name"]]
         k["launches_eval"] = eval_launches[k["name"]]
-    if serve_launches["flash_fwd"] == 0 or any(
-            serve_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
-        raise AssertionError(f"serving replicas launched {serve_launches}")
+        # phases 41-43: the elastic pool's replicas (the survivors and
+        # the adopted respawn), the fabric's hosts (the survivor and the
+        # respawned host), the deploy pool's replicas and its sidecar's
+        # evaluations, each summed
+        k["launches_serve_elastic"] = serve_elastic_launches[k["name"]]
+        k["launches_fabric"] = fabric_launches[k["name"]]
+        k["launches_deploy"] = deploy_launches[k["name"]]
+    for name, got in (("serving replicas", serve_launches),
+                      ("elastic replicas", serve_elastic_launches),
+                      ("fabric hosts", fabric_launches),
+                      ("deploy replicas and evaluations", deploy_launches)):
+        if got["flash_fwd"] == 0 or any(
+                got[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
+            raise AssertionError(f"the {name} launched {got}")
     if any(jpeg_launches.values()):
         raise AssertionError(f"the JPEG and checkpoint paths launched "
                              f"{jpeg_launches}")

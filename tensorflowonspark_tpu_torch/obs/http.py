@@ -13,8 +13,10 @@ heartbeat, merges them with the driver's own registry and serves:
 - ``GET /statusz``: the cluster (epoch, restarts, the feed ledger), one
   summary a node (``node_summary``), the straggler table, the SLO
   report, the driver's supervised actors (``actors``: a row a member,
-  ``actors.runtime.actor_table``) and the data service's rollup
-  (``data``): what ``tfos-top-torch`` renders;
+  ``actors.runtime.actor_table``), the elastic serving pools
+  (``pools``), the serving fabric's hosts (``pods``), the deploy loops
+  (``deploy``) and the data service's rollup (``data``): what
+  ``tfos-top-torch`` renders;
 - ``GET /slo``: the objectives evaluated afresh (``obs.slo``);
 - ``POST /profilez?node=&ms=`` and ``POST /flightz?node=``: a directive
   to the node's publisher, answered with its ack (the capture's path),
@@ -28,6 +30,7 @@ the node.  Stdlib only: importing it initialises no CUDA.
 
 from __future__ import annotations
 
+import importlib
 import json
 import logging
 import os
@@ -479,6 +482,20 @@ class ObsServer:
             rows = []
         if rows:
             out["actors"] = rows
+        # the serving tier's tables, imported as lazily: the elastic
+        # pools (generation, capacity, assignments), the fabric's hosts
+        # and the deploy loops (rollout state, watermark, canary arms)
+        for key, module, name in (
+                ("pools", "serving.elastic", "pool_table"),
+                ("pods", "serving.fabric.router", "fabric_table"),
+                ("deploy", "workloads.deploy_loop", "deploy_table")):
+            try:
+                rows = getattr(importlib.import_module(
+                    f"tensorflowonspark_tpu_torch.{module}"), name)()
+            except Exception:  # noqa: BLE001 - a table tearing down
+                rows = []
+            if rows:
+                out[key] = rows
         snaps = [ent.get("metrics")
                  for ent in self._node_entries().values()]
         if driver:

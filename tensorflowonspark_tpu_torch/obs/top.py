@@ -9,13 +9,14 @@ percentiles), redrawn with plain ANSI (it works over ssh, under
 Usage::
 
     tfos-top-torch [--url http://127.0.0.1:9090] [--interval 2] [--once]
-                   [--slo] [--health]
+                   [--slo] [--health] [--deploy] [--pods]
 
 ``--url`` defaults to ``http://127.0.0.1:$TFOS_OBS_PORT``; ``--slo``
 adds the objectives' pane (``obs.slo``), ``--health`` the watchtower's
-(anomalies a node and the straggler table, ``obs.health``).  The JAX
-tool's ``--deploy`` and ``--pods`` panes are not carried: the port has
-no deployment loop and no serving fabric.
+(anomalies a node and the straggler table, ``obs.health``), ``--deploy``
+the deploy loops' (rollout state, canary arms, verdicts;
+``workloads.deploy_loop``) and ``--pods`` the serving fabric's (a row a
+host: workers, queue depth, affinity hit rate; ``serving.fabric``).
 """
 
 from __future__ import annotations
@@ -192,6 +193,63 @@ def render_health(status):
     return "\n".join(lines) + "\n"
 
 
+# (header, width, extractor) over one /statusz "pods" row (a fabric host)
+PODS_COLUMNS = (
+    ("HOST", 6, lambda r: f"{r.get('router', 0)}/{r.get('host', '?')}"),
+    ("UP", 4, lambda r: "yes" if r.get("alive") else "DOWN"),
+    ("PID", 8, lambda r: _num(r.get("pid"))),
+    ("REPLICAS", 9, lambda r: _num(r.get("replicas"))),
+    ("QDEPTH", 7, lambda r: _num(r.get("queue_depth"))),
+    ("VERSION", 8, lambda r: _num(r.get("version"))),
+    ("AFF-HIT%", 9, lambda r: _pct(r.get("affinity_hit_rate"))),
+)
+
+
+def render_pods(status):
+    """The ``--pods`` pane: a row a serving-fabric host."""
+    lines = ["", "pods (serving/fabric/):"]
+    rows = status.get("pods") or []
+    if not rows:
+        lines.append("  (no fabric routers)")
+    else:
+        lines.append(_header(PODS_COLUMNS))
+        lines += [_row(PODS_COLUMNS, row) for row in rows]
+    return "\n".join(lines) + "\n"
+
+
+def render_deploy(status):
+    """The ``--deploy`` pane: each deploy loop's rollout state, its
+    canary arms' outcomes and its last verdict."""
+    lines = ["", "deploy (workloads/deploy_loop.py):"]
+    rows = status.get("deploy") or []
+    if not rows:
+        lines.append("  (no deployment loops)")
+    for row in rows:
+        canary = row.get("canary") or {}
+        head = (f"  {row.get('ckpt_dir', '?')}: {row.get('state', '?')} "
+                f"wm={row.get('watermark', '-')} "
+                f"cand={row.get('candidate', '-')} "
+                f"promoted={row.get('promotions', 0)} "
+                f"rolled_back={row.get('rollbacks', 0)}")
+        if canary:
+            head += (f" arm={canary.get('replicas')}"
+                     f"@{canary.get('pct', '?')}%")
+        if row.get("burn_remaining_s") is not None:
+            head += f" burn={row['burn_remaining_s']}s"
+        lines.append(head)
+        for arm, st in sorted((row.get("stats") or {}).items()):
+            lines.append(f"    {arm}: n={st.get('n', 0)} "
+                         f"errors={st.get('errors', 0)} "
+                         f"p50={_num(st.get('p50_ms'))}ms "
+                         f"p95={_num(st.get('p95_ms'))}ms")
+        last = row.get("last_verdict")
+        if last:
+            why = "; ".join(last.get("reasons") or []) or "clean"
+            lines.append(f"    last: {last.get('verdict', '?')} "
+                         f"step={last.get('step', '?')} ({why})")
+    return "\n".join(lines) + "\n"
+
+
 def fetch_statusz(url, timeout=5):
     """GET ``<url>/statusz``, parsed; raises URLError or ValueError."""
     with urllib.request.urlopen(url.rstrip("/") + "/statusz",
@@ -216,6 +274,12 @@ def build_parser():
                    help="add the SLO pane (objective, current, burn)")
     p.add_argument("--health", action="store_true",
                    help="add the health pane (anomalies, stragglers)")
+    p.add_argument("--deploy", action="store_true",
+                   help="add the deploy pane (rollout state, canary arms, "
+                        "verdicts)")
+    p.add_argument("--pods", action="store_true",
+                   help="add the pods pane (fabric hosts: workers, queue "
+                        "depth, affinity hit rate)")
     return p
 
 
@@ -244,6 +308,10 @@ def main(argv=None, out=None):
             text += render_slo(status)
         if args.health:
             text += render_health(status)
+        if args.deploy:
+            text += render_deploy(status)
+        if args.pods:
+            text += render_pods(status)
         out.write(text if args.once else CLEAR + text)
         out.flush()
         if args.once:

@@ -9,10 +9,11 @@ Pieces:
   - :mod:`~.server` — in-process Client, stdlib HTTP endpoint, SLO
     stats, the ``tfos-serve-torch`` CLI;
   - :mod:`~.decode` — continuous-batching autoregressive decode (paged
-    KV cache, iteration-level scheduler, open-loop load generator).
-
-The elastic pool and the fabric are not ported (ROADMAP.md queue 1,
-item 25).
+    KV cache, iteration-level scheduler, open-loop load generator);
+  - :mod:`~.elastic` — the pool that degrades by resize and re-grows
+    from the survivors' live params;
+  - :mod:`~.fabric` — cross-host dispatch, session-affinity routing and
+    the worker autoscaler.
 """
 
 from tensorflowonspark_tpu_torch.serving.batcher import (  # noqa: F401

@@ -172,7 +172,7 @@ class PendingSession(ResolveOnce):
         self.max_tokens = int(max_tokens)
         self.eos_id = eos_id
         self.sampling = sampling
-        self.route_id = route_id   # affinity key; no port pool reads it
+        self.route_id = route_id   # the fabric's affinity key
         self.trace = trace         # W3C traceparent string, or None
         self.t_submit = time.perf_counter()
         self._ledger = IndexLedger()   # index -> token, first arrival wins

@@ -30,6 +30,20 @@ work already queued: in-flight requests finish on the old params, later
 ones see the new.  A decode replica hands the new params to
 ``DecodeEngine.set_params``.
 
+Canary routing: ``set_canary`` pins a subset of replicas at a candidate
+version (an in-band ``("reload", step)``: a pinned reload may go down a
+version, unlike the latest-wins watcher) and splits dispatch by request
+id (:func:`canary_arm`, crc32 mod 100, the JAX package's split): about
+``pct``% of traffic lands on the canary arm, the rest on the baseline,
+least-loaded within the arm.  Each arm's outcomes accumulate in the
+``tfos_deploy_*`` metrics and in ``canary_stats`` for the promotion
+controller's burn-window verdict; ``promote_canary`` reloads the
+baseline at the candidate and advances the watermark,
+``rollback_canary`` re-pins the canary arm at the blessed watermark.
+While a watermark is set the latest-wins watcher stands down, and a
+respawned replica that booted at another version is steered back to its
+arm's pin (``_enforce_version``).
+
 Differences from the JAX package:
 
 - Plain ``pickle``, no ``cloudpickle``: the replica task is an instance
@@ -48,12 +62,13 @@ Differences from the JAX package:
   instead.
 - Each replica zeroes the kernels' launch counts at boot and reports
   them, with its peak device memory, in its ``stats`` reply.
-- Canary routing, the version watermark and the elastic pool are not
-  ported (ROADMAP.md queue 1, item 25): their methods raise.
+- The elastic boot gate's mirror and every other message carry host
+  numpy trees, never a CUDA tensor (``serving.elastic.params_blob``).
 """
 
 from __future__ import annotations
 
+import bisect
 import importlib
 import logging
 import os
@@ -62,6 +77,7 @@ import queue as _queue
 import threading
 import time
 import traceback
+import zlib
 
 import numpy as np
 
@@ -83,8 +99,6 @@ RETRIES_ENV = "TFOS_SERVE_RETRIES"
 HEARTBEAT_PREFIX = "serve_heartbeat:"
 OUT_QUEUE = "serve_out"
 
-CANARY_ITEM = ("ROADMAP.md queue 1, item 25 (canary routing, the version "
-               "watermark, the deploy loop, the elastic pool and the fabric)")
 CUDA_GRAPH_ITEM = "ROADMAP.md queue 1, item 26 (a CUDA graph per bucket)"
 
 # the JAX package's predict names an export may carry, and the port's
@@ -185,14 +199,17 @@ class _Predictor:
         self.device = device
         self._seen = set()
         self.compiles = {}           # sig str -> count
+        self.mesh_shape = None       # set by an elastic resize
         self.batches = 0
         self.rows = 0
         self.device_ms = 0.0
 
-    @staticmethod
-    def _sig(inputs):
-        return tuple((k, tuple(v.shape), str(v.dtype))
-                     for k, v in sorted(inputs.items()))
+    def _sig(self, inputs):
+        # keyed by (mesh shape, shapes/dtypes), as in the JAX package:
+        # after an elastic resize the same bucket counts a new signature
+        return (self.mesh_shape,) + tuple(
+            (k, tuple(v.shape), str(v.dtype))
+            for k, v in sorted(inputs.items()))
 
     def __call__(self, inputs):
         if self._fn is None:
@@ -294,6 +311,14 @@ def _maybe_reload(pred, ckpt_dir, step=None):
     return True
 
 
+def canary_arm(route_id, pct):
+    """True when ``route_id`` hashes into the canary arm: crc32 of its
+    string form, mod 100, below ``pct``.  The same id lands on the same
+    arm in every process (an int and its string agree), as in the JAX
+    package."""
+    return (zlib.crc32(str(route_id).encode()) % 100) < float(pct)
+
+
 def _decode_params(tree, cfg):
     """An export's or checkpoint's transformer tree (the JAX layout) as
     host tensors; the decode engine places and casts them on its own
@@ -324,6 +349,8 @@ class _ReplicaTask:
         inq = mgr.queue(_in_queue(idx))
         outq = mgr.queue(OUT_QUEUE)
         engine = None
+        elastic = None
+        el_state = {"gen": 0, "covered": None, "resizes": 0, "boot": "cold"}
         try:
             import torch
 
@@ -343,25 +370,60 @@ class _ReplicaTask:
                 torch.backends.cuda.matmul.\
                     allow_bf16_reduced_precision_reduction = False
             ops.reset_launch_counts()
-            pred = _resolve_predictor(payload, device)
+            if payload.get("elastic"):
+                # the elastic boot gate (serving/elastic.py): announce
+                # this incarnation, then boot as the pool says: "cold"
+                # from the spec, or "adopt" the survivors' live params
+                from tensorflowonspark_tpu_torch.serving import (
+                    elastic,
+                )
+
+                t_hello = time.perf_counter()
+                outq.put(("hello", idx, os.getpid()))
+                boot = elastic.await_boot(inq)
+                # hello to the directive in hand (the mirror unpickled)
+                el_state["directive_s"] = time.perf_counter() - t_hello
+                if boot[0] == "stop":
+                    outq.put(("down", idx))
+                    return
+                if boot[0] == "adopt":
+                    pred = elastic.adopt_predictor(payload, boot[1],
+                                                   boot[2], device)
+                    el_state["boot"] = "adopted"
+                else:
+                    pred = _resolve_predictor(payload, device)
+            else:
+                pred = _resolve_predictor(payload, device)
             spec = payload.get("decode")
             if spec is not None:
                 from tensorflowonspark_tpu_torch.serving.decode.scheduler \
                     import DecodeEngine
 
                 def _gen_emit(kind, sid, *rest):
+                    if kind == "done":  # the version that retired it
+                        rest = (rest[0], dict(rest[1], version=pred.version))
                     outq.put(("gen_" + kind, idx, sid) + tuple(rest))
 
                 engine = DecodeEngine(
                     _decode_params(pred.params, spec.cfg), spec, _gen_emit,
                     replica=idx, device=device).start()
+            if elastic is not None:
+                # the directive in hand to serving: the predictor and the
+                # decode engine's params on the device
+                el_state["ready_s"] = (time.perf_counter() - t_hello
+                                       - el_state["directive_s"])
         except BaseException as e:  # noqa: BLE001 - report, then fail task
             outq.put(("init_error", idx, f"{e!r}\n{traceback.format_exc()}"))
             raise
         stop_beat = liveness.start_heartbeat(mgr, HEARTBEAT_PREFIX + str(idx))
         outq.put(("up", idx, os.getpid(), pred.version))
+        if elastic is not None and el_state["boot"] == "cold":
+            # seed the pool's mirror, so the next incarnation can adopt
+            outq.put(("params_sync", idx, pred.version,
+                      elastic.params_blob(pred.params)))
         try:
-            self._serve(idx, payload, pred, engine, device, inq, outq)
+            self._serve(idx, payload, pred, engine, device, inq, outq,
+                        elastic, el_state)
         finally:
             stop_beat.set()
             if engine is not None:
@@ -370,7 +432,8 @@ class _ReplicaTask:
             telemetry.flush()
 
     @staticmethod
-    def _serve(idx, payload, pred, engine, device, inq, outq):
+    def _serve(idx, payload, pred, engine, device, inq, outq, elastic,
+               el_state):
         import torch
 
         from tensorflowonspark_tpu_torch import ops
@@ -388,14 +451,32 @@ class _ReplicaTask:
                 pin = msg[1] if len(msg) > 1 else None
                 try:
                     if payload.get("ckpt_dir") and _maybe_reload(
-                            pred, payload["ckpt_dir"], step=pin) \
-                            and engine is not None:
-                        engine.set_params(_decode_params(
-                            pred.params, payload["decode"].cfg))
+                            pred, payload["ckpt_dir"], step=pin):
+                        if engine is not None:
+                            engine.set_params(_decode_params(
+                                pred.params, payload["decode"].cfg))
+                        if elastic is not None:
+                            outq.put(("params_sync", idx, pred.version,
+                                      elastic.params_blob(pred.params)))
                     outq.put(("reloaded", idx, pred.version))
                 except Exception as e:  # noqa: BLE001 - keep serving
                     logger.exception("reload failed")
                     outq.put(("reload_error", idx, repr(e)))
+            elif kind == "resize":
+                _, gen, covered, logical = msg
+                if gen <= el_state["gen"]:
+                    continue  # a stale generation: fenced
+                try:
+                    # one card a replica: the placement is the identity,
+                    # so the decode engine keeps its params
+                    ms = elastic.apply_resize(pred, covered, logical)
+                    el_state.update(gen=gen, covered=covered,
+                                    resizes=el_state["resizes"] + 1)
+                    outq.put(("resized", idx, gen, covered, ms))
+                except Exception as e:  # noqa: BLE001 - keep serving on
+                    # the previous layout; the pool retries
+                    logger.exception("resize to covered=%s failed", covered)
+                    outq.put(("resize_error", idx, gen, repr(e)))
             elif kind == "stats":
                 st = pred.stats()
                 st["pid"] = os.getpid()
@@ -406,6 +487,8 @@ class _ReplicaTask:
                         device)
                 if engine is not None:
                     st["decode"] = engine.stats()
+                if elastic is not None:
+                    st["elastic"] = dict(el_state)
                 outq.put(("stats", idx, st))
             elif kind == "gen":
                 _, sid, blob = msg
@@ -461,6 +544,12 @@ class ReplicaPool:
         self._lock = threading.Lock()
         self._table = InFlightTable(self.num_replicas)
         self._versions = {}          # idx -> last acked params version
+        # staged rollout (under self._lock): the open canary split, the
+        # blessed watermark, and bounded per-arm outcomes
+        self._canary = None          # {"replicas", "version", "pct"}
+        self._watermark = None       # the blessed step the pool is pinned to
+        self._reload_watermark = None  # newest latest-wins broadcast step
+        self._arm_stats = None       # arm -> {"n", "errors", "ms": [...]}
         self._stats_replies = {}
         self._stats_event = threading.Event()
         self._registered = threading.Event()
@@ -613,8 +702,8 @@ class ReplicaPool:
             raise RuntimeError(
                 f"no replicas left (job failed: {self._job_error})")
         blob = pickle.dumps((batch.inputs, batch.n_valid))
-        idx = self._table.add(("batch", batch.id),
-                              {"batch": batch, "blob": blob})
+        idx = self._route(("batch", batch.id),
+                          {"batch": batch, "blob": blob}, batch.id)
         self._send(idx, ("batch", batch.id, blob))
 
     def dispatch_session(self, session):
@@ -641,8 +730,8 @@ class ReplicaPool:
             # trace tree
             "trace": session.trace,
         })
-        idx = self._table.add(("gen", session.id),
-                              {"session": session, "blob": blob})
+        idx = self._route(("gen", session.id),
+                          {"session": session, "blob": blob}, session.id)
         self._send(idx, ("gen", session.id, blob))
 
     def cancel_session(self, sid):
@@ -653,12 +742,201 @@ class ReplicaPool:
     def outstanding_sessions(self):
         return sum(1 for k in self._table.keys() if k[0] == "gen")
 
-    # -- canary / staged rollout: not ported ----------------------------------
-    def _no_canary(self, *args, **kwargs):
-        raise NotImplementedError(f"staged rollout comes with {CANARY_ITEM}")
+    def _route(self, key, entry, route_id):
+        """The owner: least-loaded overall, or, with a canary open,
+        least-loaded within the arm ``route_id`` hashes into.  An arm with
+        no live member falls back to any live replica: a split never
+        drops a request."""
+        with self._lock:
+            canary = self._canary
+        if canary is None:
+            return self._table.add(key, entry)
+        arm = "canary" if canary_arm(route_id, canary["pct"]) else "baseline"
+        live = self._table.live()
+        if arm == "canary":
+            cands = [i for i in live if i in canary["replicas"]]
+        else:
+            cands = [i for i in live if i not in canary["replicas"]]
+        entry["arm"] = arm
+        if not cands:
+            return self._table.add(key, entry)
+        loads = self._table.loads()
+        owner = min(cands, key=lambda i: (loads.get(i, 0), i))
+        return self._table.add(key, entry, owner=owner)
 
-    set_watermark = set_canary = promote_canary = rollback_canary = \
-        pin_version = canary_stats = canary_snapshot = _no_canary
+    def _account(self, entry, ok):
+        """Count a resolved entry that was dispatched under a canary
+        split into its arm (the ``tfos_deploy_*`` metrics and the bounded
+        samples :meth:`canary_stats` reads); others are not counted."""
+        arm = entry.get("arm")
+        if arm is None:
+            return
+        ms = (time.monotonic() - entry["t"]) * 1e3
+        metrics_registry.inc("tfos_deploy_requests_total", arm=arm,
+                             status="ok" if ok else "error")
+        metrics_registry.observe("tfos_deploy_request_ms", ms, arm=arm)
+        with self._lock:
+            st = (self._arm_stats or {}).get(arm)
+            if st is None:
+                return
+            st["n"] += 1
+            if not ok:
+                st["errors"] += 1
+            st["ms"].append(ms)
+            del st["ms"][:-512]  # bounded: enough for a burn window's p95
+
+    # -- canary / staged rollout ----------------------------------------------
+    def set_watermark(self, step):
+        """Pin the blessed version.  While set, the latest-wins watcher
+        stands down (the promotion controller owns version changes) and a
+        replica that comes up at another version is steered to its arm's
+        pin.  ``None`` releases the pin."""
+        with self._lock:
+            self._watermark = None if step is None else int(step)
+
+    def watermark(self):
+        with self._lock:
+            return self._watermark
+
+    def reload_watermark(self):
+        """The newest step the latest-wins watcher has broadcast (None
+        before the first): without a promotion watermark, a respawn
+        converges on it, the version the survivors serve."""
+        with self._lock:
+            return self._reload_watermark
+
+    def set_canary(self, replicas, version, pct):
+        """Open a canary: pin ``replicas`` at candidate ``version`` (an
+        in-band pinned reload) and route about ``pct``% of traffic to
+        them.  The arm must leave at least one baseline replica."""
+        arm = tuple(sorted(int(i) for i in replicas))
+        live = self._table.live()
+        if not arm or not set(arm) <= set(live):
+            raise ValueError(f"canary replicas {arm} not all live ({live})")
+        if len(arm) >= len(live):
+            raise ValueError("canary arm must leave a baseline replica")
+        version = int(version)
+        with self._lock:
+            self._canary = {"replicas": arm, "version": version,
+                            "pct": float(pct)}
+            self._arm_stats = {
+                "canary": {"n": 0, "errors": 0, "ms": []},
+                "baseline": {"n": 0, "errors": 0, "ms": []},
+            }
+        for idx in arm:
+            self._send(idx, ("reload", version))
+        metrics_registry.set_gauge("tfos_deploy_canary_step", version)
+        telemetry.event(telemetry.DEPLOY_CANARY, version=version,
+                        replicas=list(arm), pct=float(pct))
+        logger.info("canary open: replicas %s at step %d (%s%% traffic)",
+                    arm, version, pct)
+        return arm
+
+    def promote_canary(self):
+        """The candidate wins: reload the baseline at it, advance the
+        watermark, clear the split.  Returns the promoted step."""
+        with self._lock:
+            canary = self._canary
+        if canary is None:
+            raise RuntimeError("promote_canary: no canary open")
+        version = canary["version"]
+        for idx in self._table.live():
+            if idx not in canary["replicas"]:
+                self._send(idx, ("reload", version))
+        with self._lock:
+            self._watermark = version
+            self._canary = None
+        logger.info("canary promoted: pool pinned at step %d", version)
+        return version
+
+    def rollback_canary(self, step=None):
+        """The candidate loses: re-pin the canary arm at the watermark
+        (or ``step``), clear the split.  Returns the step rolled back to."""
+        with self._lock:
+            canary = self._canary
+            target = self._watermark if step is None else int(step)
+        if canary is None:
+            raise RuntimeError("rollback_canary: no canary open")
+        if target is None:
+            raise RuntimeError("rollback_canary: no watermark to re-pin")
+        for idx in canary["replicas"]:
+            self._send(idx, ("reload", target))
+        with self._lock:
+            self._watermark = target
+            self._canary = None
+        logger.info("canary rolled back: arm %s re-pinned at step %d",
+                    canary["replicas"], target)
+        return target
+
+    def pin_version(self, step):
+        """Pin the whole pool at blessed ``step``: a pinned reload on
+        every live replica and the watermark (the deploy loop's bootstrap
+        and its recovery after a driver restart)."""
+        step = int(step)
+        for idx in self._table.live():
+            self._send(idx, ("reload", step))
+        self.set_watermark(step)
+        return step
+
+    def canary(self):
+        """The open split (``{"replicas", "version", "pct"}``) or None."""
+        with self._lock:
+            return dict(self._canary) if self._canary else None
+
+    def canary_stats(self):
+        """Each arm's outcomes since the split opened:
+        ``{arm: {"n", "errors", "p50_ms", "p95_ms"}}``."""
+        with self._lock:
+            out = {}
+            for arm, st in (self._arm_stats or {}).items():
+                ms = sorted(st["ms"])
+                out[arm] = {
+                    "n": st["n"],
+                    "errors": st["errors"],
+                    "p50_ms": ms[len(ms) // 2] if ms else None,
+                    "p95_ms": ms[int(len(ms) * 0.95)] if ms else None,
+                }
+            return out
+
+    def canary_snapshot(self):
+        """The split's outcomes as a registry snapshot (``{metric:
+        {"type", "series"}}``), the input of ``obs.slo.evaluate``, so the
+        promotion verdict runs the live metrics plane's SLO math.  The
+        samples are bucketed on the default histogram bounds; empty
+        without an open split."""
+        bounds = list(metrics_registry.DEFAULT_BUCKETS_MS)
+        counters, hists = [], []
+        with self._lock:
+            if self._arm_stats is None:
+                return {}
+            for arm, st in sorted(self._arm_stats.items()):
+                counters.append({"labels": {"arm": arm, "status": "ok"},
+                                 "value": float(st["n"] - st["errors"])})
+                counters.append({"labels": {"arm": arm, "status": "error"},
+                                 "value": float(st["errors"])})
+                counts = [0] * (len(bounds) + 1)
+                for v in st["ms"]:
+                    counts[bisect.bisect_left(bounds, v)] += 1
+                hists.append({"labels": {"arm": arm}, "bounds": bounds,
+                              "counts": counts, "sum": float(sum(st["ms"])),
+                              "count": len(st["ms"])})
+        return {"tfos_deploy_requests_total": {"type": "counter",
+                                               "series": counters},
+                "tfos_deploy_request_ms": {"type": "histogram",
+                                           "series": hists}}
+
+    def _enforce_version(self, idx, version):
+        """A replica that just came up booted at the newest checkpoint,
+        which mid-canary may be the unblessed candidate: steer it to its
+        arm's pin with a pinned reload."""
+        with self._lock:
+            canary, wm = self._canary, self._watermark
+        if canary is not None and idx in canary["replicas"]:
+            want = canary["version"]
+        else:
+            want = wm
+        if want is not None and version != want:
+            self._send(idx, ("reload", want))
 
     # -- background threads ---------------------------------------------------
     def _collect(self):
@@ -671,7 +949,8 @@ class ReplicaPool:
             except Exception:  # noqa: BLE001 - manager shut down
                 return
             try:
-                self._handle(msg)
+                if not self._handle_extra(msg):
+                    self._handle(msg)
             except Exception:  # noqa: BLE001 - one bad message
                 logger.exception("serve_out message %r failed", msg[:3])
 
@@ -688,6 +967,7 @@ class ReplicaPool:
             self._registered.set()
             telemetry.event("serve/replica_up", replica=idx, pid=pid,
                             version=version)
+            self._enforce_version(idx, version)
             if respawned:
                 # the respawned incarnation's "up" can beat the monitor's
                 # death scan: re-dispatch what the old one owned (work
@@ -704,14 +984,17 @@ class ReplicaPool:
                 return  # duplicate answer after a re-dispatch
             try:
                 entry["batch"].complete(pickle.loads(payload), meta)
+                self._account(entry, ok=True)
             except Exception as e:  # noqa: BLE001
                 entry["batch"].fail(e)
+                self._account(entry, ok=False)
         elif kind == "batch_error":
             _, idx, batch_id, tb = msg
             entry = self._table.pop(("batch", batch_id))
             if entry is not None:
                 entry["batch"].fail(RuntimeError(
                     f"replica {idx} failed the batch:\n{tb}"))
+                self._account(entry, ok=False)
         elif kind == "gen_token":
             _, idx, sid, tindex, tok = msg
             # a streamed token proves the stream is alive
@@ -724,12 +1007,14 @@ class ReplicaPool:
             entry = self._table.pop(("gen", sid))
             if entry is not None:
                 entry["session"]._set(tokens, meta)
+                self._account(entry, ok=True)
         elif kind == "gen_error":
             _, idx, sid, err = msg
             entry = self._table.pop(("gen", sid))
             if entry is not None:
                 entry["session"]._fail(RuntimeError(
                     f"replica {idx} failed the decode session: {err}"))
+                self._account(entry, ok=False)
         elif kind == "reloaded":
             with self._lock:
                 self._versions[msg[1]] = msg[2]
@@ -746,11 +1031,25 @@ class ReplicaPool:
                 errors[msg[1]] = msg[2]
                 self._registered.set()
 
+    def _handle_extra(self, msg):
+        """A subclass's hook, called before :meth:`_handle`: consume the
+        pool's own out-queue messages (the elastic pool's boot, mirror
+        and resize acks).  True when the message was handled."""
+        return False
+
+    def _tick(self):
+        """A subclass's hook, called once a monitor pass (the elastic
+        pool reconciles membership with its assignments)."""
+
     def _monitor(self):
         """Failure detection: executor-process death (fast path) and
         stale heartbeats (wedged replica).  Either way the replica's
         in-flight work is re-dispatched to survivors."""
         while not self._stop.wait(0.2):
+            try:
+                self._tick()
+            except Exception:  # noqa: BLE001 - the next pass retries
+                logger.exception("pool tick failed")
             now = time.monotonic()
             dead = liveness.scan(self._table.live(), self._proc_alive,
                                  self._beat_age, liveness.stale_after())
@@ -772,6 +1071,7 @@ class ReplicaPool:
                     entry["session"]._fail(TimeoutError(
                         "decode session streamed no token within "
                         f"{self._request_timeout}s"))
+                self._account(entry, ok=False)
 
     def _redispatch(self, dead_idxs):
         """Re-send a dead replica's in-flight work to survivors.  Decode
@@ -838,6 +1138,13 @@ class ReplicaPool:
             last = max(self._versions.values(), default=0)
         interval = reload_secs_default()
         while not self._stop.wait(interval):
+            with self._lock:
+                managed = (self._watermark is not None
+                           or self._canary is not None)
+            if managed:
+                # a promotion controller owns version changes: latest-wins
+                # broadcasts would race the pinned arms
+                continue
             try:
                 step, _path = ckpt.latest(self.spec.ckpt_dir)
             except Exception:  # noqa: BLE001 - transient fs error
@@ -845,6 +1152,8 @@ class ReplicaPool:
             if step is None or step == last:
                 continue
             last = step
+            with self._lock:
+                self._reload_watermark = step
             metrics_registry.inc("tfos_serve_reloads_total")
             telemetry.event(telemetry.SERVE_RELOAD, step=step)
             logger.info("hot-reload: broadcasting checkpoint step %d", step)

@@ -15,9 +15,12 @@ raise :class:`~.batcher.Overloaded`; the HTTP frontend maps it to
 ``503`` + ``Retry-After``.  Shed requests are rejected, never silently
 dropped.  The console script ``tfos-serve-torch`` runs :func:`main`.
 
-The elastic pool and the pod-scale fabric (``elastic=``,
-``logical_replicas=``, ``fabric=``, ``fabric_hosts=``, ``autoscale=``)
-are not ported and raise (ROADMAP.md queue 1, item 25).
+The pool is a :class:`~.replicas.ReplicaPool`, an
+:class:`~.elastic.ElasticReplicaPool` (``elastic=``,
+``logical_replicas=``: it degrades by resize, and admission shrinks with
+its capacity) or a :class:`~.fabric.FabricRouter` (``fabric=``,
+``fabric_hosts=``, ``replicas_per_host=``, ``autoscale=``: hosts of
+worker replicas, session-affinity routing by ``route_id``).
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from tensorflowonspark_tpu_torch.serving.batcher import (
 from tensorflowonspark_tpu_torch.serving.decode import sampling as _sampling
 from tensorflowonspark_tpu_torch.serving.decode import scheduler as _decode
 from tensorflowonspark_tpu_torch.serving.replicas import (
-    CANARY_ITEM,
     ModelSpec,
     ReplicaPool,
 )
@@ -211,13 +213,34 @@ class Server:
                                 or _batcher.request_timeout_default())
         self.decode_queue_max = (decode_queue_max
                                  or _decode.queue_max_default())
-        if elastic or logical_replicas or fabric or fabric_hosts \
-                or replicas_per_host or autoscale:
-            raise NotImplementedError(
-                f"the elastic pool and the fabric come with {CANARY_ITEM}")
-        self.pool = ReplicaPool(
-            spec, num_replicas=num_replicas, engine=engine, env=env,
-            request_timeout=self.request_timeout)
+        # decode admission shrinks with an elastic pool's capacity as the
+        # batcher's queue bound does; 1.0 until the pool says otherwise
+        self._decode_capacity = 1.0
+        if fabric or fabric_hosts:
+            from tensorflowonspark_tpu_torch.serving.fabric import (
+                FabricRouter,
+            )
+
+            self.pool = FabricRouter(
+                spec, num_hosts=fabric_hosts,
+                replicas_per_host=replicas_per_host or 1,
+                engine=engine, env=env,
+                request_timeout=self.request_timeout,
+                autoscale=autoscale)
+        elif elastic or logical_replicas:
+            from tensorflowonspark_tpu_torch.serving.elastic import (
+                ElasticReplicaPool,
+            )
+
+            self.pool = ElasticReplicaPool(
+                spec, num_replicas=num_replicas,
+                logical_replicas=logical_replicas, engine=engine, env=env,
+                request_timeout=self.request_timeout,
+                on_capacity=self._on_capacity)
+        else:
+            self.pool = ReplicaPool(
+                spec, num_replicas=num_replicas, engine=engine, env=env,
+                request_timeout=self.request_timeout)
         self.batcher = MicroBatcher(
             self.pool.dispatch, max_batch=max_batch,
             max_delay_ms=max_delay_ms, queue_max=queue_max,
@@ -254,6 +277,14 @@ class Server:
         self.stats.observe_shed()
         metrics_registry.inc("tfos_serve_requests_total", status="shed")
         telemetry.event(telemetry.SERVE_SHED, depth=depth, limit=limit)
+
+    def _on_capacity(self, frac, generation, degraded):
+        """The elastic pool's capacity hook: declared degraded mode,
+        admission shrinks with the pool and sheds stay explicit."""
+        self.batcher.set_capacity(frac)
+        self._decode_capacity = frac
+        telemetry.event("serve/capacity", capacity=round(frac, 4),
+                        generation=generation, degraded=degraded)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self, timeout=180.0):
@@ -305,9 +336,11 @@ class Server:
         int token ids; returns ``{"tokens": [...], "ttft_ms", "token_ms"
         (per-token gaps), "total_ms", ...engine meta}``.
 
-        ``route_id`` is an opaque session-affinity key, kept on the
-        session; the port's pool does not route on it (the fabric that
-        does is ROADMAP.md queue 1, item 25).
+        ``route_id`` is an opaque session-affinity key: with a fabric
+        pool, sessions sharing a route id land on the worker whose paged
+        KV cache still holds their prefix blocks, and the result meta
+        carries the routing outcome under ``"affinity"`` (hit, miss or
+        fallback).  Other pools ignore it.
 
         ``trace`` optionally links the session into a caller's trace
         (W3C-traceparent string or TraceContext); the context is
@@ -351,12 +384,16 @@ class Server:
     def _generate_traced(self, prompt, max_tokens, eos_id, timeout,
                          sampling, route_id=None):
         depth = self.pool.outstanding_sessions()
-        limit = self.decode_queue_max
+        limit = max(1, int(round(self.decode_queue_max
+                                 * self._decode_capacity))) \
+            if self._decode_capacity > 0 else 0
         if depth >= limit:
             self.decode_stats.observe_shed()
             metrics_registry.inc("tfos_decode_sessions_total", status="shed")
             telemetry.event(telemetry.DECODE_SHED, depth=depth, limit=limit)
-            raise Overloaded(depth, limit, retry_after=0.1)
+            raise Overloaded(depth, limit,
+                             retry_after=0.25 if self._decode_capacity < 1.0
+                             else 0.1)
         ctx = telemetry.current()
         session = _decode.PendingSession(
             next(self._session_ids), prompt,
@@ -405,6 +442,8 @@ class Server:
             out["decode"] = self.decode_stats.summary()
         if include_replicas:
             out["replica_stats"] = self.pool.stats()
+        if hasattr(self.pool, "describe"):
+            out["pool"] = self.pool.describe()
         return out
 
 
@@ -450,9 +489,15 @@ class _Handler(BaseHTTPRequestHandler):
         srv = self.server.tfos_server
         if self.path == "/healthz":
             live = srv.pool.live_replicas()
-            self._reply(200 if live else 503,
-                        {"status": "ok" if live else "degraded",
-                         "replicas": live})
+            # an elastic pool below its logical capacity is alive and
+            # degraded: still 200, with its generation and capacity
+            degraded = (not live) or getattr(srv.pool, "degraded", False)
+            body = {"status": "degraded" if degraded else "ok",
+                    "replicas": live}
+            if hasattr(srv.pool, "generation"):
+                body["generation"] = srv.pool.generation
+                body["capacity"] = round(srv.pool.capacity_frac, 4)
+            self._reply(200 if live else 503, body)
         elif self.path == "/stats":
             self._reply(200, srv.summary())
         else:
@@ -586,6 +631,23 @@ def build_parser():
     p.add_argument("--max_batch", type=int, default=None)
     p.add_argument("--max_delay_ms", type=float, default=None)
     p.add_argument("--queue_max", type=int, default=None)
+    p.add_argument("--elastic", action="store_true",
+                   help="a pool that degrades by resize and re-grows "
+                        "from live params")
+    p.add_argument("--logical_replicas", type=int, default=None,
+                   help="logical capacity for --elastic "
+                        "(default: num_replicas)")
+    p.add_argument("--fabric", action="store_true",
+                   help="the serving fabric: hosts of worker replicas, "
+                        "session-affinity routing")
+    p.add_argument("--fabric_hosts", type=int, default=None,
+                   help="fabric host processes (default $TFOS_FABRIC_HOSTS "
+                        "or 2)")
+    p.add_argument("--replicas_per_host", type=int, default=None,
+                   help="a fabric host's workers at boot (default 1)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="run the ServeAutoscaler over the fabric "
+                        "(TFOS_SERVE_MIN/MAX_REPLICAS clamp a host)")
     p.add_argument("--device", default=None,
                    help="'cpu' for the CPU; default the card")
     return p
@@ -601,7 +663,13 @@ def main(argv=None):
     server = Server(spec, num_replicas=args.num_replicas,
                     max_batch=args.max_batch,
                     max_delay_ms=args.max_delay_ms,
-                    queue_max=args.queue_max)
+                    queue_max=args.queue_max,
+                    elastic=args.elastic,
+                    logical_replicas=args.logical_replicas,
+                    fabric=args.fabric,
+                    fabric_hosts=args.fabric_hosts,
+                    replicas_per_host=args.replicas_per_host,
+                    autoscale=args.autoscale)
     server.start()
     logger.info("serving on http://%s:%d (POST /v1/predict)",
                 args.host, args.port)

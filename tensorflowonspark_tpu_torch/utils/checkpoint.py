@@ -5,8 +5,11 @@ that the training ``main_fun``s call: ``save_checkpoint`` (atomic write,
 ``keep`` newest), ``latest_checkpoint``, ``load_checkpoint``,
 ``restore_latest``, ``step_of``, ``is_chief``, ``pack_pytree`` /
 ``unpack_pytree``, and the read side of the blessing manifests
-(``read_manifest``, ``verify_manifest``), so that a tombstoned, digest-
-mismatched or torn step is skipped on resume as in the JAX package.
+(``read_manifest``, ``verify_manifest``) and its write side
+(``bless_checkpoint``, ``tombstone_checkpoint``, ``blessed_steps``,
+``latest_blessed``), so that a tombstoned, digest-mismatched or torn
+step is skipped on resume as in the JAX package, and either package
+verifies the other's manifests.
 
 The files are the JAX package's: ``ckpt-<step:08d>.npz`` holding one
 array per leaf under its ``/``-joined path (``params/<layer>/<leaf>``,
@@ -43,8 +46,7 @@ returns at once; ``restore_latest``, ``restore_at``, ``wait``,
 writes orbax step directories: importing ``orbax.checkpoint`` imports
 JAX.  So both packages' restores read what the port's class writes; an
 orbax step directory that the JAX class wrote is listed by
-:func:`latest` and skipped by the restores.  The blessing and tombstone
-writers wait in ROADMAP.md (item 25).  ``restore_any(target_shardings=)``
+:func:`latest` and skipped by the restores.  ``restore_any(target_shardings=)``
 places a restore on a device mesh (``parallel.sharding``).
 """
 
@@ -252,15 +254,125 @@ def unpack_pytree(flat, like):
     return build(like)
 
 
-# -- blessing manifests: the read side ---------------------------------------
+# -- blessing manifests -------------------------------------------------------
 #
 # ``bless-<step>.json`` beside a checkpoint holds per-file sha256 digests
-# and byte counts, or a tombstone that quarantines the step.  The JAX
-# package writes them (bless_checkpoint, tombstone_checkpoint); restore
-# paths here honour them.
+# and byte counts, the step and the eval score that gated promotion, or a
+# tombstone that quarantines the step (the deploy loop's rollback), so
+# that no restore path (trainer resume, serving reload, elastic adopt)
+# picks it again.  The fields and their JSON form are the JAX package's.
+
+MANIFEST_FORMAT = "tfos-bless-v1"
+
 
 def manifest_path(ckpt_dir, step):
     return _fs.join(ckpt_dir, f"bless-{step:08d}.json")
+
+
+def _step_files(ckpt_dir, step):
+    """Relative paths of every file of checkpoint ``step``: the npz
+    file, or an orbax step directory walked recursively."""
+    names = []
+    npz = f"ckpt-{step:08d}.npz"
+    if _fs.exists(_fs.join(ckpt_dir, npz)):
+        names.append(npz)
+    odir = _fs.join(ckpt_dir, str(step))
+    if _fs.isdir(odir):
+        if _fs.is_local(odir):
+            for dirpath, _dirs, files in os.walk(_fs.local_path(odir)):
+                rel = os.path.relpath(dirpath, _fs.local_path(ckpt_dir))
+                names.extend(os.path.join(rel, f) for f in sorted(files))
+        else:
+            names.extend(f"{step}/{n}" for n in sorted(_fs.listdir(odir))
+                         if not n.endswith("/"))
+    return names
+
+
+def _write_manifest(ckpt_dir, step, manifest):
+    blob = json.dumps(manifest, sort_keys=True).encode()
+    path = manifest_path(ckpt_dir, step)
+    _publish(path, lambda f: f.write(blob))
+    return path
+
+
+def bless_checkpoint(ckpt_dir, step, score=None, eval_metrics=None):
+    """Write the manifest that marks ``step`` blessed: the sha256 and
+    byte count of every file of the checkpoint, so a later restore can
+    prove it reads the bytes that were evaluated.  Returns its path;
+    raises FileNotFoundError when the step has no files."""
+    files = _step_files(ckpt_dir, step)
+    if not files:
+        raise FileNotFoundError(
+            f"bless_checkpoint: no checkpoint files for step {step} "
+            f"in {ckpt_dir}")
+    manifest = {
+        "format": MANIFEST_FORMAT,
+        "step": int(step),
+        "score": None if score is None else float(score),
+        "eval": dict(eval_metrics or {}),
+        "files": {},
+        "blessed_ts": time.time(),
+        "tombstone": None,
+    }
+    for rel in files:
+        digest, nbytes = _digest(_fs.join(ckpt_dir, rel))
+        manifest["files"][rel.replace(os.sep, "/")] = {
+            "sha256": digest, "bytes": nbytes}
+    path = _write_manifest(ckpt_dir, step, manifest)
+    telemetry.event(telemetry.DEPLOY_BLESS, step=int(step),
+                    score=manifest["score"], files=len(files))
+    metrics_registry.set_gauge("tfos_deploy_blessed_step", int(step))
+    logger.info("blessed checkpoint step %d (%d files) -> %s",
+                step, len(files), path)
+    return path
+
+
+def tombstone_checkpoint(ckpt_dir, step, reason):
+    """Quarantine ``step``: mark its manifest (made if absent) with a
+    tombstone, so every restore path skips it."""
+    manifest = read_manifest(ckpt_dir, step) or {
+        "format": MANIFEST_FORMAT, "step": int(step), "score": None,
+        "eval": {}, "files": {}, "blessed_ts": None,
+    }
+    manifest["tombstone"] = {"reason": str(reason), "ts": time.time()}
+    path = _write_manifest(ckpt_dir, step, manifest)
+    metrics_registry.inc("tfos_deploy_tombstones_total")
+    logger.warning("tombstoned checkpoint step %d: %s", step, reason)
+    return path
+
+
+def blessed_steps(ckpt_dir):
+    """Sorted steps with a blessing manifest that is not tombstoned."""
+    if not _fs.isdir(ckpt_dir):
+        return []
+    steps = []
+    for name in _fs.listdir(ckpt_dir):
+        name = name.rstrip("/")
+        if not (name.startswith("bless-") and name.endswith(".json")):
+            continue
+        try:
+            step = int(name[len("bless-"):-len(".json")])
+        except ValueError:
+            continue
+        manifest = read_manifest(ckpt_dir, step)
+        if manifest is not None and not manifest.get("tombstone"):
+            steps.append(step)
+    return sorted(steps)
+
+
+def latest_blessed(ckpt_dir):
+    """``(step, path)`` of the newest blessed checkpoint whose manifest
+    verifies, or ``(None, None)``: the rollback target."""
+    for step in sorted(blessed_steps(ckpt_dir), reverse=True):
+        ok, reason = verify_manifest(ckpt_dir, step)
+        if not ok:
+            logger.warning("blessed step %d fails verify: %s", step, reason)
+            continue
+        npz = _path(ckpt_dir, step)
+        if _fs.exists(npz):
+            return step, npz
+        return step, _fs.join(ckpt_dir, str(step))
+    return None, None
 
 
 def _digest(path):
@@ -495,7 +607,7 @@ def _restore_host(ckpt_dir, blessed_only):
     return None, 0
 
 
-# -- asynchronous saves ---------------------------------------------------------
+# -- asynchronous saves -------------------------------------------------------
 
 def _snapshot(tree):
     """``(flat, events)``: copies of every leaf of ``tree`` under its

@@ -15,6 +15,10 @@ processes it forks); ``TFOS_FAULT_INCARNATION`` further to one of its
 incarnations (0 the first, each respawn one more), so that a kill does
 not fire again in the respawn, whose hit counts start from 0.
 
+``random_plan`` draws a seeded ``exc`` plan over a set of sites whose
+faults the runtime recovers from (:data:`SERVE_CHAOS_SITES`,
+:data:`DEPLOY_CHAOS_SITES`); the same seed gives the JAX package's plan.
+
 ``check`` and ``poison`` are free when no plan is set.  Every fault that
 fires emits a ``fault/injected`` telemetry event.  ``nan`` entries are
 value poison: ``poison`` fires them, ``check`` ignores them, as the
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import logging
 import os
+import random as _random
 import signal
 import time
 
@@ -64,6 +69,20 @@ SITES = (
     "deploy.promote",       # workloads/deploy_loop.py, before promote commit
     "deploy.rollback",      # workloads/deploy_loop.py, before rollback commit
 )
+
+#: Sites whose hit counters live in long-lived executor processes, so a
+#: consumed occurrence stays consumed across engine retries.
+CHAOS_SITES = ("engine.task", "node.boot", "feed.put", "rendezvous.query")
+
+#: The serving tier's: a dispatch fault fails its batch (an explicit
+#: client error), a resize fault is retried by the pool's next pass, a
+#: decode fault fails the cohort and rebuilds the caches.
+SERVE_CHAOS_SITES = ("serve.dispatch", "serve.resize", "decode.step")
+
+#: The deploy loop's: each raises before its pool transition, and the
+#: next pump retries it.
+DEPLOY_CHAOS_SITES = ("deploy.canary", "deploy.promote", "deploy.rollback")
+
 
 class FaultInjected(RuntimeError):
     """An exception raised by an injected ``exc`` fault."""
@@ -235,3 +254,22 @@ def poison(site, value):
                         pid=os.getpid())
         return float("nan")
     return value
+
+
+def random_plan(seed, max_faults=2, sites=CHAOS_SITES):
+    """A reproducible chaos plan of ``exc`` faults over ``sites``: the
+    same seed gives the same plan (the JAX package's), always
+    parseable."""
+    rng = _random.Random(int(seed))
+    entries = []
+    for _ in range(rng.randint(1, max_faults)):
+        site = rng.choice(list(sites))
+        entries.append(f"{site}:exc@{rng.randint(1, 3)}")
+    plan = ",".join(entries)
+    parse_plan(plan)  # a generator bug fails here, not mid-run
+    return plan
+
+
+def _reset_for_tests():
+    """Forget the cached plan and the hit counters (tests only)."""
+    _state.update(pid=None, plan=None, faults=(), hits={})

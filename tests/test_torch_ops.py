@@ -160,7 +160,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port (``spark_ml`` with the pyspark
     test double on the path), resolving the root's lazy names, running a
     pipeline of the data service's ``data`` package, running the actor
-    workloads' members and the streaming examples' helpers, importing
+    workloads' members and the streaming examples' helpers, using the
+    elastic pool's, the fabric's and the deploy loop's modules, importing
     chip_smoke.py, running both observability CLIs, and
     loading the port's host-native ring, marshal, TFRecord codec and
     JPEG decoder (and routing a TFRecord and a checkpoint through
@@ -244,6 +245,27 @@ with recordio.TFRecordWriter("memory://iso/part-r-00000") as w:
 assert list(recordio.TFRecordReader("memory://iso/part-r-00000")) == [ex]
 checkpoint.save_checkpoint("memory://iso/ckpt", {"w": [1.0]}, 1)
 assert checkpoint.restore_latest("memory://iso/ckpt")[1] == 1
+# the serving tier's elastic pool, fabric and deploy loop, used
+import pickle
+from tensorflowonspark_tpu_torch.obs import top
+from tensorflowonspark_tpu_torch.serving import elastic, fabric, replicas
+from tensorflowonspark_tpu_torch.serving.fabric import autoscale, host
+from tensorflowonspark_tpu_torch.workloads import deploy_loop
+assert elastic.assign_slots(6, [0, 1, 2]) == {0: 2, 1: 2, 2: 2}
+assert elastic.pool_table() == [] and fabric.fabric_table() == []
+assert isinstance(pickle.loads(elastic.params_blob(
+    {"w": __import__("torch").ones(2)}))["w"], np.ndarray)
+assert fabric.Ring([(0, 0), (1, 0)]).lookup("s1") in ((0, 0), (1, 0))
+plans = []
+assert autoscale.ServeAutoscaler(
+    read_signal=lambda: {0: {"workers": 1, "depth": 9}},
+    apply_plan=plans.append, max_replicas=2).step(now=0.0) == "up"
+assert plans == [{0: 2}] and host.PLAN_KEY == "fabric:plan"
+assert replicas.canary_arm("r", 100) and deploy_loop.deploy_table() == []
+ck.save_checkpoint(ckdir, {"w": np.ones(3)}, 3)
+ck.bless_checkpoint(ckdir, 3, score=0.5)
+assert ck.latest_blessed(ckdir)[0] == 3
+assert top.render_pods({}) and top.render_deploy({})
 # both observability CLIs run: no endpoint, no flight dump
 import io, tempfile
 from tensorflowonspark_tpu_torch.obs import postmortem, top
@@ -289,6 +311,9 @@ for want in ("utils.train", "utils.metrics", "infeed", "models.transformer",
              "data.splits", "data.cache", "data.autoscale",
              "actors.runtime", "actors.mailbox", "actors.policy",
              "workloads", "workloads.eval_sidecar", "workloads.sweep",
+             "workloads.deploy_loop", "serving.elastic", "serving.fabric",
+             "serving.fabric.affinity", "serving.fabric.autoscale",
+             "serving.fabric.host", "serving.fabric.router",
              "examples.mnist_spark_streaming", "examples.stop_streaming",
              "examples.mnist_reshape"):
     assert "tensorflowonspark_tpu_torch." + want in names, (want, names)

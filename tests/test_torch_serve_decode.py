@@ -369,13 +369,18 @@ def test_no_cuda_replica_fails_the_pool_start(exported, monkeypatch):
 def test_jit_and_cut_pool_features_raise():
     with pytest.raises(NotImplementedError, match="item 26"):
         serving.ModelSpec(predict="m:f", jit=True)
+    # the elastic pool, the fabric and canary routing are ported: each
+    # Server mounts its pool, as the JAX Server does, and a canary on a
+    # pool with no live replica is the JAX package's ValueError
+    from tensorflowonspark_tpu_torch.serving import elastic, fabric
+
     spec = serving.ModelSpec(predict="m:f")
-    for kw in (dict(elastic=True), dict(fabric=True),
-               dict(logical_replicas=2)):
-        with pytest.raises(NotImplementedError, match="item 25"):
-            serving.Server(spec, **kw)
+    for kw, cls in ((dict(elastic=True), elastic.ElasticReplicaPool),
+                    (dict(fabric=True), fabric.FabricRouter),
+                    (dict(logical_replicas=2), elastic.ElasticReplicaPool)):
+        assert type(serving.Server(spec, **kw).pool) is cls
     pool = serving.ReplicaPool(spec)
-    with pytest.raises(NotImplementedError, match="item 25"):
+    with pytest.raises(ValueError, match="not all live"):
         pool.set_canary([0], 2, 10)
     # speculative decoding is ported: a draft with its config is a valid
     # spec, one without it the JAX package's ValueError

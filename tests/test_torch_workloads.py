@@ -11,8 +11,9 @@ against the JAX package:
   ``test_successive_halving_sweep`` and ``_target_early_stop``);
 - like the JAX modules, ``workloads/`` carries no supervision code (the
   JAX lint, ``test_workloads_carry_zero_supervision_code``, on the
-  port's files), and the deploy loop's names raise, naming ROADMAP.md's
-  item.
+  port's files, the deploy loop's included), and the deploy loop's four
+  names exist as in the JAX package, with ``deploy_table()`` listing a
+  live loop (``tests/test_torch_deploy.py`` holds the loop itself).
 
 Each ActorSystem runs on its own engine with the JAX tests' fast
 liveness policy; every wait is bounded.  The ``eval_fn`` and
@@ -173,7 +174,8 @@ def test_workloads_carry_zero_supervision_code():
     wdir = os.path.join(PKG, "workloads")
     offenders = []
     names = sorted(n for n in os.listdir(wdir) if n.endswith(".py"))
-    assert names == ["__init__.py", "eval_sidecar.py", "sweep.py"], names
+    assert names == ["__init__.py", "deploy_loop.py", "eval_sidecar.py",
+                     "sweep.py"], names
     for name in names:
         hits = sorted(set(forbidden.findall(
             _code_tokens(os.path.join(wdir, name)))))
@@ -184,11 +186,38 @@ def test_workloads_carry_zero_supervision_code():
         + "\n  ".join(offenders))
 
 
+class _PinnedPool:
+    """Just the watermark surface a deploy loop's status reads."""
+
+    def __init__(self, wm):
+        self.wm = wm
+
+    def watermark(self):
+        return self.wm
+
+    def canary(self):
+        return None
+
+    def canary_stats(self):
+        return {}
+
+
 @pytest.mark.parametrize("name", ["DeployLoop", "PromotionController",
                                   "deploy_table", "run_deploy_loop"])
-def test_deploy_loop_names_raise_naming_their_item(name):
+def test_deploy_loop_names_raise_naming_their_item(name, tmp_path):
+    """The four names exist in both packages, and ``deploy_table()``
+    lists a live loop with the row the JAX table gives for it (the JAX
+    ``tests/test_deploy.py::test_deploy_table_reports_live_loops``)."""
     import tensorflowonspark_tpu.workloads as jax_workloads
 
-    assert hasattr(jax_workloads, name)
-    with pytest.raises(NotImplementedError, match="queue 1, item 25"):
-        getattr(workloads, name)()
+    assert hasattr(jax_workloads, name) and callable(getattr(workloads,
+                                                             name))
+    d = str(tmp_path / f"ckpt-{name}")
+    rows = []
+    for mod in (workloads, jax_workloads):
+        loop = mod.DeployLoop(_PinnedPool(3), d, pct=50)
+        rows.append([r for r in mod.deploy_table() if r["ckpt_dir"] == d])
+        del loop
+    assert rows[0] == rows[1]
+    assert len(rows[0]) == 1 and rows[0][0]["watermark"] == 3
+    assert rows[0][0]["state"] == "idle" and rows[0][0]["promotions"] == 0
