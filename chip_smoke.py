@@ -134,12 +134,12 @@ too:
     64 KiB, the executor's reader on the native codec and no kernel
     launched in the trainer; images/s end to end, the stall, the device
     step, the hand-off split and the read and decode time a partition;
-16a. ``jpeg_decode``: three shards of 256 seeded JPEG records (PIL,
+16a. ``jpeg_decode``: two shards of 256 seeded JPEG records (PIL,
     quality 90; 500x375, 375x500, 1024x768 and 224x224, a quarter each;
     ``image/encoded``, 1-based ``image/class/label``) through the port's
     writer; the native decoder must build (the system's libjpeg, else
     the vendored headers and Pillow's bundled ABI-62 libjpeg: the line
-    names the route and file) and pass its self-test; all 768 decode
+    names the route and file) and pass its self-test; all 512 decode
     natively with 0 PIL arbitrations, on one thread and through
     ``decode_batch``'s pool, with the same bytes; a CMYK JPEG decodes
     through one arbitration; a truncated one raises ValueError; images/s
@@ -151,7 +151,7 @@ too:
 16c. ``spark_jpeg_resnet`` (the JPEG slice's main path): phase 16's run with
     ``--data_dir`` on the JPEG shards (the executor reads and decodes
     them natively, then the shm ring as columnar chunks), and again on
-    16b's raw shards, three steps each: losses equal to 1e-3, and the
+    16b's raw shards, two steps each: losses equal to 1e-3, and the
     chiefs' restored checkpoints' losses on phase 10's batch too; every
     partition once,
     no trainer or ring left, tasks under 64 KiB, every JPEG decoded
@@ -163,21 +163,21 @@ too:
     checkpoint tree through ``save_checkpoint``/``restore_latest`` and
     ``export_model``/``load_exported`` equals the local round trip;
 16e. ``async_checkpoint``: phase 10's net on the card (params, BN state,
-    SGD momentum, ~205 MB) saved every 3 steps, 3 times through
-    ``save_checkpoint`` and 4 times through ``AsyncCheckpointer(keep=3)``:
+    SGD momentum, ~205 MB) saved every 2 steps, twice through
+    ``save_checkpoint`` and 3 times through ``AsyncCheckpointer(keep=2)``:
     the ms each save blocks the step loop; each file holds its own
     step's tree and not the next one's (the snapshot check), ``keep``
     prunes, ``close`` waits, a ``checkpoint.save`` fault in the writer
     surfaces at the next call;
 16f. ``spark_mnist_checkpoint``: ``mnist_spark.main_fun`` SPARK-fed on
-    the card for 8 steps; the chief's ``ckpt`` restores through
+    the card for 4 steps; the chief's ``ckpt`` restores through
     ``restore_latest`` with the export's values, the trainer's final
     params;
 17. MNIST under ``InputMode.TENSORFLOW`` (``tf_mode_mnist``), on an
     engine of its own (the executor runs ``main_fun`` on the card, so it
     holds a CUDA context and must fork no SPARK trainer after it):
     ``mnist_data_setup``'s four shards, ``cluster.run`` of
-    ``mnist_tf_ds.main_fun`` for 40 steps; every loss finite and equal
+    ``mnist_tf_ds.main_fun`` for 20 steps; every loss finite and equal
     to the same batches stepped here (float32, TF32 off, deterministic
     cuDNN, 1e-5 relative); no kernel launched in the executor's steps;
     the chief's export loads with ``load_exported`` and predicts as the
@@ -217,7 +217,7 @@ too:
     (``serve_cleanup``): no replica process alive, no ``/dev/shm/tfos-*``
     ring, no child-pid file in the working dir;
 23. ``pipeline_fit``: ``TFEstimator(mnist_pipeline.train_fun)`` fit
-    SPARK-fed (``num_gpus=1``, 4,096 seeded records, batch 64) on a
+    SPARK-fed (``num_gpus=1``, 2,048 seeded records, batch 64) on a
     one-executor engine of its own, then ``TFModel.transform`` of 60,000
     seeded MNIST-shaped rows at batch 1,024 on a second, two-executor
     engine, cold and again with the cached model; every loss finite,
@@ -228,7 +228,7 @@ too:
     and their MFU (``metrics.mnist_inference_flops_per_row`` a row over
     float32's dense peak; phases 24 and 26 too), the predict's ms a
     batch, each executor's peak memory;
-24. ``cluster_inference``: ``TFCluster.inference()`` of 8 partitions of
+24. ``cluster_inference``: ``TFCluster.inference()`` of 4 partitions of
     10,000 ``(id, image)`` rows into a SPARK-mode trainer on the card
     (``mnist_pipeline.infer_fun``, ``DataFeed.batch_results``) on the
     first engine: every row's result once, in partition order, equal to
@@ -360,10 +360,12 @@ too:
     the re-served prefix, the digests cover the shards once;
     ``service_transformer`` (38d): the full-width transformer fed phase
     6's records through ``data.from_arrays`` (static): losses equal
-    ``spark_train``'s, 8 launches of each flash kernel a step.
+    ``spark_train``'s, 8 launches of each flash kernel a step.  38d runs
+    on a thread beside 38a (``service measured_beside``), so their times
+    are taken beside each other; 38b and 38c run after them.
 39. streaming feeds: ``stream_transformer`` (39a): phase 6's
     transformer fed through ``TFCluster.train_stream`` on phase 6's
-    engine, 12 micro-batches of phase 6's 8 records, the chief
+    engine, 8 micro-batches of phase 6's 8 records, the chief
     checkpointing every 4 steps: the first 5 losses equal
     ``spark_train``'s exactly, 8 launches of each flash kernel a step, no
     ring left, no CUDA context in the feeding executor; step ms, tokens/s
@@ -427,7 +429,33 @@ too:
     the watermark ends at 2 on every replica, no session dropped,
     versions 1-3 each served, every eval loss within ``SPARK_LOSS_RTOL``
     of the driver's on the same checkpoint, a ``/statusz`` deploy row;
-    canary to verdict seconds, each arm's p95, the eval ms.
+    canary to verdict seconds, each arm's p95, the eval ms;
+44. ``serve_graphs``: the decode engine's CUDA graph per bucket
+    (``utils/cuda_graphs.py``) at full width, after phase 31: for bf16
+    (seed 0) and float32 (seed 1) an engine stepping in graphs and one
+    with ``jit=False`` on the same params, one after the other, each
+    through phase 8's 16 sessions (32 tokens; the captures), the same
+    shapes with fresh tokens (timed), again under ``torch.profiler``
+    (the device's idle share), in float32 phase 9's three prompts, and a
+    third burst whose second wave of 8 follows a ``set_params`` to seed
+    2's params; every burst is submitted under the engine's queue lock,
+    so both engines admit the same groups.  Graphed tokens equal eager
+    ones session by session in every burst, float32's equal
+    ``greedy_decode_reference``, the reload refills the graphs (none
+    dropped), the graphed engine steps no signature eagerly and its
+    flash launches (replays counted, captures not) cover every plain
+    prefill's layers; the speculative engine of phase 30 (narrow draft)
+    graphed and eager gives equal tokens and accept counts.  Printed per
+    engine: tokens/s, TTFT and gap p50/p99 per burst, graphs, capture
+    ms, memory after the captures, the idle share.
+
+Every serving phase (8, 9, 18-22, 30-31, 41-43) runs its engines and
+predicts at the default ``jit=None``, so in CUDA graphs: each gates that
+every engine (replica, host, worker) stepped no signature eagerly and
+holds at least one graph once it prefilled, and 22 that each replica
+captured one graph a bucket (one ``compiles`` entry each).  The launch
+counts count what ran on the device: a graph's replay adds the launches
+its capture recorded, and the capture none.
 
 Any failure raises, so the exit code is non-zero and the last line is
 not printed.  The last line is
@@ -446,6 +474,8 @@ forward > 0, the other three 0), ``launches_pipeline``, phases
 23-26's trainers and predicting executors summed (all 0),
 ``launches_segmentation``, phases 27-29 summed (all 0),
 ``launches_spec``, phase 30's three runs summed (the flash forward > 0),
+``launches_graphs``, phase 44's engines summed (the flash forward > 0,
+the other three 0),
 ``launches_parallel``, phase 32's sharded step (the three flash
 kernels > 0), ``launches_recover`` and ``launches_elastic``, phases
 34 and 35's trainer incarnations summed (the three flash kernels > 0,
@@ -471,6 +501,7 @@ import collections
 import concurrent.futures
 import ctypes
 import dataclasses
+import gc
 import glob
 import io
 import itertools
@@ -654,20 +685,20 @@ TFRECORD_TASK_MAX_BYTES = 64 << 10
 # shard (it decodes ~10x slower)
 JPEG_SIZES = ((375, 500), (500, 375), (768, 1024), (224, 224))
 JPEG_DISTINCT = 32
-JPEG_SHARDS = 3   # three SPARK-fed steps (phases 10 and 16 run six)
+JPEG_SHARDS = 2   # two SPARK-fed steps (phases 10 and 16 run six)
 JPEG_QUALITY = 90
 # phase 16e: a save every `every` steps of phase 10's step on the card,
 # `sync_saves` through save_checkpoint, then `async_saves` through an
 # AsyncCheckpointer that keeps `keep` of them
-ASYNC_CKPT = dict(every=3, sync_saves=2, async_saves=3, keep=2)
+ASYNC_CKPT = dict(every=2, sync_saves=2, async_saves=3, keep=2)
 # phase 16f: mnist_spark's chief checkpoint after this many steps of 64
-MNIST_CKPT_STEPS = 8
+MNIST_CKPT_STEPS = 4
 # InputMode.TENSORFLOW MNIST (mnist_tf_ds): the data setup's four shards
-# of 2048 records, 40 steps of batch 64, SGD(0.05, momentum 0.9), as the
-# example's defaults; float32 with TF32 off and deterministic cuDNN on
+# of 2048 records, 20 steps of batch 64 (the example's default is 40),
+# SGD(0.05, momentum 0.9), as the example's defaults; float32 with TF32 off and deterministic cuDNN on
 # both sides, so the executor's steps repeat in this process to 1e-5
 # relative (the same kernels on the same batches)
-TF_MNIST = dict(num_examples=2048, partitions=4, batch_size=64, steps=40,
+TF_MNIST = dict(num_examples=2048, partitions=4, batch_size=64, steps=20,
                 lr=0.05)
 TF_MNIST_RTOL = 1e-5
 # online serving: the open loop offered to the bf16 pool (sessions of
@@ -681,14 +712,14 @@ SERVE_RELOAD_SLACK_S = 60.0
 SERVE_PREDICT_RTOL = 1e-5
 # the pipeline phases (MNIST at its full width): the fit's seeded records
 # (batch 64, SGD(0.05, momentum 0.9), one epoch), the transform's 60,000
-# rows at batch 1,024 in 8 partitions, inference()'s 8 partitions of
+# rows at batch 1,024 in 8 partitions, inference()'s 4 partitions of
 # 10,000 (id, image) rows, the roles run (mnist_eval's defaults, plus a
 # ps node), and the predictions' tolerance against mnist.predict in this
 # process (float32, TF32 off, of the largest logit)
-PIPELINE = dict(fit_rows=4096, fit_partitions=4, batch_size=64, lr=0.05,
+PIPELINE = dict(fit_rows=2048, fit_partitions=4, batch_size=64, lr=0.05,
                 rows=60000, partitions=8, transform_batch=1024,
-                infer_partitions=8, infer_rows=10000)
-ROLES = dict(num_examples=2048, batch_size=64, steps=40, ckpt_steps=10,
+                infer_partitions=4, infer_rows=10000)
+ROLES = dict(num_examples=2048, batch_size=64, steps=20, ckpt_steps=10,
              lr=0.05, eval_timeout=300.0)
 PIPELINE_RTOL = 1e-5
 # the segmentation phases (BASELINE.json config 4, MobileNetV2-UNet): the
@@ -1491,10 +1522,19 @@ def phase_grad_exact(dev):
     torch.cuda.empty_cache()
 
 
-def run_engine(params, spec, jobs, dev, timeout):
+def _graph_gate(what, dec):
+    """A decode engine on the card stepped in CUDA graphs: no signature
+    stepped eagerly, and at least one graph once it prefilled."""
+    if dec["eager_signatures"] or (dec["prefills"] and dec["graphs"] < 1):
+        raise AssertionError(f"{what}: {dec['graphs']} graphs, "
+                             f"{dec['eager_signatures']} eager signatures")
+
+
+def run_engine(params, spec, jobs, dev, timeout, jit=None):
     """Submit ``jobs`` = [(sid, prompt[, submit kwargs])] to a fresh
-    engine on the card and wait for all; any error emission or init
-    error raises.  Returns
+    engine on the card (``jit`` its graph rule: None steps in CUDA
+    graphs, which :func:`_graph_gate` then requires) and wait for all;
+    any error emission or init error raises.  Returns
     (done {sid: tokens}, streamed {sid: [(index, token)]}, first-token
     times {sid: s}, wall seconds, stats, engine)."""
     lock = threading.Lock()
@@ -1515,7 +1555,7 @@ def run_engine(params, spec, jobs, dev, timeout):
             else:
                 errors[sid] = rest[0]
 
-    eng = DecodeEngine(params, spec, emit, device=dev)
+    eng = DecodeEngine(params, spec, emit, device=dev, jit=jit)
     eng.start(timeout=600)
     try:
         t0 = time.perf_counter()
@@ -1538,6 +1578,8 @@ def run_engine(params, spec, jobs, dev, timeout):
     if len(done) != len(jobs):
         raise AssertionError(f"only {len(done)}/{len(jobs)} sessions done "
                              f"within {timeout}s")
+    if jit is not False:
+        _graph_gate("engine", stats)
     return done, streamed, first, wall, stats, eng
 
 
@@ -2855,7 +2897,7 @@ def phase_tf_mode_mnist(dev, engine, gpu, tmp):
     TFRecord shards in ``tmp``, then ``cluster.run`` of
     ``mnist_tf_ds.main_fun`` on ``engine`` (an engine of its own: the
     executor runs ``main_fun`` and so holds a CUDA context, and must fork
-    no SPARK trainer after it), 40 steps on the card.  Every loss finite
+    no SPARK trainer after it), 20 steps on the card.  Every loss finite
     and equal to the same batches stepped here; the chief's export loads
     with ``load_exported`` and predicts as this process's trained
     params.  Returns the launches and the shut-down cluster, which
@@ -3006,8 +3048,11 @@ def _decode_server(export_dir, ckpt_dir, cfg, dev, engine, max_tokens):
 
 def _serve_launch_gate(reps, cfg):
     """Every replica launched the flash forward kernel on each layer of
-    each of its plain prefills, and none of the other kernels."""
+    each of its plain prefills (a graph's replay counting the launches
+    its capture recorded), and none of the other kernels; its engine
+    stepped in CUDA graphs (:func:`_graph_gate`)."""
     for idx, r in reps.items():
+        _graph_gate(f"replica {idx}", r["decode"])
         plain = r["decode"]["prefills"] - r["decode"]["extends"]
         got = r["launches"]
         if got["flash_fwd"] < cfg.n_layers * plain or (
@@ -3119,6 +3164,8 @@ def phase_serve_decode(dev, gpu, engine, tmp):
         pool_boot_s=srv.pool.boot_s,
         replicas={idx: dict(
             pid=r["pid"], peak_mem_bytes=r.get("peak_mem_bytes"),
+            mem_bytes=r.get("mem_bytes"), graphs=r["decode"]["graphs"],
+            capture_ms=r["decode"]["capture_ms"],
             launches=r["launches"], prefills=r["decode"]["prefills"],
             extends=r["decode"]["extends"],
             prefix_hits=r["decode"]["prefix_hits"],
@@ -3235,7 +3282,17 @@ def phase_serve_f32(dev, gpu, engine, tmp):
             live_replicas=srv.pool.live_replicas(),
             respawn_to_up_s=back, gpu=gpu)), flush=True)
 
-        # serve_reload: a step-2 checkpoint of other params
+        # serve_reload: a step-2 checkpoint of other params.  The
+        # 300-token prompt first, on both replicas: its bucket's graph is
+        # captured before the reload, which refills the graphs in place
+        # (the trie is dropped, so after it the prompt prefills again)
+        prompt = exact[1]
+        pre = _concurrently(lambda p: srv.generate(p, max_tokens=16),
+                            [prompt, prompt])
+        if [o["tokens"] for o in pre] != [refs[1], refs[1]]:
+            raise AssertionError(f"before the reload {pre[0]['tokens']}, "
+                                 f"{pre[1]['tokens']} != {refs[1]}")
+        before = srv.summary(include_replicas=True)["replica_stats"]
         new = T.init(cfg, torch.Generator(device=dev).manual_seed(2), dev)
         t_save = time.monotonic()
         ckpt.save_checkpoint(ckpt_dir, new, step=2)
@@ -3248,7 +3305,6 @@ def phase_serve_f32(dev, gpu, engine, tmp):
                                      f"{limit} s after the save")
             time.sleep(0.05)
         reload_s = time.monotonic() - t0
-        prompt = exact[1]
         ref = T.greedy_decode_reference(new, prompt, cfg, max_tokens=16,
                                         attn_fn=ref_attn)
         outs = _concurrently(lambda p: srv.generate(p, max_tokens=16),
@@ -3257,12 +3313,25 @@ def phase_serve_f32(dev, gpu, engine, tmp):
             raise AssertionError(f"after the reload {outs[0]['tokens']}, "
                                  f"{outs[1]['tokens']} != {ref}")
         reps = srv.summary(include_replicas=True)["replica_stats"]
+        graphs = {i: (before[i]["decode"]["graphs"], r["decode"]["graphs"])
+                  for i, r in sorted(reps.items())}
+        served = {o["replica"] for o in pre}
+        if {o["replica"] for o in outs} - served:
+            raise AssertionError(f"after the reload replicas "
+                                 f"{[o['replica'] for o in outs]} served, "
+                                 f"before it {sorted(served)}")
+        for i, r in reps.items():
+            _graph_gate(f"replica {i}", r["decode"])
+            if graphs[i][0] > graphs[i][1] or (
+                    i in served and not graphs[i][0]):
+                raise AssertionError(f"replica {i}'s graphs before and "
+                                     f"after the reload: {graphs[i]}")
         print("serve_reload " + json.dumps(dict(
             step=2, save_s=saved_s, versions_2_after_s=reload_s,
             limit_s=limit, tokens=16,
             engine_reloads={i: r["decode"]["reloads"]
                             for i, r in sorted(reps.items())},
-            gpu=gpu)), flush=True)
+            graphs_before_after=graphs, gpu=gpu)), flush=True)
         del new
         torch.cuda.empty_cache()
     finally:
@@ -3314,12 +3383,25 @@ def phase_serve_predict(dev, gpu, cluster, export_dir):
         buckets=summ["buckets"],
         signatures={i: len(r["compiles"])
                     for i, r in sorted(summ["replica_stats"].items())},
-        signature_cap=cap, gpu=gpu)
+        signature_cap=cap,
+        graphs={i: dict(graphs=r["graphs"], capture_ms=r["capture_ms"],
+                        eager_signatures=r["eager_signatures"],
+                        compiles=sorted(r["compiles"].values()))
+                for i, r in sorted(summ["replica_stats"].items())},
+        gpu=gpu)
     print("serve_predict " + json.dumps(summary), flush=True)
     if err > SERVE_PREDICT_RTOL or not summary["same_argmax"]:
         raise AssertionError(f"served logits off by {err} of the largest")
     if any(n > cap for n in summary["signatures"].values()):
         raise AssertionError(f"signatures {summary['signatures']} > {cap}")
+    # one captured graph a bucket: each signature compiled once, as a
+    # graph, and none served eagerly
+    for i, g in summary["graphs"].items():
+        if g["eager_signatures"] or set(g["compiles"]) - {1} or \
+                g["graphs"] != len(g["compiles"]):
+            raise AssertionError(f"replica {i}'s graphs: {g}")
+    if not sum(g["graphs"] for g in summary["graphs"].values()):
+        raise AssertionError("no replica captured a graph")
     return pids
 
 
@@ -4052,24 +4134,26 @@ SPEC_EXACT = dict(sessions=16, max_tokens=32)
 
 
 class _CountPrefills:
-    """Counts ``transformer.prefill`` calls by config while in force (the
+    """Counts the decode engine's plain prefills (target and draft, each
+    a graph replay or an eager call) by config while in force (the
     draft's prefills launch the flash forward on each of its layers)."""
 
     def __init__(self):
         self.calls = collections.Counter()
 
     def __enter__(self):
-        self._real = T.prefill
+        self._real = DecodeEngine._prefill
+        real, calls = self._real, self.calls
 
-        def counted(params, tokens, cfg, **kw):
-            self.calls[cfg] += 1
-            return self._real(params, tokens, cfg, **kw)
+        def counted(eng, key, params, cfg, toks, lens):
+            calls[cfg] += 1
+            return real(eng, key, params, cfg, toks, lens)
 
-        T.prefill = counted
+        DecodeEngine._prefill = counted
         return self
 
     def __exit__(self, *exc):
-        T.prefill = self._real
+        DecodeEngine._prefill = self._real
 
 
 def _spec_runs(dev, cfg, params, drafts, jobs, max_tokens, slots):
@@ -4253,6 +4337,279 @@ def phase_spec_exact(dev):
         flush=True)
     del params, dparams, drafts, runs
     torch.cuda.empty_cache()
+
+
+# serve_graphs: for each (dtype, seed), one engine stepping in CUDA graphs
+# (jit=None) and one eager (jit=False) on the same params, run one after
+# the other; the reload's params are seed 2's
+SERVE_GRAPHS = dict(dtypes=(("bfloat16", 0), ("float32", 1)), reload_seed=2,
+                    tokens=32, exact_tokens=16)
+
+
+def _same_shapes(jobs, cfg, seed):
+    """``jobs``' prompts (:func:`serving_jobs`) with fresh tokens of the
+    same lengths, the sessions that share a system prompt sharing a new
+    one: the same bucket signatures as ``jobs``, none of their
+    prefixes."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, cfg.vocab_size, size=512).tolist()
+    out = []
+    for i, (sid, prompt) in enumerate(jobs):
+        shared = i % 2 == 0
+        tail = rng.integers(1, cfg.vocab_size,
+                            size=len(prompt) - 512 * shared).tolist()
+        out.append((f"{sid}-{seed}", system + tail if shared else tail))
+    return out
+
+
+class _Burster:
+    """A started decode engine on the card driven in bursts.  A burst's
+    sessions are submitted under the engine's queue lock (made
+    re-entrant here), so one admission sees all of them and the bucket
+    grouping is the same in every run: with 8 slots, 16 sessions of
+    equal length admit in two waves of 8.  Keeps each session's tokens
+    and token times."""
+
+    def __init__(self, params, spec, dev, jit):
+        self.lock = threading.Lock()
+        self.done, self.errors, self.times = {}, {}, {}
+        self.eng = DecodeEngine(params, spec, self._emit, device=dev,
+                                jit=jit)
+        self.eng._qlock = threading.RLock()
+        self.eng.start(timeout=600)
+
+    def _emit(self, kind, sid, *rest):
+        now = time.perf_counter()
+        with self.lock:
+            if kind == "token":
+                self.times.setdefault(sid, []).append(now)
+            elif kind == "done":
+                self.done[sid] = [int(t) for t in rest[0]]
+            else:
+                self.errors[sid] = rest[0]
+
+    def submit(self, jobs, max_tokens):
+        with self.eng._qlock:
+            t0 = time.perf_counter()
+            for sid, prompt in jobs:
+                self.eng.submit(sid, prompt, max_tokens=max_tokens)
+        return t0
+
+    def wait(self, jobs, table, timeout=600):
+        """Until every session of ``jobs`` is in ``table`` (``done``, or
+        ``times``: its first token came)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self.lock:
+                if self.errors:
+                    raise AssertionError(f"engine errors {self.errors}")
+                if all(sid in table for sid, _ in jobs):
+                    return
+            if time.monotonic() > deadline:
+                raise AssertionError(f"sessions not done within {timeout} s")
+            time.sleep(0.002)
+
+    def burst(self, jobs, max_tokens):
+        """One burst to its end: its tokens, wall, tokens/s, TTFT and
+        token gaps."""
+        t0 = self.submit(jobs, max_tokens)
+        self.wait(jobs, self.done)
+        wall = time.perf_counter() - t0
+        with self.lock:
+            ttft = [1e3 * (self.times[s][0] - t0) for s, _ in jobs]
+            gaps = [1e3 * (b - a) for s, _ in jobs
+                    for a, b in zip(self.times[s], self.times[s][1:])]
+            tokens = {s: self.done[s] for s, _ in jobs}
+        return dict(tokens=tokens, wall_s=wall,
+                    tokens_per_s=max_tokens * len(jobs) / wall,
+                    ttft_p50_ms=_percentile(ttft, 50),
+                    ttft_p99_ms=_percentile(ttft, 99),
+                    gap_p50_ms=_percentile(gaps, 50),
+                    gap_p99_ms=_percentile(gaps, 99))
+
+
+def _graphs_engine_run(dev, cfg, params, new_params, jit, jobs, exact):
+    """One engine (``jit``) through serve_graphs' bursts: phase 8's
+    sessions (cold: the captures), the same shapes with fresh tokens
+    (timed), again under the profiler (the device's idle share), the
+    float32 exact prompts, and a third burst whose second wave follows a
+    ``set_params`` issued while the first streams."""
+    c = SERVE_GRAPHS
+    n = c["tokens"]
+    gc.collect()   # the previous engine's graphs, freed before the base
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    b = _Burster(params, DecodeSpec(cfg, slots=8, paged=True, block_size=16,
+                                    prefix_sharing=True, max_tokens=n),
+                 dev, jit)
+    try:
+        out = {"cold": b.burst(jobs, n)}
+        st = b.eng.stats()
+        out["after_captures"] = dict(
+            graphs=st["graphs"], capture_ms=st["capture_ms"],
+            eager_signatures=st["eager_signatures"],
+            memory_allocated_bytes=torch.cuda.memory_allocated(dev) - base_mem,
+            max_memory_allocated_bytes=(torch.cuda.max_memory_allocated(dev)
+                                        - base_mem))
+        out["warm"] = b.burst(_same_shapes(jobs, cfg, 1), n)
+        # the device's activity alone: the idle share reads nothing else,
+        # and the host's ops would triple the trace to sort
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            profiled = b.burst(_same_shapes(jobs, cfg, 2), n)
+        bd = device_breakdown(prof, profiled["wall_s"])
+        out["profiled"] = dict(
+            wall_s=profiled["wall_s"], idle_share=bd["idle_share"],
+            device_busy_ms=bd["device_busy_ms"],
+            device_events=bd["device_events"], groups_ms=bd["groups_ms"])
+        if exact:
+            got = b.burst(exact, c["exact_tokens"])
+            out["exact"] = got["tokens"]
+        # the reload: wave 1 (8 sessions) fills the slots; set_params
+        # while it streams; wave 2 is admitted after the swap, all 8 at
+        # once, so its tokens are the new params' alone
+        third = _same_shapes(jobs, cfg, 3)
+        b.submit(third[:8], n)
+        b.wait(third[:8], b.times)
+        b.eng.set_params(new_params)
+        out["reload"] = b.burst(third[8:], n)
+        b.wait(third[:8], b.done)
+        st = b.eng.stats()
+    finally:
+        b.eng.stop()
+    if st["reloads"] != 1:
+        raise AssertionError(f"reloads {st['reloads']}")
+    out["stats"] = {k: st[k] for k in (
+        "graphs", "capture_ms", "eager_signatures", "prefills", "extends",
+        "iterations", "prefix_hits", "reloads")}
+    return out
+
+
+def _spec_graphs(dev, cfg, params, jobs):
+    """The speculative engine of ``spec_decode`` (the narrow draft,
+    window ``SPEC_WINDOW``), graphed and eager: tokens, accept counts."""
+    dcfg = T.Config(**SPEC_DRAFT, dtype="bfloat16", attn_impl="flash")
+    dparams = T.init(dcfg, torch.Generator(device=dev).manual_seed(5), dev)
+    spec = DecodeSpec(cfg, slots=8, paged=True, block_size=16,
+                      prefix_sharing=True, max_tokens=SERVE_GRAPHS["tokens"],
+                      draft_params=dparams, draft_cfg=dcfg,
+                      spec_window=SPEC_WINDOW)
+    runs = {}
+    for mode, jit in (("graphed", None), ("eager", False)):
+        b = _Burster(params, spec, dev, jit)
+        try:
+            run = b.burst(jobs, SERVE_GRAPHS["tokens"])
+            st = b.eng.stats()
+        finally:
+            b.eng.stop()
+        runs[mode] = dict(run, **{k: st[k] for k in (
+            "graphs", "capture_ms", "eager_signatures", "spec_proposed",
+            "spec_accepted", "prefills", "extends")})
+    g, e = runs["graphed"], runs["eager"]
+    if g["tokens"] != e["tokens"] or \
+            (g["spec_proposed"], g["spec_accepted"]) != \
+            (e["spec_proposed"], e["spec_accepted"]):
+        bad = [s for s in g["tokens"] if g["tokens"][s] != e["tokens"][s]]
+        raise AssertionError(
+            f"speculative graphed != eager: sessions {bad}, accepted "
+            f"{g['spec_accepted']}/{g['spec_proposed']} against "
+            f"{e['spec_accepted']}/{e['spec_proposed']}")
+    _graph_gate("speculative engine", g)
+    del dparams
+    return runs
+
+
+def phase_serve_graphs(dev, gpu):
+    """``serve_graphs``: the decode engine's CUDA graphs at full width.
+    For bf16 (seed 0) and float32 (seed 1), an engine stepping in graphs
+    and one with ``jit=False`` on the same params, one after the other,
+    each through :func:`_graphs_engine_run`'s bursts.  Gates: graphed
+    tokens equal eager ones session by session in every burst and dtype;
+    in float32 the exact prompts equal ``greedy_decode_reference``; after
+    the reload the second wave's tokens are equal too (the graphs refilled
+    in place, none recaptured for a seen bucket); the graphed engine has
+    no eager signature and its flash launches cover every plain prefill's
+    layers (replays counted, captures not); the speculative engine,
+    graphed and eager, gives equal tokens and accept counts.  Prints per
+    engine and dtype tokens/s, TTFT and gap p50/p99, graphs, capture ms,
+    memory after the captures and the profiled burst's idle share.
+    Returns the phase's launches."""
+    c = SERVE_GRAPHS
+    ref_attn = lambda q, k, v: attention.mha_reference(q, k, v, causal=True)
+    ops.reset_launch_counts()
+    for dtype, seed in c["dtypes"]:
+        cfg = T.Config(**FULL, dtype=dtype, attn_impl="flash")
+        params = T.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+        new = T.init(cfg, torch.Generator(device=dev).manual_seed(
+            c["reload_seed"]), dev)
+        jobs = serving_jobs(cfg)
+        exact = None
+        if dtype == "float32":
+            rng = np.random.default_rng(1)
+            exact = [(f"x{n}", rng.integers(1, cfg.vocab_size,
+                                            size=n).tolist())
+                     for n in (40, 300, 1100)]
+        runs, launches = {}, {}
+        for mode, jit in (("graphed", None), ("eager", False)):
+            before = ops.launch_counts()
+            runs[mode] = _graphs_engine_run(dev, cfg, params, new, jit, jobs,
+                                            exact)
+            after = ops.launch_counts()
+            launches[mode] = {k: after[k] - before[k] for k in after}
+        g, e = runs["graphed"], runs["eager"]
+        for burst in ("cold", "warm", "reload"):
+            diff = [s for s in g[burst]["tokens"]
+                    if g[burst]["tokens"][s] != e[burst]["tokens"][s]]
+            if diff:
+                raise AssertionError(f"{dtype} {burst}: graphed tokens != "
+                                     f"eager in sessions {diff}")
+        if exact:
+            for sid, prompt in exact:
+                ref = T.greedy_decode_reference(
+                    params, prompt, cfg, max_tokens=c["exact_tokens"],
+                    attn_fn=ref_attn)
+                if g["exact"][sid] != ref or e["exact"][sid] != ref:
+                    raise AssertionError(
+                        f"{sid}: graphed {g['exact'][sid]}, eager "
+                        f"{e['exact'][sid]}, reference {ref}")
+        _graph_gate(f"{dtype} graphed engine", g["stats"])
+        if g["stats"]["graphs"] < g["after_captures"]["graphs"]:
+            raise AssertionError(f"{dtype}: the reload dropped graphs "
+                                 f"({g['after_captures']['graphs']} -> "
+                                 f"{g['stats']['graphs']})")
+        if e["stats"]["graphs"]:
+            raise AssertionError(f"the jit=False engine captured "
+                                 f"{e['stats']['graphs']} graphs")
+        for mode, run in runs.items():
+            plain = run["stats"]["prefills"] - run["stats"]["extends"]
+            got = launches[mode]
+            if got["flash_fwd"] < cfg.n_layers * plain or any(
+                    got[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
+                raise AssertionError(f"{dtype} {mode}: launches {got} for "
+                                     f"{plain} plain prefills")
+        summary = {}
+        for mode, run in runs.items():
+            summary[mode] = dict(
+                {b: {k: v for k, v in run[b].items() if k != "tokens"}
+                 for b in ("cold", "warm", "reload")},
+                after_captures=run["after_captures"],
+                profiled=run["profiled"], stats=run["stats"],
+                launches=launches[mode])
+        print("serve_graphs " + json.dumps(dict(
+            dtype=dtype, seed=seed, sessions=len(jobs), tokens=c["tokens"],
+            equal_bursts=["cold", "warm", "reload"]
+            + (["exact"] if exact else []),
+            runs=summary, gpu=gpu)), flush=True)
+        if dtype == "bfloat16":
+            spec = _spec_graphs(dev, cfg, params, jobs)
+            print("serve_graphs spec " + json.dumps(dict(
+                window=SPEC_WINDOW, draft=SPEC_DRAFT,
+                runs={m: {k: v for k, v in r.items() if k != "tokens"}
+                      for m, r in spec.items()}, gpu=gpu)), flush=True)
+        del params, new
+        torch.cuda.empty_cache()
+    return ops.launch_counts()
 
 
 # -- the parallel layer at world size 1 (phase 32) and the dry run (33) -------
@@ -5666,7 +6023,7 @@ def phase_service_transformer(engine, gpu, spark):
 # the driver computes its own loss from the same checkpoint meanwhile.
 # 39b streams to a fresh cluster and sends STOP from another process
 # after the 4th micro-batch.
-STREAM = dict(micro_batches=12, ckpt_every=4, stop_after=4, eval_seed=39)
+STREAM = dict(micro_batches=8, ckpt_every=4, stop_after=4, eval_seed=39)
 
 
 def stream_records():
@@ -6121,8 +6478,11 @@ def _wait_until(cond, what, timeout=300):
 def _host_launch_gate(hosts, cfg):
     """Every fabric host launched the flash forward on each layer of
     each plain prefill of its workers (the counts are the process's),
-    and none of the other kernels."""
+    and none of the other kernels; every worker's engine stepped in CUDA
+    graphs (:func:`_graph_gate`)."""
     for h, st in hosts.items():
+        for w, ws in st["workers"].items():
+            _graph_gate(f"host {h} worker {w}", ws["decode"])
         plain = sum(w["decode"]["prefills"] - w["decode"]["extends"]
                     for w in st["workers"].values())
         got = st["launches"]
@@ -6344,6 +6704,8 @@ def phase_serve_elastic(dev, gpu, engine, tmp):
         drain_refused=refused, mem_info=mem,
         replicas_stats={i: dict(pid=r["pid"], boot=r["elastic"]["boot"],
                                 peak_mem_bytes=r.get("peak_mem_bytes"),
+                                mem_bytes=r.get("mem_bytes"),
+                                graphs=r["decode"]["graphs"],
                                 launches=r["launches"],
                                 prefills=r["decode"]["prefills"],
                                 extends=r["decode"]["extends"])
@@ -6500,7 +6862,9 @@ def phase_serve_fabric(dev, gpu, engine, tmp):
         if errors:
             raise errors[0]
         check(got, refs, "through the kill")
-        lost = pool.lost_times.get(target, [])
+        # the scan's loss (by the pid, before the respawn's up)
+        lost = [t for t in pool.lost_times.get(target, []) if t >= t_kill]
+        failover_s = lost[0] - t_kill if lost else None
         _wait_until(lambda: pool.respawns_observed > respawns0 and
                     len(pool.live_replicas()) == c["hosts"],
                     "the host's respawn")
@@ -6529,7 +6893,7 @@ def phase_serve_fabric(dev, gpu, engine, tmp):
                       seen_s=t_scaled - t_burst, burst_rounds=rounds),
         new_worker=new_dec, pods=pods,
         kill=dict(host=target, pid=victim_pid,
-                  kill_to_failover_s=(lost[-1] - t_kill) if lost else None,
+                  kill_to_failover_s=failover_s,
                   kill_to_up_s=t_back - t_kill,
                   redispatched=pool.redispatched - redisp0,
                   replayed_tokens_dropped=pool.replayed_tokens),
@@ -6539,6 +6903,11 @@ def phase_serve_fabric(dev, gpu, engine, tmp):
                               for h, s in pre_kill.items()},
         peak_mem_bytes={h: s.get("peak_mem_bytes")
                         for h, s in final.items()},
+        mem_bytes={h: s.get("mem_bytes") for h, s in final.items()},
+        graphs={f"{h}/{w}": (ws["decode"]["graphs"],
+                             ws["decode"]["capture_ms"])
+                for h, s in final.items()
+                for w, ws in s["workers"].items()},
         describe={k: v for k, v in desc.items() if k != "hosts"},
         gpu=gpu)), flush=True)
     return launches, pids
@@ -7078,6 +7447,10 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     spec_launches = phase_spec_decode(dev, gpu)
     phase_spec_exact(dev)
     lap("spec_decode, spec_exact")
+    # the decode engine's CUDA graphs against its eager steps (44), its
+    # counts zeroed at its start and read at its end
+    graphs_launches = phase_serve_graphs(dev, gpu)
+    lap("serve_graphs")
     ops.reset_launch_counts()
     parallel_launches = phase_parallel_one_rank(dev, gpu)
     lap("parallel_one_rank")
@@ -7139,21 +7512,44 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     print("sweep " + json.dumps(beside["sweep"], default=str), flush=True)
     lap("obs_halt, dryrun_multichip, engine_outside_kill, sweep")
     # the data service (38a-38c: ResNet-50 from phase 14's shards, each
-    # trainer's counts its own), and 38d, the transformer through it
+    # trainer's counts its own), and 38d, the transformer through it on
+    # phase 6's engine, on a thread beside 38a (neither sets the driver's
+    # environment, which 38b and 38c do; each cluster's rings, ledgers and
+    # executors are its own): 38a's and 38d's times are taken beside each
+    # other
+    print("service measured_beside " + json.dumps(dict(
+        service_static=["service_transformer"],
+        service_transformer=["service_static"])), flush=True)
     try:
+        beside38 = {}
+
+        def _transformer():
+            try:
+                beside38["launches"] = phase_service_transformer(
+                    engine, gpu, spark)
+            except BaseException as e:  # noqa: BLE001 - raised below
+                beside38["error"] = e
+
+        t38d = threading.Thread(target=_transformer,
+                                name="phase-service_transformer")
+        t38d.start()
+        try:
+            static_launches = phase_service_static(engine_svc, gpu, res,
+                                                   spark_tfr, files)
+        finally:
+            t38d.join()
+        if "error" in beside38:
+            raise beside38["error"]
+        lap("service_static beside service_transformer")
         service_launches = _sum_launches(
-            phase_service_static(engine_svc, gpu, res, spark_tfr, files),
+            static_launches, beside38["launches"],
             phase_service_dynamic(engine_dyn, gpu, res, spark_tfr, files),
             phase_service_kill(engine_kill, gpu, res, files))
     finally:
         shutil.rmtree(tfr_dir, ignore_errors=True)
         for e in (engine_svc, engine_dyn, engine_kill):
             e.stop()
-    lap("service_static, service_dynamic, service_kill")
-    service_launches = _sum_launches(
-        service_launches,
-        phase_service_transformer(engine, gpu, spark))
-    lap("service_transformer")
+    lap("service_dynamic, service_kill")
     # the streaming feed on phase 6's engine, its checkpoints evaluated
     # by the eval sidecar on its own engine (39)
     stream_launches, eval_launches = phase_stream_transformer(
@@ -7252,6 +7648,9 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         # phase 30's three runs summed (prefills of target and draft);
         # phase 32's sharded transformer step
         k["launches_spec"] = spec_launches[k["name"]]
+        # phase 44's engines, graphed and eager, both dtypes and the
+        # speculative pair (replays counted, captures not)
+        k["launches_graphs"] = graphs_launches[k["name"]]
         k["launches_parallel"] = parallel_launches[k["name"]]
         # phases 34 and 35: every trainer incarnation's own counts
         k["launches_recover"] = recover_launches[k["name"]]
@@ -7290,6 +7689,10 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
     if spec_launches["flash_fwd"] == 0 or spec_launches["rmsnorm"]:
         raise AssertionError(f"the speculative runs launched "
                              f"{spec_launches}")
+    if graphs_launches["flash_fwd"] == 0 or any(
+            graphs_launches[k] for k in ("flash_dq", "flash_dkv", "rmsnorm")):
+        raise AssertionError(f"the serve_graphs engines launched "
+                             f"{graphs_launches}")
     if not all(parallel_launches[k] for k in ("flash_fwd", "flash_dq",
                                               "flash_dkv")):
         raise AssertionError(f"the parallel step launched "

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import resolve_device
-from tensorflowonspark_tpu_torch.utils import train
+from tensorflowonspark_tpu_torch.utils import cuda_graphs, train
 
 # the export metadata's name of :func:`predict`
 PREDICT = f"{__name__}:predict"
@@ -66,15 +66,38 @@ def make_train_step(optimizer):
     return train_step
 
 
+def _device_params(params, device=None):
+    """``params`` as :func:`predict` computes with them: a JAX-layout
+    tree put on ``device`` (None is the card), tensors where they are."""
+    if not isinstance(params["w"], torch.Tensor):
+        params = params_from_jax(params, device=device)
+    return params
+
+
+def _host_rows(inputs):
+    """The request's one column as ``([N, dim] float32,)`` host tensors."""
+    (x,) = inputs.values()
+    return (torch.from_numpy(np.asarray(x, np.float32)),)
+
+
+def _host_outputs(y):
+    return y.cpu().numpy()
+
+
 def predict(params, inputs, device=None):
     """The export's predict signature, named in export metadata as
     ``tensorflowonspark_tpu_torch.models.linear:predict``: ``inputs``
     ``{tensor_name: [N, dim]}`` -> predictions ``[N]`` as a numpy array.
     ``params``: the JAX layout, put on ``device`` (None is the card), or
-    tensors from :func:`params_from_jax`, used where they are."""
-    if not isinstance(params["w"], torch.Tensor):
-        params = params_from_jax(params, device=device)
-    (x,) = inputs.values()
-    x = torch.from_numpy(np.asarray(x, np.float32)).to(params["w"].device)
+    tensors from :func:`params_from_jax`, used where they are.  Its
+    device part, :func:`apply`, is what a serving replica captures in a
+    CUDA graph a bucket (``predict.parts``)."""
+    params = _device_params(params, device)
+    (x,) = _host_rows(inputs)
     with torch.no_grad():
-        return apply(params, x).cpu().numpy()
+        return _host_outputs(apply(params, x.to(params["w"].device)))
+
+
+predict.parts = cuda_graphs.PredictParts(
+    params=_device_params, inputs=_host_rows, core=apply,
+    outputs=_host_outputs)

@@ -16,7 +16,7 @@ import torch
 
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.models import layers as L
-from tensorflowonspark_tpu_torch.utils import train
+from tensorflowonspark_tpu_torch.utils import cuda_graphs, train
 
 # the export metadata's name of :func:`predict`
 PREDICT = f"{__name__}:predict"
@@ -69,6 +69,29 @@ def params_to_jax(params):
             for name, p in params.items()}
 
 
+def _device_params(params, device=None):
+    """``params`` as :func:`predict` computes with them: a JAX-layout
+    tree put on ``device`` (None is the card), tensors where they are."""
+    if not isinstance(params["fc2"]["w"], torch.Tensor):
+        params = params_from_jax(params, device=device)
+    return params
+
+
+def _host_images(inputs):
+    """The request's one column as ``([N, 28, 28, 1] float32,)`` host
+    tensors."""
+    (x,) = inputs.values()
+    x = np.asarray(x, dtype=np.float32)
+    if x.ndim == 2:  # flat 784-wide rows (CSV / TFRecord ingestion)
+        x = x.reshape(-1, 28, 28, 1)
+    return (torch.from_numpy(x),)
+
+
+def _host_outputs(logits):
+    logits = logits.cpu().numpy()
+    return {"prediction": logits.argmax(-1), "logits": logits}
+
+
 def predict(params, inputs, device=None):
     """The export's predict signature, named in export metadata as
     ``tensorflowonspark_tpu_torch.models.mnist:predict``: ``inputs``
@@ -77,17 +100,13 @@ def predict(params, inputs, device=None):
     ``params``: the JAX layout (``utils.checkpoint.load_exported``), put
     on ``device`` as :func:`params_from_jax` does (None is the card) on
     every call, or tensors from :func:`params_from_jax`, used where they
-    are (a caller that predicts many batches converts once)."""
-    if not isinstance(params["fc2"]["w"], torch.Tensor):
-        params = params_from_jax(params, device=device)
-    (x,) = inputs.values()
-    x = np.asarray(x, dtype=np.float32)
-    if x.ndim == 2:  # flat 784-wide rows (CSV / TFRecord ingestion)
-        x = x.reshape(-1, 28, 28, 1)
-    dev = params["fc2"]["w"].device
+    are (a caller that predicts many batches converts once).  Its device
+    part, :func:`apply`, is what a serving replica captures in a CUDA
+    graph a bucket (``predict.parts``)."""
+    params = _device_params(params, device)
+    (x,) = _host_images(inputs)
     with torch.no_grad():
-        logits = apply(params, torch.from_numpy(x).to(dev)).cpu().numpy()
-    return {"prediction": logits.argmax(-1), "logits": logits}
+        return _host_outputs(apply(params, x.to(params["fc2"]["w"].device)))
 
 
 def apply(params, images):
@@ -100,6 +119,11 @@ def apply(params, images):
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC order
     x = L.relu(L.dense(params["fc1"], x))
     return L.dense(params["fc2"], x)
+
+
+predict.parts = cuda_graphs.PredictParts(
+    params=_device_params, inputs=_host_images, core=apply,
+    outputs=_host_outputs)
 
 
 def loss_fn(params, images, labels):

@@ -31,9 +31,22 @@ def reset_launch_counts():
 
 def launch_counts():
     """``{kernel name: launches in this process}``, by the names the
-    kernels line of ``chip_smoke.py`` gives them."""
+    kernels line of ``chip_smoke.py`` gives them: the launches that ran
+    on the device, each replay of a CUDA graph adding what its capture
+    recorded, a capture adding nothing (``utils/cuda_graphs.py``)."""
     from tensorflowonspark_tpu_torch.ops import attention, norm
 
     return dict(flash_fwd=attention.launches,
                 flash_dq=attention.dq_launches,
                 flash_dkv=attention.dkv_launches, rmsnorm=norm.launches)
+
+
+def add_launch_counts(counts):
+    """Add ``{kernel name: launches}`` (a graph's recorded launches, at
+    its replay) to the kernels' counts."""
+    from tensorflowonspark_tpu_torch.ops import attention, norm
+
+    attention.launches += counts.get("flash_fwd", 0)
+    attention.dq_launches += counts.get("flash_dq", 0)
+    attention.dkv_launches += counts.get("flash_dkv", 0)
+    norm.launches += counts.get("rmsnorm", 0)

@@ -21,14 +21,17 @@ import math
 import torch
 
 from tensorflowonspark_tpu_torch.ops import _build
+from tensorflowonspark_tpu_torch.utils.cuda_graphs import launch_counted
 
 _NEG_INF = -1e30  # finite mask fill, never -inf
 HEAD_DIMS = (64, 128)  # head_dims the CUDA kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Launches of the CUDA kernels in this process: the flash forward
-#: (``launches``), the backward's dq and dk/dv kernels.  One per call
-#: that reached the kernel; callers reset them by assignment.
+#: (``launches``), the backward's dq and dk/dv kernels.  One per launch
+#: that ran on the device: a launch inside a CUDA graph's capture counts
+#: at each replay instead (``utils/cuda_graphs.py``); callers reset them
+#: by assignment.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
@@ -194,7 +197,8 @@ def _flash_forward_cuda(q, k, v, *, causal, scale):
         msg = (lib.tfos_cuda_error_string(err).decode() if err > 0
                else "unsupported dtype/head_dim")
         raise RuntimeError(f"flash_fwd launch failed ({err}): {msg}")
-    launches += 1
+    if launch_counted("flash_fwd"):
+        launches += 1
     return out, lse
 
 
@@ -306,6 +310,8 @@ def _launch_bwd(kernel, q, k, v, g, lse, delta, out0, out1, *, causal,
         msg = (lib.tfos_cuda_error_string(err).decode() if err > 0
                else "unsupported dtype/head_dim")
         raise RuntimeError(f"{kernel} launch failed ({err}): {msg}")
+    if not launch_counted(kernel):
+        return
     if kernel == "flash_dq":
         dq_launches += 1
     else:

@@ -17,14 +17,16 @@ import ctypes
 import torch
 
 from tensorflowonspark_tpu_torch.ops import _build
+from tensorflowonspark_tpu_torch.utils.cuda_graphs import launch_counted
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_ROWS_PER_CTA = 8  # warps (one a row) in one CTA of the kernel
 MAX_VECS_PER_LANE = 8  # 16-byte vectors a lane holds on the registers path
 _MODES = {"scalar": 0, "vector": 1, "registers": 2}
 
-#: Launches of the RMSNorm kernel in this process, one per call that
-#: reached it; callers reset it by assignment.
+#: Launches of the RMSNorm kernel in this process, one per launch that
+#: ran on the device (a captured launch counts at each replay of its
+#: graph); callers reset it by assignment.
 launches = 0
 
 
@@ -97,7 +99,8 @@ def _rmsnorm_cuda(x, scale, eps, block_rows):
         msg = (lib.tfos_cuda_error_string(err).decode() if err > 0
                else "arguments the kernel does not take")
         raise RuntimeError(f"rmsnorm launch failed ({err}): {msg}")
-    launches += 1
+    if launch_counted("rmsnorm"):
+        launches += 1
     return y.reshape(x.shape)
 
 

@@ -34,6 +34,22 @@ trie are dropped, so that no later session maps K/V of the old params.
 The draft model is not swapped: a reload changes the target only, as in
 the JAX package.
 
+CUDA graphs, where the JAX engine jits its steps: on the card each step
+call is captured once per bucket signature (``utils/cuda_graphs.py``)
+and replayed after, in one memory pool per engine: plain prefill by
+(rows, sequence bucket), ``prefill_extend`` by (rows, sequence bucket,
+prefix-block bucket) reading the pools in place, ``decode_step`` over
+the slots, ``decode_step_paged`` by its window width, and the draft's
+prefill and step.  The engine fills the static inputs from the host
+arrays outside the graph, and clones a prefill's K/V before another
+replay can overwrite them.  A graph reads the params and the caches it
+was captured with: a reload is copied into the captured params in place
+where shapes and dtypes match, else the graphs are dropped and
+recaptured.  ``jit=None`` steps a signature it cannot capture eagerly
+(logged once, counted in ``stats()["eager_signatures"]``), ``jit=True``
+raises there, ``jit=False`` steps eagerly; on the CPU the engine steps
+eagerly, as the JAX comparison tests run it.
+
 Module import is stdlib + numpy; torch and the model load on the
 engine's thread.
 """
@@ -251,9 +267,16 @@ class DecodeEngine:
     engine thread moves the params (and a speculative spec's draft
     params) to the device, casts the matmul weights to the compute dtype
     once, and runs every step under ``torch.inference_mode()``.
+    ``jit``: on the card, None or True replay a CUDA graph per step
+    signature (True raises where a capture fails, and on the CPU), False
+    steps eagerly (the module docstring).  ``graphs``: the
+    :class:`~...utils.cuda_graphs.GraphCache` to step through, instead of
+    the engine's own on the card (the CPU tests inject one whose capture
+    is a plain call).
     """
 
-    def __init__(self, params, spec, emit, replica=0, device=None):
+    def __init__(self, params, spec, emit, replica=0, device=None,
+                 jit=None, graphs=None):
         self._params = params
         self._new_params = None     # set_params' tree, taken by _run
         self._spec = spec
@@ -261,6 +284,10 @@ class DecodeEngine:
         self._replica = replica
         self._device_arg = device
         self._device = None
+        self._jit = jit
+        self._graphs = graphs       # utils.cuda_graphs.GraphCache, or None
+        self._eager = set()         # step signatures stepped eagerly
+        self._eager_logged = False
         self._q = collections.deque()
         self._qlock = threading.Lock()
         self._sids = set()          # sids queued or active (dedupe)
@@ -348,6 +375,10 @@ class DecodeEngine:
             "slots": self._spec.slots,
             "paged": self._spec.paged,
             "reloads": self.reloads,
+            "graphs": len(self._graphs) if self._graphs is not None else 0,
+            "capture_ms": (round(self._graphs.capture_ms, 3)
+                           if self._graphs is not None else 0.0),
+            "eager_signatures": len(self._eager),
         }
         if self._spec.paged:
             cache = self._cache
@@ -388,16 +419,28 @@ class DecodeEngine:
 
             from tensorflowonspark_tpu_torch.models import transformer
             from tensorflowonspark_tpu_torch.serving.decode import kvcache
+            from tensorflowonspark_tpu_torch.utils import cuda_graphs
 
             if self._device.type == "cuda":
                 # the current device is per thread
                 torch.cuda.set_device(self._device)
+                if self._jit is not False and self._graphs is None:
+                    self._graphs = cuda_graphs.GraphCache(self._device)
+            elif self._jit is True and self._graphs is None:
+                raise ValueError("jit=True needs CUDA graphs, which the "
+                                 f"{self._device} does not have")
+            if self._jit is False:
+                self._graphs = None
             self._transformer = transformer
             self._kvcache_mod = kvcache
             spec = self._spec
             with torch.inference_mode():
-                self._params = transformer.compute_params(
+                params = transformer.compute_params(
                     self._params, spec.cfg, self._device)
+                # graphs read these tensors, and a reload is copied into
+                # them: never into the caller's
+                self._params = (params if self._graphs is None
+                                else cuda_graphs.own(params, self._params))
                 self._draft = (self._draft_params(transformer)
                                if spec.speculative else None)
                 cache, dcache = self._build_caches()
@@ -425,6 +468,8 @@ class DecodeEngine:
                     logger.exception("decode engine iteration failed")
                     self._fail_all(repr(e))
                     cache, dcache = self._build_caches()
+                    if self._graphs is not None:
+                        self._graphs.clear()  # they wrote the old caches
 
     def _draft_params(self, transformer):
         """The draft's params placed and cast on the engine's device; a
@@ -440,16 +485,71 @@ class DecodeEngine:
         return transformer.compute_params(tree, spec.draft_cfg, self._device)
 
     def _take_new_params(self, cache):
-        """Swap in :meth:`set_params`' tree, if one is waiting."""
+        """Swap in :meth:`set_params`' tree, if one is waiting.  With
+        graphs, the new params are copied into the captured ones in place
+        where every shape and dtype matches; otherwise they replace them
+        and the graphs are dropped (recaptured at their next call)."""
+        from tensorflowonspark_tpu_torch.utils import cuda_graphs
+
         with self._qlock:
             params, self._new_params = self._new_params, None
         if params is None:
             return
-        self._params = self._transformer.compute_params(
+        new = self._transformer.compute_params(
             params, self._spec.cfg, self._device)
+        if self._graphs is None:
+            self._params = new
+        elif not cuda_graphs.refill(self._params, new):
+            self._params = cuda_graphs.own(new, params)
+            self._graphs.clear()
         if self._spec.paged:
             cache.drop_prefixes()
         self.reloads += 1
+
+    # -- model steps --------------------------------------------------------
+    def _step(self, key, fn, *arrays):
+        """One model step over ``arrays`` (the step's host integer
+        inputs): with graphs, ``key``'s graph (captured at its first
+        sight, ``fn`` taking the static device inputs) replayed on them;
+        else ``fn(*arrays)`` eagerly, as on the CPU."""
+        graphs = self._graphs
+        if graphs is None or key in self._eager:
+            self._note_eager(key, None)
+            return fn(*arrays)
+        import torch
+
+        inputs = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int64))
+                       for a in arrays)
+        graph = graphs.get(key)
+        if graph is None:
+            try:
+                graph = graphs.capture(key, fn, inputs)
+            except Exception as e:  # noqa: BLE001 - jit=None steps on
+                if self._jit is True:
+                    raise
+                self._note_eager(key, repr(e))
+                return fn(*arrays)
+        return graph(*inputs)
+
+    def _note_eager(self, key, why):
+        if key not in self._eager:
+            self._eager.add(key)
+            if self._graphs is not None and not self._eager_logged:
+                self._eager_logged = True
+                logger.info("decode step %s not captured in a CUDA graph "
+                            "(%s); stepping it eagerly", key, why)
+
+    def _prefill(self, key, params, cfg, toks, lens):
+        """``prefill``'s ``(logits [rows, vocab] numpy, k, v)``; with
+        graphs K/V are cloned out of the pool, which the next replay of
+        any graph may overwrite before they are installed."""
+        T = self._transformer
+        logits, k, v = self._step(
+            key, lambda t, n: T.prefill(params, t, cfg, lengths=n),
+            toks, lens)
+        if self._graphs is not None:
+            k, v = k.clone(), v.clone()
+        return logits.float().cpu().numpy(), k, v
 
     # -- admission ----------------------------------------------------------
     def _admit(self, cache, dcache=None):
@@ -502,8 +602,8 @@ class DecodeEngine:
             lens = np.asarray([len(m["prompt"]) for m in members], np.int32)
             toks = _batcher.pad_rows(toks, rows)
             lens = _batcher.pad_rows(lens, rows)
-            logits, k, v = T.prefill(params, toks, cfg, lengths=lens)
-            logits = logits.float().cpu().numpy()
+            logits, k, v = self._prefill(("prefill", rows, t), params, cfg,
+                                         toks, lens)
             self.prefills += 1
             for i, req in enumerate(members):
                 admitted.append((req, logits[i], k[i], v[i], [], 0))
@@ -531,9 +631,13 @@ class DecodeEngine:
             lens = _batcher.pad_rows(lens, rows)
             ptab = _batcher.pad_rows(ptab, rows)
             plens = _batcher.pad_rows(plens, rows)
-            logits, k, v = T.prefill_extend(
-                params, toks, cfg, cache.k, cache.v, ptab, plens,
-                lengths=lens)
+            logits, k, v = self._step(
+                ("extend", rows, t, nbp),
+                lambda tk, pt, pl, n: T.prefill_extend(
+                    params, tk, cfg, cache.k, cache.v, pt, pl, lengths=n),
+                toks, ptab, plens, lens)
+            if self._graphs is not None:  # as in _prefill
+                k, v = k.clone(), v.clone()
             logits = logits.float().cpu().numpy()
             self.prefills += 1
             self.extends += 1
@@ -559,7 +663,8 @@ class DecodeEngine:
                                   np.int32)
                 toks = _batcher.pad_rows(toks, rows)
                 lens = _batcher.pad_rows(lens, rows)
-                _, dk, dv = T.prefill(self._draft, toks, dcfg, lengths=lens)
+                _, dk, dv = self._prefill(("draft_prefill", rows, t),
+                                          self._draft, dcfg, toks, lens)
                 for i, req in enumerate(members):
                     draft_kv[req["sid"]] = (dk[i], dv[i])
 
@@ -604,12 +709,19 @@ class DecodeEngine:
     # -- iteration: slot cache ----------------------------------------------
     def _iterate(self, cache):
         """One fused decode step over every occupied slot."""
+        T = self._transformer
+        cfg = self._spec.cfg
+        params = self._params
         tokens = np.zeros((cache.slots,), np.int32)
         for slot, st in self._active.items():
             tokens[slot] = st.last
-        logits, cache.k, cache.v = self._transformer.decode_step(
-            self._params, tokens, self._spec.cfg, cache.k, cache.v,
-            cache.lengths)
+        # the cache is written in place: the step's logits are all it
+        # returns anew
+        logits = self._step(
+            ("decode", cache.slots),
+            lambda tk, n: T.decode_step(params, tk, cfg, cache.k, cache.v,
+                                        n)[0],
+            tokens, cache.lengths)
         logits = logits.float().cpu().numpy()
         self.iterations += 1
         for slot in list(self._active):
@@ -644,6 +756,7 @@ class DecodeEngine:
         """
         spec = self._spec
         T = self._transformer
+        params, draft = self._params, self._draft
         k_win = spec.spec_window if dcache is not None else 1
         window = np.zeros((cache.slots, k_win), np.int32)
         for slot, st in self._active.items():
@@ -651,9 +764,12 @@ class DecodeEngine:
         n0 = cache.lengths.copy()
         if dcache is not None:
             for j in range(k_win):
-                dlogits, dcache.k, dcache.v = T.decode_step(
-                    self._draft, window[:, j], spec.draft_cfg, dcache.k,
-                    dcache.v, dcache.lengths)
+                dlogits = self._step(
+                    ("draft_decode", dcache.slots),
+                    lambda tk, n: T.decode_step(
+                        draft, tk, spec.draft_cfg, dcache.k, dcache.v,
+                        n)[0],
+                    window[:, j], dcache.lengths)
                 for slot in self._active:
                     dcache.lengths[slot] += 1
                 if j < k_win - 1:
@@ -664,9 +780,11 @@ class DecodeEngine:
                             len(st.generated) + j)
         for slot in self._active:
             cache.ensure_capacity(slot, int(n0[slot]) + k_win)
-        logits, cache.k, cache.v = T.decode_step_paged(
-            self._params, window, spec.cfg, cache.k, cache.v,
-            cache.block_tables, n0)
+        logits = self._step(
+            ("paged", cache.slots, k_win),
+            lambda tk, tab, n: T.decode_step_paged(
+                params, tk, spec.cfg, cache.k, cache.v, tab, n)[0],
+            window, cache.block_tables, n0)
         logits = logits.float().cpu().numpy()           # [slots, K, vocab]
         self.iterations += 1
         for slot in list(self._active):

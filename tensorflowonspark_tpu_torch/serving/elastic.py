@@ -138,7 +138,7 @@ def adopt_predictor(payload, version, params, device=None):
         fn = _import_qualname(spec) if spec else None
     elif isinstance(fn, str):
         fn = _import_qualname(fn)
-    return _Predictor(fn, params, version, device)
+    return _Predictor(fn, params, version, device, jit=payload.get("jit"))
 
 
 def _host_tree(tree):

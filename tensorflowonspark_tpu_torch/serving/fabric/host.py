@@ -146,8 +146,8 @@ class _Worker:
 
                 engine = DecodeEngine(
                     self._decode_params(pred), self.payload["decode"],
-                    self._emit, replica=self.rid,
-                    device=self.device).start()
+                    self._emit, replica=self.rid, device=self.device,
+                    jit=self.payload.get("jit")).start()
         except BaseException as e:  # noqa: BLE001 - report, stay down
             self.error = e
             self.accepting = False
@@ -328,6 +328,7 @@ class _Host:
         if self.device.type == "cuda":
             st["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)
+            st["mem_bytes"] = torch.cuda.memory_allocated(self.device)
         return st
 
     def endpoint_record(self):

@@ -50,6 +50,7 @@ from tensorflowonspark_tpu_torch.serving.fabric.affinity import (
     Ring,
 )
 from tensorflowonspark_tpu_torch.serving.replicas import (
+    _incarnation_alive,
     max_retries_default,
     reload_secs_default,
 )
@@ -678,13 +679,10 @@ class FabricRouter:
                             to=self._table.live())
 
     def _proc_alive(self, h):
-        procs = getattr(self._engine, "_procs", None)
-        if not procs:
-            return True  # a foreign engine: no process visibility
-        try:
-            return procs[h % len(procs)].is_alive()
-        except Exception:  # noqa: BLE001
-            return True
+        """Whether host ``h``'s registered incarnation lives (a respawn
+        under another pid does not hide its death: the replica pool's
+        rule, ``replicas._incarnation_alive``)."""
+        return _incarnation_alive(self._engine, self._table, h)
 
     def _beat_age(self, h):
         return liveness.beat_age(self._mgr, _host.HEARTBEAT_PREFIX + str(h))

@@ -52,16 +52,24 @@ Differences from the JAX package:
   package's predict name in an export's metadata maps to the port's
   counterpart through :data:`JAX_PREDICTS` (MNIST's and linear
   regression's); any other JAX name raises.
-- No ``jax.jit``: predicts run eagerly, with the same compile-count
-  contract (one entry per new input signature).  ``jit=True`` raises;
-  a CUDA graph per bucket is ROADMAP.md queue 1, item 26.
+- A CUDA graph per signature takes the place of ``jax.jit``: on the
+  card a replica captures the predict's device part
+  (``predict.parts``, ``utils/cuda_graphs.py``) at a signature's first
+  sight and replays it after, with the same compile-count contract (one
+  ``compiles`` entry per signature).  ``jit=None`` serves a signature it
+  cannot capture eagerly, says why once in the log and counts it in
+  ``stats()["eager_signatures"]``; ``jit=True`` raises there instead,
+  and on the CPU, where no graph exists; ``jit=False`` never captures.
+  The decode engine takes the same ``jit`` for its steps.
 - ``ModelSpec.device`` (default: the card) goes to the decode engine
   and to the predict as ``predict(params, inputs, device=...)``.  A
   replica without a CUDA device that was not asked for the CPU fails at
   init, and :meth:`ReplicaPool.start` raises: it never serves on the CPU
   instead.
 - Each replica zeroes the kernels' launch counts at boot and reports
-  them, with its peak device memory, in its ``stats`` reply.
+  them (the launches that ran on the device, each graph replay adding
+  the launches its capture recorded), with its peak device memory, in
+  its ``stats`` reply.
 - The elastic boot gate's mirror and every other message carry host
   numpy trees, never a CUDA tensor (``serving.elastic.params_blob``).
 """
@@ -98,8 +106,6 @@ RETRIES_ENV = "TFOS_SERVE_RETRIES"
 
 HEARTBEAT_PREFIX = "serve_heartbeat:"
 OUT_QUEUE = "serve_out"
-
-CUDA_GRAPH_ITEM = "ROADMAP.md queue 1, item 26 (a CUDA graph per bucket)"
 
 # the JAX package's predict names an export may carry, and the port's
 # counterparts that serve the same params
@@ -149,8 +155,12 @@ class ModelSpec:
     resolve from ``export_dir``/``params``/``ckpt_dir``.
 
     ``device``: where replicas compute, default the card (None); pass
-    ``"cpu"`` for the CPU.  ``jit``: None or False run eagerly; True
-    raises NotImplementedError (ROADMAP.md queue 1, item 26).
+    ``"cpu"`` for the CPU.  ``jit``: on the card, None captures a CUDA
+    graph per signature where it can and serves eagerly where it cannot
+    (logged once, counted in ``eager_signatures``); True raises where a
+    capture fails; False serves eagerly.  The decode engine's steps
+    follow the same rule.  On the CPU no graph exists: None and False
+    serve eagerly, and True raises ValueError.
     """
 
     def __init__(self, export_dir=None, ckpt_dir=None, predict=None,
@@ -159,10 +169,9 @@ class ModelSpec:
             raise ValueError(
                 "ModelSpec needs an export_dir, a predict "
                 "function/'module:qualname' string, or a decode spec")
-        if jit:
-            raise NotImplementedError(
-                f"compiled predicts come with {CUDA_GRAPH_ITEM}; "
-                "jit=None or False serve eagerly")
+        if jit is True and _is_cpu(device):
+            raise ValueError("jit=True needs CUDA graphs, which the CPU "
+                             "does not have; pass jit=None or False")
         self.export_dir = export_dir
         self.ckpt_dir = ckpt_dir
         self.predict = predict
@@ -183,26 +192,72 @@ class ModelSpec:
         }
 
 
+def _is_cpu(device):
+    """Whether ``device`` (a ``torch.device``, a string or None) names
+    the CPU; None is the card."""
+    return str(getattr(device, "type", device) or "").startswith("cpu")
+
+
 class _Predictor:
-    """Replica-side model: params plus the compile-count contract.
+    """Replica-side model: params plus per-signature CUDA graphs.
 
-    One entry is added to ``compiles`` exactly when a new (shape, dtype)
-    signature is first seen, as the JAX package's eager path does; the
-    batcher's buckets keep signatures at ``log2(max_batch)+1`` per input
-    layout.  ``device_ms`` is measured once the outputs are numpy arrays,
-    which waits for the device."""
+    The compile-count contract: one entry is added to ``compiles``
+    exactly when a new (mesh shape, shape, dtype) signature is first
+    seen, as in the JAX package; the batcher's buckets keep signatures at
+    ``log2(max_batch)+1`` per input layout.  On the card (``jit`` None or
+    True) that first sight captures the predict's device part
+    (``fn.parts``, a :class:`~..utils.cuda_graphs.PredictParts`) into a
+    graph, which every later call of the signature replays; the host
+    conversions stay outside it.  ``jit=None`` serves a signature it
+    cannot capture (no CUDA device, no ``parts``, a failed capture)
+    eagerly, logs the first reason and counts it in ``eager_signatures``;
+    ``jit=True`` raises instead; ``jit=False`` never captures.  New
+    params (a reload, an adoption) are copied into the captured ones in
+    place where their shapes and dtypes match; otherwise the graphs are
+    dropped and recaptured, each recapture one more ``compiles``.
+    ``graphs``: the :class:`~..utils.cuda_graphs.GraphCache` to use (the
+    CPU tests inject one with a plain-call capture).  ``device_ms`` is
+    measured once the outputs are numpy arrays, which waits for the
+    device."""
 
-    def __init__(self, fn, params, version, device):
+    def __init__(self, fn, params, version, device, jit=None, graphs=None):
+        from tensorflowonspark_tpu_torch.utils import cuda_graphs
+
         self._fn = fn
-        self.params = params
+        self._parts = getattr(fn, "parts", None)
         self.version = version
         self.device = device
+        self.jit = jit
+        if graphs is None and jit is not False and \
+                cuda_graphs.is_cuda(device):
+            graphs = cuda_graphs.GraphCache(device)
+        if jit is True and fn is not None and (
+                graphs is None or self._parts is None):
+            raise ValueError(
+                "jit=True needs a CUDA device and a predict with a device "
+                f"part (predict.parts); device {device}, predict {fn!r}")
+        self._graphs = graphs
+        self._dev_params = None      # what the graphs read, on the device
+        self.params = params
         self._seen = set()
+        self._eager = set()          # signatures served eagerly
+        self._eager_logged = False
         self.compiles = {}           # sig str -> count
         self.mesh_shape = None       # set by an elastic resize
         self.batches = 0
         self.rows = 0
         self.device_ms = 0.0
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, tree):
+        # a reload or an adoption: the graphs' params follow at the next
+        # call (refilled in place, or recaptured)
+        self._params = tree
+        self._params_new = True
 
     def _sig(self, inputs):
         # keyed by (mesh shape, shapes/dtypes), as in the JAX package:
@@ -211,18 +266,76 @@ class _Predictor:
             (k, tuple(v.shape), str(v.dtype))
             for k, v in sorted(inputs.items()))
 
+    def _device_params(self):
+        """The params the graphs read: converted once a version, refilled
+        in place where the new ones match, else replaced (the graphs
+        dropped, so each signature recaptures and counts again)."""
+        from tensorflowonspark_tpu_torch.utils import cuda_graphs
+
+        if self._params_new:
+            new = cuda_graphs.own(
+                self._parts.params(self._params, self.device), self._params)
+            if self._dev_params is None or not cuda_graphs.refill(
+                    self._dev_params, new):
+                if len(self._graphs):
+                    self._graphs.clear()
+                    self._seen.clear()
+                self._dev_params = new
+            self._params_new = False
+        return self._dev_params
+
+    def _note_eager(self, sig, why):
+        if sig not in self._eager:
+            self._eager.add(sig)
+            if self.jit is not False and not self._eager_logged:
+                self._eager_logged = True
+                logger.info("predict not captured in a CUDA graph (%s); "
+                            "serving eagerly", why)
+
+    def _capture(self, sig, inputs):
+        """Capture ``sig``'s graph; None where ``jit=None`` lets a failed
+        capture serve eagerly."""
+        import torch
+
+        parts = self._parts
+        dev_params = self._device_params()
+        try:
+            with torch.no_grad():
+                return self._graphs.capture(
+                    sig, lambda *a: parts.core(dev_params, *a),
+                    parts.inputs(inputs))
+        except Exception as e:  # noqa: BLE001 - jit=None serves on
+            if self.jit is True:
+                raise
+            self._note_eager(sig, repr(e))
+            return None
+
+    def _run(self, sig, inputs):
+        graph = None
+        if self._graphs is None or self._parts is None:
+            self._note_eager(sig, "no CUDA device" if self._graphs is None
+                             else "the predict has no device part "
+                                  "(predict.parts)")
+        elif sig not in self._eager:
+            graph = self._graphs.get(sig) or self._capture(sig, inputs)
+        if graph is None:
+            return self._fn(self.params, inputs, device=self.device)
+        return self._parts.outputs(graph(*self._parts.inputs(inputs)))
+
     def __call__(self, inputs):
         if self._fn is None:
             raise RuntimeError(
                 "this spec serves decode sessions only (no predict "
                 "signature); use generate, not predict")
+        if self._graphs is not None and self._parts is not None:
+            self._device_params()   # a reload may drop the graphs
         sig = self._sig(inputs)
         if sig not in self._seen:
             self._seen.add(sig)
             key = str(sig)
             self.compiles[key] = self.compiles.get(key, 0) + 1
         t0 = time.perf_counter()
-        out = self._fn(self.params, inputs, device=self.device)
+        out = self._run(sig, inputs)
         out = {k: np.asarray(v) for k, v in out.items()}
         dur = (time.perf_counter() - t0) * 1e3
         self.batches += 1
@@ -231,12 +344,17 @@ class _Predictor:
         return out, dur
 
     def stats(self):
+        graphs = self._graphs
         return {
             "version": self.version,
             "compiles": dict(self.compiles),
             "batches": self.batches,
             "rows": self.rows,
             "device_ms": round(self.device_ms, 3),
+            "graphs": len(graphs) if graphs is not None else 0,
+            "capture_ms": (round(graphs.capture_ms, 3)
+                           if graphs is not None else 0.0),
+            "eager_signatures": len(self._eager),
         }
 
 
@@ -276,7 +394,7 @@ def _resolve_predictor(payload, device):
             fn = _import_qualname(spec) if spec else None
     elif isinstance(fn, str):
         fn = _import_qualname(fn)
-    pred = _Predictor(fn, params, 0, device)
+    pred = _Predictor(fn, params, 0, device, jit=payload.get("jit"))
     if payload.get("ckpt_dir"):
         _maybe_reload(pred, payload["ckpt_dir"])
     if pred.params is None:
@@ -309,6 +427,25 @@ def _maybe_reload(pred, ckpt_dir, step=None):
     pred.version = step
     logger.info("replica reloaded params at step %d", step)
     return True
+
+
+def _incarnation_alive(engine, table, idx):
+    """The liveness scan's process check of member ``idx`` of
+    ``table`` (an ``InFlightTable``), placed on ``engine``'s executor
+    ``idx``: False when that executor's process is dead, or alive under
+    another pid than the member's registered ``up`` (a respawn that won
+    the race with the scan).  True without process visibility."""
+    procs = getattr(engine, "_procs", None)
+    if not procs:
+        return True  # foreign engine: no process visibility
+    try:
+        proc = procs[idx % len(procs)]
+        registered = table.pids().get(idx)
+        if registered is not None and proc.pid != registered:
+            return False
+        return proc.is_alive()
+    except Exception:  # noqa: BLE001
+        return True
 
 
 def canary_arm(route_id, pct):
@@ -406,7 +543,8 @@ class _ReplicaTask:
 
                 engine = DecodeEngine(
                     _decode_params(pred.params, spec.cfg), spec, _gen_emit,
-                    replica=idx, device=device).start()
+                    replica=idx, device=device,
+                    jit=payload.get("jit")).start()
             if elastic is not None:
                 # the directive in hand to serving: the predictor and the
                 # decode engine's params on the device
@@ -485,6 +623,8 @@ class _ReplicaTask:
                 if device.type == "cuda":
                     st["peak_mem_bytes"] = torch.cuda.max_memory_allocated(
                         device)
+                    # the graphs' pools included: what this replica holds
+                    st["mem_bytes"] = torch.cuda.memory_allocated(device)
                 if engine is not None:
                     st["decode"] = engine.stats()
                 if elastic is not None:
@@ -751,6 +891,9 @@ class ReplicaPool:
             canary = self._canary
         if canary is None:
             return self._table.add(key, entry)
+        # the arm's latency runs from here: the entry's "t" restarts at
+        # every streamed token (the liveness clock)
+        entry["t_submit"] = time.monotonic()
         arm = "canary" if canary_arm(route_id, canary["pct"]) else "baseline"
         live = self._table.live()
         if arm == "canary":
@@ -767,11 +910,15 @@ class ReplicaPool:
     def _account(self, entry, ok):
         """Count a resolved entry that was dispatched under a canary
         split into its arm (the ``tfos_deploy_*`` metrics and the bounded
-        samples :meth:`canary_stats` reads); others are not counted."""
+        samples :meth:`canary_stats` reads); others are not counted.  Its
+        milliseconds run from the dispatch (a decode session's whole
+        latency: its TTFT and token gaps included)."""
         arm = entry.get("arm")
         if arm is None:
             return
-        ms = (time.monotonic() - entry["t"]) * 1e3
+        # the dispatch time _route stamped; an entry made elsewhere has
+        # only the table's clock
+        ms = (time.monotonic() - entry.get("t_submit", entry["t"])) * 1e3
         metrics_registry.inc("tfos_deploy_requests_total", arm=arm,
                              status="ok" if ok else "error")
         metrics_registry.observe("tfos_deploy_request_ms", ms, arm=arm)
@@ -1119,13 +1266,12 @@ class ReplicaPool:
         return out
 
     def _proc_alive(self, idx):
-        procs = getattr(self._engine, "_procs", None)
-        if not procs:
-            return True  # foreign engine: no process visibility
-        try:
-            return procs[idx % len(procs)].is_alive()
-        except Exception:  # noqa: BLE001
-            return True
+        """Whether replica ``idx``'s registered incarnation lives: its
+        executor slot's process is alive and is the one whose ``up`` the
+        table registered.  The engine respawns a killed executor at once,
+        so a live process with another pid means the registered one died
+        (its sessions fail over now, not at the respawn's boot)."""
+        return _incarnation_alive(self._engine, self._table, idx)
 
     def _beat_age(self, idx):
         return liveness.beat_age(self._mgr, HEARTBEAT_PREFIX + str(idx))

@@ -18,7 +18,10 @@ package (its ``tests/test_fabric.py``, test for test):
 - the elastic mirror's acceptance follows the hot-reload watermark;
 - a SIGKILL of the host an affinity-bound session targets drops and
   duplicates nothing, and every session equals the JAX oracle;
-- the supervised autoscaler scales a host up under queueing.
+- the supervised autoscaler scales a host up under queueing;
+- the liveness scan counts a host dead when the engine has already
+  respawned its executor under another pid, and fails its sessions over
+  without waiting for the respawn's ``up``.
 
 Tokens compare exactly; predicts with ``pytest.approx``'s default (1e-6
 relative).  The JAX slow-lane tests run here in tier 1 at the small
@@ -465,8 +468,8 @@ def test_fabric_host_sigkill_zero_drop_zero_dup(exported):
         for i, o in results.items():
             assert o["tokens"] == refs[i], i
         assert srv.pool.affinity_binding("victim") is not None
-        # the engine respawns the executor at once: the router sees the
-        # kill at the respawn's up
+        # the engine respawns the executor at once; the router's scan
+        # sees the kill by the pid, and the respawn's up brings it back
         deadline = time.monotonic() + HANG
         while (srv.pool.describe()["respawns"] < 1
                or len(srv.pool.live_replicas()) < 2) and \
@@ -517,3 +520,58 @@ def test_fabric_autoscaler_scales_up_under_load():
             assert router.scale_times  # the directive's ack came back
         finally:
             router.stop()
+
+
+# -- the repaired liveness scan (ROADMAP.md queue 3) ---------------------------
+
+class _Proc:
+    """An executor process as the liveness scan sees it."""
+
+    def __init__(self, pid, alive=True):
+        self.pid, self._alive = pid, alive
+
+    def is_alive(self):
+        return self._alive
+
+
+class _Engine:
+    def __init__(self, procs):
+        self._procs = procs
+
+
+def test_scan_fails_over_a_respawned_host_before_its_up(exported):
+    """The engine respawned host 0's executor (a live process, another
+    pid) before the router's scan and before the new host's ``up``: the
+    scan counts the registered host dead and its session goes to host 1
+    at once, without waiting for the respawn's boot."""
+    from tensorflowonspark_tpu_torch.serving.decode import (
+        scheduler as D,
+    )
+
+    router = FR.FabricRouter(_decode_spec(exported[0]), num_hosts=2,
+                             env=ENV, request_timeout=HANG)
+    router._engine = _Engine([_Proc(1000), _Proc(1001)])
+    for h in (0, 1):
+        router._table.up(h, 1000 + h)
+    router._beat_age = lambda h: 0.0
+    router.dispatch_session(D.PendingSession("s0", [1, 2, 3], 4, None))
+    assert router._table.get(("gen", "s0"))["owner"] == 0
+    router._engine._procs[0] = _Proc(2000)
+    monitor = threading.Thread(target=router._monitor, daemon=True)
+    monitor.start()
+    try:
+        deadline = time.monotonic() + 10
+        while router._table.get(("gen", "s0"))["owner"] != 1:
+            assert time.monotonic() < deadline, \
+                "the session waited for the respawn's up"
+            time.sleep(0.02)
+    finally:
+        router._stop.set()
+        monitor.join(HANG)
+    assert not monitor.is_alive()
+    assert router.live_replicas() == [1]
+    assert router.lost_times.get(0)
+    sent = []
+    while not router._sendq.empty():
+        sent.append(router._sendq.get_nowait())
+    assert [(h, m[:2]) for h, m in sent][-1] == (1, ("gen", "s0"))

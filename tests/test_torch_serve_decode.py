@@ -15,7 +15,12 @@ held against the JAX package:
 - a replica SIGKILLed mid-decode loses no session and duplicates no
   token (the port's version of tests/test_decode.py's SIGKILL test);
 - a replica without a CUDA device that was not asked for the CPU fails
-  the pool's start, and never serves on the CPU instead.
+  the pool's start, and never serves on the CPU instead;
+- the liveness scan counts a replica dead when the engine has already
+  respawned its executor under another pid, and fails its sessions over
+  without waiting for the respawn's ``up``;
+- a canary arm's latency runs from the dispatch, so a slow first token
+  shows in ``canary_stats``.
 
 Every wait is a hang guard (``HANG`` seconds) on a condition.  Tokens
 are compared exactly; no tolerance applies.  The test config is the
@@ -367,8 +372,11 @@ def test_no_cuda_replica_fails_the_pool_start(exported, monkeypatch):
 
 
 def test_jit_and_cut_pool_features_raise():
-    with pytest.raises(NotImplementedError, match="item 26"):
-        serving.ModelSpec(predict="m:f", jit=True)
+    # jit=True is a CUDA graph per signature (utils/cuda_graphs.py): a
+    # spec on the card takes it, a CPU spec raises, as no graph exists
+    assert serving.ModelSpec(predict="m:f", jit=True).jit is True
+    with pytest.raises(ValueError, match="CPU"):
+        serving.ModelSpec(predict="m:f", jit=True, device="cpu")
     # the elastic pool, the fabric and canary routing are ported: each
     # Server mounts its pool, as the JAX Server does, and a canary on a
     # pool with no live replica is the JAX package's ValueError
@@ -388,3 +396,105 @@ def test_jit_and_cut_pool_features_raise():
                         draft_cfg=TT.Config(**KW)).speculative
     with pytest.raises(ValueError, match="BOTH"):
         D.DecodeSpec(TT.Config(**KW), draft_params={}, draft_cfg=None)
+
+
+# -- the two repaired serving faults (ROADMAP.md queue 3) ----------------------
+
+class _Proc:
+    """An executor process as the liveness scan sees it."""
+
+    def __init__(self, pid, alive=True):
+        self.pid, self._alive = pid, alive
+
+    def is_alive(self):
+        return self._alive
+
+
+class _Engine:
+    def __init__(self, procs):
+        self._procs = procs
+
+
+def _offline_pool(n=2):
+    """A ReplicaPool that never starts: ``n`` replicas registered ``up``
+    with pids 1000+i on live executors of a stand-in engine, fresh
+    heartbeats, its sends queued for the test to read."""
+    pool = serving.ReplicaPool(
+        serving.ModelSpec(predict="m:f", decode=_spec(), device="cpu"),
+        num_replicas=n)
+    pool._engine = _Engine([_Proc(1000 + i) for i in range(n)])
+    for i in range(n):
+        pool._table.up(i, 1000 + i)
+    pool._beat_age = lambda idx: 0.0
+    return pool
+
+
+def _sends(pool):
+    out = []
+    while not pool._sendq.empty():
+        out.append(pool._sendq.get_nowait())
+    return out
+
+
+def test_scan_fails_over_a_respawned_slot_before_its_up():
+    """The engine respawned replica 0's executor (a live process, another
+    pid) before the monitor's scan and before the new incarnation's
+    ``up``: the scan counts the registered incarnation dead, and its
+    session goes to replica 1 at once.  A scan that asks only whether
+    the slot's process lives waits for the respawn's boot instead (the
+    JAX package's)."""
+    pool = _offline_pool()
+    sess = D.PendingSession("s0", [1, 2, 3], 4, None)
+    pool.dispatch_session(sess)
+    assert pool._table.get(("gen", "s0"))["owner"] == 0
+    _sends(pool)
+    pool._engine._procs[0] = _Proc(2000)
+    monitor = threading.Thread(target=pool._monitor, daemon=True)
+    monitor.start()
+    try:
+        deadline = time.monotonic() + 10
+        while pool._table.get(("gen", "s0"))["owner"] != 1:
+            assert time.monotonic() < deadline, \
+                "the session waited for the respawn's up"
+            time.sleep(0.02)
+    finally:
+        pool._stop.set()
+        monitor.join(HANG)
+    assert not monitor.is_alive()
+    assert pool.live_replicas() == [1]
+    assert [(i, m[:2]) for i, m in _sends(pool)] == [(1, ("gen", "s0"))]
+    # the respawn's up registers the new pid: alive again
+    pool._table.up(0, 2000)
+    assert pool._proc_alive(0) and pool.live_replicas() == [0, 1]
+
+
+def test_canary_latency_runs_from_the_dispatch():
+    """A canary arm whose replica delays its first token by ``delay``
+    and then streams at once: ``canary_stats``' p95 holds the delay.
+    Measured from the last streamed token (the liveness clock that
+    ``touch`` refreshes, as the JAX package does) it would be about 0
+    ms."""
+    delay = 0.25
+    pool = _offline_pool()
+    pool.set_canary([1], 2, 100)
+    sessions = [D.PendingSession(f"c{i}", [1, 2, 3], 4, None)
+                for i in range(3)]
+    for sess in sessions:
+        pool.dispatch_session(sess)
+        assert pool._table.get(("gen", sess.id))["arm"] == "canary"
+    time.sleep(delay)               # the replica's time to a first token
+    for sess in sessions:
+        for i in range(4):
+            pool._handle(("gen_token", 1, sess.id, i, 7))
+        pool._handle(("gen_done", 1, sess.id, [7] * 4, {}))
+        assert sess.result(timeout=1)["tokens"] == [7] * 4
+    st = pool.canary_stats()["canary"]
+    assert st["n"] == 3 and st["errors"] == 0
+    assert st["p95_ms"] >= delay * 1e3, st
+    # the liveness clock still restarts at every token
+    entry = {}
+    pool._table.add(("gen", "live"), entry, owner=1)
+    t0 = entry["t"]
+    time.sleep(0.01)
+    pool._table.touch(("gen", "live"))
+    assert entry["t"] > t0
