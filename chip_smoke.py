@@ -35,25 +35,28 @@ too:
 0. preflight: a CUDA device must be present (else exit 2 at once); the
    card's name and power limit from ``nvidia-smi``; whether the host has
    libjpeg's ``jpeglib.h`` and library, PIL and the libjpeg its wheel
-   bundles, and fsspec's version (``host`` line, reported only); TF32 off for float32 matmuls and convolutions, bf16 matmuls
+   bundles, and fsspec's version (``host`` line, reported only); TF32
+   off for float32 matmuls and convolutions, bf16 and float16 matmuls
    accumulate in float32;
-1. build every kernel (one ``nvcc`` per source, started together), and
-   the feed's shm ring and the TFRecord codec (``g++``, started
-   together; a failure of either fails the run) and marshal (``cc``; the
-   numpy marshal runs where it cannot build): their seconds, which
-   marshal and codec, ``/dev/shm``'s free bytes and the ring's capacity
-   (``native build`` line); the
-   ``ptxas`` registers and spills of every kernel; the bf16 flash
+1. build every kernel library (the flash sources once per head_dim and
+   dtype, one ``nvcc`` each, as many at once as the host has cores;
+   before any executor is spawned), and the feed's shm ring and the
+   TFRecord codec (``g++``, started together; a failure of either fails
+   the run) and marshal (``cc``; the numpy marshal runs where it cannot
+   build): their seconds, which marshal and codec, ``/dev/shm``'s free
+   bytes and the ring's capacity (``native build`` line); the ``ptxas``
+   registers and spills of every kernel; the bf16 and float16 flash
    kernels (forward, dq, dk/dv) must issue tensor-core MMAs (``HMMA`` in
-   their SASS, read with ``cuobjdump``) and spill nothing at head_dim 64
-   and 128, the float32 ones none; the forward's registers, shared
-   memory and CTAs an SM as the card holds it;
-2. the flash forward kernel (bf16: tensor cores; float32: FMAs) against
-   its plain PyTorch version on the card, at the main path's shapes and
-   the tail / head_dim cases, with times beside its bound and a library
-   call (SDPA);
-3. the flash backward's dq and dk/dv kernels (bf16: tensor cores;
-   float32: FMAs) against ``flash_backward_plain`` in the same cases,
+   their SASS, read with ``cuobjdump``) and spill nothing up to head_dim
+   128, the float32 ones none; every flash kernel's registers, shared
+   memory, local bytes and CTAs an SM as the card holds it;
+2. the flash forward kernel (bf16 and float16: tensor cores; float32:
+   FMAs) against its plain PyTorch version on the card, at the main
+   path's shapes, Pythia's and Gemma-2B's, the tail / head_dim cases and
+   the padded head_dims, with times beside its bound and a library call
+   (SDPA);
+3. the flash backward's dq and dk/dv kernels (bf16 and float16: tensor
+   cores; float32: FMAs) against ``flash_backward_plain`` in the same cases,
    timed the same way (the library call is SDPA's backward);
 4. the RMSNorm kernel against ``rmsnorm_reference`` at the transformer's
    activation shape in bf16 and float32 and at tail shapes (scalar
@@ -177,7 +180,7 @@ too:
     engine of its own (the executor runs ``main_fun`` on the card, so it
     holds a CUDA context and must fork no SPARK trainer after it):
     ``mnist_data_setup``'s four shards, ``cluster.run`` of
-    ``mnist_tf_ds.main_fun`` for 20 steps; every loss finite and equal
+    ``mnist_tf_ds.main_fun`` for 10 steps; every loss finite and equal
     to the same batches stepped here (float32, TF32 off, deterministic
     cuDNN, 1e-5 relative); no kernel launched in the executor's steps;
     the chief's export loads with ``load_exported`` and predicts as the
@@ -218,7 +221,7 @@ too:
     ring, no child-pid file in the working dir;
 23. ``pipeline_fit``: ``TFEstimator(mnist_pipeline.train_fun)`` fit
     SPARK-fed (``num_gpus=1``, 2,048 seeded records, batch 64) on a
-    one-executor engine of its own, then ``TFModel.transform`` of 60,000
+    one-executor engine of its own, then ``TFModel.transform`` of 30,000
     seeded MNIST-shaped rows at batch 1,024 on a second, two-executor
     engine, cold and again with the cached model; every loss finite,
     every row back once in order, logits equal ``mnist.predict`` on the
@@ -229,7 +232,7 @@ too:
     float32's dense peak; phases 24 and 26 too), the predict's ms a
     batch, each executor's peak memory;
 24. ``cluster_inference``: ``TFCluster.inference()`` of 4 partitions of
-    10,000 ``(id, image)`` rows into a SPARK-mode trainer on the card
+    5,000 ``(id, image)`` rows into a SPARK-mode trainer on the card
     (``mnist_pipeline.infer_fun``, ``DataFeed.batch_results``) on the
     first engine: every row's result once, in partition order, equal to
     phase 23's reference; rows/s;
@@ -448,6 +451,24 @@ too:
     graphed and eager gives equal tokens and accept counts.  Printed per
     engine: tokens/s, TTFT and gap p50/p99 per burst, graphs, capture
     ms, memory after the captures, the idle share.
+45. ``pythia``: Pythia-2.8B's widths (head_dim 80, 8 of its 32 layers,
+    ``PYTHIA``): (a) bf16 batch 2 x 2048 SPARK-fed through
+    ``cluster.run`` of ``transformer_spark.main_fun`` for 4 Adam steps on
+    phase 6's engine, the chief exporting the f32 params to a temp dir
+    (free space checked first; deleted at the end): every loss finite,
+    the flash kernels launched once a layer a step, every partition fed,
+    no trainer alive after; (b) the export served by a one-replica
+    ``Server`` in that executor (graphs on, paged KV, prefix sharing) to
+    4 sessions of 64-1,500 tokens, then 4 fresh ones of the same
+    lengths: every token
+    in range, the replica's prefills through the flash forward, no
+    signature served eagerly; (c) in this process, on the same params
+    and batch, ``attn_impl="flash"`` against ``"reference"`` in bf16 and
+    float16: the step-0 loss to one rounding step, the gradients and a
+    prefill's last-position logits no further apart than a dithered
+    reference's (``_Dithered``); the trainer's first loss (c)'s.  Step
+    ms, tokens/s, MFU, peak memory, export seconds and bytes, boot and
+    load, TTFT and gaps.
 
 Every serving phase (8, 9, 18-22, 30-31, 41-43) runs its engines and
 predicts at the default ``jit=None``, so in CUDA graphs: each gates that
@@ -504,6 +525,7 @@ import dataclasses
 import gc
 import glob
 import io
+import functools
 import itertools
 import json
 import os
@@ -582,7 +604,8 @@ from tensorflowonspark_tpu_torch.serving.decode import (
 )
 
 # H100 SXM data-sheet peaks (dense), at the full 700 W power limit
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # bench.py's on-chip transformer: the only full-width config the repo runs
@@ -602,6 +625,21 @@ FLASH_CASES = [
     (2, 96, 8, 128, False, torch.bfloat16, 2e-5),
     (3, 300, 4, 64, True, torch.bfloat16, 2e-5),
     (1, 1000, 8, 128, True, torch.bfloat16, 2e-5),
+    # Pythia-2.8B's training shape (head_dim 80) and Gemma-2B's attention
+    # widths (head_dim 256: the forward's tile in two 128-column CTAs,
+    # the backward's in four of 64), in each dtype
+    (2, 2048, 32, 80, True, torch.bfloat16, 2e-5),
+    (2, 2048, 32, 80, True, torch.float32, 2e-5),
+    (2, 2048, 32, 80, True, torch.float16, 2e-5),
+    (1, 2048, 8, 256, True, torch.bfloat16, 2e-5),
+    (1, 2048, 8, 256, True, torch.float32, 2e-5),
+    (1, 2048, 8, 256, True, torch.float16, 2e-5),
+    # tails at head_dims 96 and 32, and the padded path: 72 runs the
+    # head_dim-80 kernels, 200 the 256 ones, on zero-padded inputs
+    (2, 300, 4, 96, True, torch.float16, 2e-5),
+    (3, 257, 4, 32, True, torch.bfloat16, 2e-5),
+    (2, 128, 4, 72, True, torch.bfloat16, 2e-5),
+    (2, 128, 4, 200, False, torch.float16, 2e-5),
 ]
 LSE_TOL = 1e-4
 # Every kernel and its plain version compute in float32 from the same
@@ -614,11 +652,15 @@ LSE_TOL = 1e-4
 # - atol: the float32 tolerance of the same output, which covers the
 #   summation-order noise and values that cancel to ~0 (the dq of a
 #   one-token sequence, ds = p * (g.v - g.out) with out = v).
+# - f16: rtol = 2^-10, one fp16 ulp of the element (11 significant bits:
+#   an ulp is 2^-11..2^-10 of the value), with the same atol, which also
+#   covers fp16's subnormal outputs (spacing 2^-24);
 # Gradients: float32 at 2e-4 absolute, tests/test_ops.py's gradient
 # tolerance.  Typical gradient elements are ~0.03 at the main shape
 # (randn inputs, softmax scale 1/sqrt(D)), so a row whose gradient is lost
 # or mis-scaled fails.
 BF16_RTOL = 2.0 ** -7
+F16_RTOL = 2.0 ** -10
 BWD_F32_TOL = 2e-4
 # ~1.1 ms at the H100's 1.755 GHz boost clock: longer than the host takes to
 # enqueue any one timed call (time_ms)
@@ -684,42 +726,42 @@ TFRECORD_TASK_MAX_BYTES = 64 << 10
 # permutation of them with its own labels.  The PIL path is timed on one
 # shard (it decodes ~10x slower)
 JPEG_SIZES = ((375, 500), (500, 375), (768, 1024), (224, 224))
-JPEG_DISTINCT = 32
+JPEG_DISTINCT = 16
 JPEG_SHARDS = 2   # two SPARK-fed steps (phases 10 and 16 run six)
 JPEG_QUALITY = 90
 # phase 16e: a save every `every` steps of phase 10's step on the card,
 # `sync_saves` through save_checkpoint, then `async_saves` through an
 # AsyncCheckpointer that keeps `keep` of them
-ASYNC_CKPT = dict(every=2, sync_saves=2, async_saves=3, keep=2)
+ASYNC_CKPT = dict(every=2, sync_saves=1, async_saves=3, keep=2)
 # phase 16f: mnist_spark's chief checkpoint after this many steps of 64
-MNIST_CKPT_STEPS = 4
+MNIST_CKPT_STEPS = 2
 # InputMode.TENSORFLOW MNIST (mnist_tf_ds): the data setup's four shards
-# of 2048 records, 20 steps of batch 64 (the example's default is 40),
+# of 2048 records, 10 steps of batch 64 (the example's default is 40),
 # SGD(0.05, momentum 0.9), as the example's defaults; float32 with TF32 off and deterministic cuDNN on
 # both sides, so the executor's steps repeat in this process to 1e-5
 # relative (the same kernels on the same batches)
-TF_MNIST = dict(num_examples=2048, partitions=4, batch_size=64, steps=20,
+TF_MNIST = dict(num_examples=2048, partitions=4, batch_size=64, steps=10,
                 lr=0.05)
 TF_MNIST_RTOL = 1e-5
 # online serving: the open loop offered to the bf16 pool (sessions of
 # phase 8's mix, 32 tokens each, Poisson arrivals), the hot-reload poll
 # and the slack a full-width reload gets past it, and the served MNIST
 # logits' tolerance against the in-process predict (float32, TF32 off)
-SERVE_OPEN_LOOP = dict(rate_rps=4.0, sessions=16)
+SERVE_OPEN_LOOP = dict(rate_rps=4.0, sessions=8)
 SERVE_RELOAD_ENV = "TFOS_SERVE_RELOAD_SECS"
 SERVE_RELOAD_SECS = "1"
 SERVE_RELOAD_SLACK_S = 60.0
 SERVE_PREDICT_RTOL = 1e-5
 # the pipeline phases (MNIST at its full width): the fit's seeded records
-# (batch 64, SGD(0.05, momentum 0.9), one epoch), the transform's 60,000
+# (batch 64, SGD(0.05, momentum 0.9), one epoch), the transform's 30,000
 # rows at batch 1,024 in 8 partitions, inference()'s 4 partitions of
-# 10,000 (id, image) rows, the roles run (mnist_eval's defaults, plus a
+# 5,000 (id, image) rows, the roles run (mnist_eval's defaults, plus a
 # ps node), and the predictions' tolerance against mnist.predict in this
 # process (float32, TF32 off, of the largest logit)
 PIPELINE = dict(fit_rows=2048, fit_partitions=4, batch_size=64, lr=0.05,
-                rows=60000, partitions=8, transform_batch=1024,
-                infer_partitions=4, infer_rows=10000)
-ROLES = dict(num_examples=2048, batch_size=64, steps=20, ckpt_steps=10,
+                rows=30000, partitions=8, transform_batch=1024,
+                infer_partitions=4, infer_rows=5000)
+ROLES = dict(num_examples=2048, batch_size=64, steps=10, ckpt_steps=5,
              lr=0.05, eval_timeout=300.0)
 PIPELINE_RTOL = 1e-5
 # the segmentation phases (BASELINE.json config 4, MobileNetV2-UNet): the
@@ -785,67 +827,78 @@ def sass_mma_counts(lib_path):
     return counts
 
 
-# kernel library -> the flash kernels in it
+# kernel source -> the flash kernels its libraries hold
 TC_LIBS = {"flash_fwd": ("flash_fwd",), "flash_bwd": ("flash_dq", "flash_dkv")}
+ATTR_KEYS = ("runtime_registers", "shared_bytes", "local_bytes",
+             "ctas_per_sm")
 
 
-def check_tc_build():
-    """Every bf16 flash kernel issues tensor-core MMAs and spills nothing
-    at head_dim 64 and 128 (as ``ptxas`` reported when this process built
-    it); the float32 ones are FMA kernels.  Prints a ``flash_fwd build``
-    and a ``flash_bwd build`` line; returns {kernel: {head_dim:
-    {registers, hmma, ...}}} for the bf16 kernels, the forward's with the
-    shared memory, local bytes and CTAs an SM that the card reports."""
+def _lib_attrs(source, lib):
+    """{kernel: registers, dynamic shared memory, local bytes and CTAs an
+    SM} of one flash library, as the card's runtime reports them."""
     out = {}
-    for lib, names in TC_LIBS.items():
-        regs = ptxas_report(_build.build_log.get(lib, ""))
-        mmas = sass_mma_counts(_build._lib_path(lib))
-        found = {n: {} for n in names}
-        for fn, n_mma in mmas.items():
-            name = next((n for n in names if n in fn), None)
-            if name is None:
-                continue
-            tc = "_tc_kernel" in fn
-            if tc != (n_mma > 0):
-                raise AssertionError(f"{fn}: {n_mma} HMMA instructions")
-            if tc:
-                d = "128" if "Li128E" in fn else "64"
-                r, st, ld = regs.get(fn, (None, None, None))
-                if st or ld:
-                    raise AssertionError(f"{fn} spills: {st} bytes stored, "
-                                         f"{ld} loaded")
-                found[name][d] = dict(registers=r, hmma=n_mma)
-        if not all(len(v) == 2 for v in found.values()):
-            raise AssertionError(f"bf16 {lib} kernels not all found: "
-                                 f"{found} in {sorted(mmas)}")
-        out.update(found)
-    for d, attrs in fwd_tc_attrs().items():
-        out["flash_fwd"][d].update(attrs)
-        if attrs["local_bytes"]:
-            raise AssertionError(f"flash_fwd_tc_kernel<{d}> uses local "
-                                 f"memory: {attrs}")
-    print("flash_fwd build " + json.dumps(out["flash_fwd"]), flush=True)
-    print("flash_bwd build " + json.dumps(
-        {n: out[n] for n in TC_LIBS["flash_bwd"]}), flush=True)
+    for i, name in enumerate(TC_LIBS[source]):
+        vals = (ctypes.c_int * 4)()
+        if source == "flash_fwd":
+            fn = lib.tfos_flash_fwd_attrs
+            fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            err = fn(vals)
+        else:
+            fn = lib.tfos_flash_bwd_attrs
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            err = fn(i, vals)
+        if err:
+            raise RuntimeError(f"{name} attrs failed: "
+                               f"{lib.tfos_cuda_error_string(err).decode()}")
+        out[name] = dict(zip(ATTR_KEYS, vals))
     return out
 
 
-def fwd_tc_attrs():
-    """{head_dim: registers, dynamic shared memory, local bytes and CTAs
-    an SM} of the bf16 forward kernel, as the card's runtime reports."""
-    lib = attention._lib()
-    fn = lib.tfos_flash_fwd_tc_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = {}
-    for d in attention.HEAD_DIMS:
-        vals = (ctypes.c_int * 4)()
-        err = fn(d, vals)
-        if err:
-            raise RuntimeError(f"tfos_flash_fwd_tc_attrs({d}) failed: "
-                               f"{lib.tfos_cuda_error_string(err).decode()}")
-        out[str(d)] = dict(zip(("runtime_registers", "shared_bytes",
-                                "local_bytes", "ctas_per_sm"), vals))
+def check_tc_build():
+    """Every flash library, one a (head_dim, dtype): the bf16 and float16
+    kernels issue tensor-core MMAs (``HMMA`` in the SASS) and, up to
+    head_dim 128, spill nothing (``ptxas``, as this process built it,
+    and the local bytes the card's runtime reports), the float32 ones
+    issue none.  Prints a ``flash_fwd build`` and a ``flash_bwd build``
+    line; returns {kernel: {dtype: {head_dim: {registers, spill bytes,
+    hmma, runtime registers, shared bytes, local bytes, CTAs an SM}}}}."""
+    out = {n: {} for names in TC_LIBS.values() for n in names}
+    libs = [(src, d, code) for src in TC_LIBS for d in attention.HEAD_DIMS
+            for code in _build.FLASH_DTYPES]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        mmas = list(pool.map(lambda x: sass_mma_counts(_build._lib_path(
+            _build.variant(*x))), libs))
+    for (src, d, code), counts in zip(libs, mmas):
+        lib_name = _build.variant(src, d, code)
+        regs = ptxas_report(_build.build_log.get(lib_name, ""))
+        dtype = _build.FLASH_DTYPES[code]
+        attrs = _lib_attrs(src, attention._typed(_build.load(lib_name), src))
+        for name in TC_LIBS[src]:
+            fn = next((f for f in counts if name in f), None)
+            if fn is None:
+                raise AssertionError(f"{name} not in {lib_name}: "
+                                     f"{sorted(counts)}")
+            n_mma = counts[fn]
+            if ("_tc_kernel" in fn) != (code != 0) or (n_mma > 0) != (
+                    code != 0):
+                raise AssertionError(f"{lib_name} {fn}: {n_mma} HMMA "
+                                     f"instructions")
+            r, st, ld = regs.get(fn, (None, None, None))
+            row = dict(registers=r, spill_bytes=(st or 0) + (ld or 0),
+                       hmma=n_mma, **attrs[name])
+            # the tensor-core kernels are gated up to head_dim 128, the
+            # main paths' (Pythia's 80 among them); at 256 the dk/dv
+            # kernel's 32-byte spill (ptxas holds every head_dim-256
+            # backward at 254-255 registers however its loops are cut)
+            # and the float32 FMA kernels' spills (the dq kernel's at 64
+            # predates the gate) are reported in the build lines
+            if code and d <= 128 and (row["spill_bytes"]
+                                      or row["local_bytes"]):
+                raise AssertionError(f"{lib_name} {fn} spills: {row}")
+            out[name].setdefault(dtype, {})[str(d)] = row
+    print("flash_fwd build " + json.dumps(out["flash_fwd"]), flush=True)
+    print("flash_bwd build " + json.dumps(
+        {n: out[n] for n in TC_LIBS["flash_bwd"]}), flush=True)
     return out
 
 
@@ -930,7 +983,7 @@ def phase_flash(dev):
     """Kernel against the plain version; returns the main case's row."""
     gen = torch.Generator(device=dev).manual_seed(1234)
     rows = []
-    for b, s, h, d, causal, dtype, tol in FLASH_CASES:
+    for i, (b, s, h, d, causal, dtype, tol) in enumerate(FLASH_CASES):
         # q, k, v as strided views of a fused projection, as prefill has them
         qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev,
                           dtype=torch.float32).to(dtype)
@@ -949,13 +1002,16 @@ def phase_flash(dev):
                 f"{(b, s, h, d, causal, dtype)}: out err {err} ({share:.3g} "
                 f"of the per-element tolerance, atol {tol}), lse err "
                 f"{lse_err} (tol {LSE_TOL})")
-        reps = 20 if s >= 1024 else 50
+        # the main path's rows the longest (the others' rows for the clock)
+        reps = (20 if i < 2 else 10) if s >= 1024 else 50
         def kernel():
             return attention._flash_forward(q, k, v, causal=causal,
                                             scale=scale)
 
         ms = time_ms(kernel, reps)
-        ms_with_enqueue = time_ms(kernel, reps, queued=False)
+        # the host's enqueue beside the device time: the main path's rows
+        ms_with_enqueue = (time_ms(kernel, reps, queued=False) if i < 2
+                           else None)
         plain_ms = time_ms(lambda: attention.flash_attention_plain(
             q, k, v, causal=causal, scale=scale), reps)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -963,7 +1019,9 @@ def phase_flash(dev):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale), reps)
         bound, bound_by = flash_bound_ms(b, s, s, h, d, causal, dtype)
-        row = dict(shape=[b, s, h, d], causal=causal,
+        row = dict(shape=[b, s, h, d],
+                   kernel_head_dim=next(x for x in attention.HEAD_DIMS
+                                        if x >= d), causal=causal,
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                    tol_share=share, lse_err=lse_err, ms=ms,
                    ms_with_enqueue=ms_with_enqueue, plain_ms=plain_ms,
@@ -978,7 +1036,8 @@ def _close(got, ref, dtype, atol):
     """(max abs error, worst share of the per-element tolerance
     ``rtol*|ref| + atol``) of a kernel's output against its plain
     version; it passes where the share is at most 1."""
-    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    rtol = {torch.bfloat16: BF16_RTOL, torch.float16: F16_RTOL}.get(dtype,
+                                                                   0.0)
     ref = ref.float()
     diff = (got.float() - ref).abs()
     share = (diff / (rtol * ref.abs() + atol)).max().item()
@@ -990,7 +1049,7 @@ def phase_flash_bwd(dev):
     main case's row."""
     gen = torch.Generator(device=dev).manual_seed(4321)
     rows = []
-    for b, s, h, d, causal, dtype, _ in FLASH_CASES:
+    for i, (b, s, h, d, causal, dtype, _) in enumerate(FLASH_CASES):
         qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev,
                           dtype=torch.float32).to(dtype)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -1014,14 +1073,21 @@ def phase_flash_bwd(dev):
                     f"({share:.3g} of the per-element tolerance), dtype "
                     f"{x.dtype}")
             errs[name] = (err, share)
-        reps = 10 if s >= 1024 else 50
-        gi, lse_i, delta = attention._bwd_inputs(q, k, v, out, lse, g)
-        dq, dk, dv = (torch.empty_like(x) for x in got)
+        reps = (10 if i < 2 else 5) if s >= 1024 else 50
+        # the kernels at the head_dim they run: a padded case's inputs as
+        # padded_head_dim hands them over
+        kd = next(x for x in attention.HEAD_DIMS if x >= d)
+        pq, pk, pv, pout, pg = (torch.nn.functional.pad(x, (0, kd - d))
+                                if kd > d else x for x in (q, k, v, out, g))
+        gi, lse_i, delta = attention._bwd_inputs(pq, pk, pv, pout, lse, pg)
+        dq, dk, dv = (torch.empty_like(x) for x in (pq, pk, pv))
         common = dict(causal=causal, scale=scale)
         dq_ms = time_ms(lambda: attention._launch_bwd(
-            "flash_dq", q, k, v, gi, lse_i, delta, dq, dq, **common), reps)
+            "flash_dq", pq, pk, pv, gi, lse_i, delta, dq, dq, **common),
+            reps)
         dkv_ms = time_ms(lambda: attention._launch_bwd(
-            "flash_dkv", q, k, v, gi, lse_i, delta, dk, dv, **common), reps)
+            "flash_dkv", pq, pk, pv, gi, lse_i, delta, dk, dv, **common),
+            reps)
         plain_ms = time_ms(lambda: attention.flash_backward_plain(
             q, k, v, out, lse, g, **common), reps)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -1035,7 +1101,7 @@ def phase_flash_bwd(dev):
         dq_bound, dq_by = flash_bwd_bound_ms("flash_dq", *shape)
         dkv_bound, dkv_by = flash_bwd_bound_ms("flash_dkv", *shape)
         pair_bound, _ = flash_bwd_bound_ms("pair", *shape)
-        row = dict(shape=[b, s, h, d], causal=causal,
+        row = dict(shape=[b, s, h, d], kernel_head_dim=kd, causal=causal,
                    dtype=str(dtype).replace("torch.", ""),
                    max_abs_err={n: e for n, (e, _) in errs.items()},
                    tol_share={n: t for n, (_, t) in errs.items()},
@@ -2897,7 +2963,7 @@ def phase_tf_mode_mnist(dev, engine, gpu, tmp):
     TFRecord shards in ``tmp``, then ``cluster.run`` of
     ``mnist_tf_ds.main_fun`` on ``engine`` (an engine of its own: the
     executor runs ``main_fun`` and so holds a CUDA context, and must fork
-    no SPARK trainer after it), 20 steps on the card.  Every loss finite
+    no SPARK trainer after it), 10 steps on the card.  Every loss finite
     and equal to the same batches stepped here; the chief's export loads
     with ``load_exported`` and predicts as this process's trained
     params.  Returns the launches and the shut-down cluster, which
@@ -3488,7 +3554,7 @@ def _logit_err(got, want):
 def phase_pipeline_fit(dev, gpu, engine_fit, engine_pred, tmp):
     """``pipeline_fit``: ``TFEstimator(mnist_pipeline.train_fun)`` fit
     SPARK-fed with ``num_gpus=1`` on ``engine_fit`` (one executor, which
-    never touches CUDA), then ``TFModel.transform`` of 60,000 seeded
+    never touches CUDA), then ``TFModel.transform`` of 30,000 seeded
     MNIST-shaped rows at batch 1,024 on ``engine_pred`` (two executors,
     each of which then holds a CUDA context), twice: cold, then with the
     cached model.  Gates: every loss finite; every row back once, in
@@ -3590,9 +3656,9 @@ def phase_pipeline_fit(dev, gpu, engine_fit, engine_pred, tmp):
 
 def phase_cluster_inference(dev, gpu, engine, export_dir, images, want,
                             tmp):
-    """``cluster_inference``: ``TFCluster.inference()`` of 8 partitions
-    of 10,000 ``(id, image)`` rows (row j is ``pipeline_fit``'s image
-    j mod 60,000) into a SPARK-mode trainer on the card
+    """``cluster_inference``: ``TFCluster.inference()`` of 4 partitions
+    of 5,000 ``(id, image)`` rows (row j is ``pipeline_fit``'s image
+    j mod 30,000) into a SPARK-mode trainer on the card
     (``mnist_pipeline.infer_fun``, ``num_gpus=1``), which predicts each
     batch and returns it through ``DataFeed.batch_results``.  Gates:
     every row's result once, in partition order, equal to
@@ -6054,6 +6120,7 @@ def stream_eval(tree, step):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     loss, launches = transformer_eval_loss(tree["params"],
                                            torch.device("cuda", 0))
@@ -6950,6 +7017,7 @@ def deploy_eval(tree, step):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     loss, launches = transformer_eval_loss(tree, torch.device("cuda", 0))
     return {"loss": loss, "launches": launches, "pid": os.getpid(),
@@ -7211,26 +7279,350 @@ def phase_serve_deploy(dev, gpu, engine, engine_actors, tmp, tdir):
     return launches, pids
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    gpu = gpu_line()
-    print(f"gpu: {gpu}", flush=True)
-    print("host: " + json.dumps(host_line()), flush=True)
-    # float32 stays float32: no TF32 in matmuls or convolutions, and bf16
-    # matmuls accumulate in float32 as the reference's do
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    # the SPARK-fed phases' executors: spawned now, so their interpreters'
-    # start overlaps the kernel phases; stopped, with every child, below.
-    # The second feeds through the manager queue, for the
-    # spark_resnet_manager line
-    engine = LocalEngine(1)
-    engine_mgr = LocalEngine(1, env={"TFOS_SHM_FEED": "0"})
+# Pythia-2.8B's widths (EleutherAI's pythia-2.8b config.json:
+# hidden_size 2560, num_attention_heads 32, num_hidden_layers 32,
+# intermediate_size 10240, vocab_size 50304, max_position_embeddings
+# 2048): head_dim 80.  Only the widths: Pythia's partial rotary,
+# parallel residual and LayerNorm are not the Config's.  Depth cut from
+# 32 to 8 layers for the clock (0.89B params; at 32, 2.77B, the script
+# took 945.9-1,239.6 s of phases, at 16 1,105.0, over its 900 s); widths
+# never cut.  Seeded weights, nothing downloaded.  Training: batch 2 x
+# 2048 SPARK-fed for 4 Adam(1e-3) steps, the chief's export served by
+# one replica (CUDA graphs on) to a handful of sessions
+PYTHIA = dict(vocab_size=50304, dim=2560, n_layers=8, n_heads=32,
+              max_seq=2048, mlp_ratio=4)
+PYTHIA_TRAIN = dict(batch=2, steps=4, seed=45, lr=1e-3)
+PYTHIA_SERVE = dict(prompts=(64, 300, 900, 1500), max_tokens=16, slots=4)
+# the export is float32 npz (3.6 GB at 8 layers, 11.1 at 32): the free
+# space its temp dir needs
+PYTHIA_EXPORT_BYTES = 12 << 30
+# In-process, on the training batch and params: flash attention against
+# mha_reference through the whole model, bf16 and float16 (step-0 loss,
+# every gradient, a prefill's last-position logits).  The kernel checks
+# hold every output and gradient element of the kernels to one rounding
+# step of the compute type (rtol 2^-7 bf16, 2^-10 f16) of the plain
+# version, and no further.  The loss, an f32 mean over 4,094 positions,
+# moves by no more than that relative step.  The logits and gradients
+# carry single elements' steps through every layer, so their limit is
+# what an attention that sits up to a rounding step off everywhere gives:
+# mha_reference with its output and its gradients dithered within one
+# step of their type (_Dithered), on the same params and batch, three
+# dithers; flash attention passes where its logits and gradients part
+# from the reference's by no more than the largest dither's do.
+PYTHIA_DITHERS = (2654435761, 2246822519, 3266489917)  # hash multipliers
+PYTHIA_LOSS_RTOL = {"bfloat16": BF16_RTOL, "float16": F16_RTOL}
+
+
+class _Dithered(torch.autograd.Function):
+    """mha_reference (causal, f32 math) whose output and gradients are
+    each rounded to the input dtype from a point moved by up to half a
+    step of that dtype (a deterministic dither from the value's own
+    bits): every element stays within one rounding step of the exact
+    f32 result, as the kernel checks allow, but nearly every one moves."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, salt):
+        ctx.save_for_backward(q, k, v)
+        ctx.salt = salt
+        with torch.no_grad():
+            out = attention.mha_reference(q.float(), k.float(), v.float(),
+                                          causal=True)
+        return _dither(out, q.dtype, salt)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().float().requires_grad_() for x in (q, k, v)]
+            out = attention.mha_reference(*qkv, causal=True)
+            grads = torch.autograd.grad(out, qkv, g.float())
+        return (*(_dither(x, q.dtype, ctx.salt) for x in grads), None)
+
+
+def _dithered(q, k, v, salt):
+    return _Dithered.apply(q, k, v, salt)
+
+
+def _dither(x, dtype, salt):
+    """f32 ``x`` to ``dtype`` (bf16 or float16) from ``x`` moved by
+    (u - 1/2) of its rounding step, u in [0, 1) a hash (multiplier
+    ``salt``) of x's bits; 0 stays 0."""
+    mant, emin = {torch.bfloat16: (8, -126), torch.float16: (11, -14)}[dtype]
+    _, e = torch.frexp(x)
+    step = torch.exp2((torch.clamp(e - 1, min=emin) - (mant - 1)).float())
+    bits = x.view(torch.int32).long()
+    u = ((bits * salt) & 0xFFFF).float() / 65536.0
+    return torch.where(x == 0, x, x + (u - 0.5) * step).to(dtype)
+
+
+def _pythia_tokens():
+    return np.random.default_rng(PYTHIA_TRAIN["seed"]).integers(
+        0, PYTHIA["vocab_size"], (PYTHIA_TRAIN["batch"], PYTHIA["max_seq"]))
+
+
+def _pythia_train(engine, gpu, export_dir):
+    """(a) Pythia's widths SPARK-fed through ``cluster.run`` ->
+    ``transformer_spark.main_fun`` in bf16, the chief exporting at the
+    end; returns the trainer's report."""
+    cfg = dict(PYTHIA, dtype="bfloat16", attn_impl="flash")
+    tokens = _pythia_tokens()
+    steps, batch = PYTHIA_TRAIN["steps"], PYTHIA_TRAIN["batch"]
+    records = [tokens[i].astype(np.int32) for i in range(batch)] * steps
+    out_dir = tempfile.mkdtemp(prefix="tfos_pythia_train_")
+    try:
+        t0 = time.time()
+        c = TFCluster.run(
+            engine, transformer_spark.main_fun,
+            {"config": cfg, "batch_size": batch,
+             "seed": PYTHIA_TRAIN["seed"], "lr": PYTHIA_TRAIN["lr"],
+             "out_dir": out_dir, "export_dir": export_dir},
+            num_executors=1, input_mode=TFCluster.InputMode.SPARK,
+            num_gpus=1, reservation_timeout=300)
+        c.train(engine.parallelize(records, steps), feed_timeout=900)
+        fed = c.server.fed_partitions("input")
+        c.shutdown()
+        total_s = time.time() - t0
+        with open(os.path.join(out_dir, "transformer-rank0.json")) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    losses = report["losses"]
+    want = PYTHIA["n_layers"] * steps
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"pythia train losses {losses}")
+    if report["launches"] != dict(flash_fwd=want, flash_dq=want,
+                                  flash_dkv=want, rmsnorm=0):
+        raise AssertionError(f"pythia trainer launches {report['launches']},"
+                             f" want {want} of each flash kernel")
+    if fed != list(range(steps)) or _alive(report["pid"]):
+        raise AssertionError(f"pythia fed partitions {fed}, trainer "
+                             f"{report['pid']} alive {_alive(report['pid'])}")
+    if not os.path.exists(os.path.join(export_dir, "params.npz")):
+        raise AssertionError(f"no export in {export_dir}")
+    report["total_s"] = total_s
+    report["boot_s"] = report["first_step_wall"] - t0
+    return report
+
+
+def _pythia_serve(dev, engine, export_dir):
+    """(b) The export served by a one-replica ``Server`` (CUDA graphs on,
+    paged KV with prefix sharing): ``PYTHIA_SERVE``'s prompts at once,
+    then prompts of the same lengths with fresh tokens (the same buckets,
+    graphs replayed).  Returns (summary, the replica's stats)."""
+    cfg = T.Config(**PYTHIA, dtype="bfloat16", attn_impl="flash")
+    n = PYTHIA_SERVE["max_tokens"]
+    spec = serving.ModelSpec(
+        export_dir=export_dir, device=str(dev),
+        decode=DecodeSpec(cfg, slots=PYTHIA_SERVE["slots"], paged=True,
+                          block_size=16, prefix_sharing=True, max_tokens=n))
+    rng = np.random.default_rng(46)
+    t0 = time.perf_counter()
+    srv = serving.Server(spec, num_replicas=1, engine=engine,
+                         request_timeout=900).start(timeout=900)
+    boot_s = time.perf_counter() - t0
+    try:
+        bursts = []
+        for _ in range(2):  # cold (the captures), then fresh tokens
+            prompts = [rng.integers(0, cfg.vocab_size, m).tolist()
+                       for m in PYTHIA_SERVE["prompts"]]
+            t = time.perf_counter()
+            outs = _concurrently(lambda p: srv.generate(p, max_tokens=n),
+                                 prompts)
+            bursts.append((outs, time.perf_counter() - t))
+            for i, out in enumerate(outs):
+                _session_gate(f"pythia {i}", out, n, cfg.vocab_size)
+        reps = srv.summary(include_replicas=True)["replica_stats"]
+    finally:
+        srv.stop()
+    _serve_launch_gate(reps, cfg)
+    rep = next(iter(reps.values()))
+
+    def burst_line(outs, wall):
+        ttft = [o["ttft_ms"] for o in outs]
+        gaps = [g for o in outs for g in o["token_ms"]]
+        return dict(ttft_p50_ms=_percentile(ttft, 50), ttft_max_ms=max(ttft),
+                    tok_p50_ms=_percentile(gaps, 50),
+                    tokens_per_s=n * len(outs) / wall, wall_s=wall)
+
+    return dict(sessions=len(PYTHIA_SERVE["prompts"]), prompt_tokens=list(
+        PYTHIA_SERVE["prompts"]), max_tokens=n, boot_and_load_s=boot_s,
+        cold=burst_line(*bursts[0]), warm=burst_line(*bursts[1]),
+        replica=dict(peak_mem_bytes=rep.get("peak_mem_bytes"),
+                     mem_bytes=rep.get("mem_bytes"),
+                     graphs=rep["decode"]["graphs"],
+                     capture_ms=rep["decode"]["capture_ms"],
+                     prefills=rep["decode"]["prefills"],
+                     launches=rep["launches"])), rep
+
+
+def _pythia_exact(dev):
+    """(c) On the card, in this process, on the training batch and the
+    trainer's seeded params: ``attn_impl="flash"`` against
+    ``"reference"`` in bf16 and float16: the step-0 loss (relative
+    difference), every gradient (global relative norm of the
+    difference) and a prefill's last-position logits (largest difference
+    over the largest logit), the loss to ``PYTHIA_LOSS_RTOL``, the
+    gradients and logits no further apart than the largest of the
+    dithered references' (_Dithered, ``PYTHIA_DITHERS``).  Every run
+    checkpoints each layer (remat), so that the reference's materialized
+    scores live one layer at a time."""
+    params = T.init(T.Config(**PYTHIA), torch.Generator(
+        device=dev).manual_seed(PYTHIA_TRAIN["seed"]), dev)
+    leaves = _param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = torch.from_numpy(_pythia_tokens()).to(dev)
+    n = PYTHIA["n_layers"]
+    out = {}
+    for dtype in ("bfloat16", "float16"):
+        runs = {}
+        for name, impl, attn_fn in (
+                ("reference", "reference", None), ("flash", "flash", None),
+                *((f"dithered_{i}", "reference",
+                   functools.partial(_dithered, salt=salt))
+                  for i, salt in enumerate(PYTHIA_DITHERS))):
+            cfg = T.Config(**PYTHIA, dtype=dtype, attn_impl=impl)
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            loss = T.loss_fn(params, toks, cfg, attn_fn=attn_fn, remat=True)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                logits, _, _ = T.prefill(params, toks, cfg, attn_fn=attn_fn)
+            torch.cuda.synchronize()
+            run = dict(loss=loss.item(), launches=_counts(),
+                       peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                       finite=all(bool(torch.isfinite(g).all())
+                                  for g in grads))
+            if name == "reference":
+                ref_grads, ref_logits, ref_loss = grads, logits, run["loss"]
+            else:
+                num = sum(float(((a.float() - b.float()) ** 2).sum())
+                          for a, b in zip(grads, ref_grads))
+                den = sum(float((b.float() ** 2).sum()) for b in ref_grads)
+                run.update(
+                    loss_rel=abs(run["loss"] - ref_loss) / abs(ref_loss),
+                    grads_rel_norm=(num / den) ** 0.5,
+                    logits_rel=((logits - ref_logits).abs().max()
+                                / ref_logits.abs().max()).item())
+            runs[name] = run
+            del loss, grads, logits
+        del ref_grads, ref_logits
+        f = runs["flash"]
+        metrics_ = ("loss_rel", "grads_rel_norm", "logits_rel")
+        runs["limit"] = {m: max(runs[f"dithered_{i}"][m]
+                                for i in range(len(PYTHIA_DITHERS)))
+                         for m in metrics_[1:]}
+        runs["limit"]["loss_rel"] = PYTHIA_LOSS_RTOL[dtype]
+        out[dtype] = runs
+        # remat: the forward runs twice a layer, the prefill once more
+        if f["launches"] != dict(flash_fwd=3 * n, flash_dq=n, flash_dkv=n) \
+                or any(any(r["launches"].values()) for k, r in runs.items()
+                       if k not in ("flash", "limit")):
+            raise AssertionError(f"pythia exact {dtype} launches {runs}")
+        if not (f["finite"] and all(f[m] <= runs["limit"][m]
+                                    for m in metrics_)):
+            raise AssertionError(f"pythia flash vs reference {dtype} beyond "
+                                 f"the dithered reference's: {runs}")
+    del params, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pythia(dev, gpu, engine):
+    """Phase 45, Pythia-2.8B's widths (head_dim 80) through the port's
+    entry points: (a) trained SPARK-fed on ``engine`` (one executor that
+    has never touched CUDA), (b) its export served by a replica in that
+    executor once the cluster is down, (c) flash against the reference
+    in process.  The export lives in a temp dir, deleted at the end.
+    Returns the trainer's and the replica's launches, summed."""
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="tfos_pythia_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < PYTHIA_EXPORT_BYTES:
+            raise AssertionError(f"{tmp} has {free} bytes free, the export "
+                                 f"needs {PYTHIA_EXPORT_BYTES}")
+        export_dir = os.path.join(tmp, "export")
+        report = _pythia_train(engine, gpu, export_dir)
+        export_bytes = os.path.getsize(os.path.join(export_dir,
+                                                    "params.npz"))
+        serve, rep = _pythia_serve(dev, engine, export_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_params = _n_params(T.Config(**PYTHIA))
+    tokens = PYTHIA_TRAIN["batch"] * PYTHIA["max_seq"]
+    med = statistics.median(report["step_ms"])
+    flops = metrics.transformer_flops_per_token(
+        T.Config(**PYTHIA), causal=True)
+    summary = dict(
+        config=PYTHIA, params=n_params, dtype="bfloat16",
+        batch=PYTHIA_TRAIN["batch"], losses=report["losses"],
+        step_ms=report["step_ms"], step_ms_median=med,
+        tokens_per_s=tokens / (med / 1e3),
+        mfu_median_step=tokens / (med / 1e3) * flops / PEAK_FLOPS[
+            torch.bfloat16],
+        peak_mem_gb=report["peak_mem_gb"], boot_s=report["boot_s"],
+        total_train_s=report["total_s"], export_s=report.get("export_s"),
+        export_bytes=export_bytes, export_free_bytes=free,
+        launches=report["launches"], serve=serve, gpu=gpu)
+    print("pythia " + json.dumps(summary), flush=True)
+    exact = _pythia_exact(dev)
+    print("pythia exact " + json.dumps(exact), flush=True)
+    # the trainer's first step and (c)'s flash loss: the same kernels on
+    # the same params and batch (the remat recompute repeats the forward)
+    step0 = exact["bfloat16"]["flash"]["loss"]
+    if abs(report["losses"][0] - step0) > SPARK_LOSS_RTOL * abs(step0):
+        raise AssertionError(f"pythia trainer's step-0 loss "
+                             f"{report['losses'][0]} vs in process {step0}")
+    return _sum_launches(report["launches"], rep["launches"])
+
+
+def _n_params(cfg):
+    """The transformer's parameter count at ``cfg``."""
+    shapes = T._param_shapes(cfg)
+    return sum(int(np.prod(s)) for s in [
+        shapes["embed"], shapes["ln_f"], shapes["head"],
+        *shapes["layers"].values()])
+
+
+def build_all():
+    """The kernels (one nvcc a library, as many at once as the host has
+    cores) and the host-native pieces, the feed's ring and the TFRecord
+    codec (one g++ each), all started together; a failure of either
+    raises as a kernel's does.  The marshal (cc) builds after them, where
+    the numpy marshal runs if it cannot build (no Python.h).  Returns
+    :func:`check_tc_build`'s table."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        native = pool.submit(native_build.build, ["shmq", "tfrecord"])
+        built = _build.build()
+        print(f"build: {json.dumps(built)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        native.result()
+    marshal_native = marshal.native_available()
+    print("native build: " + json.dumps(dict(
+        built=native_build.build_seconds,
+        seconds=time.perf_counter() - t0, ring=shm.available(),
+        tfrecord_codec=recordio.codec(),
+        marshal="native" if marshal_native else "numpy",
+        dev_shm_free_bytes=shm.shm_free_bytes(),
+        ring_capacity_bytes=_ring_bytes())), flush=True)
+    for name, log in _build.build_log.items():
+        if name.startswith(_build.FLASH):
+            continue  # the flash libraries' are in their build lines
+        for fn, (regs, st, ld) in ptxas_report(log).items():
+            print(f"ptxas {name}: {fn}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B", flush=True)
+    return check_tc_build()
+
+
+def spawn_engines(tdirs):
+    """Every phase's engine after phase 13's: spawned once the kernel
+    phases are done (spawned with the first two, their 20 interpreters'
+    start slowed those phases' host loops by ~35 s), so that they start
+    beside the GPU-bound phases after; their telemetry dirs go to
+    ``tdirs``.  Returns them by name, in the order ``run_phases`` takes
+    them."""
     # InputMode.TENSORFLOW runs main_fun (CUDA) in the executor itself:
     # an engine of its own, which no SPARK phase forks a trainer from
     engine_tf = LocalEngine(1)
@@ -7247,8 +7639,8 @@ def main():
     # CUDA, with the fault plans in their env and telemetry on (the
     # recovery's timings are its events); the second with no respawn
     # budget, which the engine reads in the driver at construction
-    tdirs = [tempfile.mkdtemp(prefix="tfos_recover_telemetry_")
-             for _ in range(2)]
+    tdirs += [tempfile.mkdtemp(prefix="tfos_recover_telemetry_")
+              for _ in range(2)]
     engine_recover = LocalEngine(1, env={
         faults.PLAN_ENV: f"feed.put:kill@{RECOVER['kill_put']}",
         faults.EXECUTOR_ENV: "0", telemetry.DIR_ENV: tdirs[0]})
@@ -7288,13 +7680,55 @@ def main():
     engine_deploy = LocalEngine(3)
     engine_deploy_actors = LocalEngine(2)
     tdirs.append(tempfile.mkdtemp(prefix="tfos_deploy_telemetry_"))
-    engines = (engine, engine_mgr, engine_tf, engine_serve, engine_fit,
-               engine_pred, engine_roles, engine_recover, engine_elastic,
-               engine_obs, engine_halt, engine_svc, engine_dyn, engine_kill,
-               engine_eval, engine_sweep, engine_serve_elastic,
-               engine_serve_fabric, engine_deploy, engine_deploy_actors)
+    return dict(
+        engine_tf=engine_tf,
+        engine_serve=engine_serve,
+        engine_fit=engine_fit,
+        engine_pred=engine_pred,
+        engine_roles=engine_roles,
+        engine_recover=engine_recover,
+        engine_elastic=engine_elastic,
+        engine_obs=engine_obs,
+        engine_halt=engine_halt,
+        engine_svc=engine_svc,
+        engine_dyn=engine_dyn,
+        engine_kill=engine_kill,
+        engine_eval=engine_eval,
+        engine_sweep=engine_sweep,
+        engine_serve_elastic=engine_serve_elastic,
+        engine_serve_fabric=engine_serve_fabric,
+        engine_deploy=engine_deploy,
+        engine_deploy_actors=engine_deploy_actors)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    gpu = gpu_line()
+    print(f"gpu: {gpu}", flush=True)
+    print("host: " + json.dumps(host_line()), flush=True)
+    # float32 stays float32: no TF32 in matmuls or convolutions, and bf16
+    # and float16 matmuls accumulate in float32 as the reference's do
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # the build first, with the host's cores to itself (the executors'
+    # interpreters, booting beside it, tripled its nvcc time)
+    lap = _Laps()
+    tc_build = build_all()
+    lap("build")
+    # the SPARK-fed phases' executors: spawned now, so their interpreters'
+    # start overlaps the kernel phases; stopped, with every child, below,
+    # with the other phases' (``spawn_engines``).  The second feeds
+    # through the manager queue, for the spark_resnet_manager line
+    engines = [LocalEngine(1), LocalEngine(1, env={"TFOS_SHM_FEED": "0"})]
+    tdirs = []
     try:
-        kernels = run_phases(dev, gpu, *engines, tdirs=tdirs)
+        kernels = run_phases(dev, gpu, lap, tc_build, engines, tdirs)
     finally:
         for e in engines:
             e.stop()
@@ -7321,45 +7755,23 @@ class _Laps:
         self.t = now
 
 
-def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
-               engine_fit, engine_pred, engine_roles, engine_recover,
-               engine_elastic, engine_obs, engine_halt, engine_svc,
-               engine_dyn, engine_kill, engine_eval, engine_sweep,
-               engine_serve_elastic, engine_serve_fabric, engine_deploy,
-               engine_deploy_actors, tdirs):
-    """Every phase in order; returns the kernels line's entries."""
-    lap = _Laps()
-    # the kernels (one nvcc a source) and the host-native pieces, the
-    # feed's ring and the TFRecord codec (one g++ each), all started
-    # together; a failure of either raises as a kernel's does.  The
-    # marshal (cc) builds after them, where the numpy marshal runs if it
-    # cannot build (no Python.h)
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        native = pool.submit(native_build.build, ["shmq", "tfrecord"])
-        built = _build.build()
-        print(f"build: {json.dumps(built)} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        native.result()
-    marshal_native = marshal.native_available()
-    print("native build: " + json.dumps(dict(
-        built=native_build.build_seconds,
-        seconds=time.perf_counter() - t0, ring=shm.available(),
-        tfrecord_codec=recordio.codec(),
-        marshal="native" if marshal_native else "numpy",
-        dev_shm_free_bytes=shm.shm_free_bytes(),
-        ring_capacity_bytes=_ring_bytes())), flush=True)
-    for name, log in _build.build_log.items():
-        for fn, (regs, st, ld) in ptxas_report(log).items():
-            print(f"ptxas {name}: {fn}: {regs} registers, spill stores "
-                  f"{st} B, spill loads {ld} B", flush=True)
-    tc_build = check_tc_build()
-    lap("build")
-
+def run_phases(dev, gpu, lap, tc_build, engines, tdirs):
+    """Every phase after the build (``lap`` has timed it, ``tc_build``
+    is its table) in order, on ``engines``' first two (phase 6's and
+    13's) and those ``spawn_engines`` adds to it; returns the kernels
+    line's entries."""
+    engine, engine_mgr = engines
     fwd_case = phase_flash(dev)
     bwd_case = phase_flash_bwd(dev)
     rms_case = phase_rmsnorm(dev)
     lap("kernels")
+    rest = spawn_engines(tdirs)
+    engines.extend(rest.values())
+    (engine_tf, engine_serve, engine_fit, engine_pred, engine_roles,
+     engine_recover, engine_elastic, engine_obs, engine_halt, engine_svc,
+     engine_dyn, engine_kill, engine_eval, engine_sweep,
+     engine_serve_elastic, engine_serve_fabric, engine_deploy,
+     engine_deploy_actors) = rest.values()
     launches, train = phase_train(dev, gpu)
     lap("train")
     spark_launches, spark = phase_spark_train(engine, gpu, train)
@@ -7575,6 +7987,12 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         lap("serve_deploy")
     finally:
         shutil.rmtree(tier_tmp, ignore_errors=True)
+    # Pythia-2.8B's widths (45) on phase 6's engine, which forks no
+    # trainer after it: trained SPARK-fed, its export served by a replica
+    # in the same executor, flash against the reference in process; the
+    # trainer's and the replica's launches
+    pythia_launches = phase_pythia(dev, gpu, engine)
+    lap("pythia")
     print("phase_seconds " + json.dumps(dict(
         lap.seconds, total=round(sum(lap.seconds.values()), 1))), flush=True)
 
@@ -7596,7 +8014,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
              plain_ms=fwd_case["plain_ms"], bound_ms=fwd_case["bound_ms"],
              bound_by=fwd_case["bound_by"],
              library_ms=fwd_case["library_ms"],
-             bf16_build=tc_build["flash_fwd"]),
+             build=tc_build["flash_fwd"]),
         dict(name="flash_dq", route="cuda", source=bwd_src,
              replaces=f"{attn_src}:216", launches=launches["flash_dq"],
              max_abs_err=bwd_case["max_abs_err"]["dq"],
@@ -7604,7 +8022,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
              bound_ms=bwd_case["dq_bound_ms"],
              bound_by=bwd_case["dq_bound_by"],
              library_ms=bwd_case["library_ms"],
-             bf16_build=tc_build["flash_dq"], **whole_bwd),
+             build=tc_build["flash_dq"], **whole_bwd),
         dict(name="flash_dkv", route="cuda", source=bwd_src,
              replaces=f"{attn_src}:253", launches=launches["flash_dkv"],
              max_abs_err=max(bwd_case["max_abs_err"]["dk"],
@@ -7613,7 +8031,7 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
              bound_ms=bwd_case["dkv_bound_ms"],
              bound_by=bwd_case["dkv_bound_by"],
              library_ms=bwd_case["library_ms"],
-             bf16_build=tc_build["flash_dkv"], **whole_bwd),
+             build=tc_build["flash_dkv"], **whole_bwd),
         dict(name="rmsnorm", route="cuda",
              source="tensorflowonspark_tpu_torch/ops/csrc/rmsnorm.cu",
              replaces="tensorflowonspark_tpu/ops/norm.py:24",
@@ -7670,6 +8088,9 @@ def run_phases(dev, gpu, engine, engine_mgr, engine_tf, engine_serve,
         k["launches_serve_elastic"] = serve_elastic_launches[k["name"]]
         k["launches_fabric"] = fabric_launches[k["name"]]
         k["launches_deploy"] = deploy_launches[k["name"]]
+        # phase 45: Pythia's trainer (4 steps x 8 layers of #1-#3) and
+        # its serving replica's prefills (#1), summed
+        k["launches_pythia"] = pythia_launches[k["name"]]
     for name, got in (("serving replicas", serve_launches),
                       ("elastic replicas", serve_elastic_launches),
                       ("fabric hosts", fabric_launches),

@@ -5,9 +5,11 @@
     python3 scripts/torch_kernel_ab.py build/other/tensorflowonspark_tpu_torch/ops/csrc
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
-``flash_fwd``, ``flash_bwd`` and ``rmsnorm`` from this tree's
-``ops/csrc`` and from the other directory (same ``nvcc`` flags; the C
-interfaces must match), and times each kernel at the main path's shapes
+``flash_fwd``, ``flash_bwd`` (their bf16 head_dim-128 libraries, the main
+path's) and ``rmsnorm`` from this tree's ``ops/csrc`` and from the other
+directory (same ``nvcc`` flags, the instantiation's defines included,
+which a tree that builds every instantiation into one library ignores;
+the C interfaces must match), and times each kernel at the main path's shapes
 through this tree's wrappers, swapping the libraries in turns other,
 this, this, other, with ``chip_smoke.time_ms`` (each run queued behind a
 device-side spin, so the events time the device's work).  It also checks
@@ -32,25 +34,31 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 from tensorflowonspark_tpu_torch.ops import _build, attention, norm  # noqa: E402
 
-LIBS = ("flash_fwd", "flash_bwd", "rmsnorm")
+# this tree's library of each source at the main path's shapes (bf16,
+# head_dim 128)
+LIBS = {"flash_fwd": _build.variant("flash_fwd", 128, 1),
+        "flash_bwd": _build.variant("flash_bwd", 128, 1),
+        "rmsnorm": "rmsnorm"}
 
 
 def build_other(csrc, out_dir):
-    """Build every library of LIBS from ``csrc`` into ``out_dir``, one
-    ``nvcc`` each, started together; returns {name: ctypes.CDLL}."""
+    """Build every source of LIBS from ``csrc`` into ``out_dir`` with this
+    tree's flags for its library, one ``nvcc`` each, started together;
+    returns {this tree's library name: ctypes.CDLL}."""
     os.makedirs(out_dir, exist_ok=True)
-    procs = {n: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-         os.path.join(out_dir, f"lib{n}.so"), os.path.join(csrc, f"{n}.cu")],
+    procs = {lib: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *_build._recipe(lib)[1], "-o",
+         os.path.join(out_dir, f"lib{lib}.so"),
+         os.path.join(csrc, f"{src}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in LIBS}
+        for src, lib in LIBS.items()}
     for n, p in procs.items():
         log, _ = p.communicate()
         if p.returncode:
-            raise RuntimeError(f"nvcc failed for the other {n}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for the other {n}:\n{log}")
     return {n: ctypes.CDLL(os.path.abspath(os.path.join(out_dir,
                                                         f"lib{n}.so")))
-            for n in LIBS}
+            for n in procs}
 
 
 def main(argv):
@@ -59,9 +67,9 @@ def main(argv):
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    _build.build()
+    _build.build(list(LIBS.values()))
     trees = {"other": build_other(argv[1], str(_build.BUILD_DIR / "other")),
-             "this": {n: _build.load(n) for n in LIBS}}
+             "this": {n: _build.load(n) for n in LIBS.values()}}
 
     def use(tree):
         _build._LIBS.update(trees[tree])

@@ -182,9 +182,9 @@ def main_fun(args, ctx):
     dropped tail included) and what the feed saw (``DataFeed.stats``,
     the feeders' timings from the node's KV, the copies into pinned
     memory), its ``CUDA_VISIBLE_DEVICES``, kernel launches,
-    ``TrainMetrics`` report, feed wait and the wall-clock times at which
+    ``TrainMetrics`` report, feed wait, the wall-clock times at which
     it began, joined the job, had its model and optimizer, and began its
-    first step."""
+    first step, and the seconds the chief's export took."""
     main_start_wall = time.time()
     import torch
 
@@ -200,11 +200,13 @@ def main_fun(args, ctx):
     joined_wall = time.time()
     dev = env["device"]
     if dev.type == "cuda":
-        # float32 stays float32, bf16 products accumulate in float32:
-        # the settings chip_smoke.py's in-process training runs under
+        # float32 stays float32, bf16 and f16 products accumulate in
+        # float32, as chip_smoke.py's in-process training runs
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
             False
     if args.get("init_params") is not None:
         params = T.params_from_jax(args["init_params"], cfg, device=dev)
@@ -330,9 +332,12 @@ def main_fun(args, ctx):
             saved != start_step + len(losses):
         ckpt.save_checkpoint(ckpt_dir, train_state(params, opt),
                              start_step + len(losses), keep=keep)
+    export_s = None
     if args.get("export_dir"):
-        ckpt.export_model(args["export_dir"], params, ctx, metadata={
-            "config": dataclasses.asdict(cfg)})
+        t0 = time.perf_counter()
+        if ckpt.export_model(args["export_dir"], params, ctx, metadata={
+                "config": dataclasses.asdict(cfg)}):
+            export_s = time.perf_counter() - t0
     if out_dir:
         rank = env["process_id"]
         with open(os.path.join(out_dir, f"transformer-rank{rank}.json"),
@@ -356,7 +361,8 @@ def main_fun(args, ctx):
                 "joined_wall": joined_wall, "model_wall": model_wall,
                 "first_step_wall": first_step_wall,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
-                                if cuda else None)}, f)
+                                if cuda else None),
+                "export_s": export_s}, f)
 
 
 def main():

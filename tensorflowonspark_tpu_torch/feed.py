@@ -122,6 +122,7 @@ class DataFeed:
         self.qname_out = qname_out
         self.done_feeding = False
         self.records = 0  # records handed out, before any tail is dropped
+        self._wait_acc = 0.0  # this pull's transport wait (telemetry on)
         # optional utils.metrics.TrainMetrics: feed-wait time lands in its
         # infeed_wait counter
         self.metrics = metrics
@@ -216,6 +217,7 @@ class DataFeed:
             # one measurement feeds both the counter and the span, so the
             # stall fractions they give agree
             dt = time.perf_counter() - t0
+            self._wait_acc += dt
             if self.metrics is not None:
                 self.metrics.infeed_wait(dt)
             telemetry.record_span("feed/wait", dt, eof=chunk is None)
@@ -278,11 +280,41 @@ class DataFeed:
         return [tuple(value(i, c, j) for i, c in enumerate(cols))
                 for j in range(take)]
 
+    def _consumer_span(self, t0, out):
+        """The pull's ``data/stage`` span (stage ``fed_consumer``), as the
+        JAX package records it: the pull's wall time less the transport
+        wait ``_get_chunk`` accumulated is the consumer's own assembly
+        (slices, concatenation, lists), with ``wait_ms`` and the
+        ``records`` it handed out."""
+        dur = time.perf_counter() - t0
+        wait = min(self._wait_acc, dur)
+        if isinstance(out, dict):
+            n = len(next(iter(out.values()))) if out else 0
+        else:
+            n = len(out)
+        telemetry.record_span("data/stage", max(dur - wait, 0.0),
+                              stage="fed_consumer",
+                              wait_ms=round(wait * 1e3, 3), records=n)
+
+    def _timed_pull(self, pull, batch_size):
+        """``pull(batch_size)``, with the consumer's span when telemetry
+        is on."""
+        if not telemetry.enabled():
+            return pull(batch_size)
+        t0 = time.perf_counter()
+        self._wait_acc = 0.0
+        out = pull(batch_size)
+        self._consumer_span(t0, out)
+        return out
+
     def next_batch(self, batch_size):
         """Up to ``batch_size`` records: a list, or with
         ``input_mapping`` a dict ``{tensor: [column values]}``.  A None
         chunk is end-of-feed; an ``EndPartition`` ends the batch early
         in inference mode."""
+        return self._timed_pull(self._next_batch, batch_size)
+
+    def _next_batch(self, batch_size):
         tensors = ([] if self.input_tensors is None
                    else {t: [] for t in self.input_tensors})
         count = 0
@@ -343,6 +375,9 @@ class DataFeed:
         column.  Flattened n-D fields come back in their own shape."""
         if self.input_tensors is None:
             raise ValueError("next_batch_columns requires input_mapping")
+        return self._timed_pull(self._next_batch_columns, batch_size)
+
+    def _next_batch_columns(self, batch_size):
         segments = {t: [] for t in self.input_tensors}
         count = 0
 

@@ -45,7 +45,8 @@ from torch.utils.checkpoint import (
 from tensorflowonspark_tpu_torch import ops, resolve_device
 from tensorflowonspark_tpu_torch.parallel import collectives as _coll
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 _NEG_INF = -1e30  # finite mask fill (ops.attention convention: never -inf)
 _MATMUL_KEYS = ("wqkv", "wo", "w1", "w2")
 
@@ -237,9 +238,10 @@ def compute_params(params, cfg: Config, device=None):
 
 def _matmul(x, w):
     """``x @ w`` in x's dtype: float32 accumulation, result rounded to
-    x's dtype (bfloat16 matmuls on CUDA need
-    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    = False`` to keep the accumulation in float32)."""
+    x's dtype (bfloat16 and float16 matmuls on CUDA need
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    and ``allow_fp16_reduced_precision_reduction`` False to keep the
+    accumulation in float32)."""
     return torch.matmul(x, w.to(x.dtype))
 
 

@@ -1,12 +1,17 @@
 """Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
 
-Each source compiles with ``nvcc`` into its own shared library with a
-plain C interface under ``build/torch_kernels/`` at the repository root,
-and loads through ``ctypes``: seconds per source, where a build that
-includes PyTorch's headers takes minutes.  A library is built at first
-use and rebuilt when its source, or a shared header ``csrc/*.cuh``, is
-newer, so the first call on a fresh checkout builds it.  Nothing here
-runs at import time.
+Each source compiles with ``nvcc`` into shared libraries with a plain C
+interface under ``build/torch_kernels/`` at the repository root, and
+loads through ``ctypes``: seconds per library, where a build that
+includes PyTorch's headers takes minutes.  The flash sources
+(``FLASH``) build once per instantiation: a library for each head_dim of
+``FLASH_HEAD_DIMS`` and each dtype of ``FLASH_DTYPES``, from the same
+source with ``-DTFOS_HEAD_DIM`` and ``-DTFOS_DTYPE`` (:func:`variant`
+names them), so that the builds of one source run in parallel; every
+other source builds one library of its own name.  A library is built at
+first use and rebuilt when its source, or a shared header
+``csrc/*.cuh``, is newer, so the first call on a fresh checkout builds
+it.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,6 +28,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the flash kernels' instantiations: head_dims (multiples of 16, the
+# k-step of mma.sync) and dtypes by the code the C entry points take
+FLASH = ("flash_fwd", "flash_bwd")
+FLASH_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+FLASH_DTYPES = {0: "f32", 1: "bf16", 2: "f16"}
 
 _LOCK = threading.Lock()
 _LIBS = {}            # name -> ctypes.CDLL
@@ -42,6 +53,32 @@ def _nvcc():
                        "the port's kernels")
 
 
+def variant(source, head_dim, dtype):
+    """The library of ``source`` (one of ``FLASH``) built for
+    ``head_dim`` and dtype code ``dtype``, e.g. ``flash_fwd_d80_bf16``."""
+    return f"{source}_d{head_dim}_{FLASH_DTYPES[dtype]}"
+
+
+def _recipes():
+    """``{library: (source stem, extra nvcc flags)}`` for every library
+    of ``csrc/``, the flash sources' instantiations each their own."""
+    out = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        if path.stem not in FLASH:
+            out[path.stem] = (path.stem, ())
+            continue
+        for d in FLASH_HEAD_DIMS:
+            for code in FLASH_DTYPES:
+                out[variant(path.stem, d, code)] = (
+                    path.stem, (f"-DTFOS_HEAD_DIM={d}",
+                                f"-DTFOS_DTYPE={code}"))
+    return out
+
+
+def _recipe(name):
+    return _recipes().get(name, (name, ()))
+
+
 def _lib_path(name):
     return BUILD_DIR / f"lib{name}.so"
 
@@ -53,48 +90,76 @@ def _stale(name):
     lib = _lib_path(name)
     if not lib.exists():
         return True
-    newest = max(p.stat().st_mtime
-                 for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    source = CSRC / f"{_recipe(name)[0]}.cu"
+    newest = max(p.stat().st_mtime for p in [source, *CSRC.glob("*.cuh")])
     return newest > lib.stat().st_mtime
 
 
 def _start(name):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, time.perf_counter()
+    source, flags = _recipe(name)
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+           str(CSRC / f"{source}.cu")]
+    # the output goes to a file: a pipe nobody reads while several builds
+    # run could fill and stall nvcc
+    log = tmp.with_suffix(".log").open("w+")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, log, time.perf_counter()
 
 
-def _finish(name, proc, tmp, t0):
-    out, _ = proc.communicate()
+def _finish(name, proc, tmp, log, t0):
+    proc.wait()
     build_seconds[name] = time.perf_counter() - t0
-    build_log[name] = out
+    log.seek(0)
+    out = build_log[name] = log.read()
+    log.close()
+    Path(log.name).unlink(missing_ok=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {name} "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, _lib_path(name))  # atomic: readers never see half a file
 
 
+def _cost(name):
+    """Rank for the build queue: the backward's instantiations first, the
+    wide ones first among them (they take longest)."""
+    source, flags = _recipe(name)
+    head_dim = next((int(f.split("=")[1]) for f in flags
+                     if f.startswith("-DTFOS_HEAD_DIM=")), 0)
+    return (source != "flash_bwd", -head_dim, name)
+
+
 def build(names=None):
-    """Build every stale source in ``names`` (default: all of csrc/),
-    one ``nvcc`` per source, all started together.  Returns
-    ``{name: seconds}`` for the sources it built."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None \
-        else list(names)
+    """Build every stale library in ``names`` (default: all of csrc/'s),
+    one ``nvcc`` each, as many at once as the host has cores, the
+    longest first.  Returns ``{name: seconds}`` for the libraries it
+    built."""
+    names = list(_recipes()) if names is None else list(names)
+    jobs = os.cpu_count() or 1
     with _LOCK:
-        running = [(n, *_start(n)) for n in names if _stale(n)]
-        errors = []
-        for n, proc, tmp, t0 in running:
+        queue = sorted((n for n in names if _stale(n)), key=_cost)
+        built, running, errors = [], [], []
+        while queue or running:
+            while queue and len(running) < jobs:
+                n = queue.pop(0)
+                running.append((n, *_start(n)))
+            done = next((r for r in running if r[1].poll() is not None),
+                        None)
+            if done is None:
+                time.sleep(0.05)
+                continue
+            running.remove(done)
             try:
-                _finish(n, proc, tmp, t0)
+                _finish(*done)
+                built.append(done[0])
             except RuntimeError as e:
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
-        return {n: build_seconds[n] for n, *_ in running}
+        return {n: build_seconds[n] for n in built}
 
 
 def load(name):

@@ -5,9 +5,12 @@ API boundary is ``[batch, seq, heads, head_dim]``, as there.
 
 ``flash_attention`` on a CUDA tensor launches the hand-written kernels
 (built on first use by ``ops/_build.py``): ``csrc/flash_fwd.cu`` forward,
-the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` backward (bf16 on
-tensor cores in both directions, float32 on f32 FMAs).  On a CPU
-tensor it runs the plain PyTorch versions of the same functions
+the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` backward (bf16 and
+float16 on tensor cores in both directions, float32 on f32 FMAs).  They
+are built for the head_dims of ``HEAD_DIMS``; any other head_dim up to
+``MAX_HEAD_DIM`` runs the next larger one on q, k, v (and g) zero-padded
+along head_dim, its outputs sliced back (:func:`padded_head_dim`).  On a
+CPU tensor it runs the plain PyTorch versions of the same functions
 (:func:`flash_attention_plain`, :func:`flash_backward_plain`).  There is
 no fallback between the two: a CUDA tensor the kernels cannot take
 raises.
@@ -16,16 +19,19 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from tensorflowonspark_tpu_torch.ops import _build
 from tensorflowonspark_tpu_torch.utils.cuda_graphs import launch_counted
 
 _NEG_INF = -1e30  # finite mask fill, never -inf
-HEAD_DIMS = (64, 128)  # head_dims the CUDA kernel is built for
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = _build.FLASH_HEAD_DIMS  # head_dims the kernels are built for
+MAX_HEAD_DIM = HEAD_DIMS[-1]  # larger ones raise
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: Launches of the CUDA kernels in this process: the flash forward
 #: (``launches``), the backward's dq and dk/dv kernels.  One per launch
@@ -105,18 +111,33 @@ def flash_attention_plain(q, k, v, *, causal=False, scale=None):
 
 # -- the CUDA kernel ---------------------------------------------------------
 
-def _lib():
-    lib = _build.load("flash_fwd")
-    if not getattr(lib, "_tfos_typed", False):
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+def _typed(lib, name):
+    """A kernel library's entry points with their C types, once."""
+    if getattr(lib, "_tfos_typed", False):
+        return lib
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "flash_fwd":
         lib.tfos_flash_fwd.argtypes = (
             [i32, i32] + [vp] * 5 + [i32] * 4 + [i64] * 12
             + [ctypes.c_float, i32, vp])
         lib.tfos_flash_fwd.restype = i32
-        lib.tfos_cuda_error_string.argtypes = [i32]
-        lib.tfos_cuda_error_string.restype = ctypes.c_char_p
-        lib._tfos_typed = True
+    else:
+        argtypes = ([i32, i32] + [vp] * 8 + [i32] * 4
+                    + [ctypes.POINTER(i64), ctypes.c_float, i32, vp])
+        for fn in (lib.tfos_flash_dq, lib.tfos_flash_dkv):
+            fn.argtypes = argtypes
+            fn.restype = i32
+    lib.tfos_cuda_error_string.argtypes = [i32]
+    lib.tfos_cuda_error_string.restype = ctypes.c_char_p
+    lib._tfos_typed = True
     return lib
+
+
+def _lib(head_dim, dtype, name="flash_fwd"):
+    """The library of ``name`` (``flash_fwd`` or ``flash_bwd``) built for
+    ``head_dim`` and ``dtype``, built at first use."""
+    return _typed(_build.load(_build.variant(name, head_dim,
+                                             _DTYPES[dtype])), name)
 
 
 def _check_shapes(q, k, v):
@@ -131,12 +152,13 @@ def _check_shapes(q, k, v):
             raise ValueError(f"{name} needs unit stride on head_dim, got "
                              f"strides {t.stride()}")
     if q.dtype not in _DTYPES:
-        raise ValueError(f"flash kernel takes float32 or bfloat16, got "
-                         f"{q.dtype}")
+        raise ValueError(f"flash kernel takes float32, bfloat16 or float16, "
+                         f"got {q.dtype}")
     b, _, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash kernel takes head_dim 1 to {MAX_HEAD_DIM} "
+                         f"(built for {HEAD_DIMS}, the others zero-padded "
+                         f"to the next), got {d}")
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -144,6 +166,25 @@ def _check_shapes(q, k, v):
         raise ValueError("empty sequence")
     if b * h > 65535:
         raise ValueError(f"batch*heads {b * h} > 65535 (grid limit)")
+
+
+def padded_head_dim(fn, n_out, *tensors):
+    """``fn(*tensors)`` at the smallest built head_dim (``HEAD_DIMS``) not
+    below the tensors' own: each [B, S, H, D] tensor zero-padded along
+    head_dim, and the first ``n_out`` outputs (each [B, S, H, padded])
+    sliced back to D; the others pass as they are.  Exact for attention
+    at the caller's own scale: the zero columns add nothing to q kᵀ or
+    to rowsum(g ∘ out), and the columns they produce in out, dq, dk and
+    dv are the ones thrown away.  At a built head_dim it is ``fn``
+    itself.  The CUDA wrappers call it; the CPU tests hold it with the
+    plain versions."""
+    d = tensors[0].shape[-1]
+    dp = next(x for x in HEAD_DIMS if x >= d)
+    if dp == d:
+        return fn(*tensors)
+    outs = fn(*(F.pad(t, (0, dp - d)) if t.dim() == 4 else t
+                for t in tensors))
+    return tuple(o[..., :d] if i < n_out else o for i, o in enumerate(outs))
 
 
 def _check_device(ref, **tensors):
@@ -156,7 +197,7 @@ def _check_device(ref, **tensors):
 
 
 def _check_vectors(**tensors):
-    """The bf16 flash kernels (forward and backward) copy q, k, v and g
+    """The 16-bit flash kernels (forward and backward) copy q, k, v and g
     into shared memory in 16-byte vectors (``cp.async``): each base
     pointer, and each batch, sequence and head stride of a dimension
     longer than 1, must be a multiple of 16 bytes."""
@@ -167,25 +208,31 @@ def _check_vectors(**tensors):
                 for i in range(3)):
             raise ValueError(
                 f"{name} must start on a 16-byte boundary with batch, seq "
-                f"and head strides of whole 16-byte vectors for the bf16 "
+                f"and head strides of whole 16-byte vectors for the 16-bit "
                 f"flash kernels: offset {t.data_ptr() % 16} bytes, "
                 f"strides {t.stride()} of {esize}-byte elements")
 
 
 def _flash_forward_cuda(q, k, v, *, causal, scale):
-    """Launch ``csrc/flash_fwd.cu`` on the current stream (bf16: the
-    tensor-core kernel, float32: the FMA kernel); returns ``(out, lse)``.
-    Raises on anything the kernel does not take."""
+    """Launch ``csrc/flash_fwd.cu`` on the current stream (bf16 and
+    float16: the tensor-core kernel, float32: the FMA kernel); returns
+    ``(out, lse)``.  A head_dim the kernels are not built for goes
+    through :func:`padded_head_dim`.  Raises on anything the kernel does
+    not take."""
     global launches
     _check_shapes(q, k, v)
-    if q.dtype == torch.bfloat16:
+    if q.shape[-1] not in HEAD_DIMS:
+        _check_device(q, q=q, k=k, v=v)
+        return padded_head_dim(functools.partial(
+            _flash_forward_cuda, causal=causal, scale=scale), 1, q, k, v)
+    if q.dtype != torch.float32:
         _check_vectors(q=q, k=k, v=v)
     _check_device(q, q=q, k=k, v=v)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _lib(d, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.tfos_flash_fwd(
@@ -271,22 +318,6 @@ def flash_backward_plain(q, k, v, out, lse, g, *, causal, scale,
     return unheads(dq, q), unheads(dk, k), unheads(dv, v)
 
 
-def _bwd_lib():
-    lib = _build.load("flash_bwd")
-    if not getattr(lib, "_tfos_typed", False):
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        argtypes = ([i32, i32] + [vp] * 8 + [i32] * 4
-                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                       i32, vp])
-        for fn in (lib.tfos_flash_dq, lib.tfos_flash_dkv):
-            fn.argtypes = argtypes
-            fn.restype = i32
-        lib.tfos_cuda_error_string.argtypes = [i32]
-        lib.tfos_cuda_error_string.restype = ctypes.c_char_p
-        lib._tfos_typed = True
-    return lib
-
-
 def _launch_bwd(kernel, q, k, v, g, lse, delta, out0, out1, *, causal,
                 scale):
     """Launch one backward kernel of ``csrc/flash_bwd.cu`` on the current
@@ -294,9 +325,9 @@ def _launch_bwd(kernel, q, k, v, g, lse, delta, out0, out1, *, causal,
     ``"flash_dkv"`` dk into ``out0`` and dv into ``out1``.  Inputs as
     :func:`_flash_backward_cuda` prepares them."""
     global dq_launches, dkv_launches
-    lib = _bwd_lib()
-    fn = lib.tfos_flash_dq if kernel == "flash_dq" else lib.tfos_flash_dkv
     b, sq, h, d = q.shape
+    lib = _lib(d, q.dtype, "flash_bwd")
+    fn = lib.tfos_flash_dq if kernel == "flash_dq" else lib.tfos_flash_dkv
     strides = (ctypes.c_longlong * 18)(
         *[t.stride(i) for t in (q, k, v, g, out0, out1) for i in (0, 1, 2)])
     with torch.cuda.device(q.device):
@@ -322,7 +353,7 @@ def _bwd_inputs(q, k, v, out, lse, g):
     """Check what the backward kernels take; returns ``(g, lse, delta)``
     ready for :func:`_launch_bwd`.  Raises on anything else.  The kernels
     never read ``out`` (``delta`` is computed here), so only q, k, v and
-    g are held to the bf16 kernels' 16-byte vectors."""
+    g are held to the 16-bit kernels' 16-byte vectors."""
     _check_shapes(q, k, v)
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype:
@@ -336,7 +367,7 @@ def _bwd_inputs(q, k, v, out, lse, g):
         # the one copy the backward makes: autograd may hand over a g
         # whose head_dim is not the unit stride the kernels load along
         g = g.contiguous()
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         _check_vectors(q=q, k=k, v=v, g=g)
     _check_device(q, q=q, k=k, v=v, out=out, g=g, lse=lse)
     return g, lse.contiguous(), _delta(g, out)
@@ -346,8 +377,15 @@ def _flash_backward_cuda(q, k, v, out, lse, g, *, causal, scale):
     """Launch the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` on the
     current stream; returns ``(dq, dk, dv)``.  q, k, v, out and g are
     [B, S, H, D] tensors addressed through their strides (q, k, v arrive
-    as views of the fused qkv projection).  Raises on anything the
-    kernels do not take."""
+    as views of the fused qkv projection).  A head_dim the kernels are
+    not built for goes through :func:`padded_head_dim`.  Raises on
+    anything the kernels do not take."""
+    if q.shape[-1] not in HEAD_DIMS:
+        _check_shapes(q, k, v)
+        _check_device(q, q=q, k=k, v=v, out=out, g=g, lse=lse)
+        return padded_head_dim(functools.partial(
+            _flash_backward_cuda, causal=causal, scale=scale), 3,
+            q, k, v, out, lse, g)
     g, lse, delta = _bwd_inputs(q, k, v, out, lse, g)
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -400,13 +438,15 @@ def flash_attention(q, k, v, *, causal=False, scale=None, block_q=512,
     """Flash attention on [B, S, H, D]; returns ``out``, differentiable.
 
     CUDA tensors go through the hand-written kernels: ``flash_fwd.cu``
-    forward, and the dq and dk/dv kernels of ``flash_bwd.cu`` backward.
+    forward, and the dq and dk/dv kernels of ``flash_bwd.cu`` backward,
+    in float32, bfloat16 or float16 at any head_dim up to
+    ``MAX_HEAD_DIM``.
     CPU tensors go through the plain versions (:func:`flash_attention_plain`,
     :func:`flash_backward_plain`).  ``bwd_impl`` is validated as in the
     JAX package ("xla" or "pallas"); both of its backwards compute the
     same gradients, so it selects nothing here.  ``block_q`` sets the
     plain backward's q block; neither block sets the CUDA tiles."""
-    if scale is None:
+    if scale is None:  # the caller's head_dim, never a padded one
         scale = 1.0 / math.sqrt(q.shape[-1])
     if bwd_impl not in ("xla", "pallas"):
         raise ValueError(f"bwd_impl must be 'xla' or 'pallas', "

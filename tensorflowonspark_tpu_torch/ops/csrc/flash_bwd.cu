@@ -19,32 +19,40 @@
 // scheduled first: the last q tiles for dq, the first kv tiles for dk/dv.
 // All tensors are addressed through (batch, seq, head) strides with unit
 // stride on head_dim, so views of the fused qkv projection go in as they
-// are.  Two implementations behind one interface:
+// are.  Two implementations behind one interface, each library built for
+// one head_dim (a multiple of 16 up to 256) and one dtype (ops/_build.py
+// passes TFOS_HEAD_DIM and TFOS_DTYPE):
 //
-// bf16: tensor cores (namespace tc).  Every product is a warp-level
-// mma.sync m16n8k16 (bf16 operands, f32 accumulators), its operands loaded
-// from shared memory with ldmatrix (.trans where the operand is needed
-// transposed).  A CTA of 4 warps owns a 64-row tile and keeps it resident
-// in shared memory (Q and g for dq, K and V for dk/dv); the other side
-// streams through a 2-stage ring of 64-row tiles filled by cp.async 16-byte
-// copies, so the next tile loads while this one computes.  Each warp owns
-// 16 rows of its tile, and the scores never leave its registers (the
-// FlashAttention-2 register layout): the dq kernel computes S = Q K^T and
-// dP = g V^T, the dk/dv kernel the transposes S^T = K Q^T and
+// bf16 and fp16: tensor cores (namespace tc).  Every product is a
+// warp-level mma.sync m16n8k16 (16-bit operands, f32 accumulators), its
+// operands loaded from shared memory with ldmatrix (.trans where the
+// operand is needed transposed).  A CTA of 4 warps owns a 64-row tile and
+// keeps it resident in shared memory (Q and g for dq, K and V for dk/dv);
+// the other side streams through a 2-stage ring of 64-row tiles filled by
+// cp.async 16-byte copies, so the next tile loads while this one computes.
+// Each warp owns 16 rows of its tile, and the scores never leave its
+// registers (the FlashAttention-2 register layout): the dq kernel computes
+// S = Q K^T and dP = g V^T, the dk/dv kernel the transposes S^T = K Q^T and
 // dP^T = V g^T, so that the accumulator fragment of p or ds (the m16n8 C
 // layout) is already the A operand (m16k16) of the second product: ds K,
 // p^T g, ds^T q.  One routine (tc_recompute) forms p and ds in both, given
 // a map from fragment (row, column) to (q, kv) positions, since one kernel
 // holds S and the other S^T; tiles wholly below the diagonal and inside
 // both sequences skip the mask.  p and ds enter each second product as a
-// bf16 hi/lo pair (hi = bf16(x), lo = bf16(x - hi), two MMAs into one f32
-// accumulator, ~16 significant bits): rounding them once to bf16 would put
-// an error of up to 2^-9 on every term, which the per-element check against
-// the f32 plain version does not hold for outputs near zero.  Shared-memory
-// rows are padded by 16 bytes so that ldmatrix is free of bank conflicts;
-// 102 KiB (dq) and 103 KiB (dk/dv) at head_dim 128, so two CTAs fit an SM.
-// The cp.async / ldmatrix / mma.sync / hi-lo building blocks are shared
-// with the forward (mma_sm90.cuh).
+// hi/lo pair (hi = round(x), lo = round(x - hi), two MMAs into one f32
+// accumulator): rounding them once to 16 bits would put an error of up to
+// 2^-9 on every term, which the per-element check against the f32 plain
+// version does not hold for outputs near zero.  p's pair is in the
+// kernel's own type; ds's is always bf16, whose range is f32's, and in
+// fp16 its B operand is widened exactly into a bf16 pair for three bf16
+// MMAs (mma_sm90.cuh says why: ds scales with g, which fp16 cannot hold
+// small).  Above head_dim 128 the gradient columns are split over 64-
+// column CTAs (out_cols), each recomputing p and ds, so the accumulators
+// stay in registers.  Shared-memory rows are padded by 16 bytes so that
+// ldmatrix is free of bank conflicts; 102 KiB (dq) and 103 KiB (dk/dv) at
+// head_dim 128, so two CTAs fit an SM, 198 KiB at 256.  The cp.async /
+// ldmatrix / mma.sync / hi-lo building blocks are shared with the forward
+// (mma_sm90.cuh).
 //
 // What bounds it on the H100.  At the training shape (8, 2048, 8, 128)
 // causal there are 134.3 M visible (q, kv) pairs per call, and ~10 bytes
@@ -57,24 +65,21 @@
 // swizzled layouts) is the next step for these kernels.
 //
 // float32: f32 FMAs (the first version, kept for float32, where TF32
-// would lose the f32 gradient checks).  Each of 256 threads owns a 4x4
-// micro-tile of the 64x64 score tile and a 4 x (D/16) slice of its
-// accumulators; tiles are converted to padded f32 tiles in shared memory
-// (146 KB for dq, 162 KB for dk/dv at head_dim 128), and p and ds pass
-// between the two phases of a step through shared memory.  The shared
-// recompute is bwd_recompute.
+// would lose the f32 gradient checks).  Each of 256 threads owns an MI x MI
+// micro-tile of the score tile (MI = 4: 64 x 64 tiles; 2 above head_dim
+// 128, whose 64-row padded tiles would not fit) and an MI x (D/16) slice
+// of its accumulators; tiles are converted to padded f32 tiles in shared
+// memory (146 KB for dq, 162 KB for dk/dv at head_dim 128), and p and ds
+// pass between the two phases of a step through shared memory.  The
+// shared recompute is bwd_recompute.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // q rows per tile
-constexpr int BN = 64;   // kv rows per tile
 constexpr int NT = 256;  // threads per CTA: 16 x 16
-constexpr int PP = BN + 1;
 
 struct Strides {
   long long b, s, h;
@@ -93,6 +98,14 @@ struct Args {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
+// Micro-tile rows (and columns) a thread owns: a tile is 16 * MI rows of
+// q and of kv.  MI = 4 (64-row tiles) up to head_dim 128; above it 2, so
+// that the four padded f32 tiles fit shared memory (at D = 256 four
+// 64 x 257 tiles alone are 263,168 bytes).
+__host__ __device__ constexpr int micro(int D) {
+  return D > 128 ? 2 : 4;
+}
+
 // rows [row0, row0 + R) of one head of a [B, S, H, D] tensor into a padded
 // f32 tile [R][D + 1]; rows at or past `len` are zero.
 template <typename T, int D, int R>
@@ -105,54 +118,57 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
+template <int R>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int len) {
-  for (int r = threadIdx.x; r < BM; r += NT)
+  for (int r = threadIdx.x; r < R; r += NT)
     dst[r] = row0 + r < len ? src[row0 + r] : 0.f;
 }
 
 // The one recompute both kernels share (counterpart of _bwd_recompute): p
-// and ds for this thread's 4x4 micro-tile of the (q tile at q0, kv tile at
-// k0) pair.  Micro-tile rows ty + 16*i are q rows, columns tx + 16*j kv rows.
+// and ds for this thread's MI x MI micro-tile of the (q tile at q0, kv
+// tile at k0) pair.  Micro-tile rows ty + 16*i are q rows, columns
+// tx + 16*j kv rows.
 template <int D>
 __device__ __forceinline__ void bwd_recompute(
     const float* sQ, const float* sG, const float* sK, const float* sV,
     const float* sLse, const float* sDelta, int q0, int k0, int Sq, int Skv,
-    float scale, int causal, float p[4][4], float ds[4][4]) {
-  constexpr int DP = D + 1;
+    float scale, int causal, float (&p)[micro(D)][micro(D)],
+    float (&ds)[micro(D)][micro(D)]) {
+  constexpr int DP = D + 1, MI = micro(D);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+  float s[MI][MI], dp[MI][MI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < MI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qv[4], gv[4], kv[4], vv[4];
+    float qv[MI], gv[MI], kv[MI], vv[MI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < MI; ++i) {
       qv[i] = sQ[(ty + 16 * i) * DP + d];
       gv[i] = sG[(ty + 16 * i) * DP + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < MI; ++j) {
       kv[j] = sK[(tx + 16 * j) * DP + d];
       vv[j] = sV[(tx + 16 * j) * DP + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < MI; ++j) {
         s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
         dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
       }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int r = ty + 16 * i, qpos = q0 + r;
     const float lse = sLse[r], delta = sDelta[r];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < MI; ++j) {
       const int kpos = k0 + tx + 16 * j;
       const bool ok = qpos < Sq && kpos < Skv && (!causal || qpos >= kpos);
       p[i][j] = ok ? expf(s[i][j] * scale - lse) : 0.f;
@@ -163,83 +179,85 @@ __device__ __forceinline__ void bwd_recompute(
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * BM * (D + 1) + BM * PP + 2 * BM);
+  constexpr int R = 16 * micro(D);
+  return sizeof(float) * (4 * R * (D + 1) + R * (R + 1) + 2 * R);
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * BM * (D + 1) + 2 * BM * PP + 2 * BM);
+  constexpr int R = 16 * micro(D);
+  return sizeof(float) * (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R);
 }
 
-// dq for one 64-row q tile: loop kv tiles, causal-trimmed at the diagonal.
+// dq for one q tile: loop kv tiles, causal-trimmed at the diagonal.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
-  constexpr int DP = D + 1;
+  constexpr int DP = D + 1, MI = micro(D), R = 16 * MI, PP = R + 1;
   constexpr int DC = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
-  float* sQ = smem;            // [BM][DP]
-  float* sG = sQ + BM * DP;    // [BM][DP]
-  float* sK = sG + BM * DP;    // [BN][DP]
-  float* sV = sK + BN * DP;    // [BN][DP]
-  float* sDS = sV + BN * DP;   // [BM][PP]
-  float* sLse = sDS + BM * PP; // [BM]
-  float* sDelta = sLse + BM;   // [BM]
+  float* sQ = smem;            // [R][DP]
+  float* sG = sQ + R * DP;     // [R][DP]
+  float* sK = sG + R * DP;     // [R][DP]
+  float* sV = sK + R * DP;     // [R][DP]
+  float* sDS = sV + R * DP;    // [R][PP]
+  float* sLse = sDS + R * PP;  // [R]
+  float* sDelta = sLse + R;    // [R]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   // causal: the last q tiles have the longest kv loops; run them first
   const int qt = a.causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int q0 = qt * BM;
+  const int q0 = qt * R;
   const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* g = static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h;
   const T* k = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
   const T* v = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
 
-  load_tile<T, D, BM>(sQ, q, a.qs.s, q0, a.Sq);
-  load_tile<T, D, BM>(sG, g, a.gs.s, q0, a.Sq);
-  load_rows(sLse, a.lse + (long long)bh * a.Sq, q0, a.Sq);
-  load_rows(sDelta, a.delta + (long long)bh * a.Sq, q0, a.Sq);
+  load_tile<T, D, R>(sQ, q, a.qs.s, q0, a.Sq);
+  load_tile<T, D, R>(sG, g, a.gs.s, q0, a.Sq);
+  load_rows<R>(sLse, a.lse + (long long)bh * a.Sq, q0, a.Sq);
+  load_rows<R>(sDelta, a.delta + (long long)bh * a.Sq, q0, a.Sq);
 
-  float acc[4][DC];
+  float acc[MI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
-  int n_kv = (a.Skv + BN - 1) / BN;
-  if (a.causal) n_kv = min(n_kv, (q0 + BM + BN - 1) / BN);
+  int n_kv = (a.Skv + R - 1) / R;
+  if (a.causal) n_kv = min(n_kv, (q0 + 2 * R - 1) / R);
 
   for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * BN;
+    const int k0 = j * R;
     __syncthreads();  // the previous step is done with sK, sV and sDS
-    load_tile<T, D, BN>(sK, k, a.ks.s, k0, a.Skv);
-    load_tile<T, D, BN>(sV, v, a.vs.s, k0, a.Skv);
+    load_tile<T, D, R>(sK, k, a.ks.s, k0, a.Skv);
+    load_tile<T, D, R>(sV, v, a.vs.s, k0, a.Skv);
     __syncthreads();
-    float p[4][4], ds[4][4];
+    float p[MI][MI], ds[MI][MI];
     bwd_recompute<D>(sQ, sG, sK, sV, sLse, sDelta, q0, k0, a.Sq, a.Skv,
                      a.scale, a.causal, p, ds);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
+      for (int jj = 0; jj < MI; ++jj)
         sDS[(ty + 16 * i) * PP + tx + 16 * jj] = ds[i][jj];
     __syncthreads();
 #pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      float dsv[4];
+    for (int n = 0; n < R; ++n) {
+      float dsv[MI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sDS[(ty + 16 * i) * PP + n];
+      for (int i = 0; i < MI; ++i) dsv[i] = sDS[(ty + 16 * i) * PP + n];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float kv = sK[n * DP + tx + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
+        for (int i = 0; i < MI; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= a.Sq) continue;
     T* row = static_cast<T*>(a.out0) + b * a.o0s.b + qpos * a.o0s.s +
@@ -249,26 +267,26 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Args a) {
   }
 }
 
-// dk and dv for one 64-row kv tile: loop q tiles, starting at the diagonal
-// when causal (q tiles above it see none of this kv tile).
+// dk and dv for one kv tile: loop q tiles, starting at the diagonal when
+// causal (q tiles above it see none of this kv tile).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
-  constexpr int DP = D + 1;
+  constexpr int DP = D + 1, MI = micro(D), R = 16 * MI, PP = R + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
-  float* sK = smem;             // [BN][DP]
-  float* sV = sK + BN * DP;     // [BN][DP]
-  float* sQ = sV + BN * DP;     // [BM][DP]
-  float* sG = sQ + BM * DP;     // [BM][DP]
-  float* sP = sG + BM * DP;     // [BM][PP]
-  float* sDS = sP + BM * PP;    // [BM][PP]
-  float* sLse = sDS + BM * PP;  // [BM]
-  float* sDelta = sLse + BM;    // [BM]
+  float* sK = smem;             // [R][DP]
+  float* sV = sK + R * DP;      // [R][DP]
+  float* sQ = sV + R * DP;      // [R][DP]
+  float* sG = sQ + R * DP;      // [R][DP]
+  float* sP = sG + R * DP;      // [R][PP]
+  float* sDS = sP + R * PP;     // [R][PP]
+  float* sLse = sDS + R * PP;   // [R]
+  float* sDelta = sLse + R;     // [R]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   // causal: the first kv tiles have the longest q loops and come first
-  const int k0 = blockIdx.x * BN;
+  const int k0 = blockIdx.x * R;
   const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* g = static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h;
   const T* k = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
@@ -276,44 +294,43 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
   const float* lse = a.lse + (long long)bh * a.Sq;
   const float* delta = a.delta + (long long)bh * a.Sq;
 
-  load_tile<T, D, BN>(sK, k, a.ks.s, k0, a.Skv);
-  load_tile<T, D, BN>(sV, v, a.vs.s, k0, a.Skv);
+  load_tile<T, D, R>(sK, k, a.ks.s, k0, a.Skv);
+  load_tile<T, D, R>(sV, v, a.vs.s, k0, a.Skv);
 
-  float dk[4][DC], dv[4][DC];  // rows: kv rows ty + 16*i
+  float dk[MI][DC], dv[MI][DC];  // rows: kv rows ty + 16*i
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
 
-  const int n_q = (a.Sq + BM - 1) / BM;
-  // first q tile that reaches this kv tile: floor(k0 / BM), whatever the
-  // two tile sizes
-  const int i0 = a.causal ? k0 / BM : 0;
+  const int n_q = (a.Sq + R - 1) / R;
+  // first q tile that reaches this kv tile (the tiles are square)
+  const int i0 = a.causal ? k0 / R : 0;
 
   for (int it = i0; it < n_q; ++it) {
-    const int q0 = it * BM;
+    const int q0 = it * R;
     __syncthreads();  // the previous step is done with sQ, sG, sP, sDS
-    load_tile<T, D, BM>(sQ, q, a.qs.s, q0, a.Sq);
-    load_tile<T, D, BM>(sG, g, a.gs.s, q0, a.Sq);
-    load_rows(sLse, lse, q0, a.Sq);
-    load_rows(sDelta, delta, q0, a.Sq);
+    load_tile<T, D, R>(sQ, q, a.qs.s, q0, a.Sq);
+    load_tile<T, D, R>(sG, g, a.gs.s, q0, a.Sq);
+    load_rows<R>(sLse, lse, q0, a.Sq);
+    load_rows<R>(sDelta, delta, q0, a.Sq);
     __syncthreads();
-    float p[4][4], ds[4][4];
+    float p[MI][MI], ds[MI][MI];
     bwd_recompute<D>(sQ, sG, sK, sV, sLse, sDelta, q0, k0, a.Sq, a.Skv,
                      a.scale, a.causal, p, ds);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < MI; ++jj) {
         sP[(ty + 16 * i) * PP + tx + 16 * jj] = p[i][jj];
         sDS[(ty + 16 * i) * PP + tx + 16 * jj] = ds[i][jj];
       }
     __syncthreads();
 #pragma unroll 4
-    for (int n = 0; n < BM; ++n) {  // q rows of this tile
-      float pv[4], dsv[4];
+    for (int n = 0; n < R; ++n) {  // q rows of this tile
+      float pv[MI], dsv[MI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         pv[i] = sP[n * PP + ty + 16 * i];
         dsv[i] = sDS[n * PP + ty + 16 * i];
       }
@@ -322,7 +339,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
         const float gv = sG[n * DP + tx + 16 * c];
         const float qv = sQ[n * DP + tx + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < MI; ++i) {
           dv[i][c] = fmaf(pv[i], gv, dv[i][c]);
           dk[i][c] = fmaf(dsv[i], qv, dk[i][c]);
         }
@@ -331,7 +348,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int kpos = k0 + ty + 16 * i;
     if (kpos >= a.Skv) continue;
     T* krow = static_cast<T*>(a.out0) + b * a.o0s.b + kpos * a.o0s.s +
@@ -346,47 +363,62 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
   }
 }
 
+using KernelFn = void (*)(Args);
+
+// The float32 kernels at head_dim D, as launch and attrs take them.
 template <typename T, int D>
-int launch(int which, const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = which == 0 ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
-  void (*kernel)(Args) =
-      which == 0 ? &flash_dq_kernel<T, D> : &flash_dkv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = which == 0 ? (a.Sq + BM - 1) / BM : (a.Skv + BN - 1) / BN;
-  const dim3 grid(tiles, B * a.H);
-  kernel<<<grid, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
+struct Fma {
+  static constexpr int threads = NT;
+  static KernelFn kernel(int which) {
+    return which == 0 ? &flash_dq_kernel<T, D> : &flash_dkv_kernel<T, D>;
+  }
+  static size_t smem(int which) {
+    return which == 0 ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
+  }
+  static dim3 grid(int which, const Args& a, int B) {
+    constexpr int R = 16 * micro(D);
+    return dim3(((which == 0 ? a.Sq : a.Skv) + R - 1) / R, B * a.H);
+  }
+};
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores
+// bf16 and fp16 on tensor cores
 
 namespace tc {
 
 using sm90::a_split;
-using sm90::bf16;
 using sm90::cp_async4;
 using sm90::cp_async_commit;
 using sm90::cp_async_wait;
 using sm90::ldsm4;
 using sm90::ldsm4_t;
 using sm90::mma;
+using sm90::mma_ds;
+using sm90::mma_hilo;
 using sm90::store2;
 
 constexpr int TB = 64;         // rows of a tile, own and streamed side alike
 constexpr int NW = 4;          // warps per CTA, 16 own rows each
 constexpr int NTC = 32 * NW;   // threads per CTA
-constexpr int PAD = 8;         // bf16 padding of a shared-memory row (16 B)
+constexpr int PAD = 8;         // 16-bit padding of a shared-memory row (16 B)
 static_assert(NTC == 2 * TB, "cp_rows gives one thread to each lse/delta");
 
-// Rows [row0, row0 + TB) of one head into a [TB][D + PAD] bf16 tile.
-template <int D>
-__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src,
+// Gradient columns a CTA owns: all D up to 128; above that D / 64 CTAs
+// share a tile, each recomputing p and ds over the whole head_dim (the
+// recompute is the same code, so the split cannot desync it) and
+// accumulating its own 64 columns.  (128-column shares spilled: the
+// kernels already hold 250-255 registers a thread at D = 128.  At 256 the
+// dk/dv kernel still spills 32 bytes, which chip_smoke.py reports.)
+__host__ __device__ constexpr int out_cols(int D) {
+  return D > 128 ? 64 : D;
+}
+
+// Rows [row0, row0 + TB) of one head into a [TB][D + PAD] tile.
+template <typename T, int D>
+__device__ __forceinline__ void cp_tile(T* dst, const T* src,
                                         long long row_stride, int row0,
                                         int len) {
-  sm90::cp_tile<D, TB, NTC, PAD>(dst, src, row_stride, row0, len);
+  sm90::cp_tile<T, D, TB, NTC, PAD>(dst, src, row_stride, row0, len);
 }
 
 // lse and delta of rows [row0, row0 + TB), zero past `len`: one float a
@@ -459,42 +491,46 @@ __device__ __forceinline__ bool needs_mask(int q0, int k0, const Args& a) {
 
 template <int D>
 constexpr size_t dq_smem_bytes() {  // Q, g; K and V in 2 stages
-  return sizeof(bf16) * 6 * TB * (D + PAD);
+  return 2 * 6 * TB * (D + PAD);
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {  // K, V; Q, g, lse, delta in 2 stages
-  return sizeof(bf16) * 6 * TB * (D + PAD) + sizeof(float) * 4 * TB;
+  return 2 * 6 * TB * (D + PAD) + sizeof(float) * 4 * TB;
 }
 
-// dq for one 64-row q tile: loop kv tiles, causal-trimmed at the diagonal.
-template <int D>
+// dq for one 64-row q tile (its columns [d0, d0 + out_cols(D))): loop kv
+// tiles, causal-trimmed at the diagonal.
+template <typename T, int D>
 __global__ void __launch_bounds__(NTC, 2) flash_dq_tc_kernel(Args a) {
-  constexpr int DP = D + PAD, NB = TB / 8, DB = D / 8;
+  constexpr int DP = D + PAD, NB = TB / 8;
+  constexpr int DO = out_cols(D), SPLIT = D / DO, OB = DO / 8;
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);  // [TB][DP]
-  bf16* sG = sQ + TB * DP;                      // [TB][DP]
-  bf16* sK = sG + TB * DP;                      // [2][TB][DP]
-  bf16* sV = sK + 2 * TB * DP;                  // [2][TB][DP]
+  T* sQ = reinterpret_cast<T*>(tc_smem);  // [TB][DP]
+  T* sG = sQ + TB * DP;                   // [TB][DP]
+  T* sK = sG + TB * DP;                   // [2][TB][DP]
+  T* sV = sK + 2 * TB * DP;               // [2][TB][DP]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = 16 * warp;  // this warp's rows of the q tile
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   // causal: the last q tiles have the longest kv loops; run them first
-  const int qt = a.causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
+  // (a tile's column shares beside each other)
+  const int xt = blockIdx.x / SPLIT, d0 = (blockIdx.x % SPLIT) * DO;
+  const int qt = a.causal ? (gridDim.x / SPLIT - 1 - xt) : xt;
   const int q0 = qt * TB;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* g = static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
+  const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const T* g = static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h;
+  const T* k = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const T* v = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
 
   int n_kv = (a.Skv + TB - 1) / TB;
   if (a.causal) n_kv = min(n_kv, (q0 + 2 * TB - 1) / TB);
 
-  cp_tile<D>(sQ, q, a.qs.s, q0, a.Sq);
-  cp_tile<D>(sG, g, a.gs.s, q0, a.Sq);
-  cp_tile<D>(sK, k, a.ks.s, 0, a.Skv);
-  cp_tile<D>(sV, v, a.vs.s, 0, a.Skv);
+  cp_tile<T, D>(sQ, q, a.qs.s, q0, a.Sq);
+  cp_tile<T, D>(sG, g, a.gs.s, q0, a.Sq);
+  cp_tile<T, D>(sK, k, a.ks.s, 0, a.Skv);
+  cp_tile<T, D>(sV, v, a.vs.s, 0, a.Skv);
   cp_async_commit();
 
   RowsAreQ m;
@@ -508,9 +544,9 @@ __global__ void __launch_bounds__(NTC, 2) flash_dq_tc_kernel(Args a) {
     m.delta_[e] = row < a.Sq ? delta[row] : 0.f;
   }
 
-  float acc[DB][4];
+  float acc[OB][4];
 #pragma unroll
-  for (int i = 0; i < DB; ++i)
+  for (int i = 0; i < OB; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -518,21 +554,21 @@ __global__ void __launch_bounds__(NTC, 2) flash_dq_tc_kernel(Args a) {
   // without (k_off) and with (t_off) transpose, before the tile offsets
   const int a_off = (r0 + lane % 16) * DP + (lane / 16) * 8;
   const int b_off = (lane % 8 + (lane / 16) * 8) * DP + ((lane / 8) % 2) * 8;
-  const int t_off = (lane % 16) * DP + (lane / 16) * 8;
+  const int t_off = (lane % 16) * DP + (lane / 16) * 8 + d0;
 
   for (int j = 0; j < n_kv; ++j) {
     const int st = j & 1;
     if (j + 1 < n_kv) {  // the next K/V tile loads while this one computes
-      cp_tile<D>(sK + (st ^ 1) * TB * DP, k, a.ks.s, (j + 1) * TB, a.Skv);
-      cp_tile<D>(sV + (st ^ 1) * TB * DP, v, a.vs.s, (j + 1) * TB, a.Skv);
+      cp_tile<T, D>(sK + (st ^ 1) * TB * DP, k, a.ks.s, (j + 1) * TB, a.Skv);
+      cp_tile<T, D>(sV + (st ^ 1) * TB * DP, v, a.vs.s, (j + 1) * TB, a.Skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* tK = sK + st * TB * DP;
-    const bf16* tV = sV + st * TB * DP;
+    const T* tK = sK + st * TB * DP;
+    const T* tV = sV + st * TB * DP;
     const int k0 = j * TB;
 
     float s[NB][4], dp[NB][4];
@@ -540,7 +576,9 @@ __global__ void __launch_bounds__(NTC, 2) flash_dq_tc_kernel(Args a) {
     for (int i = 0; i < NB; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
+    // every k-step unrolled up to D = 128; above, none (16 unrolled
+    // k-steps spilled more)
+#pragma unroll(D > 128 ? 1 : 8)
     for (int kk = 0; kk < D / 16; ++kk) {
       unsigned qa[4], ga[4];
       ldsm4(qa, sQ + a_off + 16 * kk);
@@ -550,28 +588,25 @@ __global__ void __launch_bounds__(NTC, 2) flash_dq_tc_kernel(Args a) {
         unsigned kb[4], vb[4];
         ldsm4(kb, tK + b_off + 16 * n2 * DP + 16 * kk);
         ldsm4(vb, tV + b_off + 16 * n2 * DP + 16 * kk);
-        mma(s[2 * n2], qa, kb[0], kb[1]);
-        mma(s[2 * n2 + 1], qa, kb[2], kb[3]);
-        mma(dp[2 * n2], ga, vb[0], vb[1]);
-        mma(dp[2 * n2 + 1], ga, vb[2], vb[3]);
+        mma<T>(s[2 * n2], qa, kb[0], kb[1]);
+        mma<T>(s[2 * n2 + 1], qa, kb[2], kb[3]);
+        mma<T>(dp[2 * n2], ga, vb[0], vb[1]);
+        mma<T>(dp[2 * n2 + 1], ga, vb[2], vb[3]);
       }
     }
     m.k = k0 + 2 * (lane % 4);
     tc_recompute<NB>(s, dp, m, a.Sq, a.Skv, a.causal, needs_mask(q0, k0, a),
                      a.scale);
-    // dq += ds K, ds as a hi/lo pair
+    // dq += ds K, ds as a bf16 hi/lo pair
 #pragma unroll
     for (int kk = 0; kk < NB / 2; ++kk) {
       unsigned hi[4], lo[4];
-      a_split<NB>(dp, kk, hi, lo);
+      a_split<sm90::bf16, NB>(dp, kk, hi, lo);
 #pragma unroll
-      for (int d2 = 0; d2 < DB / 2; ++d2) {
+      for (int d2 = 0; d2 < OB / 2; ++d2) {
         unsigned kb[4];
         ldsm4_t(kb, tK + t_off + 16 * kk * DP + 16 * d2);
-        mma(acc[2 * d2], hi, kb[0], kb[1]);
-        mma(acc[2 * d2 + 1], hi, kb[2], kb[3]);
-        mma(acc[2 * d2], lo, kb[0], kb[1]);
-        mma(acc[2 * d2 + 1], lo, kb[2], kb[3]);
+        mma_ds<T>(acc[2 * d2], acc[2 * d2 + 1], hi, lo, kb);
       }
     }
     __syncthreads();  // every warp is done with this stage before its refill
@@ -581,26 +616,28 @@ __global__ void __launch_bounds__(NTC, 2) flash_dq_tc_kernel(Args a) {
   for (int e = 0; e < 2; ++e) {
     const int qpos = m.q + 8 * e;
     if (qpos >= a.Sq) continue;
-    bf16* row = static_cast<bf16*>(a.out0) + b * a.o0s.b + qpos * a.o0s.s +
-                h * a.o0s.h + 2 * (lane % 4);
+    T* row = static_cast<T*>(a.out0) + b * a.o0s.b + qpos * a.o0s.s +
+             h * a.o0s.h + d0 + 2 * (lane % 4);
 #pragma unroll
-    for (int i = 0; i < DB; ++i)
-      store2(row + 8 * i, acc[i][2 * e], acc[i][2 * e + 1]);
+    for (int i = 0; i < OB; ++i)
+      store2<T>(row + 8 * i, acc[i][2 * e], acc[i][2 * e + 1]);
   }
 }
 
-// dk and dv for one 64-row kv tile: loop q tiles, starting at the diagonal
-// when causal.  Each q tile is taken in column chunks of NC q rows, which
-// bounds the score fragments' registers beside the dk and dv accumulators.
-template <int D, int NC>
+// dk and dv for one 64-row kv tile (their columns [d0, d0 + out_cols(D))):
+// loop q tiles, starting at the diagonal when causal.  Each q tile is
+// taken in column chunks of NC q rows, which bounds the score fragments'
+// registers beside the dk and dv accumulators.
+template <typename T, int D, int NC>
 __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
-  constexpr int DP = D + PAD, NB = NC / 8, DB = D / 8;
+  constexpr int DP = D + PAD, NB = NC / 8;
+  constexpr int DO = out_cols(D), SPLIT = D / DO, OB = DO / 8;
   static_assert(TB % NC == 0 && NC % 16 == 0, "chunks of whole k-steps");
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* sK = reinterpret_cast<bf16*>(tc_smem);  // [TB][DP]
-  bf16* sV = sK + TB * DP;                      // [TB][DP]
-  bf16* sQ = sV + TB * DP;                      // [2][TB][DP]
-  bf16* sG = sQ + 2 * TB * DP;                  // [2][TB][DP]
+  T* sK = reinterpret_cast<T*>(tc_smem);  // [TB][DP]
+  T* sV = sK + TB * DP;                   // [TB][DP]
+  T* sQ = sV + TB * DP;                   // [2][TB][DP]
+  T* sG = sQ + 2 * TB * DP;               // [2][TB][DP]
   float* sL = reinterpret_cast<float*>(sG + 2 * TB * DP);  // [2][TB]
   float* sDl = sL + 2 * TB;                                // [2][TB]
 
@@ -608,29 +645,30 @@ __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
   const int r0 = 16 * warp;  // this warp's rows of the kv tile
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   // causal: the first kv tiles have the longest q loops and come first
-  const int k0 = blockIdx.x * TB;
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* g = static_cast<const bf16*>(a.g) + b * a.gs.b + h * a.gs.h;
-  const bf16* k = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* v = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
+  // (a tile's column shares beside each other)
+  const int k0 = (blockIdx.x / SPLIT) * TB, d0 = (blockIdx.x % SPLIT) * DO;
+  const T* q = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const T* g = static_cast<const T*>(a.g) + b * a.gs.b + h * a.gs.h;
+  const T* k = static_cast<const T*>(a.k) + b * a.ks.b + h * a.ks.h;
+  const T* v = static_cast<const T*>(a.v) + b * a.vs.b + h * a.vs.h;
   const float* lse = a.lse + (long long)bh * a.Sq;
   const float* delta = a.delta + (long long)bh * a.Sq;
 
   const int n_q = (a.Sq + TB - 1) / TB;
   const int i0 = a.causal ? k0 / TB : 0;  // first q tile reaching this one
 
-  cp_tile<D>(sK, k, a.ks.s, k0, a.Skv);
-  cp_tile<D>(sV, v, a.vs.s, k0, a.Skv);
+  cp_tile<T, D>(sK, k, a.ks.s, k0, a.Skv);
+  cp_tile<T, D>(sV, v, a.vs.s, k0, a.Skv);
   if (i0 < n_q) {
-    cp_tile<D>(sQ, q, a.qs.s, i0 * TB, a.Sq);
-    cp_tile<D>(sG, g, a.gs.s, i0 * TB, a.Sq);
+    cp_tile<T, D>(sQ, q, a.qs.s, i0 * TB, a.Sq);
+    cp_tile<T, D>(sG, g, a.gs.s, i0 * TB, a.Sq);
     cp_rows(sL, sDl, lse, delta, i0 * TB, a.Sq);
   }
   cp_async_commit();
 
-  float dk[DB][4], dv[DB][4];
+  float dk[OB][4], dv[OB][4];
 #pragma unroll
-  for (int i = 0; i < DB; ++i)
+  for (int i = 0; i < OB; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
 
@@ -638,14 +676,14 @@ __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
   m.k = k0 + r0 + lane / 4;
   const int a_off = (r0 + lane % 16) * DP + (lane / 16) * 8;
   const int b_off = (lane % 8 + (lane / 16) * 8) * DP + ((lane / 8) % 2) * 8;
-  const int t_off = (lane % 16) * DP + (lane / 16) * 8;
+  const int t_off = (lane % 16) * DP + (lane / 16) * 8 + d0;
 
   for (int it = i0; it < n_q; ++it) {
     const int st = (it - i0) & 1;
     if (it + 1 < n_q) {  // the next q tile loads while this one computes
       const int nq0 = (it + 1) * TB;
-      cp_tile<D>(sQ + (st ^ 1) * TB * DP, q, a.qs.s, nq0, a.Sq);
-      cp_tile<D>(sG + (st ^ 1) * TB * DP, g, a.gs.s, nq0, a.Sq);
+      cp_tile<T, D>(sQ + (st ^ 1) * TB * DP, q, a.qs.s, nq0, a.Sq);
+      cp_tile<T, D>(sG + (st ^ 1) * TB * DP, g, a.gs.s, nq0, a.Sq);
       cp_rows(sL + (st ^ 1) * TB, sDl + (st ^ 1) * TB, lse, delta, nq0, a.Sq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -653,8 +691,8 @@ __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* tQ = sQ + st * TB * DP;
-    const bf16* tG = sG + st * TB * DP;
+    const T* tQ = sQ + st * TB * DP;
+    const T* tG = sG + st * TB * DP;
     const int q0 = it * TB;
     const bool masked = needs_mask(q0, k0, a);
 
@@ -666,7 +704,7 @@ __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
       for (int i = 0; i < NB; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
+#pragma unroll(D > 128 ? 1 : 8)  // as in the dq kernel
       for (int kk = 0; kk < D / 16; ++kk) {
         unsigned ka[4], va[4];
         ldsm4(ka, sK + a_off + 16 * kk);
@@ -677,10 +715,10 @@ __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
           const int off = b_off + (c * NC + 16 * n2) * DP + 16 * kk;
           ldsm4(qb, tQ + off);
           ldsm4(gb, tG + off);
-          mma(s[2 * n2], ka, qb[0], qb[1]);
-          mma(s[2 * n2 + 1], ka, qb[2], qb[3]);
-          mma(dp[2 * n2], va, gb[0], gb[1]);
-          mma(dp[2 * n2 + 1], va, gb[2], gb[3]);
+          mma<T>(s[2 * n2], ka, qb[0], qb[1]);
+          mma<T>(s[2 * n2 + 1], ka, qb[2], qb[3]);
+          mma<T>(dp[2 * n2], va, gb[0], gb[1]);
+          mma<T>(dp[2 * n2 + 1], va, gb[2], gb[3]);
         }
       }
       const int col = c * NC + 2 * (lane % 4);
@@ -688,26 +726,20 @@ __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
       m.l = sL + st * TB + col;
       m.dl = sDl + st * TB + col;
       tc_recompute<NB>(s, dp, m, a.Sq, a.Skv, a.causal, masked, a.scale);
-      // dv += p^T g and dk += ds^T q, p and ds as hi/lo pairs
+      // dv += p^T g (p a T hi/lo pair) and dk += ds^T q (ds a bf16 pair)
 #pragma unroll
       for (int kk = 0; kk < NB / 2; ++kk) {
         unsigned phi[4], plo[4], dhi[4], dlo[4];
-        a_split<NB>(s, kk, phi, plo);
-        a_split<NB>(dp, kk, dhi, dlo);
+        a_split<T, NB>(s, kk, phi, plo);
+        a_split<sm90::bf16, NB>(dp, kk, dhi, dlo);
 #pragma unroll
-        for (int d2 = 0; d2 < DB / 2; ++d2) {
+        for (int d2 = 0; d2 < OB / 2; ++d2) {
           unsigned gb[4], qb[4];
           const int off = t_off + (c * NC + 16 * kk) * DP + 16 * d2;
           ldsm4_t(gb, tG + off);
           ldsm4_t(qb, tQ + off);
-          mma(dv[2 * d2], phi, gb[0], gb[1]);
-          mma(dv[2 * d2 + 1], phi, gb[2], gb[3]);
-          mma(dk[2 * d2], dhi, qb[0], qb[1]);
-          mma(dk[2 * d2 + 1], dhi, qb[2], qb[3]);
-          mma(dv[2 * d2], plo, gb[0], gb[1]);
-          mma(dv[2 * d2 + 1], plo, gb[2], gb[3]);
-          mma(dk[2 * d2], dlo, qb[0], qb[1]);
-          mma(dk[2 * d2 + 1], dlo, qb[2], qb[3]);
+          mma_hilo<T>(dv[2 * d2], dv[2 * d2 + 1], phi, plo, gb);
+          mma_ds<T>(dk[2 * d2], dk[2 * d2 + 1], dhi, dlo, qb);
         }
       }
     }
@@ -719,69 +751,129 @@ __global__ void __launch_bounds__(NTC, 2) flash_dkv_tc_kernel(Args a) {
   for (int e = 0; e < 2; ++e) {
     const int kpos = m.k + 8 * e;
     if (kpos >= a.Skv) continue;
-    const int c0 = 2 * (lane % 4);
-    bf16* krow = static_cast<bf16*>(a.out0) + b * a.o0s.b + kpos * a.o0s.s +
-                 h * a.o0s.h + c0;
-    bf16* vrow = static_cast<bf16*>(a.out1) + b * a.o1s.b + kpos * a.o1s.s +
-                 h * a.o1s.h + c0;
+    const int c0 = d0 + 2 * (lane % 4);
+    T* krow = static_cast<T*>(a.out0) + b * a.o0s.b + kpos * a.o0s.s +
+              h * a.o0s.h + c0;
+    T* vrow = static_cast<T*>(a.out1) + b * a.o1s.b + kpos * a.o1s.s +
+              h * a.o1s.h + c0;
 #pragma unroll
-    for (int i = 0; i < DB; ++i) {
-      store2(krow + 8 * i, dk[i][2 * e], dk[i][2 * e + 1]);
-      store2(vrow + 8 * i, dv[i][2 * e], dv[i][2 * e + 1]);
+    for (int i = 0; i < OB; ++i) {
+      store2<T>(krow + 8 * i, dk[i][2 * e], dk[i][2 * e + 1]);
+      store2<T>(vrow + 8 * i, dv[i][2 * e], dv[i][2 * e + 1]);
     }
   }
 }
 
-// q columns a step of the dk/dv kernel takes at once: at head_dim 128 the
-// dk and dv accumulators already hold 128 registers a thread
-constexpr int dkv_chunk(int D) { return D == 128 ? 32 : 64; }
+// q columns a step of the dk/dv kernel takes at once: above 64 gradient
+// columns the dk and dv accumulators hold DO registers a thread, so the
+// score fragments shrink to 32 columns, and to 16 where ds's products
+// widen fp16 operands (fp16 at 128 spilled at 32); 16 too above D = 128,
+// where the first products span the whole head_dim
+template <typename T>
+constexpr int dkv_chunk(int D) {
+  if (D > 128) return 16;
+  if (out_cols(D) <= 64) return 64;
+  return std::is_same_v<T, sm90::f16> ? 16 : 32;
+}
 
-template <int D>
+// The tensor-core kernels at head_dim D in T, as launch and attrs take
+// them.
+template <typename T, int D>
+struct Tc {
+  static constexpr int threads = NTC;
+  static KernelFn kernel(int which) {
+    return which == 0 ? &flash_dq_tc_kernel<T, D>
+                      : &flash_dkv_tc_kernel<T, D, dkv_chunk<T>(D)>;
+  }
+  static size_t smem(int which) {
+    return which == 0 ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
+  }
+  static dim3 grid(int which, const Args& a, int B) {
+    const int tiles = ((which == 0 ? a.Sq : a.Skv) + TB - 1) / TB;
+    return dim3(tiles * (D / out_cols(D)), B * a.H);
+  }
+};
+
+}  // namespace tc
+
+template <class K>
 int launch(int which, const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = which == 0 ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
-  void (*kernel)(Args) = which == 0
-                             ? &flash_dq_tc_kernel<D>
-                             : &flash_dkv_tc_kernel<D, dkv_chunk(D)>;
+  const size_t smem = K::smem(which);
+  const KernelFn kernel = K::kernel(which);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((which == 0 ? a.Sq : a.Skv) + TB - 1) / TB;
-  const dim3 grid(tiles, B * a.H);
-  kernel<<<grid, NTC, smem, stream>>>(a);
+  kernel<<<K::grid(which, a, B), K::threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace tc
+// What the card made of kernel `which` (0 dq, 1 dk/dv): out[0] registers
+// a thread, out[1] dynamic shared memory bytes, out[2] local (spill) bytes
+// a thread, out[3] CTAs an SM can hold.
+template <class K>
+int attrs(int which, int* out) {
+  const KernelFn kernel = K::kernel(which);
+  const size_t smem = K::smem(which);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                      K::threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)smem;
+  out[2] = (int)fa.localSizeBytes;
+  out[3] = ctas;
+  return 0;
+}
+
+// This library's one instantiation, set by the build (ops/_build.py):
+// TFOS_HEAD_DIM, and TFOS_DTYPE 0 = float32 (the FMA kernels), 1 =
+// bfloat16 or 2 = float16 (the tensor-core kernels).
+#if !defined(TFOS_HEAD_DIM) || !defined(TFOS_DTYPE)
+#error "build with -DTFOS_HEAD_DIM=<d> -DTFOS_DTYPE=<0|1|2> (ops/_build.py)"
+#endif
+static_assert(TFOS_HEAD_DIM % 16 == 0 && TFOS_HEAD_DIM <= 256,
+              "head_dim a multiple of 16, at most 256");
+#if TFOS_DTYPE == 0
+using Kernels = Fma<float, TFOS_HEAD_DIM>;
+#elif TFOS_DTYPE == 1
+using Kernels = tc::Tc<sm90::bf16, TFOS_HEAD_DIM>;
+#elif TFOS_DTYPE == 2
+using Kernels = tc::Tc<sm90::f16, TFOS_HEAD_DIM>;
+#else
+#error "TFOS_DTYPE is 0, 1 or 2"
+#endif
 
 int dispatch(int which, int dtype, int head_dim, const void* q, const void* k,
              const void* v, const void* g, const float* lse,
              const float* delta, void* out0, void* out1, int B, int H, int Sq,
              int Skv, const long long* st, float scale, int causal,
              void* stream) {
+  if (dtype != TFOS_DTYPE || head_dim != TFOS_HEAD_DIM) return -1;
   const Args a{q,     k,     v,     g,     lse,
                delta, out0,  out1,  H,     Sq,
                Skv,   {st[0], st[1], st[2]},  {st[3], st[4], st[5]},
                {st[6], st[7], st[8]},         {st[9], st[10], st[11]},
                {st[12], st[13], st[14]},      {st[15], st[16], st[17]},
                scale, causal};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(which, a, B, s);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(which, a, B, s);
-  if (dtype == 1 && head_dim == 64) return tc::launch<64>(which, a, B, s);
-  if (dtype == 1 && head_dim == 128) return tc::launch<128>(which, a, B, s);
-  return -1;
+  return launch<Kernels>(which, a, B, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q, k, v, g are [B, S, H, D] with unit
-// stride on D; lse and delta are f32 [B, H, Sq], contiguous.  `strides`
-// holds 6 x (batch, seq, head) element strides for q, k, v, g, out0, out1.
-// tfos_flash_dq writes dq to out0 (out1 unused); tfos_flash_dkv writes dk to
-// out0 and dv to out1.  Returns a cudaError_t (0 on success); -1 for an
-// unsupported dtype or head_dim.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  q, k, v, g are
+// [B, S, H, D] with unit stride on D; lse and delta are f32 [B, H, Sq],
+// contiguous.  `strides` holds 6 x (batch, seq, head) element strides for
+// q, k, v, g, out0, out1.  tfos_flash_dq writes dq to out0 (out1 unused);
+// tfos_flash_dkv writes dk to out0 and dv to out1.  Returns a cudaError_t
+// (0 on success); -1 for a dtype or head_dim other than this library's.
 int tfos_flash_dq(int dtype, int head_dim, const void* q, const void* k,
                   const void* v, const void* g, const float* lse,
                   const float* delta, void* out0, void* out1, int B, int H,
@@ -798,6 +890,13 @@ int tfos_flash_dkv(int dtype, int head_dim, const void* q, const void* k,
                    int causal, void* stream) {
   return dispatch(1, dtype, head_dim, q, k, v, g, lse, delta, out0, out1, B,
                   H, Sq, Skv, strides, scale, causal, stream);
+}
+
+// Kernel `which` (0 dq, 1 dk/dv) of this library as the card holds it:
+// out[0] registers a thread, out[1] dynamic shared memory bytes, out[2]
+// local (spill) bytes a thread, out[3] CTAs an SM.  Returns a cudaError_t.
+int tfos_flash_bwd_attrs(int which, int* out) {
+  return attrs<Kernels>(which, out);
 }
 
 const char* tfos_cuda_error_string(int err) {

@@ -11,9 +11,10 @@
 // head_dim, so the wrapper passes views of a fused qkv projection as they
 // are.  With causal masking the CTAs nearest the end of the sequence (the
 // longest kv loops) are scheduled first.  Two implementations behind one
-// interface:
+// interface, each library built for one head_dim (a multiple of 16 up to
+// 256) and one dtype (ops/_build.py passes TFOS_HEAD_DIM and TFOS_DTYPE):
 //
-// bf16: tensor cores (namespace tc, flash_fwd_tc_kernel).
+// bf16 and fp16: tensor cores (namespace tc, flash_fwd_tc_kernel<T, D>).
 //   What bounds it on the H100.  The function needs two products of 2*D
 //   flops per visible (q, kv) pair, 4*D flops, for ~4*D bytes of q/k/v/out
 //   traffic per row: at the training shape (8, 2048, 8, 128) causal that is
@@ -43,14 +44,20 @@
 //   accumulator, ~16 significant bits): rounding it once to bf16 would miss
 //   the per-element check against the f32 plain version by ~40x.  That costs
 //   a third product-unit: the kernel spends 3 of 2*D flops a pair, against
-//   the bound's 2.  l is summed from the f32 p, so lse keeps f32 accuracy.
+//   the bound's 2.  In fp16 the pair is fp16 (p is at most 1; mma_sm90.cuh
+//   says what its subnormals cost), with fp16 MMAs throughout.  l is
+//   summed from the f32 p, so lse keeps f32 accuracy.
 //   The mask is applied only on tiles that cross the diagonal or a sequence
 //   end; K/V rows past Skv and q rows past Sq are zero-filled; a warp whose
 //   16 rows all lie above a causal tile skips it.  Fully masked rows keep
 //   l == 0 and write 0.  At head_dim 128: 139,264 bytes of shared memory
 //   and 230 registers a thread (ptxas), so one CTA of 8 warps an SM; the
 //   grid puts q tiles on y, so that causal CTAs start longest first across
-//   every head, not only within one.
+//   every head, not only within one.  Above head_dim 128 two CTAs share a
+//   q tile, each recomputing S and the softmax for its own 128 columns of O,
+//   with Q's fragments reloaded from shared memory each k-step and a
+//   2-stage ring (three stages would need 270,336 bytes at 256): the
+//   registers of O and Q stay what they are at 128.
 //   wgmma with TMA and warp specialisation is the next step.
 //
 // float32: f32 FMAs (the first version, kept for float32, where TF32 would
@@ -61,7 +68,6 @@
 // never reaches device memory; row statistics reduce across the 16 lanes of
 // a half-warp with shuffles.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_sm90.cuh"
@@ -238,32 +244,44 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores
+// bf16 and fp16 on tensor cores
 
 namespace tc {
 
 using sm90::a_split;
-using sm90::bf16;
 using sm90::cp_async_commit;
 using sm90::cp_async_wait;
 using sm90::cp_tile;
 using sm90::ldsm4;
 using sm90::ldsm4_t;
 using sm90::mma;
+using sm90::mma_hilo;
 using sm90::store2;
 
 constexpr int BM = 128;        // q rows per CTA
 constexpr int BN = 64;         // kv rows per streamed tile
 constexpr int NW = BM / 16;    // warps per CTA, 16 q rows each
 constexpr int NTC = 32 * NW;   // threads per CTA
-constexpr int PAD = 8;         // bf16 padding of a shared-memory row (16 B)
-constexpr int STAGES = 3;      // K/V ring
+constexpr int PAD = 8;         // 16-bit padding of a shared-memory row (16 B)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Output columns a CTA owns: all D up to 128; above that D / 128 CTAs
+// share a q tile, each recomputing S and the softmax and accumulating its
+// own 128 columns of O (so O stays at 64 registers a thread).
+__host__ __device__ constexpr int out_cols(int D) {
+  return D > 128 ? 128 : D;
+}
+// K/V ring stages: three up to D = 128; two above, where three would
+// need (128 + 6 * 64) * 264 * 2 = 270,336 bytes of the 232,448 a CTA may
+// have.
+__host__ __device__ constexpr int stages(int D) {
+  return D > 128 ? 2 : 3;
+}
+
 template <int D>
-constexpr size_t smem_bytes() {  // Q; K and V in STAGES stages
-  return sizeof(bf16) * (BM + 2 * STAGES * BN) * (D + PAD);
+constexpr size_t smem_bytes() {  // Q; K and V in stages(D) stages
+  return 2 * (BM + 2 * stages(D) * BN) * (D + PAD);
 }
 
 // 2^x on the special-function unit (relative error ~2^-22; 0 far below)
@@ -273,47 +291,55 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NTC, 1)
-flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out,
                     float* __restrict__ lse, int H, int Sq, int Skv,
                     Strides qs, Strides ks, Strides vs, Strides os,
                     float scale, int causal) {
   constexpr int DP = D + PAD;
+  constexpr int DO = out_cols(D), SPLIT = D / DO;
+  constexpr int STAGES = stages(D);
   constexpr int NB = BN / 8;   // n8 blocks of S a tile
-  constexpr int DB = D / 8;    // n8 blocks of O
+  constexpr int OB = DO / 8;   // n8 blocks of this CTA's O columns
   constexpr int KD = D / 16;   // k16 steps of Q K^T
   constexpr int TS = BN * DP;  // elements of one K or V stage
+  // Q's A fragments stay in registers for the whole kv loop up to
+  // D = 128 (KD * 4 of them); above, each k-step reloads them from
+  // shared memory
+  constexpr bool QREG = D <= 128;
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);  // [BM][DP]
-  bf16* sK = sQ + BM * DP;                      // [STAGES][BN][DP]
-  bf16* sV = sK + STAGES * TS;                  // [STAGES][BN][DP]
+  T* sQ = reinterpret_cast<T*>(tc_smem);  // [BM][DP]
+  T* sK = sQ + BM * DP;                   // [STAGES][BN][DP]
+  T* sV = sK + STAGES * TS;               // [STAGES][BN][DP]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = 16 * warp;  // this warp's rows of the q tile
   // CTAs start in blockIdx order, x fastest: q tiles on y, so that under
   // causal masking every head's last q tile (the longest kv loop) starts
-  // before any head's second-to-last
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  // before any head's second-to-last; a head's column shares sit beside
+  // each other on x
+  const int bh = blockIdx.x / SPLIT, d0 = (blockIdx.x % SPLIT) * DO;
+  const int b = bh / H, h = bh % H;
   const int qt = causal ? (gridDim.y - 1 - blockIdx.y) : blockIdx.y;
   const int q0 = qt * BM;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
 
   int n_kv = (Skv + BN - 1) / BN;
   if (causal) n_kv = min(n_kv, (q0 + BM + BN - 1) / BN);
 
   // commit groups: Q, then one per kv tile (empty past the last), so that
   // before step j's wait the newest STAGES - 2 groups are tiles after j
-  cp_tile<D, BM, NTC, PAD>(sQ, qb, qs.s, q0, Sq);
+  cp_tile<T, D, BM, NTC, PAD>(sQ, qb, qs.s, q0, Sq);
   cp_async_commit();
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
     if (t < n_kv) {
-      cp_tile<D, BN, NTC, PAD>(sK + t * TS, kb, ks.s, t * BN, Skv);
-      cp_tile<D, BN, NTC, PAD>(sV + t * TS, vb, vs.s, t * BN, Skv);
+      cp_tile<T, D, BN, NTC, PAD>(sK + t * TS, kb, ks.s, t * BN, Skv);
+      cp_tile<T, D, BN, NTC, PAD>(sV + t * TS, vb, vs.s, t * BN, Skv);
     }
     cp_async_commit();
   }
@@ -322,13 +348,15 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // without (b_off) and with (t_off) transpose, before the tile offsets
   const int a_off = (r0 + lane % 16) * DP + (lane / 16) * 8;
   const int b_off = (lane % 8 + (lane / 16) * 8) * DP + ((lane / 8) % 2) * 8;
-  const int t_off = (lane % 16) * DP + (lane / 16) * 8;
+  const int t_off = (lane % 16) * DP + (lane / 16) * 8 + d0;
 
   cp_async_wait<STAGES - 1>();  // Q has landed
   __syncthreads();
-  unsigned qa[KD][4];  // Q's A fragments, kept for the whole kv loop
+  unsigned qa[QREG ? KD : 1][4];  // Q's A fragments (QREG)
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) ldsm4(qa[kk], sQ + a_off + 16 * kk);
+    for (int kk = 0; kk < KD; ++kk) ldsm4(qa[kk], sQ + a_off + 16 * kk);
+  }
 
   // Rows g and g + 8 of the warp's 16: running max in log2 units
   // (m2 = max(s) * scale * log2 e, so that p = 2^(s*c - m2) is one FFMA
@@ -337,9 +365,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float c = scale * LOG2E;
   const int qrow = q0 + r0 + lane / 4;
   float m2[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[DB][4];
+  float o[OB][4];
 #pragma unroll
-  for (int i = 0; i < DB; ++i)
+  for (int i = 0; i < OB; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
 
@@ -352,30 +380,38 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     {
       const int jn = j + STAGES - 1, sn = st == 0 ? STAGES - 1 : st - 1;
       if (jn < n_kv) {
-        cp_tile<D, BN, NTC, PAD>(sK + sn * TS, kb, ks.s, jn * BN, Skv);
-        cp_tile<D, BN, NTC, PAD>(sV + sn * TS, vb, vs.s, jn * BN, Skv);
+        cp_tile<T, D, BN, NTC, PAD>(sK + sn * TS, kb, ks.s, jn * BN, Skv);
+        cp_tile<T, D, BN, NTC, PAD>(sV + sn * TS, vb, vs.s, jn * BN, Skv);
       }
       cp_async_commit();
     }
     const int k0 = j * BN;
     // a warp whose rows all lie above this causal tile, or past Sq, skips it
     if ((!causal || k0 <= q0 + r0 + 15) && q0 + r0 < Sq) {
-      const bf16* tK = sK + st * TS;
-      const bf16* tV = sV + st * TS;
+      const T* tK = sK + st * TS;
+      const T* tV = sV + st * TS;
       float s[NB][4];
 #pragma unroll
       for (int i = 0; i < NB; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned qf[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+        } else {
+          ldsm4(qf, sQ + a_off + 16 * kk);
+        }
 #pragma unroll
         for (int n2 = 0; n2 < NB / 2; ++n2) {
           unsigned kf[4];
           ldsm4(kf, tK + b_off + 16 * n2 * DP + 16 * kk);
-          mma(s[2 * n2], qa[kk], kf[0], kf[1]);
-          mma(s[2 * n2 + 1], qa[kk], kf[2], kf[3]);
+          mma<T>(s[2 * n2], qf, kf[0], kf[1]);
+          mma<T>(s[2 * n2 + 1], qf, kf[2], kf[3]);
         }
+      }
 
       // mask where the tile crosses the diagonal or a sequence's end
       const bool masked = (causal && k0 + BN - 1 > q0 + r0) ||
@@ -405,7 +441,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         m2[r] = m_new;
         l[r] *= alpha;
 #pragma unroll
-        for (int i = 0; i < DB; ++i) {
+        for (int i = 0; i < OB; ++i) {
           o[i][2 * r] *= alpha;
           o[i][2 * r + 1] *= alpha;
         }
@@ -423,19 +459,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           l[e >> 1] += p;
         }
 
-      // O += P V, P as a hi/lo pair straight from the accumulators
+      // O += P V, P as a T hi/lo pair straight from the accumulators
 #pragma unroll
       for (int kk = 0; kk < NB / 2; ++kk) {
         unsigned hi[4], lo[4];
-        a_split<NB>(s, kk, hi, lo);
+        a_split<T, NB>(s, kk, hi, lo);
 #pragma unroll
-        for (int d2 = 0; d2 < DB / 2; ++d2) {
+        for (int d2 = 0; d2 < OB / 2; ++d2) {
           unsigned vf[4];
           ldsm4_t(vf, tV + t_off + 16 * kk * DP + 16 * d2);
-          mma(o[2 * d2], hi, vf[0], vf[1]);
-          mma(o[2 * d2 + 1], hi, vf[2], vf[3]);
-          mma(o[2 * d2], lo, vf[0], vf[1]);
-          mma(o[2 * d2 + 1], lo, vf[2], vf[3]);
+          mma_hilo<T>(o[2 * d2], o[2 * d2 + 1], hi, lo, vf);
         }
       }
     }
@@ -450,47 +483,48 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qpos = qrow + 8 * r;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);  // fully masked rows: l == 0
-    bf16* row = out + b * os.b + qpos * os.s + h * os.h + 2 * (lane % 4);
+    T* row = out + b * os.b + qpos * os.s + h * os.h + d0 + 2 * (lane % 4);
 #pragma unroll
-    for (int i = 0; i < DB; ++i)
-      store2(row + 8 * i, o[i][2 * r] / denom, o[i][2 * r + 1] / denom);
-    if (lane % 4 == 0)
+    for (int i = 0; i < OB; ++i)
+      store2<T>(row + 8 * i, o[i][2 * r] / denom, o[i][2 * r + 1] / denom);
+    if (d0 == 0 && lane % 4 == 0)
       lse[(long long)bh * Sq + qpos] = m2[r] * LN2 + logf(denom);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int H, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
            Strides os, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Sq + BM - 1) / BM);
-  flash_fwd_tc_kernel<D><<<grid, NTC, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, H, Sq, Skv,
-      qs, ks, vs, os, scale, causal);
+  const dim3 grid(B * H * (D / out_cols(D)), (Sq + BM - 1) / BM);
+  flash_fwd_tc_kernel<T, D><<<grid, NTC, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H, Sq, Skv, qs, ks,
+      vs, os, scale, causal);
   return (int)cudaGetLastError();
 }
 
-// What the card made of the kernel at head_dim D: registers a thread,
-// dynamic shared memory and local (spill) bytes, CTAs an SM can hold.
-template <int D>
-int attrs(int* out) {
+}  // namespace tc
+
+// What the card made of a kernel: out[0] registers a thread, out[1]
+// dynamic shared memory bytes, out[2] local (spill) bytes a thread, out[3]
+// CTAs an SM can hold.
+template <typename Kernel>
+int attrs(Kernel kernel, int threads, size_t smem, int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<D>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
-  constexpr size_t smem = smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &ctas, flash_fwd_tc_kernel<D>, NTC, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
   out[1] = (int)smem;
@@ -499,44 +533,60 @@ int attrs(int* out) {
   return 0;
 }
 
-}  // namespace tc
+// This library's one instantiation, set by the build (ops/_build.py):
+// TFOS_HEAD_DIM, and TFOS_DTYPE 0 = float32 (the FMA kernel), 1 = bfloat16
+// or 2 = float16 (the tensor-core kernel).
+#if !defined(TFOS_HEAD_DIM) || !defined(TFOS_DTYPE)
+#error "build with -DTFOS_HEAD_DIM=<d> -DTFOS_DTYPE=<0|1|2> (ops/_build.py)"
+#endif
+static_assert(TFOS_HEAD_DIM % 16 == 0 && TFOS_HEAD_DIM <= 256,
+              "head_dim a multiple of 16, at most 256");
+#if TFOS_DTYPE == 0
+#define TFOS_LAUNCH launch<float, TFOS_HEAD_DIM>
+#define TFOS_KERNEL flash_fwd_kernel<float, TFOS_HEAD_DIM>
+constexpr int kThreads = NT;
+constexpr size_t kSmem = smem_bytes<TFOS_HEAD_DIM>();
+#else
+#if TFOS_DTYPE == 1
+using Elem = sm90::bf16;
+#elif TFOS_DTYPE == 2
+using Elem = sm90::f16;
+#else
+#error "TFOS_DTYPE is 0, 1 or 2"
+#endif
+#define TFOS_LAUNCH tc::launch<Elem, TFOS_HEAD_DIM>
+#define TFOS_KERNEL tc::flash_fwd_tc_kernel<Elem, TFOS_HEAD_DIM>
+constexpr int kThreads = tc::NTC;
+constexpr size_t kSmem = tc::smem_bytes<TFOS_HEAD_DIM>();
+#endif
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel; q,
-// k and v 16-byte aligned, with batch, seq and head strides of whole
-// 16-byte vectors).  Strides are in elements, for the
-// [B, S, H, D] layout with unit stride on D.  Returns a cudaError_t
-// (0 on success); -1 for an unsupported dtype or head_dim.
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16, 2 = float16 (tensor-core
+// kernels; q, k and v 16-byte aligned, with batch, seq and head strides of
+// whole 16-byte vectors).  Strides are in elements, for the [B, S, H, D]
+// layout with unit stride on D.  Returns a cudaError_t (0 on success); -1
+// for a dtype or head_dim other than this library's.
 int tfos_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                    const void* v, void* out, float* lse, int B, int H, int Sq,
                    int Skv, long long qsb, long long qss, long long qsh,
                    long long ksb, long long kss, long long ksh, long long vsb,
                    long long vss, long long vsh, long long osb, long long oss,
                    long long osh, float scale, int causal, void* stream) {
+  if (dtype != TFOS_DTYPE || head_dim != TFOS_HEAD_DIM) return -1;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh},
       os{osb, oss, osh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TFOS_ARGS \
-  q, k, v, out, lse, B, H, Sq, Skv, qs, ks, vs, os, scale, causal, st
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(TFOS_ARGS);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(TFOS_ARGS);
-  if (dtype == 1 && head_dim == 64) return tc::launch<64>(TFOS_ARGS);
-  if (dtype == 1 && head_dim == 128) return tc::launch<128>(TFOS_ARGS);
-#undef TFOS_ARGS
-  return -1;
+  return TFOS_LAUNCH(q, k, v, out, lse, B, H, Sq, Skv, qs, ks, vs, os, scale,
+                     causal, static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 tensor-core kernel at head_dim 64 or 128 as the card holds it:
-// out[0] registers a thread, out[1] dynamic shared memory bytes, out[2]
-// local (spill) bytes a thread, out[3] CTAs an SM.  Returns a cudaError_t;
-// -1 for another head_dim.
-int tfos_flash_fwd_tc_attrs(int head_dim, int* out) {
-  if (head_dim == 64) return tc::attrs<64>(out);
-  if (head_dim == 128) return tc::attrs<128>(out);
-  return -1;
+// This library's kernel as the card holds it: out[0] registers a thread,
+// out[1] dynamic shared memory bytes, out[2] local (spill) bytes a thread,
+// out[3] CTAs an SM.  Returns a cudaError_t.
+int tfos_flash_fwd_attrs(int* out) {
+  return attrs(TFOS_KERNEL, kThreads, kSmem, out);
 }
 
 const char* tfos_cuda_error_string(int err) {

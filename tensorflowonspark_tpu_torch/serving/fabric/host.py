@@ -379,6 +379,8 @@ class _HostTask:
                 torch.backends.cudnn.allow_tf32 = False
                 torch.backends.cuda.matmul.\
                     allow_bf16_reduced_precision_reduction = False
+                torch.backends.cuda.matmul.\
+                    allow_fp16_reduced_precision_reduction = False
             ops.reset_launch_counts()
             fabric_cfg = payload.get("fabric") or {}
             host = _Host(h, payload, device, outq)

@@ -506,6 +506,8 @@ class _ReplicaTask:
                 torch.backends.cudnn.allow_tf32 = False
                 torch.backends.cuda.matmul.\
                     allow_bf16_reduced_precision_reduction = False
+                torch.backends.cuda.matmul.\
+                    allow_fp16_reduced_precision_reduction = False
             ops.reset_launch_counts()
             if payload.get("elastic"):
                 # the elastic boot gate (serving/elastic.py): announce

@@ -242,6 +242,59 @@ def test_chunks_feed_datafeed_as_named_columns(mgr):
     assert rows == [(0, 0), (2, 1), (4, 2)]
 
 
+@pytest.mark.parametrize("pull", ["next_batch", "next_batch_columns"])
+def test_datafeed_pull_records_the_jax_packages_fed_consumer_span(
+        pull, tmp_path, monkeypatch):
+    """With telemetry on, each pull of the port's ``DataFeed`` records the
+    ``data/stage`` span that the JAX package's records, stage
+    ``fed_consumer``: the pull's wall time less its transport wait, with
+    ``wait_ms`` and ``records``.  Both packages' feeds are driven the same
+    way here (row chunks of 10 through their own manager, pulls of 16
+    until end-of-feed) and give the same names, fields and record
+    counts."""
+    from tensorflowonspark_tpu import feed as jfeed
+    from tensorflowonspark_tpu.utils import telemetry as jtelemetry
+    from tensorflowonspark_tpu_torch.utils import telemetry
+
+    rows = [(float(i), i) for i in range(40)]
+    got = {}
+    for name, tel, mgr_mod, feed_cls in (
+            ("jax", jtelemetry, jmanager, jfeed.DataFeed),
+            ("torch", telemetry, manager, DataFeed)):
+        monkeypatch.setenv(tel.DIR_ENV, str(tmp_path / name))
+        monkeypatch.setenv(tel.NODE_ENV, f"{name}-0")
+        monkeypatch.delenv(tel.SPOOL_ENV, raising=False)
+        monkeypatch.delenv(tel.ROLE_ENV, raising=False)
+        assert tel.enabled()
+        m = mgr_mod.start(secrets.token_bytes(8), ["input", "output",
+                                                   "error"])
+        try:
+            q = m.get_queue("input")
+            for i in range(0, len(rows), 10):
+                q.put(rows[i:i + 10])
+            q.put(None)
+            feed = feed_cls(m, train_mode=True,
+                            input_mapping={"x": "x", "y": "y"})
+            while not feed.should_stop():
+                getattr(feed, pull)(16)
+        finally:
+            m.shutdown()
+        spans = [r for r in tel.recent() if r["name"] == "data/stage"
+                 and r["attrs"].get("stage") == "fed_consumer"]
+        waits = [r for r in tel.recent() if r["name"] == "feed/wait"]
+        got[name] = spans
+        assert [r["attrs"]["records"] for r in spans] == [16, 16, 8]
+        for r in spans:
+            assert r["kind"] == "span" and r["dur_ms"] >= 0
+            assert r["attrs"]["wait_ms"] >= 0
+        # the waits the spans subtract are the feed/wait spans' own
+        assert sum(r["attrs"]["wait_ms"] for r in spans) == pytest.approx(
+            sum(r["dur_ms"] for r in waits), abs=0.01)
+        monkeypatch.delenv(tel.DIR_ENV)
+    assert [sorted(r["attrs"]) for r in got["torch"]] == \
+        [sorted(r["attrs"]) for r in got["jax"]]
+
+
 # -- the static service, against the JAX package --------------------------------
 
 def _trainer_meta(m, executor_id, authkey):

@@ -128,27 +128,37 @@ def test_flash_plain_differentiable_on_cpu():
 
 
 @pytest.mark.parametrize("head_dim,match,case", [
-    pytest.param(32, r"\(64, 128\)", "f32", id=r"32-\(64, 128\)"),
+    # head_dim 32 is built now (it named the built (64, 128) before):
+    # it reaches the device check
+    pytest.param(32, "CUDA tensor", "f32", id=r"32-\(64, 128\)"),
+    pytest.param(257, "head_dim 1 to 256", "f32", id="257-over-the-limit"),
+    pytest.param(72, "CUDA tensor", "f16",
+                 id="72-padded-reaches-the-device-check"),
     pytest.param(64, "CUDA tensor", "f32", id="64-CUDA tensor"),
     pytest.param(128, "q must start on a 16-byte", "bf16 q base",
                  id="bf16-misaligned-q-base"),
+    pytest.param(128, "q must start on a 16-byte", "f16 q base",
+                 id="f16-misaligned-q-base"),
     pytest.param(128, "CUDA tensor", "bf16 fused qkv",
                  id="bf16-fused-qkv-views-pass-to-the-device-check"),
 ])
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
                                                             case):
-    """The kernel wrapper never falls back: an unsupported head_dim names
-    the supported set; a bf16 q that the tensor-core kernel cannot copy in
-    16-byte vectors (one element past a 16-byte boundary) is refused
-    before the device check, while views of a fused qkv projection pass
-    that check; and a CPU tensor handed to it is refused last."""
-    dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    """The kernel wrapper never falls back: a head_dim over 256 names the
+    limit, any other (a built one, or one the wrapper zero-pads to the
+    next built one) goes on to the other checks; a bf16 or f16 q that the
+    tensor-core kernel cannot copy in 16-byte vectors (one element past a
+    16-byte boundary) is refused before the device check, while views of
+    a fused qkv projection pass that check; and a CPU tensor handed to it
+    is refused last."""
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16}.get(
+        case[:4].strip(), torch.float32)
     qkv = _t(np.random.default_rng(2).standard_normal(
         (1, 8, 3, 2, head_dim)).astype(np.float32), dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if case != "bf16 fused qkv":
         q, k, v = (x.contiguous() for x in (q, k, v))
-    if case == "bf16 q base":
+    if case.endswith("q base"):
         q = _shifted(q)
     before = tattn.launches
     with pytest.raises(ValueError, match=match):
@@ -452,7 +462,7 @@ def test_cpu_backward_never_reaches_the_kernel_wrappers(monkeypatch):
 
     monkeypatch.setattr(tattn, "_flash_forward_cuda", boom)
     monkeypatch.setattr(tattn, "_flash_backward_cuda", boom)
-    monkeypatch.setattr(tattn, "_bwd_lib", boom)
+    monkeypatch.setattr(tattn, "_lib", boom)
     before = (tattn.launches, tattn.dq_launches, tattn.dkv_launches)
     qkv = _t(np.random.default_rng(4).standard_normal(
         (2, 40, 3, 2, 64)).astype(np.float32)).requires_grad_()
@@ -487,8 +497,13 @@ def _padded(x, dim):
 
 
 @pytest.mark.parametrize("head_dim,match,case", [
-    pytest.param(32, r"\(64, 128\)", "f32", id=r"32-\(64, 128\)"),
-    pytest.param(96, r"\(64, 128\)", "f32", id=r"96-\(64, 128\)"),
+    # head_dims 32 and 96 are built now (they named the built (64, 128)
+    # before): they reach the device check
+    pytest.param(32, "CUDA tensor", "f32", id=r"32-\(64, 128\)"),
+    pytest.param(96, "CUDA tensor", "f32", id=r"96-\(64, 128\)"),
+    pytest.param(300, "head_dim 1 to 256", "f32", id="300-over-the-limit"),
+    pytest.param(100, "CUDA tensor", "f16",
+                 id="100-padded-reaches-the-device-check"),
     pytest.param(64, "CUDA tensor", "f32", id="64-CUDA tensor"),
     pytest.param(64, "q must start on a 16-byte", "bf16 q base",
                  id="bf16-misaligned-base"),
@@ -498,6 +513,8 @@ def _padded(x, dim):
                  id="bf16-misaligned-head-stride"),
     pytest.param(128, "g must start on a 16-byte", "bf16 g base",
                  id="bf16-misaligned-g"),
+    pytest.param(80, "k must start on a 16-byte", "f16 k seq stride",
+                 id="f16-misaligned-seq-stride"),
     pytest.param(128, "CUDA tensor", "bf16 fused qkv",
                  id="bf16-fused-qkv-views-pass-to-the-device-check"),
     pytest.param(64, "CUDA tensor", "f32 q base",
@@ -507,15 +524,17 @@ def _padded(x, dim):
 ])
 def test_cuda_backward_wrapper_refuses_what_the_kernels_do_not_take(
         head_dim, match, case):
-    """The backward's CUDA wrapper never falls back: a head_dim the
-    kernels are not built for is a ValueError naming the supported set;
-    bf16 q, k, v or g that the tensor-core kernels cannot copy in
+    """The backward's CUDA wrapper never falls back: a head_dim over 256
+    is a ValueError naming the limit, any other goes on to the other
+    checks (one the kernels are not built for on the zero-padded path);
+    bf16 or f16 q, k, v or g that the tensor-core kernels cannot copy in
     16-byte vectors (a base pointer or a batch/seq/head stride off the
     16-byte grid) are refused, not copied; views of a fused qkv
     projection and float32 inputs (the FMA kernels load scalars) pass
     those checks; and CPU tensors handed to it are refused last, so they
     reach every other check."""
-    dtype = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16}.get(
+        case[:4].strip(), torch.float32)
     qkv = _t(np.random.default_rng(2).standard_normal(
         (1, 8, 3, 2, head_dim)).astype(np.float32), dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -525,7 +544,7 @@ def test_cuda_backward_wrapper_refuses_what_the_kernels_do_not_take(
     out, lse = tattn.flash_attention_plain(q, k, v, causal=True)
     if case.endswith("q base"):
         q = _shifted(q)
-    elif case == "bf16 k seq stride":
+    elif case.endswith("k seq stride"):
         k = _padded(k, 1)
     elif case == "bf16 v head stride":
         v = _padded(v, 2)
@@ -568,3 +587,61 @@ def test_a_newer_shared_header_makes_every_library_stale(tmp_path,
     os.utime(header, (t0, t0))
     os.utime(src, (t0 + 20, t0 + 20))
     assert _build._stale("kern")
+
+
+def test_flash_sources_build_one_library_an_instantiation(tmp_path,
+                                                          monkeypatch):
+    """``_build``: each flash source builds one library for every head_dim
+    of ``HEAD_DIMS`` and every dtype, from the same source with
+    ``-DTFOS_HEAD_DIM`` and ``-DTFOS_DTYPE``; any other source builds one
+    library of its own name.  ``build()`` runs as many nvcc's at once as
+    the host has cores (two here), the backward's widest first, and a
+    failure names its library (an nvcc stand-in here: a shell script that
+    logs its arguments)."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    recipes = _build._recipes()
+    want = {_build.variant(src, d, code)
+            for src in _build.FLASH for d in tattn.HEAD_DIMS
+            for code in _build.FLASH_DTYPES} | {"rmsnorm"}
+    assert set(recipes) == want
+    assert recipes["flash_bwd_d80_f16"] == (
+        "flash_bwd", ("-DTFOS_HEAD_DIM=80", "-DTFOS_DTYPE=2"))
+    assert recipes["rmsnorm"] == ("rmsnorm", ())
+    assert tattn.HEAD_DIMS == (32, 64, 80, 96, 128, 256)
+    assert set(tattn._DTYPES.values()) == set(_build.FLASH_DTYPES)
+
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    # writes its -o target, logs "<defines> <source>", fails on d96 f16
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "out=''; defs=''; src=''\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  case $1 in -o) out=$2; shift;; -D*) defs=\"$defs $1\";;\n"
+        "  *.cu) src=$1;; esac; shift\n"
+        "done\n"
+        "echo \"$defs $(basename $src)\" >> " + str(log) + "\n"
+        "case $defs in *HEAD_DIM=96*DTYPE=2*) echo boom; exit 1;; esac\n"
+        "touch $out\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.os, "cpu_count", lambda: 2)
+    names = [_build.variant("flash_fwd", 32, 1),
+             _build.variant("flash_bwd", 256, 0),
+             _build.variant("flash_bwd", 96, 2), "rmsnorm"]
+    with pytest.raises(RuntimeError,
+                       match=r"flash_bwd_d96_f16 \(exit 1\):\nboom"):
+        _build.build(names)
+    calls = log.read_text().splitlines()
+    assert calls[0] == " -DTFOS_HEAD_DIM=256 -DTFOS_DTYPE=0 flash_bwd.cu"
+    assert sorted(calls) == sorted([
+        " -DTFOS_HEAD_DIM=256 -DTFOS_DTYPE=0 flash_bwd.cu",
+        " -DTFOS_HEAD_DIM=96 -DTFOS_DTYPE=2 flash_bwd.cu",
+        " -DTFOS_HEAD_DIM=32 -DTFOS_DTYPE=1 flash_fwd.cu", " rmsnorm.cu"])
+    built = {p.name for p in (tmp_path / "build").iterdir()}
+    assert built == {f"lib{n}.so" for n in names if "d96" not in n}
+    log.write_text("")
+    assert _build.build(names[:2]) == {}  # fresh: nothing rebuilt
+    assert log.read_text() == ""
