@@ -39,7 +39,8 @@ too:
    off for float32 matmuls and convolutions, bf16 and float16 matmuls
    accumulate in float32;
 1. build every kernel library (the flash sources once per head_dim and
-   dtype, one ``nvcc`` each, as many at once as the host has cores;
+   dtype, and once per dtype for the chunked kernels of any head_dim
+   above 256, one ``nvcc`` each, as many at once as the host has cores;
    before any executor is spawned), and the feed's shm ring and the
    TFRecord codec (``g++``, started together; a failure of either fails
    the run) and marshal (``cc``; the numpy marshal runs where it cannot
@@ -48,13 +49,15 @@ too:
    registers and spills of every kernel; the bf16 and float16 flash
    kernels (forward, dq, dk/dv) must issue tensor-core MMAs (``HMMA`` in
    their SASS, read with ``cuobjdump``) and spill nothing up to head_dim
-   128, the float32 ones none; every flash kernel's registers, shared
+   128 and in the chunked kernels, the float32 ones none; every flash
+   kernel's registers, shared
    memory, local bytes and CTAs an SM as the card holds it;
 2. the flash forward kernel (bf16 and float16: tensor cores; float32:
    FMAs) against its plain PyTorch version on the card, at the main
-   path's shapes, Pythia's and Gemma-2B's, the tail / head_dim cases and
-   the padded head_dims, with times beside its bound and a library call
-   (SDPA);
+   path's shapes, Pythia's and Gemma-2B's, the tail / head_dim cases,
+   the padded head_dims, head_dim 320, 512 and 1024 (the chunked
+   kernels) and 65,600 batch x heads, with times beside its bound and a
+   library call (SDPA, with the backend it picked);
 3. the flash backward's dq and dk/dv kernels (bf16 and float16: tensor
    cores; float32: FMAs) against ``flash_backward_plain`` in the same cases,
    timed the same way (the library call is SDPA's backward);
@@ -451,7 +454,7 @@ too:
     graphed and eager gives equal tokens and accept counts.  Printed per
     engine: tokens/s, TTFT and gap p50/p99 per burst, graphs, capture
     ms, memory after the captures, the idle share.
-45. ``pythia``: Pythia-2.8B's widths (head_dim 80, 8 of its 32 layers,
+45. ``pythia``: Pythia-2.8B's widths (head_dim 80, 4 of its 32 layers,
     ``PYTHIA``): (a) bf16 batch 2 x 2048 SPARK-fed through
     ``cluster.run`` of ``transformer_spark.main_fun`` for 4 Adam steps on
     phase 6's engine, the chief exporting the f32 params to a temp dir
@@ -469,6 +472,13 @@ too:
     reference's (``_Dithered``); the trainer's first loss (c)'s.  Step
     ms, tokens/s, MFU, peak memory, export seconds and bytes, boot and
     load, TTFT and gaps.
+46. ``heads512``: the main transformer (``FULL``) at 2 heads of 512
+    (``HEADS512``), the flash kernels' chunked variants: phase 45's
+    (a)-(c) on the same helpers (``phase_width``) with the main path's
+    batch 8 x 2048, on the pipeline's fit engine (its executor has
+    never touched CUDA: only forked trainers did): 8 launches of each
+    flash kernel a step, the export served to phase 45's 4 sessions,
+    flash against the reference in bf16 and float16.
 
 Every serving phase (8, 9, 18-22, 30-31, 41-43) runs its engines and
 predicts at the default ``jit=None``, so in CUDA graphs: each gates that
@@ -640,6 +650,18 @@ FLASH_CASES = [
     (3, 257, 4, 32, True, torch.bfloat16, 2e-5),
     (2, 128, 4, 72, True, torch.bfloat16, 2e-5),
     (2, 128, 4, 200, False, torch.float16, 2e-5),
+    # the chunked kernels (head_dim above 256): phase 46's attention, the
+    # main transformer at 2 heads of 512, in each dtype; a tail and the
+    # pad to the chunk (320 runs as 384); "any D" (1024)
+    (8, 2048, 2, 512, True, torch.bfloat16, 2e-5),
+    (8, 2048, 2, 512, True, torch.float32, 2e-5),
+    (8, 2048, 2, 512, True, torch.float16, 2e-5),
+    (2, 300, 4, 320, False, torch.float16, 2e-5),
+    (2, 256, 2, 1024, True, torch.bfloat16, 2e-5),
+    # B*H = 65,600 (many short prompts in one batch): past the 65,535 a
+    # grid's y may hold, on x in every launcher
+    (16400, 16, 4, 64, False, torch.float32, 2e-5),
+    (16400, 16, 4, 64, False, torch.bfloat16, 2e-5),
 ]
 LSE_TOL = 1e-4
 # Every kernel and its plain version compute in float32 from the same
@@ -863,7 +885,8 @@ def check_tc_build():
     line; returns {kernel: {dtype: {head_dim: {registers, spill bytes,
     hmma, runtime registers, shared bytes, local bytes, CTAs an SM}}}}."""
     out = {n: {} for names in TC_LIBS.values() for n in names}
-    libs = [(src, d, code) for src in TC_LIBS for d in attention.HEAD_DIMS
+    libs = [(src, d, code) for src in TC_LIBS
+            for d in (*attention.HEAD_DIMS, _build.CHUNKED)
             for code in _build.FLASH_DTYPES]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         mmas = list(pool.map(lambda x: sass_mma_counts(_build._lib_path(
@@ -887,7 +910,8 @@ def check_tc_build():
             row = dict(registers=r, spill_bytes=(st or 0) + (ld or 0),
                        hmma=n_mma, **attrs[name])
             # the tensor-core kernels are gated up to head_dim 128, the
-            # main paths' (Pythia's 80 among them); at 256 the dk/dv
+            # main paths' (Pythia's 80 among them), and in the chunked
+            # libraries (key CHUNKED = 0, phase 46's); at 256 the dk/dv
             # kernel's 32-byte spill (ptxas holds every head_dim-256
             # backward at 254-255 registers however its loops are cut)
             # and the float32 FMA kernels' spills (the dq kernel's at 64
@@ -895,7 +919,8 @@ def check_tc_build():
             if code and d <= 128 and (row["spill_bytes"]
                                       or row["local_bytes"]):
                 raise AssertionError(f"{lib_name} {fn} spills: {row}")
-            out[name].setdefault(dtype, {})[str(d)] = row
+            key = "chunked" if d == _build.CHUNKED else str(d)
+            out[name].setdefault(dtype, {})[key] = row
     print("flash_fwd build " + json.dumps(out["flash_fwd"]), flush=True)
     print("flash_bwd build " + json.dumps(
         {n: out[n] for n in TC_LIBS["flash_bwd"]}), flush=True)
@@ -1003,7 +1028,7 @@ def phase_flash(dev):
                 f"of the per-element tolerance, atol {tol}), lse err "
                 f"{lse_err} (tol {LSE_TOL})")
         # the main path's rows the longest (the others' rows for the clock)
-        reps = (20 if i < 2 else 10) if s >= 1024 else 50
+        reps = (20 if i < 2 else 5) if s >= 1024 else 20
         def kernel():
             return attention._flash_forward(q, k, v, causal=causal,
                                             scale=scale)
@@ -1020,16 +1045,30 @@ def phase_flash(dev):
                 qt, kt, vt, is_causal=causal, scale=scale), reps)
         bound, bound_by = flash_bound_ms(b, s, s, h, d, causal, dtype)
         row = dict(shape=[b, s, h, d],
-                   kernel_head_dim=next(x for x in attention.HEAD_DIMS
-                                        if x >= d), causal=causal,
+                   kernel_head_dim=attention.kernel_head_dim(d),
+                   causal=causal,
                    dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
                    tol_share=share, lse_err=lse_err, ms=ms,
                    ms_with_enqueue=ms_with_enqueue, plain_ms=plain_ms,
                    bound_ms=bound,
-                   bound_by=bound_by, library_ms=library_ms)
+                   bound_by=bound_by, library_ms=library_ms,
+                   library_backend=sdpa_backend(qt, kt, vt, causal, scale))
         print("flash_fwd case " + json.dumps(row), flush=True)
         rows.append(row)
     return rows[0]
+
+
+def sdpa_backend(q, k, v, causal, scale):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    [B, H, S, D] inputs (its flash backend stops at head_dim 256), by
+    the name of ``torch.nn.attention.SDPBackend``, from torch's own
+    chooser ``torch._fused_sdp_choice``."""
+    from torch.nn.attention import SDPBackend
+
+    names = {int(b.value): n for n, b in SDPBackend.__members__.items()}
+    choice = torch._fused_sdp_choice(q, k, v, None, 0.0, causal,
+                                     scale=scale)
+    return names.get(int(choice), f"code {int(choice)}")
 
 
 def _close(got, ref, dtype, atol):
@@ -1073,10 +1112,10 @@ def phase_flash_bwd(dev):
                     f"({share:.3g} of the per-element tolerance), dtype "
                     f"{x.dtype}")
             errs[name] = (err, share)
-        reps = (10 if i < 2 else 5) if s >= 1024 else 50
+        reps = (10 if i < 2 else 3) if s >= 1024 else 20
         # the kernels at the head_dim they run: a padded case's inputs as
         # padded_head_dim hands them over
-        kd = next(x for x in attention.HEAD_DIMS if x >= d)
+        kd = attention.kernel_head_dim(d)
         pq, pk, pv, pout, pg = (torch.nn.functional.pad(x, (0, kd - d))
                                 if kd > d else x for x in (q, k, v, out, g))
         gi, lse_i, delta = attention._bwd_inputs(pq, pk, pv, pout, lse, pg)
@@ -1108,7 +1147,8 @@ def phase_flash_bwd(dev):
                    dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
                    dq_bound_ms=dq_bound, dq_bound_by=dq_by,
                    dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
-                   pair_bound_ms=pair_bound, library_ms=library_ms)
+                   pair_bound_ms=pair_bound, library_ms=library_ms,
+                   library_backend=sdpa_backend(qt, kt, vt, causal, scale))
         print("flash_bwd case " + json.dumps(row), flush=True)
         rows.append(row)
         del qt, kt, vt, lib_out
@@ -7284,31 +7324,48 @@ def phase_serve_deploy(dev, gpu, engine, engine_actors, tmp, tdir):
 # intermediate_size 10240, vocab_size 50304, max_position_embeddings
 # 2048): head_dim 80.  Only the widths: Pythia's partial rotary,
 # parallel residual and LayerNorm are not the Config's.  Depth cut from
-# 32 to 8 layers for the clock (0.89B params; at 32, 2.77B, the script
-# took 945.9-1,239.6 s of phases, at 16 1,105.0, over its 900 s); widths
-# never cut.  Seeded weights, nothing downloaded.  Training: batch 2 x
+# 32 to 4 layers for the clock (0.69B params; at 32, 2.77B, the script
+# took 945.9-1,239.6 s of phases, at 16 1,105.0, over its 900 s; 8 until
+# phase 46 came); widths never cut.  Seeded weights, nothing downloaded.
+# Training: batch 2 x
 # 2048 SPARK-fed for 4 Adam(1e-3) steps, the chief's export served by
 # one replica (CUDA graphs on) to a handful of sessions
-PYTHIA = dict(vocab_size=50304, dim=2560, n_layers=8, n_heads=32,
+PYTHIA = dict(vocab_size=50304, dim=2560, n_layers=4, n_heads=32,
               max_seq=2048, mlp_ratio=4)
 PYTHIA_TRAIN = dict(batch=2, steps=4, seed=45, lr=1e-3)
 PYTHIA_SERVE = dict(prompts=(64, 300, 900, 1500), max_tokens=16, slots=4)
-# the export is float32 npz (3.6 GB at 8 layers, 11.1 at 32): the free
+# the export is float32 npz (2.2 GB at 4 layers, 11.1 at 32): the free
 # space its temp dir needs
 PYTHIA_EXPORT_BYTES = 12 << 30
+# Phase 46: the main transformer (bench.py:915-919, FULL) with only
+# n_heads changed, 8 -> 2, so head_dim 512 (the chunked kernels') at the
+# same B*H*D as the main path: its attention FLOPs and the kernels'
+# bounds are the main path's.  The main path's batch 8 x 2048 and
+# Adam(1e-3), 4 steps; phase 45's sessions; the export 0.54 GB
+HEADS512 = dict(FULL, n_heads=2)
+# one run of phase_width: the configuration, its training, serving and
+# export space, and the name its lines print under
+WIDTH_RUNS = {
+    "pythia": dict(cfg=PYTHIA, train=PYTHIA_TRAIN, serve=PYTHIA_SERVE,
+                   export_bytes=PYTHIA_EXPORT_BYTES),
+    "heads512": dict(cfg=HEADS512, train=dict(batch=TRAIN_BATCH, steps=4,
+                                              seed=46, lr=1e-3),
+                     serve=PYTHIA_SERVE, export_bytes=2 << 30),
+}
 # In-process, on the training batch and params: flash attention against
 # mha_reference through the whole model, bf16 and float16 (step-0 loss,
 # every gradient, a prefill's last-position logits).  The kernel checks
 # hold every output and gradient element of the kernels to one rounding
 # step of the compute type (rtol 2^-7 bf16, 2^-10 f16) of the plain
-# version, and no further.  The loss, an f32 mean over 4,094 positions,
-# moves by no more than that relative step.  The logits and gradients
-# carry single elements' steps through every layer, so their limit is
-# what an attention that sits up to a rounding step off everywhere gives:
-# mha_reference with its output and its gradients dithered within one
-# step of their type (_Dithered), on the same params and batch, three
-# dithers; flash attention passes where its logits and gradients part
-# from the reference's by no more than the largest dither's do.
+# version, and no further.  The loss, an f32 mean over the batch's
+# positions, moves by no more than that relative step.  The logits and
+# gradients carry single elements' steps through every layer, so their
+# limit is what an attention that sits up to a rounding step off
+# everywhere gives: mha_reference with its output and its gradients
+# dithered within one step of their type (_Dithered), on the same params
+# and batch, three dithers; flash attention passes where its logits and
+# gradients part from the reference's by no more than the largest
+# dither's do.
 PYTHIA_DITHERS = (2654435761, 2246822519, 3266489917)  # hash multipliers
 PYTHIA_LOSS_RTOL = {"bfloat16": BF16_RTOL, "float16": F16_RTOL}
 
@@ -7355,26 +7412,27 @@ def _dither(x, dtype, salt):
     return torch.where(x == 0, x, x + (u - 0.5) * step).to(dtype)
 
 
-def _pythia_tokens():
-    return np.random.default_rng(PYTHIA_TRAIN["seed"]).integers(
-        0, PYTHIA["vocab_size"], (PYTHIA_TRAIN["batch"], PYTHIA["max_seq"]))
+def _width_tokens(run):
+    return np.random.default_rng(run["train"]["seed"]).integers(
+        0, run["cfg"]["vocab_size"],
+        (run["train"]["batch"], run["cfg"]["max_seq"]))
 
 
-def _pythia_train(engine, gpu, export_dir):
-    """(a) Pythia's widths SPARK-fed through ``cluster.run`` ->
+def _width_train(run, engine, export_dir):
+    """(a) ``run``'s configuration SPARK-fed through ``cluster.run`` ->
     ``transformer_spark.main_fun`` in bf16, the chief exporting at the
     end; returns the trainer's report."""
-    cfg = dict(PYTHIA, dtype="bfloat16", attn_impl="flash")
-    tokens = _pythia_tokens()
-    steps, batch = PYTHIA_TRAIN["steps"], PYTHIA_TRAIN["batch"]
+    cfg = dict(run["cfg"], dtype="bfloat16", attn_impl="flash")
+    tokens = _width_tokens(run)
+    steps, batch = run["train"]["steps"], run["train"]["batch"]
     records = [tokens[i].astype(np.int32) for i in range(batch)] * steps
-    out_dir = tempfile.mkdtemp(prefix="tfos_pythia_train_")
+    out_dir = tempfile.mkdtemp(prefix="tfos_width_train_")
     try:
         t0 = time.time()
         c = TFCluster.run(
             engine, transformer_spark.main_fun,
             {"config": cfg, "batch_size": batch,
-             "seed": PYTHIA_TRAIN["seed"], "lr": PYTHIA_TRAIN["lr"],
+             "seed": run["train"]["seed"], "lr": run["train"]["lr"],
              "out_dir": out_dir, "export_dir": export_dir},
             num_executors=1, input_mode=TFCluster.InputMode.SPARK,
             num_gpus=1, reservation_timeout=300)
@@ -7387,15 +7445,15 @@ def _pythia_train(engine, gpu, export_dir):
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     losses = report["losses"]
-    want = PYTHIA["n_layers"] * steps
+    want = run["cfg"]["n_layers"] * steps
     if len(losses) != steps or not all(np.isfinite(losses)):
-        raise AssertionError(f"pythia train losses {losses}")
+        raise AssertionError(f"train losses {losses}")
     if report["launches"] != dict(flash_fwd=want, flash_dq=want,
                                   flash_dkv=want, rmsnorm=0):
-        raise AssertionError(f"pythia trainer launches {report['launches']},"
-                             f" want {want} of each flash kernel")
+        raise AssertionError(f"trainer launches {report['launches']}, want "
+                             f"{want} of each flash kernel")
     if fed != list(range(steps)) or _alive(report["pid"]):
-        raise AssertionError(f"pythia fed partitions {fed}, trainer "
+        raise AssertionError(f"fed partitions {fed}, trainer "
                              f"{report['pid']} alive {_alive(report['pid'])}")
     if not os.path.exists(os.path.join(export_dir, "params.npz")):
         raise AssertionError(f"no export in {export_dir}")
@@ -7404,16 +7462,16 @@ def _pythia_train(engine, gpu, export_dir):
     return report
 
 
-def _pythia_serve(dev, engine, export_dir):
+def _width_serve(run, dev, engine, export_dir):
     """(b) The export served by a one-replica ``Server`` (CUDA graphs on,
-    paged KV with prefix sharing): ``PYTHIA_SERVE``'s prompts at once,
-    then prompts of the same lengths with fresh tokens (the same buckets,
+    paged KV with prefix sharing): ``run``'s prompts at once, then
+    prompts of the same lengths with fresh tokens (the same buckets,
     graphs replayed).  Returns (summary, the replica's stats)."""
-    cfg = T.Config(**PYTHIA, dtype="bfloat16", attn_impl="flash")
-    n = PYTHIA_SERVE["max_tokens"]
+    cfg = T.Config(**run["cfg"], dtype="bfloat16", attn_impl="flash")
+    n, serve = run["serve"]["max_tokens"], run["serve"]
     spec = serving.ModelSpec(
         export_dir=export_dir, device=str(dev),
-        decode=DecodeSpec(cfg, slots=PYTHIA_SERVE["slots"], paged=True,
+        decode=DecodeSpec(cfg, slots=serve["slots"], paged=True,
                           block_size=16, prefix_sharing=True, max_tokens=n))
     rng = np.random.default_rng(46)
     t0 = time.perf_counter()
@@ -7424,13 +7482,13 @@ def _pythia_serve(dev, engine, export_dir):
         bursts = []
         for _ in range(2):  # cold (the captures), then fresh tokens
             prompts = [rng.integers(0, cfg.vocab_size, m).tolist()
-                       for m in PYTHIA_SERVE["prompts"]]
+                       for m in serve["prompts"]]
             t = time.perf_counter()
             outs = _concurrently(lambda p: srv.generate(p, max_tokens=n),
                                  prompts)
             bursts.append((outs, time.perf_counter() - t))
             for i, out in enumerate(outs):
-                _session_gate(f"pythia {i}", out, n, cfg.vocab_size)
+                _session_gate(f"session {i}", out, n, cfg.vocab_size)
         reps = srv.summary(include_replicas=True)["replica_stats"]
     finally:
         srv.stop()
@@ -7444,8 +7502,8 @@ def _pythia_serve(dev, engine, export_dir):
                     tok_p50_ms=_percentile(gaps, 50),
                     tokens_per_s=n * len(outs) / wall, wall_s=wall)
 
-    return dict(sessions=len(PYTHIA_SERVE["prompts"]), prompt_tokens=list(
-        PYTHIA_SERVE["prompts"]), max_tokens=n, boot_and_load_s=boot_s,
+    return dict(sessions=len(serve["prompts"]), prompt_tokens=list(
+        serve["prompts"]), max_tokens=n, boot_and_load_s=boot_s,
         cold=burst_line(*bursts[0]), warm=burst_line(*bursts[1]),
         replica=dict(peak_mem_bytes=rep.get("peak_mem_bytes"),
                      mem_bytes=rep.get("mem_bytes"),
@@ -7455,7 +7513,7 @@ def _pythia_serve(dev, engine, export_dir):
                      launches=rep["launches"])), rep
 
 
-def _pythia_exact(dev):
+def _width_exact(run, dev):
     """(c) On the card, in this process, on the training batch and the
     trainer's seeded params: ``attn_impl="flash"`` against
     ``"reference"`` in bf16 and float16: the step-0 loss (relative
@@ -7466,13 +7524,13 @@ def _pythia_exact(dev):
     dithered references' (_Dithered, ``PYTHIA_DITHERS``).  Every run
     checkpoints each layer (remat), so that the reference's materialized
     scores live one layer at a time."""
-    params = T.init(T.Config(**PYTHIA), torch.Generator(
-        device=dev).manual_seed(PYTHIA_TRAIN["seed"]), dev)
+    params = T.init(T.Config(**run["cfg"]), torch.Generator(
+        device=dev).manual_seed(run["train"]["seed"]), dev)
     leaves = _param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    toks = torch.from_numpy(_pythia_tokens()).to(dev)
-    n = PYTHIA["n_layers"]
+    toks = torch.from_numpy(_width_tokens(run)).to(dev)
+    n = run["cfg"]["n_layers"]
     out = {}
     for dtype in ("bfloat16", "float16"):
         runs = {}
@@ -7481,7 +7539,7 @@ def _pythia_exact(dev):
                 *((f"dithered_{i}", "reference",
                    functools.partial(_dithered, salt=salt))
                   for i, salt in enumerate(PYTHIA_DITHERS))):
-            cfg = T.Config(**PYTHIA, dtype=dtype, attn_impl=impl)
+            cfg = T.Config(**run["cfg"], dtype=dtype, attn_impl=impl)
             _reset_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             loss = T.loss_fn(params, toks, cfg, attn_fn=attn_fn, remat=True)
@@ -7489,22 +7547,22 @@ def _pythia_exact(dev):
             with torch.no_grad():
                 logits, _, _ = T.prefill(params, toks, cfg, attn_fn=attn_fn)
             torch.cuda.synchronize()
-            run = dict(loss=loss.item(), launches=_counts(),
-                       peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-                       finite=all(bool(torch.isfinite(g).all())
-                                  for g in grads))
+            r = dict(loss=loss.item(), launches=_counts(),
+                     peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                     finite=all(bool(torch.isfinite(g).all())
+                                for g in grads))
             if name == "reference":
-                ref_grads, ref_logits, ref_loss = grads, logits, run["loss"]
+                ref_grads, ref_logits, ref_loss = grads, logits, r["loss"]
             else:
                 num = sum(float(((a.float() - b.float()) ** 2).sum())
                           for a, b in zip(grads, ref_grads))
                 den = sum(float((b.float() ** 2).sum()) for b in ref_grads)
-                run.update(
-                    loss_rel=abs(run["loss"] - ref_loss) / abs(ref_loss),
+                r.update(
+                    loss_rel=abs(r["loss"] - ref_loss) / abs(ref_loss),
                     grads_rel_norm=(num / den) ** 0.5,
                     logits_rel=((logits - ref_logits).abs().max()
                                 / ref_logits.abs().max()).item())
-            runs[name] = run
+            runs[name] = r
             del loss, grads, logits
         del ref_grads, ref_logits
         f = runs["flash"]
@@ -7518,61 +7576,62 @@ def _pythia_exact(dev):
         if f["launches"] != dict(flash_fwd=3 * n, flash_dq=n, flash_dkv=n) \
                 or any(any(r["launches"].values()) for k, r in runs.items()
                        if k not in ("flash", "limit")):
-            raise AssertionError(f"pythia exact {dtype} launches {runs}")
+            raise AssertionError(f"exact {dtype} launches {runs}")
         if not (f["finite"] and all(f[m] <= runs["limit"][m]
                                     for m in metrics_)):
-            raise AssertionError(f"pythia flash vs reference {dtype} beyond "
-                                 f"the dithered reference's: {runs}")
+            raise AssertionError(f"flash vs reference {dtype} beyond the "
+                                 f"dithered reference's: {runs}")
     del params, leaves
     torch.cuda.empty_cache()
     return out
 
 
-def phase_pythia(dev, gpu, engine):
-    """Phase 45, Pythia-2.8B's widths (head_dim 80) through the port's
-    entry points: (a) trained SPARK-fed on ``engine`` (one executor that
-    has never touched CUDA), (b) its export served by a replica in that
-    executor once the cluster is down, (c) flash against the reference
-    in process.  The export lives in a temp dir, deleted at the end.
-    Returns the trainer's and the replica's launches, summed."""
+def phase_width(name, dev, gpu, engine):
+    """Phases 45 (``pythia``) and 46 (``heads512``): ``WIDTH_RUNS[name]``
+    through the port's entry points: (a) trained SPARK-fed on ``engine``
+    (one executor that has never touched CUDA), (b) its export served by
+    a replica in that executor once the cluster is down, (c) flash
+    against the reference in process.  The export lives in a temp dir,
+    deleted at the end.  Prints the ``<name>`` and ``<name> exact``
+    lines; returns the trainer's and the replica's launches, summed."""
+    run = WIDTH_RUNS[name]
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="tfos_pythia_")
+    tmp = tempfile.mkdtemp(prefix=f"tfos_{name}_")
     try:
         free = shutil.disk_usage(tmp).free
-        if free < PYTHIA_EXPORT_BYTES:
+        if free < run["export_bytes"]:
             raise AssertionError(f"{tmp} has {free} bytes free, the export "
-                                 f"needs {PYTHIA_EXPORT_BYTES}")
+                                 f"needs {run['export_bytes']}")
         export_dir = os.path.join(tmp, "export")
-        report = _pythia_train(engine, gpu, export_dir)
+        report = _width_train(run, engine, export_dir)
         export_bytes = os.path.getsize(os.path.join(export_dir,
                                                     "params.npz"))
-        serve, rep = _pythia_serve(dev, engine, export_dir)
+        serve, rep = _width_serve(run, dev, engine, export_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    n_params = _n_params(T.Config(**PYTHIA))
-    tokens = PYTHIA_TRAIN["batch"] * PYTHIA["max_seq"]
+    cfg = T.Config(**run["cfg"])
+    tokens = run["train"]["batch"] * run["cfg"]["max_seq"]
     med = statistics.median(report["step_ms"])
-    flops = metrics.transformer_flops_per_token(
-        T.Config(**PYTHIA), causal=True)
+    flops = metrics.transformer_flops_per_token(cfg, causal=True)
     summary = dict(
-        config=PYTHIA, params=n_params, dtype="bfloat16",
-        batch=PYTHIA_TRAIN["batch"], losses=report["losses"],
-        step_ms=report["step_ms"], step_ms_median=med,
-        tokens_per_s=tokens / (med / 1e3),
+        config=run["cfg"], head_dim=cfg.head_dim, params=_n_params(cfg),
+        dtype="bfloat16", batch=run["train"]["batch"],
+        losses=report["losses"], step_ms=report["step_ms"],
+        step_ms_median=med, tokens_per_s=tokens / (med / 1e3),
         mfu_median_step=tokens / (med / 1e3) * flops / PEAK_FLOPS[
             torch.bfloat16],
         peak_mem_gb=report["peak_mem_gb"], boot_s=report["boot_s"],
         total_train_s=report["total_s"], export_s=report.get("export_s"),
         export_bytes=export_bytes, export_free_bytes=free,
         launches=report["launches"], serve=serve, gpu=gpu)
-    print("pythia " + json.dumps(summary), flush=True)
-    exact = _pythia_exact(dev)
-    print("pythia exact " + json.dumps(exact), flush=True)
+    print(f"{name} " + json.dumps(summary), flush=True)
+    exact = _width_exact(run, dev)
+    print(f"{name} exact " + json.dumps(exact), flush=True)
     # the trainer's first step and (c)'s flash loss: the same kernels on
     # the same params and batch (the remat recompute repeats the forward)
     step0 = exact["bfloat16"]["flash"]["loss"]
     if abs(report["losses"][0] - step0) > SPARK_LOSS_RTOL * abs(step0):
-        raise AssertionError(f"pythia trainer's step-0 loss "
+        raise AssertionError(f"{name} trainer's step-0 loss "
                              f"{report['losses'][0]} vs in process {step0}")
     return _sum_launches(report["launches"], rep["launches"])
 
@@ -7991,8 +8050,14 @@ def run_phases(dev, gpu, lap, tc_build, engines, tdirs):
     # trainer after it: trained SPARK-fed, its export served by a replica
     # in the same executor, flash against the reference in process; the
     # trainer's and the replica's launches
-    pythia_launches = phase_pythia(dev, gpu, engine)
+    pythia_launches = phase_width("pythia", dev, gpu, engine)
     lap("pythia")
+    # the main transformer at 2 heads of 512 (46), the chunked kernels, on
+    # the fit engine (idle since phase 24; its executor forks trainers
+    # and has never touched CUDA): trained SPARK-fed, served, flash
+    # against the reference; the trainer's and the replica's launches
+    heads512_launches = phase_width("heads512", dev, gpu, engine_fit)
+    lap("heads512")
     print("phase_seconds " + json.dumps(dict(
         lap.seconds, total=round(sum(lap.seconds.values()), 1))), flush=True)
 
@@ -8088,9 +8153,12 @@ def run_phases(dev, gpu, lap, tc_build, engines, tdirs):
         k["launches_serve_elastic"] = serve_elastic_launches[k["name"]]
         k["launches_fabric"] = fabric_launches[k["name"]]
         k["launches_deploy"] = deploy_launches[k["name"]]
-        # phase 45: Pythia's trainer (4 steps x 8 layers of #1-#3) and
+        # phase 45: Pythia's trainer (4 steps x 4 layers of #1-#3) and
         # its serving replica's prefills (#1), summed
         k["launches_pythia"] = pythia_launches[k["name"]]
+        # phase 46: its trainer (4 steps x 8 layers of #1-#3, head_dim
+        # 512) and its replica's prefills (#1), summed
+        k["launches_heads512"] = heads512_launches[k["name"]]
     for name, got in (("serving replicas", serve_launches),
                       ("elastic replicas", serve_elastic_launches),
                       ("fabric hosts", fabric_launches),

@@ -90,6 +90,11 @@ class TaskError(RuntimeError):
     """A task raised on an executor; carries the remote traceback."""
 
 
+class ResultPumpError(TaskError):
+    """The result transport itself failed (a corrupt stream, a payload
+    the driver cannot unpickle): not the fault of any one task's code."""
+
+
 # the running task's report, in the executor: ``lineage_ms``, each
 # map_partitions stage's milliseconds, and what a stage adds to it
 # (dfutil's reader: the ``codec`` it read with).  Cleared per task.
@@ -568,6 +573,18 @@ class LocalEngine:
                 continue
             except (OSError, EOFError, ValueError):
                 break
+            except Exception as e:  # noqa: BLE001 - transport corruption
+                # results are pickled in the executor, so a bad payload
+                # fails only its own task: an error here is the pipe's.
+                # Ending the pump would leave every job waiting for good;
+                # each in-flight job gets a typed error instead
+                logger.exception("result pump error")
+                with self._job_lock:
+                    queues = list(self._job_queues.values())
+                for q in queues:
+                    q.put(("pump_error", None, -1, -1,
+                           f"result pump transport error: {e!r}", None))
+                continue
             status, job_id, task_id, (index, incarnation), payload = item
             key = (job_id, task_id)
             with self._dispatch_lock:
@@ -744,6 +761,8 @@ class LocalEngine:
             if status == "start":
                 running[tid] = (idx, inc)
                 continue
+            if status == "pump_error":
+                raise ResultPumpError(payload)
             if done[tid]:
                 continue  # a late answer of a superseded attempt
             if status == "error":
@@ -754,7 +773,12 @@ class LocalEngine:
                 continue
             running.pop(tid, None)
             if payload is not None:
-                results[tid] = pickle.loads(payload)
+                try:
+                    results[tid] = pickle.loads(payload)
+                except Exception as e:  # noqa: BLE001 - any unpickler error
+                    raise ResultPumpError(
+                        f"result of task {tid} (job {job_id}) could not be "
+                        f"deserialized: {e!r}") from e
             done[tid] = True
             ndone += 1
             metrics_registry.inc("tfos_engine_tasks_total", status="ok")

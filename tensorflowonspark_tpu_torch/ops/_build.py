@@ -5,10 +5,12 @@ interface under ``build/torch_kernels/`` at the repository root, and
 loads through ``ctypes``: seconds per library, where a build that
 includes PyTorch's headers takes minutes.  The flash sources
 (``FLASH``) build once per instantiation: a library for each head_dim of
-``FLASH_HEAD_DIMS`` and each dtype of ``FLASH_DTYPES``, from the same
-source with ``-DTFOS_HEAD_DIM`` and ``-DTFOS_DTYPE`` (:func:`variant`
-names them), so that the builds of one source run in parallel; every
-other source builds one library of its own name.  A library is built at
+``FLASH_HEAD_DIMS`` and each dtype of ``FLASH_DTYPES``, and one a dtype
+whose kernels take any head_dim above those that is a multiple of
+``FLASH_CHUNK`` (``CHUNKED``), from the same source with
+``-DTFOS_HEAD_DIM`` and ``-DTFOS_DTYPE`` (:func:`variant` names them),
+so that the builds of one source run in parallel; every other source
+builds one library of its own name.  A library is built at
 first use and rebuilt when its source, or a shared header
 ``csrc/*.cuh``, is newer, so the first call on a fresh checkout builds
 it.  Nothing here runs at import time.
@@ -30,9 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the flash kernels' instantiations: head_dims (multiples of 16, the
-# k-step of mma.sync) and dtypes by the code the C entry points take
+# k-step of mma.sync) and dtypes by the code the C entry points take;
+# above the widest, the chunked kernels (head_dim key CHUNKED, built with
+# -DTFOS_HEAD_DIM=0) loop over a head_dim that is any multiple of
+# FLASH_CHUNK, set at run time
 FLASH = ("flash_fwd", "flash_bwd")
 FLASH_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+CHUNKED = 0
+FLASH_CHUNK = 128
 FLASH_DTYPES = {0: "f32", 1: "bf16", 2: "f16"}
 
 _LOCK = threading.Lock()
@@ -55,8 +62,10 @@ def _nvcc():
 
 def variant(source, head_dim, dtype):
     """The library of ``source`` (one of ``FLASH``) built for
-    ``head_dim`` and dtype code ``dtype``, e.g. ``flash_fwd_d80_bf16``."""
-    return f"{source}_d{head_dim}_{FLASH_DTYPES[dtype]}"
+    ``head_dim`` (a ``FLASH_HEAD_DIMS`` entry or ``CHUNKED``) and dtype
+    code ``dtype``, e.g. ``flash_fwd_d80_bf16``, ``flash_bwd_dchunk_f16``."""
+    d = "chunk" if head_dim == CHUNKED else head_dim
+    return f"{source}_d{d}_{FLASH_DTYPES[dtype]}"
 
 
 def _recipes():
@@ -67,7 +76,7 @@ def _recipes():
         if path.stem not in FLASH:
             out[path.stem] = (path.stem, ())
             continue
-        for d in FLASH_HEAD_DIMS:
+        for d in (*FLASH_HEAD_DIMS, CHUNKED):
             for code in FLASH_DTYPES:
                 out[variant(path.stem, d, code)] = (
                     path.stem, (f"-DTFOS_HEAD_DIM={d}",
@@ -125,11 +134,14 @@ def _finish(name, proc, tmp, log, t0):
 
 def _cost(name):
     """Rank for the build queue: the backward's instantiations first, the
-    wide ones first among them (they take longest)."""
+    wide ones first among them (they take longest), the chunked ones
+    before every fixed head_dim."""
     source, flags = _recipe(name)
     head_dim = next((int(f.split("=")[1]) for f in flags
-                     if f.startswith("-DTFOS_HEAD_DIM=")), 0)
-    return (source != "flash_bwd", -head_dim, name)
+                     if f.startswith("-DTFOS_HEAD_DIM=")), None)
+    width = (0 if head_dim is None else
+             float("inf") if head_dim == CHUNKED else head_dim)
+    return (source != "flash_bwd", -width, name)
 
 
 def build(names=None):

@@ -7,9 +7,11 @@ API boundary is ``[batch, seq, heads, head_dim]``, as there.
 (built on first use by ``ops/_build.py``): ``csrc/flash_fwd.cu`` forward,
 the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` backward (bf16 and
 float16 on tensor cores in both directions, float32 on f32 FMAs).  They
-are built for the head_dims of ``HEAD_DIMS``; any other head_dim up to
-``MAX_HEAD_DIM`` runs the next larger one on q, k, v (and g) zero-padded
-along head_dim, its outputs sliced back (:func:`padded_head_dim`).  On a
+are built for the head_dims of ``HEAD_DIMS``, and above the largest as
+chunked kernels that take any multiple of ``CHUNK`` at run time; any
+other head_dim runs the kernels of :func:`kernel_head_dim` on q, k, v
+(and g) zero-padded along head_dim, its outputs sliced back
+(:func:`padded_head_dim`).  On a
 CPU tensor it runs the plain PyTorch versions of the same functions
 (:func:`flash_attention_plain`, :func:`flash_backward_plain`).  There is
 no fallback between the two: a CUDA tensor the kernels cannot take
@@ -30,7 +32,7 @@ from tensorflowonspark_tpu_torch.utils.cuda_graphs import launch_counted
 
 _NEG_INF = -1e30  # finite mask fill, never -inf
 HEAD_DIMS = _build.FLASH_HEAD_DIMS  # head_dims the kernels are built for
-MAX_HEAD_DIM = HEAD_DIMS[-1]  # larger ones raise
+CHUNK = _build.FLASH_CHUNK  # above them: any multiple of it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: Launches of the CUDA kernels in this process: the flash forward
@@ -134,10 +136,22 @@ def _typed(lib, name):
 
 
 def _lib(head_dim, dtype, name="flash_fwd"):
-    """The library of ``name`` (``flash_fwd`` or ``flash_bwd``) built for
-    ``head_dim`` and ``dtype``, built at first use."""
-    return _typed(_build.load(_build.variant(name, head_dim,
-                                             _DTYPES[dtype])), name)
+    """The library of ``name`` (``flash_fwd`` or ``flash_bwd``) for
+    ``head_dim`` (one of :func:`kernel_head_dim`'s) and ``dtype``: its
+    own instantiation, or above ``HEAD_DIMS`` the chunked one; built at
+    first use."""
+    key = head_dim if head_dim in HEAD_DIMS else _build.CHUNKED
+    return _typed(_build.load(_build.variant(name, key, _DTYPES[dtype])),
+                  name)
+
+
+def kernel_head_dim(d):
+    """The head_dim the kernels run for head_dim ``d``: the smallest of
+    ``HEAD_DIMS`` not below it, and above those the next multiple of
+    ``CHUNK`` (the chunked kernels')."""
+    if d <= HEAD_DIMS[-1]:
+        return next(x for x in HEAD_DIMS if x >= d)
+    return -(-d // CHUNK) * CHUNK
 
 
 def _check_shapes(q, k, v):
@@ -155,31 +169,27 @@ def _check_shapes(q, k, v):
         raise ValueError(f"flash kernel takes float32, bfloat16 or float16, "
                          f"got {q.dtype}")
     b, _, h, d = q.shape
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash kernel takes head_dim 1 to {MAX_HEAD_DIM} "
-                         f"(built for {HEAD_DIMS}, the others zero-padded "
-                         f"to the next), got {d}")
+    if d < 1:
+        raise ValueError(f"flash kernel takes head_dim 1 or more, got {d}")
     if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     if k.shape[1] < 1 or q.shape[1] < 1:
         raise ValueError("empty sequence")
-    if b * h > 65535:
-        raise ValueError(f"batch*heads {b * h} > 65535 (grid limit)")
 
 
 def padded_head_dim(fn, n_out, *tensors):
-    """``fn(*tensors)`` at the smallest built head_dim (``HEAD_DIMS``) not
-    below the tensors' own: each [B, S, H, D] tensor zero-padded along
-    head_dim, and the first ``n_out`` outputs (each [B, S, H, padded])
-    sliced back to D; the others pass as they are.  Exact for attention
-    at the caller's own scale: the zero columns add nothing to q kᵀ or
-    to rowsum(g ∘ out), and the columns they produce in out, dq, dk and
-    dv are the ones thrown away.  At a built head_dim it is ``fn``
+    """``fn(*tensors)`` at the tensors' :func:`kernel_head_dim`: each
+    [B, S, H, D] tensor zero-padded along head_dim, and the first
+    ``n_out`` outputs (each [B, S, H, padded]) sliced back to D; the
+    others pass as they are.  Exact for attention at the caller's own
+    scale: the zero columns add nothing to q kᵀ or to rowsum(g ∘ out),
+    and the columns they produce in out, dq, dk and dv are the ones
+    thrown away.  At a head_dim the kernels run as it is, it is ``fn``
     itself.  The CUDA wrappers call it; the CPU tests hold it with the
     plain versions."""
     d = tensors[0].shape[-1]
-    dp = next(x for x in HEAD_DIMS if x >= d)
+    dp = kernel_head_dim(d)
     if dp == d:
         return fn(*tensors)
     outs = fn(*(F.pad(t, (0, dp - d)) if t.dim() == 4 else t
@@ -216,12 +226,12 @@ def _check_vectors(**tensors):
 def _flash_forward_cuda(q, k, v, *, causal, scale):
     """Launch ``csrc/flash_fwd.cu`` on the current stream (bf16 and
     float16: the tensor-core kernel, float32: the FMA kernel); returns
-    ``(out, lse)``.  A head_dim the kernels are not built for goes
-    through :func:`padded_head_dim`.  Raises on anything the kernel does
-    not take."""
+    ``(out, lse)``.  A head_dim other than its :func:`kernel_head_dim`
+    goes through :func:`padded_head_dim`.  Raises on anything the kernel
+    does not take."""
     global launches
     _check_shapes(q, k, v)
-    if q.shape[-1] not in HEAD_DIMS:
+    if kernel_head_dim(q.shape[-1]) != q.shape[-1]:
         _check_device(q, q=q, k=k, v=v)
         return padded_head_dim(functools.partial(
             _flash_forward_cuda, causal=causal, scale=scale), 1, q, k, v)
@@ -377,10 +387,10 @@ def _flash_backward_cuda(q, k, v, out, lse, g, *, causal, scale):
     """Launch the dq and dk/dv kernels of ``csrc/flash_bwd.cu`` on the
     current stream; returns ``(dq, dk, dv)``.  q, k, v, out and g are
     [B, S, H, D] tensors addressed through their strides (q, k, v arrive
-    as views of the fused qkv projection).  A head_dim the kernels are
-    not built for goes through :func:`padded_head_dim`.  Raises on
+    as views of the fused qkv projection).  A head_dim other than its
+    :func:`kernel_head_dim` goes through :func:`padded_head_dim`.  Raises on
     anything the kernels do not take."""
-    if q.shape[-1] not in HEAD_DIMS:
+    if kernel_head_dim(q.shape[-1]) != q.shape[-1]:
         _check_shapes(q, k, v)
         _check_device(q, q=q, k=k, v=v, out=out, g=g, lse=lse)
         return padded_head_dim(functools.partial(
@@ -439,8 +449,7 @@ def flash_attention(q, k, v, *, causal=False, scale=None, block_q=512,
 
     CUDA tensors go through the hand-written kernels: ``flash_fwd.cu``
     forward, and the dq and dk/dv kernels of ``flash_bwd.cu`` backward,
-    in float32, bfloat16 or float16 at any head_dim up to
-    ``MAX_HEAD_DIM``.
+    in float32, bfloat16 or float16 at any head_dim.
     CPU tensors go through the plain versions (:func:`flash_attention_plain`,
     :func:`flash_backward_plain`).  ``bwd_impl`` is validated as in the
     JAX package ("xla" or "pallas"); both of its backwards compute the

@@ -11,12 +11,16 @@ tests/test_supervision.py has them:
 - a job that is not retryable still fails at the first task error or
   executor death;
 - shared-queue jobs from six driver threads at once each get every item
-  back exactly once (the driver's hand-off to idle executors).
+  back exactly once (the driver's hand-off to idle executors);
+- a results pipe that raises, or a result the driver cannot unpickle,
+  fails the job with ``ResultPumpError`` and the next job runs, on the
+  port's engine and on the JAX package's alike.
 
 No wait here is on the wall clock: the tasks signal through files and
 the test waits on those conditions with a hang guard (``HANG``)."""
 
 import os
+import pickle
 import threading
 import time
 
@@ -27,6 +31,7 @@ from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 
 from tensorflowonspark_tpu_torch.engine import (  # noqa: E402
     LocalEngine,
+    ResultPumpError,
     TaskError,
 )
 
@@ -328,3 +333,119 @@ def test_from_partitions_keeps_the_partitions_as_jax_does():
         finally:
             eng.stop()
     assert got["torch"] == got["jax"] == (4, list(enumerate(parts)))
+
+
+class _PipeFault:
+    """An engine's results-pipe ``get`` that raises
+    ``pickle.UnpicklingError`` once, at the first call made while a job
+    is in flight, and otherwise reads the pipe."""
+
+    def __init__(self, eng):
+        self.eng, self.get, self.fired = eng, eng._results.get, False
+
+    def __call__(self, *args, **kwargs):
+        if not self.fired and self.eng._job_queues:
+            self.fired = True
+            raise pickle.UnpicklingError("injected: corrupt results pipe")
+        return self.get(*args, **kwargs)
+
+
+def _only_in(pid):
+    """Unpickles only in process ``pid``."""
+    if os.getpid() != pid:
+        raise pickle.UnpicklingError(f"unpicklable outside {pid}")
+    return pid
+
+
+class _ExecutorOnly:
+    """A result that pickles in the executor and unpickles there, but not
+    in the driver."""
+
+    def __init__(self):
+        self.pid = os.getpid()
+
+    def __reduce__(self):
+        return _only_in, (self.pid,)
+
+
+def _executor_only(it):
+    obj = _ExecutorOnly()
+    pickle.loads(pickle.dumps(obj))  # fine where it was made
+    return [obj]
+
+
+def _pump_error_classes(pkg):
+    """(ResultPumpError, TaskError) of the port's or the JAX engine."""
+    if pkg == "torch":
+        return ResultPumpError, TaskError
+    from tensorflowonspark_tpu import engine as jax_engine
+
+    return jax_engine.ResultPumpError, jax_engine.TaskError
+
+
+def _job_error(fn, bound=30):
+    """What ``fn()`` raises, on a thread, within ``bound`` seconds."""
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 - the test reads it
+            got["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(bound)
+    assert not t.is_alive(), f"the job still waits after {bound} s"
+    return got.get("error"), got.get("out")
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_a_results_pipe_error_fails_the_job_with_result_pump_error(
+        pkg, tmp_path):
+    """The results pipe raises ``pickle.UnpicklingError`` once while a job
+    runs: the job raises ``ResultPumpError`` (a ``TaskError``) within the
+    bound instead of waiting for good, the pump keeps running, and the
+    next job returns its items, on both engines (JAX:
+    ``engine.py:518-545``, ``:691-692``)."""
+    eng = _engine_of(pkg, 1)
+    cls, task_error = _pump_error_classes(pkg)
+    try:
+        eng._results.get = fault = _PipeFault(eng)
+        d = str(tmp_path)
+        error, _ = _job_error(lambda: eng.parallelize(range(3), 1)
+                              .map_partitions(BlockFirst(d)).collect())
+        assert fault.fired
+        assert isinstance(error, cls) and isinstance(error, task_error), \
+            repr(error)
+        assert "result pump transport error" in str(error)
+        assert "injected: corrupt results pipe" in str(error)
+        open(os.path.join(d, "release"), "w").close()
+        error, out = _job_error(lambda: eng.parallelize(range(4), 2)
+                                .map_partitions(_part_items).collect())
+        assert error is None, repr(error)
+        assert sorted(out) == [(0, [0, 1]), (1, [2, 3])]
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_a_result_the_driver_cannot_unpickle_raises_result_pump_error(pkg):
+    """A task's result pickles and unpickles in its executor but not in
+    the driver: the job raises ``ResultPumpError`` naming the task (not
+    the unpickler's own error), and the next job runs (JAX:
+    ``engine.py:703-709``)."""
+    eng = _engine_of(pkg, 1)
+    cls, _ = _pump_error_classes(pkg)
+    try:
+        error, _ = _job_error(lambda: eng.parallelize(range(2), 1)
+                              .map_partitions(_executor_only).collect())
+        assert isinstance(error, cls), repr(error)
+        assert "result of task 0" in str(error)
+        assert "could not be deserialized" in str(error)
+        assert isinstance(error.__cause__, pickle.UnpicklingError)
+        error, out = _job_error(lambda: eng.parallelize(range(2), 1)
+                                .map_partitions(_part_items).collect())
+        assert error is None and out == [(0, [0, 1])], repr(error)
+    finally:
+        eng.stop()

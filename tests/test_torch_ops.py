@@ -131,7 +131,11 @@ def test_flash_plain_differentiable_on_cpu():
     # head_dim 32 is built now (it named the built (64, 128) before):
     # it reaches the device check
     pytest.param(32, "CUDA tensor", "f32", id=r"32-\(64, 128\)"),
-    pytest.param(257, "head_dim 1 to 256", "f32", id="257-over-the-limit"),
+    # above 256 is the chunked kernels' (257 padded to 384), no limit
+    pytest.param(257, "CUDA tensor", "f32",
+                 id="257-chunked-padded-reaches-the-device-check"),
+    pytest.param(512, "q must start on a 16-byte", "bf16 q base",
+                 id="512-chunked-bf16-misaligned-q-base"),
     pytest.param(72, "CUDA tensor", "f16",
                  id="72-padded-reaches-the-device-check"),
     pytest.param(64, "CUDA tensor", "f32", id="64-CUDA tensor"),
@@ -144,9 +148,10 @@ def test_flash_plain_differentiable_on_cpu():
 ])
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(head_dim, match,
                                                             case):
-    """The kernel wrapper never falls back: a head_dim over 256 names the
-    limit, any other (a built one, or one the wrapper zero-pads to the
-    next built one) goes on to the other checks; a bf16 or f16 q that the
+    """The kernel wrapper never falls back: every head_dim (a built one,
+    a multiple of 128 above 256 that the chunked kernels run, or one the
+    wrapper zero-pads to either) goes on to the other checks; a bf16 or
+    f16 q that the
     tensor-core kernel cannot copy in 16-byte vectors (one element past a
     16-byte boundary) is refused before the device check, while views of
     a fused qkv projection pass that check; and a CPU tensor handed to it
@@ -501,7 +506,11 @@ def _padded(x, dim):
     # before): they reach the device check
     pytest.param(32, "CUDA tensor", "f32", id=r"32-\(64, 128\)"),
     pytest.param(96, "CUDA tensor", "f32", id=r"96-\(64, 128\)"),
-    pytest.param(300, "head_dim 1 to 256", "f32", id="300-over-the-limit"),
+    # above 256 is the chunked kernels' (300 padded to 384), no limit
+    pytest.param(300, "CUDA tensor", "f32",
+                 id="300-chunked-padded-reaches-the-device-check"),
+    pytest.param(512, "g must start on a 16-byte", "bf16 g base",
+                 id="512-chunked-bf16-misaligned-g"),
     pytest.param(100, "CUDA tensor", "f16",
                  id="100-padded-reaches-the-device-check"),
     pytest.param(64, "CUDA tensor", "f32", id="64-CUDA tensor"),
@@ -524,9 +533,9 @@ def _padded(x, dim):
 ])
 def test_cuda_backward_wrapper_refuses_what_the_kernels_do_not_take(
         head_dim, match, case):
-    """The backward's CUDA wrapper never falls back: a head_dim over 256
-    is a ValueError naming the limit, any other goes on to the other
-    checks (one the kernels are not built for on the zero-padded path);
+    """The backward's CUDA wrapper never falls back: every head_dim goes
+    on to the other checks (one the kernels do not run as it is on the
+    zero-padded path, above 256 to the chunked kernels' multiple of 128);
     bf16 or f16 q, k, v or g that the tensor-core kernels cannot copy in
     16-byte vectors (a base pointer or a batch/seq/head stride off the
     16-byte grid) are refused, not copied; views of a fused qkv
@@ -592,21 +601,27 @@ def test_a_newer_shared_header_makes_every_library_stale(tmp_path,
 def test_flash_sources_build_one_library_an_instantiation(tmp_path,
                                                           monkeypatch):
     """``_build``: each flash source builds one library for every head_dim
-    of ``HEAD_DIMS`` and every dtype, from the same source with
+    of ``HEAD_DIMS`` and every dtype, and one a dtype for the chunked
+    kernels (``-DTFOS_HEAD_DIM=0``), from the same source with
     ``-DTFOS_HEAD_DIM`` and ``-DTFOS_DTYPE``; any other source builds one
     library of its own name.  ``build()`` runs as many nvcc's at once as
-    the host has cores (two here), the backward's widest first, and a
-    failure names its library (an nvcc stand-in here: a shell script that
-    logs its arguments)."""
+    the host has cores (two here), the backward's widest first: the
+    order it starts them in, recorded where it decides it (``_start``),
+    not the order two concurrent stand-ins happen to log in.  A failure
+    names its library (an nvcc stand-in here: a shell script that logs
+    its arguments)."""
     from tensorflowonspark_tpu_torch.ops import _build
 
     recipes = _build._recipes()
     want = {_build.variant(src, d, code)
-            for src in _build.FLASH for d in tattn.HEAD_DIMS
+            for src in _build.FLASH
+            for d in (*tattn.HEAD_DIMS, _build.CHUNKED)
             for code in _build.FLASH_DTYPES} | {"rmsnorm"}
-    assert set(recipes) == want
+    assert set(recipes) == want and len(want) == 43
     assert recipes["flash_bwd_d80_f16"] == (
         "flash_bwd", ("-DTFOS_HEAD_DIM=80", "-DTFOS_DTYPE=2"))
+    assert recipes["flash_fwd_dchunk_bf16"] == (
+        "flash_fwd", ("-DTFOS_HEAD_DIM=0", "-DTFOS_DTYPE=1"))
     assert recipes["rmsnorm"] == ("rmsnorm", ())
     assert tattn.HEAD_DIMS == (32, 64, 80, 96, 128, 256)
     assert set(tattn._DTYPES.values()) == set(_build.FLASH_DTYPES)
@@ -628,14 +643,19 @@ def test_flash_sources_build_one_library_an_instantiation(tmp_path,
     monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build.os, "cpu_count", lambda: 2)
+    started = []
+    start = _build._start
+    monkeypatch.setattr(_build, "_start",
+                        lambda name: started.append(name) or start(name))
     names = [_build.variant("flash_fwd", 32, 1),
              _build.variant("flash_bwd", 256, 0),
              _build.variant("flash_bwd", 96, 2), "rmsnorm"]
     with pytest.raises(RuntimeError,
                        match=r"flash_bwd_d96_f16 \(exit 1\):\nboom"):
         _build.build(names)
+    assert started == ["flash_bwd_d256_f32", "flash_bwd_d96_f16",
+                       "flash_fwd_d32_bf16", "rmsnorm"]
     calls = log.read_text().splitlines()
-    assert calls[0] == " -DTFOS_HEAD_DIM=256 -DTFOS_DTYPE=0 flash_bwd.cu"
     assert sorted(calls) == sorted([
         " -DTFOS_HEAD_DIM=256 -DTFOS_DTYPE=0 flash_bwd.cu",
         " -DTFOS_HEAD_DIM=96 -DTFOS_DTYPE=2 flash_bwd.cu",
@@ -645,3 +665,7 @@ def test_flash_sources_build_one_library_an_instantiation(tmp_path,
     log.write_text("")
     assert _build.build(names[:2]) == {}  # fresh: nothing rebuilt
     assert log.read_text() == ""
+    # the chunked backward starts before every fixed head_dim
+    assert sorted(want, key=_build._cost)[:3] == [
+        "flash_bwd_dchunk_bf16", "flash_bwd_dchunk_f16",
+        "flash_bwd_dchunk_f32"]

@@ -1,8 +1,10 @@
-"""PyTorch port, models/transformer.py at head_dims 80 and 256 and in
+"""PyTorch port, models/transformer.py at head_dims 80, 256 and 512 and in
 float16, against the JAX model on the CPU.
 
 Two-layer configs whose head_dim is Pythia-2.8B's and Phi-2's (dim 160, 2
-heads: 80) and Gemma-2B's (dim 512, 2 heads: 256), ``attn_impl="flash"``
+heads: 80), Gemma-2B's (dim 512, 2 heads: 256) and the main transformer's
+width at 2 heads (dim 1024: 512, the chunked kernels'),
+``attn_impl="flash"``
 in both packages (the JAX forward runs its Pallas kernel in interpret
 mode, the port its plain flash versions), compute in float32 and float16.
 Params are the JAX ``init``'s, converted by ``params_from_jax``; tokens
@@ -41,7 +43,8 @@ from tensorflowonspark_tpu_torch.serving.decode import (  # noqa: E402
     scheduler as TD,
 )
 
-WIDTHS = {80: dict(dim=160, n_heads=2), 256: dict(dim=512, n_heads=2)}
+WIDTHS = {80: dict(dim=160, n_heads=2), 256: dict(dim=512, n_heads=2),
+          512: dict(dim=1024, n_heads=2)}
 TOL = {"float32": dict(logits=1e-4, loss=1e-5, grad=1e-4, grad_norm=1e-5),
        "float16": dict(logits=2.0 ** -8, loss=2.0 ** -10, grad=2.0 ** -7,
                        grad_norm=2.0 ** -8)}
@@ -71,7 +74,7 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
-@pytest.mark.parametrize("head_dim", [80, 256])
+@pytest.mark.parametrize("head_dim", [80, 256, 512])
 def test_logits_loss_and_grads_match_jax(head_dim, dtype):
     """apply's logits, the loss and every parameter's gradient of the
     port equal the JAX model's at the width and dtype."""
@@ -137,7 +140,7 @@ def _run(engine_cls, params, spec, prompts, max_tokens, **kw):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
-@pytest.mark.parametrize("head_dim", [80, 256])
+@pytest.mark.parametrize("head_dim", [80, 256, 512])
 def test_decode_engine_greedy_tokens_match_jax_engine(head_dim, dtype):
     """The port's DecodeEngine (the flash prefill; slot cache, and paged
     cache with prefix sharing) gives the JAX package's DecodeEngine's
