@@ -282,8 +282,11 @@ too:
     stream equals the plain one and the self draft accepts every
     proposal (a divergence names its index and the plain run's top-2
     logit gap there);
-32. ``parallel_one_rank``: a one-rank NCCL group (``tcp://127.0.0.1``)
-    in this process, destroyed after the phase: (a) the full-width bf16
+32. ``parallel_one_rank``: a one-rank NCCL group (over a ``TCPStore`` on
+    127.0.0.1, ``parallel.launch.one_rank_group``) in this process,
+    destroyed after the phase: first ``gpu_info.slice_health`` over the
+    group's store (healthy, one global device, the count read back from
+    its key); (a) the full-width bf16
     transformer's step through ``mesh_value_and_grad`` on a
     data x fsdp x seq x model mesh of ones, placed by ``param_specs``,
     Ulysses attention over the flash kernels, against the plain step
@@ -479,6 +482,16 @@ too:
     never touched CUDA: only forked trainers did): 8 launches of each
     flash kernel a step, the export served to phase 45's 4 sessions,
     flash against the reference in bf16 and float16.
+47. ``slice_health``: the bring-up health check in this process, after
+    the kernel phases: ``gpu_info.slice_health``'s healthy report on the
+    card (platform gpu, one local and one global device, the card's
+    name, the probe's seconds), then ``node.enforce_slice_health``
+    under ``TFOS_SLICE_HEALTH`` strict, lenient and warn against a
+    definite finding (``expected_processes=2`` at world 1) and a bare
+    timeout (a probe stub waiting past 0.5 s, released after): raised
+    or proceeded as the JAX package decides, the timeout within 1.5 s.
+    Phase 6's trainer's report (its ``torch_initialize``, the trainer's
+    first CUDA contact) is in its line: healthy, one global device.
 
 Every serving phase (8, 9, 18-22, 30-31, 41-43) runs its engines and
 predicts at the default ``jit=None``, so in CUDA graphs: each gates that
@@ -556,6 +569,7 @@ from tensorflowonspark_tpu_torch import cluster as TFCluster
 from tensorflowonspark_tpu_torch import (
     dfutil,
     elastic,
+    gpu_info,
     inference,
     infeed,
     node,
@@ -1501,6 +1515,94 @@ def check_feed(line, fs, transport):
             "columnar")
 
 
+HEALTH_STUB_TIMEOUT_S = 0.5  # the bare timeout's bound in phase 47
+# phase 47's decisions, as the JAX package's jax_initialize decides
+HEALTH_DECISIONS = {
+    "strict": {"finding": "raised", "bare_timeout": "raised"},
+    "lenient": {"finding": "raised", "bare_timeout": "proceeded"},
+    "warn": {"finding": "proceeded", "bare_timeout": "proceeded"}}
+
+
+def _join_health_probes(timeout=10.0):
+    """Wait for this process's ``slice_health`` probe threads to end."""
+    for t in threading.enumerate():
+        if t.name == "tfos-slice-health":
+            t.join(timeout)
+            if t.is_alive():
+                raise AssertionError("a slice_health probe still runs "
+                                     f"{timeout} s after its release")
+
+
+def phase_slice_health(dev, gpu):
+    """``slice_health`` (47): the bring-up health check in this process.
+    The healthy report on the card, then ``TFOS_SLICE_HEALTH``'s
+    decision (``node.enforce_slice_health``, which ``torch_initialize``
+    applies) under strict, lenient and warn against a definite finding
+    (``expected_processes=2`` at world 1) and against a bare timeout (a
+    probe stub that waits on an Event past ``HEALTH_STUB_TIMEOUT_S``,
+    released after).  Fails unless the healthy report is healthy (platform
+    gpu, one local and one global device, the card's name), the bare
+    timeout came within its bound plus 1 s, and every decision is
+    ``HEALTH_DECISIONS``'."""
+    t0 = time.perf_counter()
+    healthy = gpu_info.slice_health(expected_processes=1,
+                                    expected_local_devices=1)
+    if not healthy["healthy"] or healthy["platform"] != "gpu" or \
+            healthy["local_devices"] != 1 or \
+            healthy["global_devices"] != 1 or \
+            healthy["kind"] != torch.cuda.get_device_name(dev):
+        raise AssertionError(f"slice_health on the card: {healthy}")
+    finding = gpu_info.slice_health(expected_processes=2)
+    release = threading.Event()
+    real = gpu_info._local_devices
+
+    def hung(*args):
+        release.wait(30)
+        return real(*args)
+
+    gpu_info._local_devices = hung
+    try:
+        t1 = time.perf_counter()
+        stuck = gpu_info.slice_health(timeout=HEALTH_STUB_TIMEOUT_S)
+        stuck_s = time.perf_counter() - t1
+    finally:
+        gpu_info._local_devices = real
+        release.set()
+    _join_health_probes()
+    decisions = {}
+    saved = os.environ.get(node.HEALTH_MODE_ENV)
+    try:
+        for mode in HEALTH_DECISIONS:
+            os.environ[node.HEALTH_MODE_ENV] = mode
+            decisions[mode] = {}
+            for name, report in (("finding", finding),
+                                 ("bare_timeout", stuck)):
+                try:
+                    node.enforce_slice_health(report)
+                    decisions[mode][name] = "proceeded"
+                except RuntimeError:
+                    decisions[mode][name] = "raised"
+    finally:
+        if saved is None:
+            os.environ.pop(node.HEALTH_MODE_ENV, None)
+        else:
+            os.environ[node.HEALTH_MODE_ENV] = saved
+    print("slice_health " + json.dumps(dict(
+        healthy=healthy, finding=finding, bare_timeout=stuck,
+        bare_timeout_bound_s=HEALTH_STUB_TIMEOUT_S,
+        bare_timeout_wait_s=stuck_s, decisions=decisions,
+        seconds=time.perf_counter() - t0, gpu=gpu)), flush=True)
+    if finding["healthy"] or finding["bare_timeout"] or not any(
+            e == "process count 1 != expected 2" for e in finding["errors"]):
+        raise AssertionError(f"the definite finding: {finding}")
+    if not (stuck["timed_out"] and stuck["bare_timeout"]) or \
+            stuck_s > HEALTH_STUB_TIMEOUT_S + 1.0:
+        raise AssertionError(f"the bare timeout in {stuck_s} s: {stuck}")
+    if decisions != HEALTH_DECISIONS:
+        raise AssertionError(f"decisions {decisions}, the JAX package's "
+                             f"{HEALTH_DECISIONS}")
+
+
 def phase_spark_train(engine, gpu, train):
     """The main path: phase_train's five steps SPARK-fed through the
     port's cluster on ``engine``, a one-executor ``LocalEngine`` started
@@ -1558,7 +1660,8 @@ def phase_spark_train(engine, gpu, train):
         model_ready_s=report["model_wall"] - t0,
         total_s=t_total, launches=report["launches"],
         records=report["records"], fed_partitions=fed,
-        trainer_alive_after_shutdown=orphan, health=report["health"],
+        trainer_alive_after_shutdown=orphan,
+        slice_health=report["slice_health"],
         cuda_visible_devices=report["cuda_visible_devices"],
         train_metrics=report["train_metrics"],
         peak_mem_gb=report["peak_mem_gb"],
@@ -1580,6 +1683,10 @@ def phase_spark_train(engine, gpu, train):
     if orphan:
         raise AssertionError(f"trainer {report['pid']} alive after "
                              "shutdown")
+    health = report["slice_health"]
+    if not health["healthy"] or health["platform"] != "gpu" or \
+            health["global_devices"] != 1:
+        raise AssertionError(f"the trainer's slice_health: {health}")
     return report["launches"], summary
 
 
@@ -4950,17 +5057,32 @@ def _parallel_one_rank(dev, gpu):
 
 def phase_parallel_one_rank(dev, gpu):
     """``parallel_one_rank``: a one-rank NCCL group in this process (made
-    and destroyed around the phase), the parallel layer on the card at
-    full width: (a) the transformer's sharded step (Ulysses over the
-    flash kernels, the ``param_specs`` plan) against the plain step,
-    (b) ring and zigzag attention against ``mha_reference``, (c) MoE bf16
-    against float32, (d) the pipeline against its sequential stage.
+    and destroyed around the phase), the bring-up health check over its
+    store, then the parallel layer on the card at full width: (a) the
+    transformer's sharded step (Ulysses over the flash kernels, the
+    ``param_specs`` plan) against the plain step, (b) ring and zigzag
+    attention against ``mha_reference``, (c) MoE bf16 against float32,
+    (d) the pipeline against its sequential stage.
     Returns (a)'s launches."""
-    from tensorflowonspark_tpu_torch.parallel.launch import run_ranks
+    import torch.distributed as dist
 
-    out, counts = run_ranks(1, _parallel_one_rank, dev, gpu,
-                            backend="nccl")[0]
+    from tensorflowonspark_tpu_torch.parallel.launch import one_rank_group
+
+    with one_rank_group("nccl") as store:
+        # the bring-up health check over the group's store, its count
+        # read back from the key it wrote
+        health = gpu_info.slice_health(
+            expected_processes=1, device=dev,
+            store=dist.PrefixStore("tfos/slice_health/e0", store))
+        health["store_local_0"] = int(store.get(
+            "tfos/slice_health/e0/local/0"))
+        out, counts = _parallel_one_rank(dev, gpu)
+    out["slice_health"] = health
     print("parallel_one_rank " + json.dumps(out), flush=True)
+    if not health["healthy"] or health["global_devices"] != 1 or \
+            health["store_local_0"] != 1:
+        raise AssertionError(f"slice_health over the group's store: "
+                             f"{health}")
     return counts
 
 
@@ -7824,6 +7946,8 @@ def run_phases(dev, gpu, lap, tc_build, engines, tdirs):
     bwd_case = phase_flash_bwd(dev)
     rms_case = phase_rmsnorm(dev)
     lap("kernels")
+    phase_slice_health(dev, gpu)
+    lap("slice_health")
     rest = spawn_engines(tdirs)
     engines.extend(rest.values())
     (engine_tf, engine_serve, engine_fit, engine_pred, engine_roles,

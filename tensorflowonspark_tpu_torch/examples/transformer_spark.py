@@ -344,7 +344,7 @@ def main_fun(args, ctx):
                   "w") as f:
             json.dump({
                 "rank": rank, "pid": os.getpid(), "device": str(dev),
-                "health": env["health"], "losses": losses,
+                "slice_health": env["slice_health"], "losses": losses,
                 "cuda_visible_devices": os.environ.get(
                     "CUDA_VISIBLE_DEVICES"),
                 "step_ms": step_ms, "step_wall_ms": step_wall_ms,

@@ -39,8 +39,12 @@ module-level classes, which the engine ships with plain ``pickle``.
 
 Switches, read where the task runs: ``TFOS_SHM_FEED`` (1; 0 for the
 manager queue), ``TFOS_SHM_FEED_BYTES`` (the ring's capacity, 256 MiB),
-``TFOS_COLUMNAR_FEED`` (1; 0 keeps row chunks) and ``TFOS_FEED_CHUNK``
-(records a chunk, 1024).
+``TFOS_COLUMNAR_FEED`` (1; 0 keeps row chunks), ``TFOS_FEED_CHUNK``
+(records a chunk, 1024), ``TFOS_NODE_PORT`` (the port a node reserves
+for the coordinator; a free one by default), ``TFOS_REAP_TIMEOUT``
+(shutdown's wait for a healthy trainer, 600 s, at least ``grace_secs``),
+and the bring-up health check's ``TFOS_SLICE_HEALTH`` (lenient; strict,
+warn) and ``TFOS_SLICE_HEALTH_TIMEOUT`` (60 s).
 
 Cluster recovery relaunches nodes as a new incarnation (the cluster
 meta's ``epoch``): a node of an earlier epoch still on the executor is
@@ -101,8 +105,32 @@ SIDE_JOBS = ("ps", "evaluator")  # outside the process group; no GPU
 
 FEED_CHUNK_RECORDS = 1024  # records a chunk, unless TFOS_FEED_CHUNK says
 SHM_FEED_BYTES = 256 << 20  # the ring's capacity, unless TFOS_SHM_FEED_BYTES
-REAP_TIMEOUT_SECS = 600.0  # shutdown's wait for a healthy trainer to exit
+REAP_TIMEOUT_SECS = 600.0  # a healthy trainer's exit; TFOS_REAP_TIMEOUT
 FEED_STATS_KEPT = 64  # feeder records kept in the KV's 'feed_stats'
+
+
+def _reap_budget(err, grace_secs):
+    """Seconds shutdown waits for the trainer to exit: 5 for a trainer
+    that failed, else ``max(grace_secs, TFOS_REAP_TIMEOUT)`` (600)."""
+    if err is not None:
+        return 5.0
+    return max(grace_secs, float(os.environ.get("TFOS_REAP_TIMEOUT",
+                                                REAP_TIMEOUT_SECS)))
+
+
+def _reserve_port():
+    """A socket bound to the port this node reserves for the job's
+    coordinator: ``TFOS_NODE_PORT`` when set, else a free one.  The
+    caller closes it just before rank 0's store binds the port."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    port_env = os.environ.get("TFOS_NODE_PORT")
+    try:
+        sock.bind(("", int(port_env) if port_env else 0))
+    except BaseException:
+        sock.close()
+        raise
+    return sock
 
 
 def _feed_chunk_records():
@@ -246,24 +274,34 @@ def _distributed_env(cluster_info):
             "local_ranks": local}
 
 
-def _health_check(device):
-    """The device count and one small matmul on ``device``, held against
-    the same product on the CPU (small integers: exact in f32)."""
-    import torch
+HEALTH_MODE_ENV = "TFOS_SLICE_HEALTH"
+HEALTH_MODES = ("strict", "lenient", "warn")
 
-    count = torch.cuda.device_count() if device.type == "cuda" else 1
-    errors = []
-    if device.type == "cuda" and device.index >= count:
-        errors.append(f"device {device} but {count} visible")
-    if not errors:
-        a = torch.arange(16, dtype=torch.float32).reshape(4, 4)
-        got = (a.to(device) @ a.to(device)).cpu()
-        if not torch.equal(got, a @ a):
-            errors.append(f"4x4 matmul on {device} gave {got.tolist()}")
-    return {"healthy": not errors, "errors": errors,
-            "device": str(device), "device_count": count,
-            "name": (torch.cuda.get_device_name(device)
-                     if device.type == "cuda" else "cpu")}
+
+def enforce_slice_health(health):
+    """Apply ``TFOS_SLICE_HEALTH`` to a ``gpu_info.slice_health`` report,
+    as the JAX package's ``jax_initialize`` does: ``lenient`` (the
+    default) raises on a definite finding (wrong counts, GPUs CUDA does
+    not see, a wrong product) but only warns on a probe that merely timed
+    out (``bare_timeout``: a first contact slower than the bound);
+    ``strict`` raises on both; ``warn`` only logs.  An unknown mode
+    warns and counts as ``lenient``.  The raise reaches the cluster's
+    caller through the node's error queue."""
+    if health["healthy"]:
+        logger.info("slice healthy: %d local / %d global devices (%s)",
+                    health["local_devices"], health["global_devices"],
+                    health["platform"])
+        return
+    logger.error("slice health check failed: %s", health["errors"])
+    mode = os.environ.get(HEALTH_MODE_ENV, "lenient").strip().lower()
+    if mode not in HEALTH_MODES:
+        logger.warning("unknown %s=%r; treating as 'lenient' (valid: "
+                       "strict|lenient|warn)", HEALTH_MODE_ENV, mode)
+        mode = "lenient"
+    if mode != "warn" and not (health.get("bare_timeout", False)
+                               and mode == "lenient"):
+        raise RuntimeError(
+            f"unhealthy accelerator slice: {health['errors']}")
 
 
 class TFNodeContext:
@@ -350,19 +388,35 @@ class TFNodeContext:
                 "local_rank": env["local_ranks"].get(self.executor_id)}
 
     def torch_initialize(self, device=None, backend=None):
-        """Join the job's process group and check the device.
+        """Check the devices and join the job's process group.
 
         ``device``: None or ``"cuda"`` takes CUDA device ``local_rank``
         modulo the visible count (0 after a ``num_gpus`` claim, which
-        left this worker only its own); raises without a card.  Pass
-        ``"cpu"`` for the CPU.  A job of more than one process calls
-        ``init_process_group`` with ``tcp://<coordinator>``, the node's
-        rank and ``backend``: by default NCCL on CUDA and gloo on the
-        CPU; ``backend="gloo"`` on CUDA lets ranks share one card, which
-        NCCL refuses.  A one-process job skips the group but still runs
-        the health check (device count, one small matmul), which raises
-        when it fails.  Returns :meth:`distributed_env` with ``device``
-        and ``health`` added.
+        left this worker only its own).  Pass ``"cpu"`` for the CPU.
+
+        First the bring-up health check, ``gpu_info.slice_health``, on
+        the device this rank takes: the process's first CUDA contact, on
+        a thread bounded by ``TFOS_SLICE_HEALTH_TIMEOUT`` (60 s), so that
+        a wedged card shows as a report and not as a hang; the ranks'
+        device counts meet in the job's key-value store, under keys of
+        this cluster epoch.  ``TFOS_SLICE_HEALTH`` (strict, lenient,
+        warn) decides what is fatal, as in the JAX package
+        (:func:`enforce_slice_health`), before this thread makes any CUDA
+        call of its own.  Under lenient, a probe still stuck at its
+        timeout is let through with a warning, and this thread's first
+        CUDA call (``resolve_device``, ``set_device``) then waits for the
+        probe's first contact to end.
+
+        The port's device rule wins over ``warn``: a job asked onto the
+        card with no CUDA raises (``resolve_device``) whatever the mode;
+        it never runs on the CPU unasked.
+
+        A job of more than one process then calls ``init_process_group``
+        over a ``TCPStore`` on the coordinator's address, with the node's
+        rank and ``backend``: by default NCCL on CUDA and gloo on the CPU;
+        ``backend="gloo"`` on CUDA lets ranks share one card, which NCCL
+        refuses.  Returns :meth:`distributed_env` with ``device`` and the
+        report, ``slice_health``, added.
 
         A ps or evaluator node is outside the job (``process_id``
         None): it joins no group, claims no device and gets
@@ -375,32 +429,52 @@ class TFNodeContext:
         env = self.distributed_env()
         if env["process_id"] is None:
             return env
-        dev = torch.device("cuda" if device is None else device)
+        want = torch.device("cuda" if device is None else device)
+        store = health_store = None
+        if env["num_processes"] > 1:
+            import torch.distributed as dist
+
+            host, port = env["coordinator_address"].rsplit(":", 1)
+            # not waiting for the workers here: a peer that never comes
+            # shows in the bounded probe's count
+            store = dist.TCPStore(
+                host, int(port), env["num_processes"],
+                env["process_id"] == 0,
+                timeout=datetime.timedelta(seconds=self.timeout),
+                wait_for_workers=False, multi_tenant=True)
+            # the epoch's own keys: a group re-formed after a recovery
+            # never reads an earlier incarnation's counts
+            health_store = dist.PrefixStore(
+                f"tfos/slice_health/e{self.epoch}", store)
+        health = gpu_info.slice_health(
+            expected_processes=env["num_processes"], device=want,
+            store=health_store, rank=env["process_id"],
+            world_size=env["num_processes"], local_rank=env["local_rank"])
+        # before any CUDA call of this thread, which a wedged card would
+        # hang: a fatal report raises here
+        enforce_slice_health(health)
+        dev = want
         if dev.type == "cuda" and dev.index is None:
-            resolve_device(dev)  # raises without a card
+            resolve_device(dev)  # raises without a card, even under warn
             dev = torch.device(
                 "cuda", env["local_rank"] % torch.cuda.device_count())
         dev = resolve_device(dev)
         self.device = dev
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        if env["num_processes"] > 1:
+        if store is not None:
             import torch.distributed as dist
 
             if backend is None:
                 backend = "nccl" if dev.type == "cuda" else "gloo"
             dist.init_process_group(
-                backend,
-                init_method=f"tcp://{env['coordinator_address']}",
-                world_size=env["num_processes"], rank=env["process_id"],
+                backend, store=store, world_size=env["num_processes"],
+                rank=env["process_id"],
                 timeout=datetime.timedelta(seconds=self.timeout))
             self._torch_distributed = True
-        health = _health_check(dev)
-        if not health["healthy"]:
-            raise RuntimeError(f"unhealthy device: {health['errors']}")
         logger.info("rank %d of %d on %s (%s)", env["process_id"],
-                    env["num_processes"], dev, health["name"])
-        env.update(device=dev, health=health)
+                    env["num_processes"], dev, health["kind"])
+        env.update(device=dev, slice_health=health)
         return env
 
     def sync_exit_barrier(self):
@@ -664,9 +738,7 @@ class run:  # noqa: N801 - named as the JAX package's node.run
             # (4) reserve the coordinator's port, register, await peers
             client = rendezvous.Client(meta["server_addr"])
             host = get_ip_address()
-            tmp_sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-            tmp_sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            tmp_sock.bind(("", 0))
+            tmp_sock = _reserve_port()
             addr = list(mgr.address)
             if addr[0] in ("", "0.0.0.0"):
                 addr[0] = host  # a remote manager: a dialable address
@@ -704,8 +776,7 @@ class run:  # noqa: N801 - named as the JAX package's node.run
                 timeout=meta["reservation_timeout"], epoch=epoch)
             if not self.in_driver:
                 ctx.export_env()
-            # released as late as possible: rank 0's process group binds
-            # it next
+            # released as late as possible: rank 0's store binds it next
             tmp_sock.close()
             # the spool, advertised for the shutdown's drain
             telemetry.register_with(mgr)
@@ -1200,8 +1271,7 @@ class shutdown:  # noqa: N801 - named as the JAX package's node.shutdown
         # errored trainer is reaped fast
         bg_pid = mgr.get("bg_pid")
         if bg_pid:
-            budget = 5.0 if err is not None else max(self.grace_secs,
-                                                     REAP_TIMEOUT_SECS)
+            budget = _reap_budget(err, self.grace_secs)
             if not reap_child(int(bg_pid), timeout=budget):
                 logger.warning("shutdown: trainer %s did not exit cleanly "
                                "and was killed", bg_pid)

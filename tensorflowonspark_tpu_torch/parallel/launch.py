@@ -17,6 +17,7 @@ restarted at the next call.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing as mp
 import os
@@ -178,22 +179,32 @@ def free_port():
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def one_rank_group(backend="gloo", timeout=DEFAULT_TIMEOUT):
+    """A one-rank process group in this process for the block, over a
+    ``TCPStore`` on a free port of 127.0.0.1, destroyed after it (as an
+    NCCL group on the one card must be); yields the store, which the
+    block may use as the job's key-value store."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, True,
+                          timeout=datetime.timedelta(seconds=timeout))
+    dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        yield store
+    finally:
+        dist.destroy_process_group()
+
+
 def run_ranks(n, fn, *args, backend="gloo", timeout=DEFAULT_TIMEOUT,
               **kwargs):
     """``fn(*args, **kwargs)`` on every rank of an n-process group;
-    returns the results in rank order.  One rank runs in this process
-    (its group is made for the call, over ``tcp://127.0.0.1``, and
-    destroyed after it, as an NCCL group on the one card must); more
-    ranks run in a :class:`RankPool`, closed after the call."""
+    returns the results in rank order.  One rank runs in this process,
+    in a :func:`one_rank_group` made for the call; more ranks run in a
+    :class:`RankPool`, closed after the call."""
     if n == 1:
-        import torch.distributed as dist
-
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
-            world_size=1, timeout=datetime.timedelta(seconds=timeout))
-        try:
+        with one_rank_group(backend, timeout):
             return [fn(*args, **kwargs)]
-        finally:
-            dist.destroy_process_group()
     with RankPool(n, backend=backend) as pool:
         return pool.run(fn, *args, timeout=timeout, **kwargs)

@@ -9,8 +9,10 @@ barrier stage, so they start together and see their peers' addresses
 (``BarrierTaskContext.getTaskInfos()``), from which each takes its
 same-host index; on the built-in engine every executor is a process of
 this host, and its executor index is that index.  With ``num_gpus`` the
-index picks the worker's block of GPUs (``gpu_info.claim_gpus``),
-exported as ``CUDA_VISIBLE_DEVICES`` before ``map_fn`` touches CUDA.
+index picks the worker's block of GPUs (``utils.single_node_env``, which
+claims them through ``gpu_info.claim_gpus`` and adds Hadoop's classpath
+for ``hdfs://`` paths), exported as ``CUDA_VISIBLE_DEVICES`` before
+``map_fn`` touches CUDA.
 
 ``run`` returns the ``map_fn`` results, one a worker.  The task is a
 module-level class (``_ParallelTask``), shipped with plain ``pickle``;
@@ -25,8 +27,7 @@ import os
 import sys
 
 from tensorflowonspark_tpu_torch import engine as engine_mod
-from tensorflowonspark_tpu_torch import gpu_info
-from tensorflowonspark_tpu_torch.utils import get_ip_address
+from tensorflowonspark_tpu_torch.utils import get_ip_address, single_node_env
 
 logger = logging.getLogger(__name__)
 
@@ -71,7 +72,7 @@ class _ParallelTask:
             executor_id = item
         peers, same_host, worker = _barrier_placement(executor_id,
                                                       self.num_workers)
-        gpu_info.claim_gpus(self.meta["num_gpus"], same_host)
+        single_node_env(self.meta["num_gpus"], same_host)
         info = [{"executor_id": i, "host": h, "job_name": "worker",
                  "task_index": i, "port": None}
                 for i, h in enumerate(peers)]

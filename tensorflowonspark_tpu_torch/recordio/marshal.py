@@ -5,10 +5,12 @@ The compiled path is the ``_tfos_torch_marshal`` CPython extension
 (``native/marshal.c``, built at first use into ``build/torch_native/``
 by ``recordio._build``); the numpy path beside it has the same
 semantics, is what runs where the extension cannot build (no
-``Python.h``), and is the plain version the tests hold the native one
-against.  The feeder's chunk encoder (``node._make_chunk_encoder``)
-calls ``infer_spec`` and ``rows_to_columns``; ``DataFeed`` calls
-``columns_to_rows`` to hand columnar chunks out as rows.
+``Python.h``) or ``TFOS_NATIVE_MARSHAL=0`` asks for it (read at first
+use, nothing built then), and is the plain version the tests hold the
+native one against.  The feeder's chunk encoder
+(``node._make_chunk_encoder``) calls ``infer_spec`` and
+``rows_to_columns``; ``DataFeed`` calls ``columns_to_rows`` to hand
+columnar chunks out as rows.
 
 Dtype codes:
   '?' bool  'i' int32  'l' int64  'f' float32  'd' float64  'O' object
@@ -23,6 +25,7 @@ from __future__ import annotations
 import importlib.machinery
 import importlib.util
 import logging
+import os
 import threading
 
 import numpy as np
@@ -65,6 +68,9 @@ def _load_ext():
     with _ext_lock:
         if _ext_tried:
             return _ext
+        if os.environ.get("TFOS_NATIVE_MARSHAL", "1") == "0":
+            _ext_tried = True
+            return None
         try:
             _build.build(["marshal"])
             path = str(_build.lib_path("marshal"))

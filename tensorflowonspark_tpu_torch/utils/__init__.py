@@ -8,6 +8,7 @@ from tensorflowonspark_tpu_torch.utils.hostinfo import (  # noqa: F401
     read_child_pids,
     read_executor_id,
     reap_child,
+    single_node_env,
     track_child_pid,
     write_executor_id,
 )

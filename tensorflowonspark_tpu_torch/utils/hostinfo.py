@@ -1,9 +1,9 @@
 """Host address, executor-id persistence and child-process bookkeeping.
 
-An own copy of the part of ``tensorflowonspark_tpu/utils/hostinfo.py``
-that the port's engine, node and feeder call.  The executor-id file is
-the key that lets a feeder task, scheduled later onto the same executor,
-reattach to the manager the node task started.
+An own copy of ``tensorflowonspark_tpu/utils/hostinfo.py``: what the
+port's engine, node, feeder and ``parallel_run`` call.  The executor-id
+file is the key that lets a feeder task, scheduled later onto the same
+executor, reattach to the manager the node task started.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 import logging
 import os
 import signal
+import socket
+import subprocess
 import tempfile
 import time
 
@@ -19,18 +21,32 @@ logger = logging.getLogger(__name__)
 _EXECUTOR_ID_FILE = "executor_id"
 _CHILD_PIDS_FILE = "tfos_child_pids"
 HOST_IP_ENV = "TFOS_HOST_IP"
+CHILD_PIDS_DIR_ENV = "TFOS_CHILD_PIDS_DIR"
+CLASSPATH_FLAG_ENV = "TFOS_CLASSPATH_UPDATED"
+ROUTE_PROBE_ADDR = "192.0.2.1"  # TEST-NET-1: only a route lookup
 
 
 def get_ip_address():
     """The address this host advertises to its peers: ``TFOS_HOST_IP``
-    when set, else the loopback address.
+    when set, else the source address of this host's route out, as the
+    JAX package finds it (a UDP socket's ``connect``, which sends no
+    packet), else the loopback address when there is no route.
 
-    The port's only engine is ``LocalEngine``, whose executors all share
-    one host, so loopback reaches every peer; a deployment spanning
-    hosts sets ``TFOS_HOST_IP``.  (The JAX package discovers the
-    address by routing a UDP socket towards a public address; the port
-    never names an outside host.)"""
-    return os.environ.get(HOST_IP_ENV) or "127.0.0.1"
+    The route is asked for ``ROUTE_PROBE_ADDR``, an address of the block
+    reserved for documentation (RFC 5737), which no host owns: like any
+    address outside the host's own networks it takes the default
+    route."""
+    override = os.environ.get(HOST_IP_ENV)
+    if override:
+        return override
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.connect((ROUTE_PROBE_ADDR, 80))
+        return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+    finally:
+        s.close()
 
 
 def write_executor_id(num, cwd=None):
@@ -51,9 +67,13 @@ def read_executor_id(cwd=None):
 
 
 def child_pids_dir():
-    """Directory of this process's child-pid ledger: the executor's
-    working dir inside an executor (``TFOS_EXECUTOR_INDEX`` set), where
-    the engine's teardown reads it; a per-process temp dir elsewhere."""
+    """Directory of this process's child-pid ledger:
+    ``TFOS_CHILD_PIDS_DIR`` when set; else the executor's working dir
+    inside an executor (``TFOS_EXECUTOR_INDEX`` set), where the engine's
+    teardown reads it; a per-process temp dir elsewhere."""
+    override = os.environ.get(CHILD_PIDS_DIR_ENV)
+    if override:
+        return override
     if "TFOS_EXECUTOR_INDEX" in os.environ:
         return os.getcwd()
     return os.path.join(tempfile.gettempdir(), f"tfos-pids-{os.getpid()}")
@@ -131,3 +151,25 @@ def reap_child(pid, timeout=5.0, term_first=True):
             return True
     kill_pid(pid)
     return wait(2.0)
+
+
+def single_node_env(num_gpus=0, worker_index=-1):
+    """Set up a single-node job's environment: claim ``num_gpus`` GPUs
+    for worker ``worker_index`` (``gpu_info.claim_gpus``, which calls no
+    CUDA), then, once a process (``TFOS_CLASSPATH_UPDATED``), append
+    ``$HADOOP_PREFIX/bin/hadoop classpath --glob`` to ``CLASSPATH`` when
+    that script exists, for ``hdfs://`` paths read through
+    ``recordio.fs``.  Returns the claimed GPUs."""
+    from tensorflowonspark_tpu_torch import gpu_info
+
+    gpus = gpu_info.claim_gpus(num_gpus, worker_index)
+    if "HADOOP_PREFIX" in os.environ and \
+            CLASSPATH_FLAG_ENV not in os.environ:
+        hadoop = os.path.join(os.environ["HADOOP_PREFIX"], "bin", "hadoop")
+        if os.path.exists(hadoop):
+            extra = subprocess.check_output(
+                [hadoop, "classpath", "--glob"]).decode()
+            os.environ["CLASSPATH"] = (os.environ.get("CLASSPATH", "")
+                                       + os.pathsep + extra)
+        os.environ[CLASSPATH_FLAG_ENV] = "1"
+    return gpus

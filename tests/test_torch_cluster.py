@@ -155,7 +155,8 @@ def group_main(args, ctx):
         "env": {k: env[k] for k in ("coordinator_address", "num_processes",
                                     "process_id", "local_rank")},
         "sum": t.item(), "world": dist.get_world_size(),
-        "rank": dist.get_rank(), "healthy": env["health"]["healthy"],
+        "rank": dist.get_rank(), "healthy": env["slice_health"]["healthy"],
+        "global_devices": env["slice_health"]["global_devices"],
         "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
         "cuda_initialized": torch.cuda.is_initialized()})
 
@@ -174,6 +175,7 @@ def test_torch_initialize_joins_a_gloo_group(engine, tmp_path):
     assert [g["rank"] for g in got] == [0, 1]
     for i, g in enumerate(got):
         assert g["sum"] == 1.0 and g["world"] == 2 and g["healthy"]
+        assert g["global_devices"] == 2  # the ranks' counts, via the store
         assert g["grad_mean"] == [1.5, 1.5, 1.5]
         assert g["env"]["process_id"] == i and g["env"]["local_rank"] == i
         assert g["env"]["coordinator_address"] == \

@@ -2,11 +2,16 @@
 ``configure_logging`` and the library's NullHandler, the lazy names of
 the JAX package's ``__init__`` (each resolving to the port's own module),
 an import of the root that loads neither JAX nor torch nor a submodule,
-and the ``compat`` shims."""
+and the ``compat`` shims.  Two parity checks read both packages' sources
+(no import): every JAX module has a counterpart with its public names,
+and every ``TFOS_*`` variable the JAX package reads the port reads too,
+but for the differences listed here, each with its reason."""
 
+import ast
 import importlib
 import logging
 import os
+import re
 import subprocess
 import sys
 
@@ -148,3 +153,117 @@ def test_disable_auto_shard_and_is_gpu_available():
     opts = object()
     assert compat.disable_auto_shard(opts) is opts
     assert compat.is_gpu_available() is torch.cuda.is_available()
+
+
+# -- parity with the JAX package, read from the sources ----------------------
+
+JAX_PKG = os.path.join(REPO, "tensorflowonspark_tpu")
+PORT_PKG = os.path.join(REPO, "tensorflowonspark_tpu_torch")
+MODULE_RENAMES = {"tpu_info.py": "gpu_info.py"}
+# public names of a JAX module that its counterpart lacks: why
+NAME_DIFFERENCES = {
+    "compat.py": {"is_tpu_available": "compat.is_gpu_available"},
+    "manager.py": {
+        "JoinableItemQueue": "a plain queue.Queue (its own docstring: "
+                             "the same semantics over proxies)",
+        "beat": "start_heartbeat's thread writes the heartbeat key"},
+    "pipeline.py": {"HasNumChips": "pipeline.HasNumGpus"},
+    "tpu_info.py": {
+        "MAX_RETRIES": "the TPU scan's retries; nvidia-smi is asked once",
+        "claim_chips": "gpu_info.claim_gpus",
+        "count_chips": "gpu_info.count_gpus",
+        "get_chips": "gpu_info.get_gpus",
+        "is_tpu_available": "compat.is_gpu_available",
+        "set_visible_chips": "gpu_info.claim_gpus"},
+    "actors/__init__.py": {
+        "BudgetExhausted": "actors.supervise.BudgetExhausted"},
+    "parallel/ring.py": {
+        "shard_map": "JAX's shard_map import shim; the port's ring "
+                     "functions take a process group"},
+    "models/__init__.py": {"layers": "the module models.layers"},
+    "models/mnist.py": {
+        "serve_predict": "mnist.predict takes and returns numpy",
+        "synthetic_batch": "a JAX-key data helper; the port's tests and "
+                           "examples draw from numpy"},
+    "serving/__init__.py": {
+        "ElasticReplicaPool": "serving.elastic.ElasticReplicaPool"},
+    "utils/__init__.py": {"child_pids_dir": "utils.hostinfo.child_pids_dir",
+                          "find_in_path": "unused by the port"},
+    "utils/hostinfo.py": {"find_in_path": "unused by the port"},
+}
+# TFOS_* variables (or key prefixes) the JAX package reads and the port
+# does not: why
+TFOS_DIFFERENCES = {
+    "TFOS_NATIVE_LIB": "the JAX package's prebuilt native/ library; the "
+                       "port builds its own (recordio._build)",
+    "TFOS_TPU_CHIPS_PER_HOST": "gpu_info.COUNT_ENV, TFOS_GPUS_PER_HOST",
+}
+
+
+def _public_names(path):
+    """Top-level public names a module defines (functions, classes,
+    assignments), and, for a package's ``__init__``, re-exports."""
+    tree = ast.parse(open(path).read())
+    init = path.endswith("__init__.py")
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+        elif init and isinstance(node, ast.ImportFrom):
+            out |= {(a.asname or a.name) for a in node.names}
+    return {n for n in out if not n.startswith("_")}
+
+
+def _py_files(root):
+    for base, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(base, f), root)
+
+
+def test_every_jax_module_has_a_counterpart_with_its_public_names():
+    """Each JAX module has a port module at its path (tpu_info.py:
+    gpu_info.py), which defines every public name of it but those in
+    NAME_DIFFERENCES, and each listed name is really missing."""
+    missing = {}
+    for rel in _py_files(JAX_PKG):
+        head, tail = os.path.split(rel)
+        port = os.path.join(PORT_PKG, head, MODULE_RENAMES.get(tail, tail))
+        assert os.path.exists(port), f"no counterpart of {rel}"
+        gone = _public_names(os.path.join(JAX_PKG, rel)) - \
+            _public_names(port)
+        if gone:
+            missing[rel.replace(os.sep, "/")] = gone
+    assert missing == {k: set(v) for k, v in NAME_DIFFERENCES.items()}
+
+
+def _tfos_names(root):
+    """The ``TFOS_*`` names a package's code holds as string constants
+    (an ``os.environ`` key, or a module constant that names one), and the
+    leading parts of f-strings (a prefix a family of names is built on);
+    never a name only mentioned in a docstring or a message."""
+    out = set()
+    for rel in _py_files(root):
+        with open(os.path.join(root, rel)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.JoinedStr) and node.values:
+                node = node.values[0]
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and \
+                    re.fullmatch(r"TFOS_[A-Z0-9_]+", node.value):
+                out.add(node.value)
+    return out
+
+
+def test_the_port_reads_every_tfos_variable_of_the_jax_package():
+    """Every ``TFOS_*`` name the JAX package's code holds as a string
+    constant the port's holds too, but those in TFOS_DIFFERENCES."""
+    assert _tfos_names(JAX_PKG) - _tfos_names(PORT_PKG) == \
+        set(TFOS_DIFFERENCES)

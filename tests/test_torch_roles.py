@@ -23,7 +23,10 @@ from test_torch_hygiene import module_hygiene  # noqa: E402,F401
 from tensorflowonspark_tpu_torch import cluster as TFCluster  # noqa: E402
 from tensorflowonspark_tpu_torch import feed, gpu_info  # noqa: E402
 from tensorflowonspark_tpu_torch.engine import LocalEngine  # noqa: E402
-from tensorflowonspark_tpu_torch.utils import profiler  # noqa: E402
+from tensorflowonspark_tpu_torch.utils import (  # noqa: E402
+    get_ip_address,
+    profiler,
+)
 
 TIMEOUT = 60  # seconds: registration, collectives, feed consumption
 
@@ -189,7 +192,8 @@ def test_dashboard_node_runs_tensorboard_until_shutdown(tmp_path):
             input_mode=TFCluster.InputMode.TENSORFLOW, tensorboard=True,
             log_dir=str(tmp_path / "tb"), reservation_timeout=TIMEOUT)
         url = cluster.tensorboard_url()
-        assert url and url.startswith("http://127.0.0.1:")
+        # the chief's advertised address (hostinfo.get_ip_address)
+        assert url and url.startswith(f"http://{get_ip_address()}:")
         (chief,) = [m for m in cluster.cluster_info
                     if m["job_name"] == "chief"]
         assert "tb_port" in chief
