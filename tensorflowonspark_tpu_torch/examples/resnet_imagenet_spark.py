@@ -171,16 +171,16 @@ def main_fun(args, ctx):
     if restored is not None:
         resnet.restore_checkpoint_tree(restored, params, state, opt)
     start_step = step
+    tm = TrainMetrics(flops_per_item=3 * resnet.flops_per_image(50, image),
+                      device=dev)
     step_fn = resnet.make_train_step(
         opt, depth=50, accum_steps=args.get("accum_steps", 1),
-        compute_dtype=getattr(torch, args.get("compute_dtype", "bfloat16")))
+        compute_dtype=getattr(torch, args.get("compute_dtype", "bfloat16")),
+        tm=tm)
     model_wall = time.time()
 
     per_proc = args["batch_size"] // max(env["num_processes"], 1)
-    tm = TrainMetrics(flops_per_item=3 * resnet.flops_per_image(50, image),
-                      device=dev)
-    feed_tm = TrainMetrics()  # accumulates the DataFeed's waits
-    feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm,
+    feed = ctx.get_data_feed(train_mode=True,
                              input_mapping={"image": "image",
                                             "label": "label"})
 
@@ -236,7 +236,8 @@ def main_fun(args, ctx):
         else:
             step_ms.append(1e3 * (time.perf_counter() - t0))
         step += 1
-        tm.step(items=len(labels) * env["num_processes"], loss=losses[-1])
+        tm.step(items=len(labels) * env["num_processes"], loss=losses[-1],
+                events=(start, end) if cuda else None)
         if step % 20 == 0 and env["process_id"] == 0:
             r = tm.report()
             print(f"step {step}: loss={losses[-1]:.4f} "
@@ -267,7 +268,7 @@ def main_fun(args, ctx):
                 "pin": dict(infeed.pin_stats),
                 "launches": ops.launch_counts(),
                 "digests": digests,
-                "feed_wait_s": feed_tm.infeed_time,
+                "feed_wait_s": feed.wait_s,
                 "cuda_visible_devices": os.environ.get(
                     "CUDA_VISIBLE_DEVICES"),
                 "main_start_wall": main_start_wall,

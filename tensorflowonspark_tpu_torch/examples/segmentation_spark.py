@@ -74,8 +74,7 @@ def main_fun(args, ctx):
     # no MFU here: TrainMetrics' peak is the card's bf16 one, and this
     # step computes in float32
     tm = metrics.TrainMetrics()
-    feed_tm = metrics.TrainMetrics()  # accumulates the DataFeed's waits
-    feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm)
+    feed = ctx.get_data_feed(train_mode=True)
     batches = iter(infeed.synchronized(infeed.device_feed(
         feed, per_proc, collate=collate, placement=dev), feed=feed))
     if cuda:
@@ -124,7 +123,7 @@ def main_fun(args, ctx):
                 "feed": feed.stats(), "feeders": ctx.mgr.get("feed_stats"),
                 "pin": dict(infeed.pin_stats),
                 "launches": ops.launch_counts(),
-                "feed_wait_s": feed_tm.infeed_time,
+                "feed_wait_s": feed.wait_s,
                 "main_start_wall": main_start_wall,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                                 if cuda else None)}, f)

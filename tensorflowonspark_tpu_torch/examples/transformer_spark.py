@@ -136,21 +136,29 @@ def _zip_trees(a, b):
             for k, v in a.items()}
 
 
-def train_step(params, opt, batch, cfg, vg=None, ce_impl="dense"):
+def train_step(params, opt, batch, cfg, vg=None, ce_impl="dense", tm=None):
     """One optimizer step on ``batch``; returns the loss tensor.  With
     ``vg`` (an elastic layout's ``value_and_grad``) the batch runs in its
     microbatches and the gradients are averaged over the layout's batch
-    axes; without, one backward and the all-reduce over the job."""
+    axes; without, one backward and the all-reduce over the job.
+    ``tm``: a ``TrainMetrics`` whose phases the step marks (forward,
+    backward with the all-reduce, optimizer; an elastic ``vg``'s
+    forward and backward as one ``forward_backward``)."""
     from tensorflowonspark_tpu_torch.models import transformer as T
-    from tensorflowonspark_tpu_torch.utils import train
+    from tensorflowonspark_tpu_torch.utils import metrics, train
 
+    mark = tm.mark if tm is not None else metrics.unmarked
     if vg is not None:
+        mark("forward_backward")
         loss, _ = vg(params, batch)
     else:
+        mark("forward")
         loss = T.loss_fn(params, batch, cfg, ce_impl=ce_impl)
+        mark("backward")
         opt.zero_grad(set_to_none=True)
         loss.backward()
         train.all_reduce_mean_([p.grad for p in param_leaves(params)])
+    mark("optimizer")
     opt.step()
     return loss
 
@@ -250,19 +258,17 @@ def main_fun(args, ctx):
     tm = metrics.TrainMetrics(
         flops_per_item=metrics.transformer_flops_per_token(cfg, causal=True),
         device=dev)
-    # accumulates the DataFeed's waits
-    feed_tm = metrics.TrainMetrics(health=False)
     field = args.get("field")
     if field:
         # the data service's named chunks (or the feeder's bare ones,
         # whose one column takes the name), as dense columns
-        feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm,
+        feed = ctx.get_data_feed(train_mode=True,
                                  input_mapping={field: field})
         batches = iter(infeed.synchronized(infeed.device_feed(
             feed, per_proc, collate=lambda cols: collate(cols[field]),
             placement=dev, columnar=True), feed=feed))
     else:
-        feed = ctx.get_data_feed(train_mode=True, metrics=feed_tm)
+        feed = ctx.get_data_feed(train_mode=True)
         batches = iter(infeed.synchronized(infeed.device_feed(
             feed, per_proc, collate=collate, placement=dev), feed=feed))
     cuda = dev.type == "cuda"
@@ -290,7 +296,7 @@ def main_fun(args, ctx):
             end = torch.cuda.Event(enable_timing=True)
             start.record()
         t0 = time.perf_counter()
-        loss = train_step(params, opt, batch, cfg, vg, ce_impl)
+        loss = train_step(params, opt, batch, cfg, vg, ce_impl, tm)
         # the watchtower's gradient probe (TFOS_HEALTH_GRADNORM=1, else
         # None), on the card, inside the step's timing
         probe = train.health_probe(loss.detach(), [
@@ -305,7 +311,8 @@ def main_fun(args, ctx):
             step_ms.append(1e3 * (time.perf_counter() - t0))
         tm.step(items=per_proc * cfg.max_seq, loss=losses[-1],  # tokens
                 grad_norm=probe and probe["grad_norm"],
-                grad_finite=probe and probe["finite"])
+                grad_finite=probe and probe["finite"],
+                events=(start, end) if cuda else None)
         now = time.perf_counter()
         if last_end is not None:
             step_wall_ms.append(1e3 * (now - last_end))
@@ -356,7 +363,7 @@ def main_fun(args, ctx):
                              "flash_dkv": attention.dkv_launches,
                              "rmsnorm": norm.launches},
                 "train_metrics": tm.report(),
-                "feed_wait_s": feed_tm.infeed_time,
+                "feed_wait_s": feed.wait_s,
                 "main_start_wall": main_start_wall,
                 "joined_wall": joined_wall, "model_wall": model_wall,
                 "first_step_wall": first_step_wall,

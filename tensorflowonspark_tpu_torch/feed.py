@@ -122,7 +122,8 @@ class DataFeed:
         self.qname_out = qname_out
         self.done_feeding = False
         self.records = 0  # records handed out, before any tail is dropped
-        self._wait_acc = 0.0  # this pull's transport wait (telemetry on)
+        self.wait_s = 0.0  # every pop's transport wait, in total
+        self._wait_acc = 0.0  # this pull's transport wait
         # optional utils.metrics.TrainMetrics: feed-wait time lands in its
         # infeed_wait counter
         self.metrics = metrics
@@ -185,8 +186,7 @@ class DataFeed:
     def _get_chunk(self):
         """The next chunk: blocks until data arrives, or reports
         end-of-feed (None) once terminate() or poison() was called."""
-        timed = self.metrics is not None or telemetry.enabled()
-        t0 = time.perf_counter() if timed else None
+        t0 = time.perf_counter()
         slice_ms = RING_POLL_MS if self._ring is not None else POLL_MS
         while True:
             if self._stop_requested:
@@ -211,19 +211,16 @@ class DataFeed:
             self.columnar_chunks += 1
         elif isinstance(chunk, list):
             self.row_chunks += 1
-        live = metrics_registry.enabled()
-        dt = None
-        if t0 is not None:
-            # one measurement feeds both the counter and the span, so the
-            # stall fractions they give agree
-            dt = time.perf_counter() - t0
-            self._wait_acc += dt
-            if self.metrics is not None:
-                self.metrics.infeed_wait(dt)
-            telemetry.record_span("feed/wait", dt, eof=chunk is None)
-        if live:
-            if dt is not None:
-                metrics_registry.inc("tfos_feed_wait_seconds_total", dt)
+        # one measurement feeds the totals, the counter and the span, so
+        # the stall fractions they give agree
+        dt = time.perf_counter() - t0
+        self.wait_s += dt
+        self._wait_acc += dt
+        if self.metrics is not None:
+            self.metrics.infeed_wait(dt)
+        telemetry.record_span("feed/wait", dt, eof=chunk is None)
+        if metrics_registry.enabled():
+            metrics_registry.inc("tfos_feed_wait_seconds_total", dt)
             metrics_registry.inc("tfos_feed_chunks_total")
             try:
                 metrics_registry.inc("tfos_feed_records_total", len(chunk))
@@ -244,8 +241,8 @@ class DataFeed:
         """What this feed saw: its transport (``"shm"`` or
         ``"manager"``), whether every data chunk was columnar, the chunk
         counts, the split-tagged chunks (each split's count, and the
-        re-served ones dropped), and the latest pops as ``[wall time,
-        ms, copy ms]``."""
+        re-served ones dropped), the seconds every pop waited in all,
+        and the latest pops as ``[wall time, ms, copy ms]``."""
         return {"transport": self.transport,
                 "columnar": self.columnar_chunks > 0 and not self.row_chunks,
                 "columnar_chunks": self.columnar_chunks,
@@ -254,6 +251,7 @@ class DataFeed:
                 # each split id seen and the chunks of it handed out
                 "split_chunks": {f"{sid[0]}.{sid[1]}": n for sid, n in
                                  sorted(self._split_next.items())},
+                "wait_s": self.wait_s,
                 "pops": [list(p) for p in self.pops]}
 
     def _rows_of(self, chunk, off, take):

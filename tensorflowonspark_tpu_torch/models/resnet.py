@@ -29,6 +29,7 @@ from torch.utils import checkpoint as _remat
 from tensorflowonspark_tpu_torch import resolve_device
 from tensorflowonspark_tpu_torch.models import layers as L
 from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
+from tensorflowonspark_tpu_torch.utils import metrics as _metrics
 from tensorflowonspark_tpu_torch.utils import train as _train
 
 # stage plans: depth -> (block, per-stage block counts).  ImageNet family:
@@ -222,7 +223,7 @@ def apply(params, state, images, depth=50, train=True, small_inputs=False,
 
 def make_train_step(optimizer, depth=50, small_inputs=False,
                     compute_dtype=torch.bfloat16, remat=False, stem_s2d=True,
-                    accum_steps=1, bn_fused=True):
+                    accum_steps=1, bn_fused=True, tm=None):
     """``train_step(params, state, images, labels) -> (loss, acc,
     new_state)``, ``loss`` and ``acc`` as 0-d tensors on the device.
 
@@ -245,7 +246,12 @@ def make_train_step(optimizer, depth=50, small_inputs=False,
     that microbatch on every process of the group), the
     running statistics advancing once per microbatch; the loss and
     gradients are the microbatches' mean and the accuracy is the last
-    microbatch's, as in the JAX package."""
+    microbatch's, as in the JAX package.
+
+    ``tm``: a ``utils.metrics.TrainMetrics`` whose phases each step
+    marks: forward, backward (with the gradients' all-reduce) and
+    optimizer; with ``accum_steps > 1`` forward and backward as one
+    ``forward_backward``."""
     fwd = apply
     if remat:
         fwd = functools.partial(_remat.checkpoint, apply, use_reentrant=False)
@@ -256,8 +262,10 @@ def make_train_step(optimizer, depth=50, small_inputs=False,
                                 stem_s2d, bn_fused)
         return L.softmax_cross_entropy(logits, labels), (logits, new_state)
 
+    mark = tm.mark if tm is not None else _metrics.unmarked
+    first = "forward" if accum_steps == 1 else "forward_backward"
     if accum_steps == 1:
-        vg = _train.value_and_grad(loss_fn, has_aux=True)
+        vg = _train.value_and_grad(loss_fn, has_aux=True, mark=mark)
     else:
         def micro_loss(p, aux_prev, x, y):
             _, st = aux_prev  # BN running stats advance per microbatch
@@ -270,12 +278,14 @@ def make_train_step(optimizer, depth=50, small_inputs=False,
             return micro_vg(params, images, labels, init_aux=(None, state))
 
     def train_step(params, state, images, labels):
+        mark(first)
         (loss, (logits, new_state)), grads = vg(params, state, images,
                                                 labels)
         leaves = param_leaves(params)
         for p, g in zip(leaves, ckpt.tree_leaves(grads)):
             p.grad = g
         _train.average_gradients_(leaves)
+        mark("optimizer")
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         # accum path: logits are the last microbatch's

@@ -107,6 +107,7 @@ FEED_CHUNK_RECORDS = 1024  # records a chunk, unless TFOS_FEED_CHUNK says
 SHM_FEED_BYTES = 256 << 20  # the ring's capacity, unless TFOS_SHM_FEED_BYTES
 REAP_TIMEOUT_SECS = 600.0  # a healthy trainer's exit; TFOS_REAP_TIMEOUT
 FEED_STATS_KEPT = 64  # feeder records kept in the KV's 'feed_stats'
+FEED_CHUNK_SPANS_KEPT = 16  # chunks a feeder record times one by one
 
 
 def _reap_budget(err, grace_secs):
@@ -968,7 +969,14 @@ class train:  # noqa: N801 - named as the JAX package's node.train
     """The feeder task: push a partition's records as chunks into the
     node's ring (or its manager queue), wait until the trainer consumed
     them, and record the partition in the rendezvous server's feed
-    ledger.  Its timings land in the KV's 'feed_stats'.
+    ledger.  Its timings land in the KV's 'feed_stats', each part as
+    ``[start wall, ms]`` and, with telemetry on, as the span
+    ``feed/<part>`` under the task's ``feed/partition``: ``read`` (the
+    lineage's stages that ran before the feeder, ``map_partitions``
+    reads), ``encode`` and ``put`` (a chunk each, a put with its waits
+    for ring space; the first ``FEED_CHUNK_SPANS_KEPT`` in the record),
+    ``drain`` (the wait until the trainer consumed the partition) and
+    ``partition`` (from the read to the ledger's write).
 
     ``skip``: partition indices consumed in full before a cluster
     recovery (the ledger's): the re-fed job drains them without feeding
@@ -984,6 +992,9 @@ class train:  # noqa: N801 - named as the JAX package's node.train
 
     def __call__(self, iterator):
         start_wall = time.time()
+        # the lineage's stages but the last ran before this call; the
+        # last runs as the feeder takes the records
+        read_ms = sum(engine.task_report.get("lineage_ms", [])[:-1])
         pidx = _partition_index()
         if pidx >= 0 and pidx in self.skip:
             count = sum(1 for _ in iterator)
@@ -992,7 +1003,8 @@ class train:  # noqa: N801 - named as the JAX package's node.train
             telemetry.event("feed/partition_skipped", part=pidx,
                             records=count)
             return
-        mgr = _get_manager(self.cluster_info, read_executor_id())
+        executor = read_executor_id()
+        mgr = _get_manager(self.cluster_info, executor)
         state = str(mgr.get("state"))
         if state in ("terminating", "stopped"):
             count = sum(1 for _ in iterator)
@@ -1003,18 +1015,21 @@ class train:  # noqa: N801 - named as the JAX package's node.train
 
         ring = open_feed_ring(mgr, self.qname, producer=True)
         try:
-            self._feed(iterator, pidx, mgr, ring, start_wall)
+            self._feed(iterator, pidx, mgr, ring, start_wall, executor,
+                       read_ms)
         finally:
             if ring is not None:
                 ring.close()
 
-    def _feed(self, iterator, pidx, mgr, ring, start_wall):
+    def _feed(self, iterator, pidx, mgr, ring, start_wall, executor,
+              read_ms):
         from tensorflowonspark_tpu_torch.recordio import marshal
 
         queue = None if ring is not None else mgr.queue(self.qname)
         equeue = mgr.queue("error")
         encode = _make_chunk_encoder()
-        stats = {"part": pidx,
+        read = [start_wall - read_ms / 1e3, read_ms]
+        stats = {"part": pidx, "executor": executor,
                  "transport": "shm" if ring is not None else "manager",
                  "start_wall": start_wall,
                  "recv_ms": float(os.environ.get("TFOS_TASK_RECV_MS", "nan")),
@@ -1022,18 +1037,30 @@ class train:  # noqa: N801 - named as the JAX package's node.train
                                                   "nan")),
                  "encode_ms": 0.0, "put_ms": 0.0, "chunks": 0,
                  "columnar_chunks": 0, "marshal": None,
-                 "first_put_wall": None}
+                 "first_put_wall": None, "read": read, "encode": [],
+                 "put": []}
+        ids = telemetry.span_ids()  # the partition's span (None: off)
+
+        def span(part, wall, ms):
+            """A part's span, from the measurement its record keeps."""
+            if ids is not None:
+                telemetry.record_span_at(
+                    f"feed/{part}", wall, ms / 1e3,
+                    trace_id=ids["trace_id"], parent_id=ids["span_id"])
+
+        span("read", *read)
 
         def put(chunk):
             """False once the trainer asked to terminate mid-feed: a put
             blocked on a full ring re-checks the state every second, and
             fails fast when the trainer errored or stopped beating."""
             faults.check("feed.put", part=pidx)
-            t0 = time.perf_counter()
+            w0, t0 = time.time(), time.perf_counter()
             chunk = encode(chunk)
             t1 = time.perf_counter()
+            w1 = time.time()
             if stats["first_put_wall"] is None:
-                stats["first_put_wall"] = time.time()
+                stats["first_put_wall"] = w1
             if ring is not None:
                 while True:
                     try:
@@ -1045,8 +1072,15 @@ class train:  # noqa: N801 - named as the JAX package's node.train
                         _raise_if_consumer_lost(mgr, equeue)
             else:
                 queue.put(chunk, block=True)
-            stats["encode_ms"] += 1e3 * (t1 - t0)
-            stats["put_ms"] += 1e3 * (time.perf_counter() - t1)
+            encode_ms = 1e3 * (t1 - t0)
+            put_ms = 1e3 * (time.perf_counter() - t1)
+            stats["encode_ms"] += encode_ms
+            stats["put_ms"] += put_ms
+            if stats["chunks"] < FEED_CHUNK_SPANS_KEPT:
+                stats["encode"].append([w0, encode_ms])
+                stats["put"].append([w1, put_ms])
+            span("encode", w0, encode_ms)
+            span("put", w1, put_ms)
             stats["chunks"] += 1
             if isinstance(chunk, marker.ColumnChunk):
                 stats["columnar_chunks"] += 1
@@ -1080,6 +1114,7 @@ class train:  # noqa: N801 - named as the JAX package's node.train
                         sum(1 for _ in iterator))
         telemetry.event("feed/partition_queued", part=pidx, records=total,
                         path=stats["transport"], terminated=terminated)
+        w0, t0 = time.time(), time.perf_counter()
         if ring is not None:
             # terminate()'s drain pops while this feeder holds the
             # producer flock, so the ring empties, unless the trainer
@@ -1093,6 +1128,8 @@ class train:  # noqa: N801 - named as the JAX package's node.train
             if not _await_consumption(mgr, joining.is_alive,
                                       self.feed_timeout):
                 terminated = True
+        stats["drain"] = [w0, 1e3 * (time.perf_counter() - t0)]
+        span("drain", *stats["drain"])
         stats["consumed_wall"] = time.time()
 
         # consumed in full, not cut short: into the feed ledger
@@ -1104,12 +1141,19 @@ class train:  # noqa: N801 - named as the JAX package's node.train
                 client.close()
         # the partition's map_partitions stages, in this executor (dfutil's
         # read, a decode), and the codec dfutil's reader ran
+        done_wall = time.time()
         stats.update(records=total, terminated=terminated,
-                     done_wall=time.time(),
+                     done_wall=done_wall,
+                     partition=[read[0], 1e3 * (done_wall - read[0])],
                      lineage_ms=list(engine.task_report.get("lineage_ms",
                                                             [])),
                      codec=engine.task_report.get("codec"),
                      jpeg=engine.task_report.get("jpeg"))
+        if ids is not None:
+            telemetry.record_span_at("feed/partition", read[0],
+                                     done_wall - read[0], part=pidx,
+                                     records=total, terminated=terminated,
+                                     **ids)
         _record_feed_stats(mgr, stats)
         if str(mgr.get("state")) == "terminating":
             logger.info("feeder: consumer requested termination")

@@ -2,8 +2,9 @@
 
 Counterpart of ``tensorflowonspark_tpu/utils/metrics.py``: one
 lightweight ``TrainMetrics`` aggregator per worker (time steps with
-``step()``, account feed waits with ``infeed_wait()``, read a summary
-with ``report()``), the transformer's FLOPs-per-token estimate, the
+``step()``, account feed waits with ``infeed_wait()``, mark the step's
+phases with ``mark()``, read a summary with ``report()``), the
+transformer's FLOPs-per-token estimate, the
 segmentation and MNIST forward FLOPs counted shape-exactly by
 ``utils.flops`` (the model run on meta tensors), and a ``peak_flops``
 for the card.
@@ -13,6 +14,7 @@ MFU convention: model FLOPs per step / (step time x peak FLOPs).
 
 from __future__ import annotations
 
+import collections
 import functools
 import logging
 import os
@@ -25,6 +27,8 @@ from tensorflowonspark_tpu_torch.utils import (
 )
 
 logger = logging.getLogger(__name__)
+
+PHASES_KEPT = 1024  # steps whose phases ``TrainMetrics.report()`` keeps
 
 # dense bf16 peak FLOP/s per card by device-name substring (NVIDIA data
 # sheets, SXM parts, at the full power limit)
@@ -109,6 +113,10 @@ def mnist_inference_flops_per_row():
     return F.count_flops(mnist.apply, params, x)["flops"]
 
 
+def unmarked(phase):
+    """``TrainMetrics.mark``'s stand-in where a step is given none."""
+
+
 class TrainMetrics:
     """Windowed counters; cheap enough for the hot loop.
 
@@ -119,7 +127,20 @@ class TrainMetrics:
     ``checkpoint_fn`` for the ``TFOS_HEALTH_ACTION`` reactions.  Every
     ``step()`` hands it the step's time, the stall fraction and the loss
     and gradient probe the caller passes; a ``halt`` reaction raises
-    ``obs.health.HealthHalt`` out of ``step()``."""
+    ``obs.health.HealthHalt`` out of ``step()``.
+
+    Phases: while telemetry records in this process (decided when the
+    instance is made, so that with telemetry off a ``mark()`` is one
+    attribute check and makes nothing), the loop's ``infeed_wait()`` and
+    the step's ``mark()``s split each step into ``train/input_wait``,
+    ``train/forward``, ``train/backward`` and ``train/optimizer`` spans
+    (or whatever phases the step marks), children of its ``train/step``
+    by ``parent_id``.  On a CUDA ``device`` each mark after the step's
+    first records a ``torch.cuda.Event``; with the step's own start and
+    end events handed to ``step(events=)`` after the caller's
+    synchronisation, the phases' device milliseconds partition the
+    step's exactly.  ``report()["phases"]`` keeps the last
+    ``PHASES_KEPT`` steps'."""
 
     def __init__(self, flops_per_item=None, device=None, window=50,
                  health=None):
@@ -132,6 +153,13 @@ class TrainMetrics:
             self.health = _health.monitor_from_env()
         else:
             self.health = health or None  # health=False opts out
+        self._phases = (collections.deque(maxlen=PHASES_KEPT)
+                        if telemetry.enabled() else None)
+        self._cuda = False
+        if self._phases is not None and device is not None:
+            import torch
+
+            self._cuda = torch.device(device).type == "cuda"
         self.reset()
 
     def reset(self):
@@ -140,27 +168,52 @@ class TrainMetrics:
         self.step_time = 0.0
         self.infeed_time = 0.0
         self._last = None
+        if self._phases is not None:
+            self._phases.clear()
+            self._marks = []  # this step's (phase, wall, t0, event)
+            self._wait = None  # this step's input wait: (wall, seconds)
 
     # -- recording ----------------------------------------------------------
 
     def infeed_wait(self, seconds):
+        """The loop's wait for the step's batch; also the step's
+        ``train/input_wait`` phase while phases are kept."""
         self.infeed_time += seconds
+        if self._phases is not None:
+            self._wait = (time.time() - seconds, seconds)
 
-    def step(self, items=0, loss=None, grad_norm=None, grad_finite=None):
+    def mark(self, phase):
+        """Open the step's phase ``phase``, closing the one open: the
+        step's first mark opens its first phase, and ``step()`` closes
+        its last.  Nothing while phases are not kept."""
+        if self._phases is None:
+            return
+        event = None
+        if self._cuda and self._marks:
+            import torch
+
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+        self._marks.append((phase, time.time(), time.perf_counter(), event))
+
+    def step(self, items=0, loss=None, grad_norm=None, grad_finite=None,
+             events=None):
         """Call once per completed train step with the item count.
 
         The first call only arms the timer; its items are NOT counted, so
         rates divide N timed steps' items by N timed steps' time.  The
         caller makes the step complete first (for a CUDA step: read the
         loss, or synchronise).  ``loss``, ``grad_norm`` and
-        ``grad_finite`` go to the health monitor."""
+        ``grad_finite`` go to the health monitor.  ``events``: the
+        step's ``(start, end)`` CUDA events, both complete, which bound
+        its first and last phase on the device."""
         # injection point ``train.step``: delay/exc before the clock read,
         # so an injected delay lands in this step's measured duration
         faults.check("train.step")
         if loss is not None:
             loss = faults.poison("train.step", loss)
         now = time.perf_counter()
-        dur = None
+        dur = ids = None
         if self._last is not None:
             dur = now - self._last
             self.step_time += dur
@@ -171,6 +224,9 @@ class TrainMetrics:
                     attrs["flops_per_item"] = self.flops_per_item
                 if self._peak:
                     attrs["peak_flops"] = self._peak
+                if self._phases is not None:
+                    ids = telemetry.span_ids()
+                    attrs.update(ids)
                 telemetry.record_span("train/step", dur, **attrs)
             if metrics_registry.enabled():
                 metrics_registry.inc("tfos_train_steps_total")
@@ -187,6 +243,8 @@ class TrainMetrics:
                             "tfos_train_mfu",
                             self.items * self.flops_per_item
                             / self.step_time / self._peak)
+        if self._phases is not None:
+            self._close_phases(now, ids, events)
         self._last = now
         self.steps += 1
         if self.health is not None:
@@ -199,6 +257,35 @@ class TrainMetrics:
                 grad_finite=(None if grad_finite is None
                              else bool(grad_finite)),
                 step=self.steps)
+
+    def _close_phases(self, now, ids, events):
+        """The step's phases: its ``report()`` entry and, under its
+        ``train/step`` span's ``ids`` (none for the first step, which
+        only arms the timer), its spans."""
+        marks, wait = self._marks, self._wait
+        self._marks, self._wait = [], None
+        entry = {"step": self.steps}
+        if wait is not None:
+            entry["input_wait"] = [wait[0], 1e3 * wait[1]]
+        ends = [t0 for _, _, t0, _ in marks[1:]] + [now]
+        if events is not None and self._cuda:
+            bounds = [events[0]] + [ev for *_, ev in marks[1:]] + \
+                [events[1]]
+            for (phase, *_), a, b in zip(marks, bounds, bounds[1:]):
+                entry[phase] = a.elapsed_time(b)
+        else:  # no device clock: the host's
+            for (phase, _, t0, _), t1 in zip(marks, ends):
+                entry[phase] = 1e3 * (t1 - t0)
+        self._phases.append(entry)
+        if ids is None:
+            return
+        child = {"trace_id": ids["trace_id"], "parent_id": ids["span_id"]}
+        if wait is not None:
+            telemetry.record_span_at("train/input_wait", wait[0], wait[1],
+                                     **child)
+        for (phase, wall, t0, _), t1 in zip(marks, ends):
+            telemetry.record_span_at(f"train/{phase}", wall, t1 - t0,
+                                     **child)
 
     # -- reading ------------------------------------------------------------
 
@@ -221,6 +308,10 @@ class TrainMetrics:
                     self.items * self.flops_per_item
                     / self.step_time / self._peak
                 )
+        if self._phases is not None:
+            # each step's input wait as [start wall, ms] and each phase's
+            # ms (the device's on a CUDA step)
+            out["phases"] = list(self._phases)
         return out
 
     def maybe_log(self, prefix=""):

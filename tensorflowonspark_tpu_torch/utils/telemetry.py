@@ -395,13 +395,39 @@ def record_span(name, dur_s, **attrs):
     ``dur_s``."""
     rec = _get()
     if rec is not None:
-        ctx = current()
-        if ctx is not None:
-            attrs.setdefault("trace_id", ctx.trace_id)
-            attrs.setdefault("span_id", os.urandom(8).hex())
-            attrs.setdefault("parent_id", ctx.span_id)
-        rec.record("span", name, time.time() - dur_s, dur_s * 1000.0,
-                   attrs)
+        _record_span(rec, name, time.time() - dur_s, dur_s, attrs)
+
+
+def record_span_at(name, ts, dur_s, **attrs):
+    """Record an already-measured span that began at ``ts`` (epoch s).
+    ``attrs`` may name its ``trace_id``/``span_id``/``parent_id``
+    (:func:`span_ids`), else the active context's are taken."""
+    rec = _get()
+    if rec is not None:
+        _record_span(rec, name, ts, dur_s, attrs)
+
+
+def _record_span(rec, name, ts, dur_s, attrs):
+    ctx = current()
+    if ctx is not None:
+        attrs.setdefault("trace_id", ctx.trace_id)
+        attrs.setdefault("parent_id", ctx.span_id)
+    if "trace_id" in attrs:
+        attrs.setdefault("span_id", os.urandom(8).hex())
+    rec.record("span", name, ts, dur_s * 1000.0, attrs)
+
+
+def span_ids():
+    """``{"trace_id", "span_id", "parent_id"}`` of a span recorded once
+    it ends (``record_span_at(..., **ids)``), minted now so that the
+    spans inside it can name it as their ``parent_id``: a child of the
+    active context, else a new root.  None when disabled."""
+    if _get() is None:
+        return None
+    parent = current()
+    ctx = parent.child() if parent is not None else TraceContext()
+    return {"trace_id": ctx.trace_id, "span_id": ctx.span_id,
+            "parent_id": ctx.parent_id}
 
 
 def trace_root(name, export=True, **attrs):

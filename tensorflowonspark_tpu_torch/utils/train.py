@@ -152,19 +152,22 @@ def _detach(tree):
         lambda x: x.detach() if torch.is_tensor(x) else x, tree)
 
 
-def value_and_grad(loss_fn, has_aux=False):
+def value_and_grad(loss_fn, has_aux=False, mark=None):
     """``jax.value_and_grad`` for a tree of tensors: ``vg(params, *args)
     -> (loss, grads)`` (or ``((loss, aux), grads)``), gradients with
     respect to every tensor leaf of ``params``, in its tree layout.  The
     leaves are differentiated through detached aliases (no copy), so the
     caller's tensors and their ``.grad`` are left alone; the returned
-    loss and aux are detached."""
+    loss and aux are detached.  ``mark``: called with ``"backward"``
+    between the loss and its gradients (``TrainMetrics.mark``)."""
 
     def vg(params, *args):
         leaves, spec = pytree.tree_flatten(params)
         live = [x.detach().requires_grad_(True) for x in leaves]
         out = loss_fn(pytree.tree_unflatten(live, spec), *args)
         loss, aux = out if has_aux else (out, None)
+        if mark is not None:
+            mark("backward")
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
         grads = pytree.tree_unflatten(list(grads), spec)

@@ -277,7 +277,11 @@ def test_ring_batch_is_a_view_of_the_popped_buffer_and_survives_pops():
             rest["image"], np.stack([r[0] for r in IMG_ROWS[16:48]]))
         assert feed.next_batch_columns(16)["image"].shape[0] == 0
         assert feed.should_stop()
-        assert len(feed.stats()["pops"]) == 4
+        stats = feed.stats()
+        assert len(stats["pops"]) == 4
+        # every pop is timed, with no metrics or telemetry asked for
+        assert stats["wait_s"] == feed.wait_s >= \
+            sum(ms for _, ms, _ in stats["pops"]) / 1e3 > 0
     finally:
         ring.close()
 

@@ -220,6 +220,18 @@ def test_drain_on_clean_shutdown(tmp_path, monkeypatch):
         assert len(mine) == 2, (node, files)
     assert {r["node_id"] for r in recs if r["name"] == "user/work"} == \
         {"worker-0", "worker-1"}
+    # each partition's feeder: its parts under its feed/partition span
+    parts = {r["attrs"]["span_id"]: r for r in recs
+             if r["name"] == "feed/partition"}
+    assert len(parts) == 2, parts
+    for sid, part in parts.items():
+        kids = [r for r in recs if r["attrs"].get("parent_id") == sid]
+        assert {r["name"] for r in kids} == {
+            "feed/read", "feed/encode", "feed/put", "feed/drain"}, kids
+        end = part["ts"] + part["dur_ms"] / 1e3
+        for r in kids:
+            assert part["ts"] - 1e-3 <= r["ts"]
+            assert r["ts"] + r["dur_ms"] / 1e3 <= end + 1e-3
     # one trace: the driver's root, the nodes' records under it
     root = [r for r in recs if r["name"] == ptel.CLUSTER_RUN]
     assert len(root) == 1
